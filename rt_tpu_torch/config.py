@@ -1,0 +1,108 @@
+"""Render configuration and device selection.
+
+`RenderConfig` is a copy of `rt_tpu.config.RenderConfig`: the same field
+names and defaults, so a configuration carries across field by field
+(`RenderConfig(**dataclasses.asdict(jax_cfg))`). The one field whose
+values differ is `engine`:
+
+  "plain"  — pure PyTorch wavefront (the twin of rt_tpu's "xla")
+  "pallas" — the hybrid wavefront: the sphere pass of every bounce runs
+             the hand-written CUDA closest-hit kernel
+             (ops/cuda_intersect.py, the twin of rt_tpu's "pallas")
+  "mega", "queue" — the megakernels, not ported yet (ROADMAP Queue B)
+
+The megakernel knobs (compact_*, cull_chunks, mxu_intersect, regen*,
+queue_steps) are kept for that carry-over; no engine of this package
+reads them yet, as rt_tpu's "xla" and "pallas" engines do not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+ENGINES = ("plain", "pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render settings (see rt_tpu/config.py for each field)."""
+
+    width: int = 400
+    height: int = 225
+    samples_per_pixel: int = 16
+    max_depth: int = 8
+
+    background_mode: str = "constant"   # "constant" | "gradient"
+    exhaust_mode: str = "black"         # "black" | "background"
+    enable_defocus: bool = False
+    p_rr: float = 0.0
+    seed: int = 0
+    sampler: str = "rng"                # "rng" ("qmc" not ported yet)
+    nee: bool = False
+    mis: bool = False
+    nee_glossy: bool = False
+
+    engine: str = "plain"               # "plain" | "pallas"
+    loop: str = "while"
+    traversal: str = "linear"
+    rays_per_batch: int = 1 << 17
+    compact_every: int = 0
+    compact_group: int = 128
+    compact_schedule: Tuple[int, ...] = ()
+    cull_chunks: bool = True
+    mxu_intersect: bool = False
+    compact_shrink: bool = True
+    compact_sort: str = "dead"
+    regen: bool = False
+    regen_compact: int = 0
+    regen_shrink: bool = True
+    queue_steps: int = 0
+
+    @property
+    def aspect_ratio(self) -> float:
+        return self.width / self.height
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def check_supported(cfg: RenderConfig) -> None:
+    """Raise for a configuration this slice of the port cannot render."""
+    if cfg.engine in ("mega", "queue"):
+        raise NotImplementedError(
+            f"engine={cfg.engine!r}: the megakernels are not ported yet "
+            "(ROADMAP Queue B, B2/B3); use 'pallas' or 'plain'")
+    if cfg.engine not in ENGINES:
+        raise ValueError(f"unknown engine {cfg.engine!r} (want {ENGINES})")
+    if cfg.nee or cfg.mis or cfg.nee_glossy:
+        raise NotImplementedError(
+            "nee / mis / nee_glossy are not ported yet (ROADMAP Queue A-4)")
+    if cfg.sampler != "rng":
+        raise NotImplementedError(
+            f"sampler={cfg.sampler!r}: QMC is not ported yet "
+            "(ROADMAP Queue A-1)")
+    if cfg.traversal != "linear":
+        raise NotImplementedError("BVH traversal is not ported yet "
+                                  "(ROADMAP Queue A-9)")
+    if cfg.loop != "while":
+        raise NotImplementedError(
+            f"loop={cfg.loop!r}: only the forward 'while' loop is ported "
+            "(gradients are ROADMAP Queue A-8)")
+
+
+def resolve_device(device: Optional[str] = "cuda") -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. A missing GPU raises; it never silently means the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' "
+            "(--device cpu) to run on the CPU")
+    return dev

@@ -1,0 +1,85 @@
+"""Image writers: PPM (text) and PNG, from the standard library only
+(rt_tpu/io/image.py, without its native and Pillow paths: PNG is encoded
+against the spec with zlib and struct)."""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def write_ppm(path: str, u8_topdown: np.ndarray) -> None:
+    h, w, _ = u8_topdown.shape
+    with open(path, "w") as f:
+        f.write(f"P3\n{w} {h}\n255\n")
+        f.writelines(f"{r} {g} {b}\n" for r, g, b in u8_topdown.reshape(-1, 3))
+
+
+def png_bytes(u8_topdown: np.ndarray) -> bytes:
+    """Minimal RGB8 PNG encoder (filter 0 rows + zlib)."""
+    img = np.ascontiguousarray(u8_topdown.astype(np.uint8))
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"png_bytes wants [H,W,3] RGB, got {img.shape}")
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (PNG_SIGNATURE
+            + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, u8_topdown: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(png_bytes(u8_topdown))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read back an 8-bit RGB PNG whose rows use filter 0, as png_bytes
+    writes them; checks every chunk's CRC. Returns [H,W,3] u8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if crc != zlib.crc32(tag + payload) & 0xFFFFFFFF:
+            raise ValueError(f"{path}: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"IDAT":
+            idat += payload
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if ihdr is None or ihdr[2:5] != (8, 2, 0):
+        raise ValueError(f"{path}: want an 8-bit RGB PNG, header {ihdr}")
+    w, h = ihdr[0], ihdr[1]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 3 * w + 1)
+    if (raw[:, 0] != 0).any():
+        raise ValueError(f"{path}: only filter-0 rows are read")
+    return raw[:, 1:].reshape(h, w, 3).copy()
+
+
+def write_image(path: str, u8_topdown: np.ndarray) -> None:
+    """Write by extension: .ppm (text P3), else PNG. JPEG needs Pillow,
+    which this package does not use."""
+    if path.endswith((".jpg", ".jpeg")):
+        raise ValueError(f"{path}: JPEG needs Pillow; write .png or .ppm")
+    if path.endswith(".ppm"):
+        write_ppm(path, u8_topdown)
+    else:
+        write_png(path, u8_topdown)

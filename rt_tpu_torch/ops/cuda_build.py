@@ -1,0 +1,80 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` becomes a shared library with a plain C interface,
+built at first use into `rt_tpu_torch/_build/` (listed in .gitignore)
+under a name keyed by a hash of the CUDA sources and the flags, so an
+edit rebuilds and an unchanged tree reuses the library. No PyTorch
+header is compiled: a build takes seconds, not minutes.
+
+nvcc is found on PATH, else at $CUDA_HOME/bin/nvcc, else at the CUDA
+toolkit's default /usr/local/cuda/bin/nvcc; without it, building raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)"
+        "; the CUDA kernels of rt_tpu_torch need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where the library for csrc/<name>.cu lives, keyed by content."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the keyed library exists. The
+    compiler's report (ptxas registers, shared memory, spills) is kept
+    beside it as <library>.log."""
+    path = library_path(name)
+    if path.exists():
+        return path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {res.returncode}):\n{res.stderr}")
+    path.with_name(path.name + ".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu's library, once per process."""
+    return ctypes.CDLL(str(build(name)))

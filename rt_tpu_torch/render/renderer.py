@@ -1,0 +1,89 @@
+"""Top-level render driver: pixel tiling, sample batching, accumulation
+(rt_tpu/render/renderer.py).
+
+A "tile" is a flat batch of pixels; each launch traces (tile x samples)
+rays through the full bounce loop and adds into a per-pixel accumulator
+on the device. The result stays on the device until the caller
+downloads it.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rt_tpu_torch.config import RenderConfig, resolve_device
+from rt_tpu_torch.ops.camera import generate_rays
+from rt_tpu_torch.render.integrator import trace
+from rt_tpu_torch.scene.types import SceneTables
+
+
+def render_block(tables: SceneTables, cfg: RenderConfig, px, py,
+                 sample_start: int, n_samples: int, seed: int, width: int,
+                 height: int, stats: Optional[dict] = None):
+    """Trace n_samples samples for the pixel batch (px, py) [B] and return
+    the radiance SUM [B,3] (not yet divided by spp)."""
+    pixel = py.to(torch.int64) * width + px.to(torch.int64)
+    acc = torch.zeros((px.shape[0], 3), dtype=torch.float32, device=px.device)
+    for i in range(n_samples):
+        sample = sample_start + i
+        ro, rd = generate_rays(tables.camera, width, height, px, py, sample,
+                               seed, cfg.enable_defocus, cfg.sampler)
+        acc = acc + trace(tables, cfg, ro, rd, pixel, sample, seed,
+                          stats=stats)
+    return acc
+
+
+@functools.lru_cache(maxsize=8)
+def _block_order(w: int, h: int, bx: int = 64, by: int = 32):
+    """Pixels ordered in bx*by screen blocks instead of scanlines (the
+    reference's order, kept so tiles hold the same pixels). The counter
+    RNG keys on the absolute pixel id, so ordering cannot change the
+    image."""
+    pix = np.arange(w * h, dtype=np.int32)
+    px_all = (pix % w).astype(np.int32)
+    py_all = (pix // w).astype(np.int32)
+    block = (py_all // by) * ((w + bx - 1) // bx) + (px_all // bx)
+    order = np.argsort(block, kind="stable")
+    return px_all[order], py_all[order], pix[order]
+
+
+def render(tables: SceneTables, cfg: RenderConfig, sample_offset: int = 0,
+           device="cuda", stats: Optional[dict] = None) -> torch.Tensor:
+    """Render the full frame on `device` (CUDA unless the caller passes
+    "cpu"). Returns the raw radiance sum [H,W,3] as a tensor on that
+    device, row 0 = BOTTOM scanline (writers flip).
+
+    sample_offset shifts the absolute sample indices. stats, when given,
+    collects stats["bounces"] (see integrator.trace)."""
+    dev = resolve_device(device)
+    tables = tables.to(dev)
+    w, h = cfg.width, cfg.height
+    spp = cfg.samples_per_pixel
+    n_pix = w * h
+    px_all, py_all, pix = _block_order(w, h)
+
+    # pick tile size so tile*samples_per_launch ~ rays_per_batch
+    samples_per_launch = max(1, min(spp, cfg.rays_per_batch // max(n_pix, 1)))
+    tile = min(n_pix, max(1, cfg.rays_per_batch // samples_per_launch))
+    n_tiles = -(-n_pix // tile)
+
+    px_dev = torch.from_numpy(px_all).to(dev)
+    py_dev = torch.from_numpy(py_all).to(dev)
+    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    seed = int(cfg.seed) & 0xFFFFFFFF
+    for ti in range(n_tiles):
+        sl = slice(ti * tile, min((ti + 1) * tile, n_pix))
+        px, py = px_dev[sl], py_dev[sl]
+        s = 0
+        while s < spp:
+            k = min(samples_per_launch, spp - s)
+            acc[sl] += render_block(tables, cfg, px, py, sample_offset + s,
+                                    k, seed, w, h, stats=stats)
+            s += k
+    out = torch.empty_like(acc)
+    out[torch.from_numpy(pix).to(dev).long()] = acc  # undo the block order
+    return out.reshape(h, w, 3)

@@ -1,0 +1,159 @@
+"""rt_tpu_torch's scene tables and config against rt_tpu's: the port's
+build_tables equals the JAX package's tables carried across with
+tables_from_numpy, leaf by leaf and exactly."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from rt_tpu import config as jconfig
+from rt_tpu.scene import builders as jbuilders
+from rt_tpu.scene import types as jtypes
+from rt_tpu_torch import config as tconfig
+from rt_tpu_torch.scene import builders as tbuilders
+from rt_tpu_torch.scene import types as ttypes
+from rt_tpu_torch.scene.convert import tables_from_numpy
+
+SCENES = {
+    "cover_grid4": ("cover_scene", dict(grid=4)),
+    "cover": ("cover_scene", {}),
+    "cover_seed3_small": ("cover_scene", dict(seed=3, grid=2, width=64,
+                                              height=48)),
+    "three_sphere": ("three_sphere_scene", {}),
+}
+
+
+def jax_leaves(tables):
+    """A JAX SceneTables' leaves as NumPy, camera under 'camera.<field>'."""
+    out = {}
+    for f in dataclasses.fields(tables):
+        if f.metadata.get("static"):
+            continue
+        val = getattr(tables, f.name)
+        if f.name == "camera":
+            for cf in dataclasses.fields(val):
+                out[f"camera.{cf.name}"] = np.asarray(getattr(val, cf.name))
+        else:
+            out[f.name] = np.asarray(val)
+    return out
+
+
+def _both(name):
+    fn, kw = SCENES[name]
+    sj, cj = getattr(jbuilders, fn)(**kw)
+    st, ct = getattr(tbuilders, fn)(**kw)
+    return sj, cj, st, ct
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_build_tables_matches_jax_leaf_by_leaf(name):
+    sj, _, st, _ = _both(name)
+    jt = jtypes.build_tables(sj)
+    carried = tables_from_numpy(jax_leaves(jt))
+    own = ttypes.build_tables(st)
+    a, b = carried.leaves(), own.leaves()
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        assert a[k].shape == b[k].shape, k
+        assert torch.equal(a[k], b[k]), k
+    assert carried.n_spheres == own.n_spheres == jt.counts[0]
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_builders_match_jax_scene_defs(name):
+    """Same objects, materials, textures and camera parameters."""
+    sj, cj, st, ct = _both(name)
+    assert st.objects == sj.objects
+    assert st.materials == sj.materials
+    assert st.textures == sj.textures
+    assert st.camera_params == sj.camera_params
+    assert (st.width, st.height, st.background) == (sj.width, sj.height,
+                                                    sj.background)
+    assert dataclasses.asdict(ct) == dataclasses.asdict(
+        cj.replace(engine="plain"))
+
+
+def test_cover_scene_size():
+    st, _ = tbuilders.cover_scene()
+    tables = ttypes.build_tables(st)
+    assert tables.n_spheres == 488
+    assert tables.sph_center.shape == (512, 3)
+
+
+def test_pad_size_identical():
+    for n in range(0, 2100):
+        assert ttypes._pad_size(n) == jtypes._pad_size(n), n
+
+
+def test_resize_rederives_camera_like_jax():
+    sj, _, st, _ = _both("cover_grid4")
+    sj.resize(320, 180)
+    st.resize(320, 180)
+    a = tables_from_numpy(jax_leaves(jtypes.build_tables(sj))).leaves()
+    b = ttypes.build_tables(st).leaves()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_to_device_round_trip():
+    st, _ = tbuilders.three_sphere_scene()
+    tables = ttypes.build_tables(st)
+    moved = tables.to("cpu")
+    assert moved.sph_center.device == torch.device("cpu")
+    assert moved.n_spheres == tables.n_spheres == 5
+    for k, v in tables.leaves().items():
+        assert torch.equal(v, moved.leaves()[k]), k
+
+
+def test_tables_from_numpy_rejects_other_families():
+    sj, _ = jbuilders.cover_scene(grid=2, lights=True)  # rect + cylinder
+    with pytest.raises(NotImplementedError, match="rect_obj"):
+        tables_from_numpy(jax_leaves(jtypes.build_tables(sj)))
+
+
+def test_build_tables_rejects_other_families():
+    st, _ = tbuilders.three_sphere_scene()
+    st.objects.append({"type": "xy_rect", "x0": 0.0, "x1": 1.0, "y0": 0.0,
+                       "y1": 1.0, "k": 0.0, "material": 0})
+    with pytest.raises(NotImplementedError, match="spheres"):
+        ttypes.build_tables(st)
+    st, _ = tbuilders.three_sphere_scene()
+    st.textures.append({"type": "image", "image": 0})
+    with pytest.raises(NotImplementedError, match="image"):
+        ttypes.build_tables(st)
+
+
+def test_config_fields_and_defaults_match_jax():
+    j = {f.name: f.default for f in dataclasses.fields(jconfig.RenderConfig)}
+    t = {f.name: f.default for f in dataclasses.fields(tconfig.RenderConfig)}
+    assert list(j) == list(t)
+    # engine's value names differ: "plain" is the twin of "xla"
+    assert j.pop("engine") == "xla" and t.pop("engine") == "plain"
+    assert j == t
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (dict(engine="mega"), NotImplementedError),
+    (dict(engine="queue"), NotImplementedError),
+    (dict(engine="xla"), ValueError),
+    (dict(nee=True), NotImplementedError),
+    (dict(nee=True, mis=True), NotImplementedError),
+    (dict(sampler="qmc"), NotImplementedError),
+    (dict(traversal="bvh"), NotImplementedError),
+    (dict(loop="scan"), NotImplementedError),
+])
+def test_config_unported_options_raise(bad, exc):
+    with pytest.raises(exc):
+        tconfig.check_supported(tconfig.RenderConfig(**bad))
+
+
+def test_resolve_device():
+    assert tconfig.resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert tconfig.resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tconfig.resolve_device()

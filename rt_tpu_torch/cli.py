@@ -18,7 +18,8 @@ def _load(args):
     from rt_tpu_torch.scene import builders
 
     mk = {"three_sphere": builders.three_sphere_scene,
-          "cover": builders.cover_scene}[args.coded]
+          "cover": builders.cover_scene,
+          "cornell": builders.cornell_spheres_scene}[args.coded]
     sdef, cfg = mk()
     updates = {}
     if args.width:
@@ -52,6 +53,13 @@ def cmd_render(args) -> int:
     dev = resolve_device(args.device)
     sdef, cfg = _load(args)
     cfg = cfg.replace(engine=args.engine)
+    ce = args.compact_every
+    if ce is None and cfg.max_depth >= 16:
+        # deep traces: the reference's tapered compaction schedule
+        # (rt_tpu/cli.py:184-195)
+        cfg = cfg.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
+    elif ce is not None:
+        cfg = cfg.replace(compact_every=ce)
     tables = build_tables(sdef, device=dev)
 
     t0 = time.time()
@@ -82,7 +90,7 @@ def main(argv=None) -> int:
 
     rp = sub.add_parser("render", help="render one frame")
     rp.add_argument("--coded", default="three_sphere",
-                    choices=["three_sphere", "cover"],
+                    choices=["three_sphere", "cover", "cornell"],
                     help="built-in coded scene")
     rp.add_argument("-w", "--width", type=int, default=None)
     rp.add_argument("--height", type=int, default=None)
@@ -91,9 +99,16 @@ def main(argv=None) -> int:
     rp.add_argument("-o", "--output", default="main.png",
                     help="output path (.png or .ppm)")
     rp.add_argument("--seed", type=int, default=0)
-    rp.add_argument("--engine", default="pallas", choices=["pallas", "plain"],
-                    help="pallas: hybrid wavefront with the CUDA sphere "
+    rp.add_argument("--engine", default="queue",
+                    choices=["queue", "mega", "pallas", "plain"],
+                    help="queue (default): persistent ray-queue CUDA "
+                         "kernel; mega: segmented CUDA megakernel; "
+                         "pallas: hybrid wavefront with the CUDA sphere "
                          "closest-hit kernel; plain: pure PyTorch")
+    rp.add_argument("--compact-every", type=int, default=None,
+                    help="mega: live-lane grouping every N bounces (-1 "
+                         "auto, 0 off; default: the schedule 2,3,5,10 in "
+                         "groups of 16 for depth >= 16, else off)")
     rp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     rp.set_defaults(fn=cmd_render)
 

@@ -2,18 +2,25 @@
 
 `RenderConfig` is a copy of `rt_tpu.config.RenderConfig`: the same field
 names and defaults, so a configuration carries across field by field
-(`RenderConfig(**dataclasses.asdict(jax_cfg))`). The one field whose
-values differ is `engine`:
+(`RenderConfig(**dataclasses.asdict(jax_cfg))`). The engines have the
+reference's names:
 
   "plain"  — pure PyTorch wavefront (the twin of rt_tpu's "xla")
   "pallas" — the hybrid wavefront: the sphere pass of every bounce runs
              the hand-written CUDA closest-hit kernel
              (ops/cuda_intersect.py, the twin of rt_tpu's "pallas")
-  "mega", "queue" — the megakernels, not ported yet (ROADMAP Queue B)
+  "mega"   — the forward megakernel (ops/cuda_mega.py, csrc/mega.cu):
+             a segment of whole paths per launch, live lanes grouped
+             between segments by compact_every / compact_schedule /
+             compact_group / compact_shrink
+  "queue"  — the persistent ray queue (ops/cuda_queue.py,
+             csrc/queue.cu), the CLI's default as in the reference;
+             queue_steps is its budget of bounce steps per launch
 
-The megakernel knobs (compact_*, cull_chunks, mxu_intersect, regen*,
-queue_steps) are kept for that carry-over; no engine of this package
-reads them yet, as rt_tpu's "xla" and "pallas" engines do not.
+This slice reads cull_chunks and mxu_intersect as off: the sphere table
+is in scene order and nothing is culled, so on exact-t ties it may pick
+another sphere than rt_tpu's Morton-sorted table (ROADMAP C-3). What it
+lacks raises NotImplementedError (check_supported).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-ENGINES = ("plain", "pallas")
+ENGINES = ("plain", "pallas", "mega", "queue")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +52,7 @@ class RenderConfig:
     mis: bool = False
     nee_glossy: bool = False
 
-    engine: str = "plain"               # "plain" | "pallas"
+    engine: str = "plain"               # "plain" | "pallas" | "mega" | "queue"
     loop: str = "while"
     traversal: str = "linear"
     rays_per_batch: int = 1 << 17
@@ -75,10 +82,6 @@ class RenderConfig:
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise for a configuration this slice of the port cannot render."""
-    if cfg.engine in ("mega", "queue"):
-        raise NotImplementedError(
-            f"engine={cfg.engine!r}: the megakernels are not ported yet "
-            "(ROADMAP Queue B, B2/B3); use 'pallas' or 'plain'")
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r} (want {ENGINES})")
     if cfg.nee or cfg.mis or cfg.nee_glossy:
@@ -91,6 +94,13 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.traversal != "linear":
         raise NotImplementedError("BVH traversal is not ported yet "
                                   "(ROADMAP Queue A-9)")
+    if cfg.compact_sort != "dead":
+        raise NotImplementedError(
+            f"compact_sort={cfg.compact_sort!r}: only 'dead' is ported yet "
+            "(ROADMAP Queue B2)")
+    if cfg.regen:
+        raise NotImplementedError("regen=True: the regeneration kernel is "
+                                  "not ported yet (ROADMAP Queue B7)")
     if cfg.loop != "while":
         raise NotImplementedError(
             f"loop={cfg.loop!r}: only the forward 'while' loop is ported "

@@ -1,10 +1,12 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's CUDA sources with nvcc and load them with ctypes,
+and check the tensors a launcher hands them.
 
 Each `csrc/<name>.cu` becomes a shared library with a plain C interface,
 built at first use into `rt_tpu_torch/_build/` (listed in .gitignore)
-under a name keyed by a hash of the CUDA sources and the flags, so an
-edit rebuilds and an unchanged tree reuses the library. No PyTorch
-header is compiled: a build takes seconds, not minutes.
+under a name keyed by a hash of the CUDA sources (`*.cu` and the shared
+`*.cuh` headers) and its flags, so an edit rebuilds and an unchanged
+tree reuses the library. No PyTorch header is compiled: a build takes
+seconds, not minutes.
 
 nvcc is found on PATH, else at $CUDA_HOME/bin/nvcc, else at the CUDA
 toolkit's default /usr/local/cuda/bin/nvcc; without it, building raises.
@@ -26,6 +28,12 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# Flags of one library on top of NVCC_FLAGS. The megakernels (mega.cu,
+# queue.cu) are built without FMA contraction: then every multiply and
+# add rounds as the plain versions' separate torch ops do, and kernel and
+# plain version agree bit for bit; with contraction an ulp now and then
+# flips a grazing hit and sends a path elsewhere (ROADMAP C-6).
+LIB_FLAGS = {"mega": ("--fmad=false",), "queue": ("--fmad=false",)}
 
 
 def find_nvcc() -> str:
@@ -44,9 +52,14 @@ def find_nvcc() -> str:
         "; the CUDA kernels of rt_tpu_torch need the CUDA toolkit")
 
 
+def flags(name: str) -> tuple:
+    """The nvcc flags of csrc/<name>.cu."""
+    return NVCC_FLAGS + LIB_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """Where the library for csrc/<name>.cu lives, keyed by content."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -63,7 +76,8 @@ def build(name: str) -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc, *flags(name), "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -74,7 +88,21 @@ def build(name: str) -> Path:
     return path
 
 
+def check_tensor(name, x, dtype, shape, device):
+    """Raise unless x is a contiguous `dtype` tensor of `shape` on
+    `device`: what a kernel takes by raw pointer."""
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, want {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, want {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, want {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu's library, once per process."""
+    """Build (if needed) and load csrc/<name>.cu's library, once per
+    process."""
     return ctypes.CDLL(str(build(name)))

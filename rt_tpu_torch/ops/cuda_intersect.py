@@ -54,15 +54,6 @@ def _library():
     return lib
 
 
-def _check(name, x, dtype, shape):
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, want {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, want {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def sphere_closest_hit(centers, radii, live, ro, rd, t_min=1e-3):
     """Closest sphere hit per ray (see the module docstring)."""
     tensors = (centers, radii, live, ro, rd)
@@ -75,11 +66,12 @@ def sphere_closest_hit(centers, radii, live, ro, rd, t_min=1e-3):
     if dev.type != "cuda":
         raise ValueError(f"sphere_closest_hit: unsupported device {dev}")
     n, b = centers.shape[0], ro.shape[0]
-    _check("centers", centers, torch.float32, (n, 3))
-    _check("radii", radii, torch.float32, (n,))
-    _check("live", live, torch.bool, (n,))
-    _check("ro", ro, torch.float32, (b, 3))
-    _check("rd", rd, torch.float32, (b, 3))
+    check = cuda_build.check_tensor
+    check("centers", centers, torch.float32, (n, 3), dev)
+    check("radii", radii, torch.float32, (n,), dev)
+    check("live", live, torch.bool, (n,), dev)
+    check("ro", ro, torch.float32, (b, 3), dev)
+    check("rd", rd, torch.float32, (b, 3), dev)
 
     # [N,5] rows: cx, cy, cz, |c|^2 - r^2, live (pallas_intersect.py:114)
     c2r = (centers * centers).sum(-1) - radii * radii

@@ -11,9 +11,13 @@ Radiometric semantics are the CUDA reference's iterative ray_color
   depth exhausted -> contributes what it accumulated (no background)
 
 with the gradient sky, background credit on depth exhaustion and
-Russian roulette as RenderConfig options. The whole batch advances one
-bounce per iteration with masked (dead) lanes; the loop ends at
-max_depth or when no lane is alive, which costs one host sync per bounce.
+Russian roulette as RenderConfig options. engine="plain" / "pallas":
+the whole batch advances one bounce per iteration with masked (dead)
+lanes; the loop ends at max_depth or when no lane is alive, which costs
+one host sync per bounce. engine="queue" / "mega": the persistent ray
+queue (ops/cuda_queue.py) or the segmented megakernel
+(ops/cuda_mega.py) trace whole paths per launch; as in the reference,
+only an empty scene falls back to "pallas".
 NEE / MIS / glossy light sampling are not ported yet (ROADMAP Queue A-4).
 """
 
@@ -90,9 +94,22 @@ def trace(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel, sample_idx,
           seed, stats: Optional[dict] = None) -> torch.Tensor:
     """Trace a batch of primary rays to radiance [B,3].
 
-    stats, when given, gets stats["bounces"] increased by the number of
-    bounces this call ran (with engine="pallas", one kernel launch each)."""
+    stats, when given: with engine="plain" / "pallas", stats["bounces"]
+    gains the number of wavefront bounces this call ran (with "pallas",
+    one kernel launch each); with "queue" / "mega", stats["launches"]
+    gains the kernel launches (on the CPU: the plain versions' calls)
+    and stats["ray_bounces"] the bounces of all lanes."""
     check_supported(cfg)
+    if cfg.engine in ("queue", "mega"):
+        from rt_tpu_torch.ops import cuda_mega, cuda_queue
+        from rt_tpu_torch.ops.mega_tables import mega_supported
+
+        if mega_supported(tables):
+            fn = (cuda_queue.queue_trace if cfg.engine == "queue"
+                  else cuda_mega.mega_trace)
+            return fn(tables, cfg, ro, rd, pixel, sample_idx, seed,
+                      stats=stats)
+        cfg = cfg.replace(engine="pallas")  # empty scene only
     b = ro.shape[0]
     state = RayState(
         o=ro, d=rd,

@@ -80,3 +80,46 @@ def cover_scene(width=400, height=225, spp=50, max_depth=50, seed=7,
                        max_depth=max_depth, background_mode="gradient",
                        enable_defocus=True)
     return s, cfg
+
+
+def cornell_spheres_scene(width=400, height=400, spp=8, max_depth=8
+                          ) -> Tuple[SceneDef, RenderConfig]:
+    """The naive tracer's 17-sphere emissive Cornell-like box
+    (rt_tpu's builder, 4_0_path_tracing.py:93-132): black background,
+    emissive spheres inside glass shells, Russian roulette p_rr = 0.9."""
+    s = SceneDef(width=width, height=height, samples_per_pixel=spp,
+                 max_depth=max_depth, background=(0, 0, 0))
+
+    def lam(color):
+        return s.add_lambertian_color(color)
+
+    def light(color):
+        return s.add_diffuse_light_color(color)
+
+    def metal(color, fuzz):
+        return s.add_metal(color, fuzz)
+
+    glass = s.add_dielectric(1.5)
+    s.add_sphere((0, -100.5, -1), 100.0, lam((0.8, 0.8, 0.8)))
+    s.add_sphere((0, 110.5, -1), 100.0, lam((0.8, 0.8, 0.8)))
+    s.add_sphere((0, 1, 110), 100.0, lam((0.8, 0.8, 0.8)))
+    s.add_sphere((-105.5, 0, -1), 100.0, lam((0.6, 0.0, 0.0)))
+    s.add_sphere((105.5, 0, -1), 100.0, lam((0.0, 0.6, 0.0)))
+    s.add_sphere((-0.8, 0.2, 2), 0.7, metal((0.6, 0.8, 0.8), 0.0))
+    s.add_sphere((0.0, 0, -0.5), 0.5, glass)
+    s.add_sphere((0.0, 0, -0.5), 0.2, light((2, 3, 5)))
+    s.add_sphere((1.0, -0.15, 1.6), 0.4, metal((0.8, 0.6, 0.2), 0.4))
+    s.add_sphere((0.8, 0.5, 3.0), 0.8, glass)
+    s.add_sphere((0.8, 0.5, 3.0), 0.4, light((4, 8, 5)))
+    s.add_sphere((1.0, 0.1, -2.0), 0.6, glass)
+    s.add_sphere((1.0, 0.1, -2.0), 0.3, light((5, 3, 8)))
+    s.add_sphere((-0.7, -0.1, -2.0), 0.4, lam((0.4, 0.8, 0.6)))
+    s.add_sphere((-1.5, -0.23, -0.5), 0.3, lam((0.6, 0.4, 0.3)))
+    s.add_sphere((1.9, -0.2, 0.8), 0.4, glass)
+    s.add_sphere((-2.4, -0.0, 1.5), 0.6, glass)
+    s.add_sphere((-2.4, -0.0, 1.5), 0.3, light((2, 3, 8)))
+    s.set_camera(lookfrom=(0, 1, -5), lookat=(0, 0.6, 0), vup=(0, 1, 0),
+                 vfov_deg=60.0, aperture=0.0)
+    cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                       max_depth=max_depth, p_rr=0.9)
+    return s, cfg

@@ -17,6 +17,7 @@ Texture type ids: 0=solid_color, 1=checker, 2=image.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -132,6 +133,14 @@ class SceneTables:
                           else val)
         return SceneTables(**kw)
 
+    @functools.cached_property
+    def mega(self):
+        """The packed form the megakernels read (ops/mega_tables
+        MegaScene), built at first use and kept with these tables."""
+        from rt_tpu_torch.ops.mega_tables import MegaScene
+
+        return MegaScene.of(self)
+
     def leaves(self) -> Dict[str, torch.Tensor]:
         """Every tensor by name; camera fields as 'camera.<field>'."""
         out = {}
@@ -187,6 +196,14 @@ class SceneDef:
         self.materials.append(
             {"type": "dielectric", "index_of_refraction": float(ior)})
         return len(self.materials) - 1
+
+    def add_diffuse_light(self, texture: int) -> int:
+        self.materials.append({"type": "diffuse_light",
+                               "texture": int(texture)})
+        return len(self.materials) - 1
+
+    def add_diffuse_light_color(self, color) -> int:
+        return self.add_diffuse_light(self.add_solid_color(color))
 
     def add_solid_color(self, color) -> int:
         self.textures.append(

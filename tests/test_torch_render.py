@@ -249,6 +249,6 @@ def test_cli_matches_library_render(tmp_path):
                                            max_depth=4)
     st.resize()
     img = trenderer.render(ttypes.build_tables(st),
-                           cfg.replace(seed=3, engine="pallas"), device="cpu")
+                           cfg.replace(seed=3, engine="queue"), device="cpu")
     np.testing.assert_array_equal(timage.read_png(out),
                                   tfilm.finalize(img, 2, gamma=False))

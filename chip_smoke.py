@@ -12,7 +12,13 @@ megakernel (engine "mega", kernel B2, spp 16, the control row). It also
 compares engines and kernels with their plain versions, at small sizes
 and at the main path's shape of one trace call (2,073,600 lanes, depth
 50, where B3's pool refills), and drives the CLI, whose default engine
-is the queue. Each phase prints its
+is the queue. The training path follows: the adjoint kernels B5 (mega)
+and B6 (queue) against their plain version at 192x108 and at the main
+shape, the reference's training step (one loss.backward() of the
+path-replay loss on cover_scene at 1920x1080, depth 50, spp 1, params
+tex_color and mat_albedo) on both engines, three fit steps whose loss
+must fall, and tables past the rows the kernels stage in shared memory
+(ROADMAP C-7). Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -53,6 +59,12 @@ SPHERE_OPS_PER_PAIR = 23
 # depends on the material hit and is not counted, so the bound stays a
 # lower bound of what this run's rays need.
 SETUP_OPS = 16
+# FP32 operations the adjoint adds to a ray-bounce that takes a
+# cotangent, at the least: g * P per channel (a light, a miss); a
+# scattering bounce does 9 (g * (L - C) / att) and a dielectric none, so
+# the adjoints' bound counts none (a lower bound, and 0.1% of the hit
+# loop at 488 rows)
+ADJOINT_OPS = 0
 
 W, H, SPP, DEPTH = 1920, 1080, 2, 50     # rt_tpu bench.py:67-71 shape
 MAIN_SPP = 16                            # bench.py's one-launch spp
@@ -60,6 +72,8 @@ SMALL_W, SMALL_H = 192, 108              # engine compare
 CLI_W, CLI_H = 320, 180
 LANES_1 = 65536                          # per-lane kernel compares
 SMALL_POOL = 2048                        # B3 pool lanes of the refill check
+TRAIN_BWD_DEPTH = 8      # the reference's production truncation
+GRAD_FIELDS = ("tex_color", "tex_color2", "mat_albedo", "background")
 
 
 @contextlib.contextmanager
@@ -168,12 +182,39 @@ def frame(tables, cfg, w, h, trace_fn, generate_rays):
     return acc.reshape(h, w, 3).cpu().numpy()
 
 
+def grads_close(want, got, label):
+    """An adjoint kernel's gradients against the plain version's, per
+    field: |a - b| <= 1e-5 + 1e-3 max|a| (the reference's tolerance
+    between its replay and its kernels, tests/test_diff.py:567, 886).
+    Every lane's cotangent is the plain version's bits, but float
+    atomics sum in an order that changes from run to run. Returns the
+    max abs difference over the fields."""
+    worst, ratio = 0.0, 0.0
+    for k in GRAD_FIELDS:
+        a, b = want[k].double(), got[k].double()
+        if a.shape != b.shape:
+            raise AssertionError(f"{label} {k}: shape {tuple(b.shape)}, "
+                                 f"want {tuple(a.shape)}")
+        mag = max(float(a.abs().max()), 1e-12)
+        err = float((a - b).abs().max())
+        worst = max(worst, err)
+        ratio = max(ratio, err / (1e-5 + 1e-3 * mag))
+        if not err <= 1e-5 + 1e-3 * mag:
+            raise AssertionError(f"{label} {k}: max abs err {err:.4g} "
+                                 f"against max |g| {mag:.4g}")
+    print(f"  {label}: max abs err {worst:.4g}, {ratio:.4f} of the "
+          "tolerance", flush=True)
+    return worst
+
+
 def counters():
     from rt_tpu_torch.ops import cuda_intersect, cuda_mega, cuda_queue
 
     return {"sphere_closest_hit": cuda_intersect.sphere_closest_hit,
             "mega_segment": cuda_mega.mega_segment,
-            "queue_launch": cuda_queue.queue_launch}
+            "queue_launch": cuda_queue.queue_launch,
+            "mega_adjoint_segment": cuda_mega.mega_adjoint_segment,
+            "queue_adjoint_launch": cuda_queue.queue_adjoint_launch}
 
 
 def reset_counts():
@@ -197,7 +238,10 @@ def main() -> int:
     from rt_tpu_torch.render.renderer import render
     from rt_tpu_torch.io.image import read_png
     from rt_tpu_torch.scene.builders import cover_scene
+    from rt_tpu_torch.scene.builders import random_spheres_scene
     from rt_tpu_torch.scene.types import build_tables
+    from rt_tpu_torch.diff.inverse import fit
+    from rt_tpu_torch.diff.replay import make_replay_loss_fn
 
     t_all = time.time()
     dev = torch.device("cuda")
@@ -223,7 +267,8 @@ def main() -> int:
 
     with phase("2 build"):
         # one nvcc per source, all started together
-        kernels = ["sphere_hit", "mega", "queue"]
+        kernels = ["sphere_hit", "mega", "queue", "mega_adjoint",
+                   "queue_adjoint"]
         for k in kernels:  # build from the checkout's sources
             cuda_build.library_path(k).unlink(missing_ok=True)
         t0 = time.time()
@@ -503,7 +548,219 @@ def main() -> int:
         err_mega = max(err_mega, rows["mega_segment"].pop("err"))
         err_queue = max(err_queue, rows["queue_launch"].pop("err"))
 
-    print(f"[12 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    def adjoint_inputs(tb, cb, w_, h_, seed):
+        """Camera rays of sample 0, their radiance (the queue kernel) and
+        a seeded loss cotangent."""
+        pix = torch.arange(w_ * h_, device=dev)
+        ro_, rd_ = generate_rays(tb.camera, w_, h_, pix % w_, pix // w_, 0,
+                                 0, cb.enable_defocus)
+        L = cuda_queue.queue_trace(tb, cb, ro_, rd_, pix, 0, 0)
+        g = torch.from_numpy(np.random.default_rng(seed).normal(
+            0, 1.0 / (w_ * h_), (w_ * h_, 3)).astype(np.float32)).to(dev)
+        return pix, ro_, rd_, L, g
+
+    err_b5 = err_b6 = 0.0
+    with phase(f"12 B5 / B6 kernels vs plain at {SMALL_W}x{SMALL_H}"):
+        s_small, c_small = cover_scene(width=SMALL_W, height=SMALL_H, spp=1,
+                                       max_depth=DEPTH)
+        # a bright constant sky (the cover scene's is black, and then
+        # every path carries zero radiance): read with the constant sky
+        s_small.background = (0.6, 0.7, 0.9)
+        t_small = build_tables(s_small, device=dev)
+        c_small = c_small.replace(compact_schedule=(2, 3, 5, 10),
+                                  compact_group=16)
+        for depth, bg_mode in ((1, "gradient"), (1, "constant"),
+                               (DEPTH, "gradient"), (DEPTH, "constant")):
+            cb = c_small.replace(max_depth=depth, background_mode=bg_mode)
+            pix, ro_, rd_, L, g = adjoint_inputs(t_small, cb, SMALL_W,
+                                                 SMALL_H, depth)
+            args = (t_small, cb, ro_, rd_, pix, 0, 0, L, g, depth, False)
+            plain = cuda_queue.queue_trace_adjoint(*args, plain=True)
+            k_m = cuda_mega.mega_trace_adjoint(*args)
+            k_q = cuda_queue.queue_trace_adjoint(*args, check_once=True)
+            k_s = cuda_queue.queue_trace_adjoint(*args, check_once=True,
+                                                 pool_lanes=SMALL_POOL)
+            label = f"depth {depth}, {bg_mode} sky"
+            err_b5 = max(err_b5, grads_close(plain, k_m, f"{label}: B5"))
+            err_b6 = max(err_b6, grads_close(plain, k_q, f"{label}: B6"))
+            err_b6 = max(err_b6, grads_close(
+                plain, k_s, f"{label}: B6 with {SMALL_POOL} pool lanes"))
+            grads_close(k_m, k_q, f"{label}: B6 vs B5")
+            # a scattering hit takes g * (L - C_after) / att: none at
+            # depth 1, where no radiance follows it
+            if (float(plain["tex_color2"].abs().max()) > 0.0) != (depth > 1):
+                raise AssertionError("the checker's odd colour took a "
+                                     "wrong gradient")
+
+    with phase(f"13 B5 / B6 vs plain and times at one adjoint call "
+               f"({W * H} lanes, depth {DEPTH}, exact)"):
+        pix, ro_, rd_, L, g = adjoint_inputs(t16, c16, W, H, 0)
+        adj_args = (t16, c16, ro_, rd_, pix, 0, 0, L, g, DEPTH, False)
+        ms16 = t16.mega
+        n_slots = ms16.n_slots
+        print(f"  gradient slots {n_slots} ({ms16.n_tex} texture + "
+              f"{ms16.n_mat} material rows), accumulators in shared "
+              f"memory: {cuda_mega.acc_fits_smem(n_slots)}; queue "
+              f"adjoint grid "
+              f"{cuda_queue.adjoint_grid_blocks(rows_k, n_slots, dev)} "
+              f"blocks", flush=True)
+        for name, fn in (("mega_adjoint_segment",
+                          cuda_mega.mega_trace_adjoint),
+                         ("queue_adjoint_launch",
+                          cuda_queue.queue_trace_adjoint)):
+            st = {}
+            k_out = fn(*adj_args, stats=st)
+            ms, _ = cuda_ms(lambda: fn(*adj_args), 5)
+            pms, p_out = cuda_ms(lambda: fn(*adj_args, plain=True), 1)
+            err = grads_close(p_out, k_out, f"{name} vs plain")
+            ops = st["ray_bounces"] * (SPHERE_OPS_PER_PAIR * rows_k
+                                       + SETUP_OPS + ADJOINT_OPS)
+            nbytes = (W * H * (12 + 12 + 4 + 12 + 12)  # ro, rd, pixel, L, g
+                      + rows_k * 18 * 4               # the packed table
+                      + 8 * n_slots * 4)              # gradients out
+            b_ms = max(ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
+            b_by = ("operations" if ops / PEAK_FP32_OPS
+                    >= nbytes / PEAK_HBM_BYTES else "bytes")
+            rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                              bound_by=b_by)
+            if name == "mega_adjoint_segment":
+                err_b5 = max(err_b5, err)
+            else:
+                err_b6 = max(err_b6, err)
+            print(f"  {name}: adjoint call {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}: {st['ray_bounces']} "
+                  f"ray-bounces x {rows_k} rows, {ops:.4g} ops, "
+                  f"{nbytes:.4g} bytes; {b_ms / ms:.1%} of the bound), "
+                  f"{st['launches']} launches; {smi}", flush=True)
+
+    s1, c1 = cover_scene(width=W, height=H, spp=1, max_depth=DEPTH)
+    c1 = c1.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
+    t1 = build_tables(s1, device=dev)
+    px1 = torch.arange(W * H, device=dev)
+    tgt1 = torch.rand((W * H, 3), generator=torch.Generator().manual_seed(0)
+                      ).to(dev)
+    train = {}
+    for engine in ("queue", "mega"):
+        for bwd_depth in (TRAIN_BWD_DEPTH, None):
+            with phase(f"14 training step: cover_scene {W}x{H} depth "
+                       f"{DEPTH} spp 1 engine {engine} bwd_depth "
+                       f"{bwd_depth or 'exact'}"):
+                cfg_e = c1.replace(engine=engine)
+                loss_fn = make_replay_loss_fn(t1, cfg_e, 1, px1 % W,
+                                              px1 // W, tgt1,
+                                              bwd_depth=bwd_depth)
+                params = {k: getattr(t1, k).clone().requires_grad_(True)
+                          for k in ("tex_color", "mat_albedo")}
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                loss = loss_fn(params)
+                torch.cuda.synchronize()
+                t_fwd = time.time() - t0
+                loss.backward()
+                torch.cuda.synchronize()
+                t_step = time.time() - t0
+                counts = read_counts()
+                fwd_k, adj_k = (("queue_launch", "queue_adjoint_launch")
+                                if engine == "queue" else
+                                ("mega_segment", "mega_adjoint_segment"))
+                print(f"  loss {float(loss.detach()):.6f}: forward "
+                      f"{t_fwd:.4f} s, backward {t_step - t_fwd:.4f} s, "
+                      f"step {t_step:.4f} s; launches {counts}; {smi}",
+                      flush=True)
+                if counts[fwd_k] <= 0 or counts[adj_k] <= 0:
+                    raise AssertionError(f"{engine}: the step launched "
+                                         f"{counts}")
+                for k, v in params.items():
+                    if v.grad is None or not bool(
+                            torch.isfinite(v.grad).all()) or not float(
+                            v.grad.abs().max()) > 0.0:
+                        raise AssertionError(f"{engine}: bad gradient {k}")
+                train[(engine, bwd_depth)] = dict(
+                    fwd=t_fwd, step=t_step, launches=counts[adj_k],
+                    grads={k: v.grad for k, v in params.items()})
+    for engine in ("queue", "mega"):
+        a = train[(engine, None)]["grads"]
+        b = train[(engine, TRAIN_BWD_DEPTH)]["grads"]
+        rel = max(float((a[k] - b[k]).abs().max())
+                  / max(float(a[k].abs().max()), 1e-30) for k in a)
+        print(f"  {engine}: bwd_depth {TRAIN_BWD_DEPTH} vs exact, max abs "
+              f"gradient difference {rel:.4%} of max |g|", flush=True)
+    for k in ("tex_color", "mat_albedo"):
+        a = train[("mega", None)]["grads"][k].double()
+        b = train[("queue", None)]["grads"][k].double()
+        mag = max(float(a.abs().max()), 1e-12)
+        err = float((a - b).abs().max())
+        print(f"  exact step, {k}: queue vs mega max abs diff {err:.4g} "
+              f"({err / (1e-5 + 1e-3 * mag):.4f} of the tolerance)",
+              flush=True)
+        if not err <= 1e-5 + 1e-3 * mag:
+            raise AssertionError(f"the queue and mega steps disagree on {k}")
+
+    with phase(f"15 fit(method='replay', steps=3) at {W}x{H} depth {DEPTH} "
+               "spp 1"):
+        target = render(t1, c1.replace(engine="queue"), device="cuda") \
+            .cpu().numpy()
+        rs = np.random.default_rng(7)
+        init = {k: getattr(t1, k) * torch.from_numpy(rs.uniform(
+                    0.6, 1.4, tuple(getattr(t1, k).shape)).astype(
+                    np.float32)).to(dev)
+                for k in ("tex_color", "mat_albedo")}
+        # the optimizer's first step in this process, apart from fit's
+        t0 = time.time()
+        w0 = torch.zeros(4, device=dev, requires_grad=True)
+        opt = torch.optim.Adam([w0], lr=0.1)
+        w0.sum().backward()
+        opt.step()
+        torch.cuda.synchronize()
+        print(f"  torch.optim.Adam's first step on the card: "
+              f"{time.time() - t0:.3f} s", flush=True)
+        t0 = time.time()
+        got, hist = fit(t1, c1.replace(engine="queue"), target, spp=1,
+                        steps=3, learning_rate=0.02, init_params=init,
+                        method="replay", device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        # the loss after the third step, on the same samples
+        with torch.no_grad():
+            final = float(make_replay_loss_fn(
+                t1, c1.replace(engine="queue"), 1, px1 % W, px1 // W,
+                torch.from_numpy(target.reshape(-1, 3)).to(dev))(
+                {k: torch.from_numpy(v).to(dev) for k, v in got.items()}))
+        print(f"  loss at steps 0-3: {hist + [final]} ({fit_s:.3f} s for "
+              "3 steps)", flush=True)
+        if not final < hist[0]:
+            raise AssertionError(f"the fit loss did not fall: "
+                                 f"{hist + [final]}")
+
+    with phase("16 tables past the staged rows (ROADMAP C-7)"):
+        for n, n_mat in ((3000, 64), (12000, 0)):
+            s_r, c_r = random_spheres_scene(n, n_mat, width=128, height=96,
+                                            max_depth=8)
+            t_r = build_tables(s_r, device=dev)
+            c_r = c_r.replace(compact_schedule=(2, 3, 5, 10),
+                              compact_group=16)
+            pix, ro_, rd_, L, g = adjoint_inputs(t_r, c_r, 128, 96, n)
+            fwd = (t_r, c_r, ro_, rd_, pix, 0, 0)
+            p_out = cuda_queue.queue_trace(*fwd, plain=True)
+            label = (f"{t_r.mega.table.shape[0]} rows, {t_r.mega.n_slots} "
+                     f"slots")
+            err_queue = max(err_queue, lanes_close(
+                cuda_queue.queue_trace(*fwd, check_once=True), p_out,
+                f"{label}: B3 vs plain", frac=1.0))
+            err_mega = max(err_mega, lanes_close(
+                cuda_mega.mega_trace(*fwd), p_out, f"{label}: B2 vs plain",
+                frac=1.0))
+            adj = (*fwd, L, g, 8, False)
+            plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+            err_b6 = max(err_b6, grads_close(
+                plain, cuda_queue.queue_trace_adjoint(*adj, check_once=True),
+                f"{label}: B6 vs plain"))
+            err_b5 = max(err_b5, grads_close(
+                plain, cuda_mega.mega_trace_adjoint(*adj),
+                f"{label}: B5 vs plain"))
+
+    print(f"[17 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -533,6 +790,24 @@ def main() -> int:
         "launches": main["queue"]["launches"],
         "max_abs_err": err_queue,
         **rows["queue_launch"],
+        "library_ms": None,
+    }, {
+        "name": "mega_adjoint_segment",
+        "route": "cuda",
+        "source": "rt_tpu_torch/csrc/mega_adjoint.cu",
+        "replaces": "rt_tpu/ops/pallas_mega.py:2183",
+        "launches": train[("mega", TRAIN_BWD_DEPTH)]["launches"],
+        "max_abs_err": err_b5,
+        **rows["mega_adjoint_segment"],
+        "library_ms": None,
+    }, {
+        "name": "queue_adjoint_launch",
+        "route": "cuda",
+        "source": "rt_tpu_torch/csrc/queue_adjoint.cu",
+        "replaces": "rt_tpu/ops/pallas_queue.py:543",
+        "launches": train[("queue", TRAIN_BWD_DEPTH)]["launches"],
+        "max_abs_err": err_b6,
+        **rows["queue_adjoint_launch"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
-"""Where one frame of the port's render spends its device time.
+"""Where one frame of the port's render, or one training step, spends its
+device time.
 
     python3 profile_torch.py [--width 1920] [--height 1080] [--spp 1]
                              [--depth 50] [--engine queue] [--top 25]
+                             [--train [--bwd-depth 8]]
 
 Renders cover_scene once untimed (build, warm-up), then once under
-torch.profiler on one CUDA GPU, and prints: wall seconds, the summed
+torch.profiler on one CUDA GPU; with --train, the same for one
+loss.backward() of the path-replay loss (diff/replay.py; params
+tex_color and mat_albedo, a seeded random target, the replay truncated
+at --bwd-depth, 0 = exact), the reference's training step
+(scripts/bench_grad_queue_r5.py). It prints: wall seconds, the summed
 device time of all kernels and its share of the wall time (the rest is
 the device waiting on the host), the ops and kernels by device time,
 and one JSON line with the totals. Engines "queue" and "mega" render at
@@ -39,6 +45,8 @@ def main() -> int:
     ap.add_argument("--engine", default="queue",
                     choices=["queue", "mega", "pallas", "plain"])
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--bwd-depth", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA GPU")
@@ -59,13 +67,31 @@ def main() -> int:
     else:
         cfg = cfg.replace(engine=args.engine, rays_per_batch=1 << 21)
     tables = build_tables(sdef, device="cuda")
-    render(tables, cfg, device="cuda")  # build + warm-up
-    torch.cuda.synchronize()
-
     stats = {}
+    if args.train:
+        from rt_tpu_torch.diff.replay import make_replay_loss_fn
+
+        pix = torch.arange(args.width * args.height, device="cuda")
+        tgt = torch.rand((pix.shape[0], 3),
+                         generator=torch.Generator().manual_seed(0)).cuda()
+        loss_fn = make_replay_loss_fn(tables, cfg, args.spp,
+                                      pix % args.width, pix // args.width,
+                                      tgt, bwd_depth=args.bwd_depth or None)
+
+        def run():
+            params = {k: getattr(tables, k).clone().requires_grad_(True)
+                      for k in ("tex_color", "mat_albedo")}
+            loss_fn(params).backward()
+    else:
+        def run():
+            render(tables, cfg, device="cuda", stats=stats)
+    run()  # build + warm-up
+    torch.cuda.synchronize()
+    stats.clear()
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        render(tables, cfg, device="cuda", stats=stats)
+        run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows = sorted(prof.key_averages(), key=_device_us, reverse=True)
@@ -75,8 +101,11 @@ def main() -> int:
     device_us = sum(_device_us(e) for e in rows if e.device_type == cuda)
     ops = [e for e in rows if e.device_type != cuda and _device_us(e) > 0]
     kernels = [e for e in rows if e.device_type == cuda]
+    what = (f"training step (bwd_depth {args.bwd_depth or 'exact'})"
+            if args.train else "render")
     print(f"{card}; cover_scene {args.width}x{args.height} spp {args.spp} "
-          f"depth {args.depth} engine {args.engine}: wall {wall:.4f} s "
+          f"depth {args.depth} engine {args.engine}, {what}: wall "
+          f"{wall:.4f} s "
           f"under the profiler, counts {stats}, device busy "
           f"{device_us / 1e6:.4f} s = {device_us / 1e6 / wall:.1%} of wall")
     for title, table in (("op", ops), ("kernel", kernels)):
@@ -85,7 +114,8 @@ def main() -> int:
             us = _device_us(e)
             print(f"{e.key[:48]:<48} {us / 1e3:>10.3f} "
                   f"{us / device_us:>7.1%} {e.count:>7}")
-    print(json.dumps({"card": card, "engine": args.engine, "wall_s": wall,
+    print(json.dumps({"card": card, "engine": args.engine,
+                      "train": args.train, "wall_s": wall,
                       "device_busy_s": device_us / 1e6, **stats}))
     return 0
 

@@ -86,14 +86,14 @@ def check_supported(cfg: RenderConfig) -> None:
         raise ValueError(f"unknown engine {cfg.engine!r} (want {ENGINES})")
     if cfg.nee or cfg.mis or cfg.nee_glossy:
         raise NotImplementedError(
-            "nee / mis / nee_glossy are not ported yet (ROADMAP Queue A-4)")
+            "nee / mis / nee_glossy are not ported yet (ROADMAP Queue A-5)")
     if cfg.sampler != "rng":
         raise NotImplementedError(
             f"sampler={cfg.sampler!r}: QMC is not ported yet "
-            "(ROADMAP Queue A-1)")
+            "(ROADMAP Queue A-6)")
     if cfg.traversal != "linear":
         raise NotImplementedError("BVH traversal is not ported yet "
-                                  "(ROADMAP Queue A-9)")
+                                  "(ROADMAP Queue A-8)")
     if cfg.compact_sort != "dead":
         raise NotImplementedError(
             f"compact_sort={cfg.compact_sort!r}: only 'dead' is ported yet "
@@ -103,8 +103,10 @@ def check_supported(cfg: RenderConfig) -> None:
                                   "not ported yet (ROADMAP Queue B7)")
     if cfg.loop != "while":
         raise NotImplementedError(
-            f"loop={cfg.loop!r}: only the forward 'while' loop is ported "
-            "(gradients are ROADMAP Queue A-8)")
+            f"loop={cfg.loop!r}: the port runs the 'while' loop only; its "
+            "gradients need no fixed-trip loop (autograd records the "
+            "'while' loop, diff/inverse.py method='ad'; the path replay "
+            "runs any engine, diff/replay.py)")
 
 
 def resolve_device(device: Optional[str] = "cuda") -> torch.device:

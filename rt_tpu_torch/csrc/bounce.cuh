@@ -1,5 +1,6 @@
-// One bounce of one lane: the body shared by the megakernel (mega.cu)
-// and the persistent ray queue (queue.cu).
+// One bounce of one lane: the body shared by the megakernel (mega.cu),
+// the persistent ray queue (queue.cu) and their adjoints
+// (mega_adjoint.cu, queue_adjoint.cu).
 //
 // Replaces: rt_tpu/ops/pallas_mega.py `do_bounce` (:1011-1896) of
 // `_make_do_bounce`, restricted to this slice: Russian roulette
@@ -8,14 +9,22 @@
 // (:1290-1317), the checker texture (:1319-1324), the scatter
 // (:1420-1486) and the non-NEE accumulation (:1488-1527); and
 // `_make_background` (:774). The expressions are the reference's, in its
-// order; ops/mega_plain.do_bounce_plain is the plain twin.
+// order; ops/mega_plain.do_bounce_plain is the plain twin. The adjoint
+// variant, do_bounce<true> (the reference's `adjoint=True` block
+// :1700-1800), runs the same expressions and adds the suffix-identity
+// cotangents to the winner's gradient slot; its plain twin is
+// ops/adjoint_plain.py.
 //
 // On the GPU one thread owns one lane, and the lane's state lives in
 // registers. The block stages the five intersection columns of the
-// sphere table (cx, cy, cz, |c|^2 - r^2, valid: 20 B a row) in shared
-// memory once; every thread of a warp reads the same row at once, a
-// broadcast. The winner's other columns are read from global memory by
-// its row index, where the TPU extracted them with one-hot MXU products.
+// first kStageRows rows of the sphere table (cx, cy, cz, |c|^2 - r^2,
+// valid: 20 B a row) in shared memory once; every thread of a warp reads
+// the same row at once, a broadcast. Rows past kStageRows are read from
+// global memory through the read-only cache, in the same ascending
+// order, so a table of any size traces (no block-wide chunked stage: the
+// persistent queue's divergent lanes cannot meet at a __syncthreads).
+// The winner's other columns are read from global memory by its row
+// index, where the TPU extracted them with one-hot MXU products.
 // Each material computes only its own scatter (the TPU computes every
 // material's and selects); the draws are pure hashes of their
 // coordinates, so skipping the unused ones changes nothing.
@@ -36,10 +45,19 @@
 
 namespace rtt {
 
-// packed sphere table columns (ops/mega_tables.py, pallas_mega.py:85-116)
-constexpr int kCols = 17;
+// packed sphere table columns (ops/mega_tables.py, pallas_mega.py:85-140)
+constexpr int kCols = 18;
 constexpr int kV = 0, kRad = 3, kDirect = 4, kMtype = 5, kChecker = 6,
-              kParam = 7, kAlb = 8, kAlb2 = 11, kC2r = 15, kValid = 16;
+              kParam = 7, kAlb = 8, kAlb2 = 11, kC2r = 15, kValid = 16,
+              kSlot = 17;
+// rows staged in shared memory (40 KB); the rest are read from global
+constexpr int kStageRows = 2048;
+static_assert(kStageRows * 20 <= 48 * 1024,
+              "the staged rows fit the default dynamic shared memory");
+// the adjoint accumulators (ops/adjoint_plain.py): rows 0-2 the primary
+// colour and 3-5 the checker odd colour, n_slots each, then the
+// background's 3 at row 6 of the [8, n_slots] output
+constexpr int kBgRow = 6;
 // material type codes (scene/types.py)
 constexpr float kLambertian = 0.0f, kMetal = 1.0f, kDielectric = 2.0f,
                 kDiffuseLight = 3.0f;
@@ -50,9 +68,9 @@ struct Lane {
 
 struct Scene {
   const float* table;    // [n, kCols] in global memory
-  const float4* hit4;    // [n] shared: cx, cy, cz, c2r
-  const float* valid;    // [n] shared
-  int n;
+  const float4* hit4;    // [n_smem] shared: cx, cy, cz, c2r
+  const float* valid;    // [n_smem] shared
+  int n, n_smem;
   float t_min, p_rr, rr_comp;
   int grad_bg;
   float bg_r, bg_g, bg_b;
@@ -72,6 +90,7 @@ __host__ inline Scene make_scene(const float* table, int n,
   s.hit4 = nullptr;
   s.valid = nullptr;
   s.n = n;
+  s.n_smem = n < kStageRows ? n : kStageRows;
   s.t_min = t_min;
   s.p_rr = p_rr;
   s.rr_comp = rr_comp;
@@ -84,22 +103,126 @@ __host__ inline Scene make_scene(const float* table, int n,
   return s;
 }
 
-// Shared memory the table takes, and its staging (all threads of the
-// block, before any of them traces; the caller then __syncthreads()).
+// Shared memory the staged rows take, and their staging (all threads of
+// the block, before any of them traces; the caller then
+// __syncthreads()).
 __host__ __device__ inline size_t table_smem_bytes(int n) {
-  return static_cast<size_t>(n) * (sizeof(float4) + sizeof(float));
+  const int staged = n < kStageRows ? n : kStageRows;
+  return static_cast<size_t>(staged) * (sizeof(float4) + sizeof(float));
 }
 
 __device__ __forceinline__ void stage_table(Scene& s, float4* smem) {
   float4* hit4 = smem;
-  float* valid = reinterpret_cast<float*>(smem + s.n);
-  for (int k = threadIdx.x; k < s.n; k += blockDim.x) {
+  float* valid = reinterpret_cast<float*>(smem + s.n_smem);
+  for (int k = threadIdx.x; k < s.n_smem; k += blockDim.x) {
     const float* r = s.table + k * kCols;
     hit4[k] = make_float4(r[kV], r[kV + 1], r[kV + 2], r[kC2r]);
     valid[k] = r[kValid];
   }
   s.hit4 = hit4;
   s.valid = valid;
+}
+
+// Whether a table of n rows has rows past the staged ones (the kernels'
+// kTail instantiation).
+__host__ inline bool has_tail(int n) { return n > kStageRows; }
+
+// Where a kernel's own block-local data (the adjoint accumulators)
+// starts in shared memory: after the staged rows, 16-byte aligned.
+__host__ __device__ inline size_t after_table_bytes(int n) {
+  return (table_smem_bytes(n) + 15) & ~static_cast<size_t>(15);
+}
+
+// One (lane, row) pair of the closest-hit loop; `valid` is read only
+// where the discriminant is not negative, as the loop did before the
+// rows were split between shared and global memory.
+__device__ __forceinline__ void hit_row(float4 c, const float* valid, int j,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float a, float rd_dot_ro,
+                                        float ro_sq, float inv_a,
+                                        float t_min, float& t_best,
+                                        int& id_best) {
+  const float hb = rd_dot_ro - (c.x * dx + c.y * dy + c.z * dz);
+  const float c_term = ro_sq - 2.0f * (c.x * ox + c.y * oy + c.z * oz) + c.w;
+  const float disc = hb * hb - a * c_term;
+  const float sqrtd = sqrtf(fmaxf(disc, 0.0f));
+  const float root1 = (-hb - sqrtd) * inv_a;
+  const float root2 = (-hb + sqrtd) * inv_a;
+  float t = root1 >= t_min ? root1 : (root2 >= t_min ? root2 : CUDART_INF_F);
+  if (!(disc >= 0.0f && *valid > 0.0f)) t = CUDART_INF_F;
+  // rows arrive in ascending order, so `<=` is "t < best, or equal t
+  // and a larger row": the reference's later-wins tie-break
+  if (t <= t_best) {
+    t_best = t;
+    id_best = j;
+  }
+}
+
+// What the adjoint bounce reads besides the lane: the sample's radiance
+// L and its cotangent g, and the accumulators it adds to (shared or
+// global memory: [kBgRow * n_slots + 3] floats, see kBgRow).
+struct Adj {
+  float Lr, Lg, Lb, gr, gg, gb;
+  float* acc;
+  int n_slots;
+};
+
+// A lane's 13 state words in rows [0, 13) of an array with row stride
+// `stride` (p points at the lane's column: a [13+, B] state or a pool).
+__device__ __forceinline__ void load_lane(const float* p, long long stride,
+                                          Lane& L) {
+  L.ox = p[0];
+  L.oy = p[stride];
+  L.oz = p[2 * stride];
+  L.dx = p[3 * stride];
+  L.dy = p[4 * stride];
+  L.dz = p[5 * stride];
+  L.tpr = p[6 * stride];
+  L.tpg = p[7 * stride];
+  L.tpb = p[8 * stride];
+  L.cr = p[9 * stride];
+  L.cg = p[10 * stride];
+  L.cb = p[11 * stride];
+  L.alive = p[12 * stride];
+}
+
+__device__ __forceinline__ void store_lane(float* p, long long stride,
+                                           const Lane& L) {
+  p[0] = L.ox;
+  p[stride] = L.oy;
+  p[2 * stride] = L.oz;
+  p[3 * stride] = L.dx;
+  p[4 * stride] = L.dy;
+  p[5 * stride] = L.dz;
+  p[6 * stride] = L.tpr;
+  p[7 * stride] = L.tpg;
+  p[8 * stride] = L.tpb;
+  p[9 * stride] = L.cr;
+  p[10 * stride] = L.cg;
+  p[11 * stride] = L.cb;
+  p[12 * stride] = L.alive;
+}
+
+// An adjoint lane's L and g in rows [13, 19), after its state.
+__device__ __forceinline__ void load_lg(const float* p, long long stride,
+                                        Adj& a) {
+  a.Lr = p[13 * stride];
+  a.Lg = p[14 * stride];
+  a.Lb = p[15 * stride];
+  a.gr = p[16 * stride];
+  a.gg = p[17 * stride];
+  a.gb = p[18 * stride];
+}
+
+__device__ __forceinline__ void store_lg(float* p, long long stride,
+                                         const Adj& a) {
+  p[13 * stride] = a.Lr;
+  p[14 * stride] = a.Lg;
+  p[15 * stride] = a.Lb;
+  p[16 * stride] = a.gr;
+  p[17 * stride] = a.gg;
+  p[18 * stride] = a.gb;
 }
 
 __device__ __forceinline__ void background(const Scene& s, float dx,
@@ -128,11 +251,46 @@ __device__ __forceinline__ void exhaust(const Scene& s, Lane& L) {
   L.cb = L.cb + L.tpb * bgb;
 }
 
+// Add g * P to the background's accumulators (a miss, or an exhausted
+// lane), when the sky is the constant colour.
+__device__ __forceinline__ void credit_bg(const Scene& s, const Lane& L,
+                                          const Adj& adj) {
+  if (s.grad_bg) return;
+  float* bg = adj.acc + kBgRow * adj.n_slots;
+  atomicAdd(bg, adj.gr * L.tpr);
+  atomicAdd(bg + 1, adj.gg * L.tpg);
+  atomicAdd(bg + 2, adj.gb * L.tpb);
+}
+
+// Add one cotangent per channel to the winner's slot: the primary
+// colour's rows, or the checker odd colour's when `odd`.
+__device__ __forceinline__ void credit_slot(const Adj& adj, int slot,
+                                            bool odd, float cr, float cg,
+                                            float cb) {
+  float* row = adj.acc + (odd ? 3 : 0) * adj.n_slots + slot;
+  if (cr != 0.0f) atomicAdd(row, cr);
+  if (cg != 0.0f) atomicAdd(row + adj.n_slots, cg);
+  if (cb != 0.0f) atomicAdd(row + 2 * adj.n_slots, cb);
+}
+
+// g * (L - C_after) / att where att != 0 (the reference's `_cot`)
+__device__ __forceinline__ float att_cot(float g, float Lk, float c,
+                                         float att) {
+  return att != 0.0f ? g * (Lk - c) / att : 0.0f;
+}
+
 // Advance a live lane (alive > 0) one bounce at RNG coordinate `pre`
 // (rng.cuh prefix of seed, pixel, sample, bounce). A lane that does
-// not scatter leaves with alive = 0.
+// not scatter leaves with alive = 0. kAdjoint also adds the bounce's
+// cotangents to adj's accumulators (see ops/adjoint_plain.py); the lane
+// advances exactly as in the forward. kTail (a table of more than
+// kStageRows rows) compiles the loop over the rows in global memory:
+// its mere presence slowed the megakernel by 9% on tables that do not
+// need it (PERF.md, PR 6), so the kernels instantiate both and the
+// launchers choose (has_tail).
+template <bool kAdjoint, bool kTail>
 __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
-                                          uint32_t pre) {
+                                          uint32_t pre, const Adj& adj) {
   if (s.p_rr > 0.0f && !(uniform(pre, kRR) <= s.p_rr)) {
     L.alive = 0.0f;  // roulette: the lane stops and adds nothing
     return;
@@ -147,22 +305,16 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   const float inv_a = 1.0f / a;
   float t_best = CUDART_INF_F;
   int id_best = 0;
-  for (int j = 0; j < s.n; ++j) {
-    const float4 c = s.hit4[j];
-    const float hb = rd_dot_ro - (c.x * dx + c.y * dy + c.z * dz);
-    const float c_term = ro_sq - 2.0f * (c.x * ox + c.y * oy + c.z * oz) + c.w;
-    const float disc = hb * hb - a * c_term;
-    const float sqrtd = sqrtf(fmaxf(disc, 0.0f));
-    const float root1 = (-hb - sqrtd) * inv_a;
-    const float root2 = (-hb + sqrtd) * inv_a;
-    float t = root1 >= s.t_min ? root1
-                               : (root2 >= s.t_min ? root2 : CUDART_INF_F);
-    if (!(disc >= 0.0f && s.valid[j] > 0.0f)) t = CUDART_INF_F;
-    // rows arrive in ascending order, so `<=` is "t < best, or equal t
-    // and a larger row": the reference's later-wins tie-break
-    if (t <= t_best) {
-      t_best = t;
-      id_best = j;
+  for (int j = 0; j < s.n_smem; ++j)
+    hit_row(s.hit4[j], s.valid + j, j, ox, oy, oz, dx, dy, dz, a, rd_dot_ro,
+            ro_sq, inv_a, s.t_min, t_best, id_best);
+  if (kTail) {
+    for (int j = s.n_smem; j < s.n; ++j) {
+      const float* r = s.table + static_cast<size_t>(j) * kCols;
+      hit_row(make_float4(__ldg(r + kV), __ldg(r + kV + 1),
+                          __ldg(r + kV + 2), __ldg(r + kC2r)),
+              r + kValid, j, ox, oy, oz, dx, dy, dz, a, rd_dot_ro, ro_sq,
+              inv_a, s.t_min, t_best, id_best);
     }
   }
 
@@ -170,6 +322,7 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   // t is never NaN (a NaN root fails both `>=` tests), so a finite
   // t_best is one below infinity
   if (!(t_best < CUDART_INF_F)) {  // miss: the sky, and the path ends
+    if (kAdjoint) credit_bg(s, L, adj);
     background(s, dx, dy, dz, bgr, bgg, bgb);
     L.cr = L.cr + L.tpr * bgr;
     L.cg = L.cg + L.tpg * bgg;
@@ -206,10 +359,12 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
 
   // checker texture (texture.cuh:44-52)
   float alb_r = w[kAlb], alb_g = w[kAlb + 1], alb_b = w[kAlb + 2];
+  bool use2 = false;
   if (w[kChecker] > 0.0f) {
     const float sines =
         sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
     if (sines < 0.0f) {
+      use2 = true;
       alb_r = w[kAlb2];
       alb_g = w[kAlb2 + 1];
       alb_b = w[kAlb2 + 2];
@@ -217,6 +372,9 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   }
 
   if (mtype == kDiffuseLight) {  // emits and stops
+    if (kAdjoint)  // d(g.L)/d(emission) = g * P
+      credit_slot(adj, static_cast<int>(w[kSlot]), use2, adj.gr * L.tpr,
+                  adj.gg * L.tpg, adj.gb * L.tpb);
     L.cr = L.cr + L.tpr * alb_r;
     L.cg = L.cg + L.tpg * alb_g;
     L.cb = L.cb + L.tpb * alb_b;
@@ -284,6 +442,15 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
       alb_r = alb_g = alb_b = 1.0f;
     }
   }
+
+  // d(g.L)/d(att) = g * (L - C_after) / att; C_after is the radiance
+  // so far, which a scattering bounce does not change. A dielectric's
+  // attenuation is the constant 1 and takes none.
+  if (kAdjoint && mtype != kDielectric)
+    credit_slot(adj, static_cast<int>(w[kSlot]), use2,
+                att_cot(adj.gr, adj.Lr, L.cr, alb_r),
+                att_cot(adj.gg, adj.Lg, L.cg, alb_g),
+                att_cot(adj.gb, adj.Lb, L.cb, alb_b));
 
   L.tpr = L.tpr * alb_r * s.rr_comp;
   L.tpg = L.tpg * alb_g * s.rr_comp;

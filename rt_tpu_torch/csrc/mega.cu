@@ -18,9 +18,10 @@
 //
 // Design: one thread per lane (the state, the running closest hit and
 // the RNG prefix in registers); the block stages the table's
-// intersection columns in shared memory once (20 B a row, 10 KB for the
-// 512-row cover scene), then each thread traces its lane to the end of
-// the segment. No culling, no Morton sort: rows are in scene order.
+// intersection columns in shared memory once (20 B a row, 9.8 KB for
+// the 488 live rows of the cover scene; rows past bounce.cuh's
+// kStageRows are read from global memory), then each thread traces its
+// lane to the end of the segment. No culling, no Morton sort: rows are in scene order.
 // Dead lanes exit at once, so the trace around the kernel
 // (ops/cuda_mega.mega_trace) groups live lanes between segments and
 // launches only the live prefix.
@@ -33,6 +34,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
+template <bool kTail>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
             int n, const int* __restrict__ pixel,
@@ -45,21 +47,9 @@ mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float* s = state + i;
+  if (!(s[12 * stride] > 0.0f)) return;  // dead lanes are left as they are
   rtt::Lane L;
-  L.alive = s[12 * stride];
-  if (!(L.alive > 0.0f)) return;  // dead lanes are left as they are
-  L.ox = s[0];
-  L.oy = s[stride];
-  L.oz = s[2 * stride];
-  L.dx = s[3 * stride];
-  L.dy = s[4 * stride];
-  L.dz = s[5 * stride];
-  L.tpr = s[6 * stride];
-  L.tpg = s[7 * stride];
-  L.tpb = s[8 * stride];
-  L.cr = s[9 * stride];
-  L.cg = s[10 * stride];
-  L.cb = s[11 * stride];
+  rtt::load_lane(s, stride, L);
 
   const uint32_t pix = static_cast<uint32_t>(pixel[i]);
   const uint32_t smp =
@@ -67,31 +57,20 @@ mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
   const uint32_t lane_key = rtt::fold(rtt::fold(scene.seed, pix), smp);
   int b = 0;
   while (b < max_depth && L.alive > 0.0f) {
-    rtt::do_bounce(scene, L,
-                   rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)));
+    rtt::do_bounce<false, kTail>(
+        scene, L, rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)),
+        rtt::Adj{});
     ++b;
   }
   if (scene.exhaust_bg && L.alive > 0.0f) rtt::exhaust(scene, L);
 
-  s[0] = L.ox;
-  s[stride] = L.oy;
-  s[2 * stride] = L.oz;
-  s[3 * stride] = L.dx;
-  s[4 * stride] = L.dy;
-  s[5 * stride] = L.dz;
-  s[6 * stride] = L.tpr;
-  s[7 * stride] = L.tpg;
-  s[8 * stride] = L.tpb;
-  s[9 * stride] = L.cr;
-  s[10 * stride] = L.cg;
-  s[11 * stride] = L.cb;
-  s[12 * stride] = L.alive;
+  rtt::store_lane(s, stride, L);
   if (depth) depth[i] += b;
 }
 
 }  // namespace
 
-// table [rows, 17] f32 (ops/mega_tables.py); state [13, stride] f32, of
+// table [rows, 18] f32 (ops/mega_tables.py); state [13, stride] f32, of
 // which lanes [0, n) are traced in place; pixel [>= n] i32; sample
 // [>= n] i32 or null (then every lane uses sample_scalar); depth
 // [>= n] i32 or null (else each lane's bounce count is added to it).
@@ -105,15 +84,11 @@ extern "C" int mega_segment_launch(const float* table, int rows,
   const rtt::Scene scene = rtt::make_scene(
       table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r, bg_g, bg_b,
       exhaust_bg);
-  const size_t smem = rtt::table_smem_bytes(rows);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const int blocks = (n + threads - 1) / threads;
-  mega_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel =
+      rtt::has_tail(rows) ? mega_kernel<true> : mega_kernel<false>;
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       scene, state, stride, n, pixel, sample, sample_scalar, start_bounce,
       max_depth, depth);
   return static_cast<int>(cudaGetLastError());

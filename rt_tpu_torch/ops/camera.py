@@ -16,7 +16,7 @@ def generate_rays(cam: CameraDef, width, height, px, py, sample_idx, seed,
     Returns (ro [B,3], rd [B,3]) on px's device."""
     if sampler != "rng":
         raise NotImplementedError(
-            f"sampler={sampler!r}: QMC is not ported yet (ROADMAP Queue A-1)")
+            f"sampler={sampler!r}: QMC is not ported yet (ROADMAP Queue A-6)")
     pixel = py.to(torch.int64) * width + px.to(torch.int64)
     ru = rng.uniform(seed, pixel, sample_idx, 0, rng.PIXEL_U)
     rv = rng.uniform(seed, pixel, sample_idx, 0, rng.PIXEL_V)

@@ -29,11 +29,14 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # Flags of one library on top of NVCC_FLAGS. The megakernels (mega.cu,
-# queue.cu) are built without FMA contraction: then every multiply and
-# add rounds as the plain versions' separate torch ops do, and kernel and
-# plain version agree bit for bit; with contraction an ulp now and then
-# flips a grazing hit and sends a path elsewhere (ROADMAP C-6).
-LIB_FLAGS = {"mega": ("--fmad=false",), "queue": ("--fmad=false",)}
+# queue.cu) and their adjoints (mega_adjoint.cu, queue_adjoint.cu) are
+# built without FMA contraction: then every multiply and add rounds as
+# the plain versions' separate torch ops do, and kernel and plain version
+# agree bit for bit per lane; with contraction an ulp now and then flips
+# a grazing hit and sends a path elsewhere (ROADMAP C-6), and an
+# adjoint's g * (L - C_after) / att picks up noise where L ~ C_after.
+LIB_FLAGS = {name: ("--fmad=false",)
+             for name in ("mega", "queue", "mega_adjoint", "queue_adjoint")}
 
 
 def find_nvcc() -> str:

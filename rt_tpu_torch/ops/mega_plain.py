@@ -11,6 +11,10 @@ throughput, accumulated radiance, alive (a float, 1.0 / 0.0, so NEE's
 0.5 and 2 + p encodings fit later). Every expression is the
 reference's, in the reference's order; the kernel repeats them.
 
+`bounce_plain` returns the bounce with the intermediates its adjoint
+reads (ops/adjoint_plain.py): the replay runs the forward's own
+expressions, so C_after, the attenuation and P are the forward's bits.
+
 Every operation is elementwise, so a lane's result does not depend on
 the batch it sits in: the segmented trace and the queue emulation give
 a single full-batch trace's bits (tests/test_torch_mega.py,
@@ -21,6 +25,7 @@ are the libdevice functions the kernel calls.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +39,7 @@ from rt_tpu_torch.ops.mega_tables import (
     X_DIRECT,
     X_MTYPE,
     X_PARAM,
+    X_SLOT,
     X_V,
 )
 from rt_tpu_torch.scene.types import (
@@ -127,6 +133,23 @@ def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min):
     return torch.cat(t_parts), torch.cat(row_parts)
 
 
+class Bounce(NamedTuple):
+    """One bounce's new state and what its adjoint reads
+    (ops/adjoint_plain.py): the lane masks, the attenuation, the
+    winner's gradient slot and checker parity, and the throughput P
+    before the bounce (the radiance after it is state[C:C+3])."""
+
+    state: torch.Tensor      # [13, B] after the bounce
+    scattered: torch.Tensor  # [B] bool
+    emitter: torch.Tensor    # [B] bool: a light was hit
+    missed: torch.Tensor     # [B] bool: the sky was hit
+    is_die: torch.Tensor     # [B] bool: the winner is a dielectric
+    use2: torch.Tensor       # [B] bool: checker odd parity (albedo2)
+    slot: torch.Tensor       # [B] int64 gradient slot of the winner
+    att: tuple               # 3 x [B] attenuation (1 for a dielectric)
+    tp: tuple                # 3 x [B] throughput before the bounce
+
+
 def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
                     p_rr, grad_bg, bg):
     """Advance every lane of `state` [13, B] one bounce; returns the new
@@ -135,6 +158,14 @@ def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
     tab: the packed sphere table (ops/mega_tables.sphere_table).
     pixel, sample, bounce: per-lane RNG coordinates ([B] integer tensors
     or ints); seed an int. bg: the constant sky colour, 3 floats."""
+    return bounce_plain(tab, state, pixel, sample, bounce, seed,
+                        t_min=t_min, p_rr=p_rr, grad_bg=grad_bg,
+                        bg=bg).state
+
+
+def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
+                 grad_bg, bg) -> Bounce:
+    """do_bounce_plain with the intermediates its adjoint reads."""
     ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb, alive = state.unbind(0)
 
     live = alive > 0.0
@@ -253,6 +284,7 @@ def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
     cb = cb + tpb * (em_scale * alb_b + torch.where(missed, bgb, 0.0))
 
     comp = 1.0 / p_rr if p_rr > 0.0 else 1.0
+    tp_before = (tpr, tpg, tpb)
     tpr = torch.where(scattered, tpr * att_r * comp, tpr)
     tpg = torch.where(scattered, tpg * att_g * comp, tpg)
     tpb = torch.where(scattered, tpb * att_b * comp, tpb)
@@ -263,8 +295,20 @@ def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
     dy = torch.where(scattered, new_dy, dy)
     dz = torch.where(scattered, new_dz, dz)
     alive = scattered.to(torch.float32)
-    return torch.stack([ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb,
-                        alive])
+    out = torch.stack([ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb,
+                       alive])
+    return Bounce(state=out, scattered=scattered, emitter=emitter,
+                  missed=missed, is_die=is_die, use2=use2,
+                  slot=attrs[:, X_SLOT].long(), att=(att_r, att_g, att_b),
+                  tp=tp_before)
+
+
+def trace_options(tables, cfg) -> dict:
+    """The per-trace scalars of a segment, a queue launch and their
+    adjoints, from the scene and the configuration (exhaust_bg aside)."""
+    return dict(t_min=1e-3, p_rr=float(cfg.p_rr),
+                grad_bg=cfg.background_mode == "gradient",
+                bg=tables.mega.bg)
 
 
 def exhaust(state, lanes, bg, grad_bg: bool):

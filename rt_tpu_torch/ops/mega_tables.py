@@ -13,12 +13,17 @@ this table with rt_tpu's column by column:
   11..13 albedo2 (checker odd colour)
   14    image-texture id (-1: this slice has no image textures)
   15    |c|^2 - r^2       16 valid (1 live row, 0 pad)
+  17    gradient slot: the row of the adjoint accumulators that takes
+        this sphere's radiometric cotangents (the reference's column 31,
+        `_SLOT_COL` :140, `_slot_ids` :199): its texture row, or
+        n_tex + its material row when the material has no texture
 
-The columns only the TPU's MXU, UV, gradient-slot and tape-code paths
-read (17..31) are dropped. The kernels (csrc/bounce.cuh) and the plain
-versions (ops/mega_plain.py) read only this table, in the form of
-`MegaScene`: built once per scene (`SceneTables.mega`) and cut after the
-last live row, since the pad rows behind it never hit.
+The columns only the TPU's MXU, UV and tape-code paths read (the
+reference's 17..30) are dropped. The kernels (csrc/bounce.cuh) and the
+plain versions (ops/mega_plain.py, ops/adjoint_plain.py) read only this
+table, in the form of `MegaScene`: built once per scene
+(`SceneTables.mega`) and cut after the last live row, since the pad rows
+behind it never hit.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ X_ALB = 8
 X_ALB2 = 11
 X_IMG = 14
 S_C2R, S_VALID = 15, 16
-S_COLS = 17
+X_SLOT = 17
+S_COLS = 18
 
 SPH_CHUNK = 32   # the reference's sphere chunk (pallas_mega.py:68)
 
@@ -101,21 +107,41 @@ def sphere_table(tables: SceneTables) -> torch.Tensor:
     tab[:, X_IMG] = -1.0
     tab[:, S_C2R] = (c * c).sum(-1) - r * r
     tab[:, S_VALID] = (tables.sph_obj >= 0).to(torch.float32)
+    tab[:, X_SLOT] = slot_ids(tables, mat)
     return pad_chunked(tab)
+
+
+def slot_ids(tables: SceneTables, mat_ids) -> torch.Tensor:
+    """Per-sphere gradient-slot row (column X_SLOT), as float32."""
+    n_tex = tables.tex_color.shape[0]
+    tex = tables.mat_tex[mat_ids]
+    return torch.where(tex >= 0, tex.long(), n_tex + mat_ids.long()).to(
+        torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
 class MegaScene:
     """What the megakernels read of a scene: the packed table up to its
     last live sphere (live rows come first, build_tables pads behind
-    them), and the constant sky colour as host floats, which the
-    launchers pass by value."""
+    them), the constant sky colour as host floats, which the launchers
+    pass by value, and the sizes of the adjoint accumulators: n_slots =
+    n_tex + n_mat gradient slots, texture rows first (the reference pads
+    them to 128-lane slabs; the port needs no padding)."""
 
     table: torch.Tensor          # [n_spheres, S_COLS] f32
     bg: Tuple[float, float, float]
+    n_tex: int
+    n_mat: int
+
+    @property
+    def n_slots(self) -> int:
+        return self.n_tex + self.n_mat
 
     @classmethod
     def of(cls, tables: SceneTables) -> "MegaScene":
-        tab = sphere_table(tables)[:max(tables.n_spheres, 1)].contiguous()
+        tab = sphere_table(tables)[:max(tables.n_spheres, 1)]
         bg = tables.background.detach().to("cpu", torch.float32).tolist()
-        return cls(table=tab, bg=tuple(float(v) for v in bg))
+        return cls(table=tab.detach().contiguous(),
+                   bg=tuple(float(v) for v in bg),
+                   n_tex=int(tables.tex_color.shape[0]),
+                   n_mat=int(tables.mat_albedo.shape[0]))

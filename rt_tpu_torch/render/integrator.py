@@ -18,7 +18,7 @@ one host sync per bounce. engine="queue" / "mega": the persistent ray
 queue (ops/cuda_queue.py) or the segmented megakernel
 (ops/cuda_mega.py) trace whole paths per launch; as in the reference,
 only an empty scene falls back to "pallas".
-NEE / MIS / glossy light sampling are not ported yet (ROADMAP Queue A-4).
+NEE / MIS / glossy light sampling are not ported yet (ROADMAP Queue A-5).
 """
 
 from __future__ import annotations

@@ -123,3 +123,44 @@ def cornell_spheres_scene(width=400, height=400, spp=8, max_depth=8
     cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
                        max_depth=max_depth, p_rr=0.9)
     return s, cfg
+
+
+def random_spheres_scene(n_spheres=3000, n_materials=0, width=64,
+                         height=48, spp=1, max_depth=8, seed=3
+                         ) -> Tuple[SceneDef, RenderConfig]:
+    """n_spheres small random spheres over a checker ground, lit by a
+    light sphere and a constant sky: a table of any size for the
+    kernels' large-table path (bounce.cuh stages the first rows in
+    shared memory and reads the rest from global memory, ROADMAP C-7).
+    Materials (lambertian 70%, metal 20%, dielectric 10%) are one per
+    sphere, or n_materials shared at random. No counterpart in rt_tpu."""
+    rs = np.random.RandomState(seed)
+    s = SceneDef(width=width, height=height, samples_per_pixel=spp,
+                 max_depth=max_depth, background=(0.5, 0.6, 0.7))
+    s.add_sphere((0, -1000, 0), 1000,
+                 s.add_lambertian(s.add_checker((0.2, 0.3, 0.1),
+                                                (0.9, 0.9, 0.9))))
+    s.add_sphere((0, 6, -2), 2.0,
+                 s.add_diffuse_light_color((4.0, 3.6, 3.2)))
+
+    def material():
+        u = rs.rand()
+        if u < 0.7:
+            return s.add_lambertian_color(rs.uniform(0.1, 0.9, 3))
+        if u < 0.9:
+            return s.add_metal(rs.uniform(0.5, 1.0, 3), 0.5 * rs.rand())
+        return s.add_dielectric(1.5)
+
+    mats = [material() for _ in range(n_materials)]
+    side = max(1.0, np.sqrt(n_spheres) * 0.25)
+    for _ in range(n_spheres - 2):
+        center = (rs.uniform(-side, side), rs.uniform(0.05, 0.6),
+                  rs.uniform(-side, side))
+        m = mats[rs.randint(n_materials)] if mats else material()
+        s.add_sphere(center, rs.uniform(0.03, 0.12), m)
+    s.set_camera(lookfrom=(0.6 * side + 2, 2.5, 0.6 * side + 2),
+                 lookat=(0, 0, 0), vup=(0, 1, 0), vfov_deg=40.0,
+                 aperture=0.0)
+    cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                       max_depth=max_depth)
+    return s, cfg

@@ -8,7 +8,7 @@ packages' tables compare leaf by leaf (tests/test_torch_scene.py).
 
 This slice carries the sphere, material and texture (solid, checker)
 tables. Rects, cylinders, triangles, image textures and BVHs raise
-NotImplementedError until their slices (ROADMAP Queue A-2, B2(b,c)).
+NotImplementedError until their slices (ROADMAP Queue A-3, A-4, B2(b,c)).
 
 Material type ids: 0=lambertian, 1=metal, 2=dielectric, 3=diffuse_light.
 Texture type ids: 0=solid_color, 1=checker, 2=image.
@@ -254,7 +254,7 @@ def build_tables(s: SceneDef, device="cpu") -> SceneTables:
         if obj["type"] != "sphere":
             raise NotImplementedError(
                 f"object type {obj['type']!r}: only spheres are ported yet "
-                "(ROADMAP Queue A-2)")
+                "(ROADMAP Queue A-3)")
         sph.append((obj["center"], obj["radius"], obj["material"], idx))
 
     f32, i32 = np.float32, np.int32
@@ -310,7 +310,7 @@ def build_tables(s: SceneDef, device="cpu") -> SceneTables:
             tex_color2[i] = t["odd"]
         elif kind == "image":
             raise NotImplementedError(
-                "image textures are not ported yet (ROADMAP Queue B2(c))")
+                "image textures are not ported yet (ROADMAP Queue A-4, B2(c))")
         else:
             raise ValueError(f"unknown texture type: {kind}")
 

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from rt_tpu_torch.ops import cuda_intersect
+from rt_tpu_torch.ops import cuda_intersect, mega_tables
 from rt_tpu_torch.scene import builders, types
 
 
@@ -245,3 +245,199 @@ def test_mega_and_queue_wrappers_check_inputs_and_launches():
     cuda_queue.queue_launch(*args, **qkw)
     torch.cuda.synchronize()
     assert counters.tolist()[1] == 64
+
+
+# ---- the adjoint kernels B5 (mega_adjoint.cu) and B6 (queue_adjoint.cu)
+
+ADJ_FIELDS = ("tex_color", "tex_color2", "mat_albedo", "background")
+
+
+def _adj_sample(dev, w, h, depth, scene="cover", **over):
+    """Camera rays of sample 0 with their radiance (the queue kernel) and
+    a seeded loss cotangent."""
+    from rt_tpu_torch.ops import camera, cuda_queue
+
+    if scene == "cover":
+        sdef, cfg = builders.cover_scene(width=w, height=h, spp=1,
+                                         max_depth=depth)
+        # a bright constant sky (the cover scene's is black, and then
+        # every path carries zero radiance): read with the constant sky
+        sdef.background = (0.6, 0.7, 0.9)
+    else:
+        n, n_mat = scene
+        sdef, cfg = builders.random_spheres_scene(n, n_mat, width=w,
+                                                  height=h, max_depth=depth)
+    cfg = cfg.replace(compact_schedule=(2, 3, 5, 10), compact_group=16,
+                      **over)
+    tt = types.build_tables(sdef, device=dev)
+    pix = torch.arange(w * h, device=dev)
+    ro, rd = camera.generate_rays(tt.camera, w, h, pix % w, pix // w, 0, 0,
+                                  cfg.enable_defocus)
+    L = cuda_queue.queue_trace(tt, cfg, ro, rd, pix, 0, 0)
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1e-3, (w * h, 3)).astype(np.float32)).to(dev)
+    return tt, cfg, ro, rd, pix, L, g
+
+
+def _grads_close(want, got):
+    """Per field |a - b| <= 1e-5 + 1e-3 max|a|: float atomics sum in an
+    order that changes from run to run (the reference's tolerance between
+    its replay and its kernels, tests/test_diff.py:567)."""
+    for k in ADJ_FIELDS:
+        a, b = want[k].double(), got[k].double()
+        assert a.shape == b.shape, k
+        mag = max(float(a.abs().max()), 1e-12)
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 + 1e-3 * mag, (k, err, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,over", [
+    (1, {}), (50, {}), (50, {"background_mode": "constant"}),
+    (12, {"background_mode": "constant", "exhaust_mode": "background"})],
+    ids=["depth1", "depth50_sky", "depth50_constant", "exhaust"])
+def test_adjoint_kernels_match_plain(depth, over):
+    """B5 and B6 against the plain adjoint on the cover scene at 192x108
+    (the ground's checker routes cotangents to both colours), and B6
+    against B5; each kernel launched by its wrapper."""
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+
+    dev = _card()
+    tt, cfg, ro, rd, pix, L, g = _adj_sample(dev, 192, 108, depth, **over)
+    exhaust = cfg.exhaust_mode == "background"
+    args = (tt, cfg, ro, rd, pix, 0, 0, L, g, depth, exhaust)
+    m0 = cuda_mega.mega_adjoint_segment.launches
+    q0 = cuda_queue.queue_adjoint_launch.launches
+    st_m, st_q = {}, {}
+    k_m = cuda_mega.mega_trace_adjoint(*args, stats=st_m)
+    k_q = cuda_queue.queue_trace_adjoint(*args, stats=st_q, check_once=True)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_adjoint_segment.launches - m0 == st_m["launches"]
+    assert cuda_queue.queue_adjoint_launch.launches - q0 == st_q["launches"]
+    st_p = {}
+    plain = cuda_queue.queue_trace_adjoint(*args, plain=True, stats=st_p)
+    assert st_m["ray_bounces"] == st_q["ray_bounces"] == st_p["ray_bounces"]
+    _grads_close(plain, k_m)
+    _grads_close(plain, k_q)
+    _grads_close(k_m, k_q)
+    # a scattering hit takes g * (L - C_after) / att: nothing at depth 1,
+    # where no radiance follows it; the ground's odd checker colour later
+    assert (float(plain["tex_color2"].abs().max()) > 0.0) == (depth > 1)
+    sky = cfg.background_mode == "gradient"
+    assert (float(plain["background"].abs().max()) == 0.0) == sky
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 5])
+def test_queue_adjoint_small_pool_and_budgets(steps):
+    """B6 with a 2,048-lane pool (every thread refills several times) and
+    with a budget of 5 steps per launch (lanes saved and resumed): the
+    gradients of the full pool and of the plain version."""
+    from rt_tpu_torch.ops import cuda_queue
+
+    dev = _card()
+    tt, cfg, ro, rd, pix, L, g = _adj_sample(dev, 160, 90, 16,
+                                             background_mode="constant")
+    cfg = cfg.replace(queue_steps=steps)
+    args = (tt, cfg, ro, rd, pix, 0, 0, L, g, 16, False)
+    stats = {}
+    small = cuda_queue.queue_trace_adjoint(*args, pool_lanes=2048,
+                                           check_once=True, stats=stats)
+    assert (stats["launches"] > 1) == (steps > 0)
+    full = cuda_queue.queue_trace_adjoint(*args, check_once=True)
+    plain = cuda_queue.queue_trace_adjoint(*args, plain=True)
+    for got in (small, full):
+        _grads_close(plain, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_mat", [(3000, 64), (12000, 0)])
+def test_large_tables_match_plain(n, n_mat):
+    """ROADMAP C-7: tables past the 2,048 rows staged in shared memory
+    (the rest read from global memory) through B2, B3, B5 and B6 against
+    their plain versions. 3,000 rows with 64 shared materials keep the
+    adjoints' accumulators in shared memory; 12,000 rows with a material
+    each (32,768 slots) take the global variant."""
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+
+    dev = _card()
+    tt, cfg, ro, rd, pix, L, g = _adj_sample(dev, 64, 48, 6,
+                                             scene=(n, n_mat))
+    assert tt.mega.table.shape[0] == n
+    assert cuda_mega.acc_fits_smem(tt.mega.n_slots) == (n_mat > 0)
+    fwd = (tt, cfg, ro, rd, pix, 0, 0)
+    plain = cuda_mega.mega_trace(*fwd, plain=True)
+    assert torch.equal(cuda_mega.mega_trace(*fwd), plain)
+    assert torch.equal(cuda_queue.queue_trace(*fwd, check_once=True), plain)
+    adj = (*fwd, L, g, 6, False)
+    want = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+    _grads_close(want, cuda_mega.mega_trace_adjoint(*adj))
+    _grads_close(want, cuda_queue.queue_trace_adjoint(*adj, check_once=True))
+    # rows past the staged ones were hit: their slots took cotangents
+    flat = torch.cat([want["tex_color"], want["mat_albedo"]]).abs().sum(-1)
+    late = tt.mega.table[2048:, mega_tables.X_SLOT].long()
+    assert bool((flat[late] > 0).any())
+
+
+@pytest.mark.cuda
+def test_adjoint_wrappers_check_inputs():
+    from rt_tpu_torch.ops import cuda_mega, mega_plain
+
+    dev = _card()
+    tt = types.build_tables(builders.three_sphere_scene()[0], device=dev)
+    tab = tt.mega.table
+    ro, rd = (x.to(dev) for x in _rays(64, seed=10))
+    state = torch.cat([mega_plain.fresh_state(ro, rd),
+                       torch.zeros((6, 64), device=dev)])
+    pix = torch.arange(64, device=dev, dtype=torch.int32)
+    grad = torch.zeros((8, tt.mega.n_slots), device=dev)
+    kw = dict(bg=tt.mega.bg)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_mega.mega_adjoint_segment(tab, state[:13].contiguous(), pix, 0,
+                                       0, 0, 4, grad, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_mega.mega_adjoint_segment(tab, state, pix, 0, 0, 0, 4,
+                                       grad[:6].contiguous(), **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_mega.mega_adjoint_segment(tab.cpu(), state.cpu(), pix.cpu(), 0,
+                                       0, 0, 4, grad.cpu(), **kw)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_mega.mega_adjoint_segment(tab, state, pix, 0, 0, 0, 4, grad,
+                                       threads=2048, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["queue", "mega"])
+def test_replay_step_runs_the_adjoint_kernel(engine):
+    """One value-and-grad of make_replay_loss_fn on the card: the backward
+    launches the engine's adjoint kernel, and its gradients are the plain
+    adjoint's (bwd_kernel=False) within the tolerance."""
+    from rt_tpu_torch.diff.replay import make_replay_loss_fn
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+
+    dev = _card()
+    sdef, cfg = builders.cover_scene(width=96, height=54, spp=2,
+                                     max_depth=20)
+    cfg = cfg.replace(engine=engine, compact_schedule=(2, 3, 5, 10),
+                      compact_group=16)
+    tt = types.build_tables(sdef, device=dev)
+    pix = torch.arange(96 * 54, device=dev)
+    tgt = torch.rand((96 * 54, 3), generator=torch.Generator().manual_seed(0)
+                     ).to(dev)
+    counter = (cuda_queue.queue_adjoint_launch if engine == "queue"
+               else cuda_mega.mega_adjoint_segment)
+    grads = []
+    for bwd_kernel in (None, False):
+        params = {k: getattr(tt, k).clone().requires_grad_(True)
+                  for k in ("tex_color", "mat_albedo")}
+        before = counter.launches
+        loss = make_replay_loss_fn(tt, cfg, 2, pix % 96, pix // 96, tgt,
+                                   bwd_kernel=bwd_kernel)(params)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert (counter.launches > before) == (bwd_kernel is None)
+        grads.append({k: v.grad for k, v in params.items()})
+    for k in grads[0]:
+        a, b = grads[1][k].double(), grads[0][k].double()
+        mag = max(float(a.abs().max()), 1e-12)
+        assert float((a - b).abs().max()) <= 1e-5 + 1e-3 * mag, k

@@ -47,14 +47,16 @@ def _port_cfg(cj, **kw):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_sphere_table_matches_jax(name):
     """The packed table equals rt_tpu's sphere_table + _pad_chunked on
-    every kept column (0..16), bit for bit."""
+    every kept column (0..16, and the gradient slot, the reference's
+    column 31), bit for bit."""
     jt, _, tt = _scene(name, width=16, height=9, spp=1, max_depth=2)
     ref = np.asarray(jmega._pad_chunked(
         jmega.sphere_table(jax.tree.map(jnp.asarray, jt)), jmega.SPH_CHUNK))
     got = mega_tables.sphere_table(tt)
     assert got.dtype == torch.float32
     assert got.shape == (ref.shape[0], mega_tables.S_COLS)
-    np.testing.assert_array_equal(got.numpy(), ref[:, :mega_tables.S_COLS])
+    kept = list(range(mega_tables.X_SLOT)) + [jmega._SLOT_COL]
+    np.testing.assert_array_equal(got.numpy(), ref[:, kept])
     assert mega_tables.mega_supported(tt)
 
 
@@ -234,3 +236,26 @@ def test_mega_stats_and_segment_routes_cpu_to_plain():
     assert depth.tolist() == [1, 1, 0, 0]
     sky_up = torch.tensor([0.5, 0.7, 1.0])[:, None].expand(3, 2)
     assert torch.equal(out[mega_plain.C:mega_plain.C + 3, :2], sky_up)
+
+
+def test_mega_stats_count_every_segment():
+    """With a compaction schedule the group partition moves the bounce
+    counts with their lanes: mega's ray-bounces are the queue's and the
+    adjoint's on the same rays."""
+    from rt_tpu_torch.ops import adjoint_plain, camera, cuda_queue
+
+    _, cj, tt = _scene("cover_grid3", width=24, height=16, spp=1,
+                       max_depth=12)
+    cfg = _port_cfg(cj, engine="mega", compact_schedule=(2, 3),
+                    compact_group=4)
+    pix = torch.arange(24 * 16)
+    ro, rd = camera.generate_rays(tt.camera, 24, 16, pix % 24, pix // 24, 0,
+                                  0, cfg.enable_defocus)
+    st_m, st_q, st_a = {}, {}, {}
+    rgb = cuda_mega.mega_trace(tt, cfg, ro, rd, pix, 0, 0, stats=st_m)
+    cuda_queue.queue_trace(tt, cfg, ro, rd, pix, 0, 0, stats=st_q)
+    adjoint_plain.trace_adjoint_plain(tt, cfg, ro, rd, pix, 0, 0, rgb,
+                                      torch.ones_like(rgb), 12, False,
+                                      stats=st_a)
+    assert st_m["launches"] == 3
+    assert st_m["ray_bounces"] == st_q["ray_bounces"] == st_a["ray_bounces"]

@@ -18,7 +18,12 @@ shape, the reference's training step (one loss.backward() of the
 path-replay loss on cover_scene at 1920x1080, depth 50, spp 1, params
 tex_color and mat_albedo) on both engines, three fit steps whose loss
 must fall, and tables past the rows the kernels stage in shared memory
-(ROADMAP C-7). Each phase prints its
+(ROADMAP C-7). The winner tape follows: the capture kernel B4 against
+its plain version and the wavefront capture at 192x108 and at the main
+shape (2,073,600 lanes, depth 50), the reference's all-fields tape step
+at 1920x1080 (scripts/bench_tape_r3.py), the tape's radiometric
+gradients against the path replay's, three fit(method="tape") steps,
+and the geom_spec tangent replay on B4's tape. Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -36,6 +41,7 @@ import concurrent.futures
 import contextlib
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -207,6 +213,25 @@ def grads_close(want, got, label):
     return worst
 
 
+def capture_mismatch(kernel, plain, label):
+    """B4 against its plain version, each a (codes, death) pair: equal on
+    every lane and bounce, or raise. Returns the count of codes that
+    differ on lanes alive entering their bounce."""
+    (kc, kd), (pc, pd) = kernel, plain
+    live = torch.arange(pc.shape[0], device=pc.device)[:, None] \
+        <= pd[None, :]
+    bad_live = int(((kc != pc) & live).sum())
+    bad_all = int((kc != pc).sum())
+    bad_death = int((kd != pd).sum())
+    print(f"  {label}: {pc.shape[1]} lanes x {pc.shape[0]} bounces, "
+          f"{int(live.sum())} live codes; codes differing {bad_all} "
+          f"({bad_live} live), death counts differing {bad_death}",
+          flush=True)
+    if bad_all or bad_death:
+        raise AssertionError(f"{label}: B4 disagrees with its plain version")
+    return bad_live
+
+
 def counters():
     from rt_tpu_torch.ops import cuda_intersect, cuda_mega, cuda_queue
 
@@ -214,7 +239,8 @@ def counters():
             "mega_segment": cuda_mega.mega_segment,
             "queue_launch": cuda_queue.queue_launch,
             "mega_adjoint_segment": cuda_mega.mega_adjoint_segment,
-            "queue_adjoint_launch": cuda_queue.queue_adjoint_launch}
+            "queue_adjoint_launch": cuda_queue.queue_adjoint_launch,
+            "mega_capture": cuda_mega.mega_capture}
 
 
 def reset_counts():
@@ -268,7 +294,7 @@ def main() -> int:
     with phase("2 build"):
         # one nvcc per source, all started together
         kernels = ["sphere_hit", "mega", "queue", "mega_adjoint",
-                   "queue_adjoint"]
+                   "queue_adjoint", "capture"]
         for k in kernels:  # build from the checkout's sources
             cuda_build.library_path(k).unlink(missing_ok=True)
         t0 = time.time()
@@ -733,6 +759,7 @@ def main() -> int:
             raise AssertionError(f"the fit loss did not fall: "
                                  f"{hist + [final]}")
 
+    err_b4 = 0
     with phase("16 tables past the staged rows (ROADMAP C-7)"):
         for n, n_mat in ((3000, 64), (12000, 0)):
             s_r, c_r = random_spheres_scene(n, n_mat, width=128, height=96,
@@ -759,8 +786,267 @@ def main() -> int:
             err_b5 = max(err_b5, grads_close(
                 plain, cuda_mega.mega_trace_adjoint(*adj),
                 f"{label}: B5 vs plain"))
+            err_b4 += capture_mismatch(
+                cuda_mega.mega_capture(*fwd),
+                cuda_mega.mega_capture(*fwd, plain=True),
+                f"{label}: B4 vs plain")
 
-    print(f"[17 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    from profile_torch import tape_workload
+    from rt_tpu_torch.diff import tape
+    from rt_tpu_torch.diff.replay import make_replay_render
+    from rt_tpu_torch.ops import mega_plain
+    from rt_tpu_torch.render.integrator import RayState, _bounce
+
+    small = {}
+    with phase(f"17 B4 vs plain at {SMALL_W}x{SMALL_H} depth {DEPTH}"):
+        s_c, c_c = cover_scene(width=SMALL_W, height=SMALL_H, spp=1,
+                               max_depth=DEPTH)
+        s_k, c_k = cornell_spheres_scene(width=SMALL_W, height=SMALL_H,
+                                         spp=1, max_depth=DEPTH)
+        for label, sd, cb in (("cover_scene", s_c, c_c),
+                              ("cornell_spheres_scene p_rr 0.9", s_k,
+                               c_k.replace(p_rr=0.9))):
+            tb = build_tables(sd, device=dev)
+            pix = torch.arange(SMALL_W * SMALL_H, device=dev)
+            ro_, rd_ = generate_rays(tb.camera, SMALL_W, SMALL_H,
+                                     pix % SMALL_W, pix // SMALL_W, 0, 0,
+                                     cb.enable_defocus)
+            args = (tb, cb, ro_, rd_, pix, 0, 0)
+            got = cuda_mega.mega_capture(*args)
+            want = cuda_mega.mega_capture(*args, plain=True)
+            err_b4 += capture_mismatch(got, want, f"{label}: B4 vs plain")
+            small[label] = (tb, cb, args, got)
+
+    with phase(f"18 B4 vs the wavefront capture at {SMALL_W}x{SMALL_H}"):
+        # The wavefront capture traces the integrator's bounce
+        # (materials.shade: divisions, the unit ball pow(u, 1/3)), B4
+        # the megakernels' (multiplications by 1/a and 1/r, the unit ball
+        # exp(log(u)/3)): an ulp moves a path now and then, and from
+        # there its codes differ. Gate: >= 99% of lanes agree on every
+        # live code and on the death count (images_close's 1%).
+        for label, (tb, cb, args, (codes, death)) in small.items():
+            wave = tape.capture_tape(*args, engine="plain")
+            ro_, rd_, pix = args[2], args[3], args[4]
+            b = ro_.shape[0]
+            st = RayState(ro_, rd_, torch.ones((b, 3), device=dev),
+                          torch.zeros((b, 3), device=dev),
+                          torch.ones(b, dtype=torch.bool, device=dev))
+            alive_in, chain = [], torch.zeros(b, dtype=torch.int32,
+                                              device=dev)
+            for i in range(cb.max_depth):
+                alive_in.append(st.alive)
+                st = _bounce(tb, cb, st, pix, 0, 0, i)
+                chain += st.alive.to(torch.int32)
+            live = torch.stack(alive_in)
+            lane_bad = ((wave != codes) & live).any(0) | (chain != death)
+            share = 1.0 - float(lane_bad.float().mean())
+            print(f"  {label}: {int(((wave != codes) & live).sum())} of "
+                  f"{int(live.sum())} live codes differ, on "
+                  f"{int(((wave != codes) & live).any(0).sum())} lanes; "
+                  f"death differs from the integrator's alive chain on "
+                  f"{int((chain != death).sum())} of {b} lanes; "
+                  f"{share:.6f} of lanes agree on both", flush=True)
+            if share < 0.99:
+                raise AssertionError(f"{label}: B4 and the wavefront "
+                                     "capture disagree")
+
+    with phase(f"19 B4 vs plain and times at the main shape ({W * H} "
+               f"lanes, depth {DEPTH})"):
+        c1s = c1.replace(max_depth=DEPTH)
+        ro_, rd_ = generate_rays(t1.camera, W, H, px1 % W, px1 // W, 0, 0,
+                                 c1s.enable_defocus)
+        cap_args = (t1, c1s, ro_, rd_, px1, 0, 0)
+        ms_b4, got = cuda_ms(lambda: cuda_mega.mega_capture(*cap_args), 5)
+        pms_b4, want = cuda_ms(
+            lambda: cuda_mega.mega_capture(*cap_args, plain=True), 1)
+        err_b4 += capture_mismatch(got, want, "B4 vs plain")
+        death = got[1]
+        ran = torch.zeros(W * H, dtype=torch.int32, device=dev)
+        cuda_mega.mega_segment(t1.mega.table, mega_plain.fresh_state(ro_, rd_),
+                               px1.to(torch.int32), 0, 0, 0, DEPTH, depth=ran,
+                               **mega_plain.trace_options(t1, c1s))
+        want_ran = torch.where(death < DEPTH, death + 1, death)
+        if not torch.equal(ran, want_ran):
+            raise AssertionError(
+                f"B4's death counts and B2's bounce counts disagree on "
+                f"{int((ran != want_ran).sum())} lanes")
+        bounces = int(ran.sum())
+        rows_1 = t1.mega.table.shape[0]
+        ops = bounces * (SPHERE_OPS_PER_PAIR * rows_1 + SETUP_OPS)
+        nbytes = (W * H * (13 * 4 + 4)         # fresh state, pixel in
+                  + rows_1 * 18 * 4            # the packed table
+                  + (DEPTH + 1) * W * H * 4)   # codes, death out
+        b4_bound = max(ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        b4_by = ("operations" if ops / PEAK_FP32_OPS
+                 >= nbytes / PEAK_HBM_BYTES else "bytes")
+        print(f"  death consistent with B2's per-lane bounce counts on all "
+              f"{W * H} lanes ({bounces} ray-bounces); mega_capture "
+              f"{ms_b4:.4f} ms, plain {pms_b4:.4f} ms, bound "
+              f"{b4_bound:.4f} ms ({b4_by}: {ops:.4g} ops, {nbytes:.4g} "
+              f"bytes; {b4_bound / ms_b4:.1%} of the bound); {smi}",
+              flush=True)
+        rows["mega_capture"] = dict(ms=ms_b4, plain_ms=pms_b4,
+                                    bound_ms=b4_bound, bound_by=b4_by)
+
+    with phase(f"20 tape step: cover_scene {W}x{H} depth {DEPTH} spp 1, "
+               "all fields (scripts/bench_tape_r3.py)"):
+        t_tp, c_tp, p_tp, tgt_tp = tape_workload(W, H, DEPTH, dev)
+        pix = torch.arange(W * H, device=dev)
+        vg = tape.make_tape_vg(t_tp, c_tp, pix % W, pix // W, tgt_tp)
+        vg(p_tp)  # the first step in this process: allocator, kernels
+        times = {}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, grads = vg(p_tp, times=times)
+        torch.cuda.synchronize()
+        step_s = time.time() - t0
+        tape_counts = read_counts()
+        print(f"  loss {float(loss):.6f}: capture "
+              f"{times['capture_s'] * 1e3:.2f} ms, replay forward "
+              f"{times['forward_s']:.4f} s, backward "
+              f"{times['backward_s']:.4f} s, step {step_s:.4f} s; widths "
+              f"{times['widths']}; launches {tape_counts}; {smi}",
+              flush=True)
+        if tape_counts["mega_capture"] != 1:
+            raise AssertionError(f"the tape step launched B4 "
+                                 f"{tape_counts['mega_capture']} times")
+        for k, g in grads.items():
+            mx = float(g.abs().max())
+            print(f"  max |g| {k}: {mx:.6g}", flush=True)
+            if not bool(torch.isfinite(g).all()) or not mx > 0.0:
+                raise AssertionError(f"tape step: bad gradient {k}")
+
+    with phase(f"21 tape vs path replay (B6), radiometric, "
+               f"{SMALL_W}x{SMALL_H} exact"):
+        # The tape replays the integrator's bounce, the replay the
+        # megakernels'; their paths part on a few lanes (phase 18), and a
+        # small sphere's material row takes few lanes, so a parted lane
+        # moves it by more than the reference's 1e-5 + 1e-3 max|g|:
+        # held within 1e-5 + 3e-2 max|g| per field.
+        t_s, c_s, _, tgt_s = tape_workload(SMALL_W, SMALL_H, DEPTH, dev)
+        pix = torch.arange(SMALL_W * SMALL_H, device=dev)
+        fields = ("tex_color", "mat_albedo")
+        out = {}
+        for name in ("tape", "replay"):
+            p = {k: getattr(t_s, k).clone().requires_grad_(True)
+                 for k in fields}
+            if name == "tape":
+                fn = tape.make_tape_loss_fn(t_s, c_s, 1, pix % SMALL_W,
+                                            pix // SMALL_W, tgt_s)
+            else:
+                fn = make_replay_loss_fn(t_s, c_s.replace(engine="queue"), 1,
+                                         pix % SMALL_W, pix // SMALL_W,
+                                         tgt_s)
+            fn(p).backward()
+            out[name] = {k: v.grad.double() for k, v in p.items()}
+        for k in fields:
+            a, b = out["replay"][k], out["tape"][k]
+            mag = float(a.abs().max())
+            err = float((a - b).abs().max())
+            print(f"  {k}: max abs diff {err:.4g}, max |g| {mag:.4g}: "
+                  f"{err / (1e-5 + 1e-3 * mag):.4f} of the reference's "
+                  f"tolerance, {err / (1e-5 + 3e-2 * mag):.4f} of this "
+                  "one", flush=True)
+            if not err <= 1e-5 + 3e-2 * mag:
+                raise AssertionError(f"tape and replay disagree on {k}")
+
+    with phase(f"22 fit(method='tape', steps=3) at {W}x{H} depth {DEPTH} "
+               "spp 1"):
+        target = render(t1, c1.replace(engine="queue"), device="cuda") \
+            .cpu().numpy()
+        rs = np.random.default_rng(9)
+        init = {k: getattr(t1, k) * torch.from_numpy(rs.uniform(
+                    0.6, 1.4, tuple(getattr(t1, k).shape)).astype(
+                    np.float32)).to(dev)
+                for k in ("tex_color", "mat_albedo")}
+        t0 = time.time()
+        got, hist = fit(t1, c1, target, spp=1, steps=3, learning_rate=0.02,
+                        init_params=init, method="tape", device="cuda")
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        with torch.no_grad():
+            final = float(tape.make_tape_loss_fn(
+                t1, c1, 1, px1 % W, px1 // W,
+                torch.from_numpy(target.reshape(-1, 3)).to(dev))(
+                {k: torch.from_numpy(v).to(dev) for k, v in got.items()}))
+        loss_seq = hist + [final]
+        print(f"  loss at steps 0-3: {loss_seq} ({fit_s:.3f} s for 3 "
+              "steps)", flush=True)
+        if not all(a > b for a, b in zip(loss_seq, loss_seq[1:])):
+            raise AssertionError(f"the tape fit's loss did not fall at "
+                                 f"every step: {loss_seq}")
+
+    with phase(f"23 geom_spec on B4's tape at {SMALL_W}x{SMALL_H}, then "
+               f"{W}x{H}"):
+        def geom_spec_of(tb):
+            n = tb.n_spheres  # the heroes: glass n-3, metal n-1
+            return {"sph_radius": [(n - 1,), (n - 3,)],
+                    "mat_fuzz": [(int(tb.sph_mat[n - 1]),)],
+                    "mat_ior": [(int(tb.sph_mat[n - 3]),)]}
+
+        spec = geom_spec_of(t_s)
+        params = {k: getattr(t_s, k) for k in spec}
+        pix = torch.arange(SMALL_W * SMALL_H, device=dev)
+        lanes = {}
+        for geom_tape in (True, False):
+            plan = make_replay_render(t_s, c_s.replace(engine="queue"), 1,
+                                      pix % SMALL_W, pix // SMALL_W,
+                                      geom_spec=spec, geom_tape=geom_tape)
+            img, _ = plan.forward(plan.base, 0)
+            g = 2.0 * (img - tgt_s) / img.numel()   # the MSE's cotangent
+            before = cuda_mega.mega_capture.launches
+            tC = plan.tangents(params, 0)
+            if (cuda_mega.mega_capture.launches > before) != geom_tape:
+                raise AssertionError("geom_tape=True did not run B4")
+            lanes[geom_tape] = torch.einsum("bc,kbc->kb", g, tC)
+        # The two forms differ in the last bits of t (the leaf test's
+        # oc = o - c against the full intersect's expanded quadratic);
+        # near a grazing hit or total internal reflection a lane's
+        # tangent is huge and moves far for that, and the sums are
+        # dominated by such lanes (rt_tpu's own two forms differ by the
+        # same, PERF.md). Gate: per lane within the reference's 4e-2 |a|
+        # (plus 1e-6 of the largest lane) on >= 90% of the lanes that
+        # carry a tangent.
+        a, b = lanes[False], lanes[True]
+        agree = (a - b).abs() <= 1e-6 * a.abs().max(1, keepdim=True).values \
+            + 4e-2 * a.abs()
+        carry = (a != 0) | (b != 0)
+        names = [f"{f}{idx}" for f, idxs in sorted(spec.items())
+                 for idx in idxs]
+        for k, name in enumerate(names):
+            share = float(agree[k][carry[k]].float().mean())
+            print(f"  {name}: sum over lanes, tape {float(b[k].sum()):.6g}, "
+                  f"full intersect {float(a[k].sum()):.6g}; "
+                  f"{int(carry[k].sum())} lanes carry a tangent, "
+                  f"{share:.4f} of them agree", flush=True)
+            if share < 0.9:
+                raise AssertionError(f"geom_tape: {name} disagrees with the "
+                                     "full intersect")
+        t_g, c_g, _, tgt_g = tape_workload(W, H, DEPTH, dev)
+        spec = geom_spec_of(t_g)
+        p = {k: getattr(t_g, k).clone().requires_grad_(True) for k in spec}
+        fn = make_replay_loss_fn(t_g, c_g.replace(engine="queue"), 1,
+                                 px1 % W, px1 // W, tgt_g, geom_spec=spec)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss = fn(p)
+        loss.backward()
+        torch.cuda.synchronize()
+        geom_s = time.time() - t0
+        counts = read_counts()
+        got = {f: [float(p[f].grad[i]) for i in idxs]
+               for f, idxs in spec.items()}
+        print(f"  {W}x{H}: loss {float(loss.detach()):.6f}, step "
+              f"{geom_s:.4f} s, launches {counts}; gradients {got}; {smi}",
+              flush=True)
+        if counts["mega_capture"] != 1 or counts["queue_launch"] <= 0:
+            raise AssertionError(f"the geom_spec step launched {counts}")
+        if not all(math.isfinite(v) for vs in got.values() for v in vs):
+            raise AssertionError(f"geom_spec: bad gradients {got}")
+
+    print(f"[24 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -808,6 +1094,15 @@ def main() -> int:
         "launches": train[("queue", TRAIN_BWD_DEPTH)]["launches"],
         "max_abs_err": err_b6,
         **rows["queue_adjoint_launch"],
+        "library_ms": None,
+    }, {
+        "name": "mega_capture",
+        "route": "cuda",
+        "source": "rt_tpu_torch/csrc/capture.cu",
+        "replaces": "rt_tpu/ops/pallas_mega.py:1978",
+        "launches": tape_counts["mega_capture"],
+        "max_abs_err": err_b4,
+        **rows["mega_capture"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,14 +4,22 @@ device time.
 
     python3 profile_torch.py [--width 1920] [--height 1080] [--spp 1]
                              [--depth 50] [--engine queue] [--top 25]
-                             [--train [--bwd-depth 8]]
+                             [--train [--bwd-depth 8] |
+                              --tape [--gather index_select|index]]
 
 Renders cover_scene once untimed (build, warm-up), then once under
 torch.profiler on one CUDA GPU; with --train, the same for one
 loss.backward() of the path-replay loss (diff/replay.py; params
 tex_color and mat_albedo, a seeded random target, the replay truncated
 at --bwd-depth, 0 = exact), the reference's training step
-(scripts/bench_grad_queue_r5.py). It prints: wall seconds, the summed
+(scripts/bench_grad_queue_r5.py); with --tape, one step of the winner
+tape (diff/tape.make_tape_vg: the capture kernel B4, then the
+death-sorted replay under autograd) on the reference's all-fields
+workload (scripts/bench_tape_r3.py, `tape_workload`); --gather index
+runs that step with the parameter tables indexed per lane by `table[row]`
+in place of ops/geometry.take_rows (index_select), the A/B of their
+backward passes. It prints: wall
+seconds, the summed
 device time of all kernels and its share of the wall time (the rest is
 the device waiting on the host), the ops and kernels by device time,
 and one JSON line with the totals. Engines "queue" and "mega" render at
@@ -36,6 +44,39 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
+TAPE_FIELDS = ("sph_center", "sph_radius", "tex_color", "mat_albedo",
+               "mat_fuzz", "mat_ior")
+
+
+def tape_workload(width: int, height: int, depth: int, device):
+    """The reference's all-fields tape step (scripts/bench_tape_r3.py):
+    cover_scene at width x height, depth, spp 1, gradient sky; params
+    TAPE_FIELDS with the live spheres' centres moved by N(0, 0.01) from
+    RandomState(3); the target an spp-8 render on the queue engine over
+    8. Returns (tables, cfg, params, target [H*W, 3])."""
+    import numpy as np
+
+    from rt_tpu_torch.render.renderer import render
+    from rt_tpu_torch.scene.builders import cover_scene
+    from rt_tpu_torch.scene.types import build_tables
+
+    sdef, cfg = cover_scene(width=width, height=height, spp=1,
+                            max_depth=depth)
+    cfg = cfg.replace(background_mode="gradient")
+    tables = build_tables(sdef, device=device)
+    target = render(tables, cfg.replace(samples_per_pixel=8, engine="queue",
+                                        rays_per_batch=1 << 25),
+                    device=device) / 8.0
+    rs = np.random.RandomState(3)
+    real = (tables.sph_obj >= 0).cpu().numpy()
+    move = np.where(real[:, None],
+                    rs.normal(0, 0.01, tuple(tables.sph_center.shape)), 0.0)
+    params = {k: getattr(tables, k).clone() for k in TAPE_FIELDS}
+    params["sph_center"] = params["sph_center"] + torch.from_numpy(
+        move.astype(np.float32)).to(device)
+    return tables, cfg, params, target.reshape(-1, 3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--width", type=int, default=1920)
@@ -47,6 +88,9 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--bwd-depth", type=int, default=8)
+    ap.add_argument("--tape", action="store_true")
+    ap.add_argument("--gather", default="index_select",
+                    choices=["index_select", "index"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA GPU")
@@ -68,7 +112,23 @@ def main() -> int:
         cfg = cfg.replace(engine=args.engine, rays_per_batch=1 << 21)
     tables = build_tables(sdef, device="cuda")
     stats = {}
-    if args.train:
+    if args.tape:
+        from rt_tpu_torch.diff.tape import make_tape_vg
+        from rt_tpu_torch.ops import geometry
+
+        if args.gather == "index":
+            geometry.take_rows = lambda table, idx: table[idx]
+
+        tables, cfg, params, tgt = tape_workload(args.width, args.height,
+                                                 args.depth, "cuda")
+        pix = torch.arange(args.width * args.height, device="cuda")
+        vg = make_tape_vg(tables, cfg, pix % args.width, pix // args.width,
+                          tgt)
+
+        def run():
+            stats.clear()
+            vg(params, times=stats)
+    elif args.train:
         from rt_tpu_torch.diff.replay import make_replay_loss_fn
 
         pix = torch.arange(args.width * args.height, device="cuda")
@@ -101,7 +161,8 @@ def main() -> int:
     device_us = sum(_device_us(e) for e in rows if e.device_type == cuda)
     ops = [e for e in rows if e.device_type != cuda and _device_us(e) > 0]
     kernels = [e for e in rows if e.device_type == cuda]
-    what = (f"training step (bwd_depth {args.bwd_depth or 'exact'})"
+    what = (f"tape step (gather {args.gather})" if args.tape else
+            f"training step (bwd_depth {args.bwd_depth or 'exact'})"
             if args.train else "render")
     print(f"{card}; cover_scene {args.width}x{args.height} spp {args.spp} "
           f"depth {args.depth} engine {args.engine}, {what}: wall "
@@ -115,7 +176,8 @@ def main() -> int:
             print(f"{e.key[:48]:<48} {us / 1e3:>10.3f} "
                   f"{us / device_us:>7.1%} {e.count:>7}")
     print(json.dumps({"card": card, "engine": args.engine,
-                      "train": args.train, "wall_s": wall,
+                      "train": args.train, "tape": args.tape,
+                      "gather": args.gather, "wall_s": wall,
                       "device_busy_s": device_us / 1e6, **stats}))
     return 0
 

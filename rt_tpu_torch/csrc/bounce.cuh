@@ -1,6 +1,6 @@
 // One bounce of one lane: the body shared by the megakernel (mega.cu),
-// the persistent ray queue (queue.cu) and their adjoints
-// (mega_adjoint.cu, queue_adjoint.cu).
+// the persistent ray queue (queue.cu), their adjoints
+// (mega_adjoint.cu, queue_adjoint.cu) and the tape capture (capture.cu).
 //
 // Replaces: rt_tpu/ops/pallas_mega.py `do_bounce` (:1011-1896) of
 // `_make_do_bounce`, restricted to this slice: Russian roulette
@@ -287,13 +287,24 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 // kStageRows rows) compiles the loop over the rows in global memory:
 // its mere presence slowed the megakernel by 9% on tables that do not
 // need it (PERF.md, PR 6), so the kernels instantiate both and the
-// launchers choose (has_tail).
-template <bool kAdjoint, bool kTail>
+// launchers choose (has_tail). kCapture (the tape capture, capture.cu)
+// also reports the winner's row in *code, or -1 on a miss: it runs the
+// hit pass before it applies the roulette, so that a lane the roulette
+// stops still records this bounce's winner, as the reference's kernel
+// does (it evaluates the hit on every lane). Without kCapture the
+// roulette returns first and the code is as it was before the flag.
+template <bool kAdjoint, bool kTail, bool kCapture = false>
 __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
-                                          uint32_t pre, const Adj& adj) {
+                                          uint32_t pre, const Adj& adj,
+                                          int* code = nullptr) {
+  bool rr_stop = false;
   if (s.p_rr > 0.0f && !(uniform(pre, kRR) <= s.p_rr)) {
-    L.alive = 0.0f;  // roulette: the lane stops and adds nothing
-    return;
+    if constexpr (!kCapture) {
+      L.alive = 0.0f;  // roulette: the lane stops and adds nothing
+      return;
+    } else {
+      rr_stop = true;
+    }
   }
   const float ox = L.ox, oy = L.oy, oz = L.oz;
   const float dx = L.dx, dy = L.dy, dz = L.dz;
@@ -315,6 +326,14 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
                           __ldg(r + kV + 2), __ldg(r + kC2r)),
               r + kValid, j, ox, oy, oz, dx, dy, dz, a, rd_dot_ro, ro_sq,
               inv_a, s.t_min, t_best, id_best);
+    }
+  }
+
+  if constexpr (kCapture) {
+    *code = t_best < CUDART_INF_F ? id_best : -1;
+    if (rr_stop) {
+      L.alive = 0.0f;
+      return;
     }
   }
 

@@ -8,16 +8,20 @@ so every step builds new tables and their packed form
 its coordinates (ops/rng.py), so sampling is detached: gradients flow
 through the radiometric terms only, as in the reference.
 
-Two estimators of this slice:
+The estimators of the port:
 
   "ad"     — autograd through the plain wavefront engine
              (`engine="plain"`, the reference's scan-AD route `_diff_cfg`);
              O(B * depth) memory; the tests' ground truth.
   "replay" — the path-replay backward (diff/replay.py): the forward on
              cfg.engine, the backward on its adjoint kernel (B6 for
-             "queue", B5 for "mega"), O(B) memory.
+             "queue", B5 for "mega"), O(B) memory; geometry, fuzz and IOR
+             components by the forward-mode tangent replay (geom_spec).
+  "tape"   — the winner tape (diff/tape.py): capture each bounce's
+             winner on kernel B4, then autograd through a replay against
+             the known winners, every continuous field in one backward.
 
-"tape" (B4) and the FD / camera / hybrid estimators are not ported yet.
+The FD / camera / hybrid estimators are not ported yet (ROADMAP A-1(d)).
 """
 
 from __future__ import annotations
@@ -29,10 +33,12 @@ import numpy as np
 import torch
 
 from rt_tpu_torch.config import RenderConfig, resolve_device
+from rt_tpu_torch.ops.mega_tables import mega_supported
 from rt_tpu_torch.render.renderer import render_block
-from rt_tpu_torch.scene.types import SceneTables
+from rt_tpu_torch.scene.types import CameraDef, SceneTables
 
-# Differentiable table fields (the reference's PARAM_FIELDS :42)
+# Differentiable table fields (the reference's PARAM_FIELDS :42); the
+# tape also takes "camera" (diff/tape.TAPE_FIELDS)
 PARAM_FIELDS = (
     "mat_albedo", "mat_fuzz", "mat_ior",
     "tex_color", "tex_color2",
@@ -45,6 +51,23 @@ def extract_params(tables: SceneTables,
                    fields: Sequence[str] = PARAM_FIELDS
                    ) -> Dict[str, torch.Tensor]:
     return {f: getattr(tables, f) for f in fields}
+
+
+def _trainable(v, dev):
+    """A parameter value as a float32 leaf on dev that requires grad; a
+    CameraDef (the "camera" parameter) field by field."""
+    if isinstance(v, CameraDef):
+        return CameraDef(**{f.name: _trainable(getattr(v, f.name), dev)
+                            for f in dataclasses.fields(v)})
+    return (torch.as_tensor(v).to(device=dev, dtype=torch.float32)
+            .detach().clone().requires_grad_(True))
+
+
+def _to_numpy(v):
+    if isinstance(v, CameraDef):
+        return CameraDef(**{f.name: _to_numpy(getattr(v, f.name))
+                            for f in dataclasses.fields(v)})
+    return v.detach().cpu().numpy()
 
 
 def apply_params(tables: SceneTables,
@@ -112,28 +135,32 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
     (torch.optim.Adam; optax.adam's defaults), on `device` (CUDA unless
     the caller passes "cpu").
 
-    method: "ad" (autograd through the plain engine) or "replay" (the
+    method: "ad" (autograd through the plain engine), "replay" (the
     path-replay backward on cfg.engine's adjoint kernel, diff/replay.py;
-    bwd_depth truncates its replay). resample=True moves the sample
-    window every step (SGD over fresh samples); else every step renders
-    the same samples.
+    bwd_depth truncates its replay; geom_spec selects geometry / fuzz /
+    IOR components for its tangent replay) or "tape" (the winner tape,
+    diff/tape.py: make_tape_vg, whose capture is kernel B4 on the card,
+    for a megakernel scene, else make_tape_loss_fn; "camera" may then be
+    a parameter, a CameraDef). resample=True moves the sample window
+    every step (SGD over fresh samples); else every step renders the
+    same samples.
 
-    Returns (recovered params as NumPy arrays, per-step loss history)."""
-    if method == "tape":
-        raise NotImplementedError(
-            "method='tape': the winner-tape estimator and its capture "
-            "kernel are not ported yet (ROADMAP Queue A-1, B4)")
-    if method not in ("ad", "replay"):
+    Returns (recovered params as NumPy arrays, a CameraDef of them for
+    "camera", and the per-step loss history)."""
+    if method not in ("ad", "replay", "tape"):
         raise ValueError(f"method must be 'ad', 'replay' or 'tape'; got "
                          f"{method!r}")
     dev = resolve_device(device)
     tables = tables.to(dev)
     params = (dict(init_params) if init_params is not None
               else extract_params(tables, fields))
-    params = {k: torch.as_tensor(v).to(device=dev, dtype=torch.float32)
-              .detach().clone().requires_grad_(True)
-              for k, v in params.items()}
-    optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate)
+    params = {k: _trainable(v, dev) for k, v in params.items()}
+    from rt_tpu_torch.diff import tape  # tape.py imports this module
+
+    if method == "tape":
+        tape.check_fields(params)
+    leaves = tape.leaves_of(params)
+    optimizer = torch.optim.Adam(leaves, lr=learning_rate)
 
     n_pix = cfg.width * cfg.height
     pix = torch.arange(n_pix, device=dev)
@@ -141,7 +168,27 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
     tgt = torch.as_tensor(np.asarray(target_image, np.float32)).reshape(
         -1, 3).to(dev)
 
-    if method == "replay":
+    if method == "tape" and mega_supported(tables):
+        # the fast step: one B4 capture, the death-sorted replay
+        vg = tape.make_tape_vg(tables, cfg, px, py, tgt, spp=spp)
+
+        def step(s0):
+            optimizer.zero_grad()
+            loss, grads = vg(params, s0)
+            for x, g in zip(leaves, tape.leaves_of(grads)):
+                x.grad = g
+            optimizer.step()
+            return float(loss)
+    elif method == "tape":
+        tape_loss = tape.make_tape_loss_fn(tables, cfg, spp, px, py, tgt)
+
+        def step(s0):
+            optimizer.zero_grad()
+            loss = tape_loss(params, s0)
+            loss.backward()
+            optimizer.step()
+            return float(loss.detach())
+    elif method == "replay":
         from rt_tpu_torch.diff.replay import make_replay_loss_fn
 
         replay_loss = make_replay_loss_fn(tables, cfg, spp, px, py, tgt,
@@ -163,5 +210,4 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
             return train(params, px, py, tgt, s0)
 
     history = [step(k * spp if resample else 0) for k in range(steps)]
-    return ({k: v.detach().cpu().numpy() for k, v in params.items()},
-            history)
+    return {k: _to_numpy(v) for k, v in params.items()}, history

@@ -19,23 +19,38 @@ the plain adjoint (ops/adjoint_plain.py). All of them replay with the
 megakernels' bounce (ops/mega_plain.py), whose bits are the queue and
 mega forwards' own.
 
+Parameters that act through the hit geometry or the scattered direction
+(GEOM_FIELDS: sphere centres and radii, metal fuzz, dielectric IOR) have
+no such identity. For the components a caller selects (`geom_spec`), a
+forward-mode TANGENT replay re-simulates each path and pushes K one-hot
+parameter directions through every bounce with `torch.func.jvp`, mapped
+over the K directions by `torch.func.vmap` (the primal runs once). The
+bounce's hit is recomputed against the winner taped by the capture
+kernel B4 (diff/tape.py, geom_tape=True: O(1) per lane), or by the full
+plain intersect (geom_tape=False). The discrete decisions are
+comparisons, so they carry no tangent: sampling stays detached.
+
 Scope of this slice: REPLAY_FIELDS but "images" (tex_color, tex_color2,
-mat_albedo, background), spheres with solid / checker textures, no NEE,
-sampler "rng". The forward-mode tangent replay of GEOM_FIELDS
-(geom_spec) and the image atlas raise NotImplementedError.
+mat_albedo, background) and GEOM_FIELDS by geom_spec, spheres with solid
+/ checker textures, no NEE, sampler "rng". The image atlas raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from rt_tpu_torch.config import RenderConfig, check_supported
 from rt_tpu_torch.diff.inverse import apply_params
+from rt_tpu_torch.diff.tape import _attributes_for_tape, capture_tape
 from rt_tpu_torch.ops import adjoint_plain, cuda_mega, cuda_queue
+from rt_tpu_torch.ops import materials, rng
 from rt_tpu_torch.ops.camera import generate_rays
-from rt_tpu_torch.render.integrator import trace
+from rt_tpu_torch.ops.intersect import intersect
+from rt_tpu_torch.ops.mega_tables import mega_supported
+from rt_tpu_torch.render.integrator import background_color, trace
 from rt_tpu_torch.scene.types import SceneTables
 
 REPLAY_FIELDS = ("mat_albedo", "tex_color", "tex_color2", "background",
@@ -70,7 +85,8 @@ class ReplayRender:
 
     def __init__(self, tables: SceneTables, cfg: RenderConfig, spp: int,
                  px, py, bwd_depth: Optional[int] = None,
-                 bwd_kernel: Optional[bool] = None):
+                 bwd_kernel: Optional[bool] = None, geom_spec=None,
+                 geom_tape: Optional[bool] = None):
         check_supported(cfg)
         self.base = tables
         self.cfg = cfg
@@ -88,6 +104,10 @@ class ReplayRender:
                             and self.depth_bwd == cfg.max_depth)
         self.adjoint = _adjoint(cfg, bwd_kernel)
         self.store_L = self.spp * self.px.shape[0] * 3 <= STORE_L_MAX
+        self.geom_spec = dict(geom_spec or {})
+        self.geom_flat = _geom_components(tables, self.geom_spec)
+        self.geom_tape = (dev.type == "cuda" and mega_supported(tables)
+                          if geom_tape is None else bool(geom_tape))
 
     def rays(self, tbl, sample):
         return generate_rays(tbl.camera, self.cfg.width, self.cfg.height,
@@ -124,9 +144,95 @@ class ReplayRender:
                 k: grads[k] + gk[k] for k in grads}
         return grads
 
+    def geom_backward(self, params, s0: int, g):
+        """d(g . img)/d(direction k) [K] for each geom_spec component,
+        summed over the samples by the tangent replay."""
+        gs = (g / float(self.spp)).to(torch.float32)
+        dirs = torch.zeros(len(self.geom_flat), dtype=torch.float32,
+                           device=gs.device)
+        for i in range(self.spp):
+            tC = self.tangents(params, s0 + i)
+            dirs = dirs + torch.einsum("bc,kbc->k", gs, tC)
+        return dirs
+
+    def tangents(self, params: Dict[str, torch.Tensor], sample: int):
+        """The radiance tangents [K, B, 3] of one sample's lanes along the
+        K geom_spec directions, at the parameters `params` (a dict that
+        holds every geom_spec field): the tangent replay of the module
+        doc. Its loop stops when no lane is alive; the bounces after
+        that would change nothing."""
+        cfg, base = self.cfg, self.base
+        params = {k: v.detach() for k, v in params.items()}
+        tbl = apply_params(base, params)
+        k = len(self.geom_flat)
+        tans = {f: torch.zeros((k,) + tuple(v.shape), dtype=torch.float32,
+                               device=v.device) for f, v in params.items()}
+        for j, (f, idx) in enumerate(self.geom_flat):
+            tans[f][(j,) + idx] = 1.0
+        s = int(sample)
+        pixel, seed = self.pixel, self.seed
+        ro, rd = self.rays(tbl, s)
+        if self.geom_tape:
+            codes = capture_tape(tbl, cfg, ro, rd, pixel, s, seed)
+        rr_comp = 1.0 / cfg.p_rr if cfg.p_rr > 0.0 else 1.0
+        b = ro.shape[0]
+        o, d = ro, rd
+        P = torch.ones((b, 3), dtype=torch.float32, device=ro.device)
+        C = torch.zeros_like(P)
+        alive = torch.ones(b, dtype=torch.bool, device=ro.device)
+        to, td, tP, tC = (torch.zeros((k, b, 3), dtype=torch.float32,
+                                      device=ro.device) for _ in range(4))
+        for i in range(self.depth_bwd):
+            if not bool(alive.any()):
+                break
+            survive = torch.ones_like(alive)
+            if cfg.p_rr > 0.0:
+                survive = rng.uniform(seed, pixel, s, i, rng.RR) <= cfg.p_rr
+            live = alive & survive
+            ball = rng.in_unit_ball(seed, pixel, s, i)
+            refl_u = rng.uniform(seed, pixel, s, i, rng.DIEL_REFL)
+            code = codes[i] if self.geom_tape else None
+
+            def f(o, d, P, C, pp, code=code, live=live, ball=ball,
+                  refl_u=refl_u):
+                t2 = apply_params(base, pp)
+                hit = (_attributes_for_tape(t2, o, d, code) if code is not None
+                       else intersect(t2, o, d, engine="plain"))
+                sc, em = materials.shade(t2, hit.mat, d, hit.normal,
+                                         hit.front_face, hit.u, hit.v,
+                                         hit.p, ball, refl_u)
+                bg = background_color(t2, cfg, d)
+                scattered = live & hit.hit & sc.ok
+                emitter = live & hit.hit & ~sc.ok
+                missed = live & ~hit.hit
+                contrib = (torch.where((scattered | emitter)[:, None], em,
+                                       0.0)
+                           + torch.where(missed[:, None], bg, 0.0))
+                C2 = C + P * contrib
+                P2 = torch.where(scattered[:, None],
+                                 P * sc.attenuation * rr_comp, P)
+                o2 = torch.where(scattered[:, None], hit.p, o)
+                d2 = torch.where(scattered[:, None], sc.direction, d)
+                return o2, d2, P2, C2, scattered.to(torch.float32)
+
+            (o, d, P, C, sc_f), (to, td, tP, tC, _) = _push(
+                f, (o, d, P, C, params), (to, td, tP, tC, tans))
+            alive = sc_f > 0.5
+        if self.exhaust_bwd:
+            def f2(d, P, C, pp):
+                bg = background_color(apply_params(base, pp), cfg, d)
+                return C + torch.where(alive[:, None], P * bg, 0.0)
+
+            _, tC = _push(f2, (d, P, C, params), (td, tP, tC, tans))
+        return tC
+
     def __call__(self, params: Dict[str, torch.Tensor], sample_base=0):
         for k in params:
-            _check_field(k)
+            _check_field(k, self.geom_spec)
+        missing = set(self.geom_spec) - set(params)
+        if missing:
+            raise ValueError(f"geom_spec fields {sorted(missing)} are not "
+                             "in params")
         names = tuple(params)
         return _Replay.apply(self, names, int(sample_base),
                              *(params[k] for k in names))
@@ -145,62 +251,113 @@ class _Replay(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = ctx.plan.backward(ctx.tbl, ctx.s0, ctx.Ls, g)
+        plan, tbl = ctx.plan, ctx.tbl
+        grads = {}
+        if set(ctx.names) & set(PORTED_FIELDS):
+            grads = plan.backward(tbl, ctx.s0, ctx.Ls, g)
         ctx.Ls = None
+        dev = tbl.sph_center.device
+        if set(ctx.names) & set(GEOM_FIELDS):
+            params = {k: getattr(tbl, k) for k in ctx.names}
+            for k in ctx.names:
+                if k in GEOM_FIELDS:
+                    grads[k] = torch.zeros_like(params[k])
+            if plan.geom_flat:
+                dirs = plan.geom_backward(params, ctx.s0, g)
+                for j, (f, idx) in enumerate(plan.geom_flat):
+                    grads[f][idx] += dirs[j]
         return (None, None, None, *(
-            grads[k].to(ctx.tbl.sph_center.device).reshape(
-                getattr(ctx.tbl, k).shape) for k in ctx.names))
+            grads[k].to(dev).reshape(getattr(tbl, k).shape)
+            for k in ctx.names))
 
 
-def _check_field(name: str) -> None:
-    if name in PORTED_FIELDS:
+def _push(f, primals, tangents):
+    """(f(*primals), the tangents of its outputs along each of the K
+    directions stacked in `tangents`): forward mode through f, mapped
+    over the leading axis of the tangents; the primal runs once."""
+    def jvp(*tans):
+        return torch.func.jvp(f, primals, tans)
+
+    return torch.func.vmap(jvp, out_dims=(None, 0))(*tangents)
+
+
+def _geom_components(tables: SceneTables, geom_spec) -> list:
+    """geom_spec {field: [component index tuple, ...]} as a flat list of
+    (field, index) in sorted field order, each checked against its
+    table's shape (an index out of range would drop its gradient)."""
+    bad = set(geom_spec) - set(GEOM_FIELDS)
+    if bad:
+        raise ValueError(f"geom_spec fields must be in {GEOM_FIELDS}; got "
+                         f"{sorted(bad)}")
+    flat = [(f, tuple(int(i) for i in idx))
+            for f, idxs in sorted(geom_spec.items()) for idx in idxs]
+    for f, idx in flat:
+        shape = tuple(getattr(tables, f).shape)
+        if len(idx) != len(shape) or any(
+                not 0 <= i < n for i, n in zip(idx, shape)):
+            raise ValueError(f"geom_spec component {f}{idx} out of bounds "
+                             f"for table shape {shape}")
+    return flat
+
+
+def _check_field(name: str, geom_spec: Dict) -> None:
+    if name in PORTED_FIELDS or name in geom_spec:
         return
     if name == "images":
         raise NotImplementedError(
             "replay gradients of 'images': image textures and the adjoint "
             "atlas are not ported yet (ROADMAP Queue A-4, B2(c))")
-    if name in GEOM_FIELDS:
-        raise NotImplementedError(
-            f"replay gradients of {name!r}: the tangent replay (geom_spec) "
-            "is not ported yet (ROADMAP Queue A-1)")
-    raise ValueError(f"replay gradients cover {PORTED_FIELDS}; got "
-                     f"{name!r}")
+    raise ValueError(
+        f"replay gradients cover {PORTED_FIELDS} plus geom_spec fields "
+        f"{sorted(geom_spec)} of {GEOM_FIELDS}; got {name!r} (pass "
+        "geom_spec, or use the tape or ad methods)")
 
 
 def make_replay_render(tables: SceneTables, cfg: RenderConfig, spp: int,
-                       px, py, geom_spec=None,
+                       px, py,
+                       geom_spec: Optional[Dict[str, Sequence[tuple]]]
+                       = None,
                        bwd_depth: Optional[int] = None,
-                       bwd_kernel: Optional[bool] = None) -> ReplayRender:
+                       bwd_kernel: Optional[bool] = None,
+                       geom_tape: Optional[bool] = None) -> ReplayRender:
     """Build img_fn(params, sample_base=0) -> mean radiance [B,3] with a
     path-replay backward (see the module doc). params: a dict of
-    PORTED_FIELDS tensors of the tables' shapes. px, py: the fixed pixel
-    batch. bwd_depth truncates the replay (not the forward) at that
-    bounce; the exhaust credit then is skipped. bwd_kernel: None runs
-    the adjoint kernel of cfg.engine ("queue", "mega"), False the plain
-    adjoint."""
-    if geom_spec:
-        raise NotImplementedError(
-            "geom_spec: the forward-mode tangent replay is not ported yet "
-            "(ROADMAP Queue A-1)")
+    PORTED_FIELDS tensors, and of the geom_spec fields, of the tables'
+    shapes. px, py: the fixed pixel batch. bwd_depth truncates the
+    replays (not the forward) at that bounce; the exhaust credit then is
+    skipped. bwd_kernel: None runs the adjoint kernel of cfg.engine
+    ("queue", "mega"), False the plain adjoint.
+
+    geom_spec {field: [component index tuple, ...]} selects GEOM_FIELDS
+    components for the tangent replay, e.g. {"sph_radius": [(0,)]};
+    the other components of those fields get zero gradient. geom_tape:
+    recompute each tangent bounce's hit against the winner taped by
+    diff/tape.capture_tape (kernel B4 on CUDA) rather than the full
+    plain intersect; None means True on CUDA for a megakernel scene,
+    False elsewhere, as the reference's backend rule."""
     if cfg.nee or cfg.mis or cfg.nee_glossy:
         raise NotImplementedError(
             "replay gradients with nee / mis / nee_glossy: NEE is not "
             "ported yet (ROADMAP Queue A-5)")
     return ReplayRender(tables, cfg, spp, px, py, bwd_depth=bwd_depth,
-                        bwd_kernel=bwd_kernel)
+                        bwd_kernel=bwd_kernel, geom_spec=geom_spec,
+                        geom_tape=geom_tape)
 
 
 def make_replay_loss_fn(tables: SceneTables, cfg: RenderConfig, spp: int,
-                        px, py, target, geom_spec=None,
+                        px, py, target,
+                        geom_spec: Optional[Dict[str, Sequence[tuple]]]
+                        = None,
                         bwd_depth: Optional[int] = None,
                         n_valid: Optional[int] = None,
-                        bwd_kernel: Optional[bool] = None):
+                        bwd_kernel: Optional[bool] = None,
+                        geom_tape: Optional[bool] = None):
     """(params, sample_base=0) -> scalar MSE against target rows [B,3],
-    with the replay backward underneath. n_valid masks rows >= n_valid
-    out of the mean."""
+    with the replay backward underneath (see make_replay_render).
+    n_valid masks rows >= n_valid out of the mean."""
     img_fn = make_replay_render(tables, cfg, spp, px, py,
                                 geom_spec=geom_spec, bwd_depth=bwd_depth,
-                                bwd_kernel=bwd_kernel)
+                                bwd_kernel=bwd_kernel, geom_tape=geom_tape)
     dev = tables.sph_center.device
     target = torch.as_tensor(target).to(device=dev, dtype=torch.float32)
     n_rows = img_fn.px.shape[0]

@@ -34,9 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the plain versions' separate torch ops do, and kernel and plain version
 # agree bit for bit per lane; with contraction an ulp now and then flips
 # a grazing hit and sends a path elsewhere (ROADMAP C-6), and an
-# adjoint's g * (L - C_after) / att picks up noise where L ~ C_after.
+# adjoint's g * (L - C_after) / att picks up noise where L ~ C_after. The
+# tape capture (capture.cu) shares their bounce, and its codes must be
+# the plain version's on every lane and bounce.
 LIB_FLAGS = {name: ("--fmad=false",)
-             for name in ("mega", "queue", "mega_adjoint", "queue_adjoint")}
+             for name in ("mega", "queue", "mega_adjoint", "queue_adjoint",
+                          "capture")}
 
 
 def find_nvcc() -> str:

@@ -32,6 +32,13 @@ with each lane's radiance L and cotangent g carried beside its state,
 and the gradients of the texture, material and background rows summed
 into one [8, n_slots] block. `mega_adjoint_segment.launches` counts its
 launches. Its plain version is ops/adjoint_plain.py.
+
+`mega_capture` is the tape capture on kernel B4 (csrc/capture.cu, the
+counterpart of `_capture_kernel` :1978, `capture_segment` :2056 and
+`mega_capture` :2144): one launch over all lanes, no segments, writing
+each bounce's winner code and each lane's death count for the tape
+replay (diff/tape.py). `mega_capture.launches` counts its launches. Its
+plain version is `mega_plain.capture_plain`.
 """
 
 from __future__ import annotations
@@ -54,6 +61,9 @@ MAX_ROWS = (1 << 31) // S_COLS - 1
 ACC_SMEM_MAX = 96 * 1024
 # rows of the adjoint's lane state: the forward's 13, then L and g
 ADJ_ROWS = mp.NSTATE + 6
+# the tape code keeps the family in bits 24+ (diff/tape.TAPE_SHIFT), so a
+# row must be below 2^24
+MAX_CODE_ROWS = 1 << 24
 
 
 def _scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg):
@@ -453,3 +463,75 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
                                       run)
     record_stats(stats, launches, depth)
     return adjoint_plain.split_grads(grad, ms, kw["grad_bg"])
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_library():
+    lib = cuda_build.load("capture")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.capture_launch.argtypes = [
+        vp, ci,                       # table, rows
+        vp, ctypes.c_longlong, ci,    # state, stride, n
+        vp, ci, ci,                   # pixel, sample, max_depth
+        *SCALAR_TYPES,
+        vp, vp, ci, vp]               # codes, death, threads, stream
+    lib.capture_launch.restype = ci
+    lib.capture_error_string.argtypes = [ci]
+    lib.capture_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
+                 plain: bool = False, threads: int = THREADS):
+    """Trace the primary rays ro, rd [B,3] for cfg.max_depth bounces and
+    return (codes [max_depth, B] int32, death [B] int32): per bounce the
+    winner's tape code (`0 << 24 | row` for a sphere, -1 on a miss and
+    after the lane's death), per lane the number of bounces after which
+    it is still alive (see mega_plain.capture_plain). sample_idx: one
+    sample index for every lane (an int, or a tensor whose first element
+    is taken, as the reference does).
+
+    CUDA tensors launch kernel B4 (csrc/capture.cu) once and raise if it
+    cannot; CPU tensors, or plain=True, run mega_plain.capture_plain.
+    Pre-condition: mega_tables.mega_supported(tables)."""
+    dev = ro.device
+    tab = tables.mega.table
+    if tab.shape[0] > MAX_CODE_ROWS:
+        raise ValueError(f"mega_capture: {tab.shape[0]} table rows; a tape "
+                         f"code holds rows below {MAX_CODE_ROWS}")
+    kw = mp.trace_options(tables, cfg)
+    state = mp.fresh_state(ro.detach(), rd.detach())
+    b = state.shape[1]
+    max_depth = int(cfg.max_depth)
+    sample = int(sample_idx.reshape(-1)[0]) if isinstance(
+        sample_idx, torch.Tensor) else int(sample_idx)
+    if plain or dev.type == "cpu":
+        pix = pixel.to(device=dev, dtype=torch.int64).reshape(-1)
+        return mp.capture_plain(tab, state, pix, sample, seed, max_depth,
+                                **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"mega_capture: unsupported device {dev}")
+    check_table(tab, dev)
+    pix = pixel.to(device=dev, dtype=torch.int32).reshape(-1).contiguous()
+    pix_ptr, _ = lane_ints("pixel", pix, b, dev)
+    codes = torch.empty((max_depth, b), dtype=torch.int32, device=dev)
+    death = torch.empty(b, dtype=torch.int32, device=dev)
+    if b == 0 or max_depth == 0:
+        return codes, death.zero_()
+    lib = _capture_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.capture_launch(
+            tab.data_ptr(), tab.shape[0], state.data_ptr(), b, b, pix_ptr,
+            sample, max_depth,
+            *_scalars(seed, kw["t_min"], kw["p_rr"], kw["grad_bg"], kw["bg"],
+                      False),
+            codes.data_ptr(), death.data_ptr(), int(threads), stream)
+    if rc != 0:
+        msg = lib.capture_error_string(rc).decode()
+        raise RuntimeError(f"mega_capture launch failed: {msg} ({rc})")
+    mega_capture.launches += 1
+    return codes, death
+
+
+mega_capture.launches = 0

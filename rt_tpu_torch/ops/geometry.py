@@ -49,5 +49,15 @@ def refract(uv, n, etai_over_etat):
     return r_out_perp + r_out_parallel
 
 
+def take_rows(table, idx):
+    """table[idx] along the first axis, for the per-lane lookups of a
+    parameter table by winner or material id (the reference's one-hot
+    gather). index_select's backward is an index_add_ (atomic adds on
+    CUDA), where indexing's backward sorts the indices and sums each
+    row's duplicates serially, and half of a frame's lanes hit the
+    ground sphere."""
+    return torch.index_select(table, 0, idx)
+
+
 def degrees_to_radians(deg):
     return deg * (math.pi / 180.0)

@@ -71,6 +71,29 @@ def _sphere_t(centers, radii, live, ro, rd, t_min):
     return torch.where(live[None, :], t, INF)
 
 
+def sphere_leaf_test(tables: SceneTables, pid, ro, rd, t_min=1e-3):
+    """Hit distance [B] of each ray against ONE known sphere, row pid [B]
+    (rt_tpu ops/intersect.py `_sphere_leaf_test` :231-248): the half-b
+    quadratic in the `oc = ro - c` form, nearer root first; inf where
+    there is no hit. Differentiable in the sphere's centre and radius:
+    the tape replay (diff/tape.py) recomputes each bounce's hit with it
+    against the taped winner."""
+    row = pid.long()
+    c = geom.take_rows(tables.sph_center, row)
+    r = geom.take_rows(tables.sph_radius, row)
+    oc = ro - c
+    a = geom.length_squared(rd)
+    hb = geom.dot(oc, rd)
+    ct = geom.length_squared(oc) - r * r
+    disc = hb * hb - a * ct
+    sqrtd = geom.safe_sqrt(disc)
+    root1 = (-hb - sqrtd) / a
+    root2 = (-hb + sqrtd) / a
+    t = torch.where(root1 >= t_min, root1,
+                    torch.where(root2 >= t_min, root2, INF))
+    return torch.where(disc >= 0.0, t, INF)
+
+
 def _sphere_best(tables: SceneTables, ro, rd, t_min, engine: str):
     """Per-ray (t, pid, obj) of the closest sphere."""
     from rt_tpu_torch.ops import cuda_intersect
@@ -116,9 +139,9 @@ def _attributes(tables: SceneTables, ro, rd, hit, t, ptype, pid, obj) -> Hit:
     p_lin = ro + t_safe[:, None] * rd  # ray.at
 
     if not tables.n_spheres:
-        # empty scene: every ray misses
-        normal = torch.zeros_like(p_lin)
-        normal[:, 2] = 1.0
+        # empty scene: every ray misses (written out of place, so that
+        # torch.func transforms can run through it)
+        normal = torch.zeros_like(p_lin) + p_lin.new_tensor([0.0, 0.0, 1.0])
         zeros = torch.zeros_like(t_safe)
         return Hit(hit=torch.zeros_like(hit), t=t, ptype=ptype, pid=pid,
                    obj=obj, p=p_lin, normal=normal,
@@ -126,8 +149,8 @@ def _attributes(tables: SceneTables, ro, rd, hit, t, ptype, pid, obj) -> Hit:
                    mat=torch.zeros_like(pid))
 
     row = pid.long()
-    sc = tables.sph_center[row]
-    sr = tables.sph_radius[row]
+    sc = geom.take_rows(tables.sph_center, row)
+    sr = geom.take_rows(tables.sph_radius, row)
     outward = (p_lin - sc) / torch.where(sr == 0.0, 1.0, sr)[:, None]
     cos_t = torch.clamp(-outward[:, 1], -1.0, 1.0)
     interior = torch.abs(cos_t) < 1.0

@@ -43,8 +43,8 @@ def _texture_eval(tables: SceneTables, tex_id, u, v, p):
     checker: sin(10x)sin(10y)sin(10z) parity (texture.cuh:44-52). u and v
     are read by image textures, which come with a later slice."""
     row = torch.where(tex_id >= 0, tex_id, 0).long()
-    solid = tables.tex_color[row]
-    color2 = tables.tex_color2[row]
+    solid = geom.take_rows(tables.tex_color, row)
+    color2 = geom.take_rows(tables.tex_color2, row)
     sines = (torch.sin(10.0 * p[:, 0]) * torch.sin(10.0 * p[:, 1])
              * torch.sin(10.0 * p[:, 2]))
     checker = torch.where((sines < 0.0)[:, None], color2, solid)
@@ -57,7 +57,8 @@ def _albedo_of(tables: SceneTables, row, u, v, p):
     colour (lambertian(texture*) vs metal(color), material.cuh)."""
     tex = tables.mat_tex[row]
     from_tex = _texture_eval(tables, tex, u, v, p)
-    return torch.where((tex >= 0)[:, None], from_tex, tables.mat_albedo[row])
+    return torch.where((tex >= 0)[:, None], from_tex,
+                       geom.take_rows(tables.mat_albedo, row))
 
 
 def material_albedo(tables: SceneTables, mat_id, u, v, p):
@@ -90,8 +91,8 @@ def shade(tables: SceneTables, mat_id, rd, normal, front_face, u, v, p,
     refl_u: [B] U[0,1) draw for the dielectric reflect/refract choice."""
     row = mat_id.long()
     mtype = tables.mat_type[row]
-    fuzz = tables.mat_fuzz[row]
-    ir = tables.mat_ior[row]
+    fuzz = geom.take_rows(tables.mat_fuzz, row)
+    ir = geom.take_rows(tables.mat_ior, row)
     albedo = _albedo_of(tables, row, u, v, p)
 
     # lambertian

@@ -14,6 +14,9 @@ reference's, in the reference's order; the kernel repeats them.
 `bounce_plain` returns the bounce with the intermediates its adjoint
 reads (ops/adjoint_plain.py): the replay runs the forward's own
 expressions, so C_after, the attenuation and P are the forward's bits.
+`capture_plain`, the plain version of the tape-capture kernel
+(csrc/capture.cu), records each bounce's winner row from the same
+bounce.
 
 Every operation is elementwise, so a lane's result does not depend on
 the batch it sits in: the segmented trace and the queue emulation give
@@ -134,12 +137,15 @@ def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min):
 
 
 class Bounce(NamedTuple):
-    """One bounce's new state and what its adjoint reads
-    (ops/adjoint_plain.py): the lane masks, the attenuation, the
-    winner's gradient slot and checker parity, and the throughput P
-    before the bounce (the radiance after it is state[C:C+3])."""
+    """One bounce's new state and what its adjoint (ops/adjoint_plain.py)
+    and the tape capture (capture_plain) read: the lane masks, the
+    attenuation, the winner's row, gradient slot and checker parity, and
+    the throughput P before the bounce (the radiance after it is
+    state[C:C+3])."""
 
     state: torch.Tensor      # [13, B] after the bounce
+    hit: torch.Tensor        # [B] bool: a sphere was hit (roulette aside)
+    row: torch.Tensor        # [B] int64 the winner's table row
     scattered: torch.Tensor  # [B] bool
     emitter: torch.Tensor    # [B] bool: a light was hit
     missed: torch.Tensor     # [B] bool: the sky was hit
@@ -297,10 +303,45 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
     alive = scattered.to(torch.float32)
     out = torch.stack([ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb,
                        alive])
-    return Bounce(state=out, scattered=scattered, emitter=emitter,
+    return Bounce(state=out, hit=hit, row=row, scattered=scattered,
+                  emitter=emitter,
                   missed=missed, is_die=is_die, use2=use2,
                   slot=attrs[:, X_SLOT].long(), att=(att_r, att_g, att_b),
                   tp=tp_before)
+
+
+def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
+                  p_rr, grad_bg, bg):
+    """The plain version of the tape-capture kernel B4 (csrc/capture.cu,
+    rt_tpu/ops/pallas_mega.py `_capture_kernel` :1978): trace the fresh
+    rays of `state` [13, B] (pixel ids [B], one sample index) for
+    max_depth bounces and return (codes [max_depth, B] int32, death [B]
+    int32).
+
+    codes[b, i] is the winner's row (the tape code `0 << 24 | row` of a
+    sphere) when lane i, alive entering bounce b, hits a sphere, and -1
+    on a miss and at every bounce after the lane's death. A lane that
+    roulette stops at bounce b still records that bounce's winner, as
+    the reference's kernel evaluates the hit on every lane. death[i] is
+    the number of bounces after which the lane is still alive. The row
+    is the pid because the table keeps the scene's order (no Morton
+    sort, ROADMAP C-3). `state` is not changed."""
+    b = state.shape[1]
+    dev = state.device
+    codes = torch.full((max_depth, b), -1, dtype=torch.int32, device=dev)
+    death = torch.zeros(b, dtype=torch.int32, device=dev)
+    idx = torch.arange(b, device=dev)
+    sub = state
+    for k in range(max_depth):
+        if idx.numel() == 0:
+            break
+        bn = bounce_plain(tab, sub, pixel[idx], sample, k, seed, t_min=t_min,
+                          p_rr=p_rr, grad_bg=grad_bg, bg=bg)
+        codes[k, idx] = torch.where(bn.hit, bn.row, -1).to(torch.int32)
+        keep = bn.scattered
+        idx, sub = idx[keep], bn.state[:, keep]
+        death[idx] += 1
+    return codes, death
 
 
 def trace_options(tables, cfg) -> dict:

@@ -7,12 +7,14 @@ camera leaves under 'camera.<field>') and returns this package's
 (rects, cylinders, triangles, BVHs, images, the light index) may be
 present and are checked to hold no live row; a live one raises.
 `params_from_numpy` carries a parameter dict of rt_tpu's diff package
-(field name -> array) across the same way.
+(field name -> array; "camera" -> a camera whose fields are arrays)
+across the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Mapping
 
 import numpy as np
@@ -49,6 +51,21 @@ def params_from_numpy(params: Mapping[str, np.ndarray],
                       device="cpu") -> Dict[str, torch.Tensor]:
     """A parameter dict (field -> array, as rt_tpu.diff.inverse.
     extract_params gives it, exported with np.asarray) as float32
-    tensors on `device`, for diff/inverse.py and diff/replay.py."""
-    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
-            for k, v in params.items()}
+    tensors on `device`, for diff/inverse.py, diff/replay.py and
+    diff/tape.py. Every table field carries across, the geometry's
+    (sph_center, sph_radius) included; "camera" may be any object with
+    CameraDef's field names as attributes or keys (rt_tpu's CameraDef,
+    a dict) and becomes this package's CameraDef."""
+    def t(v):
+        return torch.from_numpy(np.array(v, np.float32)).to(device)
+
+    out = {}
+    for k, v in params.items():
+        if k == "camera":
+            get = v.get if isinstance(v, Mapping) else functools.partial(
+                getattr, v)
+            out[k] = CameraDef(**{f.name: t(get(f.name))
+                                  for f in dataclasses.fields(CameraDef)})
+        else:
+            out[k] = t(v)
+    return out

@@ -206,9 +206,16 @@ def test_slot_column_routes_textures_then_materials():
     assert int(slot.max()) < tt.mega.n_slots
 
 
+# the ids are the ones these cases had while geometry fields raised
+# NotImplementedError; now a GEOM_FIELDS entry outside geom_spec is a
+# ValueError, as in the reference
 @pytest.mark.parametrize("field,err", [
-    ("images", NotImplementedError), ("sph_center", NotImplementedError),
-    ("mat_fuzz", NotImplementedError), ("camera", ValueError)])
+    pytest.param("images", NotImplementedError,
+                 id="images-NotImplementedError"),
+    pytest.param("sph_center", ValueError,
+                 id="sph_center-NotImplementedError"),
+    pytest.param("mat_fuzz", ValueError, id="mat_fuzz-NotImplementedError"),
+    pytest.param("camera", ValueError, id="camera-ValueError")])
 def test_replay_rejects_unported_fields(field, err):
     _, _, tt, cfg = make_scene(8, 6, 2)
     img_fn = treplay.make_replay_render(tt, cfg, 1, torch.arange(4),
@@ -218,11 +225,21 @@ def test_replay_rejects_unported_fields(field, err):
 
 
 def test_replay_rejects_tangents_and_nee():
+    """geom_spec runs (tests/test_torch_geom.py) but refuses a field
+    outside GEOM_FIELDS, a component outside its table, and a geom_spec
+    field missing from params; NEE is not ported."""
     _, _, tt, cfg = make_scene(8, 6, 2)
     px = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="A-1"):
+    with pytest.raises(ValueError, match="GEOM_FIELDS|must be in"):
         treplay.make_replay_render(tt, cfg, 1, px, px,
-                                   geom_spec={"sph_center": [(0, 0)]})
+                                   geom_spec={"tex_color": [(0, 0)]})
+    with pytest.raises(ValueError, match="out of bounds"):
+        treplay.make_replay_render(tt, cfg, 1, px, px,
+                                   geom_spec={"sph_center": [(0, 3)]})
+    img_fn = treplay.make_replay_render(tt, cfg, 1, px, px,
+                                        geom_spec={"sph_center": [(0, 0)]})
+    with pytest.raises(ValueError, match="not in params"):
+        img_fn({"tex_color": tt.tex_color})
     with pytest.raises(NotImplementedError, match="A-5"):
         treplay.make_replay_render(tt, cfg.replace(nee=True), 1, px, px)
 

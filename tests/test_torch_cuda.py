@@ -441,3 +441,103 @@ def test_replay_step_runs_the_adjoint_kernel(engine):
         a, b = grads[1][k].double(), grads[0][k].double()
         mag = max(float(a.abs().max()), 1e-12)
         assert float((a - b).abs().max()) <= 1e-5 + 1e-3 * mag, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,p_rr", [
+    ("cover", 0.0), ("cover", 0.9), ((12000, 0), 0.0)],
+    ids=["cover", "cover_rr", "rows12000"])
+def test_capture_kernel_matches_plain(scene, p_rr):
+    """B4 against its plain version at 192x108, depth 50: codes and death
+    counts equal on every lane and bounce; with roulette, and with a
+    12,000-row table (rows past the staged ones, the kTail path, C-7).
+    Its death counts and B2's per-lane bounce counts on the same rays:
+    bounces run = death + 1 for a lane that ends early, death for one
+    alive at max_depth."""
+    from rt_tpu_torch.ops import cuda_mega, mega_plain
+
+    dev = _card()
+    tt, cfg, ro, rd, pix, _, _ = _adj_sample(dev, 192, 108, 50, scene=scene,
+                                             p_rr=p_rr)
+    before = cuda_mega.mega_capture.launches
+    codes, death = cuda_mega.mega_capture(tt, cfg, ro, rd, pix, 0, 0)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_capture.launches == before + 1
+    assert codes.dtype == death.dtype == torch.int32
+    assert tuple(codes.shape) == (50, 192 * 108)
+    p_codes, p_death = cuda_mega.mega_capture(tt, cfg, ro, rd, pix, 0, 0,
+                                              plain=True)
+    assert cuda_mega.mega_capture.launches == before + 1
+    assert torch.equal(codes, p_codes) and torch.equal(death, p_death)
+    if scene != "cover":
+        assert int(codes.max()) >= 2048  # rows past the staged ones hit
+    state = mega_plain.fresh_state(ro, rd)
+    ran = torch.zeros(192 * 108, dtype=torch.int32, device=dev)
+    cuda_mega.mega_segment(tt.mega.table, state, pix.to(torch.int32), 0, 0,
+                           0, 50, depth=ran,
+                           **mega_plain.trace_options(tt, cfg))
+    assert torch.equal(ran, torch.where(death < 50, death + 1, death))
+
+
+@pytest.mark.cuda
+def test_capture_wrapper_checks_inputs():
+    from rt_tpu_torch.ops import cuda_mega
+
+    dev = _card()
+    tt = types.build_tables(builders.three_sphere_scene()[0], device=dev)
+    sdef, cfg = builders.three_sphere_scene()
+    ro, rd = (x.to(dev) for x in _rays(64, seed=11))
+    pix = torch.arange(64, device=dev)
+    with pytest.raises(ValueError, match="want"):
+        cuda_mega.mega_capture(tt, cfg, ro, rd, pix[:8], 0, 0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_mega.mega_capture(tt, cfg, ro, rd, pix, 0, 0, threads=2048)
+
+
+@pytest.mark.cuda
+def test_tape_vg_on_card():
+    """make_tape_vg on the card (capture on B4) against the full-width
+    tape loss on the card, within tests/test_torch_tape.py's vg
+    tolerance (loss rtol 2e-4; gradients rtol 2e-3, atol 2e-4 max|g|);
+    and the tape's radiance on the card against the CPU's by
+    images_close. Card and CPU round sin, exp and log otherwise, so a
+    few lanes take other paths, and the gradient rows of a sphere those
+    lanes reach move far beyond the vg tolerance: gradients are compared
+    on one device."""
+    from rt_tpu_torch.diff.tape import (make_tape_loss_fn, make_tape_render,
+                                        make_tape_vg)
+    from rt_tpu_torch.ops import cuda_mega
+
+    dev = _card()
+    sdef, cfg = builders.cover_scene(width=96, height=54, spp=1,
+                                     max_depth=12)
+    fields = ("sph_center", "sph_radius", "tex_color", "mat_albedo",
+              "mat_fuzz", "mat_ior")
+    tgt = torch.rand((96 * 54, 3), generator=torch.Generator().manual_seed(1))
+    tt = types.build_tables(sdef, device=dev)
+    pix = torch.arange(96 * 54, device=dev)
+    step = make_tape_vg(tt, cfg, pix % 96, pix // 96, tgt.to(dev),
+                        min_width=1024)
+    before = cuda_mega.mega_capture.launches
+    times = {}
+    lk, gk = step({k: getattr(tt, k) for k in fields}, times=times)
+    assert cuda_mega.mega_capture.launches == before + 1
+    assert min(times["widths"]) < 96 * 54
+    p = {k: getattr(tt, k).clone().requires_grad_(True) for k in fields}
+    lf = make_tape_loss_fn(tt, cfg, 1, pix % 96, pix // 96, tgt.to(dev))(p)
+    lf.backward()
+    assert abs(float(lk) - float(lf)) <= 2e-4 * float(lf)
+    for k in fields:
+        a = p[k].grad
+        assert bool(torch.isfinite(gk[k]).all()), k
+        torch.testing.assert_close(gk[k], a, rtol=2e-3,
+                                   atol=2e-4 * float(a.abs().max()) + 1e-12)
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        td = types.build_tables(sdef, device=d)
+        pd = torch.arange(96 * 54, device=d)
+        with torch.no_grad():
+            imgs.append(make_tape_render(td, cfg, 2, pd % 96, pd // 96)(
+                {"tex_color": td.tex_color}).cpu().numpy())
+    diff = np.abs(imgs[0] - imgs[1]).max(-1)
+    assert (diff > 2e-3).mean() <= 0.01 and diff.max() <= 0.5

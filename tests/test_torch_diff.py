@@ -142,10 +142,13 @@ def test_fit_resample_moves_the_samples():
 
 
 def test_fit_rejects_tape_and_unknown_methods():
+    """method="tape" runs (tests/test_torch_tape.py) but refuses the
+    fields of families not ported yet; an unknown method is refused."""
     _, _, tt, cfg = make_scene(8, 6, 2)
     target = np.zeros((6, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="B4"):
-        tinverse.fit(tt, cfg, target, method="tape", device="cpu")
+    with pytest.raises(NotImplementedError, match="A-4"):
+        tinverse.fit(tt, cfg, target, method="tape", device="cpu",
+                     init_params={"images": np.zeros((1, 4, 4, 3))})
     with pytest.raises(ValueError):
         tinverse.fit(tt, cfg, target, method="fd", device="cpu")
 

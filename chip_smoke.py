@@ -23,7 +23,12 @@ its plain version and the wavefront capture at 192x108 and at the main
 shape (2,073,600 lanes, depth 50), the reference's all-fields tape step
 at 1920x1080 (scripts/bench_tape_r3.py), the tape's radiometric
 gradients against the path replay's, three fit(method="tape") steps,
-and the geom_spec tangent replay on B4's tape. Each phase prints its
+and the geom_spec tangent replay on B4's tape. The regeneration path
+closes it: the kernel B7 against its plain version at 192x108 (cover;
+Cornell with an open lens at p_rr 0.9) and across segment schedules,
+the frame of render(engine="mega", regen=True) at 1920x1080, spp 16,
+depth 50 against the megakernel's frame of phase 10, and B7 against its
+plain version on all 2,073,600 lanes. Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -71,6 +76,12 @@ SETUP_OPS = 16
 # the adjoints' bound counts none (a lower bound, and 0.1% of the hit
 # loop at 488 rows)
 ADJOINT_OPS = 0
+# FP32 operations of one defocused camera ray (csrc/camera.cuh): s and t
+# (2 adds, 2 divisions), the 4 draws' scalings, the lens disk (sqrt,
+# 2pi * u2, cos, sin, 4 products: a transcendental or a sqrt counted as
+# one), the offset (9), the origin (3) and the direction (18). The
+# hash's integer operations are not counted, so this stays a lower bound.
+CAMERA_OPS = 45
 
 W, H, SPP, DEPTH = 1920, 1080, 2, 50     # rt_tpu bench.py:67-71 shape
 MAIN_SPP = 16                            # bench.py's one-launch spp
@@ -232,6 +243,69 @@ def capture_mismatch(kernel, plain, label):
     return bad_live
 
 
+def open_lens(sdef, aperture=0.2):
+    """The Cornell scene's camera with an open lens (its own has none),
+    so the regeneration kernel draws the defocus disk there too."""
+    p = sdef.camera_params
+    sdef.set_camera(p["lookfrom"], p["lookat"], p["vup"], p["vfov"],
+                    aperture, focus_dist=5.0)
+    return sdef
+
+
+def regen_segment(tb, cb, pixel, spp, seg_iters, plain, sample_base=0,
+                  seed=0):
+    """One init segment of B7 (or, with plain, of its plain version) over
+    the pixel ids `pixel` of cb's frame: (state, samp, bvec, depth)."""
+    from rt_tpu_torch.ops import cuda_mega, mega_plain
+
+    dev = pixel.device
+    b = pixel.shape[0]
+    pix = pixel.to(torch.int32)
+    state = torch.zeros((13, b), device=dev)
+    samp, bvec, depth = (torch.zeros(b, dtype=torch.int32, device=dev)
+                         for _ in range(3))
+    fn = mega_plain.regen_plain if plain else cuda_mega.mega_regen
+    fn(tb.mega.table, tb.mega.cam, state, pix, pix // cb.width, samp, bvec,
+       sample_base, seed, seg_iters, max_depth=cb.max_depth, spp=spp,
+       init=True, width=cb.width, height=cb.height,
+       defocus=cb.enable_defocus,
+       exhaust_bg=cb.exhaust_mode == "background", depth=depth,
+       **mega_plain.trace_options(tb, cb))
+    return state, samp, bvec, depth
+
+
+def regen_mismatch(kernel, plain, label):
+    """B7 against its plain version, each regen_segment's (state, samp,
+    bvec, depth): equal on every lane, or raise. Returns the max abs
+    radiance difference (0)."""
+    names = ("state", "samp", "bvec", "bounces")
+    bad = {n: int((a != b).reshape(-1, a.shape[-1]).any(0).sum())
+           for n, a, b in zip(names, kernel, plain)}
+    err = float((kernel[0][9:12] - plain[0][9:12]).abs().max())
+    done = float((kernel[0][12] == 0.0).float().mean())
+    print(f"  {label}: {kernel[1].shape[0]} lanes, {int(kernel[3].sum())} "
+          f"ray-bounces, {done:.6f} of lanes finished; lanes differing "
+          f"{bad}, max abs radiance err {err:.4g}", flush=True)
+    if any(bad.values()):
+        raise AssertionError(f"{label}: B7 disagrees with its plain version")
+    return err
+
+
+def lane_occupancy(*launches, warp=32):
+    """The share of the warps' lane-iterations that trace a bounce, from
+    each launch's per-lane bounce counts [B] in launch order: the sum of
+    the lanes' bounces over 32 x the slowest lane's, summed over the
+    warps of all launches (a warp runs until its slowest lane is done;
+    iterations that only retire or restart a lane are not counted)."""
+    num = den = 0.0
+    for bounces in launches:
+        b = bounces.shape[0] // warp * warp
+        w = bounces[:b].view(-1, warp).double()
+        num += float(w.sum())
+        den += float((warp * w.max(-1).values).sum())
+    return num / den
+
+
 def counters():
     from rt_tpu_torch.ops import cuda_intersect, cuda_mega, cuda_queue
 
@@ -240,7 +314,8 @@ def counters():
             "queue_launch": cuda_queue.queue_launch,
             "mega_adjoint_segment": cuda_mega.mega_adjoint_segment,
             "queue_adjoint_launch": cuda_queue.queue_adjoint_launch,
-            "mega_capture": cuda_mega.mega_capture}
+            "mega_capture": cuda_mega.mega_capture,
+            "mega_regen": cuda_mega.mega_regen}
 
 
 def reset_counts():
@@ -294,7 +369,7 @@ def main() -> int:
     with phase("2 build"):
         # one nvcc per source, all started together
         kernels = ["sphere_hit", "mega", "queue", "mega_adjoint",
-                   "queue_adjoint", "capture"]
+                   "queue_adjoint", "capture", "regen"]
         for k in kernels:  # build from the checkout's sources
             cuda_build.library_path(k).unlink(missing_ok=True)
         t0 = time.time()
@@ -760,6 +835,7 @@ def main() -> int:
                                  f"{hist + [final]}")
 
     err_b4 = 0
+    err_b7 = 0.0
     with phase("16 tables past the staged rows (ROADMAP C-7)"):
         for n, n_mat in ((3000, 64), (12000, 0)):
             s_r, c_r = random_spheres_scene(n, n_mat, width=128, height=96,
@@ -790,6 +866,11 @@ def main() -> int:
                 cuda_mega.mega_capture(*fwd),
                 cuda_mega.mega_capture(*fwd, plain=True),
                 f"{label}: B4 vs plain")
+            seg = (t_r, c_r, pix, 2, 2 * (c_r.max_depth + 1))
+            err_b7 = max(err_b7, regen_mismatch(
+                regen_segment(*seg, plain=False),
+                regen_segment(*seg, plain=True),
+                f"{label}: B7 vs plain, spp 2"))
 
     from profile_torch import tape_workload
     from rt_tpu_torch.diff import tape
@@ -1046,7 +1127,155 @@ def main() -> int:
         if not all(math.isfinite(v) for vs in got.values() for v in vs):
             raise AssertionError(f"geom_spec: bad gradients {got}")
 
-    print(f"[24 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    with phase(f"25 B7 vs plain at {SMALL_W}x{SMALL_H} depth {DEPTH} spp 4; "
+               "segment schedules"):
+        # why ops/camera.generate_rays divides by device tensors: torch
+        # on the card divides by a Python number as a product with the
+        # float32 reciprocal, which the kernel's division does not repeat
+        x = torch.rand(1 << 20, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0)) * W
+        true_div = x / torch.full((), float(W - 1), device=dev)
+        by_num = x / (W - 1)
+        recip = float(np.float32(1.0) / np.float32(W - 1))
+        print(f"  x / {W - 1} on the card equals the division by a device "
+              f"tensor on {float((by_num == true_div).float().mean()):.4f} "
+              f"of {x.numel()} values, x * fl(1/{W - 1}) on "
+              f"{float((by_num == x * recip).float().mean()):.4f}",
+              flush=True)
+        s_c, c_c = cover_scene(width=SMALL_W, height=SMALL_H, spp=4,
+                               max_depth=DEPTH)
+        s_k, c_k = cornell_spheres_scene(width=SMALL_W, height=SMALL_H,
+                                         spp=4, max_depth=DEPTH)
+        pix = torch.arange(SMALL_W * SMALL_H, device=dev)
+        for label, sd, cb in (
+                ("cover_scene", s_c, c_c),
+                ("cornell_spheres_scene, open lens, p_rr 0.9", open_lens(s_k),
+                 c_k.replace(p_rr=0.9, enable_defocus=True))):
+            tb = build_tables(sd, device=dev)
+            cb = cb.replace(engine="mega")
+            seg = (tb, cb, pix, 4, 4 * (DEPTH + 1))
+            err_b7 = max(err_b7, regen_mismatch(
+                regen_segment(*seg, plain=False),
+                regen_segment(*seg, plain=True), f"{label}: B7 vs plain"))
+            one = cuda_mega.mega_trace_regen(tb, cb, pix, pix // SMALL_W, 0, 4)
+            launches_by = {}
+            for rc in (-1, 5):
+                for group in (16, 128):
+                    for shrink in (True, False):
+                        st = {}
+                        got = cuda_mega.mega_trace_regen(
+                            tb, cb.replace(regen_compact=rc,
+                                           compact_group=group,
+                                           regen_shrink=shrink),
+                            pix, pix // SMALL_W, 0, 4, stats=st)
+                        key = f"{rc}/{group}/{'shrink' if shrink else 'full'}"
+                        launches_by[key] = st["launches"]
+                        if not torch.equal(got, one):
+                            raise AssertionError(
+                                f"{label}: regen_compact {key} changed the "
+                                "radiance")
+            print(f"  {label}: every segment schedule bit-identical to one "
+                  f"segment; launches by regen_compact/group/shrink "
+                  f"{launches_by}", flush=True)
+
+    regen_main = {}
+    for rc in (0, -1):
+        with phase(f"26 main path: cover_scene {W}x{H} depth {DEPTH} spp "
+                   f"{MAIN_SPP} engine mega regen=True regen_compact {rc}"):
+            cfg_r = c16.replace(engine="mega", regen=True, regen_compact=rc)
+            stats = {}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ev[0].record()
+            img = render(t16, cfg_r, device="cuda", stats=stats)
+            ev[1].record()
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            ev_ms = ev[0].elapsed_time(ev[1])
+            counts = read_counts()
+            paths = W * H * MAIN_SPP
+            print(f"  render {sec:.4f} s = {paths / sec:.0f} paths/s (CUDA "
+                  f"events {ev_ms:.3f} ms); launches {counts}, ray-bounces "
+                  f"{stats['ray_bounces']}; {smi}", flush=True)
+            own = counts["mega_regen"]
+            if own <= 0 or own != stats["launches"] or sum(counts.values()) \
+                    != own:
+                raise AssertionError(f"the regen frame launched {counts}, "
+                                     f"stats say {stats['launches']}")
+            if stats["ray_bounces"] != main["mega"]["bounces"]:
+                raise AssertionError(
+                    f"regen traced {stats['ray_bounces']} ray-bounces, the "
+                    f"megakernel frame {main['mega']['bounces']}")
+            if tuple(img.shape) != (H, W, 3) or \
+                    not bool(torch.isfinite(img).all()):
+                raise AssertionError("render is not a finite [H,W,3] image")
+            img = img.cpu().numpy()
+            differ = float((img != main["mega"]["img"]).any(-1).mean())
+            print(f"  against the megakernel frame of phase 10: "
+                  f"{differ:.6%} of pixels differ, mega "
+                  f"{main['mega']['sec']:.4f} s, queue "
+                  f"{main['queue']['sec']:.4f} s", flush=True)
+            if differ:
+                raise AssertionError("the regen frame is not the megakernel "
+                                     "frame bit for bit")
+            regen_main[rc] = dict(launches=own, sec=sec)
+
+    from rt_tpu_torch.render.renderer import _block_order
+
+    with phase(f"27 B7 vs plain and times at one regen call ({W * H} lanes, "
+               f"depth {DEPTH})"):
+        c16m = c16.replace(engine="mega")
+        px_b, py_b, pix_b = (torch.from_numpy(x).to(dev)
+                             for x in _block_order(W, H))  # launch order
+        seg2 = (t16, c16m, pix_b, 2, 2 * (DEPTH + 1))
+        err_b7 = max(err_b7, regen_mismatch(
+            regen_segment(*seg2, plain=False),
+            regen_segment(*seg2, plain=True), "spp 2"))
+        seg16 = (t16, c16m, pix_b, MAIN_SPP, MAIN_SPP * (DEPTH + 1))
+        ms16, k16 = cuda_ms(lambda: regen_segment(*seg16, plain=False), 3)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        p16 = regen_segment(*seg16, plain=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        pms16 = ev[0].elapsed_time(ev[1])
+        err_b7 = max(err_b7, regen_mismatch(k16, p16, f"spp {MAIN_SPP}"))
+        bounces16 = int(k16[3].sum())
+        ops = (bounces16 * (SPHERE_OPS_PER_PAIR * rows_k + SETUP_OPS)
+               + CAMERA_OPS * MAIN_SPP * W * H)
+        nbytes = (W * H * (4 + 4 + 13 * 4 + 4 + 4)  # pixel, py in; state,
+                  + rows_k * 18 * 4)               # samp, bvec out; table
+        b7_bound = max(ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        b7_by = ("operations" if ops / PEAK_FP32_OPS
+                 >= nbytes / PEAK_HBM_BYTES else "bytes")
+        # B2's lane occupancy over the same samples, one segment each
+        occ2, kw16 = [], mega_plain.trace_options(t16, c16m)
+        for smp in range(MAIN_SPP):
+            ro_, rd_ = generate_rays(t16.camera, W, H, px_b, py_b, smp, 0,
+                                     c16m.enable_defocus)
+            d_s = torch.zeros(W * H, dtype=torch.int32, device=dev)
+            cuda_mega.mega_segment(t16.mega.table,
+                                   mega_plain.fresh_state(ro_, rd_),
+                                   pix_b.to(torch.int32), smp, 0, 0, DEPTH,
+                                   depth=d_s, **kw16)
+            occ2.append(d_s)
+        occ_b2 = lane_occupancy(*occ2)
+        print(f"  mega_regen at spp {MAIN_SPP}: {ms16:.4f} ms per call "
+              f"(phase 11's B2 trace call x {MAIN_SPP}: "
+              f"{rows['mega_segment']['ms'] * MAIN_SPP:.4f} ms), plain "
+              f"{pms16:.4f} ms, bound {b7_bound:.4f} ms ({b7_by}: "
+              f"{bounces16} ray-bounces x {rows_k} rows + {MAIN_SPP} x "
+              f"{W * H} camera rays, {ops:.4g} ops, {nbytes:.4g} bytes; "
+              f"{b7_bound / ms16:.1%} of the bound); lane occupancy from "
+              f"per-lane bounce counts: B7 {lane_occupancy(k16[3]):.4f}, "
+              f"B2 one segment per sample {occ_b2:.4f}; {smi}", flush=True)
+        rows["mega_regen"] = dict(ms=ms16, plain_ms=pms16, bound_ms=b7_bound,
+                                  bound_by=b7_by)
+
+    print(f"[28 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -1103,6 +1332,15 @@ def main() -> int:
         "launches": tape_counts["mega_capture"],
         "max_abs_err": err_b4,
         **rows["mega_capture"],
+        "library_ms": None,
+    }, {
+        "name": "mega_regen",
+        "route": "cuda",
+        "source": "rt_tpu_torch/csrc/regen.cu",
+        "replaces": "rt_tpu/ops/pallas_mega.py:2288",
+        "launches": regen_main[0]["launches"],
+        "max_abs_err": err_b7,
+        **rows["mega_regen"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

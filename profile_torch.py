@@ -5,7 +5,8 @@ device time.
     python3 profile_torch.py [--width 1920] [--height 1080] [--spp 1]
                              [--depth 50] [--engine queue] [--top 25]
                              [--train [--bwd-depth 8] |
-                              --tape [--gather index_select|index]]
+                              --tape [--gather index_select|index] |
+                              --regen [--regen-compact 0]]
 
 Renders cover_scene once untimed (build, warm-up), then once under
 torch.profiler on one CUDA GPU; with --train, the same for one
@@ -18,7 +19,9 @@ death-sorted replay under autograd) on the reference's all-fields
 workload (scripts/bench_tape_r3.py, `tape_workload`); --gather index
 runs that step with the parameter tables indexed per lane by `table[row]`
 in place of ops/geometry.take_rows (index_select), the A/B of their
-backward passes. It prints: wall
+backward passes. --regen renders with engine "mega" and regen=True
+(the whole spp loop of the frame on the regeneration kernel B7,
+segmented by --regen-compact). It prints: wall
 seconds, the summed
 device time of all kernels and its share of the wall time (the rest is
 the device waiting on the host), the ops and kernels by device time,
@@ -91,6 +94,8 @@ def main() -> int:
     ap.add_argument("--tape", action="store_true")
     ap.add_argument("--gather", default="index_select",
                     choices=["index_select", "index"])
+    ap.add_argument("--regen", action="store_true")
+    ap.add_argument("--regen-compact", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: needs a CUDA GPU")
@@ -105,9 +110,12 @@ def main() -> int:
         torch.cuda.get_device_name(0)
     sdef, cfg = cover_scene(width=args.width, height=args.height,
                             spp=args.spp, max_depth=args.depth)
+    if args.regen:
+        args.engine = "mega"
     if args.engine in ("queue", "mega"):
         cfg = cfg.replace(engine=args.engine, rays_per_batch=1 << 25,
-                          compact_schedule=(2, 3, 5, 10), compact_group=16)
+                          compact_schedule=(2, 3, 5, 10), compact_group=16,
+                          regen=args.regen, regen_compact=args.regen_compact)
     else:
         cfg = cfg.replace(engine=args.engine, rays_per_batch=1 << 21)
     tables = build_tables(sdef, device="cuda")
@@ -163,7 +171,9 @@ def main() -> int:
     kernels = [e for e in rows if e.device_type == cuda]
     what = (f"tape step (gather {args.gather})" if args.tape else
             f"training step (bwd_depth {args.bwd_depth or 'exact'})"
-            if args.train else "render")
+            if args.train else
+            f"regen render (regen_compact {args.regen_compact})"
+            if args.regen else "render")
     print(f"{card}; cover_scene {args.width}x{args.height} spp {args.spp} "
           f"depth {args.depth} engine {args.engine}, {what}: wall "
           f"{wall:.4f} s "
@@ -177,7 +187,8 @@ def main() -> int:
                   f"{us / device_us:>7.1%} {e.count:>7}")
     print(json.dumps({"card": card, "engine": args.engine,
                       "train": args.train, "tape": args.tape,
-                      "gather": args.gather, "wall_s": wall,
+                      "gather": args.gather, "regen": args.regen,
+                      "wall_s": wall,
                       "device_busy_s": device_us / 1e6, **stats}))
     return 0
 

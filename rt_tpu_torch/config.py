@@ -17,6 +17,11 @@ reference's names:
              csrc/queue.cu), the CLI's default as in the reference;
              queue_steps is its budget of bounce steps per launch
 
+regen=True with engine "mega" renders each tile's whole spp loop on the
+regeneration kernel (ops/cuda_mega.mega_trace_regen, csrc/regen.cu),
+segmented by regen_compact (with compact_group and regen_shrink); other
+engines ignore it, as the reference's do.
+
 This slice reads cull_chunks and mxu_intersect as off: the sphere table
 is in scene order and nothing is culled, so on exact-t ties it may pick
 another sphere than rt_tpu's Morton-sorted table (ROADMAP C-3). What it
@@ -98,9 +103,6 @@ def check_supported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"compact_sort={cfg.compact_sort!r}: only 'dead' is ported yet "
             "(ROADMAP Queue B2)")
-    if cfg.regen:
-        raise NotImplementedError("regen=True: the regeneration kernel is "
-                                  "not ported yet (ROADMAP Queue B7)")
     if cfg.loop != "while":
         raise NotImplementedError(
             f"loop={cfg.loop!r}: the port runs the 'while' loop only; its "

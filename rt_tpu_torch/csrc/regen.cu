@@ -1,0 +1,153 @@
+// The sample-regeneration megakernel, by hand for Hopper (sm_90a): the
+// whole spp loop of a pixel batch in one launch.
+//
+// Replaces: rt_tpu/ops/pallas_mega.py::_regen_kernel (:2288-2458), the
+// Pallas TPU kernel launched by mega_regen (:3226, pallas_call :3276),
+// for spheres with solid and checker textures, no NEE, sampler "rng".
+// Contract kept from it: each lane owns one pixel and owes the samples
+// [sample_base, sample_base + spp); it carries its sample and bounce
+// counters (samp, bvec) beside the 13-word ray state, and each of at
+// most seg_iters iterations, while the lane is pending (alive, or a
+// sample still owed), does in this order: (1) a lane alive at bounce
+// max_depth is retired, with the sky credited when exhaust_bg; (2) a
+// dead lane that owes a sample starts the next one: samp + 1, bvec 0,
+// its camera ray (camera.cuh), throughput 1, alive; (3) one bounce at
+// RNG coordinates (seed, pixel, samp, bvec), then bvec + 1. The radiance
+// rows sum every sample's path in sample order, as the per-sample
+// launches of mega.cu summed by the renderer do: a path adds at most one
+// non-zero term (a miss, a light, or the exhausted sky), so the sums
+// round alike. With `init`, segment 0 makes sample_base's camera rays
+// here; later segments resume the state, samp and bvec they are given,
+// so a capped segment resumed later equals one uncapped run. The TPU
+// loops a 2048-lane tile while any lane of it is pending; here each
+// thread loops while its own lane is, which gives every lane the same
+// state and samp (a finished lane's bvec stops counting).
+//
+// What bounds it: FP32 operations, as mega.cu: 23 per (lane, table row)
+// pair of the hit loop, 16 of ray setup and the winner's shading per
+// ray-bounce, plus one camera ray per sample; 13 state words and four
+// ints per lane are read and written once per segment.
+//
+// Design: one thread per lane; the block stages the table's hit columns
+// in shared memory (bounce.cuh) and each thread runs mega.cu's bounce,
+// do_bounce<false, kTail>, with the camera ray made in registers. A
+// warp runs to its slowest lane over spp samples rather than over one,
+// so its lanes stay busy until the last sample's tail. The trace
+// around it (ops/cuda_mega.mega_trace_regen) may cap segments by
+// seg_iters and group pending lanes between them.
+
+#include <cuda_runtime.h>
+
+#include "bounce.cuh"
+#include "camera.cuh"
+
+namespace {
+
+constexpr int kMaxThreads = 256;
+
+template <bool kTail>
+__global__ void __launch_bounds__(kMaxThreads)
+regen_kernel(rtt::Scene scene, rtt::Camera cam, float* __restrict__ state,
+             long long stride, int n, const int* __restrict__ pixel,
+             const int* __restrict__ py, int* __restrict__ samp,
+             int* __restrict__ bvec, int sample_base, int spp, int seg_iters,
+             int max_depth, int init, int* __restrict__ depth) {
+  extern __shared__ float4 smem[];
+  rtt::stage_table(scene, smem);
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float* s = state + i;
+  const uint32_t pix = static_cast<uint32_t>(pixel[i]);
+  const int y = py[i];
+  const int x = pixel[i] - y * cam.width;
+  const int end = sample_base + spp;  // the first sample not owed
+  rtt::Lane L;
+  int sm, bv;
+  float ro[3], rd[3];
+  if (init) {
+    sm = sample_base;
+    bv = 0;
+    rtt::camera_ray(cam, scene.seed, pix, x, y, static_cast<uint32_t>(sm),
+                    ro, rd);
+    L = rtt::Lane{ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], 1.0f, 1.0f,
+                  1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+  } else {
+    sm = samp[i];
+    bv = bvec[i];
+    if (!(s[12 * stride] > 0.0f) && sm + 1 >= end) return;  // not pending
+    rtt::load_lane(s, stride, L);
+  }
+
+  int bounces = 0;
+  for (int it = 0; it < seg_iters && (L.alive > 0.0f || sm + 1 < end);
+       ++it) {
+    if (L.alive > 0.0f && bv >= max_depth) {  // (1) depth ran out
+      if (scene.exhaust_bg) rtt::exhaust(scene, L);
+      L.alive = 0.0f;
+    }
+    if (L.alive == 0.0f && sm + 1 < end) {  // (2) the next sample
+      ++sm;
+      bv = 0;
+      rtt::camera_ray(cam, scene.seed, pix, x, y, static_cast<uint32_t>(sm),
+                      ro, rd);
+      L.ox = ro[0];
+      L.oy = ro[1];
+      L.oz = ro[2];
+      L.dx = rd[0];
+      L.dy = rd[1];
+      L.dz = rd[2];
+      L.tpr = L.tpg = L.tpb = 1.0f;
+      L.alive = 1.0f;
+    }
+    if (L.alive > 0.0f) {  // (3) one bounce
+      rtt::do_bounce<false, kTail>(
+          scene, L,
+          rtt::prefix(scene.seed, pix, static_cast<uint32_t>(sm),
+                      static_cast<uint32_t>(bv)),
+          rtt::Adj{});
+      ++bounces;
+    }
+    ++bv;
+  }
+
+  rtt::store_lane(s, stride, L);
+  samp[i] = sm;
+  bvec[i] = bv;
+  if (depth) depth[i] += bounces;
+}
+
+}  // namespace
+
+// table [rows, 18] f32 (ops/mega_tables.py); cam: 19 host floats
+// (ops/camera.camera_vec), read before the launch; state [13, stride]
+// f32, of which lanes [0, n) advance in place; pixel, py [>= n] i32;
+// samp, bvec [>= n] i32, read unless init and written; depth [>= n] i32
+// or null (else each lane's bounce count is added to it). Launches on
+// `stream` and returns cudaGetLastError() (0 = launched).
+extern "C" int mega_regen_launch(const float* table, int rows,
+                                 const float* cam, float* state,
+                                 long long stride, int n, const int* pixel,
+                                 const int* py, int* samp, int* bvec,
+                                 int sample_base, int spp, int seg_iters,
+                                 int max_depth, int init, int width,
+                                 int height, int defocus, RTT_SCENE_ARGS,
+                                 int* depth, int threads, void* stream) {
+  const rtt::Scene scene = rtt::make_scene(
+      table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r, bg_g, bg_b,
+      exhaust_bg);
+  const rtt::Camera camera = rtt::make_camera(cam, width, height, defocus);
+  const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
+  const int blocks = (n + threads - 1) / threads;
+  const auto kernel =
+      rtt::has_tail(rows) ? regen_kernel<true> : regen_kernel<false>;
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      scene, camera, state, stride, n, pixel, py, samp, bvec, sample_base,
+      spp, seg_iters, max_depth, init, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* mega_regen_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -15,6 +15,7 @@
 namespace rtt {
 
 // draw purposes (rt_tpu/ops/rng.py:30-42)
+constexpr uint32_t kPixelU = 1, kPixelV = 2, kLensU1 = 3, kLensU2 = 4;
 constexpr uint32_t kScatU1 = 5, kScatU2 = 6, kScatU3 = 7;
 constexpr uint32_t kDielRefl = 8, kRR = 9;
 

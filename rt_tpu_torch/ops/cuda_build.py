@@ -36,10 +36,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # a grazing hit and sends a path elsewhere (ROADMAP C-6), and an
 # adjoint's g * (L - C_after) / att picks up noise where L ~ C_after. The
 # tape capture (capture.cu) shares their bounce, and its codes must be
-# the plain version's on every lane and bounce.
+# the plain version's on every lane and bounce. The regeneration kernel
+# (regen.cu) shares it too, and its in-kernel camera rays
+# (camera.cuh) must be ops/camera.generate_rays's bits.
 LIB_FLAGS = {name: ("--fmad=false",)
              for name in ("mega", "queue", "mega_adjoint", "queue_adjoint",
-                          "capture")}
+                          "capture", "regen")}
 
 
 def find_nvcc() -> str:

@@ -39,6 +39,17 @@ counterpart of `_capture_kernel` :1978, `capture_segment` :2056 and
 each bounce's winner code and each lane's death count for the tape
 replay (diff/tape.py). `mega_capture.launches` counts its launches. Its
 plain version is `mega_plain.capture_plain`.
+
+`mega_trace_regen` renders the whole spp loop of a pixel batch on the
+regeneration kernel B7 (csrc/regen.cu, the counterpart of
+`_regen_kernel` :2288, `mega_regen` :3226, `regen_schedule` :3316 and
+`mega_trace_regen` :3368): a lane whose path ends starts its pixel's
+next sample in the same launch. `mega_regen` runs one segment of it and
+counts its launches in `mega_regen.launches`; its plain version is
+`mega_plain.regen_plain`. Segments follow `regen_schedule`
+(cfg.regen_compact), with the group partition of pending lanes between
+them and, with cfg.regen_shrink, only the pending prefix traced next;
+the radiance sums do not depend on the schedule.
 """
 
 from __future__ import annotations
@@ -245,48 +256,51 @@ def _padded_lanes(state, pixel, sample_idx, bp):
     return state, pix, (samp if samp is not None else int(sample_idx))
 
 
-def _segmented(state, pix, sample, depth, segs, cfg, run):
-    """Run the segments `segs` over the lanes: run(state, pix, sample,
-    depth, start_bounce, seg, n_live, last) traces lanes [0, n_live) of
-    state in place. Between segments, whole groups of cfg.compact_group
-    lanes are partitioned stably, groups with a live lane first (rows of
-    state, pix, a per-lane sample and depth move together), and with
-    cfg.compact_shrink only the live prefix is traced next.
+def _segmented(state, ints, segs, group, shrink, run, pending=None):
+    """Run the segments `segs` over the lanes: run(state, ints, start,
+    seg, n_live, last) advances lanes [0, n_live) of state in place,
+    start being the sum of the earlier segments. ints: per-lane tensors
+    that move with their lanes (pixel ids, a per-lane sample, depth, ...;
+    an entry that is not a tensor of one value per lane stays as it
+    is). Between segments, whole groups of `group` lanes are
+    partitioned stably, groups with a pending lane first (pending(state,
+    ints) -> [lanes] bool; by default the alive lanes), and with
+    `shrink` only the pending prefix is traced next.
 
-    Returns (state, depth, orig_g, launches), state and depth in the
-    last partition's lane order: orig_g [groups] is each group's
-    original index (None for one segment)."""
+    Returns (state, ints, orig_g, launches), state and ints in the last
+    partition's lane order: orig_g [groups] is each group's original
+    index (None for one segment)."""
     rows, bp = state.shape
-    group = max(1, int(cfg.compact_group))
+    group = max(1, int(group))
     compact = len(segs) > 1
     g = bp // group if compact else 0
     orig_g = torch.arange(g, device=state.device) if compact else None
-    per_lane = isinstance(sample, torch.Tensor)
+    ints = list(ints)
     n_live = bp
     done = launches = 0
     for i, seg in enumerate(segs):
         last = i == len(segs) - 1
-        run(state, pix, sample, depth, done, seg, n_live, last)
+        run(state, ints, done, seg, n_live, last)
         launches += 1
         done += seg
         if last:
             break
-        alive_g = (state[mp.ALIVE].view(g, group) > 0.0).any(-1)
+        live = (state[mp.ALIVE] > 0.0 if pending is None
+                else pending(state, ints))
+        alive_g = live.view(g, group).any(-1)
         live_groups = int(alive_g.sum())
         if live_groups == 0:
             break
-        # stable partition of whole groups, any-live groups first
+        # stable partition of whole groups, any-pending groups first
         perm = torch.argsort((~alive_g).to(torch.int8), stable=True)
         state = state.view(rows, g, group)[:, perm].reshape(rows, bp)
-        pix = pix.view(g, group)[perm].reshape(bp)
-        if per_lane:
-            sample = sample.view(g, group)[perm].reshape(bp)
-        if depth is not None:
-            depth = depth.view(g, group)[perm].reshape(bp)
+        ints = [x.view(g, group)[perm].reshape(bp)
+                if isinstance(x, torch.Tensor) and x.dim() > 0 else x
+                for x in ints]
         orig_g = orig_g[perm]
-        # trace only the live prefix (compact_shrink, as _segment_shrunk)
-        n_live = live_groups * group if cfg.compact_shrink else bp
-    return state, depth, orig_g, launches
+        # trace only the pending prefix (as _segment_shrunk)
+        n_live = live_groups * group if shrink else bp
+    return state, ints, orig_g, launches
 
 
 def _padded_size(b, segs, cfg):
@@ -325,19 +339,28 @@ def mega_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     kw = mp.trace_options(tables, cfg)
     exhaust = cfg.exhaust_mode == "background"
 
-    def run(state, pix, sample, depth, start, seg, n_live, last):
+    def run(state, ints, start, seg, n_live, last):
+        pix, sample, depth = ints
         seg_fn(tab, state, pix, sample, seed, start, seg, n=n_live,
                exhaust_bg=exhaust and last, depth=depth, **kw)
 
-    state, depth, orig_g, launches = _segmented(state, pix, sample, depth,
-                                               segs, cfg, run)
+    state, (_, _, depth), orig_g, launches = _segmented(
+        state, (pix, sample, depth), segs, cfg.compact_group,
+        cfg.compact_shrink, run)
+    record_stats(stats, launches, depth)
+    return _radiance(state, orig_g, b)
+
+
+def _radiance(state, orig_g, b):
+    """The first b lanes' radiance [b, 3] in their original order, from
+    a segmented trace's state and group order (_segmented)."""
     rgb = state[mp.C:mp.C + 3]
     if orig_g is not None:
         # undo the composed group permutation once
         inv = torch.argsort(orig_g)
         g = orig_g.shape[0]
+        bp = rgb.shape[1]
         rgb = rgb.reshape(3, g, bp // g)[:, inv].reshape(3, bp)
-    record_stats(stats, launches, depth)
     return rgb[:, :b].T.contiguous()
 
 
@@ -454,13 +477,15 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     grad = torch.zeros((adjoint_plain.ACC_ROWS, ms.n_slots),
                        dtype=torch.float32, device=dev)
 
-    def run(state, pix, sample, depth, start, seg, n_live, last):
+    def run(state, ints, start, seg, n_live, last):
+        pix, sample, depth = ints
         mega_adjoint_segment(ms.table, state, pix, sample, seed, start, seg,
                              grad, n=n_live, exhaust_bg=exhaust and last,
                              depth=depth, **kw)
 
-    _, depth, _, launches = _segmented(state, pix, sample, depth, segs, cfg,
-                                      run)
+    _, (_, _, depth), _, launches = _segmented(
+        state, (pix, sample, depth), segs, cfg.compact_group,
+        cfg.compact_shrink, run)
     record_stats(stats, launches, depth)
     return adjoint_plain.split_grads(grad, ms, kw["grad_bg"])
 
@@ -535,3 +560,171 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
 
 
 mega_capture.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _regen_library():
+    lib = cuda_build.load("regen")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mega_regen_launch.argtypes = [
+        vp, ci, vp,                   # table, rows, camera (19 host floats)
+        vp, ctypes.c_longlong, ci,    # state, stride, n
+        vp, vp, vp, vp,               # pixel, py, samp, bvec
+        ci, ci, ci, ci, ci,           # sample_base, spp, seg_iters,
+                                      # max_depth, init
+        ci, ci, ci,                   # width, height, defocus
+        *SCALAR_TYPES,
+        vp, ci, vp]                   # depth (or null), threads, stream
+    lib.mega_regen_launch.restype = ci
+    lib.mega_regen_error_string.argtypes = [ci]
+    lib.mega_regen_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
+               seg_iters, *, max_depth, spp, init, width, height, defocus,
+               n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
+               exhaust_bg=False, depth=None, threads=THREADS):
+    """One segment of the regeneration kernel B7 (the contract of
+    mega_plain.regen_plain): csrc/regen.cu for CUDA tensors, the plain
+    version for CPU tensors. state [13, B] f32, pixel, py, samp, bvec
+    (and depth) [B] int32; lanes [0, n) advance in place. Returns
+    (state, samp, bvec)."""
+    dev = state.device
+    opts = dict(max_depth=max_depth, spp=spp, init=init, width=width,
+                height=height, defocus=defocus, n=n, t_min=t_min, p_rr=p_rr,
+                grad_bg=grad_bg, bg=bg, exhaust_bg=exhaust_bg, depth=depth)
+    if dev.type == "cpu":
+        return mp.regen_plain(tab, cam, state, pixel, py, samp, bvec,
+                              sample_base, seed, seg_iters, **opts)
+    if dev.type != "cuda":
+        raise ValueError(f"mega_regen: unsupported device {dev}")
+    if state.dim() != 2 or state.shape[0] != mp.NSTATE:
+        raise ValueError(f"state: shape {tuple(state.shape)}, want (13, B)")
+    stride = state.shape[1]
+    n = stride if n is None else int(n)
+    cuda_build.check_tensor("state", state, torch.float32,
+                            (mp.NSTATE, stride), dev)
+    check_table(tab, dev)
+    if not 0 <= n <= stride:
+        raise ValueError(f"n = {n}, want 0..{stride}")
+    if len(cam) != 19:
+        raise ValueError(f"cam: {len(cam)} floats, want 19")
+    ptrs = []
+    for name, x in (("pixel", pixel), ("py", py), ("samp", samp),
+                    ("bvec", bvec)):
+        ptr, _ = lane_ints(name, x, n, dev)
+        if ptr is None:
+            raise ValueError(f"{name}: want a per-lane int32 tensor")
+        ptrs.append(ptr)
+    depth_ptr = None
+    if depth is not None:
+        depth_ptr, _ = lane_ints("depth", depth, n, dev)
+    if n == 0:
+        return state, samp, bvec
+    lib = _regen_library()
+    cam_c = (ctypes.c_float * 19)(*cam)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mega_regen_launch(
+            tab.data_ptr(), tab.shape[0], cam_c, state.data_ptr(), stride, n,
+            *ptrs, int(sample_base), int(spp), int(seg_iters),
+            int(max_depth), int(bool(init)), int(width), int(height),
+            int(bool(defocus)),
+            *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
+            depth_ptr, int(threads), stream)
+    if rc != 0:
+        msg = lib.mega_regen_error_string(rc).decode()
+        raise RuntimeError(f"mega_regen launch failed: {msg} ({rc})")
+    mega_regen.launches += 1
+    return state, samp, bvec
+
+
+mega_regen.launches = 0
+
+
+def regen_schedule(spp: int, max_depth: int, every: int,
+                   growth: int = 2):
+    """Iteration budgets of the segmented regen loop
+    (pallas_mega.regen_schedule :3316). every=0: one segment covering
+    the worst case; every=N>0: N-iteration segments; every=-1 (auto):
+    a head of 3*spp iterations (5*spp when growth is 4, the shrink
+    mode's), then geometric segments. The budgets sum to
+    spp*(max_depth+1), a lane's worst case, so the trace completes
+    whatever the schedule."""
+    total = spp * (max_depth + 1)
+    if every == 0 or every >= total:
+        return [total]
+    if every > 0:
+        sched = [every] * (total // every)
+        if total % every:
+            sched.append(total % every)
+        return sched
+    head = (5 if growth == 4 else 3) * spp
+    sched, left, seg = [], total, head
+    while left > 0:
+        s = min(seg, left)
+        sched.append(s)
+        left -= s
+        seg = growth * spp if len(sched) == 1 else seg * growth
+    return sched
+
+
+def mega_trace_regen(tables, cfg, pixel, py, seed, spp, sample_base=0, *,
+                     plain: bool = False, stats: Optional[dict] = None
+                     ) -> torch.Tensor:
+    """The radiance sum [B, 3] over the samples [sample_base, sample_base
+    + spp) of the pixels `pixel` (ids py * cfg.width + px) in rows `py`
+    ([B] integer tensors) of cfg's frame, traced on the regeneration
+    kernel B7 (see
+    the module doc). Per pixel it equals the sum of spp per-sample
+    mega_trace calls on generate_rays's camera rays, added in sample
+    order. plain=True runs the plain version on any device. stats, when
+    given, gains "launches" (segments run) and "ray_bounces".
+
+    The reference takes a later segment's shrunken width from the
+    previous frame's counts (`_shrink_plans`, with a full-width guard
+    segment), as a host read through the TPU's link was dear; here the
+    pending groups are counted after every segment, as mega_trace does.
+
+    Pre-condition: mega_tables.mega_supported(tables)."""
+    dev = pixel.device
+    ms = tables.mega
+    b = pixel.shape[0]
+    shrink = bool(cfg.regen_shrink)
+    segs = regen_schedule(int(spp), int(cfg.max_depth),
+                          int(cfg.regen_compact), growth=4 if shrink else 2)
+    group = max(1, int(cfg.compact_group))
+    bp = -(-b // group) * group if len(segs) > 1 else b
+    end = int(sample_base) + int(spp)
+    ints = torch.zeros((4, bp), dtype=torch.int32, device=dev)
+    ints[0, :b] = pixel.to(device=dev, dtype=torch.int32)
+    ints[1, :b] = py.to(device=dev, dtype=torch.int32)
+    # pad lanes enter dead and owe nothing: never traced, cut at the end
+    ints[2] = end - 1
+    pix, pyv, samp, bvec = ints
+    state = torch.zeros((mp.NSTATE, bp), dtype=torch.float32, device=dev)
+    depth = (torch.zeros(bp, dtype=torch.int32, device=dev)
+             if stats is not None else None)
+    seg_fn = mp.regen_plain if plain else mega_regen
+    kw = mp.trace_options(tables, cfg)
+    opts = dict(max_depth=int(cfg.max_depth), spp=int(spp),
+                width=int(cfg.width), height=int(cfg.height),
+                defocus=bool(cfg.enable_defocus),
+                exhaust_bg=cfg.exhaust_mode == "background", **kw)
+
+    def run(state, ints, start, seg, n_live, last):
+        pix, pyv, samp, bvec, depth = ints
+        first = start == 0  # segment 0 makes the camera rays of the lanes
+        seg_fn(ms.table, ms.cam, state, pix, pyv, samp, bvec, sample_base,
+               seed, seg, init=first, n=min(n_live, b) if first else n_live,
+               depth=depth, **opts)
+
+    def pending(state, ints):
+        return (state[mp.ALIVE] > 0.0) | (ints[2] + 1 < end)
+
+    state, (_, _, _, _, depth), orig_g, launches = _segmented(
+        state, (pix, pyv, samp, bvec, depth), segs, group, shrink, run,
+        pending)
+    record_stats(stats, launches, depth)
+    return _radiance(state, orig_g, b)

@@ -16,7 +16,9 @@ reads (ops/adjoint_plain.py): the replay runs the forward's own
 expressions, so C_after, the attenuation and P are the forward's bits.
 `capture_plain`, the plain version of the tape-capture kernel
 (csrc/capture.cu), records each bounce's winner row from the same
-bounce.
+bounce. `regen_plain`, the plain version of the regeneration kernel
+(csrc/regen.cu), runs the same bounce over the whole spp loop, with
+each sample's camera rays from ops/camera.generate_rays.
 
 Every operation is elementwise, so a lane's result does not depend on
 the batch it sits in: the segmented trace and the queue emulation give
@@ -32,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from rt_tpu_torch.ops import rng
+from rt_tpu_torch.ops import camera, rng
 from rt_tpu_torch.ops.mega_tables import (
     S_C2R,
     S_VALID,
@@ -362,3 +364,76 @@ def exhaust(state, lanes, bg, grad_bg: bool):
     for k, bgk in enumerate((bgr, bgg, bgb)):
         sub[C + k] = sub[C + k] + torch.where(live, sub[TP + k] * bgk, 0.0)
     state[:, lanes] = sub
+
+
+def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
+                seg_iters, *, max_depth, spp, init, width, height, defocus,
+                n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
+                exhaust_bg=False, depth=None):
+    """The plain version of one segment of the regeneration kernel B7
+    (csrc/regen.cu, rt_tpu/ops/pallas_mega.py `_regen_kernel` :2288):
+    lanes [0, n) of state [13, B], pixel ids `pixel` and rows `py`
+    ([B] integer tensors), owe the samples [sample_base, sample_base +
+    spp); samp and bvec ([B] int32) are each lane's sample and bounce
+    counters. Each of at most seg_iters iterations advances the pending
+    lanes (alive, or owing a sample): (1) retire a lane alive at bounce
+    max_depth, crediting the sky when exhaust_bg; (2) start a dead
+    lane's next sample (samp + 1, bvec 0, a fresh camera ray); (3) one
+    bounce at (samp, bvec), then bvec + 1. With init, the lanes first
+    take sample_base's camera rays. cam: ops/camera.camera_vec's 19
+    floats. state, samp and bvec are updated in place and returned;
+    depth, when given, gains each lane's bounces."""
+    n = state.shape[1] if n is None else int(n)
+    dev = state.device
+    sub = state[:, :n]
+    pix = pixel[:n].to(device=dev, dtype=torch.int64)
+    pyl = py[:n].to(device=dev, dtype=torch.int64)
+    pxl = pix - pyl * width
+    cam_def = camera.camera_of_vec(cam, dev)
+    end = int(sample_base) + int(spp)
+
+    def rays(idx, sample):
+        return camera.generate_rays(cam_def, width, height, pxl[idx],
+                                    pyl[idx], sample, seed, defocus)
+
+    if init:
+        samp[:n] = int(sample_base)
+        bvec[:n] = 0
+        sub.copy_(fresh_state(*rays(slice(None), int(sample_base))))
+    sm = samp[:n].to(torch.int64)
+    bv = bvec[:n].to(torch.int64)
+    for _ in range(int(seg_iters)):
+        idx = torch.nonzero((sub[ALIVE] > 0.0) | (sm + 1 < end))[:, 0]
+        if idx.numel() == 0:
+            break
+        st, s_, b_ = sub[:, idx], sm[idx], bv[idx]
+        # (1) the depth ran out
+        exh = (st[ALIVE] > 0.0) & (b_ >= max_depth)
+        if exhaust_bg:
+            exhaust(st, exh, bg, grad_bg)
+        st[ALIVE] = torch.where(exh, 0.0, st[ALIVE])
+        # (2) dead lanes that owe a sample start the next one
+        reg = (st[ALIVE] == 0.0) & (s_ + 1 < end)
+        s_ = torch.where(reg, s_ + 1, s_)
+        b_ = torch.where(reg, 0, b_)
+        ri = torch.nonzero(reg)[:, 0]
+        if ri.numel():
+            ro, rd = rays(idx[ri], s_[ri])
+            st[O:O + 3, ri] = ro.T
+            st[D:D + 3, ri] = rd.T
+            st[TP:TP + 3, ri] = 1.0
+            st[ALIVE, ri] = 1.0
+        # (3) one bounce at (samp, bvec)
+        li = torch.nonzero(st[ALIVE] > 0.0)[:, 0]
+        if li.numel():
+            st[:, li] = do_bounce_plain(
+                tab, st[:, li], pix[idx[li]], s_[li], b_[li], seed,
+                t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg)
+            if depth is not None:
+                depth[idx[li]] += 1
+        sub[:, idx] = st
+        sm[idx] = s_
+        bv[idx] = b_ + 1
+    samp[:n] = sm.to(samp.dtype)
+    bvec[:n] = bv.to(bvec.dtype)
+    return state, samp, bvec

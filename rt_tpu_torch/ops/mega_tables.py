@@ -33,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from rt_tpu_torch.ops.camera import camera_vec
 from rt_tpu_torch.scene.types import (
     MAT_DIELECTRIC,
     MAT_METAL,
@@ -123,13 +124,15 @@ def slot_ids(tables: SceneTables, mat_ids) -> torch.Tensor:
 class MegaScene:
     """What the megakernels read of a scene: the packed table up to its
     last live sphere (live rows come first, build_tables pads behind
-    them), the constant sky colour as host floats, which the launchers
-    pass by value, and the sizes of the adjoint accumulators: n_slots =
+    them), the constant sky colour and the camera frame
+    (ops/camera.camera_vec) as host floats, which the launchers pass by
+    value, and the sizes of the adjoint accumulators: n_slots =
     n_tex + n_mat gradient slots, texture rows first (the reference pads
     them to 128-lane slabs; the port needs no padding)."""
 
     table: torch.Tensor          # [n_spheres, S_COLS] f32
     bg: Tuple[float, float, float]
+    cam: Tuple[float, ...]       # 19 floats, ops/camera.camera_vec
     n_tex: int
     n_mat: int
 
@@ -143,5 +146,6 @@ class MegaScene:
         bg = tables.background.detach().to("cpu", torch.float32).tolist()
         return cls(table=tab.detach().contiguous(),
                    bg=tuple(float(v) for v in bg),
+                   cam=camera_vec(tables.camera),
                    n_tex=int(tables.tex_color.shape[0]),
                    n_mat=int(tables.mat_albedo.shape[0]))

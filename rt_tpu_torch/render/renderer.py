@@ -5,6 +5,12 @@ A "tile" is a flat batch of pixels; each launch traces (tile x samples)
 rays through the full bounce loop and adds into a per-pixel accumulator
 on the device. The result stays on the device until the caller
 downloads it.
+
+With cfg.regen and engine "mega" (rt_tpu/render/renderer.py:116-155),
+each tile of up to rays_per_batch pixels runs its whole spp loop on the
+regeneration kernel (ops/cuda_mega.mega_trace_regen): the camera rays
+are made in the kernel, and the image is the per-sample launches' bit
+for bit. regen with any other engine is ignored, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,8 +21,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rt_tpu_torch.config import RenderConfig, resolve_device
+from rt_tpu_torch.config import RenderConfig, check_supported, \
+    resolve_device
 from rt_tpu_torch.ops.camera import generate_rays
+from rt_tpu_torch.ops.cuda_mega import mega_trace_regen
+from rt_tpu_torch.ops.mega_tables import mega_supported
 from rt_tpu_torch.render.integrator import trace
 from rt_tpu_torch.scene.types import SceneTables
 
@@ -58,21 +67,33 @@ def render(tables: SceneTables, cfg: RenderConfig, sample_offset: int = 0,
     device, row 0 = BOTTOM scanline (writers flip).
 
     sample_offset shifts the absolute sample indices. stats, when given,
-    collects stats["bounces"] (see integrator.trace)."""
+    collects stats["bounces"] (see integrator.trace), or with the kernel
+    engines stats["launches"] and stats["ray_bounces"]."""
     dev = resolve_device(device)
+    check_supported(cfg)
     tables = tables.to(dev)
     w, h = cfg.width, cfg.height
     spp = cfg.samples_per_pixel
     n_pix = w * h
     px_all, py_all, pix = _block_order(w, h)
+    use_regen = cfg.regen and cfg.engine == "mega" and not cfg.nee \
+        and mega_supported(tables)
 
-    # pick tile size so tile*samples_per_launch ~ rays_per_batch
-    samples_per_launch = max(1, min(spp, cfg.rays_per_batch // max(n_pix, 1)))
-    tile = min(n_pix, max(1, cfg.rays_per_batch // samples_per_launch))
+    if use_regen:
+        # the spp loop runs in the kernel: the rays in flight are the
+        # tile's pixels, whatever the samples a launch covers
+        samples_per_launch = spp
+        tile = min(n_pix, cfg.rays_per_batch)
+    else:
+        # pick tile size so tile*samples_per_launch ~ rays_per_batch
+        samples_per_launch = max(1, min(spp,
+                                        cfg.rays_per_batch // max(n_pix, 1)))
+        tile = min(n_pix, max(1, cfg.rays_per_batch // samples_per_launch))
     n_tiles = -(-n_pix // tile)
 
     px_dev = torch.from_numpy(px_all).to(dev)
     py_dev = torch.from_numpy(py_all).to(dev)
+    pix_dev = torch.from_numpy(pix).to(dev)
     acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     seed = int(cfg.seed) & 0xFFFFFFFF
     for ti in range(n_tiles):
@@ -81,9 +102,15 @@ def render(tables: SceneTables, cfg: RenderConfig, sample_offset: int = 0,
         s = 0
         while s < spp:
             k = min(samples_per_launch, spp - s)
-            acc[sl] += render_block(tables, cfg, px, py, sample_offset + s,
-                                    k, seed, w, h, stats=stats)
+            if use_regen:
+                acc[sl] += mega_trace_regen(
+                    tables, cfg, pix_dev[sl], py, seed, k,
+                    sample_base=sample_offset + s, stats=stats)
+            else:
+                acc[sl] += render_block(tables, cfg, px, py,
+                                        sample_offset + s, k, seed, w, h,
+                                        stats=stats)
             s += k
     out = torch.empty_like(acc)
-    out[torch.from_numpy(pix).to(dev).long()] = acc  # undo the block order
+    out[pix_dev.long()] = acc  # undo the block order
     return out.reshape(h, w, 3)

@@ -541,3 +541,163 @@ def test_tape_vg_on_card():
                 {"tex_color": td.tex_color}).cpu().numpy())
     diff = np.abs(imgs[0] - imgs[1]).max(-1)
     assert (diff > 2e-3).mean() <= 0.01 and diff.max() <= 0.5
+
+
+# ---- the regeneration kernel B7 (regen.cu)
+
+
+def _regen_scene(dev, w, h, spp, depth, scene="cover", **over):
+    """(tables, cfg) on the card: cover_scene, the Cornell scene with an
+    open lens (defocus and lights), or a random (n, n_mat) scene."""
+    if scene == "cover":
+        sdef, cfg = builders.cover_scene(width=w, height=h, spp=spp,
+                                         max_depth=depth)
+    elif scene == "cornell":
+        sdef, cfg = builders.cornell_spheres_scene(width=w, height=h,
+                                                   spp=spp, max_depth=depth)
+        p = sdef.camera_params
+        sdef.set_camera(p["lookfrom"], p["lookat"], p["vup"], p["vfov"], 0.2,
+                        focus_dist=5.0)
+        cfg = cfg.replace(enable_defocus=True)
+    else:
+        n, n_mat = scene
+        sdef, cfg = builders.random_spheres_scene(n, n_mat, width=w,
+                                                  height=h, spp=spp,
+                                                  max_depth=depth)
+    return (types.build_tables(sdef, device=dev),
+            cfg.replace(engine="mega", **over))
+
+
+def _regen_segment(tt, cfg, seg_iters, plain, sample_base=0, seed=0):
+    """One init segment of B7 (or its plain version) over every pixel:
+    (state, samp, bvec, depth)."""
+    from rt_tpu_torch.ops import cuda_mega, mega_plain
+
+    dev = tt.sph_center.device
+    w, h = cfg.width, cfg.height
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    state = torch.zeros((13, w * h), device=dev)
+    samp, bvec, depth = (torch.zeros(w * h, dtype=torch.int32, device=dev)
+                         for _ in range(3))
+    fn = mega_plain.regen_plain if plain else cuda_mega.mega_regen
+    fn(tt.mega.table, tt.mega.cam, state, pix, pix // w, samp, bvec,
+       sample_base, seed, seg_iters, max_depth=cfg.max_depth,
+       spp=cfg.samples_per_pixel, init=True, width=w, height=h,
+       defocus=cfg.enable_defocus,
+       exhaust_bg=cfg.exhaust_mode == "background", depth=depth,
+       **mega_plain.trace_options(tt, cfg))
+    return state, samp, bvec, depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,p_rr", [
+    ("cover", 0.0), ("cover", 0.9), ("cornell", 0.9), ((12000, 0), 0.0)],
+    ids=["cover", "cover_rr", "cornell_lens", "rows12000"])
+def test_regen_kernel_matches_plain(scene, p_rr):
+    """B7 against its plain version at 192x108 (the random scene at
+    128x96), depth 50, spp 4, one whole segment: every lane's state,
+    sample and bounce counters and bounce count bit for bit (regen.cu is
+    built without FMA contraction; its camera rays are generate_rays's
+    bits)."""
+    from rt_tpu_torch.ops import cuda_mega
+
+    dev = _card()
+    w, h = (128, 96) if scene == (12000, 0) else (192, 108)
+    tt, cfg = _regen_scene(dev, w, h, 4, 50, scene=scene, p_rr=p_rr)
+    before = cuda_mega.mega_regen.launches
+    got = _regen_segment(tt, cfg, 4 * 51, plain=False, sample_base=2,
+                         seed=9)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_regen.launches == before + 1
+    want = _regen_segment(tt, cfg, 4 * 51, plain=True, sample_base=2,
+                          seed=9)
+    assert cuda_mega.mega_regen.launches == before + 1
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+    assert bool((got[0][12] == 0.0).all()) and bool((got[1] == 5).all())
+    assert float(got[0][9:12].max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [
+    dict(regen_compact=-1, compact_group=16),
+    dict(regen_compact=5, compact_group=128),
+    dict(regen_compact=5, compact_group=16, regen_shrink=False),
+    dict(regen_compact=-1, compact_group=128, regen_shrink=False)],
+    ids=["auto_g16", "every5_g128", "every5_g16_full", "auto_g128_full"])
+def test_regen_segments_equal_one_segment(opts):
+    """Capped segments, the partition of pending groups and the shrunken
+    prefix on the card give the one-launch radiance bit for bit, with the
+    same ray-bounces."""
+    from rt_tpu_torch.ops import cuda_mega
+
+    dev = _card()
+    tt, cfg = _regen_scene(dev, 192, 108, 4, 50)
+    pix = torch.arange(192 * 108, device=dev)
+    st_one, st_seg = {}, {}
+    one = cuda_mega.mega_trace_regen(tt, cfg, pix, pix // 192, 0, 4,
+                                     stats=st_one)
+    seg = cuda_mega.mega_trace_regen(tt, cfg.replace(**opts), pix,
+                                     pix // 192, 0, 4, stats=st_seg)
+    assert st_one["launches"] == 1 and st_seg["launches"] > 1
+    assert torch.equal(one, seg)
+    assert st_one["ray_bounces"] == st_seg["ray_bounces"]
+
+
+@pytest.mark.cuda
+def test_regen_frame_equals_mega_frame():
+    """render(engine="mega", regen=True) on the card is the per-sample
+    megakernel frame bit for bit, in one launch of B7, with the same
+    ray-bounces."""
+    from rt_tpu_torch.ops import cuda_mega
+    from rt_tpu_torch.render.renderer import render
+
+    dev = _card()
+    tt, cfg = _regen_scene(dev, 192, 108, 4, 50,
+                           compact_schedule=(2, 3, 5, 10), compact_group=16)
+    st_m, st_r = {}, {}
+    want = render(tt, cfg, device="cuda", stats=st_m)
+    before = cuda_mega.mega_regen.launches
+    got = render(tt, cfg.replace(regen=True), device="cuda", stats=st_r)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_regen.launches == before + 1 == before + \
+        st_r["launches"]
+    assert torch.equal(got, want)
+    assert st_r["ray_bounces"] == st_m["ray_bounces"] > 0
+
+
+@pytest.mark.cuda
+def test_regen_wrapper_checks_inputs():
+    from rt_tpu_torch.ops import cuda_mega, mega_plain
+
+    dev = _card()
+    tt, cfg = _regen_scene(dev, 16, 8, 2, 4)
+    b = 16 * 8
+    pix = torch.arange(b, dtype=torch.int32, device=dev)
+    args = [tt.mega.table, tt.mega.cam, torch.zeros((13, b), device=dev),
+            pix, pix // 16, torch.zeros(b, dtype=torch.int32, device=dev),
+            torch.zeros(b, dtype=torch.int32, device=dev), 0, 0, 10]
+    kw = dict(max_depth=4, spp=2, init=True, width=16, height=8,
+              defocus=True, **mega_plain.trace_options(tt, cfg))
+
+    def call(i, x, **over):
+        a = list(args)
+        a[i] = x
+        return cuda_mega.mega_regen(*a, **{**kw, **over})
+
+    with pytest.raises(TypeError):
+        call(0, tt.mega.table.double())
+    with pytest.raises(ValueError, match="shape"):
+        call(2, args[2][:12].contiguous())
+    with pytest.raises(ValueError, match="on cpu"):
+        call(3, pix.cpu())
+    with pytest.raises(TypeError):
+        call(5, args[5].long())
+    with pytest.raises(ValueError, match="want 19"):
+        call(1, tt.mega.cam[:18])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        call(6, args[6], threads=2048)
+    before = cuda_mega.mega_regen.launches
+    call(6, args[6])
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_regen.launches == before + 1

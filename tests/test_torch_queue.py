@@ -154,6 +154,7 @@ def test_new_modules_import_without_jax():
         "import rt_tpu_torch.ops.mega_tables, rt_tpu_torch.ops.mega_plain\n"
         "import rt_tpu_torch.ops.cuda_mega, rt_tpu_torch.ops.cuda_queue\n"
         "import rt_tpu_torch.render.integrator, rt_tpu_torch.cli\n"
+        "import rt_tpu_torch.ops.camera, rt_tpu_torch.render.renderer\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'rt_tpu')]\n"
         "assert not bad, bad\n"

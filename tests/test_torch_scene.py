@@ -137,7 +137,8 @@ def test_config_fields_and_defaults_match_jax():
 
 @pytest.mark.parametrize("bad,exc", [
     (dict(engine="mega", compact_sort="spatial"), NotImplementedError),
-    (dict(engine="queue", regen=True), NotImplementedError),
+    (dict(engine="mega", regen=True, compact_sort="spatial"),
+     NotImplementedError),
     (dict(engine="xla"), ValueError),
     (dict(nee=True), NotImplementedError),
     (dict(nee=True, mis=True), NotImplementedError),

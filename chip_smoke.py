@@ -28,12 +28,22 @@ closes it: the kernel B7 against its plain version at 192x108 (cover;
 Cornell with an open lens at p_rr 0.9) and across segment schedules,
 the frame of render(engine="mega", regen=True) at 1920x1080, spp 16,
 depth 50 against the megakernel's frame of phase 10, and B7 against its
-plain version on all 2,073,600 lanes. Each phase prints its
+plain version on all 2,073,600 lanes. The primitive families follow:
+B2, B3 and B7 against their plain versions bit for bit at 192x108 on a
+scene of all four families and on scenes/demo_scene.json; the JSON
+scene's main path, `python -m rt_tpu_torch render -f scenes/demo_scene.json` at
+the scene's 960x540, spp 128, depth 40 (engine queue, kernel B3), with
+its queue, mega and regen frames; and cover_scene(lights=True) at
+1920x1080, depth 50, spp 16 and mesh_scene(scenes/plane441.obj) at
+1920x1080, depth 16, spp 4 on the three engines, each with one B2 and
+B3 trace call and one B7 call against the plain versions on every lane
+and against their bounds. Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, its error against the plain version, its time,
-the plain version's time and its bound on this card.
+the plain version's time and its bound on this card (B2, B3 and B7
+also on the two family workloads).
 
 Needs one CUDA GPU and nvcc; imports neither JAX nor the JAX package.
 Writes only to rt_tpu_torch/_build/ (ignored by git) and a temporary
@@ -83,6 +93,10 @@ ADJOINT_OPS = 0
 # hash's integer operations are not counted, so this stays a lower bound.
 CAMERA_OPS = 45
 
+# FP32 operations per (lane, row) of each family's hit function in
+# csrc/bounce.cuh (sphere, rect, cylinder, triangle), counted there
+FAMILY_OPS = (SPHERE_OPS_PER_PAIR, 36, 62, 71)
+
 W, H, SPP, DEPTH = 1920, 1080, 2, 50     # rt_tpu bench.py:67-71 shape
 MAIN_SPP = 16                            # bench.py's one-launch spp
 SMALL_W, SMALL_H = 192, 108              # engine compare
@@ -91,6 +105,8 @@ LANES_1 = 65536                          # per-lane kernel compares
 SMALL_POOL = 2048                        # B3 pool lanes of the refill check
 TRAIN_BWD_DEPTH = 8      # the reference's production truncation
 GRAD_FIELDS = ("tex_color", "tex_color2", "mat_albedo", "background")
+DEMO = os.path.join(ROOT, "scenes", "demo_scene.json")
+MESH = os.path.join(ROOT, "scenes", "plane441.obj")
 
 
 @contextlib.contextmanager
@@ -306,6 +322,74 @@ def lane_occupancy(*launches, warp=32):
     return num / den
 
 
+def hit_ops(tables):
+    """FP32 operations of one ray-bounce's hit loop over the scene's live
+    rows of every family, plus the ray setup (the shading is left out,
+    so the bound stays a lower bound)."""
+    return sum(o * n for o, n in zip(FAMILY_OPS, tables.counts)) + SETUP_OPS
+
+
+def table_bytes(tables):
+    """Bytes of the packed tables the kernels read (each read once)."""
+    ms = tables.mega
+    tabs = [ms.table] + (list(ms.fam) if ms.fam is not None else [])
+    return sum(t.numel() * 4 for t in tabs)
+
+
+def bound_of(ops, nbytes):
+    """(ms, "operations" or "bytes"): the least time for ops FP32
+    operations and nbytes bytes on this card."""
+    o, b = ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES
+    return max(o, b) * 1e3, ("operations" if o >= b else "bytes")
+
+
+def all_families_scene(w, h, spp, depth):
+    """Every primitive family with solid and checker textures, an
+    emissive rect and all three rect orientations (the scene of
+    tests/test_torch_families.py): (SceneDef, RenderConfig)."""
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.scene.types import SceneDef
+
+    s = SceneDef(width=w, height=h, samples_per_pixel=spp, max_depth=depth,
+                 background=(0.2, 0.25, 0.3))
+    s.add_sphere((0, 0, -2), 0.5, s.add_lambertian_color((0.5, 0.4, 0.3)))
+    s.add_sphere((0, -100.5, -2), 100,
+                 s.add_lambertian(
+                     s.add_checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    s.add_sphere((-1.1, 0, -2), 0.5, s.add_dielectric(1.5))
+    s.add_rect("xz_rect", -1, 1, -3, -1, 2.0,
+               s.add_diffuse_light_color((3.0, 2.8, 2.5)))
+    s.add_rect("xy_rect", -2, 2, -1, 2, -3.5,
+               s.add_lambertian(s.add_checker((0.8, 0.1, 0.1),
+                                              (0.1, 0.1, 0.8))))
+    s.add_rect("yz_rect", -1, 1, -3, -1, 1.8,
+               s.add_metal((0.8, 0.8, 0.9), 0.2))
+    s.add_cylinder(0.25, -0.3, 0.3, s.add_metal((0.9, 0.7, 0.4), 0.1))
+    s.add_cylinder(0.2, -0.5, 0.5, s.add_dielectric(1.4),
+                   rotate=((1, 0, 0), 90.0), translate=(0.9, -0.2, -1.6))
+    tri_mat = s.add_lambertian_color((0.8, 0.2, 0.2))
+    s.add_triangle((0.4, -0.5, -1.2), (0.9, -0.5, -1.4), (0.6, 0.2, -1.3),
+                   tri_mat, uv1=(0, 0), uv2=(1, 0), uv3=(0, 1))
+    s.add_triangle((-0.9, -0.4, -1.0), (-0.3, -0.45, -1.1),
+                   (-0.6, 0.3, -0.9), tri_mat)
+    s.set_camera((0, 0.3, 1.2), (0, 0, -2), (0, 1, 0), 55, 0.0)
+    return s, RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           max_depth=depth)
+
+
+def demo_scene(w=None, h=None, spp=None):
+    """scenes/demo_scene.json at its own settings, or resized."""
+    from rt_tpu_torch.scene.parser import parse_scene
+
+    sdef, cfg = parse_scene(DEMO)
+    if w:
+        sdef.resize(w, h)
+        cfg = cfg.replace(width=w, height=h)
+    if spp:
+        cfg = cfg.replace(samples_per_pixel=spp)
+    return sdef, cfg
+
+
 def counters():
     from rt_tpu_torch.ops import cuda_intersect, cuda_mega, cuda_queue
 
@@ -498,6 +582,8 @@ def main() -> int:
     c16 = c16.replace(rays_per_batch=1 << 25, compact_schedule=(2, 3, 5, 10),
                       compact_group=16)
     t16 = build_tables(s16, device=dev)
+    if t16.mega.fam is not None:  # the kernels' sphere-only instantiation
+        raise AssertionError("cover_scene has family tables")
 
     with phase("7 B2 / B3 kernels vs plain per lane at depth 1"):
         err_mega = err_queue = 0.0
@@ -1275,7 +1361,237 @@ def main() -> int:
         rows["mega_regen"] = dict(ms=ms16, plain_ms=pms16, bound_ms=b7_bound,
                                   bound_by=b7_by)
 
-    print(f"[28 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    from rt_tpu_torch import cli
+
+    with phase(f"28 B2 / B3 / B7 vs plain bit for bit at {SMALL_W}x{SMALL_H} "
+               "on scenes with rects, cylinders and triangles"):
+        px = torch.arange(SMALL_W * SMALL_H, device=dev)
+        for label, (sd, cb) in (
+                ("all-families scene, depth 40",
+                 all_families_scene(SMALL_W, SMALL_H, 2, 40)),
+                ("demo_scene.json, depth 40",
+                 demo_scene(SMALL_W, SMALL_H, 2))):
+            tb = build_tables(sd, device=dev)
+            if tb.mega.fam is None:
+                raise AssertionError(f"{label}: no family tables")
+            cb = cb.replace(engine="mega", compact_schedule=(2, 3, 5, 10),
+                            compact_group=16)
+            ro_, rd_ = generate_rays(tb.camera, SMALL_W, SMALL_H,
+                                     px % SMALL_W, px // SMALL_W, 0, 0,
+                                     cb.enable_defocus)
+            args = (tb, cb, ro_, rd_, px, 0, 0)
+            for name, fn in (("B2", cuda_mega.mega_trace),
+                             ("B3", cuda_queue.queue_trace)):
+                k_out, p_out = fn(*args), fn(*args, plain=True)
+                differ = int((k_out != p_out).any(-1).sum())
+                print(f"  {label}: {name} vs plain on {px.numel()} lanes, "
+                      f"{differ} lanes differ, mean radiance "
+                      f"{float(k_out.mean()):.4f}", flush=True)
+                if differ:
+                    raise AssertionError(f"{label}: {name} is not its plain "
+                                         "version bit for bit")
+            seg = (tb, cb, px, 2, 2 * (cb.max_depth + 1))
+            err_b7 = max(err_b7, regen_mismatch(
+                regen_segment(*seg, plain=False),
+                regen_segment(*seg, plain=True), f"{label}: B7 vs plain"))
+
+    demo = {}
+    with phase("29 main path: python -m rt_tpu_torch render -f "
+               "scenes/demo_scene.json (960x540, spp 128, depth 40, engine "
+               "queue)"):
+        sd, cd = demo_scene()
+        dw, dh, dspp = cd.width, cd.height, cd.samples_per_pixel
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            rc = cli.main(["render", "-f", DEMO])  # no -o: demo.png here
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            counts = read_counts()
+            png = read_png(os.path.join(tmp, sd.output_file))
+        paths = dw * dh * dspp
+        print(f"  CLI {sec:.4f} s = {paths / sec:.0f} paths/s ({paths} paths, "
+              f"scene parse and table build included); launches {counts}; "
+              f"{smi}", flush=True)
+        if rc != 0 or counts["queue_launch"] <= 0 or \
+                sum(counts.values()) != counts["queue_launch"]:
+            raise AssertionError(f"the CLI exited {rc}, launched {counts}")
+        if png.shape != (dh, dw, 3) or png.max() == 0:
+            raise AssertionError(f"the CLI wrote a bad PNG {png.shape}")
+        demo["cli"] = dict(sec=sec, launches=counts["queue_launch"])
+        td = build_tables(sd, device=dev)
+        # the CLI's configuration: the compaction schedule at depth >= 16
+        cd = cd.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
+        for key, engine, regen in (("queue", "queue", False),
+                                   ("mega", "mega", False),
+                                   ("regen", "mega", True)):
+            st = {}
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img = render(td, cd.replace(engine=engine, regen=regen),
+                         device="cuda", stats=st)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            counts = read_counts()
+            own = counts["mega_regen" if regen else
+                         "queue_launch" if engine == "queue"
+                         else "mega_segment"]
+            print(f"  render {key}: {sec:.4f} s = {paths / sec:.0f} paths/s, "
+                  f"launches {counts}, ray-bounces {st['ray_bounces']} "
+                  f"({st['ray_bounces'] / paths:.4f} per path); {smi}",
+                  flush=True)
+            if own <= 0 or own != st["launches"] or \
+                    sum(counts.values()) != own:
+                raise AssertionError(f"{key}: launched {counts}, stats say "
+                                     f"{st['launches']}")
+            if tuple(img.shape) != (dh, dw, 3) or \
+                    not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{key}: not a finite image")
+            neg = film.negative_pixels(img)
+            if neg:
+                raise AssertionError(f"{key}: {neg} negative pixels")
+            demo[key] = dict(img=img.cpu().numpy(), sec=sec, launches=own,
+                             bounces=st["ray_bounces"])
+        frac, mx = images_close(demo["queue"]["img"], demo["mega"]["img"],
+                                dspp)
+        differ = float((demo["regen"]["img"] != demo["mega"]["img"]).any(
+            -1).mean())
+        print(f"  queue vs mega: {frac:.3%} pixels beyond 2e-3, max diff "
+              f"{mx:.4g}; regen vs mega: {differ:.6%} of pixels differ; "
+              f"mean radiance {float(demo['queue']['img'].mean()) / dspp:.4f}",
+              flush=True)
+        if differ or demo["regen"]["bounces"] != demo["mega"]["bounces"]:
+            raise AssertionError("the regen frame is not the mega frame")
+
+    def family_workload(label, sd, cb, spp):
+        """A family scene at 1920x1080: its frames on queue, mega and
+        regen (launches, paths/s, the regen frame against the mega frame
+        bit for bit, the queue frame against it by images_close), then
+        one B2 and one B3 trace call of sample 0 and one B7 call over
+        all spp samples, each timed with CUDA events and held against
+        its plain version on every lane, beside its bound."""
+        cb = cb.replace(rays_per_batch=1 << 25,
+                        compact_schedule=(2, 3, 5, 10), compact_group=16)
+        tb = build_tables(sd, device=dev)
+        w_, h_, depth = cb.width, cb.height, cb.max_depth
+        paths = w_ * h_ * spp
+        out = {"frames": {}}
+        frames = {}
+        for key, engine, regen in (("queue", "queue", False),
+                                   ("mega", "mega", False),
+                                   ("regen", "mega", True)):
+            st = {}
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img = render(tb, cb.replace(engine=engine, regen=regen),
+                         device="cuda", stats=st)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            counts = read_counts()
+            own = counts["mega_regen" if regen else
+                         "queue_launch" if engine == "queue"
+                         else "mega_segment"]
+            print(f"  {label} frame {key}: {sec:.4f} s = "
+                  f"{paths / sec:.0f} paths/s, launches {counts}, "
+                  f"ray-bounces {st['ray_bounces']} "
+                  f"({st['ray_bounces'] / paths:.4f} per path); {smi}",
+                  flush=True)
+            if own <= 0 or own != st["launches"] or \
+                    sum(counts.values()) != own:
+                raise AssertionError(f"{label} {key}: launched {counts}")
+            if not bool(torch.isfinite(img).all()) or \
+                    film.negative_pixels(img):
+                raise AssertionError(f"{label} {key}: a bad image")
+            frames[key] = img.cpu().numpy()
+            out["frames"][key] = dict(sec=sec, launches=own,
+                                      paths_per_s=paths / sec,
+                                      ray_bounces=st["ray_bounces"])
+        frac, mx = images_close(frames["queue"], frames["mega"], spp)
+        differ = float((frames["regen"] != frames["mega"]).any(-1).mean())
+        print(f"  {label}: queue vs mega {frac:.3%} pixels beyond 2e-3, "
+              f"max diff {mx:.4g}; regen vs mega {differ:.6%} of pixels "
+              "differ", flush=True)
+        if differ:
+            raise AssertionError(f"{label}: regen frame != mega frame")
+
+        px_ = torch.arange(w_ * h_, device=dev)
+        ro_, rd_ = generate_rays(tb.camera, w_, h_, px_ % w_, px_ // w_, 0,
+                                 0, cb.enable_defocus)
+        args = (tb, cb, ro_, rd_, px_, 0, 0)
+        ops_row = hit_ops(tb)
+        nbytes_tab = table_bytes(tb)
+        for name, fn in (("mega_segment", cuda_mega.mega_trace),
+                         ("queue_launch", cuda_queue.queue_trace)):
+            st = {}
+            k_out = fn(*args, stats=st)
+            ms, _ = cuda_ms(lambda: fn(*args), 5)
+            pms, p_out = cuda_ms(lambda: fn(*args, plain=True), 1)
+            differ = int((k_out != p_out).any(-1).sum())
+            ops = st["ray_bounces"] * ops_row
+            b_ms, b_by = bound_of(ops, w_ * h_ * (12 + 12 + 4 + 12)
+                                  + nbytes_tab)
+            print(f"  {label} {name}: trace {ms:.4f} ms, plain {pms:.4f} ms "
+                  f"({differ} of {w_ * h_} lanes differ), bound {b_ms:.4f} "
+                  f"ms ({b_by}: {st['ray_bounces']} ray-bounces x "
+                  f"{ops_row} ops for rows {tb.counts}, {ops:.4g} ops; "
+                  f"{b_ms / ms:.1%} of the bound); {smi}", flush=True)
+            if differ:
+                raise AssertionError(f"{label}: {name} != plain")
+            out[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=0.0,
+                             launches=out["frames"][
+                                 "queue" if name == "queue_launch"
+                                 else "mega"]["launches"])
+        cbm = cb.replace(engine="mega")
+        px_b, py_b, pix_b = (torch.from_numpy(x).to(dev)
+                             for x in _block_order(w_, h_))
+        seg = (tb, cbm, pix_b, spp, spp * (depth + 1))
+        ms7, k7 = cuda_ms(lambda: regen_segment(*seg, plain=False), 3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        p7 = regen_segment(*seg, plain=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        pms7 = ev[0].elapsed_time(ev[1])
+        err = regen_mismatch(k7, p7, f"{label} B7 vs plain, spp {spp}")
+        bounces = int(k7[3].sum())
+        ops = bounces * ops_row + CAMERA_OPS * spp * w_ * h_
+        b_ms, b_by = bound_of(ops, w_ * h_ * (4 + 4 + 13 * 4 + 4 + 4)
+                              + nbytes_tab)
+        print(f"  {label} mega_regen at spp {spp}: {ms7:.4f} ms per call, "
+              f"plain {pms7:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {bounces} "
+              f"ray-bounces x {ops_row} ops + {spp} x {w_ * h_} camera "
+              f"rays, {ops:.4g} ops; {b_ms / ms7:.1%} of the bound); lane "
+              f"occupancy {lane_occupancy(k7[3]):.4f}; {smi}", flush=True)
+        out["mega_regen"] = dict(ms=ms7, plain_ms=pms7, bound_ms=b_ms,
+                                 bound_by=b_by, max_abs_err=err,
+                                 launches=out["frames"]["regen"]["launches"])
+        return out
+
+    families = {}
+    with phase(f"30 cover_scene(lights=True) {W}x{H} depth {DEPTH} spp "
+               f"{MAIN_SPP}: 487 spheres, an xy_rect and a cylinder light"):
+        sd, cb = cover_scene(width=W, height=H, spp=MAIN_SPP,
+                             max_depth=DEPTH, lights=True)
+        families["cover_lights"] = family_workload("cover_lights", sd, cb,
+                                                   MAIN_SPP)
+    with phase(f"31 mesh_scene(plane441.obj) {W}x{H} depth 16 spp 4: 800 "
+               "triangles and 3 spheres, gradient sky, exhaust background"):
+        from rt_tpu_torch.scene.builders import mesh_scene
+
+        sd, cb = mesh_scene(MESH, width=W, height=H, spp=4, max_depth=16)
+        families["mesh"] = family_workload("mesh", sd, cb, 4)
+
+    def family_rows(name):
+        """A kernel's numbers on the family workloads, for its entry in
+        the kernels line."""
+        return {k: v[name] for k, v in families.items()}
+
+    print(f"[32 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -1297,6 +1613,7 @@ def main() -> int:
         "max_abs_err": err_mega,
         **rows["mega_segment"],
         "library_ms": None,
+        "families": family_rows("mega_segment"),
     }, {
         "name": "queue_launch",
         "route": "cuda",
@@ -1306,6 +1623,8 @@ def main() -> int:
         "max_abs_err": err_queue,
         **rows["queue_launch"],
         "library_ms": None,
+        "cli_demo_launches": demo["cli"]["launches"],
+        "families": family_rows("queue_launch"),
     }, {
         "name": "mega_adjoint_segment",
         "route": "cuda",
@@ -1342,6 +1661,7 @@ def main() -> int:
         "max_abs_err": err_b7,
         **rows["mega_regen"],
         "library_ms": None,
+        "families": family_rows("mega_regen"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

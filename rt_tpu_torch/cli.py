@@ -1,9 +1,11 @@
 """Command-line interface: `python -m rt_tpu_torch render`
-(the port of rt_tpu/cli.py's render path, :184-235, for the coded scenes
-of the sphere slice).
+(the port of rt_tpu/cli.py's render path, :27-235): a JSON scene of the
+reference's schema (`-f scene.json`, as gpu-version/main.cu:454-460) or
+a coded scene (`--coded`), with the -w / --height / -spp / -d overrides.
 
 Output is chosen by extension: PNG (no gamma, as the reference's
-write_image) or PPM (sqrt gamma, as write_color). Runs on CUDA unless
+write_image) or PPM (sqrt gamma, as write_color); without -o, the
+scene's output_file (main.png for a coded scene). Runs on CUDA unless
 --device cpu is given.
 """
 
@@ -14,13 +16,25 @@ import sys
 import time
 
 
-def _load(args):
-    from rt_tpu_torch.scene import builders
+CODED = ("three_sphere", "cover", "cover_lights", "cornell", "dna")
 
-    mk = {"three_sphere": builders.three_sphere_scene,
-          "cover": builders.cover_scene,
-          "cornell": builders.cornell_spheres_scene}[args.coded]
-    sdef, cfg = mk()
+
+def _load(args):
+    """(SceneDef, RenderConfig, output path) of the command line."""
+    from rt_tpu_torch.scene import builders
+    from rt_tpu_torch.scene.parser import parse_scene
+
+    if args.scene:
+        sdef, cfg = parse_scene(args.scene)
+        out = sdef.output_file
+    else:
+        mk = {"three_sphere": builders.three_sphere_scene,
+              "cover": builders.cover_scene,
+              "cover_lights": lambda: builders.cover_scene(lights=True),
+              "cornell": builders.cornell_spheres_scene,
+              "dna": builders.dna_scene}[args.coded or "three_sphere"]
+        sdef, cfg = mk()
+        out = "main.png"
     updates = {}
     if args.width:
         updates["width"] = args.width
@@ -40,7 +54,7 @@ def _load(args):
         if "width" in updates or "height" in updates:
             # re-derive the camera frame for the new aspect ratio
             sdef.resize()
-    return sdef, cfg
+    return sdef, cfg, args.output or out
 
 
 def cmd_render(args) -> int:
@@ -51,7 +65,7 @@ def cmd_render(args) -> int:
     from rt_tpu_torch.scene.types import build_tables
 
     dev = resolve_device(args.device)
-    sdef, cfg = _load(args)
+    sdef, cfg, out = _load(args)
     cfg = cfg.replace(engine=args.engine)
     ce = args.compact_every
     if ce is None and cfg.max_depth >= 16:
@@ -62,8 +76,9 @@ def cmd_render(args) -> int:
         cfg = cfg.replace(compact_every=ce)
     tables = build_tables(sdef, device=dev)
 
+    stats = {}
     t0 = time.time()
-    img = render(tables, cfg, device=dev)
+    img = render(tables, cfg, device=dev, stats=stats)
     neg = film.negative_pixels(img)  # waits for the device
     dt = time.time() - t0
     if neg:
@@ -71,15 +86,16 @@ def cmd_render(args) -> int:
               file=sys.stderr)
 
     spp = cfg.samples_per_pixel
-    out = args.output
     if out.endswith(".ppm"):
         with open(out, "w") as f:
             f.write(film.to_ppm(img, spp))
     else:
         write_image(out, film.finalize(img, spp, gamma=False))
-    print(f"wrote {out} ({cfg.width}x{cfg.height} @ {spp}spp, "
-          f"engine {cfg.engine} on {args.device}, {dt:.2f}s, "
-          f"paths/s {cfg.width * cfg.height * spp / dt:.0f})")
+    counts = ", ".join(f"{k} {v}" for k, v in sorted(stats.items()))
+    print(f"wrote {out} ({cfg.width}x{cfg.height} @ {spp}spp, depth "
+          f"{cfg.max_depth}, engine {cfg.engine} on {args.device}, "
+          f"{dt:.2f}s, paths/s {cfg.width * cfg.height * spp / dt:.0f}; "
+          f"{counts})")
     return 0
 
 
@@ -89,15 +105,18 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     rp = sub.add_parser("render", help="render one frame")
-    rp.add_argument("--coded", default="three_sphere",
-                    choices=["three_sphere", "cover", "cornell"],
-                    help="built-in coded scene")
+    rp.add_argument("-f", "--scene", default=None,
+                    help="scene JSON (the reference's schema); default: "
+                         "the coded scene")
+    rp.add_argument("--coded", default=None, choices=CODED,
+                    help="built-in coded scene (default three_sphere)")
     rp.add_argument("-w", "--width", type=int, default=None)
     rp.add_argument("--height", type=int, default=None)
     rp.add_argument("-spp", "--spp", type=int, default=None)
     rp.add_argument("-d", "--max-depth", type=int, default=None)
-    rp.add_argument("-o", "--output", default="main.png",
-                    help="output path (.png or .ppm)")
+    rp.add_argument("-o", "--output", default=None,
+                    help="output path (.png or .ppm); default: the scene's "
+                         "output_file, or main.png")
     rp.add_argument("--seed", type=int, default=0)
     rp.add_argument("--engine", default="queue",
                     choices=["queue", "mega", "pallas", "plain"],

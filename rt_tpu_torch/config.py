@@ -22,10 +22,11 @@ regeneration kernel (ops/cuda_mega.mega_trace_regen, csrc/regen.cu),
 segmented by regen_compact (with compact_group and regen_shrink); other
 engines ignore it, as the reference's do.
 
-This slice reads cull_chunks and mxu_intersect as off: the sphere table
-is in scene order and nothing is culled, so on exact-t ties it may pick
-another sphere than rt_tpu's Morton-sorted table (ROADMAP C-3). What it
-lacks raises NotImplementedError (check_supported).
+The port reads cull_chunks and mxu_intersect as off: the sphere and
+triangle tables are in scene order and nothing is culled, so on exact-t
+ties it may pick another sphere or triangle than rt_tpu's Morton-sorted
+tables (ROADMAP C-3). What it lacks raises NotImplementedError
+(check_supported).
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ class RenderConfig:
 
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise for a configuration this slice of the port cannot render."""
+    """Raise for a configuration the port cannot render yet."""
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r} (want {ENGINES})")
     if cfg.nee or cfg.mis or cfg.nee_glossy:

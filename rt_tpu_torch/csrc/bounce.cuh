@@ -3,13 +3,16 @@
 // (mega_adjoint.cu, queue_adjoint.cu) and the tape capture (capture.cu).
 //
 // Replaces: rt_tpu/ops/pallas_mega.py `do_bounce` (:1011-1896) of
-// `_make_do_bounce`, restricted to this slice: Russian roulette
-// (:1016-1019), the sphere closest hit without MXU or chunk culling
-// (`_sph_chunk_math` :1067-1097), the winner's attributes and normal
-// (:1290-1317), the checker texture (:1319-1324), the scatter
-// (:1420-1486) and the non-NEE accumulation (:1488-1527); and
-// `_make_background` (:774). The expressions are the reference's, in its
-// order; ops/mega_plain.do_bounce_plain is the plain twin. The adjoint
+// `_make_do_bounce`, restricted to what the port carries: Russian
+// roulette (:1016-1019), the closest hit without MXU or chunk culling
+// over the spheres (`_sph_chunk_math` :1067-1097), rects (`rect_body`
+// :1141-1163), cylinders (`cyl_body` :1165-1222) and triangles
+// (`_tri_chunk_math` :1224-1267) in that order, merged as `_merge`
+// (:753-763) does, the winner's attributes and normal (:1290-1317), the
+// checker texture (:1319-1324), the scatter (:1420-1486) and the non-NEE
+// accumulation (:1488-1527); and `_make_background` (:774). The
+// expressions are the reference's, in its order;
+// ops/mega_plain.do_bounce_plain is the plain twin. The adjoint
 // variant, do_bounce<true> (the reference's `adjoint=True` block
 // :1700-1800), runs the same expressions and adds the suffix-identity
 // cotangents to the winner's gradient slot; its plain twin is
@@ -29,10 +32,20 @@
 // material's and selects); the draws are pure hashes of their
 // coordinates, so skipping the unused ones changes nothing.
 //
-// What bounds it: FP32 operations, 23 per (lane, row) pair in the hit
-// loop (FMA counted as two, the sqrt as one), plus 16 of ray setup (a,
-// d.o, |o|^2, 1/a) and the winner's shading per ray-bounce. The shading
-// depends on the material hit (none for a miss, the most for a
+// The rect, cylinder and triangle rows (kFamilies) are read from global
+// memory through the read-only cache (__ldg), in ascending order after
+// the spheres: the staged spheres take 40 KB of the 48 KB of default
+// dynamic shared memory, and 800 triangle rows of 128 B would not fit
+// beside them. A sphere-only scene runs the instantiation without the
+// family loops, which is the code it ran before they existed.
+//
+// What bounds it: FP32 operations per (lane, row) pair in the hit loop
+// (FMA counted as two, a division, sqrt, rsqrt, min or max as one,
+// comparisons and selects not counted): 23 for a sphere, 36 for a rect,
+// 62 for a cylinder, 71 for a triangle (each counted from its hit
+// function below); plus 16 of ray setup (a, d.o, |o|^2, 1/a) and the
+// winner's shading per ray-bounce (a cylinder's normal adds 41). The
+// shading depends on the material hit (none for a miss, the most for a
 // refracting dielectric); chip_smoke.py's bound leaves it out.
 #pragma once
 
@@ -50,6 +63,17 @@ constexpr int kCols = 18;
 constexpr int kV = 0, kRad = 3, kDirect = 4, kMtype = 5, kChecker = 6,
               kParam = 7, kAlb = 8, kAlb2 = 11, kC2r = 15, kValid = 16,
               kSlot = 17;
+// the rect / cylinder / triangle tables (ops/mega_tables.py,
+// pallas_mega.py:98-116): 32 columns, 0..14 the attribute block above
+constexpr int kFCols = 32;
+constexpr int kRK = 15, kRLo0 = 16, kRLo1 = 17, kRHi0 = 18, kRHi1 = 19,
+              kRValid = 20, kRF1 = 21, kRF2 = 24;
+constexpr int kYR = 15, kYT = 24, kYRad2 = 27, kYZmin = 28, kYZmax = 29,
+              kYValid = 30;
+constexpr int kTV1 = 15, kTE1 = 18, kTE2 = 21, kTE3 = 24, kTD0 = 27,
+              kTValid = 28;
+// the winner's family (ops/intersect.py PTYPE_*)
+constexpr int kFamSphere = 0, kFamRect = 1, kFamCyl = 2, kFamTri = 3;
 // rows staged in shared memory (40 KB); the rest are read from global
 constexpr int kStageRows = 2048;
 static_assert(kStageRows * 20 <= 48 * 1024,
@@ -71,6 +95,12 @@ struct Scene {
   const float4* hit4;    // [n_smem] shared: cx, cy, cz, c2r
   const float* valid;    // [n_smem] shared
   int n, n_smem;
+  // the other families' tables, [n_*, kFCols] in global memory (null
+  // and 0 rows when the scene has none): read only by kFamilies
+  const float* rect;
+  const float* cyl;
+  const float* tri;
+  int n_rect, n_cyl, n_tri;
   float t_min, p_rr, rr_comp;
   int grad_bg;
   float bg_r, bg_g, bg_b;
@@ -82,6 +112,11 @@ struct Scene {
 #define RTT_SCENE_ARGS                                                  \
   uint32_t seed, float t_min, float p_rr, float rr_comp, int grad_bg,  \
       float bg_r, float bg_g, float bg_b, int exhaust_bg
+// The forward launchers' family tables, after the sphere table
+// (ops/cuda_mega.family_args).
+#define RTT_FAMILY_ARGS                                                  \
+  const float *rect, int n_rect, const float *cyl, int n_cyl,           \
+      const float *tri, int n_tri
 
 __host__ inline Scene make_scene(const float* table, int n,
                                  RTT_SCENE_ARGS) {
@@ -100,7 +135,26 @@ __host__ inline Scene make_scene(const float* table, int n,
   s.bg_b = bg_b;
   s.exhaust_bg = exhaust_bg;
   s.seed = seed;
+  s.rect = s.cyl = s.tri = nullptr;
+  s.n_rect = s.n_cyl = s.n_tri = 0;
   return s;
+}
+
+// A scene with the family tables of a forward launcher.
+__host__ inline Scene with_families(Scene s, RTT_FAMILY_ARGS) {
+  s.rect = rect;
+  s.n_rect = n_rect;
+  s.cyl = cyl;
+  s.n_cyl = n_cyl;
+  s.tri = tri;
+  s.n_tri = n_tri;
+  return s;
+}
+
+// Whether a scene has rect, cylinder or triangle rows (the kernels'
+// kFamilies instantiation).
+__host__ inline bool has_families(const Scene& s) {
+  return s.n_rect + s.n_cyl + s.n_tri > 0;
 }
 
 // Shared memory the staged rows take, and their staging (all threads of
@@ -157,6 +211,125 @@ __device__ __forceinline__ void hit_row(float4 c, const float* valid, int j,
     t_best = t;
     id_best = j;
   }
+}
+
+// Fold one candidate of family `fam`, row j, into the running winner:
+// rows and families arrive in ascending order, so `<=` gives an equal t
+// to the later row within a family and to the later family across them
+// (`_merge`: an equal finite t goes to the later chunk or table).
+__device__ __forceinline__ void take(float t, int fam, int j, float& t_best,
+                                     int& fam_best, int& id_best) {
+  if (t <= t_best) {
+    t_best = t;
+    fam_best = fam;
+    id_best = j;
+  }
+}
+
+// The reference's `odot`: (r[k] x + r[k+1] y) + r[k+2] z.
+__device__ __forceinline__ float odot(const float* r, int k, float x,
+                                      float y, float z) {
+  return __ldg(r + k) * x + __ldg(r + k + 1) * y + __ldg(r + k + 2) * z;
+}
+
+// One (lane, rect) pair (`rect_body` :1141-1163): the constant axis's
+// one-hot (columns 0..2) and the free axes' (kRF1, kRF2) pick the
+// coordinates. 36 FP32 operations: 2 x 5 for ro_k and rd_k, 2 for t,
+// 2 x 12 for x and y.
+__device__ __forceinline__ float hit_rect(const float* r, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float t_min) {
+  const float ro_k = odot(r, kV, ox, oy, oz);
+  const float rd_k = odot(r, kV, dx, dy, dz);
+  const bool rd_ok = rd_k != 0.0f;
+  const float t = (__ldg(r + kRK) - ro_k) / (rd_ok ? rd_k : 1.0f);
+  const float x = odot(r, kRF1, ox, oy, oz) + t * odot(r, kRF1, dx, dy, dz);
+  const float y = odot(r, kRF2, ox, oy, oz) + t * odot(r, kRF2, dx, dy, dz);
+  const bool valid = rd_ok && t >= t_min && x >= __ldg(r + kRLo0) &&
+                     x <= __ldg(r + kRHi0) && y >= __ldg(r + kRLo1) &&
+                     y <= __ldg(r + kRHi1) && __ldg(r + kRValid) > 0.0f;
+  return valid ? t : CUDART_INF_F;
+}
+
+// min / max that carry a NaN through, as torch.minimum / maximum and
+// jnp.minimum / maximum do (fminf / fmaxf would drop it)
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+
+// One (lane, cylinder) pair (`cyl_body` :1165-1200): the ray in object
+// space through the w2o rows, the radial quadratic, the nearer root in
+// the z window first. 62 FP32 operations: 33 for the object-space ray,
+// 15 for the quadratic's a, b, c and discriminant, 2 for its sqrt, 2
+// for 1/2a, 4 for the roots, 2 for their order, 4 for their z.
+__device__ __forceinline__ float hit_cyl(const float* r, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float t_min) {
+  const float oox = odot(r, kYR, ox, oy, oz) + __ldg(r + kYT);
+  const float ooy = odot(r, kYR + 3, ox, oy, oz) + __ldg(r + kYT + 1);
+  const float ooz = odot(r, kYR + 6, ox, oy, oz) + __ldg(r + kYT + 2);
+  const float odx = odot(r, kYR, dx, dy, dz);
+  const float ody = odot(r, kYR + 3, dx, dy, dz);
+  const float odz = odot(r, kYR + 6, dx, dy, dz);
+  const float ac = odx * odx + ody * ody;
+  const float bc = 2.0f * (odx * oox + ody * ooy);
+  const float cc = oox * oox + ooy * ooy - __ldg(r + kYRad2);
+  const float delta = bc * bc - 4.0f * ac * cc;
+  const float sq = sqrtf(fmaxf(delta, 0.0f));
+  const bool a_ok = ac != 0.0f;
+  const float inv2a = 1.0f / (a_ok ? 2.0f * ac : 1.0f);
+  const float r0 = -(bc - sq) * inv2a;
+  const float r1 = -(bc + sq) * inv2a;
+  const float t0 = nan_min(r0, r1), t1 = nan_max(r0, r1);
+  const float zmin = __ldg(r + kYZmin), zmax = __ldg(r + kYZmax);
+  const float z0 = ooz + t0 * odz;
+  const float z1 = ooz + t1 * odz;
+  const bool ok0 = t0 >= t_min && z0 >= zmin && z0 <= zmax && a_ok;
+  const bool ok1 = t1 >= t_min && z1 >= zmin && z1 <= zmax && a_ok;
+  const float t = ok0 ? t0 : (ok1 ? t1 : CUDART_INF_F);
+  return (delta >= 0.0f && __ldg(r + kYValid) > 0.0f) ? t : CUDART_INF_F;
+}
+
+// cross(e, w) . n for the triangle's edge at column k (the inside test)
+__device__ __forceinline__ float edge_dot(const float* r, int k, float wx,
+                                          float wy, float wz) {
+  const float ex = __ldg(r + k), ey = __ldg(r + k + 1), ez = __ldg(r + k + 2);
+  const float cxp = ey * wz - ez * wy;
+  const float cyp = ez * wx - ex * wz;
+  const float czp = ex * wy - ey * wx;
+  return cxp * __ldg(r + kV) + cyp * __ldg(r + kV + 1) +
+         czp * __ldg(r + kV + 2);
+}
+
+// One (lane, triangle) pair (`_tri_chunk_math` :1224-1267): the plane
+// distance signed toward the origin's side, the three edge tests
+// (strict, one sign), and only rays heading into the plane. 71 FP32
+// operations: 6 for oc_n, 6 for d_n, 1 for oc_n's sign, 1 for t, 9 for
+// r - v1, 14 + 17 + 17 for the three edge tests.
+__device__ __forceinline__ float hit_tri(const float* r, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float t_min) {
+  const float oc_n = odot(r, kV, ox, oy, oz) - __ldg(r + kTD0);
+  const float sign = oc_n < 0.0f ? -1.0f : 1.0f;
+  const float d_n = odot(r, kV, dx, dy, dz) * sign;
+  const float oc_ns = oc_n * sign;
+  const float t = -oc_ns / (d_n != 0.0f ? d_n : 1.0f);
+  const float rx = ox + t * dx - __ldg(r + kTV1);
+  const float ry = oy + t * dy - __ldg(r + kTV1 + 1);
+  const float rz = oz + t * dz - __ldg(r + kTV1 + 2);
+  const float s1 = edge_dot(r, kTE1, rx, ry, rz);
+  const float s2 = edge_dot(r, kTE2, rx - __ldg(r + kTE1),
+                            ry - __ldg(r + kTE1 + 1), rz - __ldg(r + kTE1 + 2));
+  const float s3 = edge_dot(r, kTE3, rx + __ldg(r + kTE3),
+                            ry + __ldg(r + kTE3 + 1), rz + __ldg(r + kTE3 + 2));
+  const bool inside = (s1 > 0.0f && s2 > 0.0f && s3 > 0.0f) ||
+                      (s1 < 0.0f && s2 < 0.0f && s3 < 0.0f);
+  const bool valid = d_n < 0.0f && inside && t >= t_min &&
+                     __ldg(r + kTValid) > 0.0f;
+  return valid ? t : CUDART_INF_F;
 }
 
 // What the adjoint bounce reads besides the lane: the sample's radiance
@@ -293,7 +466,13 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 // stops still records this bounce's winner, as the reference's kernel
 // does (it evaluates the hit on every lane). Without kCapture the
 // roulette returns first and the code is as it was before the flag.
-template <bool kAdjoint, bool kTail, bool kCapture = false>
+// kFamilies (a scene with rect, cylinder or triangle rows, has_families)
+// compiles their hit loops after the spheres' and the winner's reads
+// from its family's table; the forward kernels instantiate it beside
+// the sphere-only code and the launchers choose. The adjoints and the
+// capture trace spheres only.
+template <bool kAdjoint, bool kTail, bool kCapture = false,
+          bool kFamilies = false>
 __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
                                           uint32_t pre, const Adj& adj,
                                           int* code = nullptr) {
@@ -316,6 +495,7 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   const float inv_a = 1.0f / a;
   float t_best = CUDART_INF_F;
   int id_best = 0;
+  int fam_best = kFamSphere;
   for (int j = 0; j < s.n_smem; ++j)
     hit_row(s.hit4[j], s.valid + j, j, ox, oy, oz, dx, dy, dz, a, rd_dot_ro,
             ro_sq, inv_a, s.t_min, t_best, id_best);
@@ -327,6 +507,21 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
               r + kValid, j, ox, oy, oz, dx, dy, dz, a, rd_dot_ro, ro_sq,
               inv_a, s.t_min, t_best, id_best);
     }
+  }
+
+  if constexpr (kFamilies) {
+    for (int j = 0; j < s.n_rect; ++j)
+      take(hit_rect(s.rect + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
+                    dy, dz, s.t_min),
+           kFamRect, j, t_best, fam_best, id_best);
+    for (int j = 0; j < s.n_cyl; ++j)
+      take(hit_cyl(s.cyl + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
+                   dy, dz, s.t_min),
+           kFamCyl, j, t_best, fam_best, id_best);
+    for (int j = 0; j < s.n_tri; ++j)
+      take(hit_tri(s.tri + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
+                   dy, dz, s.t_min),
+           kFamTri, j, t_best, fam_best, id_best);
   }
 
   if constexpr (kCapture) {
@@ -350,9 +545,32 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
     return;
   }
 
-  // ---- the winner's attributes, by its row ----
+  // ---- the winner's attributes, by its family and row ----
   const float* w = s.table + id_best * kCols;
-  const float v0 = w[kV], v1 = w[kV + 1], v2 = w[kV + 2], v3 = w[kRad];
+  if (kFamilies && fam_best != kFamSphere)
+    w = (fam_best == kFamRect ? s.rect
+                              : (fam_best == kFamCyl ? s.cyl : s.tri)) +
+        static_cast<size_t>(id_best) * kFCols;
+  float v0 = w[kV], v1 = w[kV + 1], v2 = w[kV + 2];
+  const float v3 = w[kRad];
+  if (kFamilies && fam_best == kFamCyl) {
+    // the world normal at the hit (`cyl_body` :1201-1212): the
+    // object-space radial direction, normalised by rsqrt (torch.rsqrt
+    // on the card is the same rsqrtf), through the w2o rows transposed
+    const float oox = odot(w, kYR, ox, oy, oz) + w[kYT];
+    const float ooy = odot(w, kYR + 3, ox, oy, oz) + w[kYT + 1];
+    const float odx = odot(w, kYR, dx, dy, dz);
+    const float ody = odot(w, kYR + 3, dx, dy, dz);
+    const float opx = oox + t_best * odx;
+    const float opy = ooy + t_best * ody;
+    const float ln2 = opx * opx + opy * opy;
+    const float inv_ln = rsqrtf(ln2 > 0.0f ? ln2 : 1.0f);
+    const float nox = opx * inv_ln;
+    const float noy = opy * inv_ln;
+    v0 = w[kYR] * nox + w[kYR + 3] * noy;
+    v1 = w[kYR + 1] * nox + w[kYR + 4] * noy;
+    v2 = w[kYR + 2] * nox + w[kYR + 5] * noy;
+  }
   const bool direct = w[kDirect] > 0.0f;
   const float mtype = w[kMtype];
   const float param = w[kParam];

@@ -3,18 +3,20 @@
 // Replaces: rt_tpu/ops/pallas_queue.py::_queue_kernel (:122) with its
 // survivor repack _pack_into (:75), the Pallas TPU kernel launched by
 // queue_launch (:310, pallas_call :378) and driven by queue_trace
-// (:404), for spheres with solid and checker textures, no NEE, sampler
-// "rng". Contract kept from it: every primary ray (ro, rd, pixel,
-// sample) is traced to its end through the same bounce body as the
-// megakernel (bounce.cuh), one bounce per step, with the lane's own
+// (:404), for spheres, rects, cylinders and triangles with solid and
+// checker textures, no NEE, sampler "rng". Contract kept from it:
+// every primary ray (ro, rd, pixel, sample) is traced to its end
+// through the same bounce body as the megakernel (bounce.cuh), one
+// bounce per step, with the lane's own
 // bounce counter as the RNG's bounce coordinate; depth exhaustion
 // credits the sky per lane (exhaust_bg); the result is the [B, 3]
 // radiance per input lane, equal to the megakernel's per lane and the
 // same bits whatever the step budget per launch.
 //
-// What bounds it: FP32 operations, as the megakernel (23 per lane-bounce
-// and table row plus the shading), against one read of each primary ray
-// and one write of its radiance.
+// What bounds it: FP32 operations, as the megakernel (per lane-bounce
+// and table row 23 for a sphere, 36 for a rect, 62 for a cylinder, 71
+// for a triangle, plus the shading), against one read of each primary
+// ray and one write of its radiance.
 //
 // Design: persistent threads (the loop is queue.cuh's, shared with the
 // adjoint B6). The grid is what the card holds at once (SMs x resident
@@ -40,7 +42,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTail>
+template <bool kTail, bool kFamilies>
 __global__ void __launch_bounds__(kThreads)
 queue_kernel(rtt::Scene scene, const float* __restrict__ ro,
              const float* __restrict__ rd, const int* __restrict__ pixel,
@@ -52,21 +54,29 @@ queue_kernel(rtt::Scene scene, const float* __restrict__ ro,
   extern __shared__ float4 smem[];
   rtt::stage_table(scene, smem);
   __syncthreads();
-  rtt::queue_loop<false, kTail>(scene, ro, rd, pixel, sample, sample_scalar,
-                                nullptr, nullptr, b, pool_f, pool_i,
-                                pool_lanes, counters, out, nullptr, 0, depth,
-                                written, max_depth, budget);
+  rtt::queue_loop<false, kTail, kFamilies>(
+      scene, ro, rd, pixel, sample, sample_scalar, nullptr, nullptr, b,
+      pool_f, pool_i, pool_lanes, counters, out, nullptr, 0, depth,
+      written, max_depth, budget);
 }
 
 }  // namespace
 
+// The instantiation a scene of `rows` sphere rows, with or without
+// rect / cylinder / triangle rows, runs.
+static auto pick_kernel(int rows, bool families) {
+  return rtt::has_tail(rows)
+             ? (families ? queue_kernel<true, true> : queue_kernel<true, false>)
+             : (families ? queue_kernel<false, true>
+                         : queue_kernel<false, false>);
+}
+
 // Blocks of `threads` threads the card holds at once with the table's
 // shared memory: the persistent grid (negative: minus a CUDA error).
-extern "C" int queue_grid_blocks(int rows, int threads) {
+extern "C" int queue_grid_blocks(int rows, int families, int threads) {
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   int per_sm = 0, dev = 0, sms = 0;
-  const auto kernel =
-      rtt::has_tail(rows) ? queue_kernel<true> : queue_kernel<false>;
+  const auto kernel = pick_kernel(rows, families != 0);
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, threads, smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -76,27 +86,29 @@ extern "C" int queue_grid_blocks(int rows, int threads) {
   return per_sm * sms;
 }
 
-// table [rows, 18] f32; ro, rd [b, 3] f32; pixel [b] i32; sample [b] i32
-// or null (then sample_scalar); pool_f [13, blocks*threads] f32 and
+// table [rows, 18] f32; rect, cyl, tri [n_*, 32] f32 or null with 0
+// rows; ro, rd [b, 3] f32; pixel [b] i32; sample [b] i32 or null (then
+// sample_scalar); pool_f [13, blocks*threads] f32 and
 // pool_i [4, blocks*threads] i32 (pool_i row 0 = -1 before the first
 // launch); counters [2] u32 (fresh-ray cursor, lanes done; 0 before the
 // first launch); out [b, 3] f32; depth [b] i32 or null (each lane's
 // bounce count); written [b] i32 or null (+1 per completion, a check
 // that every lane completes once). budget: steps per launch, 0 = until
 // drained. Launches on `stream`; returns cudaGetLastError().
-extern "C" int queue_launch(const float* table, int rows, const float* ro,
-                            const float* rd, const int* pixel,
+extern "C" int queue_launch(const float* table, int rows, RTT_FAMILY_ARGS,
+                            const float* ro, const float* rd,
+                            const int* pixel,
                             const int* sample, int sample_scalar, int b,
                             float* pool_f, int* pool_i, unsigned* counters,
                             float* out, int* depth, int* written,
                             int max_depth, int budget, RTT_SCENE_ARGS,
                             int blocks, int threads, void* stream) {
-  const rtt::Scene scene = rtt::make_scene(
-      table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r, bg_g, bg_b,
-      exhaust_bg);
+  const rtt::Scene scene = rtt::with_families(
+      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
+                      bg_g, bg_b, exhaust_bg),
+      rect, n_rect, cyl, n_cyl, tri, n_tri);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
-  const auto kernel =
-      rtt::has_tail(rows) ? queue_kernel<true> : queue_kernel<false>;
+  const auto kernel = pick_kernel(rows, rtt::has_families(scene));
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       scene, ro, rd, pixel, sample, sample_scalar, b, pool_f, pool_i,
       blocks * threads, counters, out, depth, written, max_depth, budget);

@@ -25,7 +25,7 @@ namespace rtt {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <bool kAdjoint, bool kTail>
+template <bool kAdjoint, bool kTail, bool kFamilies = false>
 __device__ __forceinline__ void queue_loop(
     const Scene& scene, const float* __restrict__ ro,
     const float* __restrict__ rd, const int* __restrict__ pixel,
@@ -107,7 +107,7 @@ __device__ __forceinline__ void queue_loop(
     if (slot >= 0) {
       // ---- one bounce; then exhaustion and retirement ----
       if (bounce < max_depth && L.alive > 0.0f) {
-        do_bounce<kAdjoint, kTail>(
+        do_bounce<kAdjoint, kTail, false, kFamilies>(
             scene, L, fold(lane_key, static_cast<uint32_t>(bounce)), adj);
         ++bounce;
       }

@@ -3,7 +3,8 @@
 //
 // Replaces: rt_tpu/ops/pallas_mega.py::_regen_kernel (:2288-2458), the
 // Pallas TPU kernel launched by mega_regen (:3226, pallas_call :3276),
-// for spheres with solid and checker textures, no NEE, sampler "rng".
+// for spheres, rects, cylinders and triangles with solid and checker
+// textures, no NEE, sampler "rng".
 // Contract kept from it: each lane owns one pixel and owes the samples
 // [sample_base, sample_base + spp); it carries its sample and bounce
 // counters (samp, bvec) beside the 13-word ray state, and each of at
@@ -23,14 +24,16 @@
 // thread loops while its own lane is, which gives every lane the same
 // state and samp (a finished lane's bvec stops counting).
 //
-// What bounds it: FP32 operations, as mega.cu: 23 per (lane, table row)
-// pair of the hit loop, 16 of ray setup and the winner's shading per
-// ray-bounce, plus one camera ray per sample; 13 state words and four
+// What bounds it: FP32 operations, as mega.cu: per (lane, table row)
+// pair of the hit loop 23 for a sphere, 36 for a rect, 62 for a
+// cylinder, 71 for a triangle, 16 of ray setup and the winner's shading
+// per ray-bounce, plus one camera ray per sample; 13 state words and four
 // ints per lane are read and written once per segment.
 //
 // Design: one thread per lane; the block stages the table's hit columns
 // in shared memory (bounce.cuh) and each thread runs mega.cu's bounce,
-// do_bounce<false, kTail>, with the camera ray made in registers. A
+// do_bounce<false, kTail, false, kFamilies>, with the camera ray made
+// in registers. A
 // warp runs to its slowest lane over spp samples rather than over one,
 // so its lanes stay busy until the last sample's tail. The trace
 // around it (ops/cuda_mega.mega_trace_regen) may cap segments by
@@ -45,7 +48,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail>
+template <bool kTail, bool kFamilies>
 __global__ void __launch_bounds__(kMaxThreads)
 regen_kernel(rtt::Scene scene, rtt::Camera cam, float* __restrict__ state,
              long long stride, int n, const int* __restrict__ pixel,
@@ -102,7 +105,7 @@ regen_kernel(rtt::Scene scene, rtt::Camera cam, float* __restrict__ state,
       L.alive = 1.0f;
     }
     if (L.alive > 0.0f) {  // (3) one bounce
-      rtt::do_bounce<false, kTail>(
+      rtt::do_bounce<false, kTail, false, kFamilies>(
           scene, L,
           rtt::prefix(scene.seed, pix, static_cast<uint32_t>(sm),
                       static_cast<uint32_t>(bv)),
@@ -120,28 +123,34 @@ regen_kernel(rtt::Scene scene, rtt::Camera cam, float* __restrict__ state,
 
 }  // namespace
 
-// table [rows, 18] f32 (ops/mega_tables.py); cam: 19 host floats
+// table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri [n_*, 32]
+// f32 or null with 0 rows; cam: 19 host floats
 // (ops/camera.camera_vec), read before the launch; state [13, stride]
 // f32, of which lanes [0, n) advance in place; pixel, py [>= n] i32;
 // samp, bvec [>= n] i32, read unless init and written; depth [>= n] i32
 // or null (else each lane's bounce count is added to it). Launches on
 // `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int mega_regen_launch(const float* table, int rows,
-                                 const float* cam, float* state,
-                                 long long stride, int n, const int* pixel,
-                                 const int* py, int* samp, int* bvec,
-                                 int sample_base, int spp, int seg_iters,
+                                 RTT_FAMILY_ARGS, const float* cam,
+                                 float* state, long long stride, int n,
+                                 const int* pixel, const int* py,
+                                 int* samp, int* bvec, int sample_base,
+                                 int spp, int seg_iters,
                                  int max_depth, int init, int width,
                                  int height, int defocus, RTT_SCENE_ARGS,
                                  int* depth, int threads, void* stream) {
-  const rtt::Scene scene = rtt::make_scene(
-      table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r, bg_g, bg_b,
-      exhaust_bg);
+  const rtt::Scene scene = rtt::with_families(
+      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
+                      bg_g, bg_b, exhaust_bg),
+      rect, n_rect, cyl, n_cyl, tri, n_tri);
   const rtt::Camera camera = rtt::make_camera(cam, width, height, defocus);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const int blocks = (n + threads - 1) / threads;
+  const bool fam = rtt::has_families(scene);
   const auto kernel =
-      rtt::has_tail(rows) ? regen_kernel<true> : regen_kernel<false>;
+      rtt::has_tail(rows)
+          ? (fam ? regen_kernel<true, true> : regen_kernel<true, false>)
+          : (fam ? regen_kernel<false, true> : regen_kernel<false, false>);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       scene, camera, state, stride, n, pixel, py, samp, bvec, sample_base,
       spp, seg_iters, max_depth, init, depth);

@@ -22,6 +22,8 @@ The estimators of the port:
              the known winners, every continuous field in one backward.
 
 The FD / camera / hybrid estimators are not ported yet (ROADMAP A-1(d)).
+Every entry point raises NotImplementedError for a scene with a rect,
+cylinder or triangle (ROADMAP Queue B4(b), B5(b), B6(b)).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from rt_tpu_torch.config import RenderConfig, resolve_device
-from rt_tpu_torch.ops.mega_tables import mega_supported
+from rt_tpu_torch.ops.mega_tables import mega_supported, \
+    require_spheres_only
 from rt_tpu_torch.render.renderer import render_block
 from rt_tpu_torch.scene.types import CameraDef, SceneTables
 
@@ -88,6 +91,7 @@ def make_loss_fn(tables: SceneTables, cfg: RenderConfig, spp: int,
     """(params, px, py, target, sample_base=0) -> scalar MSE of the
     spp-sample render estimate against target rows [B,3], differentiable
     by autograd. n_valid masks rows >= n_valid out of the mean."""
+    require_spheres_only(tables, "make_loss_fn")
     cfg = _diff_cfg(cfg)
     seed = int(cfg.seed) & 0xFFFFFFFF
 
@@ -150,6 +154,7 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
     if method not in ("ad", "replay", "tape"):
         raise ValueError(f"method must be 'ad', 'replay' or 'tape'; got "
                          f"{method!r}")
+    require_spheres_only(tables, "fit")
     dev = resolve_device(device)
     tables = tables.to(dev)
     params = (dict(init_params) if init_params is not None

@@ -37,9 +37,11 @@ does not differentiate are the decisions the tape froze, and the
 interior chains (hit distance, normal, scatter direction, Schlick
 blend) are the same. Silhouette terms are not captured.
 
-Scope of this slice: spheres with solid / checker textures, no NEE,
-sampler "rng". TAPE_FIELDS keeps the reference's names; the families
-not ported yet raise NotImplementedError.
+Scope: spheres with solid / checker textures, no NEE, sampler "rng".
+TAPE_FIELDS keeps the reference's names; the rect, cylinder and
+triangle fields, and any scene with such a row, raise
+NotImplementedError until the tape codes carry the family (ROADMAP
+Queue B4(b)).
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ from rt_tpu_torch.ops.intersect import (
     intersect,
     sphere_leaf_test,
 )
-from rt_tpu_torch.ops.mega_tables import mega_supported
+from rt_tpu_torch.ops.mega_tables import mega_supported, \
+    require_spheres_only
 from rt_tpu_torch.render.integrator import background_color
 from rt_tpu_torch.scene.types import CameraDef, SceneTables
 
@@ -82,11 +85,11 @@ TAPE_FIELDS = (
     "tri_v1", "tri_v2", "tri_v3",
     "camera",
 )
-# TAPE_FIELDS of families this slice does not carry yet
+# TAPE_FIELDS the tape does not differentiate yet
 _UNPORTED = {
-    "images": "image textures are not ported yet (ROADMAP Queue A-4)",
-    **{f: "rects, cylinders and triangles are not ported yet (ROADMAP "
-          "Queue A-3)"
+    "images": "image textures are not ported yet (ROADMAP Queue B2(c))",
+    **{f: "tape gradients of rects, cylinders and triangles are not "
+          "ported yet (ROADMAP Queue B4(b))"
        for f in ("rect_k", "rect_lo", "rect_hi", "cyl_radius", "cyl_zmin",
                  "cyl_zmax", "tri_v1", "tri_v2", "tri_v3")},
 }
@@ -120,7 +123,9 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
     (the latter on kernel B1), whose dead lanes record what their stale
     ray hits until every lane is dead. The replay masks both alike.
     None: "mega" on CUDA tensors of a megakernel scene, else "plain",
-    as the reference picks its kernel on the TPU and XLA elsewhere."""
+    as the reference picks its kernel on the TPU and XLA elsewhere.
+    Spheres only (ROADMAP Queue B4(b))."""
+    require_spheres_only(tables, "capture_tape")
     check_supported(cfg)
     if engine is None:
         engine = ("mega" if ro.device.type == "cuda"
@@ -304,7 +309,9 @@ def make_tape_render(tables: SceneTables, cfg: RenderConfig, spp: int,
     (spp * depth * B <= STORE_TAPE_MAX int32s): they carry no gradient,
     so keeping them costs no autograd state and spares the backward a
     second capture. Beyond that each sample's capture and replay run
-    under one checkpoint, and the backward captures again."""
+    under one checkpoint, and the backward captures again. Spheres only
+    (ROADMAP Queue B4(b))."""
+    require_spheres_only(tables, "make_tape_render")
     check_supported(cfg)
     dev = tables.sph_center.device
     px, py, pixel = _pixels(cfg, px, py, dev)
@@ -421,7 +428,9 @@ def make_tape_vg(tables: SceneTables, cfg: RenderConfig, px, py, target,
          Each bounce runs under a checkpoint.
 
     Work drops from B * depth lane-bounces to about B times the mean
-    path length. Pre-condition: mega_supported(tables)."""
+    path length. Pre-condition: mega_supported(tables); spheres only
+    (ROADMAP Queue B4(b))."""
+    require_spheres_only(tables, "make_tape_vg")
     if not mega_supported(tables):
         raise ValueError("make_tape_vg: the capture kernel needs a "
                          "megakernel scene (mega_supported)")

@@ -1,8 +1,8 @@
 """The forward megakernel B2: the hand-written CUDA kernel, its plain
 PyTorch version, and the segmented trace around them (the counterpart of
 rt_tpu/ops/pallas_mega.py `_mega_kernel` :1899, `mega_segment` :2460,
-`_compact` :2716 and `mega_trace` :2934, for spheres with solid and
-checker textures, no NEE, sampler "rng").
+`_compact` :2716 and `mega_trace` :2934, for spheres, rects, cylinders
+and triangles with solid and checker textures, no NEE, sampler "rng").
 
 `mega_segment` launches csrc/mega.cu (built by nvcc at first use,
 ops/cuda_build.py) for CUDA tensors and raises if it cannot; for CPU
@@ -11,6 +11,8 @@ kernel launches, and nothing else.
 
 Contract of one segment (both versions, and the TPU kernel): the ray
 state [13, B] (ops/mega_plain.py rows; the first `n` lanes are traced)
+against the sphere table and the family tables `fam`
+(mega_tables.Families, or None for a scene of spheres only)
 advances per lane while `bounce < max_depth` and the lane is alive,
 drawing its RNG at (seed, pixel, sample, start_bounce + bounce,
 purpose). `exhaust_bg` credits the sky to the lanes still alive at the
@@ -62,7 +64,8 @@ import torch
 
 from rt_tpu_torch.ops import adjoint_plain, cuda_build
 from rt_tpu_torch.ops import mega_plain as mp
-from rt_tpu_torch.ops.mega_tables import S_COLS
+from rt_tpu_torch.ops.mega_tables import F_COLS, S_COLS, \
+    require_spheres_only
 
 THREADS = 256
 # the most table rows the int32 offsets of the kernels address
@@ -90,6 +93,33 @@ def _scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg):
 SCALAR_TYPES = [ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
                 ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_float, ctypes.c_int]
+# the family tables of the forward launchers (bounce.cuh RTT_FAMILY_ARGS)
+FAMILY_TYPES = [ctypes.c_void_p, ctypes.c_int] * 3
+
+
+def family_args(fam, device):
+    """The family tables (mega_tables.Families, or None) as the C
+    launchers take them: (pointer or None, rows) for rect, cyl, tri."""
+    if fam is None:
+        return (None, 0) * 3
+    out = []
+    for name, tab in zip(("rect", "cyl", "tri"), fam):
+        n = tab.shape[0] if tab.dim() == 2 else -1
+        cuda_build.check_tensor(name, tab, torch.float32, (n, F_COLS),
+                                device)
+        if n > MAX_ROWS:
+            raise ValueError(f"{name}: {n} rows, want at most {MAX_ROWS}")
+        out += [tab.data_ptr() if n else None, n]
+    return tuple(out)
+
+
+def spheres_only(fam, what: str) -> None:
+    """The launchers of the capture and the adjoints take no family
+    tables (ROADMAP Queue B4(b), B5(b), B6(b))."""
+    if fam is not None:
+        raise NotImplementedError(
+            f"{what}: rects, cylinders and triangles are not ported yet "
+            "(ROADMAP Queue B4(b), B5(b), B6(b))")
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,6 +128,7 @@ def _library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.mega_segment_launch.argtypes = [
         vp, ci,                       # table, rows
+        *FAMILY_TYPES,                # rect, rows, cyl, rows, tri, rows
         vp, ctypes.c_longlong, ci,    # state, stride, n
         vp, vp, ci,                   # pixel, sample (or null), sample
         ci, ci,                       # start_bounce, max_depth
@@ -128,7 +159,8 @@ def lane_ints(name, x, n, device):
 
 def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
                        max_depth, *, n=None, t_min=1e-3, p_rr=0.0,
-                       grad_bg=False, bg, exhaust_bg=False, depth=None):
+                       grad_bg=False, bg, exhaust_bg=False, depth=None,
+                       fam=None):
     """The plain version of one segment (see the module doc)."""
     n = state.shape[1] if n is None else n
     sub = state[:, :n]
@@ -140,7 +172,7 @@ def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
         samp = sample[idx] if per_lane else sample
         sub[:, idx] = mp.do_bounce_plain(
             tab, sub[:, idx], pixel[idx], samp, start_bounce + b, seed,
-            t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg)
+            t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam)
         if depth is not None:
             depth[idx] += 1
     if exhaust_bg:
@@ -151,7 +183,7 @@ def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
 
 def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
                  *, n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-                 exhaust_bg=False, depth=None, threads=THREADS):
+                 exhaust_bg=False, depth=None, fam=None, threads=THREADS):
     """One segment (see the module doc): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     dev = state.device
@@ -159,7 +191,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
         return mega_segment_plain(
             tab, state, pixel, sample, seed, start_bounce, max_depth, n=n,
             t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg,
-            exhaust_bg=exhaust_bg, depth=depth)
+            exhaust_bg=exhaust_bg, depth=depth, fam=fam)
     if dev.type != "cuda":
         raise ValueError(f"mega_segment: unsupported device {dev}")
     if state.dim() != 2 or state.shape[0] != mp.NSTATE:
@@ -169,6 +201,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
     cuda_build.check_tensor("state", state, torch.float32,
                             (mp.NSTATE, stride), dev)
     check_table(tab, dev)
+    fam_args = family_args(fam, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
     pix_ptr, _ = lane_ints("pixel", pixel, n, dev)
@@ -184,7 +217,8 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mega_segment_launch(
-            tab.data_ptr(), tab.shape[0], state.data_ptr(), stride, n,
+            tab.data_ptr(), tab.shape[0], *fam_args, state.data_ptr(),
+            stride, n,
             pix_ptr, samp_ptr, samp, int(start_bounce), int(max_depth),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
             depth_ptr, int(threads), stream)
@@ -367,12 +401,13 @@ def _radiance(state, orig_g, b):
 def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
                          max_depth, grad, *, n=None, t_min=1e-3, p_rr=0.0,
                          grad_bg=False, bg, exhaust_bg=False, depth=None,
-                         threads=THREADS):
+                         fam=None, threads=THREADS):
     """One segment of the adjoint megakernel B5 (csrc/mega_adjoint.cu)
     on CUDA tensors: state [19, stride] (the forward's 13 rows, then L
     and g), lanes [0, n) replayed in place; grad [8, n_slots] is added
     to, through per-block accumulators in shared memory when they fit
-    (acc_fits_smem)."""
+    (acc_fits_smem). Spheres only (fam must be None)."""
+    spheres_only(fam, "mega_adjoint_segment")
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"mega_adjoint_segment: unsupported device {dev}")
@@ -458,7 +493,10 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     CPU tensors, or plain=True, run adjoint_plain.trace_adjoint_plain.
     stats, when given, gains "launches" and "ray_bounces".
 
-    Pre-condition: mega_tables.mega_supported(tables)."""
+    Pre-condition: mega_tables.mega_supported(tables); a scene with a
+    rect, cylinder or triangle raises NotImplementedError (ROADMAP Queue
+    B5(b))."""
+    require_spheres_only(tables, "mega_trace_adjoint")
     if plain or ro.device.type == "cpu":
         return adjoint_plain.trace_adjoint_plain(
             tables, cfg, ro, rd, pixel, sample_idx, seed, L, gcot,
@@ -518,7 +556,10 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
 
     CUDA tensors launch kernel B4 (csrc/capture.cu) once and raise if it
     cannot; CPU tensors, or plain=True, run mega_plain.capture_plain.
-    Pre-condition: mega_tables.mega_supported(tables)."""
+    Pre-condition: mega_tables.mega_supported(tables); a scene with a
+    rect, cylinder or triangle raises NotImplementedError (ROADMAP Queue
+    B4(b))."""
+    require_spheres_only(tables, "mega_capture")
     dev = ro.device
     tab = tables.mega.table
     if tab.shape[0] > MAX_CODE_ROWS:
@@ -567,7 +608,9 @@ def _regen_library():
     lib = cuda_build.load("regen")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.mega_regen_launch.argtypes = [
-        vp, ci, vp,                   # table, rows, camera (19 host floats)
+        vp, ci,                       # table, rows
+        *FAMILY_TYPES,                # rect, rows, cyl, rows, tri, rows
+        vp,                           # camera (19 host floats)
         vp, ctypes.c_longlong, ci,    # state, stride, n
         vp, vp, vp, vp,               # pixel, py, samp, bvec
         ci, ci, ci, ci, ci,           # sample_base, spp, seg_iters,
@@ -584,16 +627,17 @@ def _regen_library():
 def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
                seg_iters, *, max_depth, spp, init, width, height, defocus,
                n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-               exhaust_bg=False, depth=None, threads=THREADS):
+               exhaust_bg=False, depth=None, fam=None, threads=THREADS):
     """One segment of the regeneration kernel B7 (the contract of
     mega_plain.regen_plain): csrc/regen.cu for CUDA tensors, the plain
     version for CPU tensors. state [13, B] f32, pixel, py, samp, bvec
-    (and depth) [B] int32; lanes [0, n) advance in place. Returns
-    (state, samp, bvec)."""
+    (and depth) [B] int32; lanes [0, n) advance in place; fam: the
+    family tables, as mega_segment. Returns (state, samp, bvec)."""
     dev = state.device
     opts = dict(max_depth=max_depth, spp=spp, init=init, width=width,
                 height=height, defocus=defocus, n=n, t_min=t_min, p_rr=p_rr,
-                grad_bg=grad_bg, bg=bg, exhaust_bg=exhaust_bg, depth=depth)
+                grad_bg=grad_bg, bg=bg, exhaust_bg=exhaust_bg, depth=depth,
+                fam=fam)
     if dev.type == "cpu":
         return mp.regen_plain(tab, cam, state, pixel, py, samp, bvec,
                               sample_base, seed, seg_iters, **opts)
@@ -606,6 +650,7 @@ def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
     cuda_build.check_tensor("state", state, torch.float32,
                             (mp.NSTATE, stride), dev)
     check_table(tab, dev)
+    fam_args = family_args(fam, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
     if len(cam) != 19:
@@ -627,7 +672,8 @@ def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mega_regen_launch(
-            tab.data_ptr(), tab.shape[0], cam_c, state.data_ptr(), stride, n,
+            tab.data_ptr(), tab.shape[0], *fam_args, cam_c, state.data_ptr(),
+            stride, n,
             *ptrs, int(sample_base), int(spp), int(seg_iters),
             int(max_depth), int(bool(init)), int(width), int(height),
             int(bool(defocus)),

@@ -2,7 +2,8 @@
 loop that relaunches it, and its plain PyTorch emulation (the
 counterpart of rt_tpu/ops/pallas_queue.py `_queue_kernel` :122,
 `_pack_into` :75, `queue_launch` :310 and `queue_trace` :404, for
-spheres with solid and checker textures, no NEE, sampler "rng").
+spheres, rects, cylinders and triangles with solid and checker
+textures, no NEE, sampler "rng").
 
 `queue_trace` runs csrc/queue.cu (built by nvcc at first use,
 ops/cuda_build.py) for CUDA tensors and raises if it cannot; for CPU
@@ -42,6 +43,7 @@ import torch
 from rt_tpu_torch.ops import adjoint_plain, cuda_build
 from rt_tpu_torch.ops import cuda_mega
 from rt_tpu_torch.ops import mega_plain as mp
+from rt_tpu_torch.ops.mega_tables import require_spheres_only
 
 POOL_I = 4  # int32 pool rows: slot (-1 empty), pixel, sample, bounce
 # pool lanes of the plain emulation unless the caller sets them (the
@@ -53,10 +55,11 @@ PLAIN_POOL_LANES = 1 << 16
 def _library():
     lib = cuda_build.load("queue")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.queue_grid_blocks.argtypes = [ci, ci]
+    lib.queue_grid_blocks.argtypes = [ci, ci, ci]
     lib.queue_grid_blocks.restype = ci
     lib.queue_launch.argtypes = [
         vp, ci,                       # table, rows
+        *cuda_mega.FAMILY_TYPES,      # rect, rows, cyl, rows, tri, rows
         vp, vp, vp, vp, ci, ci,       # ro, rd, pixel, sample, sample, b
         vp, vp, vp,                   # pool_f, pool_i, counters
         vp, vp, vp,                   # out, depth, written
@@ -69,20 +72,22 @@ def _library():
     return lib
 
 
-def grid_blocks(rows: int, device, threads: int = cuda_mega.THREADS) -> int:
-    """Blocks the card holds at once for a table of `rows` rows: the
-    persistent grid (pool lanes = blocks * threads), queried from CUDA
-    once per card, row count and block size."""
+def grid_blocks(rows: int, device, threads: int = cuda_mega.THREADS, *,
+                families: bool = False) -> int:
+    """Blocks the card holds at once for a table of `rows` sphere rows,
+    with family rows or without: the persistent grid (pool lanes =
+    blocks * threads), queried from CUDA once per card, row count,
+    instantiation and block size."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _grid_blocks(int(rows), index, int(threads))
+    return _grid_blocks(int(rows), bool(families), index, int(threads))
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_blocks(rows: int, index: int, threads: int) -> int:
+def _grid_blocks(rows: int, families: bool, index: int, threads: int) -> int:
     lib = _library()
     with torch.cuda.device(index):
-        blocks = lib.queue_grid_blocks(rows, threads)
+        blocks = lib.queue_grid_blocks(rows, int(families), threads)
     if blocks <= 0:
         msg = lib.queue_error_string(-blocks).decode() if blocks else \
             "no block fits on a multiprocessor"
@@ -93,10 +98,11 @@ def _grid_blocks(rows: int, index: int, threads: int) -> int:
 def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
                  *, seed, max_depth, budget, t_min=1e-3, p_rr=0.0,
                  grad_bg=False, bg, exhaust_bg=False, depth=None,
-                 written=None, blocks, threads=cuda_mega.THREADS):
+                 written=None, fam=None, blocks, threads=cuda_mega.THREADS):
     """One launch of the queue kernel on CUDA tensors (see queue.cu for
-    the operands). pool_f [13, blocks*threads], pool_i [4, blocks*threads]
-    and counters [2] carry the queue from one launch to the next."""
+    the operands; fam: the family tables, as cuda_mega.mega_segment).
+    pool_f [13, blocks*threads], pool_i [4, blocks*threads] and counters
+    [2] carry the queue from one launch to the next."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"queue_launch: unsupported device {dev}")
@@ -104,6 +110,7 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
     lanes = int(blocks) * int(threads)
     chk = cuda_build.check_tensor
     cuda_mega.check_table(tab, dev)
+    fam_args = cuda_mega.family_args(fam, dev)
     chk("ro", ro, torch.float32, (b, 3), dev)
     chk("rd", rd, torch.float32, (b, 3), dev)
     chk("pixel", pixel, torch.int32, (b,), dev)
@@ -121,8 +128,9 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.queue_launch(
-            tab.data_ptr(), tab.shape[0], ro.data_ptr(), rd.data_ptr(),
-            pixel.data_ptr(), samp_ptr, samp, b, pool_f.data_ptr(),
+            tab.data_ptr(), tab.shape[0], *fam_args, ro.data_ptr(),
+            rd.data_ptr(), pixel.data_ptr(), samp_ptr, samp, b,
+            pool_f.data_ptr(),
             pool_i.data_ptr(), counters.data_ptr(), out.data_ptr(), *ptrs,
             int(max_depth), int(budget),
             *cuda_mega._scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
@@ -169,7 +177,7 @@ def queue_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     if b == 0:
         return out
     ro, rd = ro.contiguous(), rd.contiguous()
-    blocks = grid_blocks(tab.shape[0], dev)
+    blocks = grid_blocks(tab.shape[0], dev, families=kw["fam"] is not None)
     if pool_lanes is not None:
         blocks = min(blocks, max(1, -(-int(pool_lanes) // cuda_mega.THREADS)))
     lanes = blocks * cuda_mega.THREADS
@@ -320,11 +328,13 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
                          pool_i, counters, grad, *, seed, max_depth, budget,
                          t_min=1e-3, p_rr=0.0, grad_bg=False,
                          bg, exhaust_bg=False, depth=None, written=None,
-                         blocks, threads=cuda_mega.THREADS):
+                         fam=None, blocks, threads=cuda_mega.THREADS):
     """One launch of the queue adjoint on CUDA tensors (see
     queue_adjoint.cu for the operands). pool_f [19, blocks*threads],
     pool_i [4, blocks*threads], counters [2] and grad [8, n_slots] carry
-    the replay from one launch to the next."""
+    the replay from one launch to the next. Spheres only (fam must be
+    None)."""
+    cuda_mega.spheres_only(fam, "queue_adjoint_launch")
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"queue_adjoint_launch: unsupported device {dev}")
@@ -381,7 +391,10 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     check_once counts each lane's completions; stats gains "launches"
     and "ray_bounces".
 
-    Pre-condition: mega_tables.mega_supported(tables)."""
+    Pre-condition: mega_tables.mega_supported(tables); a scene with a
+    rect, cylinder or triangle raises NotImplementedError (ROADMAP Queue
+    B6(b))."""
+    require_spheres_only(tables, "queue_trace_adjoint")
     if plain or ro.device.type == "cpu":
         return adjoint_plain.trace_adjoint_plain(
             tables, cfg, ro, rd, pixel, sample_idx, seed, L, gcot,

@@ -10,7 +10,7 @@ Scatter semantics per material:
                   reflection; attenuation = 1
   diffuse_light — never scatters; emits its texture value
 
-Textures of this slice: solid colour and checker. Parameters are fetched
+Textures ported so far: solid colour and checker. Parameters are fetched
 with indexed gathers where the reference uses one-hot MXU products (both
 are exact).
 """

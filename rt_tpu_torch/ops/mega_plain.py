@@ -2,7 +2,7 @@
 unit-ball twin of csrc/rng.cuh (its uniform draw is ops/rng.uniform's
 stream) and `do_bounce_plain`, the twin of csrc/bounce.cuh
 (rt_tpu/ops/pallas_mega.py `_uniform` / `_unit_ball` :618-696,
-`_make_background` :774, `do_bounce` :1011-1896 restricted to spheres,
+`_make_background` :774, `do_bounce` :1011-1896 for the four families,
 solid / checker textures, no NEE, sampler "rng").
 
 The ray state is the reference's 13 words per lane, held as one
@@ -36,8 +36,30 @@ import torch
 
 from rt_tpu_torch.ops import camera, rng
 from rt_tpu_torch.ops.mega_tables import (
+    F_SLOT,
+    R_F1,
+    R_F2,
+    R_HI0,
+    R_HI1,
+    R_K,
+    R_LO0,
+    R_LO1,
+    R_VALID,
     S_C2R,
     S_VALID,
+    T_D0,
+    T_E1,
+    T_E2,
+    T_E3,
+    T_V1,
+    T_VALID,
+    X_COLS,
+    Y_R,
+    Y_RAD2,
+    Y_T,
+    Y_VALID,
+    Y_ZMAX,
+    Y_ZMIN,
     X_ALB,
     X_ALB2,
     X_CHECKER,
@@ -59,9 +81,13 @@ O, D, TP, C, ALIVE = 0, 3, 6, 9, 12
 NSTATE = 13
 
 INF = float("inf")
-# lanes per [B, N] block of the closest-hit pass: bounds its temporaries
-# to a few hundred MB at N = 512 whatever the batch
+# lanes per [B, N] block of the sphere pass: bounds its temporaries to a
+# few hundred MB at N = 512 whatever the batch; the other families take
+# blocks of about as many (lane, row) pairs
 HIT_CHUNK = 1 << 16
+HIT_PAIRS = HIT_CHUNK * 512
+# family codes of the winner (ops/intersect PTYPE_*)
+FAM_SPHERE, FAM_RECT, FAM_CYLINDER, FAM_TRIANGLE = 0, 1, 2, 3
 
 
 def unit_ball(seed, pixel, sample, bounce):
@@ -103,39 +129,212 @@ def fresh_state(ro, rd):
     return st
 
 
-def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min):
-    """(t_best, row) per lane: the sphere pass of do_bounce
-    (`_sph_chunk_math` :1067-1097 without MXU or culling). Equal t goes
-    to the larger row; a lane that hits nothing reports t = inf."""
+def _col(tab, j):
+    """Column j of a family table as a [1, N] row of the [lanes, N]
+    candidate blocks."""
+    return tab[None, :, j]
+
+
+def _odot(tab, j, vx, vy, vz):
+    """(c_j vx + c_j+1 vy) + c_j+2 vz per (lane, row): the reference's
+    `odot`, the row's columns j..j+2 against a lane vector."""
+    return _col(tab, j) * vx + _col(tab, j + 1) * vy + _col(tab, j + 2) * vz
+
+
+def _sphere_t(tab, ox, oy, oz, dx, dy, dz, a, rd_dot_ro, ro_sq, inv_a,
+              t_min):
+    """Candidate t per (lane, sphere) (`_sph_chunk_math` :1067-1097
+    without MXU or culling); inf where there is no hit."""
+    cx, cy, cz = (_col(tab, X_V + k) for k in range(3))
+    hb = rd_dot_ro - (cx * dx + cy * dy + cz * dz)
+    c_term = ro_sq - 2.0 * (cx * ox + cy * oy + cz * oz) + _col(tab, S_C2R)
+    disc = hb * hb - a * c_term
+    sqrtd = torch.sqrt(torch.clamp(disc, min=0.0))
+    root1 = (-hb - sqrtd) * inv_a
+    root2 = (-hb + sqrtd) * inv_a
+    t = torch.where(root1 >= t_min, root1,
+                    torch.where(root2 >= t_min, root2, INF))
+    return torch.where((disc >= 0.0) & (_col(tab, S_VALID) > 0.0), t, INF)
+
+
+def _rect_t(tab, ox, oy, oz, dx, dy, dz, t_min):
+    """Candidate t per (lane, rect) (`rect_body` :1141-1163)."""
+    ro_k = _odot(tab, X_V, ox, oy, oz)
+    rd_k = _odot(tab, X_V, dx, dy, dz)
+    rd_ok = rd_k != 0.0
+    t = (_col(tab, R_K) - ro_k) / torch.where(rd_ok, rd_k, 1.0)
+    x = _odot(tab, R_F1, ox, oy, oz) + t * _odot(tab, R_F1, dx, dy, dz)
+    y = _odot(tab, R_F2, ox, oy, oz) + t * _odot(tab, R_F2, dx, dy, dz)
+    valid = (rd_ok & (t >= t_min)
+             & (x >= _col(tab, R_LO0)) & (x <= _col(tab, R_HI0))
+             & (y >= _col(tab, R_LO1)) & (y <= _col(tab, R_HI1))
+             & (_col(tab, R_VALID) > 0.0))
+    return torch.where(valid, t, INF)
+
+
+def _cyl_object_ray(col, ox, oy, oz, dx, dy, dz):
+    """The ray in object space through the w2o rows (object.cuh:235-238):
+    (oox, ooy, ooz, odx, ody, odz). col(j): column j of the rows."""
+    def odot(j, vx, vy, vz):
+        return col(j) * vx + col(j + 1) * vy + col(j + 2) * vz
+
+    return (odot(Y_R, ox, oy, oz) + col(Y_T),
+            odot(Y_R + 3, ox, oy, oz) + col(Y_T + 1),
+            odot(Y_R + 6, ox, oy, oz) + col(Y_T + 2),
+            odot(Y_R, dx, dy, dz),
+            odot(Y_R + 3, dx, dy, dz),
+            odot(Y_R + 6, dx, dy, dz))
+
+
+def _cylinder_t(tab, ox, oy, oz, dx, dy, dz, t_min):
+    """Candidate t per (lane, cylinder) (`cyl_body` :1165-1200): the
+    radial quadratic in object space, the nearer root in the z window
+    first. torch.minimum / maximum carry a NaN root through, as the
+    reference's jnp.minimum / maximum (the kernel repeats that)."""
+    oox, ooy, ooz, odx, ody, odz = _cyl_object_ray(
+        lambda j: _col(tab, j), ox, oy, oz, dx, dy, dz)
+    ac = odx * odx + ody * ody
+    bc = 2.0 * (odx * oox + ody * ooy)
+    cc = oox * oox + ooy * ooy - _col(tab, Y_RAD2)
+    delta = bc * bc - 4.0 * ac * cc
+    sq = torch.sqrt(torch.clamp(delta, min=0.0))
+    a_ok = ac != 0.0
+    inv2a = 1.0 / torch.where(a_ok, 2.0 * ac, 1.0)
+    t0 = -(bc - sq) * inv2a
+    t1 = -(bc + sq) * inv2a
+    t0, t1 = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    zmin, zmax = _col(tab, Y_ZMIN), _col(tab, Y_ZMAX)
+    z0 = ooz + t0 * odz
+    z1 = ooz + t1 * odz
+    ok0 = (t0 >= t_min) & (z0 >= zmin) & (z0 <= zmax) & a_ok
+    ok1 = (t1 >= t_min) & (z1 >= zmin) & (z1 <= zmax) & a_ok
+    t = torch.where(ok0, t0, torch.where(ok1, t1, INF))
+    return torch.where((delta >= 0.0) & (_col(tab, Y_VALID) > 0.0), t, INF)
+
+
+def _triangle_t(tab, ox, oy, oz, dx, dy, dz, t_min):
+    """Candidate t per (lane, triangle) (`_tri_chunk_math` :1224-1267):
+    the plane distance signed toward the origin's side, the three edge
+    tests, and only rays heading into the plane (d_n < 0)."""
+    oc_n = _odot(tab, X_V, ox, oy, oz) - _col(tab, T_D0)
+    sign = torch.where(oc_n < 0.0, -1.0, 1.0)
+    d_n = _odot(tab, X_V, dx, dy, dz) * sign
+    oc_ns = oc_n * sign
+    t = -oc_ns / torch.where(d_n != 0.0, d_n, 1.0)
+    rx = ox + t * dx - _col(tab, T_V1)
+    ry = oy + t * dy - _col(tab, T_V1 + 1)
+    rz = oz + t * dz - _col(tab, T_V1 + 2)
+
+    def edge_dot(j, wx, wy, wz):
+        ex, ey, ez = _col(tab, j), _col(tab, j + 1), _col(tab, j + 2)
+        cxp = ey * wz - ez * wy
+        cyp = ez * wx - ex * wz
+        czp = ex * wy - ey * wx
+        return (cxp * _col(tab, X_V) + cyp * _col(tab, X_V + 1)
+                + czp * _col(tab, X_V + 2))
+
+    s1 = edge_dot(T_E1, rx, ry, rz)
+    s2 = edge_dot(T_E2, rx - _col(tab, T_E1), ry - _col(tab, T_E1 + 1),
+                  rz - _col(tab, T_E1 + 2))
+    s3 = edge_dot(T_E3, rx + _col(tab, T_E3), ry + _col(tab, T_E3 + 1),
+                  rz + _col(tab, T_E3 + 2))
+    inside = (((s1 > 0) & (s2 > 0) & (s3 > 0))
+              | ((s1 < 0) & (s2 < 0) & (s3 < 0)))
+    valid = ((d_n < 0.0) & inside & (t >= t_min)
+             & (_col(tab, T_VALID) > 0.0))
+    return torch.where(valid, t, INF)
+
+
+def _family_best(cand, n_rows, lanes, chunk):
+    """(t_best, row) per lane of one family: cand(sl) gives the [lanes in
+    sl, n_rows] candidate block; an equal t goes to the larger row."""
+    t_parts, row_parts = [], []
+    for s in range(0, lanes, chunk):
+        t = cand(slice(s, s + chunk))
+        row = (n_rows - 1) - torch.argmin(t.flip(-1), dim=-1)
+        t_parts.append(torch.gather(t, 1, row[:, None])[:, 0])
+        row_parts.append(row)
+    return torch.cat(t_parts), torch.cat(row_parts)
+
+
+def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min, fam=None):
+    """(t_best, family, row) per lane: the hit pass of do_bounce over the
+    spheres of `tab`, then the rects, cylinders and triangles of `fam`
+    (mega_tables.Families, or None), in the reference's family order
+    without MXU or culling. Within a family an equal t goes to the
+    larger row; across families to the later family (`_merge`
+    :753-763). A lane that hits nothing reports t = inf (family and row
+    then mean nothing)."""
+    lanes = ox.shape[0]
+    dev = ox.device
+    if lanes == 0:
+        empty = torch.empty(0, dtype=torch.long, device=dev)
+        return ox.new_empty(0), empty, empty
     a = dx * dx + dy * dy + dz * dz
     rd_dot_ro = dx * ox + dy * oy + dz * oz
     ro_sq = ox * ox + oy * oy + oz * oz
     inv_a = 1.0 / a
-    cx, cy, cz = (tab[None, :, X_V + k] for k in range(3))
-    c2r, valid = tab[None, :, S_C2R], tab[None, :, S_VALID]
-    n = tab.shape[0]
-    t_parts, row_parts = [], []
-    for s in range(0, ox.shape[0], HIT_CHUNK):
-        sl = slice(s, s + HIT_CHUNK)
-        lox, loy, loz = ox[sl, None], oy[sl, None], oz[sl, None]
-        ldx, ldy, ldz = dx[sl, None], dy[sl, None], dz[sl, None]
-        hb = rd_dot_ro[sl, None] - (cx * ldx + cy * ldy + cz * ldz)
-        c_term = (ro_sq[sl, None] - 2.0 * (cx * lox + cy * loy + cz * loz)
-                  + c2r)
-        disc = hb * hb - a[sl, None] * c_term
-        sqrtd = torch.sqrt(torch.clamp(disc, min=0.0))
-        root1 = (-hb - sqrtd) * inv_a[sl, None]
-        root2 = (-hb + sqrtd) * inv_a[sl, None]
-        t = torch.where(root1 >= t_min, root1,
-                        torch.where(root2 >= t_min, root2, INF))
-        t = torch.where((disc >= 0.0) & (valid > 0.0), t, INF)
-        row = (n - 1) - torch.argmin(t.flip(-1), dim=-1)  # ties: larger
-        t_parts.append(torch.gather(t, 1, row[:, None])[:, 0])
-        row_parts.append(row)
-    if not t_parts:
-        return ox.new_empty(0), torch.empty(0, dtype=torch.long,
-                                            device=ox.device)
-    return torch.cat(t_parts), torch.cat(row_parts)
+    lane = (ox, oy, oz, dx, dy, dz)
+
+    def sph(sl):
+        return _sphere_t(tab, *(v[sl, None] for v in lane), a[sl, None],
+                         rd_dot_ro[sl, None], ro_sq[sl, None],
+                         inv_a[sl, None], t_min)
+
+    t_best, row = _family_best(sph, tab.shape[0], lanes, HIT_CHUNK)
+    family = torch.zeros_like(row)
+    if fam is None:
+        return t_best, family, row
+    for code, ftab, fn in ((FAM_RECT, fam.rect, _rect_t),
+                           (FAM_CYLINDER, fam.cyl, _cylinder_t),
+                           (FAM_TRIANGLE, fam.tri, _triangle_t)):
+        n = ftab.shape[0]
+        if n == 0:
+            continue
+        t, r = _family_best(
+            lambda sl: fn(ftab, *(v[sl, None] for v in lane), t_min),
+            n, lanes, max(1, HIT_PAIRS // n))
+        take = (t < t_best) | (torch.isfinite(t) & (t == t_best))
+        t_best = torch.where(take, t, t_best)
+        family = torch.where(take, code, family)
+        row = torch.where(take, r, row)
+    return t_best, family, row
+
+
+def winner_attrs(tab, fam, family, row, t_best, ox, oy, oz, dx, dy, dz):
+    """[B, S_COLS] attribute rows of each lane's winner: the sphere
+    table's row, or the winning family row's columns 0..14 with its
+    gradient slot in column X_SLOT; a cylinder's v0..v2 are its world
+    normal at the hit (`cyl_body` :1201-1212: the object-space radial
+    direction, normalised by rsqrt, through the w2o rows transposed)."""
+    if fam is None:
+        return tab[row]
+    attrs = tab[torch.where(family == FAM_SPHERE, row, 0)]
+    for code, ftab in ((FAM_RECT, fam.rect), (FAM_CYLINDER, fam.cyl),
+                       (FAM_TRIANGLE, fam.tri)):
+        if ftab.shape[0] == 0:
+            continue
+        is_f = family == code
+        w = ftab[torch.where(is_f, row, 0)]
+        blk = torch.cat([w[:, :X_COLS],
+                         torch.zeros_like(w[:, X_COLS:X_SLOT]),
+                         w[:, F_SLOT:F_SLOT + 1]], dim=1)
+        if code == FAM_CYLINDER:
+            # the candidate's expressions, once per winner: the same bits
+            oox, ooy, _, odx, ody, _ = _cyl_object_ray(
+                lambda j: w[:, j], ox, oy, oz, dx, dy, dz)
+            t_c = torch.where(torch.isfinite(t_best), t_best, 0.0)
+            opx = oox + t_c * odx
+            opy = ooy + t_c * ody
+            ln2 = opx * opx + opy * opy
+            inv_ln = torch.rsqrt(torch.where(ln2 > 0.0, ln2, 1.0))
+            nox = opx * inv_ln
+            noy = opy * inv_ln
+            blk[:, X_V] = w[:, Y_R] * nox + w[:, Y_R + 3] * noy
+            blk[:, X_V + 1] = w[:, Y_R + 1] * nox + w[:, Y_R + 4] * noy
+            blk[:, X_V + 2] = w[:, Y_R + 2] * nox + w[:, Y_R + 5] * noy
+        attrs = torch.where(is_f[:, None], blk, attrs)
+    return attrs
 
 
 class Bounce(NamedTuple):
@@ -146,8 +345,10 @@ class Bounce(NamedTuple):
     state[C:C+3])."""
 
     state: torch.Tensor      # [13, B] after the bounce
-    hit: torch.Tensor        # [B] bool: a sphere was hit (roulette aside)
-    row: torch.Tensor        # [B] int64 the winner's table row
+    hit: torch.Tensor        # [B] bool: a primitive was hit (roulette
+                             # aside)
+    family: torch.Tensor     # [B] int64 the winner's family (FAM_*)
+    row: torch.Tensor        # [B] int64 the winner's row in its table
     scattered: torch.Tensor  # [B] bool
     emitter: torch.Tensor    # [B] bool: a light was hit
     missed: torch.Tensor     # [B] bool: the sky was hit
@@ -159,20 +360,22 @@ class Bounce(NamedTuple):
 
 
 def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
-                    p_rr, grad_bg, bg):
+                    p_rr, grad_bg, bg, fam=None):
     """Advance every lane of `state` [13, B] one bounce; returns the new
     [13, B] state. Lanes whose alive word is 0 come out unchanged.
 
-    tab: the packed sphere table (ops/mega_tables.sphere_table).
-    pixel, sample, bounce: per-lane RNG coordinates ([B] integer tensors
-    or ints); seed an int. bg: the constant sky colour, 3 floats."""
+    tab: the packed sphere table (ops/mega_tables.sphere_table); fam:
+    the rect, cylinder and triangle tables (mega_tables.Families) or
+    None. pixel, sample, bounce: per-lane RNG coordinates ([B] integer
+    tensors or ints); seed an int. bg: the constant sky colour, 3
+    floats."""
     return bounce_plain(tab, state, pixel, sample, bounce, seed,
                         t_min=t_min, p_rr=p_rr, grad_bg=grad_bg,
-                        bg=bg).state
+                        bg=bg, fam=fam).state
 
 
 def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
-                 grad_bg, bg) -> Bounce:
+                 grad_bg, bg, fam=None) -> Bounce:
     """do_bounce_plain with the intermediates its adjoint reads."""
     ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb, alive = state.unbind(0)
 
@@ -182,8 +385,10 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
         live = live & (u_rr <= p_rr)
 
     a = dx * dx + dy * dy + dz * dz
-    t_best, row = closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min)
-    attrs = tab[row]
+    t_best, family, row = closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min,
+                                      fam)
+    attrs = winner_attrs(tab, fam, family, row, t_best, ox, oy, oz, dx, dy,
+                         dz)
     v0, v1_, v2, v3 = (attrs[:, X_V + k] for k in range(4))
     direct = attrs[:, X_DIRECT] > 0.0
     w_mtype = attrs[:, X_MTYPE]
@@ -305,7 +510,8 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
     alive = scattered.to(torch.float32)
     out = torch.stack([ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb,
                        alive])
-    return Bounce(state=out, hit=hit, row=row, scattered=scattered,
+    return Bounce(state=out, hit=hit, family=family, row=row,
+                  scattered=scattered,
                   emitter=emitter,
                   missed=missed, is_die=is_die, use2=use2,
                   slot=attrs[:, X_SLOT].long(), att=(att_r, att_g, att_b),
@@ -313,7 +519,7 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
 
 
 def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
-                  p_rr, grad_bg, bg):
+                  p_rr, grad_bg, bg, fam=None):
     """The plain version of the tape-capture kernel B4 (csrc/capture.cu,
     rt_tpu/ops/pallas_mega.py `_capture_kernel` :1978): trace the fresh
     rays of `state` [13, B] (pixel ids [B], one sample index) for
@@ -327,7 +533,13 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
     the reference's kernel evaluates the hit on every lane. death[i] is
     the number of bounces after which the lane is still alive. The row
     is the pid because the table keeps the scene's order (no Morton
-    sort, ROADMAP C-3). `state` is not changed."""
+    sort, ROADMAP C-3). `state` is not changed. Spheres only: family
+    tables (`fam`) raise until the tape codes carry the family (ROADMAP
+    Queue B4(b))."""
+    if fam is not None:
+        raise NotImplementedError(
+            "capture_plain: rects, cylinders and triangles in the winner "
+            "tape are not ported yet (ROADMAP Queue B4(b))")
     b = state.shape[1]
     dev = state.device
     codes = torch.full((max_depth, b), -1, dtype=torch.int32, device=dev)
@@ -347,11 +559,12 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
 
 
 def trace_options(tables, cfg) -> dict:
-    """The per-trace scalars of a segment, a queue launch and their
-    adjoints, from the scene and the configuration (exhaust_bg aside)."""
+    """The per-trace options of a segment, a queue launch and their
+    adjoints, from the scene and the configuration (exhaust_bg aside):
+    the scalars and the family tables (MegaScene.fam)."""
     return dict(t_min=1e-3, p_rr=float(cfg.p_rr),
                 grad_bg=cfg.background_mode == "gradient",
-                bg=tables.mega.bg)
+                bg=tables.mega.bg, fam=tables.mega.fam)
 
 
 def exhaust(state, lanes, bg, grad_bg: bool):
@@ -369,7 +582,7 @@ def exhaust(state, lanes, bg, grad_bg: bool):
 def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
                 seg_iters, *, max_depth, spp, init, width, height, defocus,
                 n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-                exhaust_bg=False, depth=None):
+                exhaust_bg=False, depth=None, fam=None):
     """The plain version of one segment of the regeneration kernel B7
     (csrc/regen.cu, rt_tpu/ops/pallas_mega.py `_regen_kernel` :2288):
     lanes [0, n) of state [13, B], pixel ids `pixel` and rows `py`
@@ -381,8 +594,9 @@ def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
     lane's next sample (samp + 1, bvec 0, a fresh camera ray); (3) one
     bounce at (samp, bvec), then bvec + 1. With init, the lanes first
     take sample_base's camera rays. cam: ops/camera.camera_vec's 19
-    floats. state, samp and bvec are updated in place and returned;
-    depth, when given, gains each lane's bounces."""
+    floats. fam: the family tables, as do_bounce_plain. state, samp and
+    bvec are updated in place and returned; depth, when given, gains
+    each lane's bounces."""
     n = state.shape[1] if n is None else int(n)
     dev = state.device
     sub = state[:, :n]
@@ -428,7 +642,7 @@ def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
         if li.numel():
             st[:, li] = do_bounce_plain(
                 tab, st[:, li], pix[idx[li]], s_[li], b_[li], seed,
-                t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg)
+                t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam)
             if depth is not None:
                 depth[idx[li]] += 1
         sub[:, idx] = st

@@ -1,17 +1,19 @@
-"""The packed sphere table the megakernels read (rt_tpu/ops/pallas_mega.py
-`_ext_block` :163, `sphere_table` :207, `_pad_rows` / `_pad_chunked`
-:2798-2822, the sphere path of `_prep_scene` :2823).
+"""The packed tables the megakernels read (rt_tpu/ops/pallas_mega.py
+`_ext_block` :163, `sphere_table` :207, `rect_table` :221,
+`cylinder_table` :245, `triangle_table` :260, `_pad_rows` /
+`_pad_chunked` :2798-2822, `_prep_scene` :2823 without culling).
 
-One row per padded sphere slot, with the reference's column meanings
-and indices (`_X_*` / `_S_*`, pallas_mega.py:85-116), so a test compares
-this table with rt_tpu's column by column:
+The sphere table has one row per padded sphere slot, with the
+reference's column meanings and indices (`_X_*` / `_S_*`,
+pallas_mega.py:85-116), so a test compares it with rt_tpu's column by
+column:
 
   0..2  center            3  radius (negative: hollow, normal flips)
   4     direct (0 for spheres: normal = (p - center) / radius)
   5     material type     6  checker flag     7  fuzz (metal) or IOR
   8..10 albedo (texture even colour / inline colour / 1 for glass)
   11..13 albedo2 (checker odd colour)
-  14    image-texture id (-1: this slice has no image textures)
+  14    image-texture id (-1: image textures are not ported yet)
   15    |c|^2 - r^2       16 valid (1 live row, 0 pad)
   17    gradient slot: the row of the adjoint accumulators that takes
         this sphere's radiometric cotangents (the reference's column 31,
@@ -19,17 +21,32 @@ this table with rt_tpu's column by column:
         n_tex + its material row when the material has no texture
 
 The columns only the TPU's MXU, UV and tape-code paths read (the
-reference's 17..30) are dropped. The kernels (csrc/bounce.cuh) and the
-plain versions (ops/mega_plain.py, ops/adjoint_plain.py) read only this
-table, in the form of `MegaScene`: built once per scene
-(`SceneTables.mega`) and cut after the last live row, since the pad rows
-behind it never hit.
+reference's 17..30) are dropped.
+
+The rect, cylinder and triangle tables keep the reference's 32 columns
+as they are: 0..14 the same attribute block (v0..v2 the normal: the
+constant axis's one-hot for a rect, the geometric normal for a
+triangle, zeros for a cylinder, whose normal is computed per hit;
+direct = 1), then per family (`_R_*`, `_Y_*`, `_T_*`, :98-116)
+
+  rect      15 k, 16 lo0, 17 lo1, 18 hi0, 19 hi1, 20 valid,
+            21..23 free-axis-1 one-hot, 24..26 free-axis-2 one-hot
+  cylinder  15..23 w2o rotation rows (row-major 3x3), 24..26 w2o
+            translation, 27 radius^2, 28 zmin, 29 zmax, 30 valid
+  triangle  15..17 v1, 18..20 v2 - v1, 21..23 v3 - v2, 24..26 v1 - v3,
+            27 v1 . n, 28 valid
+
+and the gradient slot in column 31 (`_SLOT_COL`). The kernels
+(csrc/bounce.cuh) and the plain versions (ops/mega_plain.py,
+ops/adjoint_plain.py) read only these tables, in the form of
+`MegaScene`: built once per scene (`SceneTables.mega`), each cut after
+its last live row, since the pad rows behind it never hit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,18 +65,46 @@ X_MTYPE, X_CHECKER, X_PARAM = 5, 6, 7
 X_ALB = 8
 X_ALB2 = 11
 X_IMG = 14
+X_COLS = 15      # the attribute block every family table starts with
 S_C2R, S_VALID = 15, 16
 X_SLOT = 17
 S_COLS = 18
 
 SPH_CHUNK = 32   # the reference's sphere chunk (pallas_mega.py:68)
 
+# the rect / cylinder / triangle tables (pallas_mega.py:98-140)
+R_K, R_LO0, R_LO1, R_HI0, R_HI1, R_VALID = 15, 16, 17, 18, 19, 20
+R_F1 = 21
+R_F2 = 24
+Y_R = 15
+Y_T = 24
+Y_RAD2, Y_ZMIN, Y_ZMAX, Y_VALID = 27, 28, 29, 30
+T_V1 = 15
+T_E1 = 18
+T_E2 = 21
+T_E3 = 24
+T_D0, T_VALID = 27, 28
+F_SLOT = 31
+F_COLS = 32
+
 
 def mega_supported(tables: SceneTables) -> bool:
-    """The megakernels of this slice render any scene of this package
-    (spheres, solid / checker textures); only an empty scene falls back,
-    as in the reference (pallas_mega.py:118)."""
-    return tables.n_spheres > 0
+    """The megakernels render any scene of this package (the four
+    families, solid / checker textures); only an empty scene falls back,
+    as in the reference (pallas_mega.py:149-160)."""
+    return sum(tables.counts) > 0
+
+
+def require_spheres_only(tables: SceneTables, what: str) -> None:
+    """Raise for a scene with a live rect, cylinder or triangle row:
+    the winner tape and the adjoints trace spheres only so far."""
+    if tables.has_families:
+        raise NotImplementedError(
+            f"{what}: rects, cylinders and triangles in the winner tape "
+            "(B4), the adjoints (B5, B6) and the differentiable paths are "
+            "not ported yet (ROADMAP Queue B4(b), B5(b), B6(b)); this "
+            f"scene has {tables.counts[1:]} live rect / cylinder / "
+            "triangle rows")
 
 
 def _pad_rows(tab: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -79,9 +124,10 @@ def pad_chunked(tab: torch.Tensor, max_chunk: int = SPH_CHUNK) -> torch.Tensor:
     return _pad_rows(tab, max_chunk)
 
 
-def sphere_table(tables: SceneTables) -> torch.Tensor:
-    """[N, S_COLS] float32 on the tables' device (see the module doc)."""
-    mat = tables.sph_mat.long()
+def _ext_block(tables: SceneTables, mat, n_cols: int) -> torch.Tensor:
+    """[N, n_cols] zeros with the attribute columns 4..14 of rows of
+    materials `mat` [N] filled (direct = 1)."""
+    mat = mat.long()
     mtype = tables.mat_type[mat]
     tex = tables.mat_tex[mat]
     tex_safe = torch.clamp(tex, min=0).long()
@@ -94,22 +140,79 @@ def sphere_table(tables: SceneTables) -> torch.Tensor:
                         torch.where(mtype == MAT_DIELECTRIC,
                                     tables.mat_ior[mat],
                                     torch.zeros_like(tables.mat_fuzz[mat])))
-    c, r = tables.sph_center, tables.sph_radius
-    n = c.shape[0]
-    tab = torch.zeros((n, S_COLS), dtype=torch.float32, device=c.device)
-    tab[:, X_V:X_V + 3] = c
-    tab[:, X_RAD] = r
-    tab[:, X_DIRECT] = 0.0
+    tab = torch.zeros((mat.shape[0], n_cols), dtype=torch.float32,
+                      device=mat.device)
+    tab[:, X_DIRECT] = 1.0
     tab[:, X_MTYPE] = mtype.to(torch.float32)
     tab[:, X_CHECKER] = is_checker.to(torch.float32)
     tab[:, X_PARAM] = param
     tab[:, X_ALB:X_ALB + 3] = base
     tab[:, X_ALB2:X_ALB2 + 3] = tables.tex_color2[tex_safe]
     tab[:, X_IMG] = -1.0
+    return tab
+
+
+def sphere_table(tables: SceneTables) -> torch.Tensor:
+    """[N, S_COLS] float32 on the tables' device (see the module doc)."""
+    c, r = tables.sph_center, tables.sph_radius
+    tab = _ext_block(tables, tables.sph_mat, S_COLS)
+    tab[:, X_V:X_V + 3] = c
+    tab[:, X_RAD] = r
+    tab[:, X_DIRECT] = 0.0
     tab[:, S_C2R] = (c * c).sum(-1) - r * r
     tab[:, S_VALID] = (tables.sph_obj >= 0).to(torch.float32)
-    tab[:, X_SLOT] = slot_ids(tables, mat)
+    tab[:, X_SLOT] = slot_ids(tables, tables.sph_mat.long())
     return pad_chunked(tab)
+
+
+def rect_table(tables: SceneTables) -> torch.Tensor:
+    """[Nr, F_COLS] float32: every rect row, padded ones included."""
+    axis = tables.rect_axis.long()
+    onehot = torch.nn.functional.one_hot
+    tab = _ext_block(tables, tables.rect_mat, F_COLS)
+    tab[:, X_V:X_V + 3] = onehot(axis, 3).to(torch.float32)
+    tab[:, R_K] = tables.rect_k
+    tab[:, R_LO0] = tables.rect_lo[:, 0]
+    tab[:, R_LO1] = tables.rect_lo[:, 1]
+    tab[:, R_HI0] = tables.rect_hi[:, 0]
+    tab[:, R_HI1] = tables.rect_hi[:, 1]
+    tab[:, R_VALID] = (tables.rect_obj >= 0).to(torch.float32)
+    tab[:, R_F1:R_F1 + 3] = onehot(torch.where(axis == 0, 1, 0), 3).to(
+        torch.float32)
+    tab[:, R_F2:R_F2 + 3] = onehot(torch.where(axis == 2, 1, 2), 3).to(
+        torch.float32)
+    tab[:, F_SLOT] = slot_ids(tables, tables.rect_mat.long())
+    return tab
+
+
+def cylinder_table(tables: SceneTables) -> torch.Tensor:
+    """[Nc, F_COLS] float32: every cylinder row, padded ones included."""
+    w2o = tables.cyl_w2o
+    tab = _ext_block(tables, tables.cyl_mat, F_COLS)
+    tab[:, Y_R:Y_R + 9] = w2o[:, :3, :3].reshape(-1, 9)
+    tab[:, Y_T:Y_T + 3] = w2o[:, :3, 3]
+    tab[:, Y_RAD2] = tables.cyl_radius ** 2
+    tab[:, Y_ZMIN] = tables.cyl_zmin
+    tab[:, Y_ZMAX] = tables.cyl_zmax
+    tab[:, Y_VALID] = (tables.cyl_obj >= 0).to(torch.float32)
+    tab[:, F_SLOT] = slot_ids(tables, tables.cyl_mat.long())
+    return tab
+
+
+def triangle_table(tables: SceneTables) -> torch.Tensor:
+    """[Nt, F_COLS] float32: every triangle row, padded ones included."""
+    v1, v2, v3 = tables.tri_v1, tables.tri_v2, tables.tri_v3
+    n0 = tables.tri_n
+    tab = _ext_block(tables, tables.tri_mat, F_COLS)
+    tab[:, X_V:X_V + 3] = n0
+    tab[:, T_V1:T_V1 + 3] = v1
+    tab[:, T_E1:T_E1 + 3] = v2 - v1
+    tab[:, T_E2:T_E2 + 3] = v3 - v2
+    tab[:, T_E3:T_E3 + 3] = v1 - v3
+    tab[:, T_D0] = (v1 * n0).sum(-1)
+    tab[:, T_VALID] = (tables.tri_obj >= 0).to(torch.float32)
+    tab[:, F_SLOT] = slot_ids(tables, tables.tri_mat.long())
+    return tab
 
 
 def slot_ids(tables: SceneTables, mat_ids) -> torch.Tensor:
@@ -120,17 +223,30 @@ def slot_ids(tables: SceneTables, mat_ids) -> torch.Tensor:
         torch.float32)
 
 
+class Families(NamedTuple):
+    """The rect, cylinder and triangle tables the kernels read beside the
+    sphere table, each cut after its last live row (possibly 0 rows)."""
+
+    rect: torch.Tensor   # [n_rects, F_COLS] f32
+    cyl: torch.Tensor    # [n_cylinders, F_COLS] f32
+    tri: torch.Tensor    # [n_triangles, F_COLS] f32
+
+
 @dataclasses.dataclass(frozen=True)
 class MegaScene:
-    """What the megakernels read of a scene: the packed table up to its
-    last live sphere (live rows come first, build_tables pads behind
-    them), the constant sky colour and the camera frame
+    """What the megakernels read of a scene: the packed sphere table up
+    to its last live sphere (live rows come first, build_tables pads
+    behind them; one pad row, never hit, when the scene has no sphere),
+    the other families' tables (`fam`, None when the scene has none of
+    them, so that sphere-only scenes run the kernels without the family
+    loops), the constant sky colour and the camera frame
     (ops/camera.camera_vec) as host floats, which the launchers pass by
-    value, and the sizes of the adjoint accumulators: n_slots =
-    n_tex + n_mat gradient slots, texture rows first (the reference pads
-    them to 128-lane slabs; the port needs no padding)."""
+    value, and the sizes of the adjoint accumulators: n_slots = n_tex +
+    n_mat gradient slots, texture rows first (the reference pads them to
+    128-lane slabs; the port needs no padding)."""
 
-    table: torch.Tensor          # [n_spheres, S_COLS] f32
+    table: torch.Tensor          # [max(n_spheres, 1), S_COLS] f32
+    fam: Optional[Families]
     bg: Tuple[float, float, float]
     cam: Tuple[float, ...]       # 19 floats, ops/camera.camera_vec
     n_tex: int
@@ -143,8 +259,14 @@ class MegaScene:
     @classmethod
     def of(cls, tables: SceneTables) -> "MegaScene":
         tab = sphere_table(tables)[:max(tables.n_spheres, 1)]
+        fam = None
+        if tables.has_families:
+            _, nr, nc, nt = tables.counts
+            fam = Families(*(t[:n].detach().contiguous() for t, n in (
+                (rect_table(tables), nr), (cylinder_table(tables), nc),
+                (triangle_table(tables), nt))))
         bg = tables.background.detach().to("cpu", torch.float32).tolist()
-        return cls(table=tab.detach().contiguous(),
+        return cls(table=tab.detach().contiguous(), fam=fam,
                    bg=tuple(float(v) for v in bg),
                    cam=camera_vec(tables.camera),
                    n_tex=int(tables.tex_color.shape[0]),

@@ -3,9 +3,9 @@
 `tables_from_numpy` takes the leaves of an `rt_tpu.scene.types.
 SceneTables` as NumPy arrays (the caller exports them with np.asarray;
 camera leaves under 'camera.<field>') and returns this package's
-`SceneTables` on `device`. Leaves of families this slice does not carry
-(rects, cylinders, triangles, BVHs, images, the light index) may be
-present and are checked to hold no live row; a live one raises.
+`SceneTables` on `device`, the four primitive families and the light
+index included. Leaves this package does not carry (BVHs, the image
+atlas) are ignored; a texture of type image raises.
 `params_from_numpy` carries a parameter dict of rt_tpu's diff package
 (field name -> array; "camera" -> a camera whose fields are arrays)
 across the same way.
@@ -20,21 +20,22 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from rt_tpu_torch.scene.types import TEX_IMAGE, CameraDef, SceneTables
+from rt_tpu_torch.scene.types import (
+    IMAGE_TEXTURES,
+    MAT_DIFFUSE_LIGHT,
+    TEX_IMAGE,
+    CameraDef,
+    SceneTables,
+)
 
-_UNPORTED_FAMILIES = ("rect_obj", "cyl_obj", "tri_obj")
+_FAMILIES = ("sph", "rect", "cyl", "tri")
+_META = ("camera", "counts", "n_lights")
 
 
 def tables_from_numpy(leaves: Mapping[str, np.ndarray],
                       device="cpu") -> SceneTables:
-    for name in _UNPORTED_FAMILIES:
-        if name in leaves and (np.asarray(leaves[name]) >= 0).any():
-            raise NotImplementedError(
-                f"{name}: only the sphere family is ported yet "
-                "(ROADMAP Queue A-3)")
     if (np.asarray(leaves["tex_type"]) == TEX_IMAGE).any():
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP Queue A-4, B2(c))")
+        raise NotImplementedError(IMAGE_TEXTURES)
 
     def t(name):
         return torch.from_numpy(np.array(leaves[name])).to(device)
@@ -42,9 +43,16 @@ def tables_from_numpy(leaves: Mapping[str, np.ndarray],
     cam = CameraDef(**{f.name: t(f"camera.{f.name}")
                        for f in dataclasses.fields(CameraDef)})
     tensors = {f.name: t(f.name) for f in dataclasses.fields(SceneTables)
-               if f.name not in ("camera", "n_spheres")}
-    n_spheres = int((np.asarray(leaves["sph_obj"]) >= 0).sum())
-    return SceneTables(camera=cam, n_spheres=n_spheres, **tensors)
+               if f.name not in _META}
+    counts = tuple(int((np.asarray(leaves[f"{k}_obj"]) >= 0).sum())
+                   for k in _FAMILIES)
+    mat_type = np.asarray(leaves["mat_type"])
+    n_lights = sum(int(((np.asarray(leaves[f"{k}_obj"]) >= 0)
+                        & (mat_type[np.asarray(leaves[f"{k}_mat"])]
+                           == MAT_DIFFUSE_LIGHT)).sum())
+                   for k in _FAMILIES)
+    return SceneTables(camera=cam, counts=counts, n_lights=n_lights,
+                       **tensors)
 
 
 def params_from_numpy(params: Mapping[str, np.ndarray],

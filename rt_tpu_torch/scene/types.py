@@ -1,14 +1,15 @@
 """Scene representation: host-side builder + the device tables.
 
-The port of rt_tpu/scene/types.py for the sphere slice. `SceneDef` is
-the same host-side builder; `build_tables` freezes it into a
-`SceneTables`, a dataclass of tensors with `.to(device)`. Field names,
-dtypes and padding (`_pad_size`) are the reference's, so the two
-packages' tables compare leaf by leaf (tests/test_torch_scene.py).
+The port of rt_tpu/scene/types.py. `SceneDef` is the same host-side
+builder; `build_tables` freezes it into a `SceneTables`, a dataclass of
+tensors with `.to(device)`. Field names, dtypes and padding (`_pad_size`)
+are the reference's, so the two packages' tables compare leaf by leaf
+(tests/test_torch_scene.py, tests/test_torch_parser.py).
 
-This slice carries the sphere, material and texture (solid, checker)
-tables. Rects, cylinders, triangles, image textures and BVHs raise
-NotImplementedError until their slices (ROADMAP Queue A-3, A-4, B2(b,c)).
+The tables carry the four primitive families (spheres, axis-aligned
+rects, cylinders, triangles), the materials, the solid and checker
+textures and the emissive-primitive index. Image textures raise
+NotImplementedError until ROADMAP Queue B2(c), BVHs until A-8.
 
 Material type ids: 0=lambertian, 1=metal, 2=dielectric, 3=diffuse_light.
 Texture type ids: 0=solid_color, 1=checker, 2=image.
@@ -33,6 +34,15 @@ MAT_DIFFUSE_LIGHT = 3
 TEX_SOLID = 0
 TEX_CHECKER = 1
 TEX_IMAGE = 2
+
+# rect axis convention: the constant coordinate's axis index.
+# yz_rect -> 0 (x=k), xz_rect -> 1 (y=k), xy_rect -> 2 (z=k)
+RECT_YZ = 0
+RECT_XZ = 1
+RECT_XY = 2
+
+IMAGE_TEXTURES = ("image textures are not ported yet "
+                  "(ROADMAP Queue B2(c))")
 
 
 def _pad_size(n: int, minimum: int = 4) -> int:
@@ -101,13 +111,43 @@ def make_camera(
 @dataclasses.dataclass(frozen=True)
 class SceneTables:
     """Device-ready SoA scene. Every table is padded to a power-of-two
-    length; pad sphere rows have obj index -1 and never produce hits.
-    `n_spheres` (the live sphere count) is host metadata, not a leaf."""
+    length; pad rows have obj index -1 and never produce hits.
+    `counts` (the live rows of each family) and `n_lights` are host
+    metadata, not leaves."""
 
+    # spheres (object.cuh:40-94)
     sph_center: torch.Tensor   # [Ns,3] f32
     sph_radius: torch.Tensor   # [Ns] f32
     sph_mat: torch.Tensor      # [Ns] i32
     sph_obj: torch.Tensor      # [Ns] i32, -1 = pad
+
+    # axis-aligned rects (object.cuh:96-197), unified across xy/xz/yz
+    rect_axis: torch.Tensor    # [Nr] i32 (constant axis)
+    rect_lo: torch.Tensor      # [Nr,2] (a0,b0) in free-axis order
+    rect_hi: torch.Tensor      # [Nr,2] (a1,b1)
+    rect_k: torch.Tensor       # [Nr] f32
+    rect_mat: torch.Tensor     # [Nr] i32
+    rect_obj: torch.Tensor     # [Nr] i32
+
+    # cylinders (object.cuh:216-297)
+    cyl_radius: torch.Tensor   # [Nc] f32
+    cyl_zmin: torch.Tensor     # [Nc] f32
+    cyl_zmax: torch.Tensor     # [Nc] f32
+    cyl_o2w: torch.Tensor      # [Nc,4,4] f32
+    cyl_w2o: torch.Tensor      # [Nc,4,4] f32, the cached inverse
+    cyl_mat: torch.Tensor      # [Nc] i32
+    cyl_obj: torch.Tensor      # [Nc] i32
+
+    # triangles (taichi-version/hittable.py:38-71,92-114)
+    tri_v1: torch.Tensor       # [Nt,3] f32
+    tri_v2: torch.Tensor       # [Nt,3] f32
+    tri_v3: torch.Tensor       # [Nt,3] f32
+    tri_uv1: torch.Tensor      # [Nt,2] f32
+    tri_uv2: torch.Tensor      # [Nt,2] f32
+    tri_uv3: torch.Tensor      # [Nt,2] f32
+    tri_n: torch.Tensor        # [Nt,3] f32 unit geometric normal
+    tri_mat: torch.Tensor      # [Nt] i32
+    tri_obj: torch.Tensor      # [Nt] i32
 
     mat_type: torch.Tensor     # [Nm] i32
     mat_albedo: torch.Tensor   # [Nm,3] f32
@@ -122,7 +162,24 @@ class SceneTables:
     camera: CameraDef
     background: torch.Tensor   # [3] f32
 
-    n_spheres: int = 0
+    # emissive-primitive index (rt_tpu's, for NEE, which is not ported
+    # yet: ROADMAP Queue A-5): family code (ops/intersect PTYPE_*) and
+    # row of every live emissive primitive; one dummy entry when none
+    light_fam: torch.Tensor    # [max(n_lights, 1)] i32
+    light_pid: torch.Tensor    # [max(n_lights, 1)] i32
+
+    # (n_spheres, n_rects, n_cylinders, n_triangles)
+    counts: Tuple[int, int, int, int] = (0, 0, 0, 0)
+    n_lights: int = 0
+
+    @property
+    def n_spheres(self) -> int:
+        return self.counts[0]
+
+    @property
+    def has_families(self) -> bool:
+        """A live rect, cylinder or triangle row."""
+        return any(self.counts[1:])
 
     def to(self, device) -> "SceneTables":
         kw = {}
@@ -157,8 +214,8 @@ class SceneTables:
 @dataclasses.dataclass
 class SceneDef:
     """Host-side mutable scene under construction (rt_tpu/scene/types.py
-    SceneDef, with the builders this slice's scenes use). Call
-    build_tables() to freeze."""
+    SceneDef, without image textures). Call build_tables() to
+    freeze."""
 
     width: int = 400
     height: int = 225
@@ -173,10 +230,50 @@ class SceneDef:
     textures: List[dict] = dataclasses.field(default_factory=list)
     camera_params: Optional[dict] = None
 
+    # the Taichi reference's swapped triangle-UV weights
+    # (taichi-version/hittable.py:57-60, 233), opt-in: build_tables
+    # swaps the uv1 / uv3 columns (see rt_tpu's SceneDef.taichi_tri_uv)
+    taichi_tri_uv: bool = False
+
     def add_sphere(self, center, radius, material: int) -> int:
         self.objects.append(
             {"type": "sphere", "center": list(map(float, center)),
              "radius": float(radius), "material": int(material)})
+        return len(self.objects) - 1
+
+    def add_rect(self, kind: str, a0, a1, b0, b1, k, material: int) -> int:
+        assert kind in ("xy_rect", "xz_rect", "yz_rect")
+        names = {"xy_rect": ("x0", "x1", "y0", "y1"),
+                 "xz_rect": ("x0", "x1", "z0", "z1"),
+                 "yz_rect": ("y0", "y1", "z0", "z1")}[kind]
+        self.objects.append(
+            {"type": kind, names[0]: float(a0), names[1]: float(a1),
+             names[2]: float(b0), names[3]: float(b1), "k": float(k),
+             "material": int(material)})
+        return len(self.objects) - 1
+
+    def add_cylinder(self, radius, zmin, zmax, material: int,
+                     rotate=None, translate=None) -> int:
+        obj = {"type": "cylinder", "radius": float(radius),
+               "zmin": float(zmin), "zmax": float(zmax),
+               "material": int(material)}
+        if rotate is not None:
+            axis, angle_deg = rotate
+            obj["rotate"] = {"axis": list(map(float, axis)),
+                             "angle": float(angle_deg)}
+        if translate is not None:
+            obj["translate"] = list(map(float, translate))
+        self.objects.append(obj)
+        return len(self.objects) - 1
+
+    def add_triangle(self, v1, v2, v3, material: int,
+                     uv1=(0.0, 0.0), uv2=(0.0, 0.0), uv3=(0.0, 0.0)) -> int:
+        self.objects.append(
+            {"type": "triangle",
+             "v1": list(map(float, v1)), "v2": list(map(float, v2)),
+             "v3": list(map(float, v3)),
+             "uv1": list(map(float, uv1)), "uv2": list(map(float, uv2)),
+             "uv3": list(map(float, uv3)), "material": int(material)})
         return len(self.objects) - 1
 
     def add_lambertian(self, texture: int) -> int:
@@ -244,30 +341,114 @@ class SceneDef:
                             p["vfov"], p["aperture"], p.get("focus_dist"))
 
 
-def build_tables(s: SceneDef, device="cpu") -> SceneTables:
-    """Freeze a SceneDef into padded tables on `device`."""
+def _cylinder_o2w(obj: dict) -> Tuple[np.ndarray, np.ndarray]:
+    """o2w = translate * rotate * identity: the parser applies rotate
+    first, then translate (parser.hpp:423-440), each left-multiplied
+    (object.cuh:225-231)."""
+    t = geom.identity_transform()
+    if "rotate" in obj:
+        axis = obj["rotate"]["axis"]
+        rad = geom.degrees_to_radians(obj["rotate"]["angle"])
+        t = geom.compose(geom.rotate(axis, rad), t)
+    if "translate" in obj:
+        t = geom.compose(geom.translate(obj["translate"]), t)
+    return t
+
+
+def _padded(rows, columns):
+    """One [pad, ...] array per column spec (build, shape, dtype, fill)
+    over the rows, padded with fill to _pad_size rows."""
+    n = _pad_size(len(rows))
+    outs = []
+    for build, shape, dtype, fill in columns:
+        arr = np.full((n,) + shape, fill, dtype=dtype)
+        for i, row in enumerate(rows):
+            arr[i] = build(row)
+        outs.append(arr)
+    return outs
+
+
+def build_tables(s: SceneDef, device="cpu", *,
+                 bvh_types: Sequence[str] = ()) -> SceneTables:
+    """Freeze a SceneDef into padded tables on `device`. bvh_types
+    (rt_tpu's threaded BVHs) is not ported yet and must be empty."""
+    if bvh_types:
+        raise NotImplementedError("BVHs are not ported yet (ROADMAP Queue "
+                                  "A-8)")
     if s.camera is None:
         raise ValueError("scene has no camera")
 
-    sph = []
+    sph, rect, cyl, tri = [], [], [], []
     for idx, obj in enumerate(s.objects):
-        if obj["type"] != "sphere":
-            raise NotImplementedError(
-                f"object type {obj['type']!r}: only spheres are ported yet "
-                "(ROADMAP Queue A-3)")
-        sph.append((obj["center"], obj["radius"], obj["material"], idx))
+        kind = obj["type"]
+        if kind == "sphere":
+            sph.append((obj["center"], obj["radius"], obj["material"], idx))
+        elif kind in ("xy_rect", "xz_rect", "yz_rect"):
+            if kind == "xy_rect":
+                axis, lo, hi = (RECT_XY, (obj["x0"], obj["y0"]),
+                                (obj["x1"], obj["y1"]))
+            elif kind == "xz_rect":
+                axis, lo, hi = (RECT_XZ, (obj["x0"], obj["z0"]),
+                                (obj["x1"], obj["z1"]))
+            else:
+                axis, lo, hi = (RECT_YZ, (obj["y0"], obj["z0"]),
+                                (obj["y1"], obj["z1"]))
+            rect.append((axis, lo, hi, obj["k"], obj["material"], idx))
+        elif kind == "cylinder":
+            m, minv = _cylinder_o2w(obj)
+            cyl.append((obj["radius"], obj["zmin"], obj["zmax"], m, minv,
+                        obj["material"], idx))
+        elif kind == "triangle":
+            v1 = np.asarray(obj["v1"], np.float32)
+            v2 = np.asarray(obj["v2"], np.float32)
+            v3 = np.asarray(obj["v3"], np.float32)
+            n = np.cross(v2 - v1, v3 - v1)
+            n = (n / np.linalg.norm(n)).astype(np.float32)
+            uv1, uv3 = obj["uv1"], obj["uv3"]
+            if s.taichi_tri_uv:  # the reference's w1 / w3 quirk
+                uv1, uv3 = uv3, uv1
+            tri.append((v1, v2, v3, uv1, obj["uv2"], uv3, n,
+                        obj["material"], idx))
+        else:
+            raise ValueError(f"unknown object type: {kind}")
 
     f32, i32 = np.float32, np.int32
-    ns = _pad_size(len(sph))
-    sph_center = np.zeros((ns, 3), f32)
-    sph_radius = np.zeros(ns, f32)
-    sph_mat = np.zeros(ns, i32)
-    sph_obj = np.full(ns, -1, i32)
-    for i, (center, radius, mat, idx) in enumerate(sph):
-        sph_center[i] = np.asarray(center, f32)
-        sph_radius[i] = radius
-        sph_mat[i] = mat
-        sph_obj[i] = idx
+    sph_center, sph_radius, sph_mat, sph_obj = _padded(sph, [
+        (lambda r: np.asarray(r[0], f32), (3,), f32, 0.0),
+        (lambda r: r[1], (), f32, 0.0),
+        (lambda r: r[2], (), i32, 0),
+        (lambda r: r[3], (), i32, -1),
+    ])
+    rect_axis, rect_lo, rect_hi, rect_k, rect_mat, rect_obj = _padded(rect, [
+        (lambda r: r[0], (), i32, 0),
+        (lambda r: np.asarray(r[1], f32), (2,), f32, 0.0),
+        (lambda r: np.asarray(r[2], f32), (2,), f32, 0.0),
+        (lambda r: r[3], (), f32, 0.0),
+        (lambda r: r[4], (), i32, 0),
+        (lambda r: r[5], (), i32, -1),
+    ])
+    (cyl_radius, cyl_zmin, cyl_zmax, cyl_o2w, cyl_w2o, cyl_mat,
+     cyl_obj) = _padded(cyl, [
+        (lambda r: r[0], (), f32, 0.0),
+        (lambda r: r[1], (), f32, 0.0),
+        (lambda r: r[2], (), f32, 0.0),
+        (lambda r: r[3], (4, 4), f32, np.eye(4, dtype=f32)),
+        (lambda r: r[4], (4, 4), f32, np.eye(4, dtype=f32)),
+        (lambda r: r[5], (), i32, 0),
+        (lambda r: r[6], (), i32, -1),
+    ])
+    (tri_v1, tri_v2, tri_v3, tri_uv1, tri_uv2, tri_uv3, tri_n, tri_mat,
+     tri_obj) = _padded(tri, [
+        (lambda r: r[0], (3,), f32, 0.0),
+        (lambda r: r[1], (3,), f32, 0.0),
+        (lambda r: r[2], (3,), f32, 0.0),
+        (lambda r: np.asarray(r[3], f32), (2,), f32, 0.0),
+        (lambda r: np.asarray(r[4], f32), (2,), f32, 0.0),
+        (lambda r: np.asarray(r[5], f32), (2,), f32, 0.0),
+        (lambda r: r[6], (3,), f32, np.array([0, 0, 1], f32)),
+        (lambda r: r[7], (), i32, 0),
+        (lambda r: r[8], (), i32, -1),
+    ])
 
     nm = _pad_size(len(s.materials))
     mat_type = np.zeros(nm, i32)
@@ -309,10 +490,23 @@ def build_tables(s: SceneDef, device="cpu") -> SceneTables:
             tex_color[i] = t["even"]
             tex_color2[i] = t["odd"]
         elif kind == "image":
-            raise NotImplementedError(
-                "image textures are not ported yet (ROADMAP Queue A-4, B2(c))")
+            raise NotImplementedError(IMAGE_TEXTURES)
         else:
             raise ValueError(f"unknown texture type: {kind}")
+
+    # the emissive-primitive index (rt_tpu/scene/types.py:639-672): the
+    # live emissive rows of the four families, in family order
+    l_fam, l_pid = [], []
+    for fam, (mids, oids) in enumerate(
+            ((sph_mat, sph_obj), (rect_mat, rect_obj),
+             (cyl_mat, cyl_obj), (tri_mat, tri_obj))):
+        emits = (oids >= 0) & (mat_type[mids] == MAT_DIFFUSE_LIGHT)
+        for r in np.nonzero(emits)[0]:
+            l_fam.append(fam)
+            l_pid.append(int(r))
+    n_lights = len(l_fam)
+    light_fam = np.asarray(l_fam if n_lights else [0], i32)
+    light_pid = np.asarray(l_pid if n_lights else [0], i32)
 
     def t(x):
         return torch.from_numpy(x).to(device)
@@ -320,11 +514,21 @@ def build_tables(s: SceneDef, device="cpu") -> SceneTables:
     return SceneTables(
         sph_center=t(sph_center), sph_radius=t(sph_radius),
         sph_mat=t(sph_mat), sph_obj=t(sph_obj),
+        rect_axis=t(rect_axis), rect_lo=t(rect_lo), rect_hi=t(rect_hi),
+        rect_k=t(rect_k), rect_mat=t(rect_mat), rect_obj=t(rect_obj),
+        cyl_radius=t(cyl_radius), cyl_zmin=t(cyl_zmin),
+        cyl_zmax=t(cyl_zmax), cyl_o2w=t(cyl_o2w), cyl_w2o=t(cyl_w2o),
+        cyl_mat=t(cyl_mat), cyl_obj=t(cyl_obj),
+        tri_v1=t(tri_v1), tri_v2=t(tri_v2), tri_v3=t(tri_v3),
+        tri_uv1=t(tri_uv1), tri_uv2=t(tri_uv2), tri_uv3=t(tri_uv3),
+        tri_n=t(tri_n), tri_mat=t(tri_mat), tri_obj=t(tri_obj),
         mat_type=t(mat_type), mat_albedo=t(mat_albedo),
         mat_fuzz=t(mat_fuzz), mat_ior=t(mat_ior), mat_tex=t(mat_tex),
         tex_type=t(tex_type), tex_color=t(tex_color),
         tex_color2=t(tex_color2),
         camera=s.camera.to(device),
         background=t(np.asarray(s.background, f32)),
-        n_spheres=len(sph),
+        light_fam=t(light_fam), light_pid=t(light_pid),
+        counts=(len(sph), len(rect), len(cyl), len(tri)),
+        n_lights=n_lights,
     )

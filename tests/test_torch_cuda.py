@@ -5,6 +5,8 @@ The file imports no JAX (run it without the JAX-importing conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -701,3 +703,118 @@ def test_regen_wrapper_checks_inputs():
     call(6, args[6])
     torch.cuda.synchronize()
     assert cuda_mega.mega_regen.launches == before + 1
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _family_scene(dev, name, w, h, spp, depth):
+    """A scene with rects, cylinders or triangles, on the card: the
+    in-repo demo_scene.json, cover_scene(lights=True), mesh_scene on
+    scenes/plane441.obj, dna_scene."""
+    from rt_tpu_torch.scene import parser
+
+    if name == "demo":
+        sdef, cfg = parser.parse_scene(f"{ROOT}/scenes/demo_scene.json")
+        sdef.resize(w, h)
+        cfg = cfg.replace(width=w, height=h, samples_per_pixel=spp,
+                          max_depth=depth)
+    elif name == "mesh":
+        sdef, cfg = builders.mesh_scene(f"{ROOT}/scenes/plane441.obj",
+                                        width=w, height=h, spp=spp,
+                                        max_depth=depth)
+    else:
+        fn = {"cover_lights": lambda **k: builders.cover_scene(lights=True,
+                                                              **k),
+              "dna": builders.dna_scene}[name]
+        sdef, cfg = fn(width=w, height=h, spp=spp, max_depth=depth)
+    return types.build_tables(sdef, device=dev), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["demo", "cover_lights", "mesh", "dna"])
+def test_family_kernels_match_plain(name):
+    """B2, B3 and B7 on a scene with rects, cylinders or triangles
+    against their plain versions at 192x108: every lane's radiance bit
+    for bit (B7 also its sample and bounce counters), one launch each."""
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.ops.camera import generate_rays
+
+    dev = _card()
+    depth = 16 if name == "mesh" else 40
+    tt, cfg = _family_scene(dev, name, 192, 108, 2, depth)
+    assert tt.mega.fam is not None
+    px = torch.arange(192 * 108, device=dev)
+    ro, rd = generate_rays(tt.camera, 192, 108, px % 192, px // 192, 0, 0,
+                           cfg.enable_defocus)
+    args = (tt, cfg.replace(engine="mega"), ro, rd, px, 0, 4)
+    before = (cuda_mega.mega_segment.launches,
+              cuda_queue.queue_launch.launches)
+    k_m = cuda_mega.mega_trace(*args)
+    k_q = cuda_queue.queue_trace(*args, check_once=True)
+    torch.cuda.synchronize()
+    assert (cuda_mega.mega_segment.launches,
+            cuda_queue.queue_launch.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert torch.equal(k_m, cuda_mega.mega_trace(*args, plain=True))
+    assert torch.equal(k_q, cuda_queue.queue_trace(*args, plain=True))
+    assert torch.equal(k_q, k_m) and float(k_m.max()) > 0.0
+    cfg_r = cfg.replace(engine="mega")
+    got = _regen_segment(tt, cfg_r, 2 * (depth + 1), plain=False)
+    want = _regen_segment(tt, cfg_r, 2 * (depth + 1), plain=True)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["demo", "cover_lights"])
+def test_family_regen_frame_equals_mega_frame(name):
+    """render(engine="mega", regen=True) on a family scene is the
+    megakernel frame bit for bit; the queue frame agrees by images_close
+    (the conftest's bound)."""
+    from rt_tpu_torch.ops import cuda_mega
+    from rt_tpu_torch.render.renderer import render
+
+    dev = _card()
+    tt, cfg = _family_scene(dev, name, 192, 108, 4, 40)
+    cfg = cfg.replace(engine="mega", compact_schedule=(2, 3, 5, 10),
+                      compact_group=16)
+    st_m, st_r = {}, {}
+    want = render(tt, cfg, device="cuda", stats=st_m)
+    before = cuda_mega.mega_regen.launches
+    got = render(tt, cfg.replace(regen=True), device="cuda", stats=st_r)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_regen.launches == before + 1
+    assert torch.equal(got, want)
+    assert st_r["ray_bounces"] == st_m["ray_bounces"] > 0
+    queue = render(tt, cfg.replace(engine="queue"), device="cuda")
+    am = want.cpu().double().numpy() / 4
+    bm = queue.cpu().double().numpy() / 4
+    diff = np.abs(am - bm).max(-1)
+    assert (diff > 2e-3).mean() <= 0.01 and diff.max() <= 0.5
+
+
+@pytest.mark.cuda
+def test_family_tables_are_checked():
+    """The launchers check the family tables as the sphere table: type,
+    shape, device."""
+    from rt_tpu_torch.ops import cuda_mega, mega_plain, mega_tables
+
+    dev = _card()
+    tt, cfg = _family_scene(dev, "demo", 16, 8, 1, 4)
+    state = mega_plain.fresh_state(torch.zeros((8, 3), device=dev),
+                                   torch.ones((8, 3), device=dev))
+    pix = torch.arange(8, dtype=torch.int32, device=dev)
+    kw = mega_plain.trace_options(tt, cfg)
+    fam = kw.pop("fam")
+    for bad in (fam._replace(rect=fam.rect.double()),
+                fam._replace(cyl=fam.cyl[:, :31].contiguous()),
+                fam._replace(tri=fam.tri.cpu())):
+        with pytest.raises((TypeError, ValueError)):
+            cuda_mega.mega_segment(tt.mega.table, state.clone(), pix, 0, 0, 0,
+                                   4, fam=bad, **kw)
+    before = cuda_mega.mega_segment.launches
+    cuda_mega.mega_segment(tt.mega.table, state, pix, 0, 0, 0, 4, fam=fam,
+                           **kw)
+    assert cuda_mega.mega_segment.launches == before + 1
+    assert fam.rect.shape[1] == mega_tables.F_COLS

@@ -146,7 +146,7 @@ def test_fit_rejects_tape_and_unknown_methods():
     fields of families not ported yet; an unknown method is refused."""
     _, _, tt, cfg = make_scene(8, 6, 2)
     target = np.zeros((6, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="A-4"):
+    with pytest.raises(NotImplementedError, match=r"B2\(c\)"):
         tinverse.fit(tt, cfg, target, method="tape", device="cpu",
                      init_params={"images": np.zeros((1, 4, 4, 3))})
     with pytest.raises(ValueError):

@@ -109,16 +109,29 @@ def test_to_device_round_trip():
 
 
 def test_tables_from_numpy_rejects_other_families():
+    """Rects and cylinders carry across with their counts and light
+    index (tests/test_torch_parser.py compares every leaf); the family
+    still refused is the image textures' (ROADMAP Queue B2(c))."""
     sj, _ = jbuilders.cover_scene(grid=2, lights=True)  # rect + cylinder
-    with pytest.raises(NotImplementedError, match="rect_obj"):
-        tables_from_numpy(jax_leaves(jtypes.build_tables(sj)))
+    leaves = jax_leaves(jtypes.build_tables(sj))
+    tt = tables_from_numpy(leaves)
+    assert tt.counts == (19, 1, 1, 0) and tt.n_lights == 2
+    leaves["tex_type"] = leaves["tex_type"].copy()
+    leaves["tex_type"][0] = ttypes.TEX_IMAGE
+    with pytest.raises(NotImplementedError, match="image"):
+        tables_from_numpy(leaves)
 
 
 def test_build_tables_rejects_other_families():
+    """A rect joins its own table; image textures and unknown object
+    types are refused."""
     st, _ = tbuilders.three_sphere_scene()
     st.objects.append({"type": "xy_rect", "x0": 0.0, "x1": 1.0, "y0": 0.0,
                        "y1": 1.0, "k": 0.0, "material": 0})
-    with pytest.raises(NotImplementedError, match="spheres"):
+    tt = ttypes.build_tables(st)
+    assert tt.counts == (5, 1, 0, 0) and int(tt.rect_obj[0]) == 5
+    st.objects.append({"type": "torus", "material": 0})
+    with pytest.raises(ValueError, match="torus"):
         ttypes.build_tables(st)
     st, _ = tbuilders.three_sphere_scene()
     st.textures.append({"type": "image", "image": 0})

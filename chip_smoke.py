@@ -37,13 +37,23 @@ its queue, mega and regen frames; and cover_scene(lights=True) at
 1920x1080, depth 50, spp 16 and mesh_scene(scenes/plane441.obj) at
 1920x1080, depth 16, spp 4 on the three engines, each with one B2 and
 B3 trace call and one B7 call against the plain versions on every lane
-and against their bounds. Each phase prints its
+and against their bounds. The training kernels on the families close it:
+B4 (bit for bit), B5 and B6 against their plain versions at 192x108 on
+the all-families scene and demo_scene.json; one B4, B5 and B6 call at
+1920x1080 on cover_scene(lights=True) and mesh_scene against the plain
+versions and their bounds; the training step on cover_scene(lights=True)
+at the bench shape on both engines; the tape step with the rect and
+cylinder fields there and with the triangle vertices on mesh_scene; and
+this slice's main path, `python -m rt_tpu_torch fit -f
+scenes/demo_scene.json` at its 960x540, depth 40, spp 4, for the replay
+(B3 + B6), mega (B2 + B5), tape (B4), --fd and --camera estimators, each
+of which must exit 0. Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, its error against the plain version, its time,
-the plain version's time and its bound on this card (B2, B3 and B7
-also on the two family workloads).
+the plain version's time and its bound on this card (B2-B7 also on the
+two family workloads).
 
 Needs one CUDA GPU and nvcc; imports neither JAX nor the JAX package.
 Writes only to rt_tpu_torch/_build/ (ignored by git) and a temporary
@@ -958,7 +968,7 @@ def main() -> int:
                 regen_segment(*seg, plain=True),
                 f"{label}: B7 vs plain, spp 2"))
 
-    from profile_torch import tape_workload
+    from profile_torch import FAMILY_FIELDS, tape_workload
     from rt_tpu_torch.diff import tape
     from rt_tpu_torch.diff.replay import make_replay_render
     from rt_tpu_torch.ops import mega_plain
@@ -1068,6 +1078,7 @@ def main() -> int:
         loss, grads = vg(p_tp, times=times)
         torch.cuda.synchronize()
         step_s = time.time() - t0
+        tape_step_s = step_s
         tape_counts = read_counts()
         print(f"  loss {float(loss):.6f}: capture "
               f"{times['capture_s'] * 1e3:.2f} ms, replay forward "
@@ -1586,12 +1597,283 @@ def main() -> int:
         sd, cb = mesh_scene(MESH, width=W, height=H, spp=4, max_depth=16)
         families["mesh"] = family_workload("mesh", sd, cb, 4)
 
+    with phase(f"32 B4 / B5 / B6 vs plain at {SMALL_W}x{SMALL_H} on scenes "
+               "with rects, cylinders and triangles"):
+        for label, (sd, cb) in (
+                ("all-families scene, depth 40",
+                 all_families_scene(SMALL_W, SMALL_H, 1, 40)),
+                ("demo_scene.json, depth 40",
+                 demo_scene(SMALL_W, SMALL_H, 1))):
+            tb = build_tables(sd, device=dev)
+            for p_rr, bg_mode in ((0.0, "constant"), (0.9, "gradient")):
+                cb_ = cb.replace(p_rr=p_rr, background_mode=bg_mode,
+                                 compact_schedule=(2, 3, 5, 10),
+                                 compact_group=16)
+                pix, ro_, rd_, L, g = adjoint_inputs(tb, cb_, SMALL_W, SMALL_H,
+                                                     0)
+                args = (tb, cb_, ro_, rd_, pix, 0, 0)
+                lab = f"{label}, p_rr {p_rr}, {bg_mode} sky"
+                got = cuda_mega.mega_capture(*args)
+                err_b4 += capture_mismatch(
+                    got, cuda_mega.mega_capture(*args, plain=True),
+                    f"{lab}: B4 vs plain")
+                fams = sorted(set((got[0][got[0] >= 0] >> 24).tolist()))
+                print(f"    families in B4's codes: {fams}", flush=True)
+                if len(fams) < 3:
+                    raise AssertionError(f"{lab}: codes of {fams} only")
+                for depth_bwd, exh in ((cb_.max_depth, False), (3, True),
+                                       (TRAIN_BWD_DEPTH, False)):
+                    adj = (*args, L, g, depth_bwd, exh)
+                    plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+                    k_m = cuda_mega.mega_trace_adjoint(*adj)
+                    k_q = cuda_queue.queue_trace_adjoint(*adj,
+                                                         check_once=True)
+                    k_s = cuda_queue.queue_trace_adjoint(
+                        *adj, check_once=True, pool_lanes=SMALL_POOL)
+                    lab2 = f"{lab}, depth {depth_bwd}, exhaust {exh}"
+                    err_b5 = max(err_b5, grads_close(plain, k_m,
+                                                     f"{lab2}: B5"))
+                    err_b6 = max(err_b6, grads_close(plain, k_q,
+                                                     f"{lab2}: B6"))
+                    err_b6 = max(err_b6, grads_close(
+                        plain, k_s, f"{lab2}: B6 with {SMALL_POOL} pool "
+                        "lanes"))
+                    grads_close(k_m, k_q, f"{lab2}: B6 vs B5")
+                # the rect light's emission lands in its texture row
+                light = int(tb.mega.fam.rect[0, 31])
+                if not float(plain["tex_color"][light].abs().max()) > 0.0:
+                    raise AssertionError(f"{lab}: no gradient in the rect "
+                                         f"light's texture row {light}")
+
+    def family_b456(label, sd, cb):
+        """One B4, B5 and B6 call of sample 0 on every pixel of a family
+        scene, by CUDA events, against the plain version of the same call
+        and the bound of B2's operation count on these rays."""
+        cb = cb.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
+        tb = build_tables(sd, device=dev)
+        w_, h_, depth = cb.width, cb.height, cb.max_depth
+        pix, ro_, rd_, L, g = adjoint_inputs(tb, cb, w_, h_, 0)
+        args = (tb, cb, ro_, rd_, pix, 0, 0)
+        ops_row = hit_ops(tb)
+        nbytes_tab = table_bytes(tb)
+        out = {}
+        ms4, got = cuda_ms(lambda: cuda_mega.mega_capture(*args), 3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        want = cuda_mega.mega_capture(*args, plain=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        pms4 = ev[0].elapsed_time(ev[1])
+        capture_mismatch(got, want, f"{label} B4 vs plain")
+        death = got[1]
+        bounces = int(torch.where(death < depth, death + 1, death).sum())
+        b_ms, b_by = bound_of(bounces * ops_row,
+                              w_ * h_ * (13 * 4 + 4) + nbytes_tab
+                              + (depth + 1) * w_ * h_ * 4)
+        print(f"  {label} mega_capture: {ms4:.4f} ms, plain {pms4:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}: {bounces} ray-bounces x "
+              f"{ops_row} ops; {b_ms / ms4:.1%} of the bound); {smi}",
+              flush=True)
+        out["mega_capture"] = dict(ms=ms4, plain_ms=pms4, bound_ms=b_ms,
+                                   bound_by=b_by, max_abs_err=0, launches=1)
+        adj = (*args, L, g, depth, False)
+        for name, fn in (("mega_adjoint_segment",
+                          cuda_mega.mega_trace_adjoint),
+                         ("queue_adjoint_launch",
+                          cuda_queue.queue_trace_adjoint)):
+            st = {}
+            k_out = fn(*adj, stats=st)
+            ms, _ = cuda_ms(lambda: fn(*adj), 3)
+            pms, p_out = cuda_ms(lambda: fn(*adj, plain=True), 1)
+            err = grads_close(p_out, k_out, f"{label} {name} vs plain")
+            b_ms, b_by = bound_of(
+                st["ray_bounces"] * (ops_row + ADJOINT_OPS),
+                w_ * h_ * (12 + 12 + 4 + 12 + 12) + nbytes_tab
+                + 8 * tb.mega.n_slots * 4)
+            print(f"  {label} {name}: adjoint call {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                  f"{st['ray_bounces']} ray-bounces x {ops_row} ops; "
+                  f"{b_ms / ms:.1%} of the bound), {st['launches']} "
+                  f"launches; {smi}", flush=True)
+            out[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=err,
+                             launches=st["launches"])
+        return out
+
+    with phase(f"33 B4 / B5 / B6 vs plain and times at one call on "
+               f"cover_scene(lights=True) {W}x{H} depth {DEPTH} and "
+               f"mesh_scene {W}x{H} depth 16"):
+        for key, (sd, cb) in (
+                ("cover_lights", cover_scene(width=W, height=H, spp=1,
+                                             max_depth=DEPTH, lights=True)),
+                ("mesh", mesh_scene(MESH, width=W, height=H, spp=1,
+                                    max_depth=16))):
+            families[key].update(family_b456(key, sd, cb))
+
+    fam_train = {}
+    s_l, c_l = cover_scene(width=W, height=H, spp=1, max_depth=DEPTH,
+                           lights=True)
+    c_l = c_l.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
+    t_l = build_tables(s_l, device=dev)
+    for engine in ("queue", "mega"):
+        for bwd_depth in (TRAIN_BWD_DEPTH, None):
+            with phase(f"34 training step: cover_scene(lights=True) {W}x{H} "
+                       f"depth {DEPTH} spp 1 engine {engine} bwd_depth "
+                       f"{bwd_depth or 'exact'}"):
+                loss_fn = make_replay_loss_fn(t_l, c_l.replace(engine=engine),
+                                              1, px1 % W, px1 // W, tgt1,
+                                              bwd_depth=bwd_depth)
+                params = {k: getattr(t_l, k).clone().requires_grad_(True)
+                          for k in ("tex_color", "mat_albedo")}
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                loss = loss_fn(params)
+                torch.cuda.synchronize()
+                t_fwd = time.time() - t0
+                loss.backward()
+                torch.cuda.synchronize()
+                t_step = time.time() - t0
+                counts = read_counts()
+                fwd_k, adj_k = (("queue_launch", "queue_adjoint_launch")
+                                if engine == "queue" else
+                                ("mega_segment", "mega_adjoint_segment"))
+                print(f"  loss {float(loss.detach()):.6f}: forward "
+                      f"{t_fwd:.4f} s, backward {t_step - t_fwd:.4f} s, "
+                      f"step {t_step:.4f} s (sphere cover, phase 14: "
+                      f"{train[(engine, bwd_depth)]['step']:.4f} s); "
+                      f"launches {counts}; {smi}", flush=True)
+                if counts[fwd_k] <= 0 or counts[adj_k] <= 0:
+                    raise AssertionError(f"{engine}: the step launched "
+                                         f"{counts}")
+                light = int(t_l.mega.fam.rect[0, 31])
+                for k, v in params.items():
+                    if v.grad is None or not bool(
+                            torch.isfinite(v.grad).all()) or not float(
+                            v.grad.abs().max()) > 0.0:
+                        raise AssertionError(f"{engine}: bad gradient {k}")
+                if not float(params["tex_color"].grad[light].abs().max()) \
+                        > 0.0:
+                    raise AssertionError(f"{engine}: no gradient in the "
+                                         f"light's texture row {light}")
+                fam_train[(engine, bwd_depth)] = dict(
+                    fwd=t_fwd, step=t_step, launches=counts[adj_k])
+
+    fam_tape = {}
+    with phase(f"35 tape steps: cover_scene(lights=True) {W}x{H} depth "
+               f"{DEPTH} spp 1 with the rect and cylinder fields; "
+               f"mesh_scene {W}x{H} depth 16 spp 1 with tri_v1..3"):
+        t_a, c_a, p_a, tgt_a = tape_workload(W, H, DEPTH, dev, lights=True)
+        s_m, c_m = mesh_scene(MESH, width=W, height=H, spp=1, max_depth=16)
+        t_m = build_tables(s_m, device=dev)
+        tgt_m = render(t_m, c_m.replace(samples_per_pixel=4, engine="queue",
+                                        rays_per_batch=1 << 25),
+                       device="cuda").reshape(-1, 3) / 4.0
+        p_m = {k: getattr(t_m, k).clone()
+               for k in ("tri_v1", "tri_v2", "tri_v3", "mat_albedo")}
+        p_m["tri_v1"] = p_m["tri_v1"] + 0.005
+        pix = torch.arange(W * H, device=dev)
+        for key, tb, cb, p, tg in (("cover_lights", t_a, c_a, p_a, tgt_a),
+                                   ("mesh", t_m, c_m, p_m, tgt_m)):
+            vg = tape.make_tape_vg(tb, cb, pix % W, pix // W, tg)
+            vg(p)  # allocator, kernels
+            times = {}
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loss, grads = vg(p, times=times)
+            torch.cuda.synchronize()
+            step_s = time.time() - t0
+            counts = read_counts()
+            print(f"  {key}: loss {float(loss):.6f}: capture "
+                  f"{times['capture_s'] * 1e3:.2f} ms, replay forward "
+                  f"{times['forward_s']:.4f} s, backward "
+                  f"{times['backward_s']:.4f} s, step {step_s:.4f} s "
+                  f"(sphere cover, phase 20: {tape_step_s:.4f} s); widths "
+                  f"{times['widths']}; launches {counts}; {smi}",
+                  flush=True)
+            if counts["mega_capture"] != 1:
+                raise AssertionError(f"{key}: the tape step launched B4 "
+                                     f"{counts['mega_capture']} times")
+            for k, gk in grads.items():
+                mx = float(gk.abs().max())
+                print(f"    max |g| {k}: {mx:.6g}", flush=True)
+                if not bool(torch.isfinite(gk).all()):
+                    raise AssertionError(f"{key}: non-finite gradient {k}")
+            # fields with no interior gradient here (as under
+            # method="ad"): cover_lights' rect and cylinder are its
+            # lights, and an emitter adds P * emission wherever it is
+            # hit; a triangle's v2 and v3 act only through its (u, v),
+            # which the mesh's solid texture does not read
+            zero, nonzero = ((FAMILY_FIELDS, ("sph_center", "tex_color"))
+                             if key == "cover_lights" else
+                             (("tri_v2", "tri_v3"), ("tri_v1",)))
+            for k, gk in grads.items():
+                mx = float(gk.abs().max())
+                if (k in zero and mx != 0.0) or (k in nonzero and
+                                                 not mx > 0.0):
+                    raise AssertionError(f"{key}: gradient {k} is {mx}")
+            fam_tape[key] = dict(step=step_s, launches=counts["mega_capture"])
+
+    fit_cli = {}
+    with phase("36 main path: python -m rt_tpu_torch fit -f "
+               "scenes/demo_scene.json (960x540, depth 40, spp 4, 3 steps)"):
+        sd, cd = demo_scene()
+        p = sd.camera_params
+        # the target: the light's emission x 0.8, the blue sphere green,
+        # seen from 0.05 to the side (a pose for --camera to recover)
+        sd.set_camera([p["lookfrom"][0] + 0.05] + p["lookfrom"][1:],
+                      p["lookat"], p["vup"], p["vfov"], p["aperture"])
+        td = build_tables(sd, device=dev)
+        tc = td.tex_color.clone()
+        tc[3] = tc[3] * 0.8
+        tc[1] = torch.tensor([0.2, 0.6, 0.3], device=dev)
+        import dataclasses
+        img = render(dataclasses.replace(td, tex_color=tc),
+                     cd.replace(engine="queue"),
+                     device="cuda") / cd.samples_per_pixel
+        base = ["fit", "-f", DEMO, "--target", "T.npz", "--fields",
+                "tex_color,mat_albedo", "-spp", "4", "--steps", "3"]
+        calls = (("replay", [], ("queue_launch", "queue_adjoint_launch")),
+                 ("mega", ["--engine", "mega"],
+                  ("mega_segment", "mega_adjoint_segment")),
+                 ("tape", ["--method", "tape", "--fields",
+                           "rect_k,cyl_radius,tex_color"],
+                  ("mega_capture",)),
+                 ("fd", ["--fd", "sph_center:1,0"],
+                  ("queue_launch", "queue_adjoint_launch")),
+                 ("camera", ["--camera", "lookfrom"], ("queue_launch",)))
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            np.savez("T.npz", img=img.cpu().numpy())
+            for key, extra, want in calls:
+                out_dir = os.path.join(tmp, key)
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                rc = cli.main(base + extra + ["--out", out_dir])
+                torch.cuda.synchronize()
+                sec = time.time() - t0
+                counts = read_counts()
+                files = {f: os.path.getsize(os.path.join(out_dir, f))
+                         for f in ("recovered.npz", "after.png")
+                         if os.path.exists(os.path.join(out_dir, f))}
+                print(f"  fit {key}: exit {rc}, {sec:.4f} s (3 steps and "
+                      f"the after.png render at spp {cd.samples_per_pixel}"
+                      f"); launches {counts}; files {files}; {smi}",
+                      flush=True)
+                if rc != 0 or len(files) != 2 or \
+                        any(counts[k] <= 0 for k in want):
+                    raise AssertionError(f"fit {key}: exit {rc}, launched "
+                                         f"{counts}, wrote {files}")
+                fit_cli[key] = dict(sec=sec, launches=counts)
+
     def family_rows(name):
         """A kernel's numbers on the family workloads, for its entry in
         the kernels line."""
         return {k: v[name] for k, v in families.items()}
 
-    print(f"[32 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    print(f"[37 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -1624,6 +1906,8 @@ def main() -> int:
         **rows["queue_launch"],
         "library_ms": None,
         "cli_demo_launches": demo["cli"]["launches"],
+        "cli_fit_launches": {k: v["launches"]["queue_launch"]
+                             for k, v in fit_cli.items()},
         "families": family_rows("queue_launch"),
     }, {
         "name": "mega_adjoint_segment",
@@ -1634,6 +1918,15 @@ def main() -> int:
         "max_abs_err": err_b5,
         **rows["mega_adjoint_segment"],
         "library_ms": None,
+        "cli_fit_launches": fit_cli["mega"]["launches"][
+            "mega_adjoint_segment"],
+        # launches: cover_lights' training step (phase 34); mesh, which
+        # has no training step, the exact call of phase 33
+        "families": {**family_rows("mega_adjoint_segment"),
+                     "cover_lights": {
+                         **families["cover_lights"]["mega_adjoint_segment"],
+                         "launches": fam_train[
+                             ("mega", TRAIN_BWD_DEPTH)]["launches"]}},
     }, {
         "name": "queue_adjoint_launch",
         "route": "cuda",
@@ -1643,6 +1936,13 @@ def main() -> int:
         "max_abs_err": err_b6,
         **rows["queue_adjoint_launch"],
         "library_ms": None,
+        "cli_fit_launches": fit_cli["replay"]["launches"][
+            "queue_adjoint_launch"],
+        "families": {**family_rows("queue_adjoint_launch"),
+                     "cover_lights": {
+                         **families["cover_lights"]["queue_adjoint_launch"],
+                         "launches": fam_train[
+                             ("queue", TRAIN_BWD_DEPTH)]["launches"]}},
     }, {
         "name": "mega_capture",
         "route": "cuda",
@@ -1652,6 +1952,9 @@ def main() -> int:
         "max_abs_err": err_b4,
         **rows["mega_capture"],
         "library_ms": None,
+        "cli_fit_launches": fit_cli["tape"]["launches"]["mega_capture"],
+        "families": {k: {**v, "launches": fam_tape[k]["launches"]}
+                     for k, v in family_rows("mega_capture").items()},
     }, {
         "name": "mega_regen",
         "route": "cuda",

@@ -51,12 +51,20 @@ TAPE_FIELDS = ("sph_center", "sph_radius", "tex_color", "mat_albedo",
                "mat_fuzz", "mat_ior")
 
 
-def tape_workload(width: int, height: int, depth: int, device):
+# the rect and cylinder fields of cover_scene(lights=True)'s tape step
+FAMILY_FIELDS = ("rect_k", "rect_lo", "rect_hi", "cyl_radius", "cyl_zmin",
+                 "cyl_zmax")
+
+
+def tape_workload(width: int, height: int, depth: int, device,
+                  lights: bool = False):
     """The reference's all-fields tape step (scripts/bench_tape_r3.py):
     cover_scene at width x height, depth, spp 1, gradient sky; params
     TAPE_FIELDS with the live spheres' centres moved by N(0, 0.01) from
     RandomState(3); the target an spp-8 render on the queue engine over
-    8. Returns (tables, cfg, params, target [H*W, 3])."""
+    8. lights=True: cover_scene(lights=True) (an xy_rect and a cylinder
+    light beside the spheres), FAMILY_FIELDS added to the params. Returns
+    (tables, cfg, params, target [H*W, 3])."""
     import numpy as np
 
     from rt_tpu_torch.render.renderer import render
@@ -64,7 +72,7 @@ def tape_workload(width: int, height: int, depth: int, device):
     from rt_tpu_torch.scene.types import build_tables
 
     sdef, cfg = cover_scene(width=width, height=height, spp=1,
-                            max_depth=depth)
+                            max_depth=depth, lights=lights)
     cfg = cfg.replace(background_mode="gradient")
     tables = build_tables(sdef, device=device)
     target = render(tables, cfg.replace(samples_per_pixel=8, engine="queue",
@@ -74,7 +82,8 @@ def tape_workload(width: int, height: int, depth: int, device):
     real = (tables.sph_obj >= 0).cpu().numpy()
     move = np.where(real[:, None],
                     rs.normal(0, 0.01, tuple(tables.sph_center.shape)), 0.0)
-    params = {k: getattr(tables, k).clone() for k in TAPE_FIELDS}
+    fields = TAPE_FIELDS + (FAMILY_FIELDS if lights else ())
+    params = {k: getattr(tables, k).clone() for k in fields}
     params["sph_center"] = params["sph_center"] + torch.from_numpy(
         move.astype(np.float32)).to(device)
     return tables, cfg, params, target.reshape(-1, 3)

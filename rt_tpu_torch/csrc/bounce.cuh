@@ -72,6 +72,8 @@ constexpr int kYR = 15, kYT = 24, kYRad2 = 27, kYZmin = 28, kYZmax = 29,
               kYValid = 30;
 constexpr int kTV1 = 15, kTE1 = 18, kTE2 = 21, kTE3 = 24, kTD0 = 27,
               kTValid = 28;
+// a family row's gradient slot (the reference's `_SLOT_COL`, :140)
+constexpr int kFSlot = 31;
 // the winner's family (ops/intersect.py PTYPE_*)
 constexpr int kFamSphere = 0, kFamRect = 1, kFamCyl = 2, kFamTri = 3;
 // rows staged in shared memory (40 KB); the rest are read from global
@@ -112,7 +114,7 @@ struct Scene {
 #define RTT_SCENE_ARGS                                                  \
   uint32_t seed, float t_min, float p_rr, float rr_comp, int grad_bg,  \
       float bg_r, float bg_g, float bg_b, int exhaust_bg
-// The forward launchers' family tables, after the sphere table
+// Every launcher's family tables, after the sphere table
 // (ops/cuda_mega.family_args).
 #define RTT_FAMILY_ARGS                                                  \
   const float *rect, int n_rect, const float *cyl, int n_cyl,           \
@@ -140,7 +142,7 @@ __host__ inline Scene make_scene(const float* table, int n,
   return s;
 }
 
-// A scene with the family tables of a forward launcher.
+// A scene with the family tables of a launcher.
 __host__ inline Scene with_families(Scene s, RTT_FAMILY_ARGS) {
   s.rect = rect;
   s.n_rect = n_rect;
@@ -446,6 +448,14 @@ __device__ __forceinline__ void credit_slot(const Adj& adj, int slot,
   if (cb != 0.0f) atomicAdd(row + 2 * adj.n_slots, cb);
 }
 
+// The winner's gradient slot, the row of the adjoint accumulators its
+// cotangents go to: column kSlot of a sphere row, kFSlot of a family row.
+template <bool kFamilies>
+__device__ __forceinline__ int winner_slot(const float* w, int fam) {
+  return static_cast<int>(
+      w[kFamilies && fam != kFamSphere ? kFSlot : kSlot]);
+}
+
 // g * (L - C_after) / att where att != 0 (the reference's `_cot`)
 __device__ __forceinline__ float att_cot(float g, float Lk, float c,
                                          float att) {
@@ -461,16 +471,18 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 // its mere presence slowed the megakernel by 9% on tables that do not
 // need it (PERF.md, PR 6), so the kernels instantiate both and the
 // launchers choose (has_tail). kCapture (the tape capture, capture.cu)
-// also reports the winner's row in *code, or -1 on a miss: it runs the
-// hit pass before it applies the roulette, so that a lane the roulette
-// stops still records this bounce's winner, as the reference's kernel
-// does (it evaluates the hit on every lane). Without kCapture the
-// roulette returns first and the code is as it was before the flag.
-// kFamilies (a scene with rect, cylinder or triangle rows, has_families)
-// compiles their hit loops after the spheres' and the winner's reads
-// from its family's table; the forward kernels instantiate it beside
-// the sphere-only code and the launchers choose. The adjoints and the
-// capture trace spheres only.
+// also reports the winner's tape code in *code, `family << 24 | row`
+// (pallas_mega.py:1882-1892), or -1 on a miss: it runs the hit pass
+// before it applies the roulette, so that a lane the roulette stops
+// still records this bounce's winner, as the reference's kernel does
+// (it evaluates the hit on every lane). Without kCapture the roulette
+// returns first and the code is as it was before the flag. kFamilies
+// (a scene with rect, cylinder or triangle rows, has_families) compiles
+// their hit loops after the spheres' and the winner's reads from its
+// family's table, its gradient slot from column kFSlot (a sphere's is
+// kSlot); every kernel instantiates it beside the sphere-only code,
+// where the family is the constant kFamSphere and the code compiles as
+// it did before the families, and the launchers choose.
 template <bool kAdjoint, bool kTail, bool kCapture = false,
           bool kFamilies = false>
 __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
@@ -525,7 +537,7 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   }
 
   if constexpr (kCapture) {
-    *code = t_best < CUDART_INF_F ? id_best : -1;
+    *code = t_best < CUDART_INF_F ? (fam_best << 24) | id_best : -1;
     if (rr_stop) {
       L.alive = 0.0f;
       return;
@@ -610,8 +622,8 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
 
   if (mtype == kDiffuseLight) {  // emits and stops
     if (kAdjoint)  // d(g.L)/d(emission) = g * P
-      credit_slot(adj, static_cast<int>(w[kSlot]), use2, adj.gr * L.tpr,
-                  adj.gg * L.tpg, adj.gb * L.tpb);
+      credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2,
+                  adj.gr * L.tpr, adj.gg * L.tpg, adj.gb * L.tpb);
     L.cr = L.cr + L.tpr * alb_r;
     L.cg = L.cg + L.tpg * alb_g;
     L.cb = L.cb + L.tpb * alb_b;
@@ -684,7 +696,7 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   // so far, which a scattering bounce does not change. A dielectric's
   // attenuation is the constant 1 and takes none.
   if (kAdjoint && mtype != kDielectric)
-    credit_slot(adj, static_cast<int>(w[kSlot]), use2,
+    credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2,
                 att_cot(adj.gr, adj.Lr, L.cr, alb_r),
                 att_cot(adj.gg, adj.Lg, L.cg, alb_g),
                 att_cot(adj.gb, adj.Lb, L.cb, alb_b));

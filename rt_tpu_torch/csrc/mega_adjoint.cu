@@ -3,25 +3,29 @@
 //
 // Replaces: rt_tpu/ops/pallas_mega.py::_adjoint_kernel (:2183), the
 // Pallas TPU kernel launched by adjoint_segment (:2568, pallas_call
-// :2620) and driven by mega_trace_adjoint (:3079), for spheres with
-// solid and checker textures, no NEE, sampler "rng", no image atlas.
+// :2620) and driven by mega_trace_adjoint (:3079), for spheres, rects,
+// cylinders and triangles with solid and checker textures, no NEE,
+// sampler "rng", no image atlas.
 // Contract kept from it: the forward megakernel's segment (mega.cu) with
 // two more per-lane inputs, the sample's radiance L and its loss
 // cotangent g, replayed bounce by bounce from the counter RNG with
 // do_bounce<true> (bounce.cuh), which adds each bounce's suffix-identity
-// cotangents to the winner's gradient slot; the output is the [8,
+// cotangents to the winner's gradient slot (a sphere row's column 17, a
+// family row's column 31); the output is the [8,
 // n_slots] gradient block (rows 0-2 the primary colour, 3-5 the checker
 // odd colour, row 6 columns 0-2 the constant background), summed over
 // the blocks and the segments. With exhaust_bg (the last segment of an
 // exact replay), a lane alive at the end adds g * P to the background.
 //
-// What bounds it: FP32 operations, as the forward (23 per lane-bounce
-// and table row, bounce.cuh) plus a few per bounce for the cotangents,
+// What bounds it: FP32 operations, as the forward (per lane-bounce and
+// table row 23 for a sphere, 36 for a rect, 62 for a cylinder, 71 for a
+// triangle, bounce.cuh) plus a few per bounce for the cotangents,
 // against 19 words of lane state read and 13 written per segment; the
 // cotangent sums are float atomics on a few hot addresses (on the cover
 // scene about half the lanes hit the ground's checker).
 //
-// Design: one thread per lane, as mega.cu. Each block keeps its own
+// Design: one thread per lane, as mega.cu, with the family rows read
+// through the read-only cache (kFamilies). Each block keeps its own
 // accumulators in shared memory (6 * n_slots + 3 floats, 24 KB for the
 // cover scene's 1,024 slots), zeroed before the trace and added to the
 // global block once at the end, non-zero entries only: the per-bounce
@@ -41,7 +45,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail>
+template <bool kTail, bool kFamilies>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
                     long long stride, int n, const int* __restrict__ pixel,
@@ -75,7 +79,7 @@ mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
     const uint32_t lane_key = rtt::fold(rtt::fold(scene.seed, pix), smp);
     int b = 0;
     while (b < max_depth && L.alive > 0.0f) {
-      rtt::do_bounce<true, kTail>(
+      rtt::do_bounce<true, kTail, false, kFamilies>(
           scene, L, rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)),
           adj);
       ++b;
@@ -100,7 +104,8 @@ mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
 
 }  // namespace
 
-// table [rows, 18] f32 (ops/mega_tables.py); state [19, stride] f32 (the
+// table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri [n_*, 32]
+// f32 or null with 0 rows; state [19, stride] f32 (the
 // forward's 13 rows, then L and g), of which lanes [0, n) are replayed
 // in place; pixel [>= n] i32; sample [>= n] i32 or null (then
 // sample_scalar); grad [8, n_slots] f32, added to; shared_acc: keep the
@@ -108,22 +113,29 @@ mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
 // the staged table); depth [>= n] i32 or null (each lane's bounce count
 // is added to it). Launches on `stream` and returns cudaGetLastError().
 extern "C" int mega_adjoint_launch(const float* table, int rows,
-                                   float* state, long long stride, int n,
+                                   RTT_FAMILY_ARGS, float* state,
+                                   long long stride, int n,
                                    const int* pixel, const int* sample,
                                    int sample_scalar, int start_bounce,
                                    int max_depth, RTT_SCENE_ARGS,
                                    float* grad, int n_slots, int shared_acc,
                                    int* depth, int threads, void* stream) {
-  const rtt::Scene scene = rtt::make_scene(
-      table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r, bg_g, bg_b,
-      exhaust_bg);
+  const rtt::Scene scene = rtt::with_families(
+      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
+                      bg_g, bg_b, exhaust_bg),
+      rect, n_rect, cyl, n_cyl, tri, n_tri);
   const size_t smem =
       shared_acc ? rtt::after_table_bytes(rows) +
                        (rtt::kBgRow * static_cast<size_t>(n_slots) + 3) *
                            sizeof(float)
                  : rtt::table_smem_bytes(rows);
-  const auto kernel = rtt::has_tail(rows) ? mega_adjoint_kernel<true>
-                                          : mega_adjoint_kernel<false>;
+  const bool fam = rtt::has_families(scene);
+  const auto kernel =
+      rtt::has_tail(rows)
+          ? (fam ? mega_adjoint_kernel<true, true>
+                 : mega_adjoint_kernel<true, false>)
+          : (fam ? mega_adjoint_kernel<false, true>
+                 : mega_adjoint_kernel<false, false>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

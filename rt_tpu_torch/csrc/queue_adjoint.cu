@@ -3,8 +3,8 @@
 // Replaces: rt_tpu/ops/pallas_queue.py::_queue_adjoint_kernel (:543),
 // the Pallas TPU kernel launched by queue_adjoint_launch (:736,
 // pallas_call :801) and driven by queue_trace_adjoint (:829), for
-// spheres with solid and checker textures, no NEE, sampler "rng", no
-// image atlas. Contract kept from it: the adjoint megakernel's replay
+// spheres, rects, cylinders and triangles with solid and checker
+// textures, no NEE, sampler "rng", no image atlas. Contract kept from it: the adjoint megakernel's replay
 // (mega_adjoint.cu: do_bounce<true> of bounce.cuh, the same cotangents
 // into the same [8, n_slots] gradient block) inside the persistent ray
 // queue of queue.cu. The pool carries each lane's L and g besides its
@@ -14,8 +14,9 @@
 // relaunches. With exhaust_bg, a lane alive at max_depth adds g * P to
 // the background.
 //
-// What bounds it: as the adjoint megakernel, FP32 operations (23 per
-// lane-bounce and table row plus the shading and cotangents), against
+// What bounds it: as the adjoint megakernel, FP32 operations (per
+// lane-bounce and table row 23 for a sphere, 36 for a rect, 62 for a
+// cylinder, 71 for a triangle, plus the shading and cotangents), against
 // one read of each primary ray, its L and g.
 //
 // Design: queue.cu's persistent threads and warp refill (queue.cuh's
@@ -23,7 +24,9 @@
 // cursor, popc ranks; the pool carries L and g in rows 13-18), with the
 // per-block accumulators of mega_adjoint.cu in shared memory, zeroed at
 // the start of every launch and added to the global block at its end
-// (or, when they do not fit, the global block directly). Float atomics
+// (or, when they do not fit, the global block directly); the family
+// rows are read from global memory (kFamilies), so they take none of the
+// shared memory the staged rows and the accumulators share. Float atomics
 // sum in no fixed order: the gradients agree with the plain version and
 // across step budgets within float rounding.
 
@@ -35,7 +38,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTail>
+template <bool kTail, bool kFamilies>
 __global__ void __launch_bounds__(kThreads)
 queue_adjoint_kernel(rtt::Scene scene, const float* __restrict__ ro,
                      const float* __restrict__ rd,
@@ -58,7 +61,7 @@ queue_adjoint_kernel(rtt::Scene scene, const float* __restrict__ ro,
     for (int k = threadIdx.x; k < n_acc; k += blockDim.x) acc[k] = 0.0f;
   }
   __syncthreads();
-  rtt::queue_loop<true, kTail>(scene, ro, rd, pixel, sample, sample_scalar,
+  rtt::queue_loop<true, kTail, kFamilies>(scene, ro, rd, pixel, sample, sample_scalar,
                                lin, gin, b, pool_f, pool_i, pool_lanes,
                                counters, nullptr, acc, n_slots, depth,
                                written, max_depth, budget);
@@ -78,11 +81,16 @@ size_t smem_bytes(int rows, int n_slots, int shared_acc) {
                     : rtt::table_smem_bytes(rows);
 }
 
-using Kernel = decltype(&queue_adjoint_kernel<false>);
+using Kernel = decltype(&queue_adjoint_kernel<false, false>);
 
-Kernel pick(int rows) {
-  return rtt::has_tail(rows) ? queue_adjoint_kernel<true>
-                             : queue_adjoint_kernel<false>;
+// The instantiation a scene of `rows` sphere rows, with or without
+// rect / cylinder / triangle rows, runs.
+Kernel pick(int rows, bool families) {
+  return rtt::has_tail(rows)
+             ? (families ? queue_adjoint_kernel<true, true>
+                         : queue_adjoint_kernel<true, false>)
+             : (families ? queue_adjoint_kernel<false, true>
+                         : queue_adjoint_kernel<false, false>);
 }
 
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -96,11 +104,13 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 // Blocks of `threads` threads the card holds at once with the kernel's
 // shared memory (the staged table, and the accumulators when
-// shared_acc): the persistent grid (negative: minus a CUDA error).
-extern "C" int queue_adjoint_grid_blocks(int rows, int n_slots,
-                                         int shared_acc, int threads) {
+// shared_acc) and the registers of the instantiation the scene runs:
+// the persistent grid (negative: minus a CUDA error).
+extern "C" int queue_adjoint_grid_blocks(int rows, int families,
+                                         int n_slots, int shared_acc,
+                                         int threads) {
   const size_t smem = smem_bytes(rows, n_slots, shared_acc);
-  const Kernel kernel = pick(rows);
+  const Kernel kernel = pick(rows, families != 0);
   cudaError_t err = allow_smem(kernel, smem);
   int per_sm = 0, dev = 0, sms = 0;
   if (err == cudaSuccess)
@@ -113,7 +123,8 @@ extern "C" int queue_adjoint_grid_blocks(int rows, int n_slots,
   return per_sm * sms;
 }
 
-// table [rows, 18] f32; ro, rd, lin (L), gin (g) [b, 3] f32; pixel [b]
+// table [rows, 18] f32; rect, cyl, tri [n_*, 32] f32 or null with 0
+// rows; ro, rd, lin (L), gin (g) [b, 3] f32; pixel [b]
 // i32; sample [b] i32 or null (then sample_scalar); pool_f [19,
 // blocks*threads] f32 and pool_i [4, blocks*threads] i32 (pool_i row 0
 // = -1 before the first launch); counters [2] u32 (fresh-ray cursor,
@@ -123,17 +134,19 @@ extern "C" int queue_adjoint_grid_blocks(int rows, int n_slots,
 // per completion). budget: steps per launch, 0 = until drained.
 // Launches on `stream`; returns cudaGetLastError().
 extern "C" int queue_adjoint_launch(
-    const float* table, int rows, const float* ro, const float* rd,
+    const float* table, int rows, RTT_FAMILY_ARGS, const float* ro,
+    const float* rd,
     const int* pixel, const int* sample, int sample_scalar, const float* lin,
     const float* gin, int b, float* pool_f, int* pool_i, unsigned* counters,
     float* grad, int n_slots, int shared_acc, int* depth, int* written,
     int max_depth, int budget, RTT_SCENE_ARGS, int blocks, int threads,
     void* stream) {
-  const rtt::Scene scene = rtt::make_scene(
-      table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r, bg_g, bg_b,
-      exhaust_bg);
+  const rtt::Scene scene = rtt::with_families(
+      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
+                      bg_g, bg_b, exhaust_bg),
+      rect, n_rect, cyl, n_cyl, tri, n_tri);
   const size_t smem = smem_bytes(rows, n_slots, shared_acc);
-  const Kernel kernel = pick(rows);
+  const Kernel kernel = pick(rows, rtt::has_families(scene));
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -21,9 +21,21 @@ The estimators of the port:
              winner on kernel B4, then autograd through a replay against
              the known winners, every continuous field in one backward.
 
-The FD / camera / hybrid estimators are not ported yet (ROADMAP A-1(d)).
-Every entry point raises NotImplementedError for a scene with a rect,
-cylinder or triangle (ROADMAP Queue B4(b), B5(b), B6(b)).
+Beside `fit`, the common-random-numbers finite-difference estimators
+(the reference's :348-700): `fit_fd` (geometry components by central
+differences), `fit_camera` (the camera pose, through `make_camera`) and
+`fit_hybrid` (the path replay for the radiometric fields, central
+differences for geometry components, in one Adam loop). Every sample is
+a pure hash of its (pixel, sample, bounce) coordinates, so the +eps and
+-eps probes trace identical random streams and the Monte-Carlo noise
+cancels in their difference. The 2K probes of a step are K pairs of
+forward renders on cfg.engine (a Python loop; the reference batches them
+under one lax.map); the differences and the Adam update stay on the
+device, and a step reads back one scalar, its loss.
+
+Every estimator takes scenes of spheres, rects, cylinders and triangles
+with solid / checker textures; image textures, NEE, QMC, BVH and
+sharding raise NotImplementedError naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -35,8 +47,8 @@ import numpy as np
 import torch
 
 from rt_tpu_torch.config import RenderConfig, resolve_device
-from rt_tpu_torch.ops.mega_tables import mega_supported, \
-    require_spheres_only
+from rt_tpu_torch.ops.camera import make_camera
+from rt_tpu_torch.ops.mega_tables import mega_supported
 from rt_tpu_torch.render.renderer import render_block
 from rt_tpu_torch.scene.types import CameraDef, SceneTables
 
@@ -91,7 +103,6 @@ def make_loss_fn(tables: SceneTables, cfg: RenderConfig, spp: int,
     """(params, px, py, target, sample_base=0) -> scalar MSE of the
     spp-sample render estimate against target rows [B,3], differentiable
     by autograd. n_valid masks rows >= n_valid out of the mean."""
-    require_spheres_only(tables, "make_loss_fn")
     cfg = _diff_cfg(cfg)
     seed = int(cfg.seed) & 0xFFFFFFFF
 
@@ -154,7 +165,6 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
     if method not in ("ad", "replay", "tape"):
         raise ValueError(f"method must be 'ad', 'replay' or 'tape'; got "
                          f"{method!r}")
-    require_spheres_only(tables, "fit")
     dev = resolve_device(device)
     tables = tables.to(dev)
     params = (dict(init_params) if init_params is not None
@@ -166,12 +176,7 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
         tape.check_fields(params)
     leaves = tape.leaves_of(params)
     optimizer = torch.optim.Adam(leaves, lr=learning_rate)
-
-    n_pix = cfg.width * cfg.height
-    pix = torch.arange(n_pix, device=dev)
-    px, py = pix % cfg.width, pix // cfg.width
-    tgt = torch.as_tensor(np.asarray(target_image, np.float32)).reshape(
-        -1, 3).to(dev)
+    px, py, tgt = _frame(cfg, target_image, dev)
 
     if method == "tape" and mega_supported(tables):
         # the fast step: one B4 capture, the death-sorted replay
@@ -215,4 +220,259 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
             return train(params, px, py, tgt, s0)
 
     history = [step(k * spp if resample else 0) for k in range(steps)]
+    return {k: _to_numpy(v) for k, v in params.items()}, history
+
+
+def _frame(cfg: RenderConfig, target_image, dev):
+    """The whole frame's pixel coordinates px, py [H*W] (row 0 the bottom
+    scanline) and the target image [H,W,3] as rows [H*W, 3], on dev."""
+    pix = torch.arange(cfg.width * cfg.height, device=dev)
+    tgt = torch.as_tensor(np.asarray(target_image, np.float32)).reshape(
+        -1, 3).to(dev)
+    return pix % cfg.width, pix // cfg.width, tgt
+
+
+def _flatten_fd_components(fd_params) -> list:
+    """[(field, component tuple)] of {field: [component, ...]}; a bare int
+    component is a 1-tuple, so {"sph_radius": [0]} reads as
+    {"sph_radius": [(0,)]} (the reference's :60)."""
+    out = []
+    for f, idxs in fd_params.items():
+        for idx in idxs:
+            out.append((f, tuple(int(i) for i in idx)
+                        if isinstance(idx, (tuple, list, np.ndarray))
+                        else (int(idx),)))
+    return out
+
+
+def _shifted(params: Dict[str, torch.Tensor], field: str, idx: tuple,
+             delta: float) -> Dict[str, torch.Tensor]:
+    """params with component idx of `field` moved by delta (a float32
+    add, as the reference's .at[].add)."""
+    v = params[field].detach().clone()
+    v[idx] += delta
+    return {**params, field: v}
+
+
+def _render_loss(tables: SceneTables, cfg: RenderConfig, px, py, tgt,
+                 spp: int, sample_base: int = 0) -> torch.Tensor:
+    """The MSE of the spp-sample estimate of the pixels (px, py) on
+    cfg.engine against tgt rows, as a 0-d tensor on the device (a
+    forward render: no gradient is recorded)."""
+    with torch.no_grad():
+        acc = render_block(tables, cfg, px, py, int(sample_base), int(spp),
+                           int(cfg.seed) & 0xFFFFFFFF, cfg.width, cfg.height)
+        return torch.mean((acc / float(spp) - tgt) ** 2)
+
+
+def fd_gradient(loss_of, params: Dict[str, torch.Tensor], flat_idx,
+                eps: float) -> Dict[str, torch.Tensor]:
+    """Central differences with common random numbers: for each (field,
+    component) of flat_idx, (loss(+eps) - loss(-eps)) / (2 eps), where
+    loss_of(params) is a 0-d device tensor; zero for the components not
+    listed. Runs on the device; reads nothing back."""
+    grads = {f: torch.zeros_like(v) for f, v in params.items()}
+    for f, idx in flat_idx:
+        hi = loss_of(_shifted(params, f, idx, eps))
+        lo = loss_of(_shifted(params, f, idx, -eps))
+        grads[f][idx] = (hi - lo) / (2 * eps)
+    return grads
+
+
+def _adam_step(optimizer, leaves, grads) -> None:
+    """One Adam update of leaves with the given gradients (on the
+    device, outside autograd)."""
+    for x, g in zip(leaves, grads):
+        x.grad = g.to(x.dtype)
+    optimizer.step()
+
+
+def fit_fd(tables: SceneTables, cfg: RenderConfig, target_image, fd_params,
+           spp: int = 8, steps: int = 60, learning_rate: float = 2e-2,
+           eps: float = 2e-2, device="cuda"
+           ) -> Tuple[Dict[str, np.ndarray], list]:
+    """Geometry recovery by central differences with common random
+    numbers + Adam (rt_tpu/diff/inverse.py `fit_fd` :348).
+
+    Detached-sampling gradients do not see the silhouette term of a
+    geometry parameter (moving a sphere mostly changes which pixels it
+    covers); central differences do, and with the counter RNG the +eps
+    and -eps probes trace identical random streams, so the estimate is
+    clean at low spp. fd_params: {field: [component, ...]}, e.g.
+    {"sph_center": [(0, 0), (0, 2)]} moves sphere 0's x and z; any
+    float table of SceneTables may be named (rect_k, cyl_radius, tri_v1,
+    ...). Each step renders the 2K probes and the unperturbed frame on
+    cfg.engine (on `device`, CUDA unless the caller passes "cpu").
+
+    Returns (the optimized fields as NumPy arrays, the history of the
+    unperturbed loss at each step)."""
+    dev = resolve_device(device)
+    tables = tables.to(dev)
+    px, py, tgt = _frame(cfg, target_image, dev)
+    params = {f: _trainable(getattr(tables, f), dev) for f in fd_params}
+    flat_idx = _flatten_fd_components(fd_params)
+    leaves = list(params.values())
+    optimizer = torch.optim.Adam(leaves, lr=learning_rate)
+
+    def loss_of(pp):
+        return _render_loss(apply_params(tables, pp), cfg, px, py, tgt, spp)
+
+    history = []
+    for _ in range(steps):
+        cur = {k: v.detach() for k, v in params.items()}
+        grads = fd_gradient(loss_of, cur, flat_idx, eps)
+        base = loss_of(cur)
+        _adam_step(optimizer, leaves, [grads[k] for k in params])
+        history.append(float(base))
+    return {k: _to_numpy(v) for k, v in params.items()}, history
+
+
+CAMERA_RAW = {"lookfrom": 3, "lookat": 3, "vfov_deg": 1, "aperture": 1}
+
+
+def camera_loss(tables: SceneTables, cfg: RenderConfig, target_image,
+                init: Dict[str, object],
+                recover: Sequence[str] = ("lookfrom",), spp: int = 8,
+                device="cuda"):
+    """The pose-recovery problem of fit_camera: (raw0, slots, loss_of).
+    raw0 [K] f32 on the device: the recovered components of init, in
+    `recover` order; slots: (name, offset into raw, size) per name;
+    loss_of({"raw": raw}) -> 0-d tensor: the MSE of the spp-sample render
+    on cfg.engine through the camera ops/camera.make_camera builds from
+    init with raw's components in place."""
+    bad = set(recover) - set(CAMERA_RAW)
+    if bad:
+        raise ValueError(f"recover must be among {sorted(CAMERA_RAW)}; got "
+                         f"{sorted(bad)}")
+    dev = resolve_device(device)
+    tables = tables.to(dev)
+    px, py, tgt = _frame(cfg, target_image, dev)
+    aspect = cfg.width / cfg.height
+    slots, raw0 = [], []
+    for name in recover:
+        v = np.atleast_1d(np.asarray(init[name], np.float32))
+        slots.append((name, len(raw0), v.size))
+        raw0.extend(v.tolist())
+    fixed = {n: torch.as_tensor(np.asarray(init[n], np.float32), device=dev)
+             for n in ("lookfrom", "lookat", "vup", "vfov_deg", "aperture")}
+
+    def loss_of(pp):
+        vals = dict(fixed)
+        for name, off, sz in slots:
+            vals[name] = pp["raw"][off] if sz == 1 else \
+                pp["raw"][off:off + sz]
+        cam = make_camera(vals["lookfrom"], vals["lookat"], vals["vup"],
+                          vals["vfov_deg"], aspect, vals["aperture"],
+                          focus_dist=init.get("focus_dist"))
+        return _render_loss(dataclasses.replace(tables, camera=cam), cfg,
+                            px, py, tgt, spp)
+
+    raw = torch.as_tensor(np.asarray(raw0, np.float32), device=dev)
+    return raw, slots, loss_of
+
+
+def fit_camera(tables: SceneTables, cfg: RenderConfig, target_image,
+               init: Dict[str, object],
+               recover: Sequence[str] = ("lookfrom",), spp: int = 8,
+               steps: int = 120, learning_rate: float = 4e-3, eps=None,
+               device="cuda") -> Tuple[Dict[str, object], list]:
+    """Camera POSE recovery by central differences with common random
+    numbers + Adam (rt_tpu/diff/inverse.py `fit_camera` :427): find the
+    thin-lens camera that produced target_image.
+
+    init: the starting raw camera {"lookfrom": [3], "lookat": [3], "vup":
+    [3], "vfov_deg", "aperture", optional "focus_dist"}; `recover` names
+    which of lookfrom / lookat / vfov_deg / aperture move (the rest stay
+    at init); the frame comes from ops/camera.make_camera (camera_loss).
+    eps: the probe half-step per raw component (default 2e-2 for
+    vfov_deg, whose degrees move the image ~50x less per unit than scene
+    units, 2e-3 else). Each step renders the 2K probes and the
+    unperturbed frame on cfg.engine.
+
+    Returns (init with the recovered values, the loss history)."""
+    raw0, slots, loss_of = camera_loss(tables, cfg, target_image, init,
+                                       recover, spp, device)
+    k = raw0.shape[0]
+    if eps is None:
+        eps = [2e-2 if n == "vfov_deg" else 2e-3
+               for n, _, sz in slots for _ in range(sz)]
+    else:
+        eps = np.broadcast_to(np.asarray(eps, np.float32), (k,)).tolist()
+    raw = raw0.clone().requires_grad_(True)
+    optimizer = torch.optim.Adam([raw], lr=learning_rate)
+    history = []
+    for _ in range(steps):
+        cur = {"raw": raw.detach()}
+        g = torch.zeros_like(cur["raw"])
+        for j in range(k):
+            g[j] = fd_gradient(loss_of, cur, [("raw", (j,))],
+                               float(eps[j]))["raw"][j]
+        base = loss_of(cur)
+        _adam_step(optimizer, [raw], [g])
+        history.append(float(base))
+
+    out = dict(init)
+    raw_np = raw.detach().cpu().numpy()
+    for name, off, sz in slots:
+        out[name] = (float(raw_np[off]) if sz == 1
+                     else raw_np[off:off + sz].copy())
+    return out, history
+
+
+def fit_hybrid(tables: SceneTables, cfg: RenderConfig, target_image,
+               replay_fields: Sequence[str] = ("tex_color",),
+               fd_params=None, spp: int = 4, fd_spp: Optional[int] = None,
+               steps: int = 60, learning_rate: float = 3e-2,
+               eps: float = 2e-2, bwd_depth: Optional[int] = None,
+               resample: bool = False, device="cuda"
+               ) -> Tuple[Dict[str, np.ndarray], list]:
+    """Joint radiometric + geometry recovery in one Adam loop
+    (rt_tpu/diff/inverse.py `fit_hybrid` :541).
+
+    `replay_fields` (albedo, emission, background) take the path-replay
+    gradient (diff/replay.py: the forward on cfg.engine, the backward on
+    its adjoint kernel); `fd_params` geometry components ({field:
+    [component, ...]}, fields of replay.GEOM_FIELDS) take central
+    differences with common random numbers over fd_spp samples (default
+    spp), which see the silhouette term the replay drops. The geometry
+    fields ride the replay's forward with an empty geom_spec (their
+    replay gradient is zero and is overwritten by the FD estimate), so
+    both estimators see the same parameters. resample=True moves the
+    sample window every step.
+
+    Returns (the optimized fields as NumPy arrays, the replay loss at
+    each step)."""
+    from rt_tpu_torch.diff.replay import make_replay_loss_fn
+
+    fd_params = dict(fd_params or {})
+    fd_spp = spp if fd_spp is None else int(fd_spp)
+    dev = resolve_device(device)
+    tables = tables.to(dev)
+    px, py, tgt = _frame(cfg, target_image, dev)
+    params = {k: _trainable(v, dev) for k, v in extract_params(
+        tables, tuple(replay_fields) + tuple(fd_params)).items()}
+    leaves = list(params.values())
+    optimizer = torch.optim.Adam(leaves, lr=learning_rate)
+    replay_loss = make_replay_loss_fn(
+        tables, cfg, spp, px, py, tgt,
+        geom_spec={f: [] for f in fd_params}, bwd_depth=bwd_depth)
+    flat_idx = _flatten_fd_components(fd_params)
+
+    history = []
+    for step in range(steps):
+        s0 = step * max(spp, fd_spp) if resample else 0
+        optimizer.zero_grad()
+        loss = replay_loss(params, s0)
+        loss.backward()
+        grads = {k: v.grad for k, v in params.items()}
+        if flat_idx:
+            cur = {k: v.detach() for k, v in params.items()}
+            fd = fd_gradient(
+                lambda pp: _render_loss(apply_params(tables, pp), cfg, px,
+                                        py, tgt, fd_spp, s0),
+                cur, flat_idx, eps)
+            for f, idx in flat_idx:
+                grads[f][idx] = fd[f][idx]
+        _adam_step(optimizer, leaves, [grads[k] for k in params])
+        history.append(float(loss.detach()))
     return {k: _to_numpy(v) for k, v in params.items()}, history

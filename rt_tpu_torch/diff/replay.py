@@ -31,10 +31,11 @@ plain intersect (geom_tape=False). The discrete decisions are
 comparisons, so they carry no tangent: sampling stays detached.
 
 Scope: REPLAY_FIELDS but "images" (tex_color, tex_color2, mat_albedo,
-background) and GEOM_FIELDS by geom_spec, spheres with solid / checker
-textures, no NEE, sampler "rng". The image atlas, and a scene with a
-rect, cylinder or triangle row, raise NotImplementedError (ROADMAP
-Queue B2(c); B5(b), B6(b)).
+background) and GEOM_FIELDS by geom_spec, spheres, rects, cylinders and
+triangles with solid / checker textures, no NEE, sampler "rng". A
+family row's cotangents land in its gradient slot (its texture row, or
+its material's), so a rect light's emission trains its tex_color row.
+The image atlas raises NotImplementedError (ROADMAP Queue B2(c)).
 """
 
 from __future__ import annotations
@@ -50,8 +51,7 @@ from rt_tpu_torch.ops import adjoint_plain, cuda_mega, cuda_queue
 from rt_tpu_torch.ops import materials, rng
 from rt_tpu_torch.ops.camera import generate_rays
 from rt_tpu_torch.ops.intersect import intersect
-from rt_tpu_torch.ops.mega_tables import mega_supported, \
-    require_spheres_only
+from rt_tpu_torch.ops.mega_tables import mega_supported
 from rt_tpu_torch.render.integrator import background_color, trace
 from rt_tpu_torch.scene.types import SceneTables
 
@@ -336,10 +336,7 @@ def make_replay_render(tables: SceneTables, cfg: RenderConfig, spp: int,
     recompute each tangent bounce's hit against the winner taped by
     diff/tape.capture_tape (kernel B4 on CUDA) rather than the full
     plain intersect; None means True on CUDA for a megakernel scene,
-    False elsewhere, as the reference's backend rule. A scene with a
-    rect, cylinder or triangle raises NotImplementedError (ROADMAP Queue
-    B5(b), B6(b))."""
-    require_spheres_only(tables, "make_replay_render")
+    False elsewhere, as the reference's backend rule."""
     if cfg.nee or cfg.mis or cfg.nee_glossy:
         raise NotImplementedError(
             "replay gradients with nee / mis / nee_glossy: NEE is not "

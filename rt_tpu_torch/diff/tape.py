@@ -18,11 +18,13 @@ parameter in one backward pass, in two steps:
      wavefront loop records the port's intersect, as the reference does
      off the TPU.
   2. REPLAY (autograd): run the bounce loop again with each hit
-     recomputed against the KNOWN winner only (the per-lane leaf test
-     ops/intersect.sphere_leaf_test), so every bounce is an O(1)-per-lane
-     closed-form function of the scene tables, and let autograd
-     differentiate it: geometry (sphere centres, radii), materials
-     (albedo, fuzz, IOR), textures, background and the camera at once.
+     recomputed against the KNOWN winner only (the per-lane leaf tests of
+     ops/intersect.py, one per family), so every bounce is an
+     O(1)-per-lane closed-form function of the scene tables, and let
+     autograd differentiate it: geometry (sphere centres and radii, rect
+     planes and bounds, cylinder radii and z windows, triangle vertices),
+     materials (albedo, fuzz, IOR), textures, background and the camera
+     at once.
 
 Memory is held at O(B * sqrt(depth)) by two-level recomputation:
 `torch.utils.checkpoint` around segments of ~sqrt(depth) bounces, and
@@ -37,11 +39,10 @@ does not differentiate are the decisions the tape froze, and the
 interior chains (hit distance, normal, scatter direction, Schlick
 blend) are the same. Silhouette terms are not captured.
 
-Scope: spheres with solid / checker textures, no NEE, sampler "rng".
-TAPE_FIELDS keeps the reference's names; the rect, cylinder and
-triangle fields, and any scene with such a row, raise
-NotImplementedError until the tape codes carry the family (ROADMAP
-Queue B4(b)).
+Scope: spheres, rects, cylinders and triangles with solid / checker
+textures, no NEE, sampler "rng". TAPE_FIELDS keeps the reference's
+names; "images" raises NotImplementedError (image textures, ROADMAP
+Queue B2(c)).
 """
 
 from __future__ import annotations
@@ -60,13 +61,18 @@ from rt_tpu_torch.diff.inverse import apply_params
 from rt_tpu_torch.ops import cuda_mega, materials, rng
 from rt_tpu_torch.ops.camera import generate_rays
 from rt_tpu_torch.ops.intersect import (
+    PTYPE_CYLINDER,
+    PTYPE_RECT,
     PTYPE_SPHERE,
+    PTYPE_TRIANGLE,
     _attributes,
+    cylinder_leaf_test,
     intersect,
+    rect_leaf_test,
     sphere_leaf_test,
+    triangle_leaf_test,
 )
-from rt_tpu_torch.ops.mega_tables import mega_supported, \
-    require_spheres_only
+from rt_tpu_torch.ops.mega_tables import mega_supported
 from rt_tpu_torch.render.integrator import background_color
 from rt_tpu_torch.scene.types import CameraDef, SceneTables
 
@@ -88,10 +94,6 @@ TAPE_FIELDS = (
 # TAPE_FIELDS the tape does not differentiate yet
 _UNPORTED = {
     "images": "image textures are not ported yet (ROADMAP Queue B2(c))",
-    **{f: "tape gradients of rects, cylinders and triangles are not "
-          "ported yet (ROADMAP Queue B4(b))"
-       for f in ("rect_k", "rect_lo", "rect_hi", "cyl_radius", "cyl_zmin",
-                 "cyl_zmax", "tri_v1", "tri_v2", "tri_v3")},
 }
 
 # keep every sample's codes (spp * depth * B int32s, 2 GiB) ahead of the
@@ -123,9 +125,7 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
     (the latter on kernel B1), whose dead lanes record what their stale
     ray hits until every lane is dead. The replay masks both alike.
     None: "mega" on CUDA tensors of a megakernel scene, else "plain",
-    as the reference picks its kernel on the TPU and XLA elsewhere.
-    Spheres only (ROADMAP Queue B4(b))."""
-    require_spheres_only(tables, "capture_tape")
+    as the reference picks its kernel on the TPU and XLA elsewhere."""
     check_supported(cfg)
     if engine is None:
         engine = ("mega" if ro.device.type == "cuda"
@@ -171,14 +171,18 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
 
 def _known_t(tables: SceneTables, o, d, ptype, pid):
     """Hit distance against each lane's KNOWN winner: the leaf test of
-    its family, O(1) per lane, differentiable in the primitive. The
-    clamp keeps an out-of-family pid inside the table before the gather;
-    the where then gives that lane neither a value nor a gradient."""
+    its family, selected by ptype (rt_tpu/diff/tape.py:182-204), O(1) per
+    lane, differentiable in the primitive. The clamp keeps an
+    out-of-family pid inside the family's table before the gather; the
+    where then gives that lane neither a value nor a gradient."""
     t = torch.full(o.shape[:1], math.inf, dtype=o.dtype, device=o.device)
-    if tables.n_spheres:
-        pc = torch.clamp(pid, 0, tables.n_spheres - 1)
-        tf = sphere_leaf_test(tables, pc, o, d, _T_MIN)
-        t = torch.where(ptype == PTYPE_SPHERE, tf, t)
+    for pt, leaf, n in zip(
+            (PTYPE_SPHERE, PTYPE_RECT, PTYPE_CYLINDER, PTYPE_TRIANGLE),
+            (sphere_leaf_test, rect_leaf_test, cylinder_leaf_test,
+             triangle_leaf_test), tables.counts):
+        if n:
+            pc = torch.clamp(pid, 0, n - 1)
+            t = torch.where(ptype == pt, leaf(tables, pc, o, d, _T_MIN), t)
     return t
 
 
@@ -309,9 +313,7 @@ def make_tape_render(tables: SceneTables, cfg: RenderConfig, spp: int,
     (spp * depth * B <= STORE_TAPE_MAX int32s): they carry no gradient,
     so keeping them costs no autograd state and spares the backward a
     second capture. Beyond that each sample's capture and replay run
-    under one checkpoint, and the backward captures again. Spheres only
-    (ROADMAP Queue B4(b))."""
-    require_spheres_only(tables, "make_tape_render")
+    under one checkpoint, and the backward captures again."""
     check_supported(cfg)
     dev = tables.sph_center.device
     px, py, pixel = _pixels(cfg, px, py, dev)
@@ -428,9 +430,7 @@ def make_tape_vg(tables: SceneTables, cfg: RenderConfig, px, py, target,
          Each bounce runs under a checkpoint.
 
     Work drops from B * depth lane-bounces to about B times the mean
-    path length. Pre-condition: mega_supported(tables); spheres only
-    (ROADMAP Queue B4(b))."""
-    require_spheres_only(tables, "make_tape_vg")
+    path length. Pre-condition: mega_supported(tables)."""
     if not mega_supported(tables):
         raise ValueError("make_tape_vg: the capture kernel needs a "
                          "megakernel scene (mega_supported)")

@@ -2,13 +2,16 @@
 and B6 (csrc/queue_adjoint.cu): the radiometric backward of the
 path-replay gradient for one sample (the counterpart of
 rt_tpu/ops/pallas_mega.py `do_bounce`'s adjoint block :1700-1800 and the
-`_adjoint_kernel` epilogue :2255-2285, for spheres with solid and
-checker textures, no NEE, sampler "rng", no image atlas).
+`_adjoint_kernel` epilogue :2255-2285, for spheres, rects, cylinders
+and triangles with solid and checker textures, no NEE, sampler "rng",
+no image atlas).
 
 The replay runs `mega_plain.bounce_plain`, the forward's own bounce, so
 C_after, the attenuation and P are the forward's bits, and adds each
 bounce's suffix-identity cotangents (rt_tpu/diff/replay.py's module
-doc) to the gradient slot of the sphere hit:
+doc) to the gradient slot of the primitive hit (`mega_plain.
+winner_attrs`: a sphere row's column 17, a family row's column 31, so a
+rect light's emission lands in its texture row):
 
   - a scattered, non-dielectric hit: g * (L - C_after) / att, per
     channel, where att != 0;

@@ -2,6 +2,7 @@
 gpu-version/camera.cuh:31-39), with the thin-lens defocus of the
 CPU/Taichi versions (cmake-cpu-version/camera.h:33-37).
 
+`make_camera` builds the frame from a raw pose, differentiably.
 `generate_rays` is the plain form of every engine's camera rays and of
 the regeneration kernel's in-kernel `camera_ray` (csrc/camera.cuh),
 which repeats its expressions in its order, so the two agree bit for bit
@@ -10,6 +11,7 @@ kernel takes."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -20,6 +22,44 @@ from rt_tpu_torch.scene.types import CameraDef
 # the fields of camera_vec, in order (pallas_mega.camera_vec :3205)
 CAMERA_FIELDS = ("origin", "lower_left", "horizontal", "vertical", "u", "v",
                  "lens_radius")
+
+
+def make_camera(lookfrom, lookat, vup, vfov_deg, aspect_ratio, aperture,
+                focus_dist=None) -> CameraDef:
+    """The thin-lens frame from a raw pose (rt_tpu/ops/camera.py
+    `make_camera_jnp` :18, gpu-version/camera.cuh:9-28) in float32 torch
+    arithmetic, differentiable in every tensor argument, so a camera
+    POSE can be optimized (diff/inverse.fit_camera); the host builder
+    scene/types.make_camera stays NumPy. Arguments are tensors, arrays
+    or numbers; the frame lands on lookfrom's device (the CPU for
+    non-tensors)."""
+    dev = lookfrom.device if isinstance(lookfrom, torch.Tensor) else "cpu"
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    lookfrom, lookat, vup = f32(lookfrom), f32(lookat), f32(vup)
+    if focus_dist is None:
+        focus_dist = torch.linalg.vector_norm(lookfrom - lookat)
+    focus_dist = f32(focus_dist)
+    theta = f32(vfov_deg) * (math.pi / 180.0)
+    h = torch.tan(theta / 2.0)
+    viewport_height = 2.0 * h
+    viewport_width = aspect_ratio * viewport_height
+
+    w = lookfrom - lookat
+    w = w / torch.linalg.vector_norm(w)
+    u = torch.linalg.cross(vup, w)
+    u = u / torch.linalg.vector_norm(u)
+    v = torch.linalg.cross(w, u)
+
+    origin = lookfrom
+    horizontal = focus_dist * viewport_width * u
+    vertical = focus_dist * viewport_height * v
+    lower_left = origin - horizontal / 2 - vertical / 2 - focus_dist * w
+    return CameraDef(origin=origin, lower_left=lower_left,
+                     horizontal=horizontal, vertical=vertical, u=u, v=v,
+                     lens_radius=f32(aperture) / 2.0)
 
 
 def camera_vec(cam: CameraDef) -> Tuple[float, ...]:

@@ -64,8 +64,7 @@ import torch
 
 from rt_tpu_torch.ops import adjoint_plain, cuda_build
 from rt_tpu_torch.ops import mega_plain as mp
-from rt_tpu_torch.ops.mega_tables import F_COLS, S_COLS, \
-    require_spheres_only
+from rt_tpu_torch.ops.mega_tables import F_COLS, S_COLS
 
 THREADS = 256
 # the most table rows the int32 offsets of the kernels address
@@ -93,7 +92,7 @@ def _scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg):
 SCALAR_TYPES = [ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
                 ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_float, ctypes.c_int]
-# the family tables of the forward launchers (bounce.cuh RTT_FAMILY_ARGS)
+# the family tables of every launcher (bounce.cuh RTT_FAMILY_ARGS)
 FAMILY_TYPES = [ctypes.c_void_p, ctypes.c_int] * 3
 
 
@@ -111,15 +110,6 @@ def family_args(fam, device):
             raise ValueError(f"{name}: {n} rows, want at most {MAX_ROWS}")
         out += [tab.data_ptr() if n else None, n]
     return tuple(out)
-
-
-def spheres_only(fam, what: str) -> None:
-    """The launchers of the capture and the adjoints take no family
-    tables (ROADMAP Queue B4(b), B5(b), B6(b))."""
-    if fam is not None:
-        raise NotImplementedError(
-            f"{what}: rects, cylinders and triangles are not ported yet "
-            "(ROADMAP Queue B4(b), B5(b), B6(b))")
 
 
 @functools.lru_cache(maxsize=None)
@@ -406,8 +396,7 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
     on CUDA tensors: state [19, stride] (the forward's 13 rows, then L
     and g), lanes [0, n) replayed in place; grad [8, n_slots] is added
     to, through per-block accumulators in shared memory when they fit
-    (acc_fits_smem). Spheres only (fam must be None)."""
-    spheres_only(fam, "mega_adjoint_segment")
+    (acc_fits_smem); fam: the family tables, as mega_segment."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"mega_adjoint_segment: unsupported device {dev}")
@@ -419,6 +408,7 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
     cuda_build.check_tensor("state", state, torch.float32,
                             (ADJ_ROWS, stride), dev)
     check_table(tab, dev)
+    fam_args = family_args(fam, dev)
     n_slots = grad.shape[1] if grad.dim() == 2 else 0
     cuda_build.check_tensor("grad", grad, torch.float32,
                             (adjoint_plain.ACC_ROWS, n_slots), dev)
@@ -437,7 +427,8 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mega_adjoint_launch(
-            tab.data_ptr(), tab.shape[0], state.data_ptr(), stride, n,
+            tab.data_ptr(), tab.shape[0], *fam_args, state.data_ptr(),
+            stride, n,
             pix_ptr, samp_ptr, samp, int(start_bounce), int(max_depth),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
             grad.data_ptr(), n_slots, int(acc_fits_smem(n_slots)), depth_ptr,
@@ -464,6 +455,7 @@ def _adjoint_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.mega_adjoint_launch.argtypes = [
         vp, ci,                       # table, rows
+        *FAMILY_TYPES,                # rect, rows, cyl, rows, tri, rows
         vp, ctypes.c_longlong, ci,    # state, stride, n
         vp, vp, ci,                   # pixel, sample (or null), sample
         ci, ci,                       # start_bounce, max_depth
@@ -493,10 +485,7 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     CPU tensors, or plain=True, run adjoint_plain.trace_adjoint_plain.
     stats, when given, gains "launches" and "ray_bounces".
 
-    Pre-condition: mega_tables.mega_supported(tables); a scene with a
-    rect, cylinder or triangle raises NotImplementedError (ROADMAP Queue
-    B5(b))."""
-    require_spheres_only(tables, "mega_trace_adjoint")
+    Pre-condition: mega_tables.mega_supported(tables)."""
     if plain or ro.device.type == "cpu":
         return adjoint_plain.trace_adjoint_plain(
             tables, cfg, ro, rd, pixel, sample_idx, seed, L, gcot,
@@ -534,6 +523,7 @@ def _capture_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.capture_launch.argtypes = [
         vp, ci,                       # table, rows
+        *FAMILY_TYPES,                # rect, rows, cyl, rows, tri, rows
         vp, ctypes.c_longlong, ci,    # state, stride, n
         vp, ci, ci,                   # pixel, sample, max_depth
         *SCALAR_TYPES,
@@ -548,24 +538,24 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
                  plain: bool = False, threads: int = THREADS):
     """Trace the primary rays ro, rd [B,3] for cfg.max_depth bounces and
     return (codes [max_depth, B] int32, death [B] int32): per bounce the
-    winner's tape code (`0 << 24 | row` for a sphere, -1 on a miss and
-    after the lane's death), per lane the number of bounces after which
+    winner's tape code (`family << 24 | row`, -1 on a miss and after the
+    lane's death), per lane the number of bounces after which
     it is still alive (see mega_plain.capture_plain). sample_idx: one
     sample index for every lane (an int, or a tensor whose first element
     is taken, as the reference does).
 
     CUDA tensors launch kernel B4 (csrc/capture.cu) once and raise if it
     cannot; CPU tensors, or plain=True, run mega_plain.capture_plain.
-    Pre-condition: mega_tables.mega_supported(tables); a scene with a
-    rect, cylinder or triangle raises NotImplementedError (ROADMAP Queue
-    B4(b))."""
-    require_spheres_only(tables, "mega_capture")
+    Every family's table must hold fewer than MAX_CODE_ROWS rows, the
+    rows a code holds. Pre-condition: mega_tables.mega_supported(tables)."""
     dev = ro.device
     tab = tables.mega.table
-    if tab.shape[0] > MAX_CODE_ROWS:
-        raise ValueError(f"mega_capture: {tab.shape[0]} table rows; a tape "
-                         f"code holds rows below {MAX_CODE_ROWS}")
     kw = mp.trace_options(tables, cfg)
+    sizes = [tab.shape[0]] + ([t.shape[0] for t in kw["fam"]]
+                              if kw["fam"] is not None else [])
+    if max(sizes) > MAX_CODE_ROWS:
+        raise ValueError(f"mega_capture: table rows {sizes}; a tape code "
+                         f"holds rows below {MAX_CODE_ROWS}")
     state = mp.fresh_state(ro.detach(), rd.detach())
     b = state.shape[1]
     max_depth = int(cfg.max_depth)
@@ -578,6 +568,7 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     if dev.type != "cuda":
         raise ValueError(f"mega_capture: unsupported device {dev}")
     check_table(tab, dev)
+    fam_args = family_args(kw["fam"], dev)
     pix = pixel.to(device=dev, dtype=torch.int32).reshape(-1).contiguous()
     pix_ptr, _ = lane_ints("pixel", pix, b, dev)
     codes = torch.empty((max_depth, b), dtype=torch.int32, device=dev)
@@ -588,7 +579,8 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.capture_launch(
-            tab.data_ptr(), tab.shape[0], state.data_ptr(), b, b, pix_ptr,
+            tab.data_ptr(), tab.shape[0], *fam_args, state.data_ptr(), b, b,
+            pix_ptr,
             sample, max_depth,
             *_scalars(seed, kw["t_min"], kw["p_rr"], kw["grad_bg"], kw["bg"],
                       False),

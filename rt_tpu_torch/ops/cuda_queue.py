@@ -43,7 +43,6 @@ import torch
 from rt_tpu_torch.ops import adjoint_plain, cuda_build
 from rt_tpu_torch.ops import cuda_mega
 from rt_tpu_torch.ops import mega_plain as mp
-from rt_tpu_torch.ops.mega_tables import require_spheres_only
 
 POOL_I = 4  # int32 pool rows: slot (-1 empty), pixel, sample, bounce
 # pool lanes of the plain emulation unless the caller sets them (the
@@ -282,10 +281,11 @@ def queue_trace_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
 def _adjoint_library():
     lib = cuda_build.load("queue_adjoint")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.queue_adjoint_grid_blocks.argtypes = [ci, ci, ci, ci]
+    lib.queue_adjoint_grid_blocks.argtypes = [ci, ci, ci, ci, ci]
     lib.queue_adjoint_grid_blocks.restype = ci
     lib.queue_adjoint_launch.argtypes = [
         vp, ci,                       # table, rows
+        *cuda_mega.FAMILY_TYPES,      # rect, rows, cyl, rows, tri, rows
         vp, vp, vp, vp, ci,           # ro, rd, pixel, sample, sample
         vp, vp, ci,                   # L, g, b
         vp, vp, vp,                   # pool_f, pool_i, counters
@@ -301,21 +301,26 @@ def _adjoint_library():
 
 
 def adjoint_grid_blocks(rows: int, n_slots: int, device,
-                        threads: int = cuda_mega.THREADS) -> int:
+                        threads: int = cuda_mega.THREADS, *,
+                        families: bool = False) -> int:
     """The persistent grid of the queue adjoint (blocks the card holds at
     once with its shared memory: the staged table, and the accumulators
-    when cuda_mega.acc_fits_smem), once per card and shape."""
+    when cuda_mega.acc_fits_smem; and with the registers of the
+    instantiation with family rows or without), once per card, shape
+    and instantiation."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _adjoint_grid_blocks(int(rows), int(n_slots), index, int(threads))
+    return _adjoint_grid_blocks(int(rows), bool(families), int(n_slots),
+                                index, int(threads))
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_grid_blocks(rows, n_slots, index, threads):
+def _adjoint_grid_blocks(rows, families, n_slots, index, threads):
     lib = _adjoint_library()
     with torch.cuda.device(index):
         blocks = lib.queue_adjoint_grid_blocks(
-            rows, n_slots, int(cuda_mega.acc_fits_smem(n_slots)), threads)
+            rows, int(families), n_slots,
+            int(cuda_mega.acc_fits_smem(n_slots)), threads)
     if blocks <= 0:
         msg = lib.queue_adjoint_error_string(-blocks).decode() if blocks \
             else "no block fits on a multiprocessor"
@@ -330,11 +335,10 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
                          bg, exhaust_bg=False, depth=None, written=None,
                          fam=None, blocks, threads=cuda_mega.THREADS):
     """One launch of the queue adjoint on CUDA tensors (see
-    queue_adjoint.cu for the operands). pool_f [19, blocks*threads],
-    pool_i [4, blocks*threads], counters [2] and grad [8, n_slots] carry
-    the replay from one launch to the next. Spheres only (fam must be
-    None)."""
-    cuda_mega.spheres_only(fam, "queue_adjoint_launch")
+    queue_adjoint.cu for the operands; fam: the family tables, as
+    cuda_mega.mega_segment). pool_f [19, blocks*threads], pool_i [4,
+    blocks*threads], counters [2] and grad [8, n_slots] carry the replay
+    from one launch to the next."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"queue_adjoint_launch: unsupported device {dev}")
@@ -342,6 +346,7 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
     lanes = int(blocks) * int(threads)
     chk = cuda_build.check_tensor
     cuda_mega.check_table(tab, dev)
+    fam_args = cuda_mega.family_args(fam, dev)
     for name, x in (("ro", ro), ("rd", rd), ("L", L), ("gcot", gcot)):
         chk(name, x, torch.float32, (b, 3), dev)
     chk("pixel", pixel, torch.int32, (b,), dev)
@@ -360,7 +365,8 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.queue_adjoint_launch(
-            tab.data_ptr(), tab.shape[0], ro.data_ptr(), rd.data_ptr(),
+            tab.data_ptr(), tab.shape[0], *fam_args, ro.data_ptr(),
+            rd.data_ptr(),
             pixel.data_ptr(), samp_ptr, samp, L.data_ptr(), gcot.data_ptr(),
             b, pool_f.data_ptr(), pool_i.data_ptr(), counters.data_ptr(),
             grad.data_ptr(), n_slots, int(cuda_mega.acc_fits_smem(n_slots)),
@@ -391,10 +397,7 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     check_once counts each lane's completions; stats gains "launches"
     and "ray_bounces".
 
-    Pre-condition: mega_tables.mega_supported(tables); a scene with a
-    rect, cylinder or triangle raises NotImplementedError (ROADMAP Queue
-    B6(b))."""
-    require_spheres_only(tables, "queue_trace_adjoint")
+    Pre-condition: mega_tables.mega_supported(tables)."""
     if plain or ro.device.type == "cpu":
         return adjoint_plain.trace_adjoint_plain(
             tables, cfg, ro, rd, pixel, sample_idx, seed, L, gcot,
@@ -410,7 +413,8 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     ro, rd = ro.contiguous(), rd.contiguous()
     L = L.to(torch.float32).contiguous()
     gcot = gcot.to(torch.float32).contiguous()
-    blocks = adjoint_grid_blocks(tab.shape[0], ms.n_slots, dev)
+    blocks = adjoint_grid_blocks(tab.shape[0], ms.n_slots, dev,
+                                 families=kw["fam"] is not None)
     if pool_lanes is not None:
         blocks = min(blocks, max(1, -(-int(pool_lanes) // cuda_mega.THREADS)))
     lanes = blocks * cuda_mega.THREADS

@@ -107,6 +107,94 @@ def sphere_leaf_test(tables: SceneTables, pid, ro, rd, t_min=1e-3):
     return torch.where(disc >= 0.0, t, INF)
 
 
+def rect_leaf_test(tables: SceneTables, pid, ro, rd, t_min=1e-3):
+    """Hit distance [B] of each ray against ONE known rect, row pid [B]
+    (rt_tpu ops/intersect.py `_rect_leaf_test` :279-304): the constant
+    and free axes picked per lane by index; inf where there is no hit.
+    Differentiable in rect_k, rect_lo and rect_hi."""
+    row = pid.long()
+    a = tables.rect_axis[row].long()
+    k = geom.take_rows(tables.rect_k, row)
+    lo = geom.take_rows(tables.rect_lo, row)
+    hi = geom.take_rows(tables.rect_hi, row)
+    f1 = torch.where(a == 0, 1, 0)
+    f2 = torch.where(a == 2, 1, 2)
+
+    def take(v, idx):
+        return torch.gather(v, 1, idx[:, None])[:, 0]
+
+    ro_k = take(ro, a)
+    rd_k = take(rd, a)
+    t = geom.safe_div(k - ro_k, rd_k)
+    x = take(ro, f1) + t * take(rd, f1)
+    y = take(ro, f2) + t * take(rd, f2)
+    valid = ((t >= t_min) & (rd_k != 0.0)
+             & (x >= lo[:, 0]) & (x <= hi[:, 0])
+             & (y >= lo[:, 1]) & (y <= hi[:, 1]))
+    return torch.where(valid, t, INF)
+
+
+def cylinder_leaf_test(tables: SceneTables, pid, ro, rd, t_min=1e-3):
+    """Hit distance [B] of each ray against ONE known cylinder, row pid
+    [B] (`_cylinder_leaf_test` :307-336): the ray in object space, the
+    radial quadratic, the nearer root in the z window first.
+    Differentiable in cyl_radius, cyl_zmin and cyl_zmax."""
+    row = pid.long()
+    w2o = geom.take_rows(tables.cyl_w2o, row)
+    oo = geom.apply_point(w2o, ro)
+    od = geom.apply_vec(w2o, rd)
+    r = geom.take_rows(tables.cyl_radius, row)
+    zmin = geom.take_rows(tables.cyl_zmin, row)
+    zmax = geom.take_rows(tables.cyl_zmax, row)
+    a = od[:, 0] ** 2 + od[:, 1] ** 2
+    b = 2.0 * (od[:, 0] * oo[:, 0] + od[:, 1] * oo[:, 1])
+    c = oo[:, 0] ** 2 + oo[:, 1] ** 2 - r * r
+    delta = b * b - 4.0 * a * c
+    sq = geom.safe_sqrt(delta)
+    t0 = geom.safe_div(-0.5 * (b - sq), a)
+    t1 = geom.safe_div(-0.5 * (b + sq), a)
+    t0, t1 = torch.minimum(t0, t1), torch.maximum(t0, t1)
+
+    def zok(t):
+        pz = oo[:, 2] + t * od[:, 2]
+        return (pz >= zmin) & (pz <= zmax)
+
+    ok0 = (t0 >= t_min) & zok(t0) & (a != 0.0)
+    ok1 = (t1 >= t_min) & zok(t1) & (a != 0.0)
+    t = torch.where(ok0, t0, torch.where(ok1, t1, INF))
+    return torch.where(delta >= 0.0, t, INF)
+
+
+def triangle_leaf_test(tables: SceneTables, pid, ro, rd, t_min=1e-3):
+    """Hit distance [B] of each ray against ONE known triangle, row pid
+    [B] (`_triangle_leaf_test` :251-276): the plane distance signed
+    toward the origin's side, the three strict edge tests, only rays
+    heading into the plane. Differentiable in tri_v1, tri_v2 and tri_v3
+    (the normal is the table's tri_n, as the reference's)."""
+    row = pid.long()
+    v1 = geom.take_rows(tables.tri_v1, row)
+    v2 = geom.take_rows(tables.tri_v2, row)
+    v3 = geom.take_rows(tables.tri_v3, row)
+    n0 = geom.take_rows(tables.tri_n, row)
+    oc_n = geom.dot(ro - v1, n0)
+    sign = torch.where(oc_n < 0.0, -1.0, 1.0)
+    d_n = geom.dot(rd, n0) * sign
+    oc_n = oc_n * sign
+    a = geom.length(rd)
+    theta = d_n / a
+    root = geom.safe_div(-oc_n, theta * a)
+    r_pt = ro + root[:, None] * rd
+
+    def side(va, vb):
+        return geom.dot(geom.cross(vb - va, r_pt - va), n0)
+
+    s1, s2, s3 = side(v1, v2), side(v2, v3), side(v3, v1)
+    inside = (((s1 > 0) & (s2 > 0) & (s3 > 0))
+              | ((s1 < 0) & (s2 < 0) & (s3 < 0)))
+    valid = (theta < 0.0) & inside & (root >= t_min)
+    return torch.where(valid, root, INF)
+
+
 def _rect_free_axes(axis):
     """Const axis -> (free1, free2) ascending: 0->(1,2), 1->(0,2), 2->(0,1)."""
     f1 = torch.where(axis == 0, 1, 0)
@@ -284,7 +372,8 @@ def _rect_attrs(tables: SceneTables, row, p_lin):
     outward = torch.nn.functional.one_hot(axis, 3).to(p_lin.dtype)
     x = torch.gather(p_lin, 1, free[:, :1])[:, 0]
     y = torch.gather(p_lin, 1, free[:, 1:])[:, 0]
-    lo, hi = tables.rect_lo[row], tables.rect_hi[row]
+    lo = geom.take_rows(tables.rect_lo, row)
+    hi = geom.take_rows(tables.rect_hi, row)
     return (outward, p_lin, (x - lo[:, 0]) / (hi[:, 0] - lo[:, 0]),
             (y - lo[:, 1]) / (hi[:, 1] - lo[:, 1]), tables.rect_mat[row])
 
@@ -299,7 +388,8 @@ def _cylinder_attrs(tables: SceneTables, row, ro, rd, t_safe):
     on = torch.cat([op[:, :2], torch.zeros_like(op[:, :1])], dim=-1)
     on_len = geom.safe_length(on)
     on = on / torch.where(on_len == 0.0, 1.0, on_len)[:, None]
-    zmin, zmax = tables.cyl_zmin[row], tables.cyl_zmax[row]
+    zmin = geom.take_rows(tables.cyl_zmin, row)
+    zmax = geom.take_rows(tables.cyl_zmax, row)
     deg = (op[:, 1] == 0.0) & (op[:, 0] == 0.0)
     phi = torch.atan2(op[:, 1], torch.where(deg, 1.0, op[:, 0])) \
         + 2 * math.pi
@@ -313,8 +403,9 @@ def _triangle_attrs(tables: SceneTables, row, p_lin):
     """The winning triangle's (hittable.py:258-262): its geometric
     normal; (u, v) by the standard barycentric weights (the swapped
     weights of the Taichi reference come from SceneDef.taichi_tri_uv)."""
-    tv1, tv2, tv3 = (tables.tri_v1[row], tables.tri_v2[row],
-                     tables.tri_v3[row])
+    tv1, tv2, tv3 = (geom.take_rows(tables.tri_v1, row),
+                     geom.take_rows(tables.tri_v2, row),
+                     geom.take_rows(tables.tri_v3, row))
     area2 = geom.safe_length(geom.cross(tv2 - tv1, tv3 - tv1))
     area2 = torch.where(area2 == 0.0, 1.0, area2)
     l1 = geom.safe_length(geom.cross(tv2 - p_lin, tv3 - p_lin)) / area2

@@ -15,7 +15,7 @@ reference's, in the reference's order; the kernel repeats them.
 reads (ops/adjoint_plain.py): the replay runs the forward's own
 expressions, so C_after, the attenuation and P are the forward's bits.
 `capture_plain`, the plain version of the tape-capture kernel
-(csrc/capture.cu), records each bounce's winner row from the same
+(csrc/capture.cu), records each bounce's winner code from the same
 bounce. `regen_plain`, the plain version of the regeneration kernel
 (csrc/regen.cu), runs the same bounce over the whole spp loop, with
 each sample's camera rays from ops/camera.generate_rays.
@@ -522,24 +522,20 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
                   p_rr, grad_bg, bg, fam=None):
     """The plain version of the tape-capture kernel B4 (csrc/capture.cu,
     rt_tpu/ops/pallas_mega.py `_capture_kernel` :1978): trace the fresh
-    rays of `state` [13, B] (pixel ids [B], one sample index) for
-    max_depth bounces and return (codes [max_depth, B] int32, death [B]
-    int32).
+    rays of `state` [13, B] (pixel ids [B], one sample index) against the
+    sphere table `tab` and the family tables `fam` (as do_bounce_plain)
+    for max_depth bounces and return (codes [max_depth, B] int32, death
+    [B] int32).
 
-    codes[b, i] is the winner's row (the tape code `0 << 24 | row` of a
-    sphere) when lane i, alive entering bounce b, hits a sphere, and -1
-    on a miss and at every bounce after the lane's death. A lane that
-    roulette stops at bounce b still records that bounce's winner, as
-    the reference's kernel evaluates the hit on every lane. death[i] is
-    the number of bounces after which the lane is still alive. The row
-    is the pid because the table keeps the scene's order (no Morton
-    sort, ROADMAP C-3). `state` is not changed. Spheres only: family
-    tables (`fam`) raise until the tape codes carry the family (ROADMAP
-    Queue B4(b))."""
-    if fam is not None:
-        raise NotImplementedError(
-            "capture_plain: rects, cylinders and triangles in the winner "
-            "tape are not ported yet (ROADMAP Queue B4(b))")
+    codes[b, i] is the winner's tape code `family << 24 | row`
+    (pallas_mega.py:1882-1892: FAM_* and the row in its family's table)
+    when lane i, alive entering bounce b, hits, and -1 on a miss and at
+    every bounce after the lane's death. A lane that roulette stops at
+    bounce b still records that bounce's winner, as the reference's
+    kernel evaluates the hit on every lane. death[i] is the number of
+    bounces after which the lane is still alive. The row is the pid
+    because the tables keep the scene's order (no Morton sort, ROADMAP
+    C-3). `state` is not changed."""
     b = state.shape[1]
     dev = state.device
     codes = torch.full((max_depth, b), -1, dtype=torch.int32, device=dev)
@@ -550,8 +546,9 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
         if idx.numel() == 0:
             break
         bn = bounce_plain(tab, sub, pixel[idx], sample, k, seed, t_min=t_min,
-                          p_rr=p_rr, grad_bg=grad_bg, bg=bg)
-        codes[k, idx] = torch.where(bn.hit, bn.row, -1).to(torch.int32)
+                          p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam)
+        codes[k, idx] = torch.where(bn.hit, (bn.family << 24) | bn.row,
+                                    -1).to(torch.int32)
         keep = bn.scattered
         idx, sub = idx[keep], bn.state[:, keep]
         death[idx] += 1

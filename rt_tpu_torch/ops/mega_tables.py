@@ -95,18 +95,6 @@ def mega_supported(tables: SceneTables) -> bool:
     return sum(tables.counts) > 0
 
 
-def require_spheres_only(tables: SceneTables, what: str) -> None:
-    """Raise for a scene with a live rect, cylinder or triangle row:
-    the winner tape and the adjoints trace spheres only so far."""
-    if tables.has_families:
-        raise NotImplementedError(
-            f"{what}: rects, cylinders and triangles in the winner tape "
-            "(B4), the adjoints (B5, B6) and the differentiable paths are "
-            "not ported yet (ROADMAP Queue B4(b), B5(b), B6(b)); this "
-            f"scene has {tables.counts[1:]} live rect / cylinder / "
-            "triangle rows")
-
-
 def _pad_rows(tab: torch.Tensor, chunk: int) -> torch.Tensor:
     n = tab.shape[0]
     if n % chunk:

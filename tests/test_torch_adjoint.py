@@ -97,9 +97,9 @@ def assert_grads_close(want, got, label):
         assert err <= 1e-5 + 1e-3 * mag, (label, k, err, mag)
 
 
-def port_grads(tt, cfg, px, py, tgt, params, **kw):
+def port_grads(tt, cfg, px, py, tgt, params, spp=2, **kw):
     p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-    loss = treplay.make_replay_loss_fn(tt, cfg, 2, torch.from_numpy(px),
+    loss = treplay.make_replay_loss_fn(tt, cfg, spp, torch.from_numpy(px),
                                        torch.from_numpy(py),
                                        torch.from_numpy(tgt), **kw)(p)
     loss.backward()

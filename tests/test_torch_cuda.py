@@ -818,3 +818,113 @@ def test_family_tables_are_checked():
                            **kw)
     assert cuda_mega.mega_segment.launches == before + 1
     assert fam.rect.shape[1] == mega_tables.F_COLS
+
+
+def _family_adj(dev, name, w, h, depth, **over):
+    """Sample 0's camera rays on a family scene with their radiance (the
+    queue kernel) and a seeded loss cotangent; "big" is a table past the
+    staged rows (3,000 random spheres, 64 materials) with an emissive
+    rect, a cylinder and a triangle added (ROADMAP C-7)."""
+    from rt_tpu_torch.ops import camera, cuda_queue
+
+    if name == "big":
+        sdef, cfg = builders.random_spheres_scene(3000, 64, width=w,
+                                                  height=h, max_depth=depth)
+        sdef.add_rect("xz_rect", -3, 3, -3, 3, 4.0,
+                      sdef.add_diffuse_light_color((4.0, 4.0, 4.0)))
+        sdef.add_cylinder(0.5, -0.5, 0.5, sdef.add_metal((0.8, 0.8, 0.7),
+                                                         0.1),
+                          translate=(0.0, 0.5, 0.0))
+        sdef.add_triangle((-2, 0, -1), (2, 0, -1), (0, 2, -1),
+                          sdef.add_lambertian_color((0.3, 0.6, 0.3)))
+        tt = types.build_tables(sdef, device=dev)
+    else:
+        tt, cfg = _family_scene(dev, name, w, h, 1, depth)
+    cfg = cfg.replace(compact_schedule=(2, 3, 5, 10), compact_group=16,
+                      **over)
+    pix = torch.arange(w * h, device=dev)
+    ro, rd = camera.generate_rays(tt.camera, w, h, pix % w, pix // w, 0, 0,
+                                  cfg.enable_defocus)
+    L = cuda_queue.queue_trace(tt, cfg, ro, rd, pix, 0, 0)
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1e-3, (w * h, 3)).astype(np.float32)).to(dev)
+    return tt, cfg, ro, rd, pix, L, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,over", [
+    ("demo", {}), ("demo", {"p_rr": 0.9, "background_mode": "gradient"}),
+    ("cover_lights", {}), ("mesh", {}), ("big", {})],
+    ids=["demo", "demo_rr", "cover_lights", "mesh", "big"])
+def test_family_capture_and_adjoints_match_plain(name, over):
+    """B4, B5 and B6 on a scene with rects, cylinders or triangles
+    against their plain versions at 192x108 (96x64 for the table past the
+    staged rows): B4's codes (`family << 24 | row`) and death counts bit
+    for bit, one launch; B5's and B6's gradients per field within
+    1e-5 + 1e-3 max|g|, exact and truncated, and B6 against B5."""
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+
+    dev = _card()
+    w, h = (96, 64) if name == "big" else (192, 108)
+    depth = 16 if name == "mesh" else 12
+    tt, cfg, ro, rd, pix, L, g = _family_adj(dev, name, w, h, depth, **over)
+    assert tt.mega.fam is not None
+    args = (tt, cfg, ro, rd, pix, 0, 0)
+    before = cuda_mega.mega_capture.launches
+    codes, death = cuda_mega.mega_capture(*args)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_capture.launches == before + 1
+    p_codes, p_death = cuda_mega.mega_capture(*args, plain=True)
+    assert torch.equal(codes, p_codes) and torch.equal(death, p_death)
+    fams = set((codes[codes >= 0] >> 24).tolist())
+    assert len(fams) >= 2 and fams <= {0, 1, 2, 3}, fams
+    for depth_bwd, exhaust in ((depth, False), (3, False)):
+        adj = (*args, L, g, depth_bwd, exhaust)
+        want = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+        before = (cuda_mega.mega_adjoint_segment.launches,
+                  cuda_queue.queue_adjoint_launch.launches)
+        k_m = cuda_mega.mega_trace_adjoint(*adj)
+        k_q = cuda_queue.queue_trace_adjoint(*adj, check_once=True)
+        torch.cuda.synchronize()
+        assert cuda_mega.mega_adjoint_segment.launches > before[0]
+        assert cuda_queue.queue_adjoint_launch.launches > before[1]
+        _grads_close(want, k_m)
+        _grads_close(want, k_q)
+        _grads_close(k_m, k_q)
+        assert float(want["tex_color"].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,kernel", [
+    ([], "queue_adjoint_launch"), (["--engine", "mega"],
+                                   "mega_adjoint_segment"),
+    (["--method", "tape", "--fields", "rect_k,cyl_radius,tex_color"],
+     "mega_capture")], ids=["replay", "mega", "tape"])
+def test_fit_cli_runs_the_kernels(tmp_path, extra, kernel):
+    """`python -m rt_tpu_torch fit -f scenes/demo_scene.json` on the card
+    at 96x54, depth 8: exit 0 (the loss fell), both files written, and
+    the method's kernel launched."""
+    from rt_tpu_torch import cli
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.render.renderer import render
+
+    dev = _card()
+    tt, cfg = _family_scene(dev, "demo", 96, 54, 16, 8)
+    tc = tt.tex_color.clone()
+    tc[3] *= 0.8
+    tc[1] = torch.tensor([0.2, 0.6, 0.3], device=dev)
+    import dataclasses
+    img = render(dataclasses.replace(tt, tex_color=tc), cfg, device="cuda")
+    np.savez(tmp_path / "t.npz", img=(img / 16).cpu().numpy())
+    counts = {"queue_adjoint_launch": cuda_queue.queue_adjoint_launch,
+              "mega_adjoint_segment": cuda_mega.mega_adjoint_segment,
+              "mega_capture": cuda_mega.mega_capture}
+    before = counts[kernel].launches
+    rc = cli.main(["fit", "-f", f"{ROOT}/scenes/demo_scene.json",
+                   "--target", str(tmp_path / "t.npz"), "--fields",
+                   "tex_color,mat_albedo", "-spp", "4", "--steps", "3",
+                   "-d", "8", "--out", str(tmp_path / "out")] + extra)
+    assert rc == 0
+    assert counts[kernel].launches > before
+    for f in ("recovered.npz", "after.png"):
+        assert (tmp_path / "out" / f).stat().st_size > 0

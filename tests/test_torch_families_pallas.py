@@ -12,9 +12,9 @@ exp and log round a few ulps from torch's, and an ulp that flips a
 checker square or a grazing hit moves a lane by more); B7's sample
 counter and alive word exactly on those lanes. Then the port's own
 engines against its plain wavefront engine by images_close, the regen
-frame against the mega frame bit for bit, and the guards of the paths
-that trace spheres only (the tape capture B4, the adjoints B5 / B6, the
-differentiable entry points). The CUDA kernels are held against these
+frame against the mega frame bit for bit. The capture B4 and the
+adjoints B5 / B6 on these scenes: tests/test_torch_families_tape.py,
+test_torch_families_adjoint.py. The CUDA kernels are held against these
 plain versions bit for bit on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 
@@ -186,77 +186,6 @@ def test_closest_hit_family_tie_goes_to_the_later_family():
         tt.mega.table, *o.T, *d.T, 1e-3, tt.mega.fam)
     assert fam.tolist() == [mega_plain.FAM_RECT] * 2
     assert row.tolist() == [1, 1]
-
-
-def _guards(tt, cfg):
-    """Each path that traces spheres only, called on a family scene."""
-    from rt_tpu_torch.diff import inverse, replay, tape
-
-    b = 8
-    px = torch.arange(b)
-    ro = torch.zeros((b, 3))
-    rd = torch.tensor([[0.0, 0.0, -1.0]]).repeat(b, 1)
-    lg = torch.zeros((b, 3))
-    target = np.zeros((cfg.height, cfg.width, 3), np.float32)
-    ms = tt.mega
-    return {
-        "mega_capture": lambda: cuda_mega.mega_capture(
-            tt, cfg, ro, rd, px, 0, 0),
-        "mega_trace_adjoint": lambda: cuda_mega.mega_trace_adjoint(
-            tt, cfg, ro, rd, px, 0, 0, lg, lg, 2, False),
-        "queue_trace_adjoint": lambda: cuda_queue.queue_trace_adjoint(
-            tt, cfg, ro, rd, px, 0, 0, lg, lg, 2, False),
-        "mega_adjoint_segment": lambda: cuda_mega.mega_adjoint_segment(
-            ms.table, torch.zeros((19, b)), px.int(), 0, 0, 0, 2,
-            torch.zeros((8, ms.n_slots)), bg=ms.bg, fam=ms.fam),
-        "queue_adjoint_launch": lambda: cuda_queue.queue_adjoint_launch(
-            ms.table, ro, rd, px.int(), 0, lg, lg, None, None, None, None,
-            seed=0, max_depth=2, budget=0, bg=ms.bg, fam=ms.fam, blocks=1),
-        "capture_plain": lambda: mega_plain.capture_plain(
-            ms.table, mega_plain.fresh_state(ro, rd), px, 0, 0, 2,
-            **mega_plain.trace_options(tt, cfg)),
-        "fit_ad": lambda: inverse.fit(tt, cfg, target, steps=1,
-                                      device="cpu"),
-        "fit_replay": lambda: inverse.fit(tt, cfg, target, steps=1,
-                                          method="replay", device="cpu"),
-        "fit_tape": lambda: inverse.fit(tt, cfg, target, steps=1,
-                                        method="tape", device="cpu"),
-        "make_loss_fn": lambda: inverse.make_loss_fn(tt, cfg, 1),
-        "make_replay_render": lambda: replay.make_replay_render(
-            tt, cfg, 1, px, px),
-        "make_replay_loss_fn": lambda: replay.make_replay_loss_fn(
-            tt, cfg, 1, px, px, lg),
-        "make_tape_render": lambda: tape.make_tape_render(
-            tt, cfg, 1, px, px),
-        "make_tape_loss_fn": lambda: tape.make_tape_loss_fn(
-            tt, cfg, 1, px, px, lg),
-        "make_tape_vg": lambda: tape.make_tape_vg(tt, cfg, px, px, lg),
-        "capture_tape": lambda: tape.capture_tape(tt, cfg, ro, rd, px, 0,
-                                                  0),
-    }
-
-
-GUARDED = ("mega_capture", "mega_trace_adjoint", "queue_trace_adjoint",
-           "mega_adjoint_segment", "queue_adjoint_launch", "capture_plain",
-           "fit_ad", "fit_replay", "fit_tape", "make_loss_fn",
-           "make_replay_render", "make_replay_loss_fn", "make_tape_render",
-           "make_tape_loss_fn", "make_tape_vg", "capture_tape")
-
-
-@pytest.mark.parametrize("what", GUARDED)
-def test_sphere_only_paths_refuse_family_scenes(demo, what):
-    """B4, B5, B6 and the diff entry points raise NotImplementedError
-    naming the next slice before any launch or gradient, on the CPU as
-    on the card; the forward launch counts do not move."""
-    _, _, tt, cfg = demo
-    counts = (cuda_mega.mega_capture.launches,
-              cuda_mega.mega_adjoint_segment.launches,
-              cuda_queue.queue_adjoint_launch.launches)
-    with pytest.raises(NotImplementedError, match=r"B4\(b\)|B5\(b\)"):
-        _guards(tt, cfg.replace(engine="queue"))[what]()
-    assert counts == (cuda_mega.mega_capture.launches,
-                      cuda_mega.mega_adjoint_segment.launches,
-                      cuda_queue.queue_adjoint_launch.launches)
 
 
 def test_sphere_scenes_keep_the_sphere_only_tables(demo):

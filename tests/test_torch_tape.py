@@ -286,9 +286,7 @@ def test_tape_gradient_matches_finite_difference():
 
 @pytest.mark.parametrize("field,err,match", [
     ("cyl_w2o", ValueError, "tape gradients cover"),
-    ("images", NotImplementedError, r"B2\(c\)"),
-    ("rect_k", NotImplementedError, r"B4\(b\)"),
-    ("tri_v1", NotImplementedError, r"B4\(b\)")])
+    ("images", NotImplementedError, r"B2\(c\)")])
 def test_tape_refuses_unknown_and_unported_fields(field, err, match):
     _, _, tt, cfg = mixed_scene()
     px, py = (torch.from_numpy(x) for x in pixels())

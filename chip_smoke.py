@@ -47,7 +47,19 @@ cylinder fields there and with the triangle vertices on mesh_scene; and
 this slice's main path, `python -m rt_tpu_torch fit -f
 scenes/demo_scene.json` at its 960x540, depth 40, spp 4, for the replay
 (B3 + B6), mega (B2 + B5), tape (B4), --fd and --camera estimators, each
-of which must exit 0. Each phase prints its
+of which must exit 0. Next-event estimation closes it (the kernels'
+kNee instantiations): B2 and B3 with nee, nee + mis, nee + glossy and
+all three, at p_rr 0 and 0.9, against their plain versions bit for bit
+at 192x108 on a scene of all four light families and on
+demo_scene.json, and B5 / B6 with nee against the plain adjoint (37);
+cover_scene(lights=True) at the bench shape with nee and with mis on
+queue and mega, each frame's mean against the frame without NEE, one
+B2 / B3 trace call and one exact B5 / B6 call against their plain
+versions and their bounds (38); this slice's main path, `render -f
+scenes/demo_scene.json --nee` (and --mis, --mis --nee-glossy) at the
+scene's 960x540, spp 128, depth 40 (39), and `fit ... --nee` with the
+replay, mega and tape estimators, whose loss must fall (40). Each phase
+prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -65,6 +77,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -106,6 +119,10 @@ CAMERA_OPS = 45
 # FP32 operations per (lane, row) of each family's hit function in
 # csrc/bounce.cuh (sphere, rect, cylinder, triangle), counted there
 FAMILY_OPS = (SPHERE_OPS_PER_PAIR, 36, 62, 71)
+# FP32 operations of a NEE shadow ray besides its rows (bounce.cuh
+# shadow_any_hit: a, w.s, |s|^2, the max and 1/a); per row its any-hit
+# test costs FAMILY_OPS
+SHADOW_SETUP_OPS = 17
 
 W, H, SPP, DEPTH = 1920, 1080, 2, 50     # rt_tpu bench.py:67-71 shape
 MAIN_SPP = 16                            # bench.py's one-launch spp
@@ -385,6 +402,40 @@ def all_families_scene(w, h, spp, depth):
     s.set_camera((0, 0.3, 1.2), (0, 0, -2), (0, 1, 0), 55, 0.0)
     return s, RenderConfig(width=w, height=h, samples_per_pixel=spp,
                            max_depth=depth)
+
+
+def light_scene(w, h, spp, depth):
+    """The four light families of tests/test_nee.py's `_light_scene` (a
+    sphere, an xz_rect, a cylinder and a triangle light over a lambertian
+    sphere on a lambertian ground), the sphere light checker-textured,
+    plus a fuzzy metal sphere for the glossy light sampler and a glass
+    sphere (tests/test_torch_nee.py's scene): (SceneDef, RenderConfig)."""
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.scene.types import SceneDef
+
+    s = SceneDef(width=w, height=h, samples_per_pixel=spp, max_depth=depth,
+                 background=(0.0, 0.0, 0.0))
+    s.add_sphere((0, 0, -2), 0.5, s.add_lambertian_color((0.6, 0.4, 0.3)))
+    s.add_sphere((0, -100.5, -2), 100,
+                 s.add_lambertian_color((0.5, 0.5, 0.55)))
+    s.add_sphere((1.6, 0.4, -1.4), 0.25, s.add_diffuse_light(
+        s.add_checker((8.0, 3.0, 3.0), (3.0, 8.0, 3.0))))
+    s.add_rect("xz_rect", -0.8, 0.8, -2.8, -1.2, 2.0,
+               s.add_diffuse_light_color((6.0, 5.5, 5.0)))
+    s.add_cylinder(0.2, -0.3, 0.3, s.add_diffuse_light_color((2.0, 4.0, 8.0)),
+                   rotate=((1, 0, 0), 90.0), translate=(-1.5, 0.6, -2.0))
+    s.add_triangle((-2.2, 0.1, -2.6), (-1.4, 0.1, -3.0), (-1.8, 1.0, -2.8),
+                   s.add_diffuse_light_color((7.0, 2.0, 6.0)))
+    s.add_sphere((-0.9, -0.2, -1.5), 0.3, s.add_metal((0.8, 0.8, 0.7), 0.3))
+    s.add_sphere((0.9, -0.25, -1.4), 0.25, s.add_dielectric(1.5))
+    s.set_camera((0, 0.4, 1.2), (0, 0, -2), (0, 1, 0), 55, 0.0)
+    return s, RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           max_depth=depth)
+
+
+NEE_FLAGS = {"nee": dict(nee=True), "nee+mis": dict(nee=True, mis=True),
+             "nee+glossy": dict(nee=True, nee_glossy=True),
+             "nee+mis+glossy": dict(nee=True, mis=True, nee_glossy=True)}
 
 
 def demo_scene(w=None, h=None, spp=None):
@@ -1868,12 +1919,272 @@ def main() -> int:
                                          f"{counts}, wrote {files}")
                 fit_cli[key] = dict(sec=sec, launches=counts)
 
+    # ---- next-event estimation, MIS and glossy (B2, B3, B5, B6 with
+    # kNee) ----
+    nee_rows = {}
+    with phase(f"37 NEE: B2 / B3 vs plain bit for bit, B5 / B6 vs plain "
+               f"at {SMALL_W}x{SMALL_H} depth 8"):
+        px = torch.arange(SMALL_W * SMALL_H, device=dev)
+        err_nee_b5 = err_nee_b6 = 0.0
+        for label, (sd, cb) in (
+                ("four light families", light_scene(SMALL_W, SMALL_H, 1, 8)),
+                ("demo_scene.json", demo_scene(SMALL_W, SMALL_H, 1))):
+            tb = build_tables(sd, device=dev)
+            if tb.mega.lights is None:
+                raise AssertionError(f"{label}: no light table")
+            ro_, rd_ = generate_rays(tb.camera, SMALL_W, SMALL_H,
+                                     px % SMALL_W, px // SMALL_W, 1, 0,
+                                     cb.enable_defocus)
+            for flags, kw in NEE_FLAGS.items():
+                for p_rr in (0.0, 0.9):
+                    c = cb.replace(max_depth=8, p_rr=p_rr, compact_every=2,
+                                   queue_steps=3, **kw)
+                    for name, fn, eng in (
+                            ("B2", cuda_mega.mega_trace, "mega"),
+                            ("B3", cuda_queue.queue_trace, "queue")):
+                        ce = c.replace(engine=eng)
+                        reset_counts()
+                        k_out = fn(tb, ce, ro_, rd_, px, 1, 0)
+                        counts = read_counts()
+                        p_out = fn(tb, ce, ro_, rd_, px, 1, 0, plain=True)
+                        differ = int((k_out != p_out).any(-1).sum())
+                        print(f"  {label}, {flags}, p_rr {p_rr}: {name} vs "
+                              f"plain on {px.numel()} lanes, {differ} lanes "
+                              f"differ, mean radiance "
+                              f"{float(k_out.mean()):.5f}, launches "
+                              f"{sum(counts.values())}", flush=True)
+                        if differ or sum(counts.values()) <= 0:
+                            raise AssertionError(
+                                f"{label} {flags}: {name} is not its plain "
+                                "version bit for bit")
+            c = cb.replace(max_depth=8, nee=True, compact_every=2)
+            pix, ro_a, rd_a, L, g = adjoint_inputs(tb, c, SMALL_W, SMALL_H,
+                                                   0)
+            for p_rr in (0.0, 0.9):
+                ca = c.replace(p_rr=p_rr)
+                L = cuda_queue.queue_trace(tb, ca, ro_a, rd_a, pix, 0, 0)
+                for depth_bwd, exh in ((8, False), (3, False)):
+                    adj = (tb, ca, ro_a, rd_a, pix, 0, 0, L, g, depth_bwd,
+                           exh)
+                    plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+                    k_m = cuda_mega.mega_trace_adjoint(*adj)
+                    k_q = cuda_queue.queue_trace_adjoint(*adj,
+                                                         check_once=True)
+                    lab = f"{label}, nee, p_rr {p_rr}, depth {depth_bwd}"
+                    err_nee_b5 = max(err_nee_b5,
+                                     grads_close(plain, k_m, f"{lab}: B5"))
+                    err_nee_b6 = max(err_nee_b6,
+                                     grads_close(plain, k_q, f"{lab}: B6"))
+                    grads_close(k_m, k_q, f"{lab}: B6 vs B5")
+
+    with phase(f"38 NEE at the bench shape: cover_scene(lights=True) {W}x{H} "
+               f"depth {DEPTH} spp {MAIN_SPP}, nee and mis, queue and mega"):
+        sd, cb = cover_scene(width=W, height=H, spp=MAIN_SPP,
+                             max_depth=DEPTH, lights=True)
+        # the CLI's schedule at depth >= 16, as phase 30's frames
+        cb = cb.replace(rays_per_batch=1 << 25,
+                        compact_schedule=(2, 3, 5, 10), compact_group=16)
+        tb = build_tables(sd, device=dev)
+        paths = W * H * MAIN_SPP
+        frames, nee_frames = {}, {}
+        for flags, kw in (("plain", {}), ("nee", dict(nee=True)),
+                          ("mis", dict(nee=True, mis=True))):
+            for engine in ("queue", "mega"):
+                st = {}
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                img = render(tb, cb.replace(engine=engine, **kw),
+                             device="cuda", stats=st)
+                torch.cuda.synchronize()
+                sec = time.time() - t0
+                counts = read_counts()
+                own = counts["queue_launch" if engine == "queue"
+                             else "mega_segment"]
+                mean = float(img.mean()) / MAIN_SPP
+                print(f"  {flags} {engine} frame: {sec:.4f} s = "
+                      f"{paths / sec:.0f} paths/s, launches {counts}, "
+                      f"ray-bounces {st['ray_bounces']}, mean radiance "
+                      f"{mean:.6f}; {smi}", flush=True)
+                if own <= 0 or sum(counts.values()) != own or \
+                        not bool(torch.isfinite(img).all()) or \
+                        film.negative_pixels(img):
+                    raise AssertionError(f"{flags} {engine}: launched "
+                                         f"{counts}, or a bad image")
+                frames[(flags, engine)] = dict(
+                    sec=sec, paths_per_s=paths / sec, launches=own,
+                    ray_bounces=st["ray_bounces"], mean=mean)
+                nee_frames[(flags, engine)] = img.cpu().numpy()
+        for flags in ("nee", "mis"):
+            frac, mx = images_close(nee_frames[(flags, "queue")],
+                                    nee_frames[(flags, "mega")], MAIN_SPP)
+            rel = abs(frames[(flags, "queue")]["mean"]
+                      - frames[("plain", "queue")]["mean"]) \
+                / frames[("plain", "queue")]["mean"]
+            print(f"  {flags}: queue vs mega {frac:.3%} pixels beyond 2e-3, "
+                  f"max diff {mx:.4g}; mean radiance against the frame "
+                  f"without NEE {rel:.4%} apart", flush=True)
+            # another estimator of the same image: the means agree
+            if rel > 0.01:
+                raise AssertionError(f"{flags}: the frame's mean is {rel:.2%}"
+                                     " from the frame without NEE")
+        # one trace call of sample 0 on every pixel, and one exact adjoint
+        # call, against their plain versions and the bound
+        px_ = torch.arange(W * H, device=dev)
+        ro_, rd_ = generate_rays(tb.camera, W, H, px_ % W, px_ // W, 0, 0,
+                                 cb.enable_defocus)
+        ops_row = hit_ops(tb)
+        nbytes_tab = table_bytes(tb) + tb.mega.lights.numel() * 4
+        cn = cb.replace(nee=True)
+
+        def nee_bound(ray_bounces, extra_bytes):
+            """(ms, by, ops): the hit loops of the ray-bounces plus the
+            shadow rays' any-hit rows the plain version just counted."""
+            rows = mega_plain.shadow_occluded.rows
+            rays = mega_plain.shadow_occluded.rays
+            ops = (ray_bounces * ops_row + rays * SHADOW_SETUP_OPS
+                   + sum(o * n for o, n in zip(FAMILY_OPS, rows)))
+            return (*bound_of(ops, extra_bytes + nbytes_tab), ops, rays)
+
+        for name, fn in (("mega_segment", cuda_mega.mega_trace),
+                         ("queue_launch", cuda_queue.queue_trace)):
+            args = (tb, cn.replace(engine="mega" if name == "mega_segment"
+                                   else "queue"), ro_, rd_, px_, 0, 0)
+            st = {}
+            k_out = fn(*args, stats=st)
+            ms, _ = cuda_ms(lambda: fn(*args), 5)
+            mega_plain.shadow_occluded.rays = 0
+            mega_plain.shadow_occluded.rows = [0, 0, 0, 0]
+            pms, p_out = cuda_ms(lambda: fn(*args, plain=True), 1)
+            differ = int((k_out != p_out).any(-1).sum())
+            b_ms, b_by, ops, rays = nee_bound(
+                st["ray_bounces"], W * H * (12 + 12 + 4 + 12))
+            print(f"  nee {name}: trace {ms:.4f} ms, plain {pms:.4f} ms "
+                  f"({differ} of {W * H} lanes differ), bound {b_ms:.4f} ms "
+                  f"({b_by}: {st['ray_bounces']} ray-bounces x {ops_row} "
+                  f"ops + {rays} shadow rays with "
+                  f"{mega_plain.shadow_occluded.rows} rows tested, "
+                  f"{ops:.4g} ops; {b_ms / ms:.1%} of the bound); {smi}",
+                  flush=True)
+            if differ:
+                raise AssertionError(f"nee {name} != plain")
+            nee_rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                                  bound_by=b_by, max_abs_err=0.0,
+                                  ray_bounces=st["ray_bounces"],
+                                  shadow_rays=rays,
+                                  frame_launches=frames[
+                                      ("nee", "queue" if name ==
+                                       "queue_launch" else "mega")][
+                                      "launches"])
+        pix, ro_a, rd_a, L, g = adjoint_inputs(tb, cn, W, H, 0)
+        adj = (tb, cn, ro_a, rd_a, pix, 0, 0, L, g, DEPTH, False)
+        for name, fn in (("mega_adjoint_segment",
+                          cuda_mega.mega_trace_adjoint),
+                         ("queue_adjoint_launch",
+                          cuda_queue.queue_trace_adjoint)):
+            st = {}
+            k_out = fn(*adj, stats=st)
+            ms, _ = cuda_ms(lambda: fn(*adj), 3)
+            mega_plain.shadow_occluded.rays = 0
+            mega_plain.shadow_occluded.rows = [0, 0, 0, 0]
+            pms, p_out = cuda_ms(lambda: fn(*adj, plain=True), 1)
+            err = grads_close(p_out, k_out, f"nee {name} vs plain")
+            b_ms, b_by, ops, rays = nee_bound(
+                st["ray_bounces"], W * H * (12 + 12 + 4 + 12 + 12)
+                + 8 * tb.mega.n_slots * 4)
+            print(f"  nee {name}: exact adjoint call {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                  f"{st['ray_bounces']} ray-bounces, {rays} shadow rays, "
+                  f"{ops:.4g} ops; {b_ms / ms:.1%} of the bound), "
+                  f"{st.get('launches')} launches; {smi}", flush=True)
+            nee_rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                                  bound_by=b_by, max_abs_err=err,
+                                  ray_bounces=st["ray_bounces"],
+                                  shadow_rays=rays,
+                                  call_launches=st.get("launches"))
+
+    with phase("39 main path: python -m rt_tpu_torch render -f "
+               "scenes/demo_scene.json --nee, --mis, --mis --nee-glossy "
+               "(960x540, spp 128, depth 40, engine queue)"):
+        sd, cd = demo_scene()
+        dw, dh, dspp = cd.width, cd.height, cd.samples_per_pixel
+        nee_cli = {}
+        for key, flags in (("nee", ["--nee"]), ("mis", ["--mis"]),
+                           ("mis_glossy", ["--mis", "--nee-glossy"])):
+            with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                rc = cli.main(["render", "-f", DEMO, "-o", "d.ppm"] + flags)
+                torch.cuda.synchronize()
+                sec = time.time() - t0
+                counts = read_counts()
+                vals = np.array(open("d.ppm").read().split()[4:],
+                                dtype=np.float64)
+            paths = dw * dh * dspp
+            print(f"  render {' '.join(flags)}: exit {rc}, {sec:.4f} s = "
+                  f"{paths / sec:.0f} paths/s; launches {counts}; image "
+                  f"{vals.size // 3} pixels, mean {vals.mean():.3f}; {smi}",
+                  flush=True)
+            if rc != 0 or counts["queue_launch"] <= 0 or \
+                    sum(counts.values()) != counts["queue_launch"] or \
+                    vals.size != dw * dh * 3 or \
+                    not np.isfinite(vals).all() or vals.max() <= 0:
+                raise AssertionError(f"render {flags}: exit {rc}, launched "
+                                     f"{counts}, or a bad image")
+            nee_cli[key] = dict(sec=sec, launches=counts["queue_launch"])
+
+    with phase("40 main path: python -m rt_tpu_torch fit -f "
+               "scenes/demo_scene.json --nee (960x540, depth 40, spp 4, 3 "
+               "steps): replay, mega, tape"):
+        sd, cd = demo_scene()
+        p = sd.camera_params
+        td = build_tables(sd, device=dev)
+        tc = td.tex_color.clone()
+        tc[3] = tc[3] * 0.8
+        tc[1] = torch.tensor([0.2, 0.6, 0.3], device=dev)
+        import dataclasses
+        img = render(dataclasses.replace(td, tex_color=tc),
+                     cd.replace(engine="queue", nee=True),
+                     device="cuda") / cd.samples_per_pixel
+        base = ["fit", "-f", DEMO, "--target", "T.npz", "--fields",
+                "tex_color,mat_albedo", "-spp", "4", "--steps", "3", "--nee"]
+        calls = (("replay", [], ("queue_launch", "queue_adjoint_launch")),
+                 ("mega", ["--engine", "mega"],
+                  ("mega_segment", "mega_adjoint_segment")),
+                 ("tape", ["--method", "tape"], ("mega_capture",)))
+        nee_fit = {}
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            np.savez("T.npz", img=img.cpu().numpy())
+            for key, extra, want in calls:
+                out_dir = os.path.join(tmp, key)
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(base + extra + ["--out", out_dir])
+                torch.cuda.synchronize()
+                sec = time.time() - t0
+                counts = read_counts()
+                text = buf.getvalue()
+                print("  " + text.strip().splitlines()[0], flush=True)
+                print(f"  fit --nee {key}: exit {rc}, {sec:.4f} s (3 steps "
+                      f"and the after.png render at spp "
+                      f"{cd.samples_per_pixel}); launches {counts}; {smi}",
+                      flush=True)
+                if rc != 0 or not text.startswith("loss: ") or \
+                        any(counts[k] <= 0 for k in want):
+                    raise AssertionError(f"fit --nee {key}: exit {rc}, "
+                                         f"launched {counts}")
+                nee_fit[key] = dict(sec=sec, launches=counts)
+
     def family_rows(name):
         """A kernel's numbers on the family workloads, for its entry in
         the kernels line."""
         return {k: v[name] for k, v in families.items()}
 
-    print(f"[37 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    print(f"[41 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -1896,6 +2207,9 @@ def main() -> int:
         **rows["mega_segment"],
         "library_ms": None,
         "families": family_rows("mega_segment"),
+        "nee": {**nee_rows["mega_segment"],
+                "cli_fit_launches": nee_fit["mega"]["launches"][
+                    "mega_segment"]},
     }, {
         "name": "queue_launch",
         "route": "cuda",
@@ -1909,6 +2223,11 @@ def main() -> int:
         "cli_fit_launches": {k: v["launches"]["queue_launch"]
                              for k, v in fit_cli.items()},
         "families": family_rows("queue_launch"),
+        "nee": {**nee_rows["queue_launch"],
+                "cli_render_launches": {k: v["launches"]
+                                        for k, v in nee_cli.items()},
+                "cli_fit_launches": nee_fit["replay"]["launches"][
+                    "queue_launch"]},
     }, {
         "name": "mega_adjoint_segment",
         "route": "cuda",
@@ -1927,6 +2246,10 @@ def main() -> int:
                          **families["cover_lights"]["mega_adjoint_segment"],
                          "launches": fam_train[
                              ("mega", TRAIN_BWD_DEPTH)]["launches"]}},
+        "nee": {**nee_rows["mega_adjoint_segment"],
+                "max_abs_err_small": err_nee_b5,
+                "cli_fit_launches": nee_fit["mega"]["launches"][
+                    "mega_adjoint_segment"]},
     }, {
         "name": "queue_adjoint_launch",
         "route": "cuda",
@@ -1943,6 +2266,10 @@ def main() -> int:
                          **families["cover_lights"]["queue_adjoint_launch"],
                          "launches": fam_train[
                              ("queue", TRAIN_BWD_DEPTH)]["launches"]}},
+        "nee": {**nee_rows["queue_adjoint_launch"],
+                "max_abs_err_small": err_nee_b6,
+                "cli_fit_launches": nee_fit["replay"]["launches"][
+                    "queue_adjoint_launch"]},
     }, {
         "name": "mega_capture",
         "route": "cuda",

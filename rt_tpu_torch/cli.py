@@ -81,6 +81,12 @@ def cmd_render(args) -> int:
         cfg = cfg.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
     elif ce is not None:
         cfg = cfg.replace(compact_every=ce)
+    if args.nee:
+        cfg = cfg.replace(nee=True)
+    if args.mis:
+        cfg = cfg.replace(nee=True, mis=True)
+    if args.nee_glossy:
+        cfg = cfg.replace(nee=True, nee_glossy=True)
     tables = build_tables(sdef, device=dev)
 
     stats = {}
@@ -99,8 +105,10 @@ def cmd_render(args) -> int:
     else:
         write_image(out, film.finalize(img, spp, gamma=False))
     counts = ", ".join(f"{k} {v}" for k, v in sorted(stats.items()))
+    sampling = "".join(f", {k}" for k in ("nee", "mis", "nee_glossy")
+                       if getattr(cfg, k))
     print(f"wrote {out} ({cfg.width}x{cfg.height} @ {spp}spp, depth "
-          f"{cfg.max_depth}, engine {cfg.engine} on {args.device}, "
+          f"{cfg.max_depth}{sampling}, engine {cfg.engine} on {args.device}, "
           f"{dt:.2f}s, paths/s {cfg.width * cfg.height * spp / dt:.0f}; "
           f"{counts})")
     return 0
@@ -277,6 +285,17 @@ def main(argv=None) -> int:
                     help="mega: live-lane grouping every N bounces (-1 "
                          "auto, 0 off; default: the schedule 2,3,5,10 in "
                          "groups of 16 for depth >= 16, else off)")
+    rp.add_argument("--nee", action="store_true",
+                    help="next-event estimation: area-sample one light per "
+                         "lambertian bounce with a shadow ray (the "
+                         "reference's opt-in extension; in the kernels "
+                         "of queue and mega, for every light family)")
+    rp.add_argument("--mis", action="store_true",
+                    help="balance-heuristic multiple importance sampling "
+                         "of NEE and the BSDF draw (implies --nee)")
+    rp.add_argument("--nee-glossy", action="store_true",
+                    help="extend NEE / MIS to fuzzy-metal bounces with "
+                         "their fuzz-ball density (implies --nee)")
     rp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     rp.set_defaults(fn=cmd_render)
 
@@ -325,8 +344,10 @@ def main(argv=None) -> int:
                     help="truncate the replay backward at this bounce")
     fp.add_argument("-d", "--max-depth", type=int, default=None)
     fp.add_argument("--nee", action="store_true",
-                    help="next-event estimation (not ported yet, ROADMAP "
-                         "Queue A-5: raises)")
+                    help="fit with next-event estimation on, in the "
+                         "forward render and in the gradient (the adjoint "
+                         "kernels and the winner tape replay the direct "
+                         "term exactly)")
     fp.add_argument("--gradient-sky", action="store_true",
                     help="render with the gradient-sky background")
     fp.add_argument("--engine", default=None,

@@ -27,6 +27,11 @@ triangle tables are in scene order and nothing is culled, so on exact-t
 ties it may pick another sphere or triangle than rt_tpu's Morton-sorted
 tables (ROADMAP C-3). What it lacks raises NotImplementedError
 (check_supported).
+
+nee, mis and nee_glossy follow the reference's rule (`nee_on`): light
+sampling runs only when cfg.nee is set and the scene has an emitter;
+mis and nee_glossy take effect only with it, so a scene without lights
+renders bit for bit as without nee.
 """
 
 from __future__ import annotations
@@ -90,9 +95,6 @@ def check_supported(cfg: RenderConfig) -> None:
     """Raise for a configuration the port cannot render yet."""
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r} (want {ENGINES})")
-    if cfg.nee or cfg.mis or cfg.nee_glossy:
-        raise NotImplementedError(
-            "nee / mis / nee_glossy are not ported yet (ROADMAP Queue A-5)")
     if cfg.sampler != "rng":
         raise NotImplementedError(
             f"sampler={cfg.sampler!r}: QMC is not ported yet "
@@ -110,6 +112,12 @@ def check_supported(cfg: RenderConfig) -> None:
             "gradients need no fixed-trip loop (autograd records the "
             "'while' loop, diff/inverse.py method='ad'; the path replay "
             "runs any engine, diff/replay.py)")
+
+
+def nee_on(cfg: RenderConfig, tables) -> bool:
+    """Whether a trace samples lights (rt_tpu/render/integrator.py:410):
+    cfg.nee and at least one emitter in the scene."""
+    return bool(cfg.nee) and tables.n_lights > 0
 
 
 def resolve_device(device: Optional[str] = "cuda") -> torch.device:

@@ -9,9 +9,13 @@
 // :1141-1163), cylinders (`cyl_body` :1165-1222) and triangles
 // (`_tri_chunk_math` :1224-1267) in that order, merged as `_merge`
 // (:753-763) does, the winner's attributes and normal (:1290-1317), the
-// checker texture (:1319-1324), the scatter (:1420-1486) and the non-NEE
-// accumulation (:1488-1527); and `_make_background` (:774). The
-// expressions are the reference's, in its order;
+// checker texture (:1319-1324), the scatter (:1420-1486), the
+// accumulation (:1488-1527) and, with kNee, next-event estimation: the
+// emission weight under NEE / MIS (:1487-1527), the light sample and its
+// weights (:1529-1698) with the shadow any-hit `_shadow_occluded`
+// (:831-1009), and the alive encodings (:1838-1875); and
+// `_make_background` (:774). The expressions are the reference's, in
+// its order;
 // ops/mega_plain.do_bounce_plain is the plain twin. The adjoint
 // variant, do_bounce<true> (the reference's `adjoint=True` block
 // :1700-1800), runs the same expressions and adds the suffix-identity
@@ -46,7 +50,20 @@
 // function below); plus 16 of ray setup (a, d.o, |o|^2, 1/a) and the
 // winner's shading per ray-bounce (a cylinder's normal adds 41). The
 // shading depends on the material hit (none for a miss, the most for a
-// refracting dielectric); chip_smoke.py's bound leaves it out.
+// refracting dielectric); chip_smoke.py's bound leaves it out. A NEE
+// shadow ray costs per row 23 for a sphere (its any-hit test), as many
+// as the closest-hit test for the other families, and 17 of setup (a,
+// w.s, |s|^2, the max and 1/a); the light sample's own arithmetic is
+// left out of the bound, as the shading is.
+//
+// NEE (kNee, a scene with lights and cfg.nee): the light rows
+// (ops/mega_tables.light_table, a handful) are read through __ldg. The
+// shadow ray's any-hit scans the staged spheres, the tail and the family
+// rows in the closest-hit loop's order and returns at the first
+// occluder: its answer is an OR, so it equals the reference's full scan
+// bit for bit. MIS and glossy are runtime flags of the scene, uniform
+// over a launch. Without kNee every kernel compiles to the code it had
+// before NEE.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,6 +93,16 @@ constexpr int kTV1 = 15, kTE1 = 18, kTE2 = 21, kTE3 = 24, kTD0 = 27,
 constexpr int kFSlot = 31;
 // the winner's family (ops/intersect.py PTYPE_*)
 constexpr int kFamSphere = 0, kFamRect = 1, kFamCyl = 2, kFamTri = 3;
+// the light table (ops/mega_tables.py light_table): family, area, Le
+// even / odd, checker flag, the sampling block at 9..23, the gradient
+// slot, the row in its family's table
+constexpr int kLCols = 26;
+constexpr int kLFam = 0, kLArea = 1, kLLe = 2, kLLe2 = 5, kLChecker = 8,
+              kLSlot = 24, kLRow = 25;
+// the shadow segment's end, 1 - 1e-3 in units of |w| (float32)
+constexpr float kTHi = 0.999f;
+constexpr float k2Pi = 6.28318530717958647692f;
+constexpr float k2OverPi = static_cast<float>(2.0 / 3.14159265358979323846);
 // rows staged in shared memory (40 KB); the rest are read from global
 constexpr int kStageRows = 2048;
 static_assert(kStageRows * 20 <= 48 * 1024,
@@ -108,6 +135,13 @@ struct Scene {
   float bg_r, bg_g, bg_b;
   int exhaust_bg;
   uint32_t seed;
+  // NEE's light table, [n_lights, kLCols] in global memory (null and 0
+  // rows without NEE): read only by kNee; mis and glossy as
+  // RenderConfig's, nee_w the float32 of 2 n_lights / pi
+  const float* lights;
+  int n_lights;
+  int mis, glossy;
+  float nee_w;
 };
 
 // The launchers' scalar arguments, in their C order (cuda_mega._scalars).
@@ -119,6 +153,17 @@ struct Scene {
 #define RTT_FAMILY_ARGS                                                  \
   const float *rect, int n_rect, const float *cyl, int n_cyl,           \
       const float *tri, int n_tri
+// Every launcher's light table and NEE flags, after its scalars
+// (ops/cuda_mega.nee_args); lights null and n_lights 0 without NEE.
+#define RTT_NEE_ARGS const float *lights, int n_lights, int mis, int glossy
+
+// The instantiation K<kTail, kFamilies, kNee> of a kernel template that
+// a scene runs.
+#define RTT_PICK(K, tail, fam, nee)                                       \
+  ((tail) ? ((fam) ? ((nee) ? K<true, true, true> : K<true, true, false>)  \
+                   : ((nee) ? K<true, false, true> : K<true, false, false>)) \
+          : ((fam) ? ((nee) ? K<false, true, true> : K<false, true, false>) \
+                   : ((nee) ? K<false, false, true> : K<false, false, false>)))
 
 __host__ inline Scene make_scene(const float* table, int n,
                                  RTT_SCENE_ARGS) {
@@ -139,6 +184,10 @@ __host__ inline Scene make_scene(const float* table, int n,
   s.seed = seed;
   s.rect = s.cyl = s.tri = nullptr;
   s.n_rect = s.n_cyl = s.n_tri = 0;
+  s.lights = nullptr;
+  s.n_lights = 0;
+  s.mis = s.glossy = 0;
+  s.nee_w = 0.0f;
   return s;
 }
 
@@ -152,6 +201,19 @@ __host__ inline Scene with_families(Scene s, RTT_FAMILY_ARGS) {
   s.n_tri = n_tri;
   return s;
 }
+
+// A scene with a launcher's light table and NEE flags.
+__host__ inline Scene with_nee(Scene s, RTT_NEE_ARGS) {
+  s.lights = lights;
+  s.n_lights = lights ? n_lights : 0;
+  s.mis = mis;
+  s.glossy = glossy;
+  s.nee_w = static_cast<float>(2.0 * s.n_lights / 3.14159265358979323846);
+  return s;
+}
+
+// Whether a scene samples lights (the kernels' kNee instantiation).
+__host__ inline bool has_nee(const Scene& s) { return s.n_lights > 0; }
 
 // Whether a scene has rect, cylinder or triangle rows (the kernels'
 // kFamilies instantiation).
@@ -334,6 +396,213 @@ __device__ __forceinline__ float hit_tri(const float* r, float ox, float oy,
   return valid ? t : CUDART_INF_F;
 }
 
+// Whether the shadow segment s + t w, t in [t_min, kTHi], meets one
+// sphere (`sph_shadow_math` :864-880): the expanded quadratic with
+// 1 / max(a, 1e-20) multiplied in, either root in the segment. 23 FP32
+// operations, as the closest-hit test.
+__device__ __forceinline__ bool shadow_sphere(float4 c, const float* valid,
+                                              float sx, float sy, float sz,
+                                              float wx, float wy, float wz,
+                                              float a_s, float rd_ro,
+                                              float ro_sq, float inv_a,
+                                              float t_min) {
+  const float hb = rd_ro - (c.x * wx + c.y * wy + c.z * wz);
+  const float c_term = ro_sq - 2.0f * (c.x * sx + c.y * sy + c.z * sz) + c.w;
+  const float disc = hb * hb - a_s * c_term;
+  const float sqrtd = sqrtf(fmaxf(disc, 0.0f));
+  const float r1 = (-hb - sqrtd) * inv_a;
+  const float r2 = (-hb + sqrtd) * inv_a;
+  return disc >= 0.0f && *valid > 0.0f &&
+         ((r1 >= t_min && r1 <= kTHi) || (r2 >= t_min && r2 <= kTHi));
+}
+
+// The NEE shadow ray's any-hit (`_shadow_occluded` :831-1009): whether
+// anything lies on s + t w, t in [t_min, kTHi]. A rect, cylinder or
+// triangle occludes exactly when its closest-hit candidate t is at most
+// kTHi (the reference's any-hit tests are the candidate tests with that
+// bound added). It returns at the first occluder.
+template <bool kTail, bool kFamilies>
+__device__ __forceinline__ bool shadow_any_hit(const Scene& s, float sx,
+                                            float sy, float sz, float wx,
+                                            float wy, float wz) {
+  const float a_s = wx * wx + wy * wy + wz * wz;
+  const float rd_ro = wx * sx + wy * sy + wz * sz;
+  const float ro_sq = sx * sx + sy * sy + sz * sz;
+  const float inv_a = 1.0f / fmaxf(a_s, 1e-20f);
+  for (int j = 0; j < s.n_smem; ++j)
+    if (shadow_sphere(s.hit4[j], s.valid + j, sx, sy, sz, wx, wy, wz, a_s,
+                      rd_ro, ro_sq, inv_a, s.t_min))
+      return true;
+  if (kTail) {
+    for (int j = s.n_smem; j < s.n; ++j) {
+      const float* r = s.table + static_cast<size_t>(j) * kCols;
+      if (shadow_sphere(make_float4(__ldg(r + kV), __ldg(r + kV + 1),
+                                    __ldg(r + kV + 2), __ldg(r + kC2r)),
+                        r + kValid, sx, sy, sz, wx, wy, wz, a_s, rd_ro,
+                        ro_sq, inv_a, s.t_min))
+        return true;
+    }
+  }
+  if constexpr (kFamilies) {
+    for (int j = 0; j < s.n_rect; ++j)
+      if (hit_rect(s.rect + static_cast<size_t>(j) * kFCols, sx, sy, sz, wx,
+                   wy, wz, s.t_min) <= kTHi)
+        return true;
+    for (int j = 0; j < s.n_cyl; ++j)
+      if (hit_cyl(s.cyl + static_cast<size_t>(j) * kFCols, sx, sy, sz, wx,
+                  wy, wz, s.t_min) <= kTHi)
+        return true;
+    for (int j = 0; j < s.n_tri; ++j)
+      if (hit_tri(s.tri + static_cast<size_t>(j) * kFCols, sx, sy, sz, wx,
+                  wy, wz, s.t_min) <= kTHi)
+        return true;
+  }
+  return false;
+}
+
+// The metal's fuzz-ball density about the mirror direction
+// (pallas_mega.py:1675-1684, :1853-1861): fuzz^3 as fuzz * (fuzz * fuzz).
+__device__ __forceinline__ float glossy_density(float cosr, float fuzz) {
+  const float s2 = fuzz * fuzz - (1.0f - cosr * cosr);
+  if (!(cosr > 0.0f && s2 > 0.0f && fuzz > 0.0f)) return 0.0f;
+  const float sq = sqrtf(fmaxf(s2, 0.0f));
+  const float f = fmaxf(fuzz, 1e-8f);
+  return sq * (3.0f * cosr * cosr + s2) / (k2Pi * (f * (f * f)));
+}
+
+// The weight of the emission a bounce under NEE adds (:1487-1527): under
+// MIS the balance heuristic against the previous bounce's density
+// (alive = 2 + p_prev; p_prev 0: weight 1), the hit emitter's area from
+// its light row, matched by family and row; without MIS 0 after a
+// light-sampled bounce (alive 0.5), else 1.
+__device__ __forceinline__ float emission_weight(
+    const Scene& s, float alive, int fam, int row, float px, float py,
+    float pz, float ox, float oy, float oz, float nx, float ny, float nz) {
+  if (!s.mis) return alive == 0.5f ? 0.0f : 1.0f;
+  float area_h = 0.0f;
+  for (int k = 0; k < s.n_lights; ++k) {
+    const float* l = s.lights + static_cast<size_t>(k) * kLCols;
+    if (__ldg(l + kLFam) == static_cast<float>(fam) &&
+        __ldg(l + kLRow) == static_cast<float>(row)) {
+      area_h = __ldg(l + kLArea);
+      break;
+    }
+  }
+  const float vx = px - ox, vy = py - oy, vz = pz - oz;
+  const float d2h = fmaxf(vx * vx + vy * vy + vz * vz, 1e-8f);
+  const float cos_lh = fabsf(nx * vx + ny * vy + nz * vz) / sqrtf(d2h);
+  const float p_nh =
+      d2h / (fmaxf(area_h * static_cast<float>(s.n_lights), 1e-8f) *
+             fmaxf(cos_lh, 1e-6f));
+  const float p_prev = fmaxf(alive - 2.0f, 0.0f);
+  return p_prev > 0.0f ? p_prev / (p_prev + p_nh + 1e-20f) : 1.0f;
+}
+
+// The direct-light sample of a light-sampling bounce (:1529-1698): one
+// light picked uniformly, a point on it from its sampling block, the
+// shadow ray from the hit point p, and the weight okl (0 below the
+// horizon or occluded) of the term tp * albedo * Le * okl; Le is the
+// light's colour by its checker parity at the sample point. lslot and
+// lodd: the light's gradient slot and that parity (the adjoint's credit
+// to the light). ref: the mirror direction (glossy metal lanes).
+struct NeeSample {
+  float okl, ler, leg, leb;
+  int lslot;
+  bool lodd;
+};
+
+template <bool kTail, bool kFamilies>
+__device__ __forceinline__ NeeSample nee_sample(
+    const Scene& s, uint32_t pre, float px, float py, float pz, float nx,
+    float ny, float nz, bool is_met, float fuzz, float ref_x, float ref_y,
+    float ref_z) {
+  NeeSample out{0.0f, 0.0f, 0.0f, 0.0f, 0, false};
+  const float u_pick = uniform(pre, kNeePick);
+  const float u1 = uniform(pre, kNeeU1);
+  const float u2 = uniform(pre, kNeeU2);
+  int li = static_cast<int>(u_pick * static_cast<float>(s.n_lights));
+  if (li > s.n_lights - 1) li = s.n_lights - 1;
+  const float* lt = s.lights + static_cast<size_t>(li) * kLCols;
+  const float fam_l = __ldg(lt + kLFam);
+  const float phi = k2Pi * u2;
+  const float cphi = cosf(phi), sphi = sinf(phi);
+  float lpx, lpy, lpz, lnx, lny, lnz;
+  if (fam_l == static_cast<float>(kFamSphere)) {
+    const float zs = 1.0f - 2.0f * u1;
+    const float sts = sqrtf(fmaxf(0.0f, 1.0f - zs * zs));
+    lnx = sts * cphi;
+    lny = sts * sphi;
+    lnz = zs;
+    lpx = __ldg(lt + 9) + __ldg(lt + 12) * lnx;
+    lpy = __ldg(lt + 10) + __ldg(lt + 12) * lny;
+    lpz = __ldg(lt + 11) + __ldg(lt + 12) * lnz;
+  } else if (fam_l == static_cast<float>(kFamRect)) {
+    const float ra = __ldg(lt + 18) + u1 * __ldg(lt + 20);
+    const float rb = __ldg(lt + 19) + u2 * __ldg(lt + 21);
+    const float k = __ldg(lt + 22);
+    lpx = __ldg(lt + 9) * k + __ldg(lt + 12) * ra + __ldg(lt + 15) * rb;
+    lpy = __ldg(lt + 10) * k + __ldg(lt + 13) * ra + __ldg(lt + 16) * rb;
+    lpz = __ldg(lt + 11) * k + __ldg(lt + 14) * ra + __ldg(lt + 17) * rb;
+    lnx = __ldg(lt + 9);
+    lny = __ldg(lt + 10);
+    lnz = __ldg(lt + 11);
+  } else if (fam_l == static_cast<float>(kFamCyl)) {
+    const float zc = __ldg(lt + 22) + u1 * __ldg(lt + 23);
+    const float cox = __ldg(lt + 21) * cphi;
+    const float coy = __ldg(lt + 21) * sphi;
+    lpx = __ldg(lt + 9) * cox + __ldg(lt + 10) * coy + __ldg(lt + 11) * zc +
+          __ldg(lt + 18);
+    lpy = __ldg(lt + 12) * cox + __ldg(lt + 13) * coy + __ldg(lt + 14) * zc +
+          __ldg(lt + 19);
+    lpz = __ldg(lt + 15) * cox + __ldg(lt + 16) * coy + __ldg(lt + 17) * zc +
+          __ldg(lt + 20);
+    lnx = __ldg(lt + 9) * cphi + __ldg(lt + 10) * sphi;
+    lny = __ldg(lt + 12) * cphi + __ldg(lt + 13) * sphi;
+    lnz = __ldg(lt + 15) * cphi + __ldg(lt + 16) * sphi;
+  } else {  // triangle: v1 + b2 e1 + b3 e2, the sqrt barycentric warp
+    const float sqt = sqrtf(u1);
+    const float b2t = sqt * (1.0f - u2);
+    const float b3t = sqt * u2;
+    lpx = __ldg(lt + 9) + b2t * __ldg(lt + 12) + b3t * __ldg(lt + 15);
+    lpy = __ldg(lt + 10) + b2t * __ldg(lt + 13) + b3t * __ldg(lt + 16);
+    lpz = __ldg(lt + 11) + b2t * __ldg(lt + 14) + b3t * __ldg(lt + 17);
+    lnx = __ldg(lt + 18);
+    lny = __ldg(lt + 19);
+    lnz = __ldg(lt + 20);
+  }
+  const float wix = lpx - px, wiy = lpy - py, wiz = lpz - pz;
+  const float d2l = fmaxf(wix * wix + wiy * wiy + wiz * wiz, 1e-8f);
+  const float distl = sqrtf(d2l);
+  const float cos_s = (nx * wix + ny * wiy + nz * wiz) / distl;
+  if (!(cos_s > 0.0f)) return out;  // below the horizon
+  if (shadow_any_hit<kTail, kFamilies>(s, px, py, pz, wix, wiy, wiz))
+    return out;
+  const float cos_lg = fabsf(lnx * wix + lny * wiy + lnz * wiz) / distl;
+  const float sin_l = sinf(10.0f * lpx) * sinf(10.0f * lpy) * sinf(10.0f * lpz);
+  out.lodd = __ldg(lt + kLChecker) > 0.0f && sin_l < 0.0f;
+  const int le = out.lodd ? kLLe2 : kLLe;
+  out.ler = __ldg(lt + le);
+  out.leg = __ldg(lt + le + 1);
+  out.leb = __ldg(lt + le + 2);
+  out.lslot = static_cast<int>(__ldg(lt + kLSlot));
+  const float area_l = __ldg(lt + kLArea);
+  const float cs = fmaxf(cos_s, 0.0f);
+  if (s.mis || s.glossy) {
+    float p_bl = k2OverPi * cs * cs * cs;
+    if (s.glossy && is_met)
+      p_bl = glossy_density(
+          (ref_x * wix + ref_y * wiy + ref_z * wiz) / distl, fuzz);
+    const float p_nl =
+        d2l / (fmaxf(area_l * static_cast<float>(s.n_lights), 1e-8f) *
+               fmaxf(cos_lg, 1e-6f));
+    out.okl = s.mis ? p_bl / (p_nl + p_bl + 1e-20f)
+                    : p_bl / fmaxf(p_nl, 1e-20f);
+  } else {
+    out.okl = (cs * cs * cs * cos_lg / d2l) * area_l * s.nee_w;
+  }
+  return out;
+}
+
 // What the adjoint bounce reads besides the lane: the sample's radiance
 // L and its cotangent g, and the accumulators it adds to (shared or
 // global memory: [kBgRow * n_slots + 3] floats, see kBgRow).
@@ -482,9 +751,15 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 // family's table, its gradient slot from column kFSlot (a sphere's is
 // kSlot); every kernel instantiates it beside the sphere-only code,
 // where the family is the constant kFamSphere and the code compiles as
-// it did before the families, and the launchers choose.
+// it did before the families, and the launchers choose. kNee (a scene
+// with lights under cfg.nee, has_nee) weights a hit emitter's emission
+// (emission_weight), adds a light-sampling bounce's direct term
+// (nee_sample: lambertian lanes, and with s.glossy metal lanes of fuzz >
+// 0) and marks the lane's alive word for the next bounce (0.5, or under
+// MIS 2 + the density of the direction drawn); with kAdjoint it also
+// credits the direct term to the winner's slot and to the light's.
 template <bool kAdjoint, bool kTail, bool kCapture = false,
-          bool kFamilies = false>
+          bool kFamilies = false, bool kNee = false>
 __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
                                           uint32_t pre, const Adj& adj,
                                           int* code = nullptr) {
@@ -621,18 +896,31 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   }
 
   if (mtype == kDiffuseLight) {  // emits and stops
-    if (kAdjoint)  // d(g.L)/d(emission) = g * P
-      credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2,
-                  adj.gr * L.tpr, adj.gg * L.tpg, adj.gb * L.tpb);
-    L.cr = L.cr + L.tpr * alb_r;
-    L.cg = L.cg + L.tpg * alb_g;
-    L.cb = L.cb + L.tpb * alb_b;
+    if constexpr (kNee) {
+      const float em = emission_weight(s, L.alive, fam_best, id_best, px, py,
+                                       pz, ox, oy, oz, nx, ny, nz);
+      if (kAdjoint && em != 0.0f)  // d(g.L)/d(emission) = g * P * em
+        credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2,
+                    adj.gr * L.tpr * em, adj.gg * L.tpg * em,
+                    adj.gb * L.tpb * em);
+      L.cr = L.cr + L.tpr * (em * alb_r);
+      L.cg = L.cg + L.tpg * (em * alb_g);
+      L.cb = L.cb + L.tpb * (em * alb_b);
+    } else {
+      if (kAdjoint)  // d(g.L)/d(emission) = g * P
+        credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2,
+                    adj.gr * L.tpr, adj.gg * L.tpg, adj.gb * L.tpb);
+      L.cr = L.cr + L.tpr * alb_r;
+      L.cg = L.cg + L.tpg * alb_g;
+      L.cb = L.cb + L.tpb * alb_b;
+    }
     L.alive = 0.0f;
     return;
   }
 
   // ---- scatter ----
   float new_dx, new_dy, new_dz;
+  float ref_x = 0.0f, ref_y = 0.0f, ref_z = 0.0f;  // mirror (not lambertian)
   if (mtype == kLambertian) {
     float bx, by, bz;
     unit_ball(pre, bx, by, bz);
@@ -649,9 +937,9 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
     const float inv_len = rsqrtf(a);
     const float ux = dx * inv_len, uy = dy * inv_len, uz = dz * inv_len;
     const float u_dot_n = ux * nx + uy * ny + uz * nz;
-    const float ref_x = ux - 2.0f * u_dot_n * nx;
-    const float ref_y = uy - 2.0f * u_dot_n * ny;
-    const float ref_z = uz - 2.0f * u_dot_n * nz;
+    ref_x = ux - 2.0f * u_dot_n * nx;
+    ref_y = uy - 2.0f * u_dot_n * ny;
+    ref_z = uz - 2.0f * u_dot_n * nz;
     if (mtype == kMetal) {
       float bx, by, bz;
       unit_ball(pre, bx, by, bz);
@@ -692,14 +980,49 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
     }
   }
 
+  // ---- next-event estimation: the direct term of a light-sampling
+  // bounce (lambertian; with glossy, metal of fuzz > 0) ----
+  bool sampled = false;
+  NeeSample ns{0.0f, 0.0f, 0.0f, 0.0f, 0, false};
+  if constexpr (kNee) {
+    sampled = mtype == kLambertian ||
+              (s.glossy && mtype == kMetal && param > 0.0f);
+    if (sampled) {
+      ns = nee_sample<kTail, kFamilies>(s, pre, px, py, pz, nx, ny, nz,
+                                        mtype == kMetal, param, ref_x, ref_y,
+                                        ref_z);
+      if (ns.okl != 0.0f) {
+        L.cr = L.cr + L.tpr * alb_r * ns.ler * ns.okl;
+        L.cg = L.cg + L.tpg * alb_g * ns.leg * ns.okl;
+        L.cb = L.cb + L.tpb * alb_b * ns.leb * ns.okl;
+      }
+    }
+  }
+
   // d(g.L)/d(att) = g * (L - C_after) / att; C_after is the radiance
-  // so far, which a scattering bounce does not change. A dielectric's
-  // attenuation is the constant 1 and takes none.
-  if (kAdjoint && mtype != kDielectric)
-    credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2,
-                att_cot(adj.gr, adj.Lr, L.cr, alb_r),
-                att_cot(adj.gg, adj.Lg, L.cg, alb_g),
-                att_cot(adj.gb, adj.Lb, L.cb, alb_b));
+  // so far, which a scattering bounce changes only by its direct term.
+  // A dielectric's attenuation is the constant 1 and takes none. Under
+  // NEE the direct term tp * alb * Le * okl adds g * tp * Le * okl to
+  // the winner's slot and g * tp * alb * okl to the light's
+  // (pallas_mega.py:1725-1760).
+  if (kAdjoint && mtype != kDielectric) {
+    float c_r = att_cot(adj.gr, adj.Lr, L.cr, alb_r);
+    float c_g = att_cot(adj.gg, adj.Lg, L.cg, alb_g);
+    float c_b = att_cot(adj.gb, adj.Lb, L.cb, alb_b);
+    if constexpr (kNee) {
+      c_r = c_r + adj.gr * L.tpr * ns.ler * ns.okl;
+      c_g = c_g + adj.gg * L.tpg * ns.leg * ns.okl;
+      c_b = c_b + adj.gb * L.tpb * ns.leb * ns.okl;
+    }
+    credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2, c_r, c_g,
+                c_b);
+    if constexpr (kNee) {
+      if (ns.okl != 0.0f)
+        credit_slot(adj, ns.lslot, ns.lodd, adj.gr * L.tpr * alb_r * ns.okl,
+                    adj.gg * L.tpg * alb_g * ns.okl,
+                    adj.gb * L.tpb * alb_b * ns.okl);
+    }
+  }
 
   L.tpr = L.tpr * alb_r * s.rr_comp;
   L.tpg = L.tpg * alb_g * s.rr_comp;
@@ -711,6 +1034,22 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   L.dy = new_dy;
   L.dz = new_dz;
   L.alive = 1.0f;
+  if constexpr (kNee) {
+    if (sampled && !s.mis) {
+      L.alive = 0.5f;
+    } else if (sampled) {  // 2 + the density of the direction drawn
+      const float ndl =
+          sqrtf(new_dx * new_dx + new_dy * new_dy + new_dz * new_dz);
+      const float inl = 1.0f / fmaxf(ndl, 1e-12f);
+      const float csd =
+          fmaxf((nx * new_dx + ny * new_dy + nz * new_dz) * inl, 0.0f);
+      float pb = k2OverPi * csd * csd * csd;
+      if (mtype == kMetal)  // sampled: glossy, fuzz > 0
+        pb = glossy_density(
+            (ref_x * new_dx + ref_y * new_dy + ref_z * new_dz) * inl, param);
+      L.alive = 2.0f + pb;
+    }
+  }
 }
 
 }  // namespace rtt

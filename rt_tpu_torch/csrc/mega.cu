@@ -4,7 +4,7 @@
 // Replaces: rt_tpu/ops/pallas_mega.py::_mega_kernel (:1899-1976), the
 // Pallas TPU kernel launched by mega_segment (:2460, pallas_call :2524),
 // for spheres, rects, cylinders and triangles with solid and checker
-// textures, no NEE, sampler "rng".
+// textures, NEE / MIS / glossy light sampling (kNee), sampler "rng".
 // Contract kept from it: the 13-word ray state in and out (origin,
 // direction, throughput, radiance, alive), per-lane pixel and sample
 // ids, a start bounce that offsets the RNG's bounce coordinate, at most
@@ -38,7 +38,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies>
+template <bool kTail, bool kFamilies, bool kNee>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
             int n, const int* __restrict__ pixel,
@@ -61,7 +61,7 @@ mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
   const uint32_t lane_key = rtt::fold(rtt::fold(scene.seed, pix), smp);
   int b = 0;
   while (b < max_depth && L.alive > 0.0f) {
-    rtt::do_bounce<false, kTail, false, kFamilies>(
+    rtt::do_bounce<false, kTail, false, kFamilies, kNee>(
         scene, L, rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)),
         rtt::Adj{});
     ++b;
@@ -75,7 +75,8 @@ mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
 }  // namespace
 
 // table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri
-// [n_*, 32] f32 or null with 0 rows; state [13, stride] f32, of
+// [n_*, 32] f32 or null with 0 rows; lights [n_lights, 26] f32 or
+// null (no NEE), mis and glossy 0 / 1; state [13, stride] f32, of
 // which lanes [0, n) are traced in place; pixel [>= n] i32; sample
 // [>= n] i32 or null (then every lane uses sample_scalar); depth
 // [>= n] i32 or null (else each lane's bounce count is added to it).
@@ -86,18 +87,18 @@ extern "C" int mega_segment_launch(const float* table, int rows,
                                    const int* pixel, const int* sample,
                                    int sample_scalar, int start_bounce,
                                    int max_depth, RTT_SCENE_ARGS,
-                                   int* depth, int threads, void* stream) {
-  const rtt::Scene scene = rtt::with_families(
-      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
-                      bg_g, bg_b, exhaust_bg),
-      rect, n_rect, cyl, n_cyl, tri, n_tri);
+                                   RTT_NEE_ARGS, int* depth, int threads,
+                                   void* stream) {
+  const rtt::Scene scene = rtt::with_nee(
+      rtt::with_families(
+          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
+                          bg_r, bg_g, bg_b, exhaust_bg),
+          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      lights, n_lights, mis, glossy);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const int blocks = (n + threads - 1) / threads;
-  const bool fam = rtt::has_families(scene);
-  const auto kernel =
-      rtt::has_tail(rows)
-          ? (fam ? mega_kernel<true, true> : mega_kernel<true, false>)
-          : (fam ? mega_kernel<false, true> : mega_kernel<false, false>);
+  const auto kernel = RTT_PICK(mega_kernel, rtt::has_tail(rows),
+                               rtt::has_families(scene), rtt::has_nee(scene));
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       scene, state, stride, n, pixel, sample, sample_scalar, start_bounce,
       max_depth, depth);

@@ -4,8 +4,9 @@
 // Replaces: rt_tpu/ops/pallas_mega.py::_adjoint_kernel (:2183), the
 // Pallas TPU kernel launched by adjoint_segment (:2568, pallas_call
 // :2620) and driven by mega_trace_adjoint (:3079), for spheres, rects,
-// cylinders and triangles with solid and checker textures, no NEE,
-// sampler "rng", no image atlas.
+// cylinders and triangles with solid and checker textures, NEE without
+// MIS or glossy (kNee; the reference's kernel takes nee and n_lights
+// only, :2203-2204), sampler "rng", no image atlas.
 // Contract kept from it: the forward megakernel's segment (mega.cu) with
 // two more per-lane inputs, the sample's radiance L and its loss
 // cotangent g, replayed bounce by bounce from the counter RNG with
@@ -45,7 +46,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies>
+template <bool kTail, bool kFamilies, bool kNee>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
                     long long stride, int n, const int* __restrict__ pixel,
@@ -79,7 +80,7 @@ mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
     const uint32_t lane_key = rtt::fold(rtt::fold(scene.seed, pix), smp);
     int b = 0;
     while (b < max_depth && L.alive > 0.0f) {
-      rtt::do_bounce<true, kTail, false, kFamilies>(
+      rtt::do_bounce<true, kTail, false, kFamilies, kNee>(
           scene, L, rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)),
           adj);
       ++b;
@@ -105,7 +106,8 @@ mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
 }  // namespace
 
 // table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri [n_*, 32]
-// f32 or null with 0 rows; state [19, stride] f32 (the
+// f32 or null with 0 rows; lights [n_lights, 26] f32 or null (no NEE);
+// state [19, stride] f32 (the
 // forward's 13 rows, then L and g), of which lanes [0, n) are replayed
 // in place; pixel [>= n] i32; sample [>= n] i32 or null (then
 // sample_scalar); grad [8, n_slots] f32, added to; shared_acc: keep the
@@ -118,24 +120,23 @@ extern "C" int mega_adjoint_launch(const float* table, int rows,
                                    const int* pixel, const int* sample,
                                    int sample_scalar, int start_bounce,
                                    int max_depth, RTT_SCENE_ARGS,
+                                   const float* lights, int n_lights,
                                    float* grad, int n_slots, int shared_acc,
                                    int* depth, int threads, void* stream) {
-  const rtt::Scene scene = rtt::with_families(
-      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
-                      bg_g, bg_b, exhaust_bg),
-      rect, n_rect, cyl, n_cyl, tri, n_tri);
+  const rtt::Scene scene = rtt::with_nee(
+      rtt::with_families(
+          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
+                          bg_r, bg_g, bg_b, exhaust_bg),
+          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      lights, n_lights, 0, 0);
   const size_t smem =
       shared_acc ? rtt::after_table_bytes(rows) +
                        (rtt::kBgRow * static_cast<size_t>(n_slots) + 3) *
                            sizeof(float)
                  : rtt::table_smem_bytes(rows);
-  const bool fam = rtt::has_families(scene);
   const auto kernel =
-      rtt::has_tail(rows)
-          ? (fam ? mega_adjoint_kernel<true, true>
-                 : mega_adjoint_kernel<true, false>)
-          : (fam ? mega_adjoint_kernel<false, true>
-                 : mega_adjoint_kernel<false, false>);
+      RTT_PICK(mega_adjoint_kernel, rtt::has_tail(rows),
+               rtt::has_families(scene), rtt::has_nee(scene));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -4,7 +4,8 @@
 // survivor repack _pack_into (:75), the Pallas TPU kernel launched by
 // queue_launch (:310, pallas_call :378) and driven by queue_trace
 // (:404), for spheres, rects, cylinders and triangles with solid and
-// checker textures, no NEE, sampler "rng". Contract kept from it:
+// checker textures, NEE / MIS / glossy light sampling (kNee), sampler
+// "rng". Contract kept from it:
 // every primary ray (ro, rd, pixel, sample) is traced to its end
 // through the same bounce body as the megakernel (bounce.cuh), one
 // bounce per step, with the lane's own
@@ -42,7 +43,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTail, bool kFamilies>
+template <bool kTail, bool kFamilies, bool kNee>
 __global__ void __launch_bounds__(kThreads)
 queue_kernel(rtt::Scene scene, const float* __restrict__ ro,
              const float* __restrict__ rd, const int* __restrict__ pixel,
@@ -54,7 +55,7 @@ queue_kernel(rtt::Scene scene, const float* __restrict__ ro,
   extern __shared__ float4 smem[];
   rtt::stage_table(scene, smem);
   __syncthreads();
-  rtt::queue_loop<false, kTail, kFamilies>(
+  rtt::queue_loop<false, kTail, kFamilies, kNee>(
       scene, ro, rd, pixel, sample, sample_scalar, nullptr, nullptr, b,
       pool_f, pool_i, pool_lanes, counters, out, nullptr, 0, depth,
       written, max_depth, budget);
@@ -63,20 +64,18 @@ queue_kernel(rtt::Scene scene, const float* __restrict__ ro,
 }  // namespace
 
 // The instantiation a scene of `rows` sphere rows, with or without
-// rect / cylinder / triangle rows, runs.
-static auto pick_kernel(int rows, bool families) {
-  return rtt::has_tail(rows)
-             ? (families ? queue_kernel<true, true> : queue_kernel<true, false>)
-             : (families ? queue_kernel<false, true>
-                         : queue_kernel<false, false>);
+// rect / cylinder / triangle rows and light sampling, runs.
+static auto pick_kernel(int rows, bool families, bool nee) {
+  return RTT_PICK(queue_kernel, rtt::has_tail(rows), families, nee);
 }
 
 // Blocks of `threads` threads the card holds at once with the table's
 // shared memory: the persistent grid (negative: minus a CUDA error).
-extern "C" int queue_grid_blocks(int rows, int families, int threads) {
+extern "C" int queue_grid_blocks(int rows, int families, int nee,
+                                 int threads) {
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   int per_sm = 0, dev = 0, sms = 0;
-  const auto kernel = pick_kernel(rows, families != 0);
+  const auto kernel = pick_kernel(rows, families != 0, nee != 0);
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, threads, smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -87,7 +86,8 @@ extern "C" int queue_grid_blocks(int rows, int families, int threads) {
 }
 
 // table [rows, 18] f32; rect, cyl, tri [n_*, 32] f32 or null with 0
-// rows; ro, rd [b, 3] f32; pixel [b] i32; sample [b] i32 or null (then
+// rows; lights [n_lights, 26] f32 or null (no NEE), mis and glossy
+// 0 / 1; ro, rd [b, 3] f32; pixel [b] i32; sample [b] i32 or null (then
 // sample_scalar); pool_f [13, blocks*threads] f32 and
 // pool_i [4, blocks*threads] i32 (pool_i row 0 = -1 before the first
 // launch); counters [2] u32 (fresh-ray cursor, lanes done; 0 before the
@@ -102,13 +102,17 @@ extern "C" int queue_launch(const float* table, int rows, RTT_FAMILY_ARGS,
                             float* pool_f, int* pool_i, unsigned* counters,
                             float* out, int* depth, int* written,
                             int max_depth, int budget, RTT_SCENE_ARGS,
-                            int blocks, int threads, void* stream) {
-  const rtt::Scene scene = rtt::with_families(
-      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
-                      bg_g, bg_b, exhaust_bg),
-      rect, n_rect, cyl, n_cyl, tri, n_tri);
+                            RTT_NEE_ARGS, int blocks, int threads,
+                            void* stream) {
+  const rtt::Scene scene = rtt::with_nee(
+      rtt::with_families(
+          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
+                          bg_r, bg_g, bg_b, exhaust_bg),
+          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      lights, n_lights, mis, glossy);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
-  const auto kernel = pick_kernel(rows, rtt::has_families(scene));
+  const auto kernel = pick_kernel(rows, rtt::has_families(scene),
+                                  rtt::has_nee(scene));
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       scene, ro, rd, pixel, sample, sample_scalar, b, pool_f, pool_i,
       blocks * threads, counters, out, depth, written, max_depth, budget);

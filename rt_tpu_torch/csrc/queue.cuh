@@ -13,7 +13,8 @@
 // to the pool and the next launch resumes them.
 //
 // The pool holds, per lane, the 13 state rows (kAdjoint: then L and g,
-// 19 rows) in pool_f and 4 int32 rows in pool_i (slot or -1 for an
+// 19 rows; the alive word as it is, NEE's 0.5 and 2 + p included) in
+// pool_f and 4 int32 rows in pool_i (slot or -1 for an
 // empty lane, pixel, sample, bounce). The forward writes each finished
 // lane's radiance to out[slot]; the adjoint adds cotangents to `acc`
 // (bounce.cuh, Adj) and writes nothing per lane.
@@ -25,7 +26,8 @@ namespace rtt {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <bool kAdjoint, bool kTail, bool kFamilies = false>
+template <bool kAdjoint, bool kTail, bool kFamilies = false,
+          bool kNee = false>
 __device__ __forceinline__ void queue_loop(
     const Scene& scene, const float* __restrict__ ro,
     const float* __restrict__ rd, const int* __restrict__ pixel,
@@ -107,7 +109,7 @@ __device__ __forceinline__ void queue_loop(
     if (slot >= 0) {
       // ---- one bounce; then exhaustion and retirement ----
       if (bounce < max_depth && L.alive > 0.0f) {
-        do_bounce<kAdjoint, kTail, false, kFamilies>(
+        do_bounce<kAdjoint, kTail, false, kFamilies, kNee>(
             scene, L, fold(lane_key, static_cast<uint32_t>(bounce)), adj);
         ++bounce;
       }

@@ -4,7 +4,9 @@
 // the Pallas TPU kernel launched by queue_adjoint_launch (:736,
 // pallas_call :801) and driven by queue_trace_adjoint (:829), for
 // spheres, rects, cylinders and triangles with solid and checker
-// textures, no NEE, sampler "rng", no image atlas. Contract kept from it: the adjoint megakernel's replay
+// textures, NEE without MIS or glossy (kNee, as the reference's kernel,
+// :564), sampler "rng", no image atlas. Contract kept from it: the
+// adjoint megakernel's replay
 // (mega_adjoint.cu: do_bounce<true> of bounce.cuh, the same cotangents
 // into the same [8, n_slots] gradient block) inside the persistent ray
 // queue of queue.cu. The pool carries each lane's L and g besides its
@@ -38,7 +40,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTail, bool kFamilies>
+template <bool kTail, bool kFamilies, bool kNee>
 __global__ void __launch_bounds__(kThreads)
 queue_adjoint_kernel(rtt::Scene scene, const float* __restrict__ ro,
                      const float* __restrict__ rd,
@@ -61,10 +63,10 @@ queue_adjoint_kernel(rtt::Scene scene, const float* __restrict__ ro,
     for (int k = threadIdx.x; k < n_acc; k += blockDim.x) acc[k] = 0.0f;
   }
   __syncthreads();
-  rtt::queue_loop<true, kTail, kFamilies>(scene, ro, rd, pixel, sample, sample_scalar,
-                               lin, gin, b, pool_f, pool_i, pool_lanes,
-                               counters, nullptr, acc, n_slots, depth,
-                               written, max_depth, budget);
+  rtt::queue_loop<true, kTail, kFamilies, kNee>(
+      scene, ro, rd, pixel, sample, sample_scalar, lin, gin, b, pool_f,
+      pool_i, pool_lanes, counters, nullptr, acc, n_slots, depth, written,
+      max_depth, budget);
   if (shared_acc) {
     __syncthreads();
     for (int k = threadIdx.x; k < n_acc; k += blockDim.x) {
@@ -81,16 +83,12 @@ size_t smem_bytes(int rows, int n_slots, int shared_acc) {
                     : rtt::table_smem_bytes(rows);
 }
 
-using Kernel = decltype(&queue_adjoint_kernel<false, false>);
+using Kernel = decltype(&queue_adjoint_kernel<false, false, false>);
 
 // The instantiation a scene of `rows` sphere rows, with or without
-// rect / cylinder / triangle rows, runs.
-Kernel pick(int rows, bool families) {
-  return rtt::has_tail(rows)
-             ? (families ? queue_adjoint_kernel<true, true>
-                         : queue_adjoint_kernel<true, false>)
-             : (families ? queue_adjoint_kernel<false, true>
-                         : queue_adjoint_kernel<false, false>);
+// rect / cylinder / triangle rows and light sampling, runs.
+Kernel pick(int rows, bool families, bool nee) {
+  return RTT_PICK(queue_adjoint_kernel, rtt::has_tail(rows), families, nee);
 }
 
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -106,11 +104,11 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // shared memory (the staged table, and the accumulators when
 // shared_acc) and the registers of the instantiation the scene runs:
 // the persistent grid (negative: minus a CUDA error).
-extern "C" int queue_adjoint_grid_blocks(int rows, int families,
+extern "C" int queue_adjoint_grid_blocks(int rows, int families, int nee,
                                          int n_slots, int shared_acc,
                                          int threads) {
   const size_t smem = smem_bytes(rows, n_slots, shared_acc);
-  const Kernel kernel = pick(rows, families != 0);
+  const Kernel kernel = pick(rows, families != 0, nee != 0);
   cudaError_t err = allow_smem(kernel, smem);
   int per_sm = 0, dev = 0, sms = 0;
   if (err == cudaSuccess)
@@ -124,7 +122,8 @@ extern "C" int queue_adjoint_grid_blocks(int rows, int families,
 }
 
 // table [rows, 18] f32; rect, cyl, tri [n_*, 32] f32 or null with 0
-// rows; ro, rd, lin (L), gin (g) [b, 3] f32; pixel [b]
+// rows; lights [n_lights, 26] f32 or null (no NEE); ro, rd, lin (L),
+// gin (g) [b, 3] f32; pixel [b]
 // i32; sample [b] i32 or null (then sample_scalar); pool_f [19,
 // blocks*threads] f32 and pool_i [4, blocks*threads] i32 (pool_i row 0
 // = -1 before the first launch); counters [2] u32 (fresh-ray cursor,
@@ -139,14 +138,17 @@ extern "C" int queue_adjoint_launch(
     const int* pixel, const int* sample, int sample_scalar, const float* lin,
     const float* gin, int b, float* pool_f, int* pool_i, unsigned* counters,
     float* grad, int n_slots, int shared_acc, int* depth, int* written,
-    int max_depth, int budget, RTT_SCENE_ARGS, int blocks, int threads,
-    void* stream) {
-  const rtt::Scene scene = rtt::with_families(
-      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
-                      bg_g, bg_b, exhaust_bg),
-      rect, n_rect, cyl, n_cyl, tri, n_tri);
+    int max_depth, int budget, RTT_SCENE_ARGS, const float* lights,
+    int n_lights, int blocks, int threads, void* stream) {
+  const rtt::Scene scene = rtt::with_nee(
+      rtt::with_families(
+          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
+                          bg_r, bg_g, bg_b, exhaust_bg),
+          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      lights, n_lights, 0, 0);
   const size_t smem = smem_bytes(rows, n_slots, shared_acc);
-  const Kernel kernel = pick(rows, rtt::has_families(scene));
+  const Kernel kernel = pick(rows, rtt::has_families(scene),
+                             rtt::has_nee(scene));
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(

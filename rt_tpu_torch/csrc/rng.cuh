@@ -18,6 +18,7 @@ namespace rtt {
 constexpr uint32_t kPixelU = 1, kPixelV = 2, kLensU1 = 3, kLensU2 = 4;
 constexpr uint32_t kScatU1 = 5, kScatU2 = 6, kScatU3 = 7;
 constexpr uint32_t kDielRefl = 8, kRR = 9;
+constexpr uint32_t kNeePick = 11, kNeeU1 = 12, kNeeU2 = 13;
 
 __device__ __forceinline__ uint32_t triple32(uint32_t x) {
   x ^= x >> 17;

@@ -30,12 +30,22 @@ kernel B4 (diff/tape.py, geom_tape=True: O(1) per lane), or by the full
 plain intersect (geom_tape=False). The discrete decisions are
 comparisons, so they carry no tangent: sampling stays detached.
 
+With cfg.nee (on a scene with lights) both replays reproduce the
+forward's light sampling term for term (rt_tpu/diff/replay.py:195-330,
+:449-478): the direct term is one more per-bounce contribution, whose
+Le and albedo factors the adjoints credit (ops/adjoint_plain.py) with
+the geometry inside it detached, and whose geometry the tangent replay
+differentiates; the shadow factor is a bool and carries nothing. The
+suffix identity covers the single-technique lambertian estimator only,
+so mis or nee_glossy raise ValueError, as the reference's replay does
+(their gradients ride the tape or "ad").
+
 Scope: REPLAY_FIELDS but "images" (tex_color, tex_color2, mat_albedo,
 background) and GEOM_FIELDS by geom_spec, spheres, rects, cylinders and
-triangles with solid / checker textures, no NEE, sampler "rng". A
-family row's cotangents land in its gradient slot (its texture row, or
-its material's), so a rect light's emission trains its tex_color row.
-The image atlas raises NotImplementedError (ROADMAP Queue B2(c)).
+triangles with solid / checker textures, NEE, sampler "rng". A family
+row's cotangents land in its gradient slot (its texture row, or its
+material's), so a rect light's emission trains its tex_color row. The
+image atlas raises NotImplementedError (ROADMAP Queue B2(c)).
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from rt_tpu_torch.config import RenderConfig, check_supported
+from rt_tpu_torch.config import RenderConfig, check_supported, nee_on
 from rt_tpu_torch.diff.inverse import apply_params
 from rt_tpu_torch.diff.tape import _attributes_for_tape, capture_tape
 from rt_tpu_torch.ops import adjoint_plain, cuda_mega, cuda_queue
@@ -52,7 +62,12 @@ from rt_tpu_torch.ops import materials, rng
 from rt_tpu_torch.ops.camera import generate_rays
 from rt_tpu_torch.ops.intersect import intersect
 from rt_tpu_torch.ops.mega_tables import mega_supported
-from rt_tpu_torch.render.integrator import background_color, trace
+from rt_tpu_torch.render.integrator import (
+    background_color,
+    nee_bounce,
+    nee_emission,
+    trace,
+)
 from rt_tpu_torch.scene.types import SceneTables
 
 REPLAY_FIELDS = ("mat_albedo", "tex_color", "tex_color2", "background",
@@ -90,6 +105,13 @@ class ReplayRender:
                  bwd_kernel: Optional[bool] = None, geom_spec=None,
                  geom_tape: Optional[bool] = None):
         check_supported(cfg)
+        self.nee = nee_on(cfg, tables)
+        if self.nee and (cfg.mis or cfg.nee_glossy):
+            raise ValueError(
+                "cfg.mis / nee_glossy: the path-replay suffix identity "
+                "reproduces the single-technique lambertian NEE term; MIS "
+                "and glossy gradients ride the tape estimator (fit "
+                "--method tape) or autograd (method 'ad')")
         self.base = tables
         self.cfg = cfg
         self.spp = int(spp)
@@ -182,6 +204,9 @@ class ReplayRender:
         P = torch.ones((b, 3), dtype=torch.float32, device=ro.device)
         C = torch.zeros_like(P)
         alive = torch.ones(b, dtype=torch.bool, device=ro.device)
+        # NEE's carry: the previous bounce sampled a light
+        pd = torch.zeros(b, dtype=torch.bool, device=ro.device)
+        tcfg = cfg.replace(engine="plain")
         to, td, tP, tC = (torch.zeros((k, b, 3), dtype=torch.float32,
                                       device=ro.device) for _ in range(4))
         for i in range(self.depth_bwd):
@@ -196,7 +221,7 @@ class ReplayRender:
             code = codes[i] if self.geom_tape else None
 
             def f(o, d, P, C, pp, code=code, live=live, ball=ball,
-                  refl_u=refl_u):
+                  refl_u=refl_u, pd=pd, i=i):
                 t2 = apply_params(base, pp)
                 hit = (_attributes_for_tape(t2, o, d, code) if code is not None
                        else intersect(t2, o, d, engine="plain"))
@@ -207,19 +232,30 @@ class ReplayRender:
                 scattered = live & hit.hit & sc.ok
                 emitter = live & hit.hit & ~sc.ok
                 missed = live & ~hit.hit
+                lam = scattered
+                if self.nee:
+                    em = nee_emission(t2, tcfg, hit, o, em, pd)
                 contrib = (torch.where((scattered | emitter)[:, None], em,
                                        0.0)
                            + torch.where(missed[:, None], bg, 0.0))
+                if self.nee:
+                    # the direct term with its geometry attached; the
+                    # shadow test carries no tangent
+                    ld, lam = nee_bounce(t2, tcfg, hit, sc, d, scattered,
+                                         pixel, s, seed, i)
+                    contrib = contrib + ld
                 C2 = C + P * contrib
                 P2 = torch.where(scattered[:, None],
                                  P * sc.attenuation * rr_comp, P)
                 o2 = torch.where(scattered[:, None], hit.p, o)
                 d2 = torch.where(scattered[:, None], sc.direction, d)
-                return o2, d2, P2, C2, scattered.to(torch.float32)
+                return (o2, d2, P2, C2, scattered.to(torch.float32),
+                        lam.to(torch.float32))
 
-            (o, d, P, C, sc_f), (to, td, tP, tC, _) = _push(
+            (o, d, P, C, sc_f, lam_f), (to, td, tP, tC, _, _) = _push(
                 f, (o, d, P, C, params), (to, td, tP, tC, tans))
             alive = sc_f > 0.5
+            pd = lam_f > 0.5
         if self.exhaust_bwd:
             def f2(d, P, C, pp):
                 bg = background_color(apply_params(base, pp), cfg, d)
@@ -336,11 +372,9 @@ def make_replay_render(tables: SceneTables, cfg: RenderConfig, spp: int,
     recompute each tangent bounce's hit against the winner taped by
     diff/tape.capture_tape (kernel B4 on CUDA) rather than the full
     plain intersect; None means True on CUDA for a megakernel scene,
-    False elsewhere, as the reference's backend rule."""
-    if cfg.nee or cfg.mis or cfg.nee_glossy:
-        raise NotImplementedError(
-            "replay gradients with nee / mis / nee_glossy: NEE is not "
-            "ported yet (ROADMAP Queue A-5)")
+    False elsewhere, as the reference's backend rule. With cfg.nee on a
+    scene with lights, mis or nee_glossy raise ValueError (the module
+    doc)."""
     return ReplayRender(tables, cfg, spp, px, py, bwd_depth=bwd_depth,
                         bwd_kernel=bwd_kernel, geom_spec=geom_spec,
                         geom_tape=geom_tape)

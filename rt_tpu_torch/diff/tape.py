@@ -39,10 +39,18 @@ does not differentiate are the decisions the tape froze, and the
 interior chains (hit distance, normal, scatter direction, Schlick
 blend) are the same. Silhouette terms are not captured.
 
+With cfg.nee the capture runs without light sampling (winner codes and
+deaths do not depend on it: NEE draws its own RNG purposes and never
+changes a path), and the replay adds each bounce's direct term, under
+mis and nee_glossy too, as the wavefront integrator does
+(render/integrator.nee_emission, nee_bounce): Le and the light sample's
+geometry differentiate, the shadow test is a recomputed any-hit and
+carries no gradient (rt_tpu/diff/tape.py:228-337).
+
 Scope: spheres, rects, cylinders and triangles with solid / checker
-textures, no NEE, sampler "rng". TAPE_FIELDS keeps the reference's
-names; "images" raises NotImplementedError (image textures, ROADMAP
-Queue B2(c)).
+textures, NEE / MIS / glossy, sampler "rng". TAPE_FIELDS keeps the
+reference's names; "images" raises NotImplementedError (image textures,
+ROADMAP Queue B2(c)).
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from rt_tpu_torch.config import RenderConfig, check_supported
+from rt_tpu_torch.config import RenderConfig, check_supported, nee_on
 from rt_tpu_torch.diff.inverse import apply_params
 from rt_tpu_torch.ops import cuda_mega, materials, rng
 from rt_tpu_torch.ops.camera import generate_rays
@@ -73,7 +81,12 @@ from rt_tpu_torch.ops.intersect import (
     triangle_leaf_test,
 )
 from rt_tpu_torch.ops.mega_tables import mega_supported
-from rt_tpu_torch.render.integrator import background_color
+from rt_tpu_torch.render.integrator import (
+    background_color,
+    initial_prev_diff,
+    nee_bounce,
+    nee_emission,
+)
 from rt_tpu_torch.scene.types import CameraDef, SceneTables
 
 TAPE_SHIFT = 24                     # code = ptype << 24 | pid ; -1 = miss
@@ -135,8 +148,9 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
             if not mega_supported(tables):
                 raise ValueError("capture engine 'mega' needs a megakernel "
                                  "scene")
-            codes, _ = cuda_mega.mega_capture(tables, cfg, ro, rd, pixel,
-                                              sample, seed)
+            # winner codes do not depend on light sampling
+            codes, _ = cuda_mega.mega_capture(tables, cfg.replace(nee=False),
+                                              ro, rd, pixel, sample, seed)
             return codes
         if engine not in ("plain", "pallas"):
             raise ValueError(f"capture engine must be 'mega', 'plain' or "
@@ -208,8 +222,10 @@ def _tape_bounce(tables: SceneTables, cfg: RenderConfig, st, code, pixel,
     """One differentiable bounce against the taped winner: the
     integrator's _bounce (render/integrator.py) with the full intersect
     replaced by the known-winner recompute. st = (o, d, throughput, rgb,
-    alive)."""
-    o, d, tp, rgb, alive = st
+    alive, prev_diff); prev_diff is NEE's carry (integrator
+    initial_prev_diff), unused without light sampling."""
+    o, d, tp, rgb, alive, prev_diff = st
+    nee = nee_on(cfg, tables)
     survive = torch.ones_like(alive)
     if cfg.p_rr > 0.0:
         survive = rng.uniform(seed, pixel, sample, bounce, rng.RR) <= cfg.p_rr
@@ -226,25 +242,32 @@ def _tape_bounce(tables: SceneTables, cfg: RenderConfig, st, code, pixel,
     scattered = live & hit.hit & sc.ok
     emitter = live & hit.hit & ~sc.ok
     missed = live & ~hit_mask
+    if nee:
+        em = nee_emission(tables, cfg, hit, o, em, prev_diff)
     contrib = (torch.where((scattered | emitter)[:, None], em, 0.0)
                + torch.where(missed[:, None], bg, 0.0))
     rgb = rgb + tp * contrib
+    if nee:
+        ld, prev_diff = nee_bounce(tables, cfg, hit, sc, d, scattered, pixel,
+                                   sample, seed, bounce)
+        rgb = rgb + tp * ld
     tp = torch.where(scattered[:, None], tp * sc.attenuation * rr_comp, tp)
     o = torch.where(scattered[:, None], hit.p, o)
     d = torch.where(scattered[:, None], sc.direction, d)
-    return o, d, tp, rgb, scattered
+    return o, d, tp, rgb, scattered, prev_diff
 
 
 def _rr_comp(cfg: RenderConfig) -> float:
     return 1.0 / cfg.p_rr if cfg.p_rr > 0.0 else 1.0
 
 
-def _fresh(ro, rd):
+def _fresh(cfg, ro, rd):
     b = ro.shape[0]
     return (ro, rd,
             torch.ones((b, 3), dtype=torch.float32, device=ro.device),
             torch.zeros((b, 3), dtype=torch.float32, device=ro.device),
-            torch.ones((b,), dtype=torch.bool, device=ro.device))
+            torch.ones((b,), dtype=torch.bool, device=ro.device),
+            initial_prev_diff(cfg, b, ro.device))
 
 
 def _ckpt(fn, *args):
@@ -255,7 +278,7 @@ def _ckpt(fn, *args):
 def _exhaust(tables, cfg, st):
     """The radiance, with the sky credited to lanes alive at the end when
     cfg.exhaust_mode is "background"."""
-    o, d, tp, rgb, alive = st
+    o, d, tp, rgb, alive, _ = st
     if cfg.exhaust_mode == "background":
         bg = background_color(tables, cfg, d)
         rgb = rgb + torch.where(alive[:, None], tp * bg, 0.0)
@@ -286,7 +309,7 @@ def replay_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, codes,
             st = _ckpt(one_bounce, i, *st)
         return st
 
-    st = _fresh(ro, rd)
+    st = _fresh(cfg, ro, rd)
     n_full = depth // segment
     for k in range(n_full):
         st = _ckpt(seg_body, k * segment, *st)
@@ -464,8 +487,8 @@ def make_tape_vg(tables: SceneTables, cfg: RenderConfig, px, py, target,
             codes, deaths = [], []
             for i in range(spp):
                 ro, rd = rays(tbl, px, py, s0 + i)
-                c, dth = cuda_mega.mega_capture(tbl, cfg, ro, rd, pixel,
-                                                s0 + i, seed)
+                c, dth = cuda_mega.mega_capture(tbl, cfg.replace(nee=False),
+                                                ro, rd, pixel, s0 + i, seed)
                 codes.append(c)
                 deaths.append(dth)
             death = torch.stack(deaths).amax(0)
@@ -484,7 +507,7 @@ def make_tape_vg(tables: SceneTables, cfg: RenderConfig, px, py, target,
         """One sample's sorted, shrinking replay -> radiance [B,3] in
         sorted order."""
         ro, rd = rays(tbl, pid_s % cfg.width, pid_s // cfg.width, s)
-        st = _fresh(ro, rd)
+        st = _fresh(cfg, ro, rd)
         done = 0
         for k, seg in enumerate(sched):
             w = b if k == 0 else widths[k - 1]

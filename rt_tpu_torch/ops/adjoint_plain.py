@@ -3,8 +3,8 @@ and B6 (csrc/queue_adjoint.cu): the radiometric backward of the
 path-replay gradient for one sample (the counterpart of
 rt_tpu/ops/pallas_mega.py `do_bounce`'s adjoint block :1700-1800 and the
 `_adjoint_kernel` epilogue :2255-2285, for spheres, rects, cylinders
-and triangles with solid and checker textures, no NEE, sampler "rng",
-no image atlas).
+and triangles with solid and checker textures, NEE without MIS or
+glossy, sampler "rng", no image atlas).
 
 The replay runs `mega_plain.bounce_plain`, the forward's own bounce, so
 C_after, the attenuation and P are the forward's bits, and adds each
@@ -15,7 +15,13 @@ rect light's emission lands in its texture row):
 
   - a scattered, non-dielectric hit: g * (L - C_after) / att, per
     channel, where att != 0;
-  - a light: g * P (P: the throughput before the bounce);
+  - a light: g * P * w (P: the throughput before the bounce; w the
+    emission's weight, 0 under NEE after a light-sampled bounce);
+  - under NEE, a light-sampling bounce's direct term tp * alb * Le * okl
+    (pallas_mega.py:1725-1760): g * tp * Le * okl to the winner's slot
+    (with the attenuation's cotangent, so a checker's parity routes it),
+    and g * tp * alb * okl to the sampled light's slot, routed by the
+    light's own checker parity at the sample point;
   - a miss: g * P to the background, when the sky is the constant
     colour (grad_bg off);
   - with `exhaust`, a lane still alive after the last bounce: g * P to
@@ -55,6 +61,13 @@ def split_grads(acc: torch.Tensor, mega, grad_bg: bool) -> dict:
             "background": bg}
 
 
+def _credit(acc, slot, odd, cot) -> None:
+    """Add the cotangents cot [3, n] to the gradient slots slot [n]: the
+    primary colour's rows, or where odd the checker odd colour's."""
+    acc[0:3].index_add_(1, slot, torch.where(odd, 0.0, cot))
+    acc[3:6].index_add_(1, slot, torch.where(odd, cot, 0.0))
+
+
 def accumulate(acc, bn: mp.Bounce, L, g, grad_bg: bool) -> None:
     """Add one bounce's cotangents to acc [8, n_slots] in place. L, g:
     [3, B] rows of the lanes that bounced."""
@@ -67,15 +80,25 @@ def accumulate(acc, bn: mp.Bounce, L, g, grad_bg: bool) -> None:
         catt = torch.where(s_mask & ok,
                            g[k] * (L[k] - c_after[k])
                            / torch.where(ok, att, 1.0), 0.0)
-        cots.append(catt + torch.where(bn.emitter, g[k] * bn.tp[k], 0.0))
+        gp = g[k] * bn.tp[k]
+        if bn.em_scale is not None:
+            gp = gp * bn.em_scale
+        cot = catt + torch.where(bn.emitter, gp, 0.0)
+        if bn.okl is not None:   # the direct term's Le factor
+            cot = cot + g[k] * bn.tp[k] * bn.le[k] * bn.okl
+        cots.append(cot)
     cot = torch.stack(cots)
     lanes = torch.nonzero(s_mask | bn.emitter)[:, 0]
     if lanes.numel():
-        slot = bn.slot[lanes]
-        sel = cot[:, lanes]
-        odd = bn.use2[lanes]
-        acc[0:3].index_add_(1, slot, torch.where(odd, 0.0, sel))
-        acc[3:6].index_add_(1, slot, torch.where(odd, sel, 0.0))
+        _credit(acc, bn.slot[lanes], bn.use2[lanes], cot[:, lanes])
+    if bn.okl is not None:
+        # the direct term's emission factor, to the light's slot; a
+        # light-sampling (lambertian) lane's attenuation is its albedo
+        lanes = torch.nonzero(bn.okl != 0.0)[:, 0]
+        if lanes.numel():
+            lcot = torch.stack([g[k] * bn.tp[k] * bn.att[k] * bn.okl
+                                for k in range(3)])
+            _credit(acc, bn.lslot[lanes], bn.lodd[lanes], lcot[:, lanes])
     if not grad_bg:
         tp = torch.stack(bn.tp)
         acc[BG_ROW, 0:3] += torch.where(bn.missed, g * tp, 0.0).sum(1)
@@ -92,6 +115,7 @@ def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     Pre-condition: mega_tables.mega_supported(tables)."""
     ms = tables.mega
     kw = mp.trace_options(tables, cfg)
+    nee = mp.nee_options(tables, cfg, adjoint=True)
     dev = ro.device
     state = mp.fresh_state(ro, rd)
     lt, gt = L.T.to(torch.float32), gcot.T.to(torch.float32)
@@ -107,7 +131,8 @@ def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
         if idx.numel() == 0:
             break
         bn = mp.bounce_plain(ms.table, state[:, idx], pix[idx],
-                             smp[idx] if per_lane else smp, b, seed, **kw)
+                             smp[idx] if per_lane else smp, b, seed,
+                             nee=nee, **kw)
         state[:, idx] = bn.state
         accumulate(acc, bn, lt[:, idx], gt[:, idx], kw["grad_bg"])
         bounces += idx.numel()

@@ -2,7 +2,8 @@
 PyTorch version, and the segmented trace around them (the counterpart of
 rt_tpu/ops/pallas_mega.py `_mega_kernel` :1899, `mega_segment` :2460,
 `_compact` :2716 and `mega_trace` :2934, for spheres, rects, cylinders
-and triangles with solid and checker textures, no NEE, sampler "rng").
+and triangles with solid and checker textures, NEE / MIS / glossy light
+sampling, sampler "rng").
 
 `mega_segment` launches csrc/mega.cu (built by nvcc at first use,
 ops/cuda_build.py) for CUDA tensors and raises if it cannot; for CPU
@@ -16,7 +17,9 @@ against the sphere table and the family tables `fam`
 advances per lane while `bounce < max_depth` and the lane is alive,
 drawing its RNG at (seed, pixel, sample, start_bounce + bounce,
 purpose). `exhaust_bg` credits the sky to the lanes still alive at the
-end (the final segment of a trace only). The state is updated in place;
+end (the final segment of a trace only). `nee` (mega_plain.Nee, or None)
+turns on light sampling: the kernel's kNee instantiation, with the
+light table and the MIS / glossy flags. The state is updated in place;
 `depth`, when given, gains each lane's number of bounces.
 
 `mega_trace` runs the reference's segment schedule (`compact_every`,
@@ -64,7 +67,7 @@ import torch
 
 from rt_tpu_torch.ops import adjoint_plain, cuda_build
 from rt_tpu_torch.ops import mega_plain as mp
-from rt_tpu_torch.ops.mega_tables import F_COLS, S_COLS
+from rt_tpu_torch.ops.mega_tables import F_COLS, NL_COLS, S_COLS
 
 THREADS = 256
 # the most table rows the int32 offsets of the kernels address
@@ -94,6 +97,8 @@ SCALAR_TYPES = [ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
                 ctypes.c_float, ctypes.c_int]
 # the family tables of every launcher (bounce.cuh RTT_FAMILY_ARGS)
 FAMILY_TYPES = [ctypes.c_void_p, ctypes.c_int] * 3
+# the light table and NEE flags of the forward launchers (RTT_NEE_ARGS)
+NEE_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
 def family_args(fam, device):
@@ -112,6 +117,20 @@ def family_args(fam, device):
     return tuple(out)
 
 
+def nee_args(nee, device):
+    """The light table and flags (mega_plain.Nee, or None) as the C
+    launchers take them: (pointer or None, n_lights, mis, glossy)."""
+    if nee is None:
+        return (None, 0, 0, 0)
+    lights = nee.lights
+    n = lights.shape[0] if lights.dim() == 2 else -1
+    cuda_build.check_tensor("lights", lights, torch.float32, (n, NL_COLS),
+                            device)
+    if n < 1:
+        raise ValueError("lights: want at least one light row")
+    return (lights.data_ptr(), n, int(bool(nee.mis)), int(bool(nee.glossy)))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("mega")
@@ -123,6 +142,7 @@ def _library():
         vp, vp, ci,                   # pixel, sample (or null), sample
         ci, ci,                       # start_bounce, max_depth
         *SCALAR_TYPES,
+        *NEE_TYPES,                   # lights, n_lights, mis, glossy
         vp, ci, vp]                   # depth (or null), threads, stream
     lib.mega_segment_launch.restype = ci
     lib.mega_error_string.argtypes = [ci]
@@ -150,7 +170,7 @@ def lane_ints(name, x, n, device):
 def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
                        max_depth, *, n=None, t_min=1e-3, p_rr=0.0,
                        grad_bg=False, bg, exhaust_bg=False, depth=None,
-                       fam=None):
+                       fam=None, nee=None):
     """The plain version of one segment (see the module doc)."""
     n = state.shape[1] if n is None else n
     sub = state[:, :n]
@@ -162,7 +182,8 @@ def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
         samp = sample[idx] if per_lane else sample
         sub[:, idx] = mp.do_bounce_plain(
             tab, sub[:, idx], pixel[idx], samp, start_bounce + b, seed,
-            t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam)
+            t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam,
+            nee=nee)
         if depth is not None:
             depth[idx] += 1
     if exhaust_bg:
@@ -173,7 +194,8 @@ def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
 
 def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
                  *, n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-                 exhaust_bg=False, depth=None, fam=None, threads=THREADS):
+                 exhaust_bg=False, depth=None, fam=None, nee=None,
+                 threads=THREADS):
     """One segment (see the module doc): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     dev = state.device
@@ -181,7 +203,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
         return mega_segment_plain(
             tab, state, pixel, sample, seed, start_bounce, max_depth, n=n,
             t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg,
-            exhaust_bg=exhaust_bg, depth=depth, fam=fam)
+            exhaust_bg=exhaust_bg, depth=depth, fam=fam, nee=nee)
     if dev.type != "cuda":
         raise ValueError(f"mega_segment: unsupported device {dev}")
     if state.dim() != 2 or state.shape[0] != mp.NSTATE:
@@ -192,6 +214,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
                             (mp.NSTATE, stride), dev)
     check_table(tab, dev)
     fam_args = family_args(fam, dev)
+    light_args = nee_args(nee, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
     pix_ptr, _ = lane_ints("pixel", pixel, n, dev)
@@ -211,7 +234,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
             stride, n,
             pix_ptr, samp_ptr, samp, int(start_bounce), int(max_depth),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            depth_ptr, int(threads), stream)
+            *light_args, depth_ptr, int(threads), stream)
     if rc != 0:
         msg = lib.mega_error_string(rc).decode()
         raise RuntimeError(f"mega_segment launch failed: {msg} ({rc})")
@@ -361,12 +384,13 @@ def mega_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
              if stats is not None else None)
     seg_fn = mega_segment_plain if plain else mega_segment
     kw = mp.trace_options(tables, cfg)
+    nee = mp.nee_options(tables, cfg)
     exhaust = cfg.exhaust_mode == "background"
 
     def run(state, ints, start, seg, n_live, last):
         pix, sample, depth = ints
         seg_fn(tab, state, pix, sample, seed, start, seg, n=n_live,
-               exhaust_bg=exhaust and last, depth=depth, **kw)
+               exhaust_bg=exhaust and last, depth=depth, nee=nee, **kw)
 
     state, (_, _, depth), orig_g, launches = _segmented(
         state, (pix, sample, depth), segs, cfg.compact_group,
@@ -391,12 +415,13 @@ def _radiance(state, orig_g, b):
 def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
                          max_depth, grad, *, n=None, t_min=1e-3, p_rr=0.0,
                          grad_bg=False, bg, exhaust_bg=False, depth=None,
-                         fam=None, threads=THREADS):
+                         fam=None, nee=None, threads=THREADS):
     """One segment of the adjoint megakernel B5 (csrc/mega_adjoint.cu)
     on CUDA tensors: state [19, stride] (the forward's 13 rows, then L
     and g), lanes [0, n) replayed in place; grad [8, n_slots] is added
     to, through per-block accumulators in shared memory when they fit
-    (acc_fits_smem); fam: the family tables, as mega_segment."""
+    (acc_fits_smem); fam: the family tables, as mega_segment; nee: the
+    light table (mega_plain.Nee without MIS or glossy), or None."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"mega_adjoint_segment: unsupported device {dev}")
@@ -409,6 +434,10 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
                             (ADJ_ROWS, stride), dev)
     check_table(tab, dev)
     fam_args = family_args(fam, dev)
+    if nee is not None and (nee.mis or nee.glossy):
+        raise ValueError("mega_adjoint_segment: the adjoint takes NEE "
+                         "without mis or nee_glossy")
+    light_args = nee_args(nee, dev)[:2]
     n_slots = grad.shape[1] if grad.dim() == 2 else 0
     cuda_build.check_tensor("grad", grad, torch.float32,
                             (adjoint_plain.ACC_ROWS, n_slots), dev)
@@ -431,8 +460,8 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
             stride, n,
             pix_ptr, samp_ptr, samp, int(start_bounce), int(max_depth),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            grad.data_ptr(), n_slots, int(acc_fits_smem(n_slots)), depth_ptr,
-            int(threads), stream)
+            *light_args, grad.data_ptr(), n_slots,
+            int(acc_fits_smem(n_slots)), depth_ptr, int(threads), stream)
     if rc != 0:
         msg = lib.mega_adjoint_error_string(rc).decode()
         raise RuntimeError(f"mega_adjoint_segment launch failed: {msg} "
@@ -460,6 +489,7 @@ def _adjoint_library():
         vp, vp, ci,                   # pixel, sample (or null), sample
         ci, ci,                       # start_bounce, max_depth
         *SCALAR_TYPES,
+        vp, ci,                       # lights (or null), n_lights
         vp, ci, ci,                   # grad, n_slots, shared_acc
         vp, ci, vp]                   # depth (or null), threads, stream
     lib.mega_adjoint_launch.restype = ci
@@ -493,6 +523,7 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     dev = ro.device
     ms = tables.mega
     kw = mp.trace_options(tables, cfg)
+    nee = mp.nee_options(tables, cfg, adjoint=True)
     segs = schedule(cfg.replace(max_depth=int(depth_bwd)))
     b = ro.shape[0]
     bp = _padded_size(b, segs, cfg)
@@ -508,7 +539,7 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
         pix, sample, depth = ints
         mega_adjoint_segment(ms.table, state, pix, sample, seed, start, seg,
                              grad, n=n_live, exhaust_bg=exhaust and last,
-                             depth=depth, **kw)
+                             depth=depth, nee=nee, **kw)
 
     _, (_, _, depth), _, launches = _segmented(
         state, (pix, sample, depth), segs, cfg.compact_group,

@@ -3,7 +3,7 @@ loop that relaunches it, and its plain PyTorch emulation (the
 counterpart of rt_tpu/ops/pallas_queue.py `_queue_kernel` :122,
 `_pack_into` :75, `queue_launch` :310 and `queue_trace` :404, for
 spheres, rects, cylinders and triangles with solid and checker
-textures, no NEE, sampler "rng").
+textures, NEE / MIS / glossy light sampling, sampler "rng").
 
 `queue_trace` runs csrc/queue.cu (built by nvcc at first use,
 ops/cuda_build.py) for CUDA tensors and raises if it cannot; for CPU
@@ -18,9 +18,10 @@ the [B,3] radiance per input lane, equal to `cuda_mega.mega_trace`'s
 per lane. `cfg.queue_steps` is the budget of steps per launch (0: one
 launch drains the batch); the lanes in flight when a launch ends wait
 in the pool for the next one, so the result has the same bits whatever
-the budget. Every lane completes exactly once (the wrapper checks that
-the done count equals B; `check_once=True` also counts the writes per
-lane).
+the budget: the pool keeps each lane's alive word as it is, NEE's 0.5
+and MIS's 2 + p included. Every lane completes exactly once (the
+wrapper checks that the done count equals B; `check_once=True` also
+counts the writes per lane).
 
 `queue_trace_adjoint` is the backward of one sample of the path-replay
 gradient on the queue's adjoint B6 (csrc/queue_adjoint.cu, the
@@ -54,7 +55,7 @@ PLAIN_POOL_LANES = 1 << 16
 def _library():
     lib = cuda_build.load("queue")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.queue_grid_blocks.argtypes = [ci, ci, ci]
+    lib.queue_grid_blocks.argtypes = [ci, ci, ci, ci]
     lib.queue_grid_blocks.restype = ci
     lib.queue_launch.argtypes = [
         vp, ci,                       # table, rows
@@ -64,6 +65,7 @@ def _library():
         vp, vp, vp,                   # out, depth, written
         ci, ci,                       # max_depth, budget
         *cuda_mega.SCALAR_TYPES,
+        *cuda_mega.NEE_TYPES,         # lights, n_lights, mis, glossy
         ci, ci, vp]                   # blocks, threads, stream
     lib.queue_launch.restype = ci
     lib.queue_error_string.argtypes = [ci]
@@ -72,21 +74,24 @@ def _library():
 
 
 def grid_blocks(rows: int, device, threads: int = cuda_mega.THREADS, *,
-                families: bool = False) -> int:
+                families: bool = False, nee: bool = False) -> int:
     """Blocks the card holds at once for a table of `rows` sphere rows,
-    with family rows or without: the persistent grid (pool lanes =
-    blocks * threads), queried from CUDA once per card, row count,
-    instantiation and block size."""
+    with family rows or without, with light sampling or without: the
+    persistent grid (pool lanes = blocks * threads), queried from CUDA
+    once per card, row count, instantiation and block size."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _grid_blocks(int(rows), bool(families), index, int(threads))
+    return _grid_blocks(int(rows), bool(families), bool(nee), index,
+                        int(threads))
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_blocks(rows: int, families: bool, index: int, threads: int) -> int:
+def _grid_blocks(rows: int, families: bool, nee: bool, index: int,
+                 threads: int) -> int:
     lib = _library()
     with torch.cuda.device(index):
-        blocks = lib.queue_grid_blocks(rows, int(families), threads)
+        blocks = lib.queue_grid_blocks(rows, int(families), int(nee),
+                                       threads)
     if blocks <= 0:
         msg = lib.queue_error_string(-blocks).decode() if blocks else \
             "no block fits on a multiprocessor"
@@ -97,9 +102,11 @@ def _grid_blocks(rows: int, families: bool, index: int, threads: int) -> int:
 def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
                  *, seed, max_depth, budget, t_min=1e-3, p_rr=0.0,
                  grad_bg=False, bg, exhaust_bg=False, depth=None,
-                 written=None, fam=None, blocks, threads=cuda_mega.THREADS):
+                 written=None, fam=None, nee=None, blocks,
+                 threads=cuda_mega.THREADS):
     """One launch of the queue kernel on CUDA tensors (see queue.cu for
-    the operands; fam: the family tables, as cuda_mega.mega_segment).
+    the operands; fam, nee: the family tables and the light sampler, as
+    cuda_mega.mega_segment).
     pool_f [13, blocks*threads], pool_i [4, blocks*threads] and counters
     [2] carry the queue from one launch to the next."""
     dev = ro.device
@@ -110,6 +117,7 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
     chk = cuda_build.check_tensor
     cuda_mega.check_table(tab, dev)
     fam_args = cuda_mega.family_args(fam, dev)
+    light_args = cuda_mega.nee_args(nee, dev)
     chk("ro", ro, torch.float32, (b, 3), dev)
     chk("rd", rd, torch.float32, (b, 3), dev)
     chk("pixel", pixel, torch.int32, (b,), dev)
@@ -133,7 +141,7 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
             pool_i.data_ptr(), counters.data_ptr(), out.data_ptr(), *ptrs,
             int(max_depth), int(budget),
             *cuda_mega._scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            int(blocks), int(threads), stream)
+            *light_args, int(blocks), int(threads), stream)
     if rc != 0:
         msg = lib.queue_error_string(rc).decode()
         raise RuntimeError(f"queue_launch failed: {msg} ({rc})")
@@ -143,13 +151,16 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
 queue_launch.launches = 0
 
 
-def _operands(tables, cfg, ro, pixel, sample_idx):
+def _operands(tables, cfg, ro, pixel, sample_idx, adjoint=False):
+    """(table, pixel ids, sample, the trace's options with its light
+    sampler under "nee") of a queue trace or its adjoint."""
     dev = ro.device
     pix = pixel.to(device=dev, dtype=torch.int32).reshape(-1).contiguous()
     sample = cuda_mega.lane_vector(sample_idx, dev)
     return (tables.mega.table, pix,
             int(sample_idx) if sample is None else sample,
-            mp.trace_options(tables, cfg))
+            dict(mp.trace_options(tables, cfg),
+                 nee=mp.nee_options(tables, cfg, adjoint=adjoint)))
 
 
 def queue_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
@@ -176,7 +187,8 @@ def queue_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     if b == 0:
         return out
     ro, rd = ro.contiguous(), rd.contiguous()
-    blocks = grid_blocks(tab.shape[0], dev, families=kw["fam"] is not None)
+    blocks = grid_blocks(tab.shape[0], dev, families=kw["fam"] is not None,
+                         nee=kw["nee"] is not None)
     if pool_lanes is not None:
         blocks = min(blocks, max(1, -(-int(pool_lanes) // cuda_mega.THREADS)))
     lanes = blocks * cuda_mega.THREADS
@@ -281,7 +293,7 @@ def queue_trace_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
 def _adjoint_library():
     lib = cuda_build.load("queue_adjoint")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.queue_adjoint_grid_blocks.argtypes = [ci, ci, ci, ci, ci]
+    lib.queue_adjoint_grid_blocks.argtypes = [ci, ci, ci, ci, ci, ci]
     lib.queue_adjoint_grid_blocks.restype = ci
     lib.queue_adjoint_launch.argtypes = [
         vp, ci,                       # table, rows
@@ -293,6 +305,7 @@ def _adjoint_library():
         vp, vp,                       # depth, written
         ci, ci,                       # max_depth, budget
         *cuda_mega.SCALAR_TYPES,
+        vp, ci,                       # lights (or null), n_lights
         ci, ci, vp]                   # blocks, threads, stream
     lib.queue_adjoint_launch.restype = ci
     lib.queue_adjoint_error_string.argtypes = [ci]
@@ -302,24 +315,24 @@ def _adjoint_library():
 
 def adjoint_grid_blocks(rows: int, n_slots: int, device,
                         threads: int = cuda_mega.THREADS, *,
-                        families: bool = False) -> int:
+                        families: bool = False, nee: bool = False) -> int:
     """The persistent grid of the queue adjoint (blocks the card holds at
     once with its shared memory: the staged table, and the accumulators
     when cuda_mega.acc_fits_smem; and with the registers of the
-    instantiation with family rows or without), once per card, shape
-    and instantiation."""
+    instantiation with family rows or without, with NEE or without),
+    once per card, shape and instantiation."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _adjoint_grid_blocks(int(rows), bool(families), int(n_slots),
-                                index, int(threads))
+    return _adjoint_grid_blocks(int(rows), bool(families), bool(nee),
+                                int(n_slots), index, int(threads))
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_grid_blocks(rows, families, n_slots, index, threads):
+def _adjoint_grid_blocks(rows, families, nee, n_slots, index, threads):
     lib = _adjoint_library()
     with torch.cuda.device(index):
         blocks = lib.queue_adjoint_grid_blocks(
-            rows, int(families), n_slots,
+            rows, int(families), int(nee), n_slots,
             int(cuda_mega.acc_fits_smem(n_slots)), threads)
     if blocks <= 0:
         msg = lib.queue_adjoint_error_string(-blocks).decode() if blocks \
@@ -333,10 +346,11 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
                          pool_i, counters, grad, *, seed, max_depth, budget,
                          t_min=1e-3, p_rr=0.0, grad_bg=False,
                          bg, exhaust_bg=False, depth=None, written=None,
-                         fam=None, blocks, threads=cuda_mega.THREADS):
+                         fam=None, nee=None, blocks,
+                         threads=cuda_mega.THREADS):
     """One launch of the queue adjoint on CUDA tensors (see
-    queue_adjoint.cu for the operands; fam: the family tables, as
-    cuda_mega.mega_segment). pool_f [19, blocks*threads], pool_i [4,
+    queue_adjoint.cu for the operands; fam, nee: the family tables and
+    the light table, as cuda_mega.mega_adjoint_segment). pool_f [19, blocks*threads], pool_i [4,
     blocks*threads], counters [2] and grad [8, n_slots] carry the replay
     from one launch to the next."""
     dev = ro.device
@@ -347,6 +361,10 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
     chk = cuda_build.check_tensor
     cuda_mega.check_table(tab, dev)
     fam_args = cuda_mega.family_args(fam, dev)
+    if nee is not None and (nee.mis or nee.glossy):
+        raise ValueError("queue_adjoint_launch: the adjoint takes NEE "
+                         "without mis or nee_glossy")
+    light_args = cuda_mega.nee_args(nee, dev)[:2]
     for name, x in (("ro", ro), ("rd", rd), ("L", L), ("gcot", gcot)):
         chk(name, x, torch.float32, (b, 3), dev)
     chk("pixel", pixel, torch.int32, (b,), dev)
@@ -373,7 +391,7 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
             *ptrs,
             int(max_depth), int(budget),
             *cuda_mega._scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            int(blocks), int(threads), stream)
+            *light_args, int(blocks), int(threads), stream)
     if rc != 0:
         msg = lib.queue_adjoint_error_string(rc).decode()
         raise RuntimeError(f"queue_adjoint_launch failed: {msg} ({rc})")
@@ -404,7 +422,8 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
             depth_bwd, exhaust, stats=stats)
     dev = ro.device
     ms = tables.mega
-    tab, pix, sample, kw = _operands(tables, cfg, ro, pixel, sample_idx)
+    tab, pix, sample, kw = _operands(tables, cfg, ro, pixel, sample_idx,
+                                     adjoint=True)
     b = ro.shape[0]
     grad = torch.zeros((adjoint_plain.ACC_ROWS, ms.n_slots),
                        dtype=torch.float32, device=dev)
@@ -414,7 +433,8 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     L = L.to(torch.float32).contiguous()
     gcot = gcot.to(torch.float32).contiguous()
     blocks = adjoint_grid_blocks(tab.shape[0], ms.n_slots, dev,
-                                 families=kw["fam"] is not None)
+                                 families=kw["fam"] is not None,
+                                 nee=kw["nee"] is not None)
     if pool_lanes is not None:
         blocks = min(blocks, max(1, -(-int(pool_lanes) // cuda_mega.THREADS)))
     lanes = blocks * cuda_mega.THREADS

@@ -345,6 +345,16 @@ def intersect(tables: SceneTables, ro, rd, t_min=1e-3,
                        best_obj)
 
 
+def occluded(tables: SceneTables, ro, rd, t_max, t_min=1e-3,
+             engine: str = "plain"):
+    """Any-hit query of the NEE shadow ray (rt_tpu ops/intersect.py
+    `occluded` :219-228): whether the closest hit lies in (t_min, t_max),
+    strictly below t_max. Returns [B] bool. rd need not be normalised;
+    t_max is in units of |rd|, like every other t here."""
+    h = intersect(tables, ro, rd, t_min=t_min, engine=engine)
+    return h.hit & (h.t < t_max)
+
+
 def _sphere_attrs(tables: SceneTables, row, p_lin):
     """Outward normal, hit point, (u, v) and material of the winning
     sphere (object.cuh:67-73, UV at :87-93)."""

@@ -3,13 +3,26 @@ unit-ball twin of csrc/rng.cuh (its uniform draw is ops/rng.uniform's
 stream) and `do_bounce_plain`, the twin of csrc/bounce.cuh
 (rt_tpu/ops/pallas_mega.py `_uniform` / `_unit_ball` :618-696,
 `_make_background` :774, `do_bounce` :1011-1896 for the four families,
-solid / checker textures, no NEE, sampler "rng").
+solid / checker textures, NEE / MIS / glossy light sampling, sampler
+"rng").
 
 The ray state is the reference's 13 words per lane, held as one
 [13, B] float32 tensor (rows `O`..`ALIVE` below): origin, direction,
-throughput, accumulated radiance, alive (a float, 1.0 / 0.0, so NEE's
-0.5 and 2 + p encodings fit later). Every expression is the
-reference's, in the reference's order; the kernel repeats them.
+throughput, accumulated radiance, alive (a float: 0 dead, 1 alive; under
+NEE 0.5 for a lane scattered by a light-sampled bounce, under MIS 2 +
+the density of that bounce's draw; every liveness test is alive > 0).
+Every expression is the reference's, in the reference's order; the
+kernel repeats them.
+
+NEE (`Nee`, nee_options) follows the kernels' block (pallas_mega.py
+:1487-1760, :1838-1875), not the wavefront's `_nee_direct`: the light
+point from the light table's sampling block, the checker parity of the
+light at the sample point, the shadow ray as `shadow_occluded`, the
+twin of `_shadow_occluded` (:831-1009): an any-hit over every family
+with t in [t_min, 1 - 1e-3], both ends inclusive, a sphere by the
+expanded quadratic with 1 / max(a, 1e-20) multiplied in. The two forms
+part on grazing shadow rays (as ROADMAP C-9 / C-10 part the engines), so
+the engines are compared by images.
 
 `bounce_plain` returns the bounce with the intermediates its adjoint
 reads (ops/adjoint_plain.py): the replay runs the forward's own
@@ -30,13 +43,22 @@ are the libdevice functions the kernel calls.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from rt_tpu_torch.config import nee_on
 from rt_tpu_torch.ops import camera, rng
 from rt_tpu_torch.ops.mega_tables import (
     F_SLOT,
+    L_AREA,
+    L_CHECKER,
+    L_FAM,
+    L_LE,
+    L_LE2,
+    L_ROW,
+    L_SLOT,
+    MAX_LIGHT_ROWS,
     R_F1,
     R_F2,
     R_HI0,
@@ -245,6 +267,103 @@ def _triangle_t(tab, ox, oy, oz, dx, dy, dz, t_min):
     return torch.where(valid, t, INF)
 
 
+class Nee(NamedTuple):
+    """What a bounce's light sampler reads (nee_options): the light table
+    (mega_tables.light_table, one row per light) and the MIS and glossy
+    flags."""
+
+    lights: torch.Tensor     # [n_lights, NL_COLS] f32
+    mis: bool = False
+    glossy: bool = False
+
+
+def nee_options(tables, cfg, adjoint: bool = False) -> Optional[Nee]:
+    """The NEE options of a trace (None without light sampling,
+    config.nee_on); adjoint: the replay's, which takes NEE without MIS
+    or glossy (diff/replay.py refuses those). Under MIS every family
+    table must hold fewer than MAX_LIGHT_ROWS rows, the rows the emitter
+    match keys exactly (ROADMAP C-2)."""
+    if not nee_on(cfg, tables):
+        return None
+    mis = bool(cfg.mis) and not adjoint
+    if mis and max(tables.counts) >= MAX_LIGHT_ROWS:
+        raise ValueError(f"mis: family rows {tables.counts}; the emitter "
+                         f"match keys rows below {MAX_LIGHT_ROWS}")
+    return Nee(lights=tables.mega.lights, mis=mis,
+               glossy=bool(cfg.nee_glossy) and not adjoint)
+
+
+T_HI = 1.0 - 1e-3   # the shadow segment's end, in units of |w|
+
+
+def _sphere_shadow(tab, sx, sy, sz, wx, wy, wz, a_s, rd_ro, ro_sq, inv_a,
+                   t_min):
+    """Whether the shadow segment meets each sphere (`sph_shadow_math`
+    :864-880): [lanes, N] bool."""
+    cx, cy, cz = (_col(tab, X_V + k) for k in range(3))
+    hb = rd_ro - (cx * wx + cy * wy + cz * wz)
+    c_term = ro_sq - 2.0 * (cx * sx + cy * sy + cz * sz) + _col(tab, S_C2R)
+    disc = hb * hb - a_s * c_term
+    sqrtd = torch.sqrt(torch.clamp(disc, min=0.0))
+    r1 = (-hb - sqrtd) * inv_a
+    r2 = (-hb + sqrtd) * inv_a
+    return ((disc >= 0.0) & (_col(tab, S_VALID) > 0.0)
+            & (((r1 >= t_min) & (r1 <= T_HI))
+               | ((r2 >= t_min) & (r2 <= T_HI))))
+
+
+def shadow_occluded(tab, sx, sy, sz, wx, wy, wz, t_min, fam=None):
+    """[lanes] bool: whether anything of the sphere table `tab` or the
+    family tables `fam` lies on the segment s + t w, t in [t_min, T_HI]
+    (the twin of `_shadow_occluded`). A rect, cylinder or triangle
+    occludes exactly when its closest-hit candidate t is at most T_HI:
+    for those families the reference's any-hit tests are the candidate
+    tests with that bound added. shadow_occluded.rays counts the rays it
+    tests and shadow_occluded.rows, per family, the rows a scan in the
+    kernel's order that stops at the first occluder tests (a bound's
+    operation count reads them)."""
+    lanes = sx.shape[0]
+    shadow_occluded.rays += lanes
+    occ = torch.zeros(lanes, dtype=torch.bool, device=sx.device)
+    if lanes == 0:
+        return occ
+    a_s = wx * wx + wy * wy + wz * wz
+    rd_ro = wx * sx + wy * sy + wz * sz
+    ro_sq = sx * sx + sy * sy + sz * sz
+    inv_a = 1.0 / torch.clamp(a_s, min=1e-20)
+    lane = (sx, sy, sz, wx, wy, wz)
+    blocks = [(FAM_SPHERE, tab.shape[0], lambda sl: _sphere_shadow(
+        tab, *(v[sl, None] for v in lane), a_s[sl, None], rd_ro[sl, None],
+        ro_sq[sl, None], inv_a[sl, None], t_min))]
+    if fam is not None:
+        for code, ftab, fn in ((FAM_RECT, fam.rect, _rect_t),
+                               (FAM_CYLINDER, fam.cyl, _cylinder_t),
+                               (FAM_TRIANGLE, fam.tri, _triangle_t)):
+            if ftab.shape[0]:
+                blocks.append((code, ftab.shape[0],
+                               lambda sl, ftab=ftab, fn=fn: fn(
+                                   ftab, *(v[sl, None] for v in lane),
+                                   t_min) <= T_HI))
+    for code, n, block in blocks:
+        chunk = max(1, HIT_PAIRS // n)
+        hit = []
+        for s in range(0, lanes, chunk):
+            h = block(slice(s, s + chunk))
+            any_h = h.any(-1)
+            first = torch.where(any_h, torch.argmax(h.to(torch.int8), -1) + 1,
+                                n)
+            done = occ[s:s + chunk]
+            shadow_occluded.rows[code] += int(torch.where(done, 0, first)
+                                              .sum())
+            hit.append(any_h)
+        occ = occ | torch.cat(hit)
+    return occ
+
+
+shadow_occluded.rays = 0
+shadow_occluded.rows = [0, 0, 0, 0]
+
+
 def _family_best(cand, n_rows, lanes, chunk):
     """(t_best, row) per lane of one family: cand(sl) gives the [lanes in
     sl, n_rows] candidate block; an equal t goes to the larger row."""
@@ -357,10 +476,18 @@ class Bounce(NamedTuple):
     slot: torch.Tensor       # [B] int64 gradient slot of the winner
     att: tuple               # 3 x [B] attenuation (1 for a dielectric)
     tp: tuple                # 3 x [B] throughput before the bounce
+    # under NEE (else None): the direct term's weight (0 where no light
+    # was sampled or it was occluded), the sampled light's emission, its
+    # gradient slot and its checker parity at the sample point
+    okl: Optional[torch.Tensor] = None    # [B]
+    le: Optional[tuple] = None            # 3 x [B]
+    lslot: Optional[torch.Tensor] = None  # [B] int64
+    lodd: Optional[torch.Tensor] = None   # [B] bool
+    em_scale: Optional[torch.Tensor] = None  # [B] the emission's weight
 
 
 def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
-                    p_rr, grad_bg, bg, fam=None):
+                    p_rr, grad_bg, bg, fam=None, nee=None):
     """Advance every lane of `state` [13, B] one bounce; returns the new
     [13, B] state. Lanes whose alive word is 0 come out unchanged.
 
@@ -368,14 +495,14 @@ def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
     the rect, cylinder and triangle tables (mega_tables.Families) or
     None. pixel, sample, bounce: per-lane RNG coordinates ([B] integer
     tensors or ints); seed an int. bg: the constant sky colour, 3
-    floats."""
+    floats. nee: the light sampler's options (Nee), or None."""
     return bounce_plain(tab, state, pixel, sample, bounce, seed,
                         t_min=t_min, p_rr=p_rr, grad_bg=grad_bg,
-                        bg=bg, fam=fam).state
+                        bg=bg, fam=fam, nee=nee).state
 
 
 def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
-                 grad_bg, bg, fam=None) -> Bounce:
+                 grad_bg, bg, fam=None, nee=None) -> Bounce:
     """do_bounce_plain with the intermediates its adjoint reads."""
     ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb, alive = state.unbind(0)
 
@@ -492,9 +619,46 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
     missed = live & ~hit
 
     em_scale = torch.where(is_light & (scattered | emitter), 1.0, 0.0)
+    if nee is not None and nee.mis:
+        # the balance heuristic on emission reached by a BSDF draw
+        # (:1491-1515): alive = 2 + p_prev carries the previous bounce's
+        # density; the emitter's light row gives the area p_nee needs
+        lights = nee.lights
+        n_lights = lights.shape[0]
+        match = ((lights[None, :, L_FAM] == family[:, None].to(torch.float32))
+                 & (lights[None, :, L_ROW] == row[:, None].to(torch.float32)))
+        area_h = torch.where(match, lights[None, :, L_AREA], 0.0).sum(-1)
+        vx_ = px_ - ox
+        vy_ = py_ - oy
+        vz_ = pz_ - oz
+        d2h = torch.clamp(vx_ * vx_ + vy_ * vy_ + vz_ * vz_, min=1e-8)
+        cos_lh = torch.abs(nx * vx_ + ny2 * vy_ + nz * vz_) / torch.sqrt(d2h)
+        p_nh = d2h / (torch.clamp(area_h * float(n_lights), min=1e-8)
+                      * torch.clamp(cos_lh, min=1e-6))
+        p_prev = torch.clamp(alive - 2.0, min=0.0)
+        w_bh = torch.where(p_prev > 0.0,
+                           p_prev / (p_prev + p_nh + 1e-20), 1.0)
+        em_scale = em_scale * w_bh
+    elif nee is not None:
+        # emission reached through a light-sampled bounce (alive 0.5)
+        # was counted by that bounce's light sample
+        em_scale = torch.where(alive == 0.5, 0.0, em_scale)
     cr = cr + tpr * (em_scale * alb_r + torch.where(missed, bgr, 0.0))
     cg = cg + tpg * (em_scale * alb_g + torch.where(missed, bgg, 0.0))
     cb = cb + tpb * (em_scale * alb_b + torch.where(missed, bgb, 0.0))
+
+    nee_out = {}
+    if nee is not None:
+        # the lanes that sample a light: lambertian ones, and with
+        # glossy the metal ones of fuzz > 0
+        sampled = (is_lam | (is_met & (fuzz > 0.0)) if nee.glossy
+                   else is_lam)
+        (cr, cg, cb), nee_out = _nee_block(
+            tab, fam, nee, (cr, cg, cb), (tpr, tpg, tpb),
+            (alb_r, alb_g, alb_b), scattered & sampled, is_met, fuzz,
+            (ref_x, ref_y, ref_z), (px_, py_, pz_), (nx, ny2, nz), pixel,
+            sample, bounce, seed, t_min)
+        nee_out["em_scale"] = em_scale
 
     comp = 1.0 / p_rr if p_rr > 0.0 else 1.0
     tp_before = (tpr, tpg, tpb)
@@ -507,7 +671,26 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
     dx = torch.where(scattered, new_dx, dx)
     dy = torch.where(scattered, new_dy, dy)
     dz = torch.where(scattered, new_dz, dz)
-    alive = scattered.to(torch.float32)
+    if nee is not None:
+        if nee.mis:
+            # alive = 2 + the density of the draw just taken (:1838-1866)
+            ndl = torch.sqrt(new_dx * new_dx + new_dy * new_dy
+                             + new_dz * new_dz)
+            inl = 1.0 / torch.clamp(ndl, min=1e-12)
+            csd = torch.clamp((nx * new_dx + ny2 * new_dy + nz * new_dz)
+                              * inl, min=0.0)
+            pb_next = (2.0 / math.pi) * csd * csd * csd
+            if nee.glossy:
+                cr_n = (ref_x * new_dx + ref_y * new_dy + ref_z * new_dz) \
+                    * inl
+                pb_next = torch.where(is_met & (fuzz > 0.0),
+                                      _glossy_density(cr_n, fuzz), pb_next)
+            mark = 2.0 + pb_next
+        else:
+            mark = torch.full_like(alive, 0.5)   # :1867-1875
+        alive = torch.where(scattered, torch.where(sampled, mark, 1.0), 0.0)
+    else:
+        alive = scattered.to(torch.float32)
     out = torch.stack([ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb,
                        alive])
     return Bounce(state=out, hit=hit, family=family, row=row,
@@ -515,7 +698,131 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
                   emitter=emitter,
                   missed=missed, is_die=is_die, use2=use2,
                   slot=attrs[:, X_SLOT].long(), att=(att_r, att_g, att_b),
-                  tp=tp_before)
+                  tp=tp_before, **nee_out)
+
+
+def _glossy_density(cosr, fuzz):
+    """The fuzz-ball density about the mirror direction, in the kernels'
+    arithmetic (pallas_mega.py:1675-1684, :1853-1861; the wavefront's is
+    render/integrator._glossy_pdf). fuzz^3 is multiplied out as
+    fuzz * (fuzz * fuzz), XLA's integer_pow."""
+    s2 = fuzz * fuzz - (1.0 - cosr * cosr)
+    inside = (cosr > 0.0) & (s2 > 0.0) & (fuzz > 0.0)
+    sq = torch.sqrt(torch.clamp(s2, min=0.0))
+    f = torch.clamp(fuzz, min=1e-8)
+    den = (2.0 * math.pi) * (f * (f * f))
+    return torch.where(inside, sq * (3.0 * cosr * cosr + s2) / den, 0.0)
+
+
+def _nee_block(tab, fam, nee: Nee, c, tp, alb, lam_lane, is_met, fuzz, ref,
+               p, n, pixel, sample, bounce, seed, t_min):
+    """The kernels' NEE block (pallas_mega.py:1529-1698): sample one
+    light, test its shadow segment, add tp * albedo * Le * w to the
+    radiance c of the lanes lam_lane. Returns (c, the Bounce's NEE
+    fields)."""
+    lights = nee.lights
+    n_lights = lights.shape[0]
+    u_pick = rng.uniform(seed, pixel, sample, bounce, rng.NEE_PICK)
+    u1 = rng.uniform(seed, pixel, sample, bounce, rng.NEE_U1)
+    u2 = rng.uniform(seed, pixel, sample, bounce, rng.NEE_U2)
+    li = torch.clamp((u_pick * n_lights).to(torch.int32), max=n_lights - 1)
+    # [NL_COLS, B]: columns as mega_tables' module doc (the sampling
+    # block at the reference's columns 9..23)
+    lt = lights[li.long()].T
+    fam_l, area_l = lt[L_FAM], lt[L_AREA]
+    phi = (2.0 * math.pi) * u2
+    cphi = torch.cos(phi)
+    sphi = torch.sin(phi)
+    # sphere sample
+    zs = 1.0 - 2.0 * u1
+    sts = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
+    nsx, nsy, nsz = sts * cphi, sts * sphi, zs
+    spx = lt[9] + lt[12] * nsx
+    spy = lt[10] + lt[12] * nsy
+    spz = lt[11] + lt[12] * nsz
+    # rect sample
+    ra = lt[18] + u1 * lt[20]
+    rb = lt[19] + u2 * lt[21]
+    rpx = lt[9] * lt[22] + lt[12] * ra + lt[15] * rb
+    rpy = lt[10] * lt[22] + lt[13] * ra + lt[16] * rb
+    rpz = lt[11] * lt[22] + lt[14] * ra + lt[17] * rb
+    # cylinder sample (o2w rows 9..17, translation 18..20)
+    zc = lt[22] + u1 * lt[23]
+    cox = lt[21] * cphi
+    coy = lt[21] * sphi
+    cpx = lt[9] * cox + lt[10] * coy + lt[11] * zc + lt[18]
+    cpy = lt[12] * cox + lt[13] * coy + lt[14] * zc + lt[19]
+    cpz = lt[15] * cox + lt[16] * coy + lt[17] * zc + lt[20]
+    cnx = lt[9] * cphi + lt[10] * sphi
+    cny = lt[12] * cphi + lt[13] * sphi
+    cnz = lt[15] * cphi + lt[16] * sphi
+    # triangle sample: v1 + b2 e1 + b3 e2, the sqrt barycentric warp
+    sqt = torch.sqrt(u1)
+    b2t = sqt * (1.0 - u2)
+    b3t = sqt * u2
+    tpx = lt[9] + b2t * lt[12] + b3t * lt[15]
+    tpy = lt[10] + b2t * lt[13] + b3t * lt[16]
+    tpz = lt[11] + b2t * lt[14] + b3t * lt[17]
+
+    is_sl = fam_l == FAM_SPHERE
+    is_rl = fam_l == FAM_RECT
+    is_cl = fam_l == FAM_CYLINDER
+
+    def by_family(sv, rv, cv, tv):
+        return torch.where(is_sl, sv, torch.where(is_rl, rv,
+                                                  torch.where(is_cl, cv, tv)))
+
+    lpx = by_family(spx, rpx, cpx, tpx)
+    lpy = by_family(spy, rpy, cpy, tpy)
+    lpz = by_family(spz, rpz, cpz, tpz)
+    lnx = by_family(nsx, lt[9], cnx, lt[18])
+    lny = by_family(nsy, lt[10], cny, lt[19])
+    lnz = by_family(nsz, lt[11], cnz, lt[20])
+
+    px_, py_, pz_ = p
+    nx, ny2, nz = n
+    wix = lpx - px_
+    wiy = lpy - py_
+    wiz = lpz - pz_
+    d2l = torch.clamp(wix * wix + wiy * wiy + wiz * wiz, min=1e-8)
+    distl = torch.sqrt(d2l)
+    cos_s = (nx * wix + ny2 * wiy + nz * wiz) / distl
+    cos_lg = torch.abs(lnx * wix + lny * wiy + lnz * wiz) / distl
+
+    need = lam_lane & (cos_s > 0.0)
+    occ = torch.zeros_like(need)
+    idx = torch.nonzero(need)[:, 0]
+    if idx.numel():
+        occ[idx] = shadow_occluded(tab, px_[idx], py_[idx], pz_[idx],
+                                   wix[idx], wiy[idx], wiz[idx], t_min, fam)
+
+    # a checker light's parity at the sample point
+    sin_l = (torch.sin(10.0 * lpx) * torch.sin(10.0 * lpy)
+             * torch.sin(10.0 * lpz))
+    use_odd = (lt[L_CHECKER] > 0.0) & (sin_l < 0.0)
+    le = tuple(torch.where(use_odd, lt[L_LE2 + j], lt[L_LE + j])
+               for j in range(3))
+
+    cs_ = torch.clamp(cos_s, min=0.0)
+    if nee.mis or nee.glossy:
+        p_bl = (2.0 / math.pi) * cs_ * cs_ * cs_
+        if nee.glossy:
+            ref_x, ref_y, ref_z = ref
+            cosr_l = (ref_x * wix + ref_y * wiy + ref_z * wiz) / distl
+            p_bl = torch.where(is_met, _glossy_density(cosr_l, fuzz), p_bl)
+        p_nl = d2l / (torch.clamp(area_l * float(n_lights), min=1e-8)
+                      * torch.clamp(cos_lg, min=1e-6))
+        if nee.mis:
+            w_l = p_bl / (p_nl + p_bl + 1e-20)
+        else:
+            w_l = p_bl / torch.clamp(p_nl, min=1e-20)
+    else:
+        w_l = ((cs_ * cs_ * cs_ * cos_lg / d2l) * area_l
+               * (2.0 * n_lights / math.pi))
+    okl = torch.where(need & ~occ, w_l, 0.0)
+    c = tuple(ck + tk * ak * lk * okl
+              for ck, tk, ak, lk in zip(c, tp, alb, le))
+    return c, dict(okl=okl, le=le, lslot=lt[L_SLOT].long(), lodd=use_odd)
 
 
 def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,

@@ -36,7 +36,34 @@ direct = 1), then per family (`_R_*`, `_Y_*`, `_T_*`, :98-116)
   triangle  15..17 v1, 18..20 v2 - v1, 21..23 v3 - v2, 24..26 v1 - v3,
             27 v1 . n, 28 valid
 
-and the gradient slot in column 31 (`_SLOT_COL`). The kernels
+and the gradient slot in column 31 (`_SLOT_COL`).
+
+The light table (`light_table`, NEE's: the contract of the reference's
+`nee_light_table` :451-567 in the port's own layout) has one row per
+emitter of the scene's light list (rt_tpu scene/types.py:645-657 puts
+every live diffuse_light primitive there), NL_COLS columns:
+
+  0 family (FAM_*)  1 area  2..4 Le even  5..7 Le odd  8 checker flag
+  9..23 the family's sampling block, as the reference's
+        sphere    9..11 center, 12 |r|
+        rect      9..11 constant-axis one-hot (the normal), 12..14
+                  free-axis-1 one-hot, 15..17 free-axis-2 one-hot,
+                  18 lo0, 19 lo1, 20 hi0 - lo0, 21 hi1 - lo1, 22 k
+        cylinder  9..17 o2w rotation (row-major), 18..20 o2w
+                  translation, 21 |r|, 22 zmin, 23 zmax - zmin
+        triangle  9..11 v1, 12..14 v2 - v1, 15..17 v3 - v1, 18..20 the
+                  unit geometric normal
+  24 the emission's gradient slot (the adjoints' credit to the light)
+  25 the primitive's row in its family's table: with column 0 the key
+     that matches a hit emitter to its light row (MIS), where the
+     reference matches its tape code `pid * 4 + family` (column 32);
+     the tables keep the scene's order, so the row is the pid
+
+Areas are the reference's formulas: 4 pi r^2, the rect's extent, the
+cylinder's lateral 2 pi r (zmax - zmin), half the triangle's edge cross
+product's length.
+
+The kernels
 (csrc/bounce.cuh) and the plain versions (ops/mega_plain.py,
 ops/adjoint_plain.py) read only these tables, in the form of
 `MegaScene`: built once per scene (`SceneTables.mega`), each cut after
@@ -46,6 +73,7 @@ its last live row, since the pad rows behind it never hit.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -57,6 +85,8 @@ from rt_tpu_torch.scene.types import (
     TEX_CHECKER,
     SceneTables,
 )
+
+FAM_SPHERE, FAM_RECT, FAM_CYLINDER, FAM_TRIANGLE = 0, 1, 2, 3
 
 X_V = 0
 X_RAD = 3
@@ -71,6 +101,14 @@ X_SLOT = 17
 S_COLS = 18
 
 SPH_CHUNK = 32   # the reference's sphere chunk (pallas_mega.py:68)
+
+# the light table (see the module doc)
+L_FAM, L_AREA, L_LE, L_LE2, L_CHECKER = 0, 1, 2, 5, 8
+L_BLK = 9
+L_SLOT, L_ROW = 24, 25
+NL_COLS = 26
+# a light's row is matched as a float32 (column L_ROW), exact below 2^24
+MAX_LIGHT_ROWS = 1 << 24
 
 # the rect / cylinder / triangle tables (pallas_mega.py:98-140)
 R_K, R_LO0, R_LO1, R_HI0, R_HI1, R_VALID = 15, 16, 17, 18, 19, 20
@@ -211,6 +249,80 @@ def slot_ids(tables: SceneTables, mat_ids) -> torch.Tensor:
         torch.float32)
 
 
+def light_table(tables: SceneTables) -> torch.Tensor:
+    """[n_lights, NL_COLS] float32 (see the module doc); 0 rows when the
+    scene has no emitter."""
+    n = tables.n_lights
+    fam = tables.light_fam[:n].long()
+    pid = tables.light_pid[:n].long()
+    dev = tables.sph_center.device
+
+    def rows(t):
+        """The lights' rows of a family table (zeros for an empty one)."""
+        if t.shape[0] == 0:
+            return t.new_zeros((n,) + tuple(t.shape[1:]))
+        return t[torch.clamp(pid, 0, t.shape[0] - 1)]
+
+    def pick(sph, rect, cyl, tri):
+        return torch.where(fam == FAM_SPHERE, sph, torch.where(
+            fam == FAM_RECT, rect, torch.where(fam == FAM_CYLINDER, cyl,
+                                               tri)))
+
+    def pick3(sph, rect, cyl, tri):
+        f = fam[:, None]
+        return torch.where(f == FAM_SPHERE, sph, torch.where(
+            f == FAM_RECT, rect, torch.where(f == FAM_CYLINDER, cyl, tri)))
+
+    mat = pick(rows(tables.sph_mat), rows(tables.rect_mat),
+               rows(tables.cyl_mat), rows(tables.tri_mat)).long()
+    tex = tables.mat_tex[mat]
+    texs = torch.clamp(tex, min=0).long()
+    even = torch.where((tex >= 0)[:, None], tables.tex_color[texs],
+                       tables.mat_albedo[mat])
+    odd = tables.tex_color2[texs]
+    chk = (tex >= 0) & (tables.tex_type[texs] == TEX_CHECKER)
+
+    r_s = torch.abs(rows(tables.sph_radius))
+    lo, hi = rows(tables.rect_lo), rows(tables.rect_hi)
+    r_c = torch.abs(rows(tables.cyl_radius))
+    zmin = rows(tables.cyl_zmin)
+    zlen = rows(tables.cyl_zmax) - zmin
+    tv1 = rows(tables.tri_v1)
+    te1 = rows(tables.tri_v2) - tv1
+    te2 = rows(tables.tri_v3) - tv1
+    tcr = torch.linalg.cross(te1, te2)
+    area = pick(4.0 * math.pi * r_s * r_s,
+                (hi[:, 0] - lo[:, 0]) * (hi[:, 1] - lo[:, 1]),
+                2.0 * math.pi * r_c * zlen,
+                0.5 * torch.sqrt((tcr * tcr).sum(-1)))
+
+    out = torch.zeros((n, NL_COLS), dtype=torch.float32, device=dev)
+    out[:, L_FAM] = fam.to(torch.float32)
+    out[:, L_AREA] = area
+    out[:, L_LE:L_LE + 3] = even
+    out[:, L_LE2:L_LE2 + 3] = odd
+    out[:, L_CHECKER] = chk.to(torch.float32)
+    onehot = torch.nn.functional.one_hot
+    ax = rows(tables.rect_axis).long()
+    z3 = out.new_zeros((n, 3))
+    z1 = out.new_zeros((n, 1))
+    sph_blk = torch.cat([rows(tables.sph_center), r_s[:, None]]
+                        + [z1] * 11, 1)
+    rect_blk = torch.cat(
+        [onehot(ax, 3).float(), onehot(torch.where(ax == 0, 1, 0), 3).float(),
+         onehot(torch.where(ax == 2, 1, 2), 3).float(), lo[:, :1],
+         lo[:, 1:2], (hi - lo)[:, :1], (hi - lo)[:, 1:2],
+         rows(tables.rect_k)[:, None], z1], 1)
+    o2w = rows(tables.cyl_o2w)
+    cyl_blk = torch.cat([o2w[:, :3, :3].reshape(n, 9), o2w[:, :3, 3],
+                         r_c[:, None], zmin[:, None], zlen[:, None]], 1)
+    tri_blk = torch.cat([tv1, te1, te2, rows(tables.tri_n), z3], 1)
+    out[:, L_BLK:L_BLK + 15] = pick3(sph_blk, rect_blk, cyl_blk, tri_blk)
+    out[:, L_SLOT] = slot_ids(tables, mat)
+    out[:, L_ROW] = pid.to(torch.float32)
+    return out
+
+
 class Families(NamedTuple):
     """The rect, cylinder and triangle tables the kernels read beside the
     sphere table, each cut after its last live row (possibly 0 rows)."""
@@ -231,7 +343,8 @@ class MegaScene:
     (ops/camera.camera_vec) as host floats, which the launchers pass by
     value, and the sizes of the adjoint accumulators: n_slots = n_tex +
     n_mat gradient slots, texture rows first (the reference pads them to
-    128-lane slabs; the port needs no padding)."""
+    128-lane slabs; the port needs no padding). `lights`: the light
+    table (light_table), None when the scene has no emitter."""
 
     table: torch.Tensor          # [max(n_spheres, 1), S_COLS] f32
     fam: Optional[Families]
@@ -239,6 +352,7 @@ class MegaScene:
     cam: Tuple[float, ...]       # 19 floats, ops/camera.camera_vec
     n_tex: int
     n_mat: int
+    lights: Optional[torch.Tensor] = None   # [n_lights, NL_COLS] f32
 
     @property
     def n_slots(self) -> int:
@@ -258,4 +372,6 @@ class MegaScene:
                    bg=tuple(float(v) for v in bg),
                    cam=camera_vec(tables.camera),
                    n_tex=int(tables.tex_color.shape[0]),
-                   n_mat=int(tables.mat_albedo.shape[0]))
+                   n_mat=int(tables.mat_albedo.shape[0]),
+                   lights=(light_table(tables).detach().contiguous()
+                           if tables.n_lights else None))

@@ -162,9 +162,10 @@ class SceneTables:
     camera: CameraDef
     background: torch.Tensor   # [3] f32
 
-    # emissive-primitive index (rt_tpu's, for NEE, which is not ported
-    # yet: ROADMAP Queue A-5): family code (ops/intersect PTYPE_*) and
-    # row of every live emissive primitive; one dummy entry when none
+    # emissive-primitive index (rt_tpu's): family code (ops/intersect
+    # PTYPE_*) and row of every live emissive primitive, the lights NEE
+    # samples (render/integrator._nee_direct, ops/mega_tables
+    # light_table); one dummy entry when none
     light_fam: torch.Tensor    # [max(n_lights, 1)] i32
     light_pid: torch.Tensor    # [max(n_lights, 1)] i32
 

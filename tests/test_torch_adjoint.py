@@ -227,7 +227,9 @@ def test_replay_rejects_unported_fields(field, err):
 def test_replay_rejects_tangents_and_nee():
     """geom_spec runs (tests/test_torch_geom.py) but refuses a field
     outside GEOM_FIELDS, a component outside its table, and a geom_spec
-    field missing from params; NEE is not ported."""
+    field missing from params. NEE runs (tests/test_torch_nee_adjoint.py),
+    but with mis or nee_glossy the replay refuses it with ValueError, as
+    the reference's does (rt_tpu/diff/replay.py:204-210)."""
     _, _, tt, cfg = make_scene(8, 6, 2)
     px = torch.arange(4)
     with pytest.raises(ValueError, match="GEOM_FIELDS|must be in"):
@@ -240,8 +242,12 @@ def test_replay_rejects_tangents_and_nee():
                                         geom_spec={"sph_center": [(0, 0)]})
     with pytest.raises(ValueError, match="not in params"):
         img_fn({"tex_color": tt.tex_color})
-    with pytest.raises(NotImplementedError, match="A-5"):
-        treplay.make_replay_render(tt, cfg.replace(nee=True), 1, px, px)
+    assert tt.n_lights == 1
+    treplay.make_replay_render(tt, cfg.replace(nee=True), 1, px, px)
+    for kw in (dict(mis=True), dict(nee_glossy=True)):
+        with pytest.raises(ValueError, match="mis / nee_glossy"):
+            treplay.make_replay_render(tt, cfg.replace(nee=True, **kw), 1,
+                                       px, px)
 
 
 def test_check_table_takes_large_tables():

@@ -928,3 +928,137 @@ def test_fit_cli_runs_the_kernels(tmp_path, extra, kernel):
     assert counts[kernel].launches > before
     for f in ("recovered.npz", "after.png"):
         assert (tmp_path / "out" / f).stat().st_size > 0
+
+
+def _light_scene(dev, w, h, depth):
+    """tests/test_torch_nee.py's scene (the four light families, a checker
+    light, a fuzzy metal and a glass sphere) on the card."""
+    s = types.SceneDef(width=w, height=h, samples_per_pixel=1,
+                       max_depth=depth, background=(0.0, 0.0, 0.0))
+    s.add_sphere((0, 0, -2), 0.5, s.add_lambertian_color((0.6, 0.4, 0.3)))
+    s.add_sphere((0, -100.5, -2), 100,
+                 s.add_lambertian_color((0.5, 0.5, 0.55)))
+    s.add_sphere((1.6, 0.4, -1.4), 0.25, s.add_diffuse_light(
+        s.add_checker((8.0, 3.0, 3.0), (3.0, 8.0, 3.0))))
+    s.add_rect("xz_rect", -0.8, 0.8, -2.8, -1.2, 2.0,
+               s.add_diffuse_light_color((6.0, 5.5, 5.0)))
+    s.add_cylinder(0.2, -0.3, 0.3, s.add_diffuse_light_color((2.0, 4.0, 8.0)),
+                   rotate=((1, 0, 0), 90.0), translate=(-1.5, 0.6, -2.0))
+    s.add_triangle((-2.2, 0.1, -2.6), (-1.4, 0.1, -3.0), (-1.8, 1.0, -2.8),
+                   s.add_diffuse_light_color((7.0, 2.0, 6.0)))
+    s.add_sphere((-0.9, -0.2, -1.5), 0.3, s.add_metal((0.8, 0.8, 0.7), 0.3))
+    s.add_sphere((0.9, -0.25, -1.4), 0.25, s.add_dielectric(1.5))
+    s.set_camera((0, 0.4, 1.2), (0, 0, -2), (0, 1, 0), 55, 0.0)
+    from rt_tpu_torch.config import RenderConfig
+
+    return types.build_tables(s, device=dev), RenderConfig(
+        width=w, height=h, samples_per_pixel=1, max_depth=depth)
+
+
+NEE_FLAGS = {"nee": dict(nee=True), "mis": dict(nee=True, mis=True),
+             "glossy": dict(nee=True, nee_glossy=True),
+             "mis_glossy": dict(nee=True, mis=True, nee_glossy=True)}
+
+
+def _nee_scene(dev, name, w, h, depth):
+    if name == "lights":
+        return _light_scene(dev, w, h, depth)
+    return _family_scene(dev, name, w, h, 1, depth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", sorted(NEE_FLAGS))
+@pytest.mark.parametrize("name", ["lights", "demo"])
+def test_nee_kernels_match_plain(name, flags):
+    """B2 and B3 with light sampling (the kNee instantiations) against
+    their plain versions at 192x108, depth 8, p_rr 0 and 0.9: every
+    lane's radiance bit for bit, the kernels launched."""
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.ops.camera import generate_rays
+
+    dev = _card()
+    tt, cfg = _nee_scene(dev, name, 192, 108, 8)
+    assert tt.n_lights > 0 and tt.mega.lights is not None
+    px = torch.arange(192 * 108, device=dev)
+    ro, rd = generate_rays(tt.camera, 192, 108, px % 192, px // 192, 1, 0,
+                           cfg.enable_defocus)
+    for p_rr in (0.0, 0.9):
+        c = cfg.replace(p_rr=p_rr, max_depth=8, **NEE_FLAGS[flags])
+        for fn, eng, count in (
+                (cuda_mega.mega_trace, "mega", cuda_mega.mega_segment),
+                (cuda_queue.queue_trace, "queue", cuda_queue.queue_launch)):
+            ce = c.replace(engine=eng, compact_every=2, queue_steps=3)
+            before = count.launches
+            k = fn(tt, ce, ro, rd, px, 1, 0)
+            torch.cuda.synchronize()
+            assert count.launches > before, eng
+            assert torch.equal(k, fn(tt, ce, ro, rd, px, 1, 0, plain=True)), \
+                (eng, p_rr)
+            assert float(k.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lights", "demo"])
+def test_nee_adjoints_match_plain(name):
+    """B5 and B6 with NEE (the kNee instantiations: the direct term's
+    credits to the winner's slot and the light's) against the plain
+    adjoint, within 1e-5 + 1e-3 max|g| per field, and B6 against B5."""
+    from rt_tpu_torch.ops import camera, cuda_mega, cuda_queue
+
+    dev = _card()
+    tt, cfg = _nee_scene(dev, name, 192, 108, 8)
+    cfg = cfg.replace(nee=True, compact_every=2)
+    pix = torch.arange(192 * 108, device=dev)
+    ro, rd = camera.generate_rays(tt.camera, 192, 108, pix % 192, pix // 192,
+                                  0, 0, cfg.enable_defocus)
+    L = cuda_queue.queue_trace(tt, cfg.replace(engine="queue"), ro, rd, pix,
+                               0, 0)
+    g = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 1e-3, (192 * 108, 3)).astype(np.float32)).to(dev)
+    adj = (tt, cfg, ro, rd, pix, 0, 0, L, g, 8, False)
+    want = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+    before = (cuda_mega.mega_adjoint_segment.launches,
+              cuda_queue.queue_adjoint_launch.launches)
+    k_m = cuda_mega.mega_trace_adjoint(*adj)
+    k_q = cuda_queue.queue_trace_adjoint(*adj, check_once=True)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_adjoint_segment.launches > before[0]
+    assert cuda_queue.queue_adjoint_launch.launches > before[1]
+    _grads_close(want, k_m)
+    _grads_close(want, k_q)
+    _grads_close(k_m, k_q)
+    assert float(want["tex_color"].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,kernel", [
+    ([], "queue_adjoint_launch"), (["--engine", "mega"],
+                                   "mega_adjoint_segment"),
+    (["--method", "tape"], "mega_capture")], ids=["replay", "mega", "tape"])
+def test_fit_cli_nee_runs_the_kernels(tmp_path, extra, kernel):
+    """`fit -f scenes/demo_scene.json --nee` on the card at 96x54, depth
+    8: exit 0 (the loss fell) and the method's kernel launched."""
+    from rt_tpu_torch import cli
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.render.renderer import render
+
+    dev = _card()
+    tt, cfg = _family_scene(dev, "demo", 96, 54, 16, 8)
+    tc = tt.tex_color.clone()
+    tc[3] *= 0.8
+    tc[1] = torch.tensor([0.2, 0.6, 0.3], device=dev)
+    import dataclasses
+    img = render(dataclasses.replace(tt, tex_color=tc),
+                 cfg.replace(engine="queue", nee=True), device="cuda")
+    np.savez(tmp_path / "t.npz", img=(img / 16).cpu().numpy())
+    counts = {"queue_adjoint_launch": cuda_queue.queue_adjoint_launch,
+              "mega_adjoint_segment": cuda_mega.mega_adjoint_segment,
+              "mega_capture": cuda_mega.mega_capture}
+    before = counts[kernel].launches
+    rc = cli.main(["fit", "-f", f"{ROOT}/scenes/demo_scene.json",
+                   "--target", str(tmp_path / "t.npz"), "--fields",
+                   "tex_color,mat_albedo", "-spp", "4", "--steps", "3",
+                   "-d", "8", "--nee", "--out", str(tmp_path / "out")]
+                  + extra)
+    assert rc == 0
+    assert counts[kernel].launches > before

@@ -191,6 +191,30 @@ def test_tape_replay_matches_trace_on_families(kw):
                                    err_msg=engine)
 
 
+@pytest.mark.parametrize("kw", [{}, {"p_rr": 0.9},
+                                {"exhaust_mode": "background",
+                                 "max_depth": 3}],
+                         ids=["default", "rr", "exhaust"])
+def test_tape_replay_matches_rt_tpu_under_the_gradient_sky(kw):
+    """ROADMAP C-11: under the gradient sky the replay parts from the
+    trace by up to ~4e-5 on a few lanes, in the port and in rt_tpu alike
+    (the leaf tests against the batched candidates in the last bits), so
+    the constant-sky test above keeps the reference's sky. Here the
+    port's replay of its wavefront tape is held against rt_tpu's replay
+    of its tape, per lane within 1e-5, under the gradient sky."""
+    jt, jcfg, tt, cfg = families_scene(background_mode="gradient", **kw)
+    jpix, js, jro, jrd = _jax_rays(jt)
+    jpix = jpix.astype(jnp.uint32)
+    jcodes = jtape.capture_tape(jt, jcfg, jro, jrd, jpix, js, jnp.uint32(0))
+    want = np.asarray(jtape.replay_tape(jt, jcfg, jro, jrd, jcodes, jpix,
+                                        js, jnp.uint32(0)))
+    pix, ro, rd = _port_rays(tt)
+    codes = ttape.capture_tape(tt, cfg, ro, rd, pix, 0, 0)
+    got = ttape.replay_tape(tt, cfg, ro, rd, codes, pix, 0, 0).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert got.max() > 0
+
+
 def test_leaf_tests_match_the_family_candidates():
     """Each family's leaf test against the winning row gives the closest
     hit's t on the lanes that family wins (the batched candidate pass of

@@ -337,8 +337,7 @@ def test_cli_fit_exits_0_and_writes_its_files(cli_files, extra, capsys):
     assert os.path.getsize(os.path.join(out, "after.png")) > 0
 
 
-@pytest.mark.parametrize("flag,match", [("--nee", "A-5"),
-                                        ("--sharded", "A-9")])
+@pytest.mark.parametrize("flag,match", [("--sharded", "A-9")])
 def test_cli_fit_refuses_what_is_not_ported(cli_files, flag, match):
     d, scene, target = cli_files
     with pytest.raises(NotImplementedError, match=match):

@@ -153,8 +153,9 @@ def test_config_fields_and_defaults_match_jax():
     (dict(engine="mega", regen=True, compact_sort="spatial"),
      NotImplementedError),
     (dict(engine="xla"), ValueError),
-    (dict(nee=True), NotImplementedError),
-    (dict(nee=True, mis=True), NotImplementedError),
+    # light sampling runs (tests/test_torch_nee.py); it hides no refusal
+    (dict(nee=True, sampler="qmc"), NotImplementedError),
+    (dict(nee=True, mis=True, traversal="bvh"), NotImplementedError),
     (dict(sampler="qmc"), NotImplementedError),
     (dict(traversal="bvh"), NotImplementedError),
     (dict(loop="scan"), NotImplementedError),

@@ -301,10 +301,19 @@ def test_tape_refuses_unknown_and_unported_fields(field, err, match):
 
 
 def test_tape_refuses_nee():
+    """The tape refused cfg.nee until light sampling was ported; it takes
+    it now (tests/test_torch_nee_tape.py holds its gradients). On a scene
+    without lights nee changes nothing: the capture and the replay equal
+    the ones without it bit for bit."""
     _, _, tt, cfg = mixed_scene()
-    px, py = (torch.from_numpy(x) for x in pixels())
-    with pytest.raises(NotImplementedError, match="A-5"):
-        ttape.make_tape_render(tt, cfg.replace(nee=True), 1, px, py)
+    assert tt.n_lights == 0
+    pix, ro, rd = port_rays(tt, cfg)
+    codes = ttape.capture_tape(tt, cfg, ro, rd, pix, 0, 0)
+    c_nee = cfg.replace(nee=True, mis=True)
+    assert torch.equal(ttape.capture_tape(tt, c_nee, ro, rd, pix, 0, 0),
+                       codes)
+    assert torch.equal(ttape.replay_tape(tt, c_nee, ro, rd, codes, pix, 0, 0),
+                       ttape.replay_tape(tt, cfg, ro, rd, codes, pix, 0, 0))
 
 
 @pytest.mark.parametrize("spp", [1, 3])

@@ -58,8 +58,23 @@ B2 / B3 trace call and one exact B5 / B6 call against their plain
 versions and their bounds (38); this slice's main path, `render -f
 scenes/demo_scene.json --nee` (and --mis, --mis --nee-glossy) at the
 scene's 960x540, spp 128, depth 40 (39), and `fit ... --nee` with the
-replay, mega and tape estimators, whose loss must fall (40). Each phase
-prints its
+replay, mega and tape estimators, whose loss must fall (40). Image
+textures close it (the kernels' kImages instantiations): B2 and B3 with
+nee off, nee and mis at p_rr 0 and 0.9 against their plain versions bit
+for bit at 192x108 on a scene whose four families and two lights sample
+two images and on a copy of demo_scene.json with image textures on a
+sphere and its light, B4 and B7 there, and B5 / B6 with the atlas
+gradient against the plain adjoint (41); the reference's textured Taichi
+scene, mesh_scene(plane441.obj) with a seeded 512x512 PNG and the Taichi
+UV swap, at 1920x1080, depth 16, spp 4 on queue, mega and regen, one B2,
+B3, B7, B4, B5 and B6 call against the plain versions and their bounds,
+the training step with the atlas on both engines and the tape step with
+it (42); cover_scene at the bench shape with its ground and its diffuse
+hero sphere textured by two 1024x1024 images, on queue, mega and regen,
+beside phase 10's frames, with one B2 / B3 call against the plain
+versions (43); and `render -f` of the textured demo copy (with and
+without --nee) and `fit ... --fields images` with the replay and the
+tape, whose loss must fall (44). Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -123,6 +138,13 @@ FAMILY_OPS = (SPHERE_OPS_PER_PAIR, 36, 62, 71)
 # shadow_any_hit: a, w.s, |s|^2, the max and 1/a); per row its any-hit
 # test costs FAMILY_OPS
 SHADOW_SETUP_OPS = 17
+# FP32 operations of a texel-sampled hit's (u, v) per winner family
+# (bounce.cuh winner_uv, atan2f / acosf counted as one each) and of its
+# texel index (texel_of); its texel is one 32-byte sector of the atlas,
+# and in the adjoints one atomic more
+UV_OPS = (11, 14, 23, 53)
+TEXEL_OPS = 10
+TEXEL_BYTES = 32
 
 W, H, SPP, DEPTH = 1920, 1080, 2, 50     # rt_tpu bench.py:67-71 shape
 MAIN_SPP = 16                            # bench.py's one-launch spp
@@ -131,7 +153,8 @@ CLI_W, CLI_H = 320, 180
 LANES_1 = 65536                          # per-lane kernel compares
 SMALL_POOL = 2048                        # B3 pool lanes of the refill check
 TRAIN_BWD_DEPTH = 8      # the reference's production truncation
-GRAD_FIELDS = ("tex_color", "tex_color2", "mat_albedo", "background")
+GRAD_FIELDS = ("tex_color", "tex_color2", "mat_albedo", "background",
+               "images")
 DEMO = os.path.join(ROOT, "scenes", "demo_scene.json")
 MESH = os.path.join(ROOT, "scenes", "plane441.obj")
 
@@ -449,6 +472,86 @@ def demo_scene(w=None, h=None, spp=None):
     if spp:
         cfg = cfg.replace(samples_per_pixel=spp)
     return sdef, cfg
+
+
+def seeded_png(path, size, seed):
+    """A size x size RGB PNG of seeded noise over a smooth gradient,
+    written by the port's writer: the image of a texture."""
+    from rt_tpu_torch.io.image import write_png
+
+    rs = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    base = np.stack([xx, yy, 1.0 - 0.5 * (xx + yy)], -1)
+    img = 0.7 * base + 0.3 * rs.random((size, size, 3))
+    write_png(path, (img * 255).astype(np.uint8))
+    return path
+
+
+def image_families_scene(w, h, spp, depth, a, b):
+    """The four families and two lights sampling the images a and b
+    ([H,W,3] float arrays): a sphere, both rect orientations, a cylinder
+    and a triangle, an image-textured sphere light and triangle light,
+    beside a checker ground, a fuzzy metal and a glass sphere (the scene
+    of tests/test_torch_images.py): (SceneDef, RenderConfig)."""
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.scene.types import SceneDef
+
+    s = SceneDef(width=w, height=h, samples_per_pixel=spp, max_depth=depth,
+                 background=(0.2, 0.25, 0.3))
+    ta, tb = s.add_image_texture(a), s.add_image_texture(b)
+    ma, mb = s.add_lambertian(ta), s.add_lambertian(tb)
+    s.add_sphere((0, 0, -2), 0.5, ma)
+    s.add_sphere((0, -100.5, -2), 100, s.add_lambertian(
+        s.add_checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+    s.add_rect("xy_rect", -2, 2, -1, 2, -3.5, mb)
+    s.add_rect("yz_rect", -1, 1, -3, -1, 1.8, ma)
+    s.add_cylinder(0.25, -0.3, 0.3, mb, rotate=((1, 0, 0), 90.0),
+                   translate=(0.9, -0.2, -1.6))
+    s.add_triangle((0.4, -0.5, -1.2), (0.9, -0.5, -1.4), (0.6, 0.2, -1.3),
+                   ma, uv1=(0, 0), uv2=(1, 0), uv3=(0, 1))
+    s.add_sphere((-0.9, -0.2, -1.5), 0.3, s.add_metal((0.8, 0.8, 0.7), 0.3))
+    s.add_sphere((-0.4, -0.3, -1.2), 0.2, s.add_dielectric(1.5))
+    s.add_sphere((1.6, 0.4, -1.4), 0.25, s.add_diffuse_light(tb))
+    s.add_triangle((-2.2, 0.1, -2.6), (-1.4, 0.1, -3.0), (-1.8, 1.0, -2.8),
+                   s.add_diffuse_light(ta), uv1=(0.1, 0.2), uv2=(0.9, 0.1),
+                   uv3=(0.5, 0.8))
+    s.set_camera((0, 0.3, 1.2), (0, 0, -2), (0, 1, 0), 55, 0.0)
+    return s, RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           max_depth=depth)
+
+
+def textured_demo_json(dirname, sphere_png, light_png):
+    """A copy of scenes/demo_scene.json in dirname whose blue lambertian
+    sphere and xz_rect light sample the images sphere_png and light_png
+    (file names in dirname): its path."""
+    data = json.loads(open(DEMO).read())
+    tex = data["texture"]["data"]
+    tex += [{"type": "image", "file": sphere_png},
+            {"type": "image", "file": light_png}]
+    data["material"]["data"][1]["texture"] = len(tex) - 2
+    data["material"]["data"][4]["texture"] = len(tex) - 1
+    path = os.path.join(dirname, "textured_demo.json")
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return path
+
+
+def texel_terms(calls=1):
+    """(FP32 operations, bytes, hits) of one call's texel-sampled hits,
+    from what the plain version counted over `calls` equal calls since its
+    counter was reset (mega_plain.winner_uv.texels): each hit's (u, v)
+    and texel index, and its 32-byte sector of the atlas."""
+    from rt_tpu_torch.ops import mega_plain
+
+    hits = [n // calls for n in mega_plain.winner_uv.texels]
+    ops = sum(n * (o + TEXEL_OPS) for n, o in zip(hits, UV_OPS))
+    return ops, sum(hits) * TEXEL_BYTES, sum(hits)
+
+
+def reset_texels():
+    from rt_tpu_torch.ops import mega_plain
+
+    mega_plain.winner_uv.texels = [0, 0, 0, 0]
 
 
 def counters():
@@ -796,16 +899,43 @@ def main() -> int:
         err_mega = max(err_mega, rows["mega_segment"].pop("err"))
         err_queue = max(err_queue, rows["queue_launch"].pop("err"))
 
-    def adjoint_inputs(tb, cb, w_, h_, seed):
+    def adjoint_inputs(tb, cb, w_, h_, seed, g_std=None):
         """Camera rays of sample 0, their radiance (the queue kernel) and
-        a seeded loss cotangent."""
+        a seeded loss cotangent, of standard deviation g_std (by default
+        1 / pixels, a mean loss's)."""
         pix = torch.arange(w_ * h_, device=dev)
         ro_, rd_ = generate_rays(tb.camera, w_, h_, pix % w_, pix // w_, 0,
                                  0, cb.enable_defocus)
         L = cuda_queue.queue_trace(tb, cb, ro_, rd_, pix, 0, 0)
         g = torch.from_numpy(np.random.default_rng(seed).normal(
-            0, 1.0 / (w_ * h_), (w_ * h_, 3)).astype(np.float32)).to(dev)
+            0, 1.0 / (w_ * h_) if g_std is None else g_std,
+            (w_ * h_, 3)).astype(np.float32)).to(dev)
         return pix, ro_, rd_, L, g
+
+    def atlas_held(want, got, label):
+        """The atlas gradient's size against grads_close's limit, and
+        proof that the check can fail there: the kernel's gradient with
+        the atlas zeroed, or moved by one texel along TW (a hit credited
+        to its neighbour), must not pass. Returns (max |a|, err / limit)."""
+        a = want["images"].double()
+        mag = float(a.abs().max())
+        limit = 1e-5 + 1e-3 * mag
+        ratio = float((a - got["images"].double()).abs().max()) / limit
+        print(f"  {label} atlas: max |a| {mag:.4g}, limit {limit:.4g}, "
+              f"err / limit {ratio:.3g}, texels with a gradient "
+              f"{int((a.abs().sum(-1) > 0).sum())} of {a[..., 0].numel()}",
+              flush=True)
+        for how, wrong in (
+                ("zeroed", torch.zeros_like(got["images"])),
+                ("moved by one texel", torch.roll(got["images"], 1, 2))):
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    grads_close(want, dict(got, images=wrong), label)
+            except AssertionError:
+                continue
+            raise AssertionError(f"{label}: an atlas gradient {how} passes "
+                                 "the check")
+        return mag, ratio
 
     err_b5 = err_b6 = 0.0
     with phase(f"12 B5 / B6 kernels vs plain at {SMALL_W}x{SMALL_H}"):
@@ -1590,16 +1720,21 @@ def main() -> int:
             st = {}
             k_out = fn(*args, stats=st)
             ms, _ = cuda_ms(lambda: fn(*args), 5)
+            reset_texels()
             pms, p_out = cuda_ms(lambda: fn(*args, plain=True), 1)
             differ = int((k_out != p_out).any(-1).sum())
-            ops = st["ray_bounces"] * ops_row
+            t_ops, t_bytes, t_hits = texel_terms(calls=2)
+            ops = st["ray_bounces"] * ops_row + t_ops
             b_ms, b_by = bound_of(ops, w_ * h_ * (12 + 12 + 4 + 12)
-                                  + nbytes_tab)
+                                  + nbytes_tab + t_bytes)
+            texel_note = (f" + {t_hits} texel-sampled hits"
+                          if t_hits else "")
             print(f"  {label} {name}: trace {ms:.4f} ms, plain {pms:.4f} ms "
                   f"({differ} of {w_ * h_} lanes differ), bound {b_ms:.4f} "
                   f"ms ({b_by}: {st['ray_bounces']} ray-bounces x "
-                  f"{ops_row} ops for rows {tb.counts}, {ops:.4g} ops; "
-                  f"{b_ms / ms:.1%} of the bound); {smi}", flush=True)
+                  f"{ops_row} ops for rows {tb.counts}{texel_note}, "
+                  f"{ops:.4g} ops; {b_ms / ms:.1%} of the bound); {smi}",
+                  flush=True)
             if differ:
                 raise AssertionError(f"{label}: {name} != plain")
             out[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
@@ -1613,6 +1748,7 @@ def main() -> int:
         seg = (tb, cbm, pix_b, spp, spp * (depth + 1))
         ms7, k7 = cuda_ms(lambda: regen_segment(*seg, plain=False), 3)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        reset_texels()
         torch.cuda.synchronize()
         ev[0].record()
         p7 = regen_segment(*seg, plain=True)
@@ -1621,9 +1757,10 @@ def main() -> int:
         pms7 = ev[0].elapsed_time(ev[1])
         err = regen_mismatch(k7, p7, f"{label} B7 vs plain, spp {spp}")
         bounces = int(k7[3].sum())
-        ops = bounces * ops_row + CAMERA_OPS * spp * w_ * h_
+        t_ops, t_bytes, _ = texel_terms()
+        ops = bounces * ops_row + CAMERA_OPS * spp * w_ * h_ + t_ops
         b_ms, b_by = bound_of(ops, w_ * h_ * (4 + 4 + 13 * 4 + 4 + 4)
-                              + nbytes_tab)
+                              + nbytes_tab + t_bytes)
         print(f"  {label} mega_regen at spp {spp}: {ms7:.4f} ms per call, "
               f"plain {pms7:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {bounces} "
               f"ray-bounces x {ops_row} ops + {spp} x {w_ * h_} camera "
@@ -1696,14 +1833,15 @@ def main() -> int:
                     raise AssertionError(f"{lab}: no gradient in the rect "
                                          f"light's texture row {light}")
 
-    def family_b456(label, sd, cb):
+    def family_b456(label, sd, cb, g_std=None):
         """One B4, B5 and B6 call of sample 0 on every pixel of a family
         scene, by CUDA events, against the plain version of the same call
-        and the bound of B2's operation count on these rays."""
+        and the bound of B2's operation count on these rays; g_std as
+        adjoint_inputs'."""
         cb = cb.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
         tb = build_tables(sd, device=dev)
         w_, h_, depth = cb.width, cb.height, cb.max_depth
-        pix, ro_, rd_, L, g = adjoint_inputs(tb, cb, w_, h_, 0)
+        pix, ro_, rd_, L, g = adjoint_inputs(tb, cb, w_, h_, 0, g_std)
         args = (tb, cb, ro_, rd_, pix, 0, 0)
         ops_row = hit_ops(tb)
         nbytes_tab = table_bytes(tb)
@@ -1736,12 +1874,17 @@ def main() -> int:
             st = {}
             k_out = fn(*adj, stats=st)
             ms, _ = cuda_ms(lambda: fn(*adj), 3)
+            reset_texels()
             pms, p_out = cuda_ms(lambda: fn(*adj, plain=True), 1)
             err = grads_close(p_out, k_out, f"{label} {name} vs plain")
+            # a texel-sampled hit reads its sector and adds to it
+            t_ops, t_bytes, _ = texel_terms(calls=2)
             b_ms, b_by = bound_of(
-                st["ray_bounces"] * (ops_row + ADJOINT_OPS),
+                st["ray_bounces"] * (ops_row + ADJOINT_OPS) + t_ops,
                 w_ * h_ * (12 + 12 + 4 + 12 + 12) + nbytes_tab
-                + 8 * tb.mega.n_slots * 4)
+                + 8 * tb.mega.n_slots * 4 + 2 * t_bytes
+                + (tb.mega.img.atlas.numel() * 4 if tb.mega.img is not None
+                   else 0))
             print(f"  {label} {name}: adjoint call {ms:.4f} ms, plain "
                   f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
                   f"{st['ray_bounces']} ray-bounces x {ops_row} ops; "
@@ -1750,6 +1893,9 @@ def main() -> int:
             out[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
                              bound_by=b_by, max_abs_err=err,
                              launches=st["launches"])
+            if tb.mega.img is not None:
+                mag, ratio = atlas_held(p_out, k_out, f"{label} {name}")
+                out[name].update(atlas_max_abs=mag, atlas_err_ratio=ratio)
         return out
 
     with phase(f"33 B4 / B5 / B6 vs plain and times at one call on "
@@ -2179,12 +2325,353 @@ def main() -> int:
                                          f"launched {counts}")
                 nee_fit[key] = dict(sec=sec, launches=counts)
 
+    # ---- image textures (B2-B7 with kImages) ----
+    img_tmp = tempfile.TemporaryDirectory()
+    tmpd = img_tmp.name
+    for name, size, seed in (("small_a.png", 64, 21), ("small_b.png", 64, 22),
+                             ("mesh.png", 512, 23), ("demo_sphere.png", 512,
+                                                     24),
+                             ("demo_light.png", 512, 25)):
+        seeded_png(os.path.join(tmpd, name), size, seed)
+    from rt_tpu_torch.scene.assets import load_image_texture
+    from rt_tpu_torch.scene.parser import parse_scene
+
+    tex_demo = textured_demo_json(tmpd, "demo_sphere.png", "demo_light.png")
+    small_a, small_b = (load_image_texture(os.path.join(tmpd, n))
+                        for n in ("small_a.png", "small_b.png"))
+    img_rows = {}
+    err_img = {"b5": 0.0, "b6": 0.0}
+    with phase(f"41 image textures: B2 / B3 vs plain bit for bit at "
+               f"{SMALL_W}x{SMALL_H} depth 8 (nee off, nee, mis; p_rr 0 "
+               "and 0.9), B4 / B7 vs plain, B5 / B6 vs plain with the "
+               "atlas gradient"):
+        px = torch.arange(SMALL_W * SMALL_H, device=dev)
+        sd_d, cb_d = parse_scene(tex_demo)
+        sd_d.resize(SMALL_W, SMALL_H)
+        cb_d = cb_d.replace(width=SMALL_W, height=SMALL_H,
+                            samples_per_pixel=1, max_depth=8)
+        for label, (sd, cb) in (
+                ("image families", image_families_scene(
+                    SMALL_W, SMALL_H, 1, 8, small_a, small_b)),
+                ("textured demo_scene.json", (sd_d, cb_d))):
+            tb = build_tables(sd, device=dev)
+            if tb.mega.img is None or not tb.nee_img:
+                raise AssertionError(f"{label}: no atlas or no image light")
+            ro_, rd_ = generate_rays(tb.camera, SMALL_W, SMALL_H,
+                                     px % SMALL_W, px // SMALL_W, 1, 0,
+                                     cb.enable_defocus)
+            for flags, kw in (("none", {}), ("nee", dict(nee=True)),
+                              ("nee+mis", dict(nee=True, mis=True))):
+                for p_rr in (0.0, 0.9):
+                    c = cb.replace(p_rr=p_rr, compact_every=2, queue_steps=3,
+                                   **kw)
+                    for name, fn, eng in (
+                            ("B2", cuda_mega.mega_trace, "mega"),
+                            ("B3", cuda_queue.queue_trace, "queue")):
+                        ce = c.replace(engine=eng)
+                        reset_counts()
+                        k_out = fn(tb, ce, ro_, rd_, px, 1, 0)
+                        counts = read_counts()
+                        p_out = fn(tb, ce, ro_, rd_, px, 1, 0, plain=True)
+                        differ = int((k_out != p_out).any(-1).sum())
+                        print(f"  {label}, {flags}, p_rr {p_rr}: {name} vs "
+                              f"plain on {px.numel()} lanes, {differ} lanes "
+                              f"differ, mean radiance "
+                              f"{float(k_out.mean()):.5f}, launches "
+                              f"{sum(counts.values())}", flush=True)
+                        if differ or sum(counts.values()) <= 0:
+                            raise AssertionError(
+                                f"{label} {flags}: {name} is not its plain "
+                                "version bit for bit")
+            c4 = cb.replace(p_rr=0.9)
+            capture_mismatch(
+                cuda_mega.mega_capture(tb, c4, ro_, rd_, px, 1, 0),
+                cuda_mega.mega_capture(tb, c4, ro_, rd_, px, 1, 0,
+                                       plain=True), f"{label}: B4 vs plain")
+            c7 = cb.replace(engine="mega", p_rr=0.9)
+            seg = (tb, c7, px, 2, 2 * (c7.max_depth + 1))
+            regen_mismatch(regen_segment(*seg, plain=False),
+                           regen_segment(*seg, plain=True),
+                           f"{label}: B7 vs plain, spp 2")
+            for nee in (False, True):
+                ca = cb.replace(nee=nee, compact_every=2)
+                pix, ro_a, rd_a, L, g = adjoint_inputs(tb, ca, SMALL_W,
+                                                       SMALL_H, 0, 1e-3)
+                adj = (tb, ca, ro_a, rd_a, pix, 0, 0, L, g, 8, False)
+                plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+                k_m = cuda_mega.mega_trace_adjoint(*adj)
+                k_q = cuda_queue.queue_trace_adjoint(*adj, check_once=True)
+                lab = f"{label}, nee {nee}"
+                err_img["b5"] = max(err_img["b5"], grads_close(
+                    plain, k_m, f"{lab}: B5"))
+                err_img["b6"] = max(err_img["b6"], grads_close(
+                    plain, k_q, f"{lab}: B6"))
+                grads_close(k_m, k_q, f"{lab}: B6 vs B5")
+                atlas_held(plain, k_m, f"{lab}: B5")
+                atlas_held(plain, k_q, f"{lab}: B6")
+
+    with phase(f"42 mesh_scene(plane441.obj) textured by a 512x512 PNG, "
+               f"taichi_tri_uv, {W}x{H} depth 16 spp 4: frames, B2 / B3 / "
+               "B7 / B4 / B5 / B6 vs plain, the training and tape steps "
+               "with the atlas"):
+        from rt_tpu_torch.scene.builders import mesh_scene
+
+        sd, cb = mesh_scene(MESH, width=W, height=H, spp=4, max_depth=16,
+                            texture_path=os.path.join(tmpd, "mesh.png"))
+        sd.taichi_tri_uv = True
+        img_rows["mesh"] = family_workload("textured mesh", sd, cb, 4)
+        sd1, cb1 = mesh_scene(MESH, width=W, height=H, spp=1, max_depth=16,
+                              texture_path=os.path.join(tmpd, "mesh.png"))
+        sd1.taichi_tri_uv = True
+        # g of std 1e-3, as tests/test_torch_cuda.py's: a mean loss's
+        # 1 / pixels leaves every texel's gradient under the 1e-5 term
+        img_rows["mesh"].update(family_b456("textured mesh", sd1, cb1,
+                                            g_std=1e-3))
+        import dataclasses
+        t_i = build_tables(sd1, device=dev)
+        c_i = cb1.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
+        # the target: the mesh's texture darkened by a quarter
+        tgt_i = render(dataclasses.replace(t_i, images=t_i.images * 0.75),
+                       c_i.replace(samples_per_pixel=4, engine="queue",
+                                   rays_per_batch=1 << 25),
+                       device="cuda").reshape(-1, 3) / 4.0
+        pix = torch.arange(W * H, device=dev)
+        img_train = {}
+        for engine in ("queue", "mega"):
+            loss_fn = make_replay_loss_fn(t_i, c_i.replace(engine=engine), 1,
+                                          pix % W, pix // W, tgt_i)
+            params = {k: getattr(t_i, k).clone().requires_grad_(True)
+                      for k in ("images", "tex_color")}
+            loss_fn(params).backward()  # allocator
+            params = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in params.items()}
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loss = loss_fn(params)
+            torch.cuda.synchronize()
+            t_fwd = time.time() - t0
+            loss.backward()
+            torch.cuda.synchronize()
+            t_step = time.time() - t0
+            counts = read_counts()
+            gi = params["images"].grad
+            print(f"  training step {engine}: loss "
+                  f"{float(loss.detach()):.6f}, forward {t_fwd:.4f} s, "
+                  f"backward {t_step - t_fwd:.4f} s, step {t_step:.4f} s; "
+                  f"texels with a gradient "
+                  f"{int((gi.abs().sum(-1) > 0).sum())} of "
+                  f"{gi[..., 0].numel()}; launches {counts}; {smi}",
+                  flush=True)
+            adj_k = ("queue_adjoint_launch" if engine == "queue"
+                     else "mega_adjoint_segment")
+            if counts[adj_k] <= 0 or not bool(torch.isfinite(gi).all()) or \
+                    not float(gi.abs().max()) > 0.0:
+                raise AssertionError(f"{engine}: launched {counts}, or no "
+                                     "atlas gradient")
+            img_train[engine] = dict(step=t_step, launches=counts[adj_k])
+        vg = tape.make_tape_vg(t_i, c_i, pix % W, pix // W, tgt_i)
+        p_t = {k: getattr(t_i, k).clone() for k in ("images", "tex_color")}
+        vg(p_t)
+        times = {}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, grads = vg(p_t, times=times)
+        torch.cuda.synchronize()
+        tape_s = time.time() - t0
+        counts = read_counts()
+        print(f"  tape step: loss {float(loss):.6f}, capture "
+              f"{times['capture_s'] * 1e3:.2f} ms, replay forward "
+              f"{times['forward_s']:.4f} s, backward "
+              f"{times['backward_s']:.4f} s, step {tape_s:.4f} s; max |g| "
+              f"images {float(grads['images'].abs().max()):.6g}; launches "
+              f"{counts}; {smi}", flush=True)
+        if counts["mega_capture"] != 1 or not float(
+                grads["images"].abs().max()) > 0.0:
+            raise AssertionError(f"tape step: launched {counts}, or no "
+                                 "atlas gradient")
+        img_train["tape"] = dict(step=tape_s, launches=counts["mega_capture"])
+
+    with phase(f"43 cover_scene textured (ground and diffuse hero sphere "
+               f"by two 1024x1024 images) {W}x{H} depth {DEPTH} spp "
+               f"{MAIN_SPP}: queue, mega, regen"):
+        sd, cb = cover_scene(width=W, height=H, spp=MAIN_SPP,
+                             max_depth=DEPTH)
+        rs = np.random.default_rng(26)
+        big = [rs.random((1024, 1024, 3), dtype=np.float32)
+               for _ in range(2)]
+        hero = next(o["material"] for o in sd.objects
+                    if o["type"] == "sphere"
+                    and o["center"] == [-4.0, 1.0, 0.0])
+        sd.materials[0]["texture"] = sd.add_image_texture(big[0])  # ground
+        sd.materials[hero]["texture"] = sd.add_image_texture(big[1])
+        # phase 10's configuration: one launch of 1<<25 rays, the
+        # compaction schedule of mega
+        cb = cb.replace(rays_per_batch=1 << 25,
+                        compact_schedule=(2, 3, 5, 10), compact_group=16)
+        tb = build_tables(sd, device=dev)
+        if tb.img_on != ("sphere",):
+            raise AssertionError(f"textured cover: img_on {tb.img_on}")
+        paths = W * H * MAIN_SPP
+        frames = {}
+        img_rows["cover"] = {"frames": {}}
+        for key, engine, regen in (("queue", "queue", False),
+                                   ("mega", "mega", False),
+                                   ("regen", "mega", True)):
+            st = {}
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img = render(tb, cb.replace(engine=engine, regen=regen),
+                         device="cuda", stats=st)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            counts = read_counts()
+            own = counts["mega_regen" if regen else
+                         "queue_launch" if engine == "queue"
+                         else "mega_segment"]
+            print(f"  textured cover frame {key}: {sec:.4f} s = "
+                  f"{paths / sec:.0f} paths/s (untextured, phase 10 / 26: "
+                  f"{main[key]['sec'] if key in main else regen_main[0]['sec']:.4f} s), "
+                  f"launches {counts}, ray-bounces {st['ray_bounces']}; "
+                  f"{smi}", flush=True)
+            if own <= 0 or sum(counts.values()) != own or not bool(
+                    torch.isfinite(img).all()) or film.negative_pixels(img):
+                raise AssertionError(f"textured cover {key}: launched "
+                                     f"{counts}, or a bad image")
+            frames[key] = img.cpu().numpy()
+            img_rows["cover"]["frames"][key] = dict(
+                sec=sec, launches=own, paths_per_s=paths / sec,
+                ray_bounces=st["ray_bounces"])
+        frac, mx = images_close(frames["queue"], frames["mega"], MAIN_SPP)
+        differ = float((frames["regen"] != frames["mega"]).any(-1).mean())
+        print(f"  textured cover: queue vs mega {frac:.3%} pixels beyond "
+              f"2e-3, max diff {mx:.4g}; regen vs mega {differ:.6%} of "
+              "pixels differ", flush=True)
+        if differ:
+            raise AssertionError("textured cover: regen frame != mega frame")
+        px_ = torch.arange(W * H, device=dev)
+        ro_, rd_ = generate_rays(tb.camera, W, H, px_ % W, px_ // W, 0, 0,
+                                 cb.enable_defocus)
+        args = (tb, cb, ro_, rd_, px_, 0, 0)
+        ops_row = hit_ops(tb)
+        for name, fn in (("mega_segment", cuda_mega.mega_trace),
+                         ("queue_launch", cuda_queue.queue_trace)):
+            st = {}
+            k_out = fn(*args, stats=st)
+            ms, _ = cuda_ms(lambda: fn(*args), 5)
+            reset_texels()
+            pms, p_out = cuda_ms(lambda: fn(*args, plain=True), 1)
+            differ = int((k_out != p_out).any(-1).sum())
+            t_ops, t_bytes, t_hits = texel_terms(calls=2)
+            ops = st["ray_bounces"] * ops_row + t_ops
+            b_ms, b_by = bound_of(ops, W * H * (12 + 12 + 4 + 12)
+                                  + table_bytes(tb) + t_bytes)
+            print(f"  textured cover {name}: trace {ms:.4f} ms (untextured, "
+                  f"phase 11: {rows[name]['ms']:.4f} ms), plain {pms:.4f} "
+                  f"ms ({differ} of {W * H} lanes differ), bound "
+                  f"{b_ms:.4f} ms ({b_by}: {st['ray_bounces']} ray-bounces "
+                  f"x {ops_row} ops + {t_hits} texel-sampled hits, "
+                  f"{ops:.4g} ops; {b_ms / ms:.1%} of the bound); {smi}",
+                  flush=True)
+            if differ:
+                raise AssertionError(f"textured cover: {name} != plain")
+            img_rows["cover"][name] = dict(
+                ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=0.0, launches=img_rows["cover"]["frames"][
+                    "queue" if name == "queue_launch" else "mega"][
+                    "launches"])
+
+    with phase("44 main path: python -m rt_tpu_torch render -f <textured "
+               "demo_scene.json> (960x540, spp 128, depth 40) and --nee; "
+               "fit ... --fields images (3 steps) with the replay and the "
+               "tape"):
+        sd, cd = parse_scene(tex_demo)
+        dw, dh, dspp = cd.width, cd.height, cd.samples_per_pixel
+        img_cli = {}
+        for key, flags in (("render", []), ("render_nee", ["--nee"])):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            rc = cli.main(["render", "-f", tex_demo, "-o",
+                           os.path.join(tmpd, f"{key}.ppm")] + flags)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            counts = read_counts()
+            vals = np.array(open(os.path.join(tmpd, f"{key}.ppm")).read()
+                            .split()[4:], dtype=np.float64)
+            paths = dw * dh * dspp
+            print(f"  render {' '.join(flags)}: exit {rc}, {sec:.4f} s = "
+                  f"{paths / sec:.0f} paths/s; launches {counts}; image "
+                  f"{vals.size // 3} pixels, mean {vals.mean():.3f}; {smi}",
+                  flush=True)
+            if rc != 0 or counts["queue_launch"] <= 0 or \
+                    sum(counts.values()) != counts["queue_launch"] or \
+                    vals.size != dw * dh * 3 or vals.max() <= 0:
+                raise AssertionError(f"render {flags}: exit {rc}, launched "
+                                     f"{counts}, or a bad image")
+            img_cli[key] = dict(sec=sec, launches=counts["queue_launch"])
+        td = build_tables(sd, device=dev)
+        # the target: the sphere's texture darkened by a quarter
+        timg = td.images.clone()
+        timg[0] = timg[0] * 0.75
+        img = render(dataclasses.replace(td, images=timg),
+                     cd.replace(engine="queue"),
+                     device="cuda") / cd.samples_per_pixel
+        np.savez(os.path.join(tmpd, "T_img.npz"), img=img.cpu().numpy())
+        base = ["fit", "-f", tex_demo, "--target",
+                os.path.join(tmpd, "T_img.npz"), "--fields", "images",
+                "-spp", "4", "--steps", "3"]
+        for key, extra, want in (
+                ("replay", [], ("queue_launch", "queue_adjoint_launch")),
+                ("tape", ["--method", "tape"], ("mega_capture",))):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(base + extra
+                              + ["--out", os.path.join(tmpd, f"fit_{key}")])
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            counts = read_counts()
+            text = buf.getvalue()
+            print("  " + text.strip().splitlines()[0], flush=True)
+            print(f"  fit --fields images {key}: exit {rc}, {sec:.4f} s (3 "
+                  f"steps and the after.png render at spp {dspp}); launches "
+                  f"{counts}; {smi}", flush=True)
+            if rc != 0 or not text.startswith("loss: ") or \
+                    any(counts[k] <= 0 for k in want):
+                raise AssertionError(f"fit --fields images {key}: exit "
+                                     f"{rc}, launched {counts}")
+            img_cli[f"fit_{key}"] = dict(sec=sec, launches=counts)
+    img_tmp.cleanup()
+
+    def img_entry(name, train_key=None, fit_key=None):
+        """A kernel's numbers with image textures, for its entry in the
+        kernels line: its call on the textured mesh (and cover) at
+        1920x1080, its launches in a training step and a CLI fit, its
+        largest error at 192x108 (phase 41)."""
+        out = {"mesh": img_rows["mesh"][name]}
+        if name in img_rows["cover"]:
+            out["cover"] = img_rows["cover"][name]
+        if train_key:
+            out["training_step_launches"] = img_train[train_key]["launches"]
+        if fit_key:
+            out["cli_fit_launches"] = img_cli[fit_key]["launches"][name]
+        out["max_abs_err_small"] = (err_img["b5"] if name ==
+                                    "mega_adjoint_segment" else
+                                    err_img["b6"] if name ==
+                                    "queue_adjoint_launch" else 0.0)
+        return out
+
     def family_rows(name):
         """A kernel's numbers on the family workloads, for its entry in
         the kernels line."""
         return {k: v[name] for k, v in families.items()}
 
-    print(f"[41 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    print(f"[45 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -2207,6 +2694,7 @@ def main() -> int:
         **rows["mega_segment"],
         "library_ms": None,
         "families": family_rows("mega_segment"),
+        "img": img_entry("mega_segment"),
         "nee": {**nee_rows["mega_segment"],
                 "cli_fit_launches": nee_fit["mega"]["launches"][
                     "mega_segment"]},
@@ -2223,6 +2711,9 @@ def main() -> int:
         "cli_fit_launches": {k: v["launches"]["queue_launch"]
                              for k, v in fit_cli.items()},
         "families": family_rows("queue_launch"),
+        "img": {**img_entry("queue_launch"),
+                "cli_render_launches": {k: img_cli[k]["launches"] for k in
+                                        ("render", "render_nee")}},
         "nee": {**nee_rows["queue_launch"],
                 "cli_render_launches": {k: v["launches"]
                                         for k, v in nee_cli.items()},
@@ -2246,6 +2737,7 @@ def main() -> int:
                          **families["cover_lights"]["mega_adjoint_segment"],
                          "launches": fam_train[
                              ("mega", TRAIN_BWD_DEPTH)]["launches"]}},
+        "img": img_entry("mega_adjoint_segment", train_key="mega"),
         "nee": {**nee_rows["mega_adjoint_segment"],
                 "max_abs_err_small": err_nee_b5,
                 "cli_fit_launches": nee_fit["mega"]["launches"][
@@ -2266,6 +2758,8 @@ def main() -> int:
                          **families["cover_lights"]["queue_adjoint_launch"],
                          "launches": fam_train[
                              ("queue", TRAIN_BWD_DEPTH)]["launches"]}},
+        "img": img_entry("queue_adjoint_launch", train_key="queue",
+                         fit_key="fit_replay"),
         "nee": {**nee_rows["queue_adjoint_launch"],
                 "max_abs_err_small": err_nee_b6,
                 "cli_fit_launches": nee_fit["replay"]["launches"][
@@ -2282,6 +2776,8 @@ def main() -> int:
         "cli_fit_launches": fit_cli["tape"]["launches"]["mega_capture"],
         "families": {k: {**v, "launches": fam_tape[k]["launches"]}
                      for k, v in family_rows("mega_capture").items()},
+        "img": img_entry("mega_capture", train_key="tape",
+                         fit_key="fit_tape"),
     }, {
         "name": "mega_regen",
         "route": "cuda",
@@ -2292,6 +2788,7 @@ def main() -> int:
         **rows["mega_regen"],
         "library_ms": None,
         "families": family_rows("mega_regen"),
+        "img": img_entry("mega_regen"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
   python -m rt_tpu_torch render   one frame (rt_tpu/cli.py:27-235) of a
       JSON scene of the reference's schema (`-f scene.json`, as
       gpu-version/main.cu:454-460) or a coded scene (`--coded`), with
-      the -w / --height / -spp / -d overrides. Output is chosen by
+      the -w / --height / -spp / -d overrides (image textures load
+      relative to the scene's directory; --taichi-uv swaps the triangle
+      UV weights as the Taichi reference does). Output is chosen by
       extension: PNG (no gamma, as the reference's write_image) or PPM
       (sqrt gamma, as write_color); without -o, the scene's output_file
       (main.png for a coded scene).
@@ -42,6 +44,8 @@ def _load(args):
               "dna": builders.dna_scene}[args.coded or "three_sphere"]
         sdef, cfg = mk()
         out = "main.png"
+    if getattr(args, "taichi_uv", False):
+        sdef.taichi_tri_uv = True
     updates = {}
     if args.width:
         updates["width"] = args.width
@@ -296,6 +300,10 @@ def main(argv=None) -> int:
     rp.add_argument("--nee-glossy", action="store_true",
                     help="extend NEE / MIS to fuzzy-metal bounces with "
                          "their fuzz-ball density (implies --nee)")
+    rp.add_argument("--taichi-uv", action="store_true",
+                    help="replicate the Taichi reference's swapped "
+                         "triangle-UV barycentrics (hittable.py:57-60,233) "
+                         "for pixel-comparable textured-mesh renders")
     rp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     rp.set_defaults(fn=cmd_render)
 
@@ -311,8 +319,9 @@ def main(argv=None) -> int:
     fp.add_argument("--target-linear", action="store_true")
     fp.add_argument("--fields", default="tex_color",
                     help="comma-separated fields: radiometric ones "
-                         "(tex_color, mat_albedo, tex_color2, background) "
-                         "for the path replay; with --method tape any "
+                         "(tex_color, mat_albedo, tex_color2, background, "
+                         "images: the image atlas) for the path replay; "
+                         "with --method tape any "
                          "continuous table (sph_center, rect_k, cyl_radius, "
                          "tri_v1, ...)")
     fp.add_argument("--fd", action="append", default=[],

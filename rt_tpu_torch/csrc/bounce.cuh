@@ -13,7 +13,10 @@
 // accumulation (:1488-1527) and, with kNee, next-event estimation: the
 // emission weight under NEE / MIS (:1487-1527), the light sample and its
 // weights (:1529-1698) with the shadow any-hit `_shadow_occluded`
-// (:831-1009), and the alive encodings (:1838-1875); and
+// (:831-1009), and the alive encodings (:1838-1875); with kImages, image
+// textures: the winner's UV (:1327-1390) and texel (:1392-1410), an
+// image-textured light's texel at the light point's UV (`nee_img`
+// :1623-1664) and, in the adjoint, the atlas gradient (:1741-1790); and
 // `_make_background` (:774). The expressions are the reference's, in
 // its order;
 // ops/mega_plain.do_bounce_plain is the plain twin. The adjoint
@@ -64,12 +67,32 @@
 // bit for bit. MIS and glossy are runtime flags of the scene, uniform
 // over a launch. Without kNee every kernel compiles to the code it had
 // before NEE.
+//
+// Image textures (kImages, a scene whose primitives sample an image):
+// the winner's (u, v) is computed once per hit from its family and row
+// (a sphere's from its centre and radius, the others' from their UV
+// table rows, read through __ldg) with libdevice atan2f / acosf, which
+// torch.atan2 / torch.acos call on the card (the TPU kernel has
+// polynomials: Mosaic lacks them), and the texel is one indexed read of
+// a float3 of the [Ni, TH, TW, 3] atlas through __ldg, where the TPU
+// contracts two one-hot masks on its MXU. The adjoint adds a
+// texel-sampled hit's cotangent with one atomicAdd per channel into a
+// global [Ni, TH, TW, 3] gradient, at any atlas size (the TPU keeps
+// per-tile planes in VMEM). What it adds to the bound: per texel-sampled
+// hit a 32-byte sector of the atlas (and in the adjoint one atomic),
+// and the UV's FP32 operations, counted from winner_uv with atan2f and
+// acosf as one each: sphere 11, rect 14, cylinder 23, triangle 53, and
+// 10 for the texel's index (texel_of). The image tables ride in
+// ImageScene, the kImages instantiations' scene parameter; every other
+// instantiation takes the Scene it took before image textures and
+// compiles to the code it had then.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "rng.cuh"
 
@@ -78,8 +101,8 @@ namespace rtt {
 // packed sphere table columns (ops/mega_tables.py, pallas_mega.py:85-140)
 constexpr int kCols = 18;
 constexpr int kV = 0, kRad = 3, kDirect = 4, kMtype = 5, kChecker = 6,
-              kParam = 7, kAlb = 8, kAlb2 = 11, kC2r = 15, kValid = 16,
-              kSlot = 17;
+              kParam = 7, kAlb = 8, kAlb2 = 11, kImgId = 14, kC2r = 15,
+              kValid = 16, kSlot = 17;
 // the rect / cylinder / triangle tables (ops/mega_tables.py,
 // pallas_mega.py:98-116): 32 columns, 0..14 the attribute block above
 constexpr int kFCols = 32;
@@ -93,16 +116,26 @@ constexpr int kTV1 = 15, kTE1 = 18, kTE2 = 21, kTE3 = 24, kTD0 = 27,
 constexpr int kFSlot = 31;
 // the winner's family (ops/intersect.py PTYPE_*)
 constexpr int kFamSphere = 0, kFamRect = 1, kFamCyl = 2, kFamTri = 3;
+// the UV tables of the rect, cylinder and triangle rows (ops/mega_tables
+// rect_uv_table, ..., pallas_mega.py:145-151): 17 columns
+constexpr int kUCols = 17;
 // the light table (ops/mega_tables.py light_table): family, area, Le
 // even / odd, checker flag, the sampling block at 9..23, the gradient
-// slot, the row in its family's table
-constexpr int kLCols = 26;
+// slot, the row in its family's table, the emission's image id, a
+// triangle light's uv1, uv2, uv3
+constexpr int kLCols = 33;
 constexpr int kLFam = 0, kLArea = 1, kLLe = 2, kLLe2 = 5, kLChecker = 8,
-              kLSlot = 24, kLRow = 25;
+              kLSlot = 24, kLRow = 25, kLImg = 26, kLUv = 27;
 // the shadow segment's end, 1 - 1e-3 in units of |w| (float32)
 constexpr float kTHi = 0.999f;
+constexpr float kPi = 3.14159265358979323846f;
 constexpr float k2Pi = 6.28318530717958647692f;
 constexpr float k2OverPi = static_cast<float>(2.0 / 3.14159265358979323846);
+constexpr float kInvPi = static_cast<float>(1.0 / 3.14159265358979323846);
+constexpr float kInv2Pi =
+    static_cast<float>(1.0 / (2.0 * 3.14159265358979323846));
+constexpr float kInv4Pi =
+    static_cast<float>(1.0 / (4.0 * 3.14159265358979323846));
 // rows staged in shared memory (40 KB); the rest are read from global
 constexpr int kStageRows = 2048;
 static_assert(kStageRows * 20 <= 48 * 1024,
@@ -144,6 +177,21 @@ struct Scene {
   float nee_w;
 };
 
+// The scene of a kImages instantiation: the image atlas [Ni, img_th,
+// img_tw, 3] and the rect, cylinder and triangle UV tables ([n_*,
+// kUCols]), in global memory, beside the Scene.
+struct ImageScene : Scene {
+  const float* atlas;
+  int img_th, img_tw;
+  const float* uv_rect;
+  const float* uv_cyl;
+  const float* uv_tri;
+};
+
+// The scene parameter of an instantiation with or without kImages.
+template <bool kImages>
+using SceneOf = typename std::conditional<kImages, ImageScene, Scene>::type;
+
 // The launchers' scalar arguments, in their C order (cuda_mega._scalars).
 #define RTT_SCENE_ARGS                                                  \
   uint32_t seed, float t_min, float p_rr, float rr_comp, int grad_bg,  \
@@ -156,14 +204,24 @@ struct Scene {
 // Every launcher's light table and NEE flags, after its scalars
 // (ops/cuda_mega.nee_args); lights null and n_lights 0 without NEE.
 #define RTT_NEE_ARGS const float *lights, int n_lights, int mis, int glossy
+// Every launcher's image atlas and UV tables but the capture's, after its
+// family tables (ops/cuda_mega.image_args); atlas null without image
+// textures.
+#define RTT_IMG_ARGS                                                     \
+  const float *atlas, int img_th, int img_tw, const float *uv_rect,     \
+      const float *uv_cyl, const float *uv_tri
 
-// The instantiation K<kTail, kFamilies, kNee> of a kernel template that
-// a scene runs.
-#define RTT_PICK(K, tail, fam, nee)                                       \
-  ((tail) ? ((fam) ? ((nee) ? K<true, true, true> : K<true, true, false>)  \
-                   : ((nee) ? K<true, false, true> : K<true, false, false>)) \
-          : ((fam) ? ((nee) ? K<false, true, true> : K<false, true, false>) \
-                   : ((nee) ? K<false, false, true> : K<false, false, false>)))
+// The instantiation K<kTail, kFamilies, kNee, I> of a kernel template
+// that a scene runs, I (kImages) a constant: the instantiations with
+// and without it take different scene types.
+#define RTT_PICK(K, tail, fam, nee, I)                                    \
+  ((tail) ? ((fam) ? ((nee) ? K<true, true, true, I> : K<true, true, false, I>) \
+                   : ((nee) ? K<true, false, true, I>                     \
+                            : K<true, false, false, I>))                  \
+          : ((fam) ? ((nee) ? K<false, true, true, I>                     \
+                            : K<false, true, false, I>)                   \
+                   : ((nee) ? K<false, false, true, I>                    \
+                            : K<false, false, false, I>)))
 
 __host__ inline Scene make_scene(const float* table, int n,
                                  RTT_SCENE_ARGS) {
@@ -212,8 +270,22 @@ __host__ inline Scene with_nee(Scene s, RTT_NEE_ARGS) {
   return s;
 }
 
+// A scene with a launcher's image atlas and UV tables (kImages).
+__host__ inline ImageScene with_images(const Scene& base, RTT_IMG_ARGS) {
+  ImageScene s;
+  static_cast<Scene&>(s) = base;
+  s.atlas = atlas;
+  s.img_th = img_th;
+  s.img_tw = img_tw;
+  s.uv_rect = uv_rect;
+  s.uv_cyl = uv_cyl;
+  s.uv_tri = uv_tri;
+  return s;
+}
+
 // Whether a scene samples lights (the kernels' kNee instantiation).
 __host__ inline bool has_nee(const Scene& s) { return s.n_lights > 0; }
+
 
 // Whether a scene has rect, cylinder or triangle rows (the kernels'
 // kFamilies instantiation).
@@ -460,6 +532,97 @@ __device__ __forceinline__ bool shadow_any_hit(const Scene& s, float sx,
   return false;
 }
 
+// x clamped to [-1, 1]; a NaN stays NaN, as torch.clamp keeps it
+__device__ __forceinline__ float clamp1(float x) {
+  return x < -1.0f ? -1.0f : (x > 1.0f ? 1.0f : x);
+}
+
+// (u, v) of the unit outward offset (ux, uy, uz) of a sphere point
+// (object.cuh:87-93, pallas_mega.py:1336-1344): the azimuth about y from
+// -z and the polar angle from -y, scaled to [0, 1].
+__device__ __forceinline__ void sphere_uv(float ux, float uy, float uz,
+                                          float& u, float& v) {
+  const bool az = uz == 0.0f && ux == 0.0f;
+  u = (atan2f(-uz, az ? 1.0f : ux) + kPi) * kInv2Pi;
+  v = acosf(clamp1(-uy)) * kInvPi;
+}
+
+// The winner's (u, v) at the hit p (pallas_mega.py:1327-1390): a
+// sphere's from its centre c and 1 / radius (11 FP32 operations, atan2f
+// and acosf counted as one each), a rect's (14), a cylinder's (23) or a
+// triangle's (53: the standard barycentric weights; Taichi's swapped ones
+// come from the tables, SceneDef.taichi_tri_uv) from its UV table row.
+template <bool kFamilies>
+__device__ __forceinline__ void winner_uv(const ImageScene& s, int fam,
+                                          int row,
+                                          float cx, float cy, float cz,
+                                          float inv_rad, float px, float py,
+                                          float pz, float& u, float& v) {
+  if (!kFamilies || fam == kFamSphere) {
+    sphere_uv((px - cx) * inv_rad, (py - cy) * inv_rad, (pz - cz) * inv_rad,
+              u, v);
+    return;
+  }
+  const float* r =
+      (fam == kFamRect ? s.uv_rect : (fam == kFamCyl ? s.uv_cyl : s.uv_tri)) +
+      static_cast<size_t>(row) * kUCols;
+  if (fam == kFamRect) {
+    u = (odot(r, 0, px, py, pz) - __ldg(r + 6)) * __ldg(r + 8);
+    v = (odot(r, 3, px, py, pz) - __ldg(r + 7)) * __ldg(r + 9);
+  } else if (fam == kFamCyl) {
+    const float cpx = odot(r, 0, px, py, pz) + __ldg(r + 9);
+    const float cpy = odot(r, 3, px, py, pz) + __ldg(r + 10);
+    const float cpz = odot(r, 6, px, py, pz) + __ldg(r + 11);
+    const bool deg = cpy == 0.0f && cpx == 0.0f;
+    u = (atan2f(cpy, deg ? 1.0f : cpx) + k2Pi) * kInv4Pi;
+    v = (cpz - __ldg(r + 12)) * __ldg(r + 13);
+  } else {
+    const float a1x = __ldg(r + 3) - px, a1y = __ldg(r + 4) - py,
+                a1z = __ldg(r + 5) - pz;  // v2 - p
+    const float a2x = __ldg(r + 6) - px, a2y = __ldg(r + 7) - py,
+                a2z = __ldg(r + 8) - pz;  // v3 - p
+    const float a3x = __ldg(r + 0) - px, a3y = __ldg(r + 1) - py,
+                a3z = __ldg(r + 2) - pz;  // v1 - p
+    const float cx1 = a1y * a2z - a1z * a2y;
+    const float cy1 = a1z * a2x - a1x * a2z;
+    const float cz1 = a1x * a2y - a1y * a2x;
+    const float l1 = sqrtf(cx1 * cx1 + cy1 * cy1 + cz1 * cz1) * __ldg(r + 9);
+    const float cx2 = a2y * a3z - a2z * a3y;
+    const float cy2 = a2z * a3x - a2x * a3z;
+    const float cz2 = a2x * a3y - a2y * a3x;
+    const float l2 = sqrtf(cx2 * cx2 + cy2 * cy2 + cz2 * cz2) * __ldg(r + 9);
+    float l3 = 1.0f - l1 - l2;
+    l3 = l3 > 0.0f ? l3 : 0.0f;
+    u = __ldg(r + 10) * l1 + __ldg(r + 12) * l2 + __ldg(r + 14) * l3;
+    v = __ldg(r + 11) * l1 + __ldg(r + 13) * l2 + __ldg(r + 15) * l3;
+  }
+}
+
+// The nearest texel of u along an axis of n texels: u wrapped to [0, 1),
+// times n, clamped to [0, n - 1] (fmaxf puts a NaN on 0) and truncated.
+__device__ __forceinline__ int texel_axis(float u, int n) {
+  const float f = (u - floorf(u)) * static_cast<float>(n);
+  return static_cast<int>(fminf(fmaxf(f, 0.0f), static_cast<float>(n - 1)));
+}
+
+// The texel of image img at (u, v), a float3 index into the atlas: u
+// picks the row of the image's img_th, v the column of its img_tw
+// (taichi material.py:137-144).
+__device__ __forceinline__ int texel_of(const ImageScene& s, int img, float u,
+                                        float v) {
+  return (img * s.img_th + texel_axis(u, s.img_th)) * s.img_tw +
+         texel_axis(v, s.img_tw);
+}
+
+// The colour of a texel, one float3 read through the read-only cache.
+__device__ __forceinline__ void texel_rgb(const ImageScene& s, int texel,
+                                          float& r, float& g, float& b) {
+  const float* t = s.atlas + 3 * static_cast<size_t>(texel);
+  r = __ldg(t);
+  g = __ldg(t + 1);
+  b = __ldg(t + 2);
+}
+
 // The metal's fuzz-ball density about the mirror direction
 // (pallas_mega.py:1675-1684, :1853-1861): fuzz^3 as fuzz * (fuzz * fuzz).
 __device__ __forceinline__ float glossy_density(float cosr, float fuzz) {
@@ -504,19 +667,23 @@ __device__ __forceinline__ float emission_weight(
 // horizon or occluded) of the term tp * albedo * Le * okl; Le is the
 // light's colour by its checker parity at the sample point. lslot and
 // lodd: the light's gradient slot and that parity (the adjoint's credit
-// to the light). ref: the mirror direction (glossy metal lanes).
+// to the light). ref: the mirror direction (glossy metal lanes). With
+// kImages an image-textured light's Le is the atlas texel at the light
+// point's (u, v), in its family's hit convention (`nee_img`
+// :1623-1664), and ltexel is that texel (-1: none).
 struct NeeSample {
   float okl, ler, leg, leb;
   int lslot;
   bool lodd;
+  int ltexel;
 };
 
-template <bool kTail, bool kFamilies>
+template <bool kTail, bool kFamilies, bool kImages = false>
 __device__ __forceinline__ NeeSample nee_sample(
-    const Scene& s, uint32_t pre, float px, float py, float pz, float nx,
-    float ny, float nz, bool is_met, float fuzz, float ref_x, float ref_y,
-    float ref_z) {
-  NeeSample out{0.0f, 0.0f, 0.0f, 0.0f, 0, false};
+    const SceneOf<kImages>& s, uint32_t pre, float px, float py, float pz,
+    float nx, float ny, float nz, bool is_met, float fuzz, float ref_x,
+    float ref_y, float ref_z) {
+  NeeSample out{0.0f, 0.0f, 0.0f, 0.0f, 0, false, -1};
   const float u_pick = uniform(pre, kNeePick);
   const float u1 = uniform(pre, kNeeU1);
   const float u2 = uniform(pre, kNeeU2);
@@ -527,6 +694,7 @@ __device__ __forceinline__ NeeSample nee_sample(
   const float phi = k2Pi * u2;
   const float cphi = cosf(phi), sphi = sinf(phi);
   float lpx, lpy, lpz, lnx, lny, lnz;
+  float lu = 0.0f, lv = 0.0f;  // the light point's (u, v), with kImages
   if (fam_l == static_cast<float>(kFamSphere)) {
     const float zs = 1.0f - 2.0f * u1;
     const float sts = sqrtf(fmaxf(0.0f, 1.0f - zs * zs));
@@ -536,6 +704,7 @@ __device__ __forceinline__ NeeSample nee_sample(
     lpx = __ldg(lt + 9) + __ldg(lt + 12) * lnx;
     lpy = __ldg(lt + 10) + __ldg(lt + 12) * lny;
     lpz = __ldg(lt + 11) + __ldg(lt + 12) * lnz;
+    if constexpr (kImages) sphere_uv(lnx, lny, lnz, lu, lv);
   } else if (fam_l == static_cast<float>(kFamRect)) {
     const float ra = __ldg(lt + 18) + u1 * __ldg(lt + 20);
     const float rb = __ldg(lt + 19) + u2 * __ldg(lt + 21);
@@ -546,6 +715,8 @@ __device__ __forceinline__ NeeSample nee_sample(
     lnx = __ldg(lt + 9);
     lny = __ldg(lt + 10);
     lnz = __ldg(lt + 11);
+    lu = u1;
+    lv = u2;
   } else if (fam_l == static_cast<float>(kFamCyl)) {
     const float zc = __ldg(lt + 22) + u1 * __ldg(lt + 23);
     const float cox = __ldg(lt + 21) * cphi;
@@ -559,6 +730,8 @@ __device__ __forceinline__ NeeSample nee_sample(
     lnx = __ldg(lt + 9) * cphi + __ldg(lt + 10) * sphi;
     lny = __ldg(lt + 12) * cphi + __ldg(lt + 13) * sphi;
     lnz = __ldg(lt + 15) * cphi + __ldg(lt + 16) * sphi;
+    if constexpr (kImages) lu = (atan2f(sphi, cphi) + k2Pi) * kInv4Pi;
+    lv = u1;
   } else {  // triangle: v1 + b2 e1 + b3 e2, the sqrt barycentric warp
     const float sqt = sqrtf(u1);
     const float b2t = sqt * (1.0f - u2);
@@ -569,6 +742,13 @@ __device__ __forceinline__ NeeSample nee_sample(
     lnx = __ldg(lt + 18);
     lny = __ldg(lt + 19);
     lnz = __ldg(lt + 20);
+    if constexpr (kImages) {
+      const float b1t = 1.0f - sqt;
+      lu = b1t * __ldg(lt + kLUv) + b2t * __ldg(lt + kLUv + 2) +
+           b3t * __ldg(lt + kLUv + 4);
+      lv = b1t * __ldg(lt + kLUv + 1) + b2t * __ldg(lt + kLUv + 3) +
+           b3t * __ldg(lt + kLUv + 5);
+    }
   }
   const float wix = lpx - px, wiy = lpy - py, wiz = lpz - pz;
   const float d2l = fmaxf(wix * wix + wiy * wiy + wiz * wiz, 1e-8f);
@@ -584,6 +764,13 @@ __device__ __forceinline__ NeeSample nee_sample(
   out.ler = __ldg(lt + le);
   out.leg = __ldg(lt + le + 1);
   out.leb = __ldg(lt + le + 2);
+  if constexpr (kImages) {
+    const float limg = __ldg(lt + kLImg);
+    if (limg >= 0.0f) {
+      out.ltexel = texel_of(s, static_cast<int>(limg), lu, lv);
+      texel_rgb(s, out.ltexel, out.ler, out.leg, out.leb);
+    }
+  }
   out.lslot = static_cast<int>(__ldg(lt + kLSlot));
   const float area_l = __ldg(lt + kLArea);
   const float cs = fmaxf(cos_s, 0.0f);
@@ -610,6 +797,7 @@ struct Adj {
   float Lr, Lg, Lb, gr, gg, gb;
   float* acc;
   int n_slots;
+  float* gimg;  // the atlas gradient [Ni * TH * TW * 3] (kImages), global
 };
 
 // A lane's 13 state words in rows [0, 13) of an array with row stride
@@ -717,6 +905,31 @@ __device__ __forceinline__ void credit_slot(const Adj& adj, int slot,
   if (cb != 0.0f) atomicAdd(row + 2 * adj.n_slots, cb);
 }
 
+// Add one cotangent per channel to a texel's row of the atlas gradient.
+__device__ __forceinline__ void credit_texel(const Adj& adj, int texel,
+                                             float cr, float cg, float cb) {
+  float* t = adj.gimg + 3 * static_cast<size_t>(texel);
+  if (cr != 0.0f) atomicAdd(t, cr);
+  if (cg != 0.0f) atomicAdd(t + 1, cg);
+  if (cb != 0.0f) atomicAdd(t + 2, cb);
+}
+
+// Add a cotangent to what its colour came from: with kImages the texel
+// (texel >= 0, an image texture), else the slot, as credit_slot (without
+// kImages the code is credit_slot's).
+template <bool kImages>
+__device__ __forceinline__ void credit_winner(const Adj& adj, int texel,
+                                              int slot, bool odd, float cr,
+                                              float cg, float cb) {
+  if constexpr (kImages) {
+    if (texel >= 0) {
+      credit_texel(adj, texel, cr, cg, cb);
+      return;
+    }
+  }
+  credit_slot(adj, slot, odd, cr, cg, cb);
+}
+
 // The winner's gradient slot, the row of the adjoint accumulators its
 // cotangents go to: column kSlot of a sphere row, kFSlot of a family row.
 template <bool kFamilies>
@@ -758,9 +971,16 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 // 0) and marks the lane's alive word for the next bounce (0.5, or under
 // MIS 2 + the density of the direction drawn); with kAdjoint it also
 // credits the direct term to the winner's slot and to the light's.
+// kImages (a scene whose primitives sample image textures; s is then an
+// ImageScene)
+// gives a winner whose column kImgId holds an image id the atlas texel at
+// its (u, v) as its albedo, and under kNee an image-textured light its
+// texel at the light point; with kAdjoint such a winner's or light's
+// cotangents go to the texel's row of the atlas gradient, not to its
+// slot.
 template <bool kAdjoint, bool kTail, bool kCapture = false,
-          bool kFamilies = false, bool kNee = false>
-__device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
+          bool kFamilies = false, bool kNee = false, bool kImages = false>
+__device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
                                           uint32_t pre, const Adj& adj,
                                           int* code = nullptr) {
   bool rr_stop = false;
@@ -895,21 +1115,37 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
     }
   }
 
+  // image texture: the atlas texel at the winner's (u, v)
+  int texel = -1;
+  if constexpr (kImages) {
+    const float img = w[kImgId];
+    if (img >= 0.0f) {
+      float u, v;
+      winner_uv<kFamilies>(s, fam_best, id_best, v0, v1, v2, inv_rad, px, py,
+                           pz, u, v);
+      texel = texel_of(s, static_cast<int>(img), u, v);
+      texel_rgb(s, texel, alb_r, alb_g, alb_b);
+    }
+  }
+
   if (mtype == kDiffuseLight) {  // emits and stops
     if constexpr (kNee) {
       const float em = emission_weight(s, L.alive, fam_best, id_best, px, py,
                                        pz, ox, oy, oz, nx, ny, nz);
       if (kAdjoint && em != 0.0f)  // d(g.L)/d(emission) = g * P * em
-        credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2,
-                    adj.gr * L.tpr * em, adj.gg * L.tpg * em,
-                    adj.gb * L.tpb * em);
+        credit_winner<kImages>(adj, texel,
+                               winner_slot<kFamilies>(w, fam_best), use2,
+                               adj.gr * L.tpr * em, adj.gg * L.tpg * em,
+                               adj.gb * L.tpb * em);
       L.cr = L.cr + L.tpr * (em * alb_r);
       L.cg = L.cg + L.tpg * (em * alb_g);
       L.cb = L.cb + L.tpb * (em * alb_b);
     } else {
       if (kAdjoint)  // d(g.L)/d(emission) = g * P
-        credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2,
-                    adj.gr * L.tpr, adj.gg * L.tpg, adj.gb * L.tpb);
+        credit_winner<kImages>(adj, texel,
+                               winner_slot<kFamilies>(w, fam_best), use2,
+                               adj.gr * L.tpr, adj.gg * L.tpg,
+                               adj.gb * L.tpb);
       L.cr = L.cr + L.tpr * alb_r;
       L.cg = L.cg + L.tpg * alb_g;
       L.cb = L.cb + L.tpb * alb_b;
@@ -983,14 +1219,14 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
   // ---- next-event estimation: the direct term of a light-sampling
   // bounce (lambertian; with glossy, metal of fuzz > 0) ----
   bool sampled = false;
-  NeeSample ns{0.0f, 0.0f, 0.0f, 0.0f, 0, false};
+  NeeSample ns{0.0f, 0.0f, 0.0f, 0.0f, 0, false, -1};
   if constexpr (kNee) {
     sampled = mtype == kLambertian ||
               (s.glossy && mtype == kMetal && param > 0.0f);
     if (sampled) {
-      ns = nee_sample<kTail, kFamilies>(s, pre, px, py, pz, nx, ny, nz,
-                                        mtype == kMetal, param, ref_x, ref_y,
-                                        ref_z);
+      ns = nee_sample<kTail, kFamilies, kImages>(
+          s, pre, px, py, pz, nx, ny, nz, mtype == kMetal, param, ref_x,
+          ref_y, ref_z);
       if (ns.okl != 0.0f) {
         L.cr = L.cr + L.tpr * alb_r * ns.ler * ns.okl;
         L.cg = L.cg + L.tpg * alb_g * ns.leg * ns.okl;
@@ -1014,13 +1250,14 @@ __device__ __forceinline__ void do_bounce(const Scene& s, Lane& L,
       c_g = c_g + adj.gg * L.tpg * ns.leg * ns.okl;
       c_b = c_b + adj.gb * L.tpb * ns.leb * ns.okl;
     }
-    credit_slot(adj, winner_slot<kFamilies>(w, fam_best), use2, c_r, c_g,
-                c_b);
+    credit_winner<kImages>(adj, texel, winner_slot<kFamilies>(w, fam_best),
+                           use2, c_r, c_g, c_b);
     if constexpr (kNee) {
       if (ns.okl != 0.0f)
-        credit_slot(adj, ns.lslot, ns.lodd, adj.gr * L.tpr * alb_r * ns.okl,
-                    adj.gg * L.tpg * alb_g * ns.okl,
-                    adj.gb * L.tpb * alb_b * ns.okl);
+        credit_winner<kImages>(adj, ns.ltexel, ns.lslot, ns.lodd,
+                               adj.gr * L.tpr * alb_r * ns.okl,
+                               adj.gg * L.tpg * alb_g * ns.okl,
+                               adj.gb * L.tpb * alb_b * ns.okl);
     }
   }
 

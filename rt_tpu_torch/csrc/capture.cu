@@ -7,8 +7,10 @@
 // Replaces: rt_tpu/ops/pallas_mega.py::_capture_kernel (:1978-2053), the
 // Pallas TPU kernel launched by capture_segment (:2056, pallas_call
 // :2097) and driven by mega_capture (:2144), for spheres, rects,
-// cylinders and triangles with solid and checker textures, no NEE,
-// sampler "rng". Contract kept from it: the
+// cylinders and triangles with solid, checker and image textures, no
+// NEE, sampler "rng". No code or death depends on a texel (a scatter's
+// direction and its absorption read no albedo), so the kernel reads no
+// atlas: it takes textured tables as they are. Contract kept from it: the
 // 13-word state of fresh primary rays, per-lane pixel ids, one sample
 // index, max_depth bounces from bounce 0; out codes [max_depth, B] int32
 // (`ptype << 24 | pid`, -1 on a miss) and death [B] int32, the number of

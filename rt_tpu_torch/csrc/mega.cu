@@ -3,8 +3,9 @@
 //
 // Replaces: rt_tpu/ops/pallas_mega.py::_mega_kernel (:1899-1976), the
 // Pallas TPU kernel launched by mega_segment (:2460, pallas_call :2524),
-// for spheres, rects, cylinders and triangles with solid and checker
-// textures, NEE / MIS / glossy light sampling (kNee), sampler "rng".
+// for spheres, rects, cylinders and triangles with solid, checker and
+// image textures (kImages), NEE / MIS / glossy light sampling (kNee),
+// sampler "rng".
 // Contract kept from it: the 13-word ray state in and out (origin,
 // direction, throughput, radiance, alive), per-lane pixel and sample
 // ids, a start bounce that offsets the RNG's bounce coordinate, at most
@@ -38,9 +39,10 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kNee>
+template <bool kTail, bool kFamilies, bool kNee, bool kImages>
 __global__ void __launch_bounds__(kMaxThreads)
-mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
+mega_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
+            long long stride,
             int n, const int* __restrict__ pixel,
             const int* __restrict__ sample, int sample_scalar,
             int start_bounce, int max_depth, int* __restrict__ depth) {
@@ -61,7 +63,7 @@ mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
   const uint32_t lane_key = rtt::fold(rtt::fold(scene.seed, pix), smp);
   int b = 0;
   while (b < max_depth && L.alive > 0.0f) {
-    rtt::do_bounce<false, kTail, false, kFamilies, kNee>(
+    rtt::do_bounce<false, kTail, false, kFamilies, kNee, kImages>(
         scene, L, rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)),
         rtt::Adj{});
     ++b;
@@ -75,14 +77,17 @@ mega_kernel(rtt::Scene scene, float* __restrict__ state, long long stride,
 }  // namespace
 
 // table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri
-// [n_*, 32] f32 or null with 0 rows; lights [n_lights, 26] f32 or
-// null (no NEE), mis and glossy 0 / 1; state [13, stride] f32, of
+// [n_*, 32] f32 or null with 0 rows; atlas [Ni, img_th, img_tw, 3] f32
+// and uv_rect, uv_cyl, uv_tri [n_*, 17] f32, or null (no image
+// textures); lights [n_lights, 33] f32 or null (no NEE), mis and glossy
+// 0 / 1; state [13, stride] f32, of
 // which lanes [0, n) are traced in place; pixel [>= n] i32; sample
 // [>= n] i32 or null (then every lane uses sample_scalar); depth
 // [>= n] i32 or null (else each lane's bounce count is added to it).
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int mega_segment_launch(const float* table, int rows,
-                                   RTT_FAMILY_ARGS, float* state,
+                                   RTT_FAMILY_ARGS, RTT_IMG_ARGS,
+                                   float* state,
                                    long long stride, int n,
                                    const int* pixel, const int* sample,
                                    int sample_scalar, int start_bounce,
@@ -97,12 +102,18 @@ extern "C" int mega_segment_launch(const float* table, int rows,
       lights, n_lights, mis, glossy);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const int blocks = (n + threads - 1) / threads;
-  const auto kernel = RTT_PICK(mega_kernel, rtt::has_tail(rows),
-                               rtt::has_families(scene), rtt::has_nee(scene));
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, state, stride, n, pixel, sample, sample_scalar, start_bounce,
-      max_depth, depth);
-  return static_cast<int>(cudaGetLastError());
+  const bool tail = rtt::has_tail(rows), fam = rtt::has_families(scene),
+             nee = rtt::has_nee(scene);
+  const auto launch = [&](const auto& sc, auto kernel) {
+    kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        sc, state, stride, n, pixel, sample, sample_scalar, start_bounce,
+        max_depth, depth);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return atlas ? launch(rtt::with_images(scene, atlas, img_th, img_tw,
+                                         uv_rect, uv_cyl, uv_tri),
+                        RTT_PICK(mega_kernel, tail, fam, nee, true))
+               : launch(scene, RTT_PICK(mega_kernel, tail, fam, nee, false));
 }
 
 extern "C" const char* mega_error_string(int code) {

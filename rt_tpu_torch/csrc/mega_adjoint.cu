@@ -4,9 +4,9 @@
 // Replaces: rt_tpu/ops/pallas_mega.py::_adjoint_kernel (:2183), the
 // Pallas TPU kernel launched by adjoint_segment (:2568, pallas_call
 // :2620) and driven by mega_trace_adjoint (:3079), for spheres, rects,
-// cylinders and triangles with solid and checker textures, NEE without
-// MIS or glossy (kNee; the reference's kernel takes nee and n_lights
-// only, :2203-2204), sampler "rng", no image atlas.
+// cylinders and triangles with solid, checker and image textures
+// (kImages), NEE without MIS or glossy (kNee; the reference's kernel
+// takes nee and n_lights only, :2203-2204), sampler "rng".
 // Contract kept from it: the forward megakernel's segment (mega.cu) with
 // two more per-lane inputs, the sample's radiance L and its loss
 // cotangent g, replayed bounce by bounce from the counter RNG with
@@ -15,8 +15,11 @@
 // family row's column 31); the output is the [8,
 // n_slots] gradient block (rows 0-2 the primary colour, 3-5 the checker
 // odd colour, row 6 columns 0-2 the constant background), summed over
-// the blocks and the segments. With exhaust_bg (the last segment of an
-// exact replay), a lane alive at the end adds g * P to the background.
+// the blocks and the segments, and with image textures the atlas
+// gradient [Ni, TH, TW, 3]: a texel-sampled winner's or light's
+// cotangents go to its texel, not to its slot (:1741-1790). With
+// exhaust_bg (the last segment of an exact replay), a lane alive at the
+// end adds g * P to the background.
 //
 // What bounds it: FP32 operations, as the forward (per lane-bounce and
 // table row 23 for a sphere, 36 for a rect, 62 for a cylinder, 71 for a
@@ -32,7 +35,10 @@
 // global block once at the end, non-zero entries only: the per-bounce
 // atomics then stay on the SM. When the accumulators do not fit in the
 // shared memory the wrapper allows (shared_acc = 0), the lanes add to
-// the global block directly. The order of the float additions changes
+// the global block directly. The atlas gradient is added to in global
+// memory, one atomicAdd per channel of a texel-sampled hit, whatever the
+// atlas's size; many lanes of a magnified texture contend for one texel.
+// The order of the float additions changes
 // from run to run, so the sums agree with the plain version
 // (ops/adjoint_plain.py) within float rounding, not bit for bit; every
 // lane's path and cotangents are the plain version's bits (built with
@@ -46,13 +52,14 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kNee>
+template <bool kTail, bool kFamilies, bool kNee, bool kImages>
 __global__ void __launch_bounds__(kMaxThreads)
-mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
+mega_adjoint_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
                     long long stride, int n, const int* __restrict__ pixel,
                     const int* __restrict__ sample, int sample_scalar,
                     int start_bounce, int max_depth, float* grad,
-                    int n_slots, int shared_acc, int* __restrict__ depth) {
+                    int n_slots, int shared_acc, float* gimg,
+                    int* __restrict__ depth) {
   extern __shared__ float4 smem[];
   rtt::stage_table(scene, smem);
   const int n_acc = rtt::kBgRow * n_slots + 3;
@@ -71,7 +78,7 @@ mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
   if (i < n && s[12 * stride] > 0.0f) {
     rtt::Lane L;
     rtt::load_lane(s, stride, L);
-    rtt::Adj adj{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, acc, n_slots};
+    rtt::Adj adj{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, acc, n_slots, gimg};
     rtt::load_lg(s, stride, adj);
 
     const uint32_t pix = static_cast<uint32_t>(pixel[i]);
@@ -80,7 +87,7 @@ mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
     const uint32_t lane_key = rtt::fold(rtt::fold(scene.seed, pix), smp);
     int b = 0;
     while (b < max_depth && L.alive > 0.0f) {
-      rtt::do_bounce<true, kTail, false, kFamilies, kNee>(
+      rtt::do_bounce<true, kTail, false, kFamilies, kNee, kImages>(
           scene, L, rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)),
           adj);
       ++b;
@@ -106,23 +113,28 @@ mega_adjoint_kernel(rtt::Scene scene, float* __restrict__ state,
 }  // namespace
 
 // table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri [n_*, 32]
-// f32 or null with 0 rows; lights [n_lights, 26] f32 or null (no NEE);
-// state [19, stride] f32 (the
+// f32 or null with 0 rows; atlas [Ni, img_th, img_tw, 3] f32 and uv_rect,
+// uv_cyl, uv_tri [n_*, 17] f32, or null (no image textures); lights
+// [n_lights, 33] f32 or null (no NEE); state [19, stride] f32 (the
 // forward's 13 rows, then L and g), of which lanes [0, n) are replayed
 // in place; pixel [>= n] i32; sample [>= n] i32 or null (then
 // sample_scalar); grad [8, n_slots] f32, added to; shared_acc: keep the
 // block's accumulators in shared memory (6 * n_slots + 3 floats beside
-// the staged table); depth [>= n] i32 or null (each lane's bounce count
-// is added to it). Launches on `stream` and returns cudaGetLastError().
+// the staged table); gimg [Ni * img_th * img_tw * 3] f32, added to, or
+// null (no image textures); depth [>= n] i32 or null (each lane's bounce
+// count is added to it). Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int mega_adjoint_launch(const float* table, int rows,
-                                   RTT_FAMILY_ARGS, float* state,
+                                   RTT_FAMILY_ARGS, RTT_IMG_ARGS,
+                                   float* state,
                                    long long stride, int n,
                                    const int* pixel, const int* sample,
                                    int sample_scalar, int start_bounce,
                                    int max_depth, RTT_SCENE_ARGS,
                                    const float* lights, int n_lights,
                                    float* grad, int n_slots, int shared_acc,
-                                   int* depth, int threads, void* stream) {
+                                   float* gimg, int* depth, int threads,
+                                   void* stream) {
   const rtt::Scene scene = rtt::with_nee(
       rtt::with_families(
           rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
@@ -134,20 +146,27 @@ extern "C" int mega_adjoint_launch(const float* table, int rows,
                        (rtt::kBgRow * static_cast<size_t>(n_slots) + 3) *
                            sizeof(float)
                  : rtt::table_smem_bytes(rows);
-  const auto kernel =
-      RTT_PICK(mega_adjoint_kernel, rtt::has_tail(rows),
-               rtt::has_families(scene), rtt::has_nee(scene));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const int blocks = (n + threads - 1) / threads;
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, state, stride, n, pixel, sample, sample_scalar, start_bounce,
-      max_depth, grad, n_slots, shared_acc, depth);
-  return static_cast<int>(cudaGetLastError());
+  const bool tail = rtt::has_tail(rows), fam = rtt::has_families(scene),
+             nee = rtt::has_nee(scene);
+  const auto launch = [&](const auto& sc, auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        sc, state, stride, n, pixel, sample, sample_scalar, start_bounce,
+        max_depth, grad, n_slots, shared_acc, gimg, depth);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return atlas
+             ? launch(rtt::with_images(scene, atlas, img_th, img_tw, uv_rect,
+                                       uv_cyl, uv_tri),
+                      RTT_PICK(mega_adjoint_kernel, tail, fam, nee, true))
+             : launch(scene,
+                      RTT_PICK(mega_adjoint_kernel, tail, fam, nee, false));
 }
 
 extern "C" const char* mega_adjoint_error_string(int code) {

@@ -3,9 +3,9 @@
 // Replaces: rt_tpu/ops/pallas_queue.py::_queue_kernel (:122) with its
 // survivor repack _pack_into (:75), the Pallas TPU kernel launched by
 // queue_launch (:310, pallas_call :378) and driven by queue_trace
-// (:404), for spheres, rects, cylinders and triangles with solid and
-// checker textures, NEE / MIS / glossy light sampling (kNee), sampler
-// "rng". Contract kept from it:
+// (:404), for spheres, rects, cylinders and triangles with solid,
+// checker and image textures (kImages), NEE / MIS / glossy light
+// sampling (kNee), sampler "rng". Contract kept from it:
 // every primary ray (ro, rd, pixel, sample) is traced to its end
 // through the same bounce body as the megakernel (bounce.cuh), one
 // bounce per step, with the lane's own
@@ -43,9 +43,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kNee>
+template <bool kTail, bool kFamilies, bool kNee, bool kImages>
 __global__ void __launch_bounds__(kThreads)
-queue_kernel(rtt::Scene scene, const float* __restrict__ ro,
+queue_kernel(rtt::SceneOf<kImages> scene, const float* __restrict__ ro,
              const float* __restrict__ rd, const int* __restrict__ pixel,
              const int* __restrict__ sample, int sample_scalar, int b,
              float* __restrict__ pool_f, int* __restrict__ pool_i,
@@ -55,29 +55,35 @@ queue_kernel(rtt::Scene scene, const float* __restrict__ ro,
   extern __shared__ float4 smem[];
   rtt::stage_table(scene, smem);
   __syncthreads();
-  rtt::queue_loop<false, kTail, kFamilies, kNee>(
+  rtt::queue_loop<false, kTail, kFamilies, kNee, kImages>(
       scene, ro, rd, pixel, sample, sample_scalar, nullptr, nullptr, b,
-      pool_f, pool_i, pool_lanes, counters, out, nullptr, 0, depth,
+      pool_f, pool_i, pool_lanes, counters, out, nullptr, 0, nullptr, depth,
       written, max_depth, budget);
 }
 
 }  // namespace
 
 // The instantiation a scene of `rows` sphere rows, with or without
-// rect / cylinder / triangle rows and light sampling, runs.
+// rect / cylinder / triangle rows and light sampling, runs, with image
+// textures (kImages) or without.
+template <bool kImages>
 static auto pick_kernel(int rows, bool families, bool nee) {
-  return RTT_PICK(queue_kernel, rtt::has_tail(rows), families, nee);
+  return RTT_PICK(queue_kernel, rtt::has_tail(rows), families, nee, kImages);
 }
 
 // Blocks of `threads` threads the card holds at once with the table's
 // shared memory: the persistent grid (negative: minus a CUDA error).
-extern "C" int queue_grid_blocks(int rows, int families, int nee,
+extern "C" int queue_grid_blocks(int rows, int families, int nee, int images,
                                  int threads) {
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   int per_sm = 0, dev = 0, sms = 0;
-  const auto kernel = pick_kernel(rows, families != 0, nee != 0);
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, threads, smem);
+  const auto occupancy = [&](auto kernel) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         threads, smem);
+  };
+  cudaError_t err =
+      images ? occupancy(pick_kernel<true>(rows, families != 0, nee != 0))
+             : occupancy(pick_kernel<false>(rows, families != 0, nee != 0));
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -86,17 +92,18 @@ extern "C" int queue_grid_blocks(int rows, int families, int nee,
 }
 
 // table [rows, 18] f32; rect, cyl, tri [n_*, 32] f32 or null with 0
-// rows; lights [n_lights, 26] f32 or null (no NEE), mis and glossy
-// 0 / 1; ro, rd [b, 3] f32; pixel [b] i32; sample [b] i32 or null (then
-// sample_scalar); pool_f [13, blocks*threads] f32 and
-// pool_i [4, blocks*threads] i32 (pool_i row 0 = -1 before the first
-// launch); counters [2] u32 (fresh-ray cursor, lanes done; 0 before the
-// first launch); out [b, 3] f32; depth [b] i32 or null (each lane's
+// rows; atlas [Ni, img_th, img_tw, 3] f32 and uv_rect, uv_cyl, uv_tri
+// [n_*, 17] f32, or null (no image textures); lights [n_lights, 33] f32
+// or null (no NEE), mis and glossy 0 / 1; ro, rd [b, 3] f32; pixel [b]
+// i32; sample [b] i32 or null (then sample_scalar); pool_f [13,
+// blocks*threads] f32 and pool_i [4, blocks*threads] i32 (pool_i row 0 =
+// -1 before the first launch); counters [2] u32 (fresh-ray cursor,
+// lanes done; 0 before the first launch); out [b, 3] f32; depth [b] i32 or null (each lane's
 // bounce count); written [b] i32 or null (+1 per completion, a check
 // that every lane completes once). budget: steps per launch, 0 = until
 // drained. Launches on `stream`; returns cudaGetLastError().
 extern "C" int queue_launch(const float* table, int rows, RTT_FAMILY_ARGS,
-                            const float* ro, const float* rd,
+                            RTT_IMG_ARGS, const float* ro, const float* rd,
                             const int* pixel,
                             const int* sample, int sample_scalar, int b,
                             float* pool_f, int* pool_i, unsigned* counters,
@@ -111,12 +118,17 @@ extern "C" int queue_launch(const float* table, int rows, RTT_FAMILY_ARGS,
           rect, n_rect, cyl, n_cyl, tri, n_tri),
       lights, n_lights, mis, glossy);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
-  const auto kernel = pick_kernel(rows, rtt::has_families(scene),
-                                  rtt::has_nee(scene));
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, ro, rd, pixel, sample, sample_scalar, b, pool_f, pool_i,
-      blocks * threads, counters, out, depth, written, max_depth, budget);
-  return static_cast<int>(cudaGetLastError());
+  const bool fam = rtt::has_families(scene), nee = rtt::has_nee(scene);
+  const auto launch = [&](const auto& sc, auto kernel) {
+    kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        sc, ro, rd, pixel, sample, sample_scalar, b, pool_f, pool_i,
+        blocks * threads, counters, out, depth, written, max_depth, budget);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return atlas ? launch(rtt::with_images(scene, atlas, img_th, img_tw,
+                                         uv_rect, uv_cyl, uv_tri),
+                        pick_kernel<true>(rows, fam, nee))
+               : launch(scene, pick_kernel<false>(rows, fam, nee));
 }
 
 extern "C" const char* queue_error_string(int code) {

@@ -16,8 +16,9 @@
 // 19 rows; the alive word as it is, NEE's 0.5 and 2 + p included) in
 // pool_f and 4 int32 rows in pool_i (slot or -1 for an
 // empty lane, pixel, sample, bounce). The forward writes each finished
-// lane's radiance to out[slot]; the adjoint adds cotangents to `acc`
-// (bounce.cuh, Adj) and writes nothing per lane.
+// lane's radiance to out[slot]; the adjoint adds cotangents to `acc` and,
+// with image textures, to the atlas gradient `gimg` (bounce.cuh, Adj)
+// and writes nothing per lane.
 #pragma once
 
 #include "bounce.cuh"
@@ -27,21 +28,21 @@ namespace rtt {
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <bool kAdjoint, bool kTail, bool kFamilies = false,
-          bool kNee = false>
+          bool kNee = false, bool kImages = false>
 __device__ __forceinline__ void queue_loop(
-    const Scene& scene, const float* __restrict__ ro,
+    const SceneOf<kImages>& scene, const float* __restrict__ ro,
     const float* __restrict__ rd, const int* __restrict__ pixel,
     const int* __restrict__ sample, int sample_scalar,
     const float* __restrict__ lin, const float* __restrict__ gin, int b,
     float* __restrict__ pool_f, int* __restrict__ pool_i, int pool_lanes,
     unsigned* __restrict__ counters, float* __restrict__ out, float* acc,
-    int n_slots, int* __restrict__ depth, int* __restrict__ written,
-    int max_depth, int budget) {
+    int n_slots, float* gimg, int* __restrict__ depth,
+    int* __restrict__ written, int max_depth, int budget) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned lane = threadIdx.x & 31u;
   const long long P = pool_lanes;
   Lane L;
-  Adj adj{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, acc, n_slots};
+  Adj adj{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, acc, n_slots, gimg};
   int slot = pool_i[tid];
   uint32_t lane_key = 0;
   int bounce = 0;
@@ -109,7 +110,7 @@ __device__ __forceinline__ void queue_loop(
     if (slot >= 0) {
       // ---- one bounce; then exhaustion and retirement ----
       if (bounce < max_depth && L.alive > 0.0f) {
-        do_bounce<kAdjoint, kTail, false, kFamilies, kNee>(
+        do_bounce<kAdjoint, kTail, false, kFamilies, kNee, kImages>(
             scene, L, fold(lane_key, static_cast<uint32_t>(bounce)), adj);
         ++bounce;
       }

@@ -3,12 +3,13 @@
 // Replaces: rt_tpu/ops/pallas_queue.py::_queue_adjoint_kernel (:543),
 // the Pallas TPU kernel launched by queue_adjoint_launch (:736,
 // pallas_call :801) and driven by queue_trace_adjoint (:829), for
-// spheres, rects, cylinders and triangles with solid and checker
-// textures, NEE without MIS or glossy (kNee, as the reference's kernel,
-// :564), sampler "rng", no image atlas. Contract kept from it: the
+// spheres, rects, cylinders and triangles with solid, checker and image
+// textures (kImages), NEE without MIS or glossy (kNee, as the
+// reference's kernel, :564), sampler "rng". Contract kept from it: the
 // adjoint megakernel's replay
 // (mega_adjoint.cu: do_bounce<true> of bounce.cuh, the same cotangents
-// into the same [8, n_slots] gradient block) inside the persistent ray
+// into the same [8, n_slots] gradient block and atlas gradient) inside
+// the persistent ray
 // queue of queue.cu. The pool carries each lane's L and g besides its
 // state; its bounce counter is its RNG coordinate, so a lane's path and
 // cotangents do not depend on which thread ran it or on the step budget.
@@ -40,9 +41,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kNee>
+template <bool kTail, bool kFamilies, bool kNee, bool kImages>
 __global__ void __launch_bounds__(kThreads)
-queue_adjoint_kernel(rtt::Scene scene, const float* __restrict__ ro,
+queue_adjoint_kernel(rtt::SceneOf<kImages> scene, const float* __restrict__ ro,
                      const float* __restrict__ rd,
                      const int* __restrict__ pixel,
                      const int* __restrict__ sample, int sample_scalar,
@@ -51,8 +52,8 @@ queue_adjoint_kernel(rtt::Scene scene, const float* __restrict__ ro,
                      float* __restrict__ pool_f, int* __restrict__ pool_i,
                      int pool_lanes, unsigned* __restrict__ counters,
                      float* grad, int n_slots, int shared_acc,
-                     int* __restrict__ depth, int* __restrict__ written,
-                     int max_depth, int budget) {
+                     float* gimg, int* __restrict__ depth,
+                     int* __restrict__ written, int max_depth, int budget) {
   extern __shared__ float4 smem[];
   rtt::stage_table(scene, smem);
   const int n_acc = rtt::kBgRow * n_slots + 3;
@@ -63,10 +64,10 @@ queue_adjoint_kernel(rtt::Scene scene, const float* __restrict__ ro,
     for (int k = threadIdx.x; k < n_acc; k += blockDim.x) acc[k] = 0.0f;
   }
   __syncthreads();
-  rtt::queue_loop<true, kTail, kFamilies, kNee>(
+  rtt::queue_loop<true, kTail, kFamilies, kNee, kImages>(
       scene, ro, rd, pixel, sample, sample_scalar, lin, gin, b, pool_f,
-      pool_i, pool_lanes, counters, nullptr, acc, n_slots, depth, written,
-      max_depth, budget);
+      pool_i, pool_lanes, counters, nullptr, acc, n_slots, gimg, depth,
+      written, max_depth, budget);
   if (shared_acc) {
     __syncthreads();
     for (int k = threadIdx.x; k < n_acc; k += blockDim.x) {
@@ -83,14 +84,16 @@ size_t smem_bytes(int rows, int n_slots, int shared_acc) {
                     : rtt::table_smem_bytes(rows);
 }
 
-using Kernel = decltype(&queue_adjoint_kernel<false, false, false>);
-
 // The instantiation a scene of `rows` sphere rows, with or without
-// rect / cylinder / triangle rows and light sampling, runs.
-Kernel pick(int rows, bool families, bool nee) {
-  return RTT_PICK(queue_adjoint_kernel, rtt::has_tail(rows), families, nee);
+// rect / cylinder / triangle rows and light sampling, runs, with image
+// textures (kImages) or without.
+template <bool kImages>
+auto pick(int rows, bool families, bool nee) {
+  return RTT_PICK(queue_adjoint_kernel, rtt::has_tail(rows), families, nee,
+                  kImages);
 }
 
+template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
@@ -105,15 +108,20 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // shared_acc) and the registers of the instantiation the scene runs:
 // the persistent grid (negative: minus a CUDA error).
 extern "C" int queue_adjoint_grid_blocks(int rows, int families, int nee,
-                                         int n_slots, int shared_acc,
-                                         int threads) {
+                                         int images, int n_slots,
+                                         int shared_acc, int threads) {
   const size_t smem = smem_bytes(rows, n_slots, shared_acc);
-  const Kernel kernel = pick(rows, families != 0, nee != 0);
-  cudaError_t err = allow_smem(kernel, smem);
   int per_sm = 0, dev = 0, sms = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+  const auto occupancy = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         threads, smem);
+    return e;
+  };
+  cudaError_t err =
+      images ? occupancy(pick<true>(rows, families != 0, nee != 0))
+             : occupancy(pick<false>(rows, families != 0, nee != 0));
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -122,24 +130,28 @@ extern "C" int queue_adjoint_grid_blocks(int rows, int families, int nee,
 }
 
 // table [rows, 18] f32; rect, cyl, tri [n_*, 32] f32 or null with 0
-// rows; lights [n_lights, 26] f32 or null (no NEE); ro, rd, lin (L),
+// rows; atlas [Ni, img_th, img_tw, 3] f32 and uv_rect, uv_cyl, uv_tri
+// [n_*, 17] f32, or null (no image textures); lights [n_lights, 33] f32
+// or null (no NEE); ro, rd, lin (L),
 // gin (g) [b, 3] f32; pixel [b]
 // i32; sample [b] i32 or null (then sample_scalar); pool_f [19,
 // blocks*threads] f32 and pool_i [4, blocks*threads] i32 (pool_i row 0
 // = -1 before the first launch); counters [2] u32 (fresh-ray cursor,
 // lanes done; 0 before the first launch); grad [8, n_slots] f32, added
-// to; shared_acc: the block's accumulators in shared memory; depth [b]
+// to; shared_acc: the block's accumulators in shared memory; gimg [Ni *
+// img_th * img_tw * 3] f32, added to, or null (no image textures); depth [b]
 // i32 or null (each lane's bounce count); written [b] i32 or null (+1
 // per completion). budget: steps per launch, 0 = until drained.
 // Launches on `stream`; returns cudaGetLastError().
 extern "C" int queue_adjoint_launch(
-    const float* table, int rows, RTT_FAMILY_ARGS, const float* ro,
-    const float* rd,
+    const float* table, int rows, RTT_FAMILY_ARGS, RTT_IMG_ARGS,
+    const float* ro, const float* rd,
     const int* pixel, const int* sample, int sample_scalar, const float* lin,
     const float* gin, int b, float* pool_f, int* pool_i, unsigned* counters,
-    float* grad, int n_slots, int shared_acc, int* depth, int* written,
-    int max_depth, int budget, RTT_SCENE_ARGS, const float* lights,
-    int n_lights, int blocks, int threads, void* stream) {
+    float* grad, int n_slots, int shared_acc, float* gimg, int* depth,
+    int* written, int max_depth, int budget, RTT_SCENE_ARGS,
+    const float* lights, int n_lights, int blocks, int threads,
+    void* stream) {
   const rtt::Scene scene = rtt::with_nee(
       rtt::with_families(
           rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
@@ -147,15 +159,20 @@ extern "C" int queue_adjoint_launch(
           rect, n_rect, cyl, n_cyl, tri, n_tri),
       lights, n_lights, 0, 0);
   const size_t smem = smem_bytes(rows, n_slots, shared_acc);
-  const Kernel kernel = pick(rows, rtt::has_families(scene),
-                             rtt::has_nee(scene));
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, ro, rd, pixel, sample, sample_scalar, lin, gin, b, pool_f,
-      pool_i, blocks * threads, counters, grad, n_slots, shared_acc, depth,
-      written, max_depth, budget);
-  return static_cast<int>(cudaGetLastError());
+  const bool fam = rtt::has_families(scene), nee = rtt::has_nee(scene);
+  const auto launch = [&](const auto& sc, auto kernel) {
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        sc, ro, rd, pixel, sample, sample_scalar, lin, gin, b, pool_f,
+        pool_i, blocks * threads, counters, grad, n_slots, shared_acc, gimg,
+        depth, written, max_depth, budget);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return atlas ? launch(rtt::with_images(scene, atlas, img_th, img_tw,
+                                         uv_rect, uv_cyl, uv_tri),
+                        pick<true>(rows, fam, nee))
+               : launch(scene, pick<false>(rows, fam, nee));
 }
 
 extern "C" const char* queue_adjoint_error_string(int code) {

@@ -3,8 +3,8 @@
 //
 // Replaces: rt_tpu/ops/pallas_mega.py::_regen_kernel (:2288-2458), the
 // Pallas TPU kernel launched by mega_regen (:3226, pallas_call :3276),
-// for spheres, rects, cylinders and triangles with solid and checker
-// textures, no NEE, sampler "rng".
+// for spheres, rects, cylinders and triangles with solid, checker and
+// image textures (kImages), no NEE, sampler "rng".
 // Contract kept from it: each lane owns one pixel and owes the samples
 // [sample_base, sample_base + spp); it carries its sample and bounce
 // counters (samp, bvec) beside the 13-word ray state, and each of at
@@ -48,9 +48,10 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies>
+template <bool kTail, bool kFamilies, bool kImages>
 __global__ void __launch_bounds__(kMaxThreads)
-regen_kernel(rtt::Scene scene, rtt::Camera cam, float* __restrict__ state,
+regen_kernel(rtt::SceneOf<kImages> scene, rtt::Camera cam,
+             float* __restrict__ state,
              long long stride, int n, const int* __restrict__ pixel,
              const int* __restrict__ py, int* __restrict__ samp,
              int* __restrict__ bvec, int sample_base, int spp, int seg_iters,
@@ -105,7 +106,7 @@ regen_kernel(rtt::Scene scene, rtt::Camera cam, float* __restrict__ state,
       L.alive = 1.0f;
     }
     if (L.alive > 0.0f) {  // (3) one bounce
-      rtt::do_bounce<false, kTail, false, kFamilies>(
+      rtt::do_bounce<false, kTail, false, kFamilies, false, kImages>(
           scene, L,
           rtt::prefix(scene.seed, pix, static_cast<uint32_t>(sm),
                       static_cast<uint32_t>(bv)),
@@ -124,14 +125,17 @@ regen_kernel(rtt::Scene scene, rtt::Camera cam, float* __restrict__ state,
 }  // namespace
 
 // table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri [n_*, 32]
-// f32 or null with 0 rows; cam: 19 host floats
+// f32 or null with 0 rows; atlas [Ni, img_th, img_tw, 3] f32 and
+// uv_rect, uv_cyl, uv_tri [n_*, 17] f32, or null (no image textures);
+// cam: 19 host floats
 // (ops/camera.camera_vec), read before the launch; state [13, stride]
 // f32, of which lanes [0, n) advance in place; pixel, py [>= n] i32;
 // samp, bvec [>= n] i32, read unless init and written; depth [>= n] i32
 // or null (else each lane's bounce count is added to it). Launches on
 // `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int mega_regen_launch(const float* table, int rows,
-                                 RTT_FAMILY_ARGS, const float* cam,
+                                 RTT_FAMILY_ARGS, RTT_IMG_ARGS,
+                                 const float* cam,
                                  float* state, long long stride, int n,
                                  const int* pixel, const int* py,
                                  int* samp, int* bvec, int sample_base,
@@ -146,15 +150,25 @@ extern "C" int mega_regen_launch(const float* table, int rows,
   const rtt::Camera camera = rtt::make_camera(cam, width, height, defocus);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const int blocks = (n + threads - 1) / threads;
-  const bool fam = rtt::has_families(scene);
-  const auto kernel =
-      rtt::has_tail(rows)
-          ? (fam ? regen_kernel<true, true> : regen_kernel<true, false>)
-          : (fam ? regen_kernel<false, true> : regen_kernel<false, false>);
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, camera, state, stride, n, pixel, py, samp, bvec, sample_base,
-      spp, seg_iters, max_depth, init, depth);
-  return static_cast<int>(cudaGetLastError());
+  const bool tail = rtt::has_tail(rows), fam = rtt::has_families(scene);
+  const auto launch = [&](const auto& sc, auto kernel) {
+    kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        sc, camera, state, stride, n, pixel, py, samp, bvec, sample_base,
+        spp, seg_iters, max_depth, init, depth);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (atlas)
+    return launch(
+        rtt::with_images(scene, atlas, img_th, img_tw, uv_rect, uv_cyl,
+                         uv_tri),
+        tail ? (fam ? regen_kernel<true, true, true>
+                    : regen_kernel<true, false, true>)
+             : (fam ? regen_kernel<false, true, true>
+                    : regen_kernel<false, false, true>));
+  return launch(scene, tail ? (fam ? regen_kernel<true, true, false>
+                                   : regen_kernel<true, false, false>)
+                            : (fam ? regen_kernel<false, true, false>
+                                   : regen_kernel<false, false, false>));
 }
 
 extern "C" const char* mega_regen_error_string(int code) {

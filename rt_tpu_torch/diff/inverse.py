@@ -34,11 +34,12 @@ under one lax.map); the differences and the Adam update stay on the
 device, and a step reads back one scalar, its loss.
 
 Every estimator takes scenes of spheres, rects, cylinders and triangles
-with solid / checker textures, and cfg.nee (light sampling in the
-forward and in every gradient; mis / nee_glossy with "ad", "tape" and
-the finite differences, while the path replay refuses them with
-ValueError, as the reference's does); image textures, QMC, BVH and
-sharding raise NotImplementedError naming their ROADMAP items.
+with solid / checker / image textures ("images", the atlas, is a field
+of "ad", "replay" and "tape": texture recovery), and cfg.nee (light
+sampling in the forward and in every gradient; mis / nee_glossy with
+"ad", "tape" and the finite differences, while the path replay refuses
+them with ValueError, as the reference's does); QMC, BVH and sharding
+raise NotImplementedError naming their ROADMAP items.
 """
 
 from __future__ import annotations

@@ -40,12 +40,18 @@ suffix identity covers the single-technique lambertian estimator only,
 so mis or nee_glossy raise ValueError, as the reference's replay does
 (their gradients ride the tape or "ad").
 
-Scope: REPLAY_FIELDS but "images" (tex_color, tex_color2, mat_albedo,
-background) and GEOM_FIELDS by geom_spec, spheres, rects, cylinders and
-triangles with solid / checker textures, NEE, sampler "rng". A family
-row's cotangents land in its gradient slot (its texture row, or its
-material's), so a rect light's emission trains its tex_color row. The
-image atlas raises NotImplementedError (ROADMAP Queue B2(c)).
+Scope: REPLAY_FIELDS (tex_color, tex_color2, mat_albedo, background,
+images) and GEOM_FIELDS by geom_spec, spheres, rects, cylinders and
+triangles with solid / checker / image textures, NEE, sampler "rng". A
+family row's cotangents land in its gradient slot (its texture row, or
+its material's), so a rect light's emission trains its tex_color row.
+A texel-sampled hit's, and an image-textured light's, land in the
+texel of the atlas ("images"): texture recovery from renders, where
+only the texels some path reads receive a gradient. The adjoint
+kernels add them with one atomic per texel-sampled hit into a global
+[Ni, TH, TW, 3] buffer, at any atlas size (the reference's TPU kernel
+keeps per-tile planes and sends large atlases off the kernel,
+`adjoint_atlas_ok`).
 """
 
 from __future__ import annotations
@@ -73,8 +79,8 @@ from rt_tpu_torch.scene.types import SceneTables
 REPLAY_FIELDS = ("mat_albedo", "tex_color", "tex_color2", "background",
                  "images")
 GEOM_FIELDS = ("sph_center", "sph_radius", "mat_fuzz", "mat_ior")
-# the fields this slice differentiates
-PORTED_FIELDS = REPLAY_FIELDS[:4]
+# the fields the suffix identity differentiates (all of the reference's)
+PORTED_FIELDS = REPLAY_FIELDS
 
 # store per-sample radiance up to this many floats (spp * B * 3); beyond
 # it the backward recomputes L per sample (the reference's _STORE_L_MAX)
@@ -341,10 +347,6 @@ def _geom_components(tables: SceneTables, geom_spec) -> list:
 def _check_field(name: str, geom_spec: Dict) -> None:
     if name in PORTED_FIELDS or name in geom_spec:
         return
-    if name == "images":
-        raise NotImplementedError(
-            "replay gradients of 'images': image textures and the adjoint "
-            "atlas are not ported yet (ROADMAP Queue B2(c))")
     raise ValueError(
         f"replay gradients cover {PORTED_FIELDS} plus geom_spec fields "
         f"{sorted(geom_spec)} of {GEOM_FIELDS}; got {name!r} (pass "

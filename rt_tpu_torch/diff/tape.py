@@ -47,10 +47,12 @@ mis and nee_glossy too, as the wavefront integrator does
 geometry differentiate, the shadow test is a recomputed any-hit and
 carries no gradient (rt_tpu/diff/tape.py:228-337).
 
-Scope: spheres, rects, cylinders and triangles with solid / checker
-textures, NEE / MIS / glossy, sampler "rng". TAPE_FIELDS keeps the
-reference's names; "images" raises NotImplementedError (image textures,
-ROADMAP Queue B2(c)).
+Scope: spheres, rects, cylinders and triangles with solid / checker /
+image textures, NEE / MIS / glossy, sampler "rng", and every field of
+TAPE_FIELDS (the reference's names). The replay's texel gather is
+geom.take_rows over the flattened atlas (ops/materials.py), so autograd
+scatter-adds the "images" gradient with index_add_; the capture's codes
+do not depend on a texel.
 """
 
 from __future__ import annotations
@@ -104,10 +106,6 @@ TAPE_FIELDS = (
     "tri_v1", "tri_v2", "tri_v3",
     "camera",
 )
-# TAPE_FIELDS the tape does not differentiate yet
-_UNPORTED = {
-    "images": "image textures are not ported yet (ROADMAP Queue B2(c))",
-}
 
 # keep every sample's codes (spp * depth * B int32s, 2 GiB) ahead of the
 # replay up to this count; beyond it each sample's replay captures again
@@ -120,10 +118,6 @@ def check_fields(names) -> None:
     bad = sorted(set(names) - set(TAPE_FIELDS))
     if bad:
         raise ValueError(f"tape gradients cover {TAPE_FIELDS}; got {bad}")
-    for name in names:
-        if name in _UNPORTED:
-            raise NotImplementedError(f"tape gradients of {name!r}: "
-                                      f"{_UNPORTED[name]}")
 
 
 def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
@@ -551,7 +545,10 @@ def make_tape_vg(tables: SceneTables, cfg: RenderConfig, px, py, target,
                 acc = img if acc is None else acc + img
             loss = torch.mean((acc / float(spp) - target[order]) ** 2)
             clock.lap("forward_s")
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # parameters no path reads (an atlas no primitive samples)
+            # get zero gradients, as the reference's
+            grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
+                     if loss.requires_grad else [None] * len(leaves))
             clock.lap("backward_s")
         if times is not None:
             times["widths"] = (b,) + widths

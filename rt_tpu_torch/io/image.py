@@ -44,8 +44,10 @@ def write_png(path: str, u8_topdown: np.ndarray) -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read back an 8-bit RGB PNG whose rows use filter 0, as png_bytes
-    writes them; checks every chunk's CRC. Returns [H,W,3] u8."""
+    """Read an 8-bit RGB or RGBA PNG, as png_bytes writes it and as image
+    textures come (rt_tpu/io/image.py read_png): every chunk's CRC is
+    checked and the rows are unfiltered (None, Sub, Up, Average, Paeth).
+    Returns [H,W,3] u8 (alpha dropped)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != PNG_SIGNATURE:
@@ -65,13 +67,41 @@ def read_png(path: str) -> np.ndarray:
         elif tag == b"IEND":
             break
         pos += 12 + length
-    if ihdr is None or ihdr[2:5] != (8, 2, 0):
-        raise ValueError(f"{path}: want an 8-bit RGB PNG, header {ihdr}")
+    if ihdr is None or ihdr[2] != 8 or ihdr[3] not in (2, 6) or ihdr[6]:
+        raise ValueError(f"{path}: want an 8-bit RGB or RGBA PNG without "
+                         f"interlacing, header {ihdr}")
     w, h = ihdr[0], ihdr[1]
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 3 * w + 1)
-    if (raw[:, 0] != 0).any():
-        raise ValueError(f"{path}: only filter-0 rows are read")
-    return raw[:, 1:].reshape(h, w, 3).copy()
+    nc = 3 if ihdr[3] == 2 else 4
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, nc * w + 1)
+    out = np.empty((h, nc * w), np.uint8)
+    prev = np.zeros(nc * w, np.int64)
+    for y in range(h):
+        ftype, row = raw[y, 0], raw[y, 1:].astype(np.int64)
+        if ftype == 0:
+            cur = row
+        elif ftype == 1:    # Sub: a running sum along each channel
+            cur = np.cumsum(row.reshape(w, nc), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:    # Up
+            cur = (row + prev) & 0xFF
+        elif ftype in (3, 4):   # Average, Paeth: byte by byte
+            cur = row.copy()
+            for i in range(nc * w):
+                a = int(cur[i - nc]) if i >= nc else 0
+                b = int(prev[i])
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = int(prev[i - nc]) if i >= nc else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                cur[i] = (cur[i] + pred) & 0xFF
+        else:
+            raise ValueError(f"{path}: bad PNG filter {ftype}")
+        out[y] = cur
+        prev = cur
+    return out.reshape(h, w, nc)[..., :3].copy()
 
 
 def write_image(path: str, u8_topdown: np.ndarray) -> None:

@@ -3,8 +3,8 @@ and B6 (csrc/queue_adjoint.cu): the radiometric backward of the
 path-replay gradient for one sample (the counterpart of
 rt_tpu/ops/pallas_mega.py `do_bounce`'s adjoint block :1700-1800 and the
 `_adjoint_kernel` epilogue :2255-2285, for spheres, rects, cylinders
-and triangles with solid and checker textures, NEE without MIS or
-glossy, sampler "rng", no image atlas).
+and triangles with solid, checker and image textures, NEE without MIS
+or glossy, sampler "rng").
 
 The replay runs `mega_plain.bounce_plain`, the forward's own bounce, so
 C_after, the attenuation and P are the forward's bits, and adds each
@@ -27,11 +27,15 @@ rect light's emission lands in its texture row):
   - with `exhaust`, a lane still alive after the last bounce: g * P to
     the background (the forward credited it the sky).
 
-A checker's odd parity routes the cotangent to the albedo2 rows. The
-accumulators are the reference's [8, n_slots] block: rows 0-2 the
-primary colour (texture rows, then material rows), rows 3-5 the checker
-odd colour, row 6 columns 0-2 the background. `split_grads` cuts it into
-the reference's dict. Every lane's cotangent is the kernels'; the sums
+A checker's odd parity routes the cotangent to the albedo2 rows. A
+texel-sampled winner's cotangent goes to its texel of the image atlas
+and not to its slot, and so does an image-textured light's
+(pallas_mega.py:1741-1790): the atlas gradient [Ni*TH*TW, 3] beside
+the accumulators. The accumulators are the reference's [8, n_slots]
+block: rows 0-2 the primary colour (texture rows, then material rows),
+rows 3-5 the checker odd colour, row 6 columns 0-2 the background.
+`split_grads` cuts it, with the atlas gradient, into the reference's
+dict. Every lane's cotangent is the kernels'; the sums
 are taken by `index_add_` here and by float atomics there, whose order
 differs, so kernel and plain agree within float rounding only.
 """
@@ -48,29 +52,53 @@ ACC_ROWS = 8
 BG_ROW = 6
 
 
-def split_grads(acc: torch.Tensor, mega, grad_bg: bool) -> dict:
-    """The [8, n_slots] accumulators as the reference's gradient dict:
-    tex_color, tex_color2 [n_tex, 3], mat_albedo [n_mat, 3],
-    background [3] (zero under the gradient sky)."""
+def split_grads(acc: torch.Tensor, mega, grad_bg: bool,
+                gimg: Optional[torch.Tensor] = None) -> dict:
+    """The [8, n_slots] accumulators and the atlas gradient gimg (the
+    flattened atlas's [Ni*TH*TW, 3], or None for a scene without image
+    textures) as the reference's gradient dict: tex_color, tex_color2
+    [n_tex, 3], mat_albedo [n_mat, 3], background [3] (zero under the
+    gradient sky), images [Ni, TH, TW, 3] (zero without image
+    textures)."""
     n_tex, n_mat = mega.n_tex, mega.n_mat
     bg = (torch.zeros(3, dtype=acc.dtype, device=acc.device) if grad_bg
           else acc[BG_ROW, 0:3].clone())
+    images = (gimg.reshape(mega.atlas_shape) if gimg is not None else
+              torch.zeros(mega.atlas_shape, dtype=acc.dtype,
+                          device=acc.device))
     return {"tex_color": acc[0:3, :n_tex].T.contiguous(),
             "tex_color2": acc[3:6, :n_tex].T.contiguous(),
             "mat_albedo": acc[0:3, n_tex:n_tex + n_mat].T.contiguous(),
-            "background": bg}
+            "background": bg, "images": images}
 
 
-def _credit(acc, slot, odd, cot) -> None:
+def atlas_grad(mega, device) -> Optional[torch.Tensor]:
+    """A zero atlas gradient [Ni*TH*TW, 3] for a scene with image
+    textures, else None."""
+    if mega.img is None:
+        return None
+    return torch.zeros((mega.img.atlas[..., 0].numel(), 3),
+                       dtype=torch.float32, device=device)
+
+
+def _credit(acc, slot, odd, cot, gimg=None, texel=None) -> None:
     """Add the cotangents cot [3, n] to the gradient slots slot [n]: the
-    primary colour's rows, or where odd the checker odd colour's."""
+    primary colour's rows, or where odd the checker odd colour's; a lane
+    whose texel [n] is not -1 adds its cotangent to that row of the
+    atlas gradient gimg instead."""
+    if texel is not None:
+        on = texel >= 0
+        gimg.index_add_(0, texel[on], cot[:, on].T)
+        slot, odd, cot = slot[~on], odd[~on], cot[:, ~on]
     acc[0:3].index_add_(1, slot, torch.where(odd, 0.0, cot))
     acc[3:6].index_add_(1, slot, torch.where(odd, cot, 0.0))
 
 
-def accumulate(acc, bn: mp.Bounce, L, g, grad_bg: bool) -> None:
-    """Add one bounce's cotangents to acc [8, n_slots] in place. L, g:
-    [3, B] rows of the lanes that bounced."""
+def accumulate(acc, bn: mp.Bounce, L, g, grad_bg: bool,
+               gimg: Optional[torch.Tensor] = None) -> None:
+    """Add one bounce's cotangents to acc [8, n_slots] and, with image
+    textures, to the atlas gradient gimg, in place. L, g: [3, B] rows of
+    the lanes that bounced."""
     s_mask = bn.scattered & ~bn.is_die
     c_after = bn.state[mp.C:mp.C + 3]
     cots = []
@@ -90,7 +118,8 @@ def accumulate(acc, bn: mp.Bounce, L, g, grad_bg: bool) -> None:
     cot = torch.stack(cots)
     lanes = torch.nonzero(s_mask | bn.emitter)[:, 0]
     if lanes.numel():
-        _credit(acc, bn.slot[lanes], bn.use2[lanes], cot[:, lanes])
+        _credit(acc, bn.slot[lanes], bn.use2[lanes], cot[:, lanes], gimg,
+                None if bn.texel is None else bn.texel[lanes])
     if bn.okl is not None:
         # the direct term's emission factor, to the light's slot; a
         # light-sampling (lambertian) lane's attenuation is its albedo
@@ -98,7 +127,8 @@ def accumulate(acc, bn: mp.Bounce, L, g, grad_bg: bool) -> None:
         if lanes.numel():
             lcot = torch.stack([g[k] * bn.tp[k] * bn.att[k] * bn.okl
                                 for k in range(3)])
-            _credit(acc, bn.lslot[lanes], bn.lodd[lanes], lcot[:, lanes])
+            _credit(acc, bn.lslot[lanes], bn.lodd[lanes], lcot[:, lanes],
+                    gimg, None if bn.ltexel is None else bn.ltexel[lanes])
     if not grad_bg:
         tp = torch.stack(bn.tp)
         acc[BG_ROW, 0:3] += torch.where(bn.missed, g * tp, 0.0).sum(1)
@@ -125,6 +155,7 @@ def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
            if per_lane else int(sample_idx))
     acc = torch.zeros((ACC_ROWS, ms.n_slots), dtype=torch.float32,
                       device=dev)
+    gimg = atlas_grad(ms, dev)
     bounces = 0
     for b in range(int(depth_bwd)):
         idx = torch.nonzero(state[mp.ALIVE] > 0.0)[:, 0]
@@ -134,7 +165,7 @@ def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
                              smp[idx] if per_lane else smp, b, seed,
                              nee=nee, **kw)
         state[:, idx] = bn.state
-        accumulate(acc, bn, lt[:, idx], gt[:, idx], kw["grad_bg"])
+        accumulate(acc, bn, lt[:, idx], gt[:, idx], kw["grad_bg"], gimg)
         bounces += idx.numel()
     if exhaust and not kw["grad_bg"]:
         live = state[mp.ALIVE] > 0.0
@@ -142,4 +173,4 @@ def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
         acc[BG_ROW, 0:3] += torch.where(live, gt * tp, 0.0).sum(1)
     if stats is not None:
         stats["ray_bounces"] = stats.get("ray_bounces", 0) + bounces
-    return split_grads(acc, ms, kw["grad_bg"])
+    return split_grads(acc, ms, kw["grad_bg"], gimg)

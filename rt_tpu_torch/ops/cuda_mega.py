@@ -2,8 +2,8 @@
 PyTorch version, and the segmented trace around them (the counterpart of
 rt_tpu/ops/pallas_mega.py `_mega_kernel` :1899, `mega_segment` :2460,
 `_compact` :2716 and `mega_trace` :2934, for spheres, rects, cylinders
-and triangles with solid and checker textures, NEE / MIS / glossy light
-sampling, sampler "rng").
+and triangles with solid, checker and image textures, NEE / MIS / glossy
+light sampling, sampler "rng").
 
 `mega_segment` launches csrc/mega.cu (built by nvcc at first use,
 ops/cuda_build.py) for CUDA tensors and raises if it cannot; for CPU
@@ -19,7 +19,9 @@ drawing its RNG at (seed, pixel, sample, start_bounce + bounce,
 purpose). `exhaust_bg` credits the sky to the lanes still alive at the
 end (the final segment of a trace only). `nee` (mega_plain.Nee, or None)
 turns on light sampling: the kernel's kNee instantiation, with the
-light table and the MIS / glossy flags. The state is updated in place;
+light table and the MIS / glossy flags. `img` (mega_tables.Images, or
+None) turns on image textures: the kImages instantiation, with the
+atlas and the UV tables. The state is updated in place;
 `depth`, when given, gains each lane's number of bounces.
 
 `mega_trace` runs the reference's segment schedule (`compact_every`,
@@ -35,7 +37,8 @@ counterpart of `_adjoint_kernel` :2183, `adjoint_segment` :2568 and
 `mega_trace_adjoint` :3079): the same segments and group partition,
 with each lane's radiance L and cotangent g carried beside its state,
 and the gradients of the texture, material and background rows summed
-into one [8, n_slots] block. `mega_adjoint_segment.launches` counts its
+into one [8, n_slots] block, with image textures the atlas's into one
+[Ni * TH * TW, 3] buffer. `mega_adjoint_segment.launches` counts its
 launches. Its plain version is ops/adjoint_plain.py.
 
 `mega_capture` is the tape capture on kernel B4 (csrc/capture.cu, the
@@ -67,7 +70,7 @@ import torch
 
 from rt_tpu_torch.ops import adjoint_plain, cuda_build
 from rt_tpu_torch.ops import mega_plain as mp
-from rt_tpu_torch.ops.mega_tables import F_COLS, NL_COLS, S_COLS
+from rt_tpu_torch.ops.mega_tables import F_COLS, NL_COLS, S_COLS, U_COLS
 
 THREADS = 256
 # the most table rows the int32 offsets of the kernels address
@@ -99,6 +102,9 @@ SCALAR_TYPES = [ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
 FAMILY_TYPES = [ctypes.c_void_p, ctypes.c_int] * 3
 # the light table and NEE flags of the forward launchers (RTT_NEE_ARGS)
 NEE_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+# the atlas, its height and width and the UV tables (RTT_IMG_ARGS)
+IMG_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p]
 
 
 def family_args(fam, device):
@@ -114,6 +120,28 @@ def family_args(fam, device):
         if n > MAX_ROWS:
             raise ValueError(f"{name}: {n} rows, want at most {MAX_ROWS}")
         out += [tab.data_ptr() if n else None, n]
+    return tuple(out)
+
+
+def image_args(img, fam, device):
+    """The atlas and UV tables (mega_tables.Images, or None) as the C
+    launchers take them: (atlas pointer or None, TH, TW, then the rect,
+    cylinder and triangle UV tables' pointers, each with as many rows as
+    its family table of `fam`)."""
+    if img is None:
+        return (None, 0, 0, None, None, None)
+    atlas = img.atlas
+    shape = tuple(atlas.shape) if atlas.dim() == 4 else (-1,)
+    cuda_build.check_tensor("atlas", atlas, torch.float32,
+                            shape[:3] + (3,), device)
+    if atlas.numel() // 3 >= 1 << 31:
+        raise ValueError(f"atlas: {atlas.numel() // 3} texels, want fewer "
+                         "than 2^31 (the kernels' int32 texel index)")
+    out = [atlas.data_ptr(), shape[1], shape[2]]
+    rows = [t.shape[0] for t in fam] if fam is not None else [0, 0, 0]
+    for name, tab, n in zip(("uv_rect", "uv_cyl", "uv_tri"), img[1:], rows):
+        cuda_build.check_tensor(name, tab, torch.float32, (n, U_COLS), device)
+        out.append(tab.data_ptr() if n else None)
     return tuple(out)
 
 
@@ -138,6 +166,7 @@ def _library():
     lib.mega_segment_launch.argtypes = [
         vp, ci,                       # table, rows
         *FAMILY_TYPES,                # rect, rows, cyl, rows, tri, rows
+        *IMG_TYPES,                   # atlas, th, tw, uv_rect, _cyl, _tri
         vp, ctypes.c_longlong, ci,    # state, stride, n
         vp, vp, ci,                   # pixel, sample (or null), sample
         ci, ci,                       # start_bounce, max_depth
@@ -170,7 +199,7 @@ def lane_ints(name, x, n, device):
 def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
                        max_depth, *, n=None, t_min=1e-3, p_rr=0.0,
                        grad_bg=False, bg, exhaust_bg=False, depth=None,
-                       fam=None, nee=None):
+                       fam=None, nee=None, img=None):
     """The plain version of one segment (see the module doc)."""
     n = state.shape[1] if n is None else n
     sub = state[:, :n]
@@ -183,7 +212,7 @@ def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
         sub[:, idx] = mp.do_bounce_plain(
             tab, sub[:, idx], pixel[idx], samp, start_bounce + b, seed,
             t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam,
-            nee=nee)
+            nee=nee, img=img)
         if depth is not None:
             depth[idx] += 1
     if exhaust_bg:
@@ -194,7 +223,7 @@ def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
 
 def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
                  *, n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-                 exhaust_bg=False, depth=None, fam=None, nee=None,
+                 exhaust_bg=False, depth=None, fam=None, nee=None, img=None,
                  threads=THREADS):
     """One segment (see the module doc): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
@@ -203,7 +232,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
         return mega_segment_plain(
             tab, state, pixel, sample, seed, start_bounce, max_depth, n=n,
             t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg,
-            exhaust_bg=exhaust_bg, depth=depth, fam=fam, nee=nee)
+            exhaust_bg=exhaust_bg, depth=depth, fam=fam, nee=nee, img=img)
     if dev.type != "cuda":
         raise ValueError(f"mega_segment: unsupported device {dev}")
     if state.dim() != 2 or state.shape[0] != mp.NSTATE:
@@ -214,6 +243,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
                             (mp.NSTATE, stride), dev)
     check_table(tab, dev)
     fam_args = family_args(fam, dev)
+    img_args = image_args(img, fam, dev)
     light_args = nee_args(nee, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
@@ -230,7 +260,8 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mega_segment_launch(
-            tab.data_ptr(), tab.shape[0], *fam_args, state.data_ptr(),
+            tab.data_ptr(), tab.shape[0], *fam_args, *img_args,
+            state.data_ptr(),
             stride, n,
             pix_ptr, samp_ptr, samp, int(start_bounce), int(max_depth),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
@@ -415,13 +446,16 @@ def _radiance(state, orig_g, b):
 def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
                          max_depth, grad, *, n=None, t_min=1e-3, p_rr=0.0,
                          grad_bg=False, bg, exhaust_bg=False, depth=None,
-                         fam=None, nee=None, threads=THREADS):
+                         fam=None, nee=None, img=None, gimg=None,
+                         threads=THREADS):
     """One segment of the adjoint megakernel B5 (csrc/mega_adjoint.cu)
     on CUDA tensors: state [19, stride] (the forward's 13 rows, then L
     and g), lanes [0, n) replayed in place; grad [8, n_slots] is added
     to, through per-block accumulators in shared memory when they fit
-    (acc_fits_smem); fam: the family tables, as mega_segment; nee: the
-    light table (mega_plain.Nee without MIS or glossy), or None."""
+    (acc_fits_smem); fam, img: the family tables and the images, as
+    mega_segment, and with img the atlas gradient gimg [Ni * TH * TW,
+    3], added to; nee: the light table (mega_plain.Nee without MIS or
+    glossy), or None."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"mega_adjoint_segment: unsupported device {dev}")
@@ -434,6 +468,8 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
                             (ADJ_ROWS, stride), dev)
     check_table(tab, dev)
     fam_args = family_args(fam, dev)
+    img_args = image_args(img, fam, dev)
+    gimg_ptr = atlas_grad_ptr(img, gimg, dev)
     if nee is not None and (nee.mis or nee.glossy):
         raise ValueError("mega_adjoint_segment: the adjoint takes NEE "
                          "without mis or nee_glossy")
@@ -456,12 +492,13 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mega_adjoint_launch(
-            tab.data_ptr(), tab.shape[0], *fam_args, state.data_ptr(),
-            stride, n,
+            tab.data_ptr(), tab.shape[0], *fam_args, *img_args,
+            state.data_ptr(), stride, n,
             pix_ptr, samp_ptr, samp, int(start_bounce), int(max_depth),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
             *light_args, grad.data_ptr(), n_slots,
-            int(acc_fits_smem(n_slots)), depth_ptr, int(threads), stream)
+            int(acc_fits_smem(n_slots)), gimg_ptr, depth_ptr, int(threads),
+            stream)
     if rc != 0:
         msg = lib.mega_adjoint_error_string(rc).decode()
         raise RuntimeError(f"mega_adjoint_segment launch failed: {msg} "
@@ -471,6 +508,19 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
 
 
 mega_adjoint_segment.launches = 0
+
+
+def atlas_grad_ptr(img, gimg, device):
+    """The atlas gradient's pointer for an adjoint launcher (None without
+    image textures), checked against the atlas."""
+    if img is None:
+        return None
+    if gimg is None:
+        raise ValueError("gimg: an adjoint with image textures needs the "
+                         "atlas gradient")
+    cuda_build.check_tensor("gimg", gimg, torch.float32,
+                            (img.atlas[..., 0].numel(), 3), device)
+    return gimg.data_ptr()
 
 
 def acc_fits_smem(n_slots: int) -> bool:
@@ -485,12 +535,14 @@ def _adjoint_library():
     lib.mega_adjoint_launch.argtypes = [
         vp, ci,                       # table, rows
         *FAMILY_TYPES,                # rect, rows, cyl, rows, tri, rows
+        *IMG_TYPES,                   # atlas, th, tw, uv_rect, _cyl, _tri
         vp, ctypes.c_longlong, ci,    # state, stride, n
         vp, vp, ci,                   # pixel, sample (or null), sample
         ci, ci,                       # start_bounce, max_depth
         *SCALAR_TYPES,
         vp, ci,                       # lights (or null), n_lights
         vp, ci, ci,                   # grad, n_slots, shared_acc
+        vp,                           # gimg (or null)
         vp, ci, vp]                   # depth (or null), threads, stream
     lib.mega_adjoint_launch.restype = ci
     lib.mega_adjoint_error_string.argtypes = [ci]
@@ -510,7 +562,7 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     cotangent [B,3]). exhaust: credit the sky's gradient to lanes alive
     after the last bounce (an exact replay of an exhaust_mode
     "background" forward). Returns {"tex_color", "tex_color2",
-    "mat_albedo", "background"} (ops/adjoint_plain.split_grads).
+    "mat_albedo", "background", "images"} (ops/adjoint_plain.split_grads).
 
     CPU tensors, or plain=True, run adjoint_plain.trace_adjoint_plain.
     stats, when given, gains "launches" and "ray_bounces".
@@ -534,18 +586,19 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
              if stats is not None else None)
     grad = torch.zeros((adjoint_plain.ACC_ROWS, ms.n_slots),
                        dtype=torch.float32, device=dev)
+    gimg = adjoint_plain.atlas_grad(ms, dev)
 
     def run(state, ints, start, seg, n_live, last):
         pix, sample, depth = ints
         mega_adjoint_segment(ms.table, state, pix, sample, seed, start, seg,
                              grad, n=n_live, exhaust_bg=exhaust and last,
-                             depth=depth, nee=nee, **kw)
+                             depth=depth, nee=nee, gimg=gimg, **kw)
 
     _, (_, _, depth), _, launches = _segmented(
         state, (pix, sample, depth), segs, cfg.compact_group,
         cfg.compact_shrink, run)
     record_stats(stats, launches, depth)
-    return adjoint_plain.split_grads(grad, ms, kw["grad_bg"])
+    return adjoint_plain.split_grads(grad, ms, kw["grad_bg"], gimg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -633,6 +686,7 @@ def _regen_library():
     lib.mega_regen_launch.argtypes = [
         vp, ci,                       # table, rows
         *FAMILY_TYPES,                # rect, rows, cyl, rows, tri, rows
+        *IMG_TYPES,                   # atlas, th, tw, uv_rect, _cyl, _tri
         vp,                           # camera (19 host floats)
         vp, ctypes.c_longlong, ci,    # state, stride, n
         vp, vp, vp, vp,               # pixel, py, samp, bvec
@@ -650,17 +704,19 @@ def _regen_library():
 def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
                seg_iters, *, max_depth, spp, init, width, height, defocus,
                n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-               exhaust_bg=False, depth=None, fam=None, threads=THREADS):
+               exhaust_bg=False, depth=None, fam=None, img=None,
+               threads=THREADS):
     """One segment of the regeneration kernel B7 (the contract of
     mega_plain.regen_plain): csrc/regen.cu for CUDA tensors, the plain
     version for CPU tensors. state [13, B] f32, pixel, py, samp, bvec
-    (and depth) [B] int32; lanes [0, n) advance in place; fam: the
-    family tables, as mega_segment. Returns (state, samp, bvec)."""
+    (and depth) [B] int32; lanes [0, n) advance in place; fam, img: the
+    family tables and the images, as mega_segment. Returns (state, samp,
+    bvec)."""
     dev = state.device
     opts = dict(max_depth=max_depth, spp=spp, init=init, width=width,
                 height=height, defocus=defocus, n=n, t_min=t_min, p_rr=p_rr,
                 grad_bg=grad_bg, bg=bg, exhaust_bg=exhaust_bg, depth=depth,
-                fam=fam)
+                fam=fam, img=img)
     if dev.type == "cpu":
         return mp.regen_plain(tab, cam, state, pixel, py, samp, bvec,
                               sample_base, seed, seg_iters, **opts)
@@ -674,6 +730,7 @@ def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
                             (mp.NSTATE, stride), dev)
     check_table(tab, dev)
     fam_args = family_args(fam, dev)
+    img_args = image_args(img, fam, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
     if len(cam) != 19:
@@ -695,7 +752,8 @@ def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mega_regen_launch(
-            tab.data_ptr(), tab.shape[0], *fam_args, cam_c, state.data_ptr(),
+            tab.data_ptr(), tab.shape[0], *fam_args, *img_args, cam_c,
+            state.data_ptr(),
             stride, n,
             *ptrs, int(sample_base), int(spp), int(seg_iters),
             int(max_depth), int(bool(init)), int(width), int(height),

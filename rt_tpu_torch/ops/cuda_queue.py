@@ -2,7 +2,7 @@
 loop that relaunches it, and its plain PyTorch emulation (the
 counterpart of rt_tpu/ops/pallas_queue.py `_queue_kernel` :122,
 `_pack_into` :75, `queue_launch` :310 and `queue_trace` :404, for
-spheres, rects, cylinders and triangles with solid and checker
+spheres, rects, cylinders and triangles with solid, checker and image
 textures, NEE / MIS / glossy light sampling, sampler "rng").
 
 `queue_trace` runs csrc/queue.cu (built by nvcc at first use,
@@ -28,7 +28,8 @@ gradient on the queue's adjoint B6 (csrc/queue_adjoint.cu, the
 counterpart of `_queue_adjoint_kernel` :543, `queue_adjoint_launch`
 :736 and `queue_trace_adjoint` :829): the same pool and refill, each
 lane carrying its radiance L and cotangent g, and no radiance output;
-the [8, n_slots] gradient block persists across launches.
+the [8, n_slots] gradient block and, with image textures, the atlas
+gradient persist across launches.
 `queue_adjoint_launch.launches` counts its launches. Its plain version
 is ops/adjoint_plain.py.
 """
@@ -55,11 +56,12 @@ PLAIN_POOL_LANES = 1 << 16
 def _library():
     lib = cuda_build.load("queue")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.queue_grid_blocks.argtypes = [ci, ci, ci, ci]
+    lib.queue_grid_blocks.argtypes = [ci, ci, ci, ci, ci]
     lib.queue_grid_blocks.restype = ci
     lib.queue_launch.argtypes = [
         vp, ci,                       # table, rows
         *cuda_mega.FAMILY_TYPES,      # rect, rows, cyl, rows, tri, rows
+        *cuda_mega.IMG_TYPES,         # atlas, th, tw, uv_rect, _cyl, _tri
         vp, vp, vp, vp, ci, ci,       # ro, rd, pixel, sample, sample, b
         vp, vp, vp,                   # pool_f, pool_i, counters
         vp, vp, vp,                   # out, depth, written
@@ -74,24 +76,26 @@ def _library():
 
 
 def grid_blocks(rows: int, device, threads: int = cuda_mega.THREADS, *,
-                families: bool = False, nee: bool = False) -> int:
+                families: bool = False, nee: bool = False,
+                images: bool = False) -> int:
     """Blocks the card holds at once for a table of `rows` sphere rows,
-    with family rows or without, with light sampling or without: the
-    persistent grid (pool lanes = blocks * threads), queried from CUDA
-    once per card, row count, instantiation and block size."""
+    with family rows or without, with light sampling or without, with
+    image textures or without: the persistent grid (pool lanes = blocks
+    * threads), queried from CUDA once per card, row count,
+    instantiation and block size."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _grid_blocks(int(rows), bool(families), bool(nee), index,
-                        int(threads))
+    return _grid_blocks(int(rows), bool(families), bool(nee), bool(images),
+                        index, int(threads))
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_blocks(rows: int, families: bool, nee: bool, index: int,
-                 threads: int) -> int:
+def _grid_blocks(rows: int, families: bool, nee: bool, images: bool,
+                 index: int, threads: int) -> int:
     lib = _library()
     with torch.cuda.device(index):
         blocks = lib.queue_grid_blocks(rows, int(families), int(nee),
-                                       threads)
+                                       int(images), threads)
     if blocks <= 0:
         msg = lib.queue_error_string(-blocks).decode() if blocks else \
             "no block fits on a multiprocessor"
@@ -102,11 +106,11 @@ def _grid_blocks(rows: int, families: bool, nee: bool, index: int,
 def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
                  *, seed, max_depth, budget, t_min=1e-3, p_rr=0.0,
                  grad_bg=False, bg, exhaust_bg=False, depth=None,
-                 written=None, fam=None, nee=None, blocks,
+                 written=None, fam=None, nee=None, img=None, blocks,
                  threads=cuda_mega.THREADS):
     """One launch of the queue kernel on CUDA tensors (see queue.cu for
-    the operands; fam, nee: the family tables and the light sampler, as
-    cuda_mega.mega_segment).
+    the operands; fam, nee, img: the family tables, the light sampler and
+    the images, as cuda_mega.mega_segment).
     pool_f [13, blocks*threads], pool_i [4, blocks*threads] and counters
     [2] carry the queue from one launch to the next."""
     dev = ro.device
@@ -117,6 +121,7 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
     chk = cuda_build.check_tensor
     cuda_mega.check_table(tab, dev)
     fam_args = cuda_mega.family_args(fam, dev)
+    img_args = cuda_mega.image_args(img, fam, dev)
     light_args = cuda_mega.nee_args(nee, dev)
     chk("ro", ro, torch.float32, (b, 3), dev)
     chk("rd", rd, torch.float32, (b, 3), dev)
@@ -135,7 +140,7 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.queue_launch(
-            tab.data_ptr(), tab.shape[0], *fam_args, ro.data_ptr(),
+            tab.data_ptr(), tab.shape[0], *fam_args, *img_args, ro.data_ptr(),
             rd.data_ptr(), pixel.data_ptr(), samp_ptr, samp, b,
             pool_f.data_ptr(),
             pool_i.data_ptr(), counters.data_ptr(), out.data_ptr(), *ptrs,
@@ -188,7 +193,8 @@ def queue_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
         return out
     ro, rd = ro.contiguous(), rd.contiguous()
     blocks = grid_blocks(tab.shape[0], dev, families=kw["fam"] is not None,
-                         nee=kw["nee"] is not None)
+                         nee=kw["nee"] is not None,
+                         images=kw["img"] is not None)
     if pool_lanes is not None:
         blocks = min(blocks, max(1, -(-int(pool_lanes) // cuda_mega.THREADS)))
     lanes = blocks * cuda_mega.THREADS
@@ -293,15 +299,17 @@ def queue_trace_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
 def _adjoint_library():
     lib = cuda_build.load("queue_adjoint")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.queue_adjoint_grid_blocks.argtypes = [ci, ci, ci, ci, ci, ci]
+    lib.queue_adjoint_grid_blocks.argtypes = [ci, ci, ci, ci, ci, ci, ci]
     lib.queue_adjoint_grid_blocks.restype = ci
     lib.queue_adjoint_launch.argtypes = [
         vp, ci,                       # table, rows
         *cuda_mega.FAMILY_TYPES,      # rect, rows, cyl, rows, tri, rows
+        *cuda_mega.IMG_TYPES,         # atlas, th, tw, uv_rect, _cyl, _tri
         vp, vp, vp, vp, ci,           # ro, rd, pixel, sample, sample
         vp, vp, ci,                   # L, g, b
         vp, vp, vp,                   # pool_f, pool_i, counters
         vp, ci, ci,                   # grad, n_slots, shared_acc
+        vp,                           # gimg (or null)
         vp, vp,                       # depth, written
         ci, ci,                       # max_depth, budget
         *cuda_mega.SCALAR_TYPES,
@@ -315,24 +323,28 @@ def _adjoint_library():
 
 def adjoint_grid_blocks(rows: int, n_slots: int, device,
                         threads: int = cuda_mega.THREADS, *,
-                        families: bool = False, nee: bool = False) -> int:
+                        families: bool = False, nee: bool = False,
+                        images: bool = False) -> int:
     """The persistent grid of the queue adjoint (blocks the card holds at
     once with its shared memory: the staged table, and the accumulators
     when cuda_mega.acc_fits_smem; and with the registers of the
-    instantiation with family rows or without, with NEE or without),
-    once per card, shape and instantiation."""
+    instantiation with family rows or without, with NEE or without, with
+    image textures or without), once per card, shape and
+    instantiation."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return _adjoint_grid_blocks(int(rows), bool(families), bool(nee),
-                                int(n_slots), index, int(threads))
+                                bool(images), int(n_slots), index,
+                                int(threads))
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_grid_blocks(rows, families, nee, n_slots, index, threads):
+def _adjoint_grid_blocks(rows, families, nee, images, n_slots, index,
+                         threads):
     lib = _adjoint_library()
     with torch.cuda.device(index):
         blocks = lib.queue_adjoint_grid_blocks(
-            rows, int(families), int(nee), n_slots,
+            rows, int(families), int(nee), int(images), n_slots,
             int(cuda_mega.acc_fits_smem(n_slots)), threads)
     if blocks <= 0:
         msg = lib.queue_adjoint_error_string(-blocks).decode() if blocks \
@@ -346,13 +358,14 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
                          pool_i, counters, grad, *, seed, max_depth, budget,
                          t_min=1e-3, p_rr=0.0, grad_bg=False,
                          bg, exhaust_bg=False, depth=None, written=None,
-                         fam=None, nee=None, blocks,
+                         fam=None, nee=None, img=None, gimg=None, blocks,
                          threads=cuda_mega.THREADS):
     """One launch of the queue adjoint on CUDA tensors (see
-    queue_adjoint.cu for the operands; fam, nee: the family tables and
-    the light table, as cuda_mega.mega_adjoint_segment). pool_f [19, blocks*threads], pool_i [4,
-    blocks*threads], counters [2] and grad [8, n_slots] carry the replay
-    from one launch to the next."""
+    queue_adjoint.cu for the operands; fam, nee, img, gimg: the family
+    tables, the light table, the images and the atlas gradient, as
+    cuda_mega.mega_adjoint_segment). pool_f [19, blocks*threads], pool_i
+    [4, blocks*threads], counters [2], grad [8, n_slots] and gimg carry
+    the replay from one launch to the next."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"queue_adjoint_launch: unsupported device {dev}")
@@ -361,6 +374,8 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
     chk = cuda_build.check_tensor
     cuda_mega.check_table(tab, dev)
     fam_args = cuda_mega.family_args(fam, dev)
+    img_args = cuda_mega.image_args(img, fam, dev)
+    gimg_ptr = cuda_mega.atlas_grad_ptr(img, gimg, dev)
     if nee is not None and (nee.mis or nee.glossy):
         raise ValueError("queue_adjoint_launch: the adjoint takes NEE "
                          "without mis or nee_glossy")
@@ -383,12 +398,12 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.queue_adjoint_launch(
-            tab.data_ptr(), tab.shape[0], *fam_args, ro.data_ptr(),
-            rd.data_ptr(),
+            tab.data_ptr(), tab.shape[0], *fam_args, *img_args,
+            ro.data_ptr(), rd.data_ptr(),
             pixel.data_ptr(), samp_ptr, samp, L.data_ptr(), gcot.data_ptr(),
             b, pool_f.data_ptr(), pool_i.data_ptr(), counters.data_ptr(),
             grad.data_ptr(), n_slots, int(cuda_mega.acc_fits_smem(n_slots)),
-            *ptrs,
+            gimg_ptr, *ptrs,
             int(max_depth), int(budget),
             *cuda_mega._scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
             *light_args, int(blocks), int(threads), stream)
@@ -427,14 +442,16 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     b = ro.shape[0]
     grad = torch.zeros((adjoint_plain.ACC_ROWS, ms.n_slots),
                        dtype=torch.float32, device=dev)
+    gimg = adjoint_plain.atlas_grad(ms, dev)
     if b == 0:
-        return adjoint_plain.split_grads(grad, ms, kw["grad_bg"])
+        return adjoint_plain.split_grads(grad, ms, kw["grad_bg"], gimg)
     ro, rd = ro.contiguous(), rd.contiguous()
     L = L.to(torch.float32).contiguous()
     gcot = gcot.to(torch.float32).contiguous()
     blocks = adjoint_grid_blocks(tab.shape[0], ms.n_slots, dev,
                                  families=kw["fam"] is not None,
-                                 nee=kw["nee"] is not None)
+                                 nee=kw["nee"] is not None,
+                                 images=kw["img"] is not None)
     if pool_lanes is not None:
         blocks = min(blocks, max(1, -(-int(pool_lanes) // cuda_mega.THREADS)))
     lanes = blocks * cuda_mega.THREADS
@@ -454,7 +471,7 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
         queue_adjoint_launch(
             tab, ro, rd, pix, sample, L, gcot, pool_f, pool_i, counters,
             grad, seed=seed, max_depth=int(depth_bwd), budget=budget,
-            exhaust_bg=exhaust, depth=depth,
+            exhaust_bg=exhaust, depth=depth, gimg=gimg,
             written=written, blocks=blocks, **kw)
         launches += 1
         done = int(counters[1])  # one small host read per launch
@@ -467,4 +484,4 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
         raise RuntimeError("queue_trace_adjoint: a lane completed other "
                            "than once")
     cuda_mega.record_stats(stats, launches, depth)
-    return adjoint_plain.split_grads(grad, ms, kw["grad_bg"])
+    return adjoint_plain.split_grads(grad, ms, kw["grad_bg"], gimg)

@@ -10,9 +10,11 @@ Scatter semantics per material:
                   reflection; attenuation = 1
   diffuse_light — never scatters; emits its texture value
 
-Textures ported so far: solid colour and checker. Parameters are fetched
-with indexed gathers where the reference uses one-hot MXU products (both
-are exact).
+Textures: solid colour, checker and image (the atlas `tables.images`,
+nearest texel at the hit's UV). Parameters are fetched with indexed
+gathers where the reference uses one-hot MXU products (both are exact);
+a texel is a row of the atlas flattened to [Ni*TH*TW, 3], gathered by
+geom.take_rows, so autograd scatter-adds its gradient with index_add_.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from rt_tpu_torch.scene.types import (
     MAT_LAMBERTIAN,
     MAT_METAL,
     TEX_CHECKER,
+    TEX_IMAGE,
     SceneTables,
 )
 
@@ -38,18 +41,43 @@ class Scatter(NamedTuple):
     attenuation: torch.Tensor  # [B,3]
 
 
+def texel_index(u, n: int):
+    """The nearest texel of coordinate u along an axis of n texels: u
+    wrapped to [0, 1), times n, clamped to [0, n - 1] and truncated
+    (taichi material.py:137-144, rt_tpu pallas_mega.py:1397-1400); a NaN
+    lands on texel 0, as the kernels' fmaxf / fminf put it."""
+    f = torch.nan_to_num((u - torch.floor(u)) * float(n), nan=0.0)
+    return torch.clamp(f, 0.0, float(n - 1)).to(torch.int64)
+
+
+def texel_rows(images, img_id, u, v):
+    """Rows of the atlas images [Ni,TH,TW,3] flattened to [Ni*TH*TW, 3]
+    that (img_id, u, v) sample: u indexes the first image axis (TH), v
+    the second (TW)."""
+    th, tw = images.shape[1], images.shape[2]
+    return ((img_id.long() * th + texel_index(u, th)) * tw
+            + texel_index(v, tw))
+
+
 def _texture_eval(tables: SceneTables, tex_id, u, v, p):
     """Textures [B] -> [B,3]. solid_color: constant (texture.cuh:14-31);
-    checker: sin(10x)sin(10y)sin(10z) parity (texture.cuh:44-52). u and v
-    are read by image textures, which come with a later slice."""
+    checker: sin(10x)sin(10y)sin(10z) parity (texture.cuh:44-52); image:
+    the atlas texel at (u, v) (texel_rows), evaluated when a live
+    primitive samples an image (tables.has_images)."""
     row = torch.where(tex_id >= 0, tex_id, 0).long()
     solid = geom.take_rows(tables.tex_color, row)
     color2 = geom.take_rows(tables.tex_color2, row)
     sines = (torch.sin(10.0 * p[:, 0]) * torch.sin(10.0 * p[:, 1])
              * torch.sin(10.0 * p[:, 2]))
     checker = torch.where((sines < 0.0)[:, None], color2, solid)
-    is_checker = tables.tex_type[row] == TEX_CHECKER
-    return torch.where(is_checker[:, None], checker, solid)
+    ttype = tables.tex_type[row]
+    out = torch.where((ttype == TEX_CHECKER)[:, None], checker, solid)
+    if tables.has_images:
+        img_id = torch.clamp(tables.tex_image[row], min=0)
+        image = geom.take_rows(tables.images.reshape(-1, 3),
+                               texel_rows(tables.images, img_id, u, v))
+        out = torch.where((ttype == TEX_IMAGE)[:, None], image, out)
+    return out
 
 
 def _albedo_of(tables: SceneTables, row, u, v, p):

@@ -3,8 +3,8 @@ unit-ball twin of csrc/rng.cuh (its uniform draw is ops/rng.uniform's
 stream) and `do_bounce_plain`, the twin of csrc/bounce.cuh
 (rt_tpu/ops/pallas_mega.py `_uniform` / `_unit_ball` :618-696,
 `_make_background` :774, `do_bounce` :1011-1896 for the four families,
-solid / checker textures, NEE / MIS / glossy light sampling, sampler
-"rng").
+solid / checker / image textures, NEE / MIS / glossy light sampling,
+sampler "rng").
 
 The ray state is the reference's 13 words per lane, held as one
 [13, B] float32 tensor (rows `O`..`ALIVE` below): origin, direction,
@@ -23,6 +23,21 @@ with t in [t_min, 1 - 1e-3], both ends inclusive, a sphere by the
 expanded quadratic with 1 / max(a, 1e-20) multiplied in. The two forms
 part on grazing shadow rays (as ROADMAP C-9 / C-10 part the engines), so
 the engines are compared by images.
+
+Image textures (`img`, mega_tables.Images, or None): the winner's (u,
+v) comes once per hit from its family and row (`winner_uv`,
+pallas_mega.py:1327-1390: a sphere's from its centre and radius, the
+others' from their UV table rows), and a winner whose column X_IMG holds
+an image id takes the atlas texel there as its albedo
+(materials.texel_rows: u wraps to [0, 1) and picks the row of TH, v the
+column of TW). Under NEE a light whose emission is an image takes the
+texel at the light point's (u, v), derived from the sample draw in each
+family's hit convention (`nee_img`, :1623-1664). The arc tangent and arc
+cosine are torch.atan2 / torch.acos, which on the card are the
+libdevice atan2f / acosf the kernels call, where the reference's TPU
+kernel has polynomials (`_atan2` :709, `_acos` :723; within about 1e-5
+rad, so a lane at a texel boundary may pick the neighbouring texel,
+ROADMAP C-13).
 
 `bounce_plain` returns the bounce with the intermediates its adjoint
 reads (ops/adjoint_plain.py): the replay runs the forward's own
@@ -49,15 +64,18 @@ import torch
 
 from rt_tpu_torch.config import nee_on
 from rt_tpu_torch.ops import camera, rng
+from rt_tpu_torch.ops.materials import texel_rows
 from rt_tpu_torch.ops.mega_tables import (
     F_SLOT,
     L_AREA,
     L_CHECKER,
     L_FAM,
+    L_IMG,
     L_LE,
     L_LE2,
     L_ROW,
     L_SLOT,
+    L_UV,
     MAX_LIGHT_ROWS,
     R_F1,
     R_F2,
@@ -86,6 +104,7 @@ from rt_tpu_torch.ops.mega_tables import (
     X_ALB2,
     X_CHECKER,
     X_DIRECT,
+    X_IMG,
     X_MTYPE,
     X_PARAM,
     X_SLOT,
@@ -456,6 +475,96 @@ def winner_attrs(tab, fam, family, row, t_best, ox, oy, oz, dx, dy, dz):
     return attrs
 
 
+INV_2PI = 1.0 / (2.0 * math.pi)
+INV_4PI = 1.0 / (4.0 * math.pi)
+INV_PI = 1.0 / math.pi
+
+
+def sphere_uv(ux, uy, uz):
+    """(u, v) of the unit outward offset (ux, uy, uz) of a sphere point
+    (object.cuh:87-93, pallas_mega.py:1336-1344): the azimuth about y
+    from -z, and the polar angle from -y, both scaled to [0, 1]."""
+    az = (uz == 0.0) & (ux == 0.0)
+    u = (torch.atan2(-uz, torch.where(az, 1.0, ux)) + math.pi) * INV_2PI
+    return u, torch.acos(torch.clamp(-uy, -1.0, 1.0)) * INV_PI
+
+
+def _rect_uv(r, px, py, pz):
+    """A rect's (u, v) from its UV rows r [B, U_COLS] (:1346-1350)."""
+    r_x = r[:, 0] * px + r[:, 1] * py + r[:, 2] * pz
+    r_y = r[:, 3] * px + r[:, 4] * py + r[:, 5] * pz
+    return (r_x - r[:, 6]) * r[:, 8], (r_y - r[:, 7]) * r[:, 9]
+
+
+def _cylinder_uv(r, px, py, pz):
+    """A cylinder's (u, v): the object-space hit's azimuth and its height
+    in the z window (:1352-1361)."""
+    c_px = r[:, 0] * px + r[:, 1] * py + r[:, 2] * pz + r[:, 9]
+    c_py = r[:, 3] * px + r[:, 4] * py + r[:, 5] * pz + r[:, 10]
+    c_pz = r[:, 6] * px + r[:, 7] * py + r[:, 8] * pz + r[:, 11]
+    deg = (c_py == 0.0) & (c_px == 0.0)
+    u = (torch.atan2(c_py, torch.where(deg, 1.0, c_px)) + 2.0 * math.pi) \
+        * INV_4PI
+    return u, (c_pz - r[:, 12]) * r[:, 13]
+
+
+def _triangle_uv(r, px, py, pz):
+    """A triangle's (u, v) by the standard barycentric weights
+    (:1363-1388; Taichi's swapped weights come from
+    SceneDef.taichi_tri_uv)."""
+    a1x, a1y, a1z = r[:, 3] - px, r[:, 4] - py, r[:, 5] - pz   # v2 - p
+    a2x, a2y, a2z = r[:, 6] - px, r[:, 7] - py, r[:, 8] - pz   # v3 - p
+    a3x, a3y, a3z = r[:, 0] - px, r[:, 1] - py, r[:, 2] - pz   # v1 - p
+    cx1 = a1y * a2z - a1z * a2y
+    cy1 = a1z * a2x - a1x * a2z
+    cz1 = a1x * a2y - a1y * a2x
+    l1 = torch.sqrt(cx1 * cx1 + cy1 * cy1 + cz1 * cz1) * r[:, 9]
+    cx2 = a2y * a3z - a2z * a3y
+    cy2 = a2z * a3x - a2x * a3z
+    cz2 = a2x * a3y - a2y * a3x
+    l2 = torch.sqrt(cx2 * cx2 + cy2 * cy2 + cz2 * cz2) * r[:, 9]
+    l3 = 1.0 - l1 - l2
+    l3 = torch.where(l3 > 0.0, l3, 0.0)   # a NaN gives 0, as the kernels
+    return (r[:, 10] * l1 + r[:, 12] * l2 + r[:, 14] * l3,
+            r[:, 11] * l1 + r[:, 13] * l2 + r[:, 15] * l3)
+
+
+def winner_uv(img, family, row, attrs, inv_rad, px, py, pz):
+    """(u, v) [B] of each lane's winner at the hit (px, py, pz): a
+    sphere's from its centre (attrs' v0..v2) and 1 / radius, a rect's,
+    cylinder's or triangle's from its row of img's UV tables.
+    winner_uv.texels: bounce_plain counts there, per family, the
+    texel-sampled hits of the bounces it runs (the kernels' atlas reads,
+    which a bound's count reads)."""
+    u, v = sphere_uv((px - attrs[:, X_V]) * inv_rad,
+                     (py - attrs[:, X_V + 1]) * inv_rad,
+                     (pz - attrs[:, X_V + 2]) * inv_rad)
+    for code, utab, fn in ((FAM_RECT, img.rect, _rect_uv),
+                           (FAM_CYLINDER, img.cyl, _cylinder_uv),
+                           (FAM_TRIANGLE, img.tri, _triangle_uv)):
+        if utab.shape[0] == 0:
+            continue
+        is_f = family == code
+        fu, fv = fn(utab[torch.where(is_f, row, 0)], px, py, pz)
+        u = torch.where(is_f, fu, u)
+        v = torch.where(is_f, fv, v)
+    return u, v
+
+
+winner_uv.texels = [0, 0, 0, 0]
+
+
+def texels(img, img_id, u, v):
+    """(rows of the flattened atlas [B] int64, -1 where img_id < 0; the
+    texels' colours, 3 x [B]) of image ids img_id [B] (float) at (u,
+    v)."""
+    has = img_id >= 0.0
+    rows = torch.where(has, texel_rows(img.atlas, torch.clamp(img_id, min=0.0),
+                                       u, v), -1)
+    rgb = img.atlas.reshape(-1, 3)[torch.clamp(rows, min=0)].T
+    return rows, tuple(rgb)
+
+
 class Bounce(NamedTuple):
     """One bounce's new state and what its adjoint (ops/adjoint_plain.py)
     and the tape capture (capture_plain) read: the lane masks, the
@@ -484,10 +593,15 @@ class Bounce(NamedTuple):
     lslot: Optional[torch.Tensor] = None  # [B] int64
     lodd: Optional[torch.Tensor] = None   # [B] bool
     em_scale: Optional[torch.Tensor] = None  # [B] the emission's weight
+    # with image textures (else None): the row of the flattened atlas the
+    # winner's albedo came from (-1: not texel-sampled), and under NEE
+    # the sampled light's emission's
+    texel: Optional[torch.Tensor] = None    # [B] int64
+    ltexel: Optional[torch.Tensor] = None   # [B] int64
 
 
 def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
-                    p_rr, grad_bg, bg, fam=None, nee=None):
+                    p_rr, grad_bg, bg, fam=None, nee=None, img=None):
     """Advance every lane of `state` [13, B] one bounce; returns the new
     [13, B] state. Lanes whose alive word is 0 come out unchanged.
 
@@ -495,14 +609,15 @@ def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
     the rect, cylinder and triangle tables (mega_tables.Families) or
     None. pixel, sample, bounce: per-lane RNG coordinates ([B] integer
     tensors or ints); seed an int. bg: the constant sky colour, 3
-    floats. nee: the light sampler's options (Nee), or None."""
+    floats. nee: the light sampler's options (Nee), or None. img: the
+    atlas and UV tables (mega_tables.Images), or None."""
     return bounce_plain(tab, state, pixel, sample, bounce, seed,
                         t_min=t_min, p_rr=p_rr, grad_bg=grad_bg,
-                        bg=bg, fam=fam, nee=nee).state
+                        bg=bg, fam=fam, nee=nee, img=img).state
 
 
 def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
-                 grad_bg, bg, fam=None, nee=None) -> Bounce:
+                 grad_bg, bg, fam=None, nee=None, img=None) -> Bounce:
     """do_bounce_plain with the intermediates its adjoint reads."""
     ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb, alive = state.unbind(0)
 
@@ -549,6 +664,21 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
     alb_r = torch.where(use2, w_a2r, w_ar)
     alb_g = torch.where(use2, w_a2g, w_ag)
     alb_b = torch.where(use2, w_a2b, w_ab)
+
+    img_out = {}
+    if img is not None:
+        # image textures: the atlas texel at the winner's (u, v)
+        u_w, v_w = winner_uv(img, family, row, attrs, inv_rad, px_, py_,
+                             pz_)
+        texel, rgb = texels(img, attrs[:, X_IMG], u_w, v_w)
+        has = texel >= 0
+        counts = torch.bincount(family[has & live & hit], minlength=4)
+        winner_uv.texels = [a + int(b) for a, b in
+                            zip(winner_uv.texels, counts.tolist())]
+        alb_r = torch.where(has, rgb[0], alb_r)
+        alb_g = torch.where(has, rgb[1], alb_g)
+        alb_b = torch.where(has, rgb[2], alb_b)
+        img_out["texel"] = texel
 
     is_lam = w_mtype == MAT_LAMBERTIAN
     is_met = w_mtype == MAT_METAL
@@ -657,7 +787,7 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
             tab, fam, nee, (cr, cg, cb), (tpr, tpg, tpb),
             (alb_r, alb_g, alb_b), scattered & sampled, is_met, fuzz,
             (ref_x, ref_y, ref_z), (px_, py_, pz_), (nx, ny2, nz), pixel,
-            sample, bounce, seed, t_min)
+            sample, bounce, seed, t_min, img)
         nee_out["em_scale"] = em_scale
 
     comp = 1.0 / p_rr if p_rr > 0.0 else 1.0
@@ -698,7 +828,7 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
                   emitter=emitter,
                   missed=missed, is_die=is_die, use2=use2,
                   slot=attrs[:, X_SLOT].long(), att=(att_r, att_g, att_b),
-                  tp=tp_before, **nee_out)
+                  tp=tp_before, **nee_out, **img_out)
 
 
 def _glossy_density(cosr, fuzz):
@@ -715,11 +845,12 @@ def _glossy_density(cosr, fuzz):
 
 
 def _nee_block(tab, fam, nee: Nee, c, tp, alb, lam_lane, is_met, fuzz, ref,
-               p, n, pixel, sample, bounce, seed, t_min):
+               p, n, pixel, sample, bounce, seed, t_min, img=None):
     """The kernels' NEE block (pallas_mega.py:1529-1698): sample one
     light, test its shadow segment, add tp * albedo * Le * w to the
-    radiance c of the lanes lam_lane. Returns (c, the Bounce's NEE
-    fields)."""
+    radiance c of the lanes lam_lane; with img, an image-textured light's
+    Le is the atlas texel at the light point's (u, v) (:1623-1664).
+    Returns (c, the Bounce's NEE fields)."""
     lights = nee.lights
     n_lights = lights.shape[0]
     u_pick = rng.uniform(seed, pixel, sample, bounce, rng.NEE_PICK)
@@ -802,6 +933,18 @@ def _nee_block(tab, fam, nee: Nee, c, tp, alb, lam_lane, is_met, fuzz, ref,
     use_odd = (lt[L_CHECKER] > 0.0) & (sin_l < 0.0)
     le = tuple(torch.where(use_odd, lt[L_LE2 + j], lt[L_LE + j])
                for j in range(3))
+    out = {}
+    if img is not None:
+        # the light point's (u, v) in its family's hit convention
+        s_ul, s_vl = sphere_uv(nsx, nsy, nsz)
+        c_ul = (torch.atan2(sphi, cphi) + 2.0 * math.pi) * INV_4PI
+        b1t = 1.0 - sqt
+        t_ul = b1t * lt[L_UV] + b2t * lt[L_UV + 2] + b3t * lt[L_UV + 4]
+        t_vl = b1t * lt[L_UV + 1] + b2t * lt[L_UV + 3] + b3t * lt[L_UV + 5]
+        ltexel, rgb = texels(img, lt[L_IMG], by_family(s_ul, u1, c_ul, t_ul),
+                             by_family(s_vl, u2, u1, t_vl))
+        le = tuple(torch.where(ltexel >= 0, rgb[j], le[j]) for j in range(3))
+        out["ltexel"] = ltexel
 
     cs_ = torch.clamp(cos_s, min=0.0)
     if nee.mis or nee.glossy:
@@ -822,11 +965,12 @@ def _nee_block(tab, fam, nee: Nee, c, tp, alb, lam_lane, is_met, fuzz, ref,
     okl = torch.where(need & ~occ, w_l, 0.0)
     c = tuple(ck + tk * ak * lk * okl
               for ck, tk, ak, lk in zip(c, tp, alb, le))
-    return c, dict(okl=okl, le=le, lslot=lt[L_SLOT].long(), lodd=use_odd)
+    return c, dict(okl=okl, le=le, lslot=lt[L_SLOT].long(), lodd=use_odd,
+                   **out)
 
 
 def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
-                  p_rr, grad_bg, bg, fam=None):
+                  p_rr, grad_bg, bg, fam=None, img=None):
     """The plain version of the tape-capture kernel B4 (csrc/capture.cu,
     rt_tpu/ops/pallas_mega.py `_capture_kernel` :1978): trace the fresh
     rays of `state` [13, B] (pixel ids [B], one sample index) against the
@@ -842,7 +986,8 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
     kernel evaluates the hit on every lane. death[i] is the number of
     bounces after which the lane is still alive. The row is the pid
     because the tables keep the scene's order (no Morton sort, ROADMAP
-    C-3). `state` is not changed."""
+    C-3). `state` is not changed. img (image textures) is taken and not
+    read: no code or death depends on a texel."""
     b = state.shape[1]
     dev = state.device
     codes = torch.full((max_depth, b), -1, dtype=torch.int32, device=dev)
@@ -865,10 +1010,11 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
 def trace_options(tables, cfg) -> dict:
     """The per-trace options of a segment, a queue launch and their
     adjoints, from the scene and the configuration (exhaust_bg aside):
-    the scalars and the family tables (MegaScene.fam)."""
+    the scalars, the family tables (MegaScene.fam) and the image atlas
+    with the UV tables (MegaScene.img)."""
     return dict(t_min=1e-3, p_rr=float(cfg.p_rr),
                 grad_bg=cfg.background_mode == "gradient",
-                bg=tables.mega.bg, fam=tables.mega.fam)
+                bg=tables.mega.bg, fam=tables.mega.fam, img=tables.mega.img)
 
 
 def exhaust(state, lanes, bg, grad_bg: bool):
@@ -886,7 +1032,7 @@ def exhaust(state, lanes, bg, grad_bg: bool):
 def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
                 seg_iters, *, max_depth, spp, init, width, height, defocus,
                 n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-                exhaust_bg=False, depth=None, fam=None):
+                exhaust_bg=False, depth=None, fam=None, img=None):
     """The plain version of one segment of the regeneration kernel B7
     (csrc/regen.cu, rt_tpu/ops/pallas_mega.py `_regen_kernel` :2288):
     lanes [0, n) of state [13, B], pixel ids `pixel` and rows `py`
@@ -898,7 +1044,8 @@ def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
     lane's next sample (samp + 1, bvec 0, a fresh camera ray); (3) one
     bounce at (samp, bvec), then bvec + 1. With init, the lanes first
     take sample_base's camera rays. cam: ops/camera.camera_vec's 19
-    floats. fam: the family tables, as do_bounce_plain. state, samp and
+    floats. fam, img: the family tables and the images, as
+    do_bounce_plain. state, samp and
     bvec are updated in place and returned; depth, when given, gains
     each lane's bounces."""
     n = state.shape[1] if n is None else int(n)
@@ -946,7 +1093,8 @@ def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
         if li.numel():
             st[:, li] = do_bounce_plain(
                 tab, st[:, li], pix[idx[li]], s_[li], b_[li], seed,
-                t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam)
+                t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam,
+                img=img)
             if depth is not None:
                 depth[idx[li]] += 1
         sub[:, idx] = st

@@ -13,7 +13,8 @@ column:
   5     material type     6  checker flag     7  fuzz (metal) or IOR
   8..10 albedo (texture even colour / inline colour / 1 for glass)
   11..13 albedo2 (checker odd colour)
-  14    image-texture id (-1: image textures are not ported yet)
+  14    image-texture id: the row of the atlas a texel-sampled winner
+        reads (-1: its material samples no image)
   15    |c|^2 - r^2       16 valid (1 live row, 0 pad)
   17    gradient slot: the row of the adjoint accumulators that takes
         this sphere's radiometric cotangents (the reference's column 31,
@@ -38,6 +39,24 @@ direct = 1), then per family (`_R_*`, `_Y_*`, `_T_*`, :98-116)
 
 and the gradient slot in column 31 (`_SLOT_COL`).
 
+The UV tables (`rect_uv_table`, `cylinder_uv_table`,
+`triangle_uv_table`, pallas_mega.py:378-428), built only for a scene
+whose primitives sample image textures, give each rect, cylinder and
+triangle row the parameters its hit's (u, v) needs, in the reference's
+U_COLS = 17 columns (column 16 the family code):
+
+  rect      0..2 free-axis-1 one-hot, 3..5 free-axis-2 one-hot, 6 lo0,
+            7 lo1, 8 1 / (hi0 - lo0), 9 1 / (hi1 - lo1)
+  cylinder  0..8 w2o rotation rows, 9..11 w2o translation, 12 zmin,
+            13 1 / (zmax - zmin)
+  triangle  0..8 v1, v2, v3, 9 1 / |(v2 - v1) x (v3 - v1)|, 10..15 uv1,
+            uv2, uv3
+
+(1 / x is 0 where x is 0.) A sphere's (u, v) comes from its attribute
+block (centre and radius), so it has none. The kernels read the
+winner's row once per hit, where the TPU extracts it by a one-hot
+product per chunk.
+
 The light table (`light_table`, NEE's: the contract of the reference's
 `nee_light_table` :451-567 in the port's own layout) has one row per
 emitter of the scene's light list (rt_tpu scene/types.py:645-657 puts
@@ -58,6 +77,14 @@ every live diffuse_light primitive there), NL_COLS columns:
      that matches a hit emitter to its light row (MIS), where the
      reference matches its tape code `pid * 4 + family` (column 32);
      the tables keep the scene's order, so the row is the pid
+  26 the image-texture id of the emission (-1: none), the reference's
+     column 25
+  27..32 a triangle light's uv1, uv2, uv3 (zeros for the other
+     families), the reference's columns 26..31: the light point's (u,
+     v) for an image-textured emission
+
+Columns 0..24 are the reference's bit for bit; 25 is the port's own, so
+the reference's 25..31 sit one column later.
 
 Areas are the reference's formulas: 4 pi r^2, the rect's extent, the
 cylinder's lateral 2 pi r (zmax - zmin), half the triangle's edge cross
@@ -83,6 +110,7 @@ from rt_tpu_torch.scene.types import (
     MAT_DIELECTRIC,
     MAT_METAL,
     TEX_CHECKER,
+    TEX_IMAGE,
     SceneTables,
 )
 
@@ -106,7 +134,8 @@ SPH_CHUNK = 32   # the reference's sphere chunk (pallas_mega.py:68)
 L_FAM, L_AREA, L_LE, L_LE2, L_CHECKER = 0, 1, 2, 5, 8
 L_BLK = 9
 L_SLOT, L_ROW = 24, 25
-NL_COLS = 26
+L_IMG, L_UV = 26, 27
+NL_COLS = 33
 # a light's row is matched as a float32 (column L_ROW), exact below 2^24
 MAX_LIGHT_ROWS = 1 << 24
 
@@ -124,12 +153,15 @@ T_E3 = 24
 T_D0, T_VALID = 27, 28
 F_SLOT = 31
 F_COLS = 32
+# the UV tables (pallas_mega.py:145-151)
+U_COLS = 17
+U_FAM = 16
 
 
 def mega_supported(tables: SceneTables) -> bool:
     """The megakernels render any scene of this package (the four
-    families, solid / checker textures); only an empty scene falls back,
-    as in the reference (pallas_mega.py:149-160)."""
+    families, solid / checker / image textures); only an empty scene
+    falls back, as in the reference (pallas_mega.py:149-160)."""
     return sum(tables.counts) > 0
 
 
@@ -148,6 +180,14 @@ def pad_chunked(tab: torch.Tensor, max_chunk: int = SPH_CHUNK) -> torch.Tensor:
     if tab.shape[0] <= max_chunk:
         return tab
     return _pad_rows(tab, max_chunk)
+
+
+def image_ids(tables: SceneTables, tex) -> torch.Tensor:
+    """The image id of texture rows `tex` [N] (-1: not an image
+    texture, or tex < 0), as float32."""
+    texs = torch.clamp(tex, min=0).long()
+    return torch.where((tex >= 0) & (tables.tex_type[texs] == TEX_IMAGE),
+                       tables.tex_image[texs], -1).to(torch.float32)
 
 
 def _ext_block(tables: SceneTables, mat, n_cols: int) -> torch.Tensor:
@@ -174,7 +214,7 @@ def _ext_block(tables: SceneTables, mat, n_cols: int) -> torch.Tensor:
     tab[:, X_PARAM] = param
     tab[:, X_ALB:X_ALB + 3] = base
     tab[:, X_ALB2:X_ALB2 + 3] = tables.tex_color2[tex_safe]
-    tab[:, X_IMG] = -1.0
+    tab[:, X_IMG] = image_ids(tables, tex)
     return tab
 
 
@@ -238,6 +278,56 @@ def triangle_table(tables: SceneTables) -> torch.Tensor:
     tab[:, T_D0] = (v1 * n0).sum(-1)
     tab[:, T_VALID] = (tables.tri_obj >= 0).to(torch.float32)
     tab[:, F_SLOT] = slot_ids(tables, tables.tri_mat.long())
+    return tab
+
+
+def _safe_inv(x):
+    """1 / x, 0 where x is 0 (pallas_mega.py `_safe_inv` :280)."""
+    nz = x != 0.0
+    return torch.where(nz, 1.0 / torch.where(nz, x, 1.0), 0.0)
+
+
+def rect_uv_table(tables: SceneTables) -> torch.Tensor:
+    """[Nr, U_COLS] float32 (see the module doc)."""
+    axis = tables.rect_axis.long()
+    onehot = torch.nn.functional.one_hot
+    lo, hi = tables.rect_lo, tables.rect_hi
+    tab = lo.new_zeros((axis.shape[0], U_COLS))
+    tab[:, 0:3] = onehot(torch.where(axis == 0, 1, 0), 3).to(torch.float32)
+    tab[:, 3:6] = onehot(torch.where(axis == 2, 1, 2), 3).to(torch.float32)
+    tab[:, 6] = lo[:, 0]
+    tab[:, 7] = lo[:, 1]
+    tab[:, 8] = _safe_inv(hi[:, 0] - lo[:, 0])
+    tab[:, 9] = _safe_inv(hi[:, 1] - lo[:, 1])
+    tab[:, U_FAM] = FAM_RECT
+    return tab
+
+
+def cylinder_uv_table(tables: SceneTables) -> torch.Tensor:
+    """[Nc, U_COLS] float32 (see the module doc)."""
+    w2o = tables.cyl_w2o
+    tab = w2o.new_zeros((w2o.shape[0], U_COLS))
+    tab[:, 0:9] = w2o[:, :3, :3].reshape(-1, 9)
+    tab[:, 9:12] = w2o[:, :3, 3]
+    tab[:, 12] = tables.cyl_zmin
+    tab[:, 13] = _safe_inv(tables.cyl_zmax - tables.cyl_zmin)
+    tab[:, U_FAM] = FAM_CYLINDER
+    return tab
+
+
+def triangle_uv_table(tables: SceneTables) -> torch.Tensor:
+    """[Nt, U_COLS] float32 (see the module doc)."""
+    v1, v2, v3 = tables.tri_v1, tables.tri_v2, tables.tri_v3
+    tab = v1.new_zeros((v1.shape[0], U_COLS))
+    tab[:, 0:3] = v1
+    tab[:, 3:6] = v2
+    tab[:, 6:9] = v3
+    cr = torch.linalg.cross(v2 - v1, v3 - v1)
+    tab[:, 9] = _safe_inv(torch.sqrt((cr * cr).sum(-1)))
+    tab[:, 10:12] = tables.tri_uv1
+    tab[:, 12:14] = tables.tri_uv2
+    tab[:, 14:16] = tables.tri_uv3
+    tab[:, U_FAM] = FAM_TRIANGLE
     return tab
 
 
@@ -320,7 +410,24 @@ def light_table(tables: SceneTables) -> torch.Tensor:
     out[:, L_BLK:L_BLK + 15] = pick3(sph_blk, rect_blk, cyl_blk, tri_blk)
     out[:, L_SLOT] = slot_ids(tables, mat)
     out[:, L_ROW] = pid.to(torch.float32)
+    out[:, L_IMG] = image_ids(tables, tex)
+    is_t = (fam == FAM_TRIANGLE).to(torch.float32)[:, None]
+    out[:, L_UV:L_UV + 2] = rows(tables.tri_uv1) * is_t
+    out[:, L_UV + 2:L_UV + 4] = rows(tables.tri_uv2) * is_t
+    out[:, L_UV + 4:L_UV + 6] = rows(tables.tri_uv3) * is_t
     return out
+
+
+class Images(NamedTuple):
+    """What the kernels read of a scene whose primitives sample image
+    textures: the atlas (SceneTables.images, every texel a float3) and
+    the rect, cylinder and triangle UV tables, each cut after its
+    family's last live row (possibly 0 rows)."""
+
+    atlas: torch.Tensor  # [Ni, TH, TW, 3] f32
+    rect: torch.Tensor   # [n_rects, U_COLS] f32
+    cyl: torch.Tensor    # [n_cylinders, U_COLS] f32
+    tri: torch.Tensor    # [n_triangles, U_COLS] f32
 
 
 class Families(NamedTuple):
@@ -343,8 +450,11 @@ class MegaScene:
     (ops/camera.camera_vec) as host floats, which the launchers pass by
     value, and the sizes of the adjoint accumulators: n_slots = n_tex +
     n_mat gradient slots, texture rows first (the reference pads them to
-    128-lane slabs; the port needs no padding). `lights`: the light
-    table (light_table), None when the scene has no emitter."""
+    128-lane slabs; the port needs no padding), and the atlas's shape
+    (its gradient's). `lights`: the light table (light_table), None when
+    the scene has no emitter. `img`: the atlas and the UV tables
+    (Images), None when no primitive samples an image texture, so that
+    the kernels run without the texture code."""
 
     table: torch.Tensor          # [max(n_spheres, 1), S_COLS] f32
     fam: Optional[Families]
@@ -352,7 +462,9 @@ class MegaScene:
     cam: Tuple[float, ...]       # 19 floats, ops/camera.camera_vec
     n_tex: int
     n_mat: int
+    atlas_shape: Tuple[int, ...] = (1, 1, 1, 3)
     lights: Optional[torch.Tensor] = None   # [n_lights, NL_COLS] f32
+    img: Optional[Images] = None
 
     @property
     def n_slots(self) -> int:
@@ -367,11 +479,22 @@ class MegaScene:
             fam = Families(*(t[:n].detach().contiguous() for t, n in (
                 (rect_table(tables), nr), (cylinder_table(tables), nc),
                 (triangle_table(tables), nt))))
+        img = None
+        if tables.has_images:
+            _, nr, nc, nt = tables.counts
+            img = Images(tables.images.detach().to(torch.float32)
+                         .contiguous(),
+                         *(t[:n].detach().contiguous() for t, n in (
+                             (rect_uv_table(tables), nr),
+                             (cylinder_uv_table(tables), nc),
+                             (triangle_uv_table(tables), nt))))
         bg = tables.background.detach().to("cpu", torch.float32).tolist()
         return cls(table=tab.detach().contiguous(), fam=fam,
                    bg=tuple(float(v) for v in bg),
                    cam=camera_vec(tables.camera),
                    n_tex=int(tables.tex_color.shape[0]),
                    n_mat=int(tables.mat_albedo.shape[0]),
+                   atlas_shape=tuple(tables.images.shape),
                    lights=(light_table(tables).detach().contiguous()
-                           if tables.n_lights else None))
+                           if tables.n_lights else None),
+                   img=img)

@@ -1,7 +1,8 @@
-"""Asset loaders: OBJ meshes and per-frame point clouds
+"""Asset loaders: OBJ meshes, per-frame point clouds and image textures
 (rt_tpu/scene/assets.py `readobj` / `readdynamic`, the equivalents of
-taichi-version/main.py:23-54). Image loading comes with image textures
-(ROADMAP Queue B2(c))."""
+taichi-version/main.py:23-54, and `load_image_texture`, the cv2 texture
+load of taichi-version/hittable.py:165-172, converted to RGB floats
+once)."""
 
 from __future__ import annotations
 
@@ -43,3 +44,18 @@ def readdynamic(path: str) -> np.ndarray:
                 pts.append([float(parts[0]), float(parts[1]),
                             float(parts[2])])
     return np.asarray(pts, np.float32)
+
+
+def load_image_texture(path: str) -> np.ndarray:
+    """An image as [H,W,3] float32 RGB in [0,1] (u8 / 255), bit-equal to
+    rt_tpu's. A PNG (by its magic bytes) goes through io/image.read_png;
+    any other format (the reference's bricks2.png is a JPEG whatever its
+    extension says) through Pillow, imported only then."""
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    if magic == b"\x89PNG\r\n\x1a\n":
+        from rt_tpu_torch.io.image import read_png
+        return read_png(path).astype(np.float32) / 255.0
+    from PIL import Image  # JPEG et al.
+    img = np.asarray(Image.open(path).convert("RGB"))
+    return img.astype(np.float32) / 255.0

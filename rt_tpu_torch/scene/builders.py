@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from rt_tpu_torch.config import RenderConfig
-from rt_tpu_torch.scene.types import IMAGE_TEXTURES, SceneDef
+from rt_tpu_torch.scene.types import SceneDef
 
 
 def three_sphere_scene(width=800, height=450, spp=500, max_depth=50
@@ -227,15 +227,19 @@ def mesh_scene(obj_path: str, width=400, height=225, spp=50, max_depth=16,
     triangle mesh (rotated by [[0,0,1],[0,1,0],[1,0,0]], translated by
     (4,1,2)) and glass / diffuse / metal hero spheres under a gradient
     sky, depth-exhausted paths crediting the sky. points replaces the
-    mesh's vertices (a frame of readdynamic). The textured mesh
-    (texture_path) needs image textures (ROADMAP Queue B2(c))."""
-    from rt_tpu_torch.scene.assets import readobj
+    mesh's vertices (a frame of readdynamic). texture_path: an image
+    (scene/assets.load_image_texture) that textures the mesh by its OBJ
+    UVs, the reference's textured Taichi scene; set
+    SceneDef.taichi_tri_uv for Taichi's swapped barycentrics."""
+    from rt_tpu_torch.scene.assets import load_image_texture, readobj
 
-    if texture_path is not None:
-        raise NotImplementedError(IMAGE_TEXTURES)
     s = SceneDef(width=width, height=height, samples_per_pixel=spp,
                  max_depth=max_depth, background=(0, 0, 0))
-    mesh_mat = s.add_lambertian_color((0.4, 0.2, 0.2))
+    if texture_path is not None:
+        mesh_mat = s.add_lambertian(
+            s.add_image_texture(load_image_texture(texture_path)))
+    else:
+        mesh_mat = s.add_lambertian_color((0.4, 0.2, 0.2))
     verts, faces, texids = readobj(obj_path)
     if points is not None:
         verts = np.asarray(points, np.float32)

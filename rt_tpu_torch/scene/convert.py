@@ -3,9 +3,11 @@
 `tables_from_numpy` takes the leaves of an `rt_tpu.scene.types.
 SceneTables` as NumPy arrays (the caller exports them with np.asarray;
 camera leaves under 'camera.<field>') and returns this package's
-`SceneTables` on `device`, the four primitive families and the light
-index included. Leaves this package does not carry (BVHs, the image
-atlas) are ignored; a texture of type image raises.
+`SceneTables` on `device`, the four primitive families, the image
+textures (tex_image and the atlas `images`) and the light index
+included; the static img_on / nee_img are derived from the leaves
+(scene/types.image_usage). Leaves this package does not carry (BVHs)
+are ignored.
 `params_from_numpy` carries a parameter dict of rt_tpu's diff package
 (field name -> array; "camera" -> a camera whose fields are arrays)
 across the same way.
@@ -21,22 +23,18 @@ import numpy as np
 import torch
 
 from rt_tpu_torch.scene.types import (
-    IMAGE_TEXTURES,
     MAT_DIFFUSE_LIGHT,
-    TEX_IMAGE,
     CameraDef,
     SceneTables,
+    image_usage,
 )
 
 _FAMILIES = ("sph", "rect", "cyl", "tri")
-_META = ("camera", "counts", "n_lights")
+_META = ("camera", "counts", "n_lights", "img_on", "nee_img")
 
 
 def tables_from_numpy(leaves: Mapping[str, np.ndarray],
                       device="cpu") -> SceneTables:
-    if (np.asarray(leaves["tex_type"]) == TEX_IMAGE).any():
-        raise NotImplementedError(IMAGE_TEXTURES)
-
     def t(name):
         return torch.from_numpy(np.array(leaves[name])).to(device)
 
@@ -51,8 +49,13 @@ def tables_from_numpy(leaves: Mapping[str, np.ndarray],
                         & (mat_type[np.asarray(leaves[f"{k}_mat"])]
                            == MAT_DIFFUSE_LIGHT)).sum())
                    for k in _FAMILIES)
+    img_on, nee_img = image_usage(
+        leaves["tex_type"], leaves["mat_tex"],
+        [(leaves[f"{k}_mat"], leaves[f"{k}_obj"]) for k in _FAMILIES],
+        np.asarray(leaves["light_fam"])[:n_lights],
+        np.asarray(leaves["light_pid"])[:n_lights])
     return SceneTables(camera=cam, counts=counts, n_lights=n_lights,
-                       **tensors)
+                       img_on=img_on, nee_img=nee_img, **tensors)
 
 
 def params_from_numpy(params: Mapping[str, np.ndarray],

@@ -12,8 +12,9 @@ schema (gpu-version/parser.hpp:34-112) and rt_tpu's extensions:
               translate[3]?}, triangle{v1,v2,v3,uv1?,uv2?,uv3?,material}
   material  : lambertian{texture}, metal{albedo,fuzz},
               dielectric{index_of_refraction}, diffuse_light{texture}
-  texture   : solid_color{color[3]}, checker{even[3],odd[3]}; an image
-              texture raises NotImplementedError (ROADMAP Queue B2(c))
+  texture   : solid_color{color[3]}, checker{even[3],odd[3]},
+              image{file} (relative to the scene's directory; every image
+              of a scene must share one size)
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from typing import Tuple
 import numpy as np
 
 from rt_tpu_torch.config import RenderConfig
+from rt_tpu_torch.scene.assets import load_image_texture
 from rt_tpu_torch.scene.types import (
-    IMAGE_TEXTURES,
     SceneDef,
     SceneTables,
     build_tables,
@@ -44,7 +45,7 @@ def _data_list(section) -> list:
 def parse_scene_dict(data: dict, base_dir: str = "."
                      ) -> Tuple[SceneDef, RenderConfig]:
     """A scene dict of the schema above -> (SceneDef, RenderConfig).
-    base_dir would resolve image files, which are not ported yet."""
+    base_dir resolves the files of image textures."""
     s = SceneDef(
         width=int(data["width"]),
         height=int(data["height"]),
@@ -68,7 +69,8 @@ def parse_scene_dict(data: dict, base_dir: str = "."
         elif kind == "checker":
             s.add_checker(t["even"], t["odd"])
         elif kind == "image":
-            raise NotImplementedError(IMAGE_TEXTURES)
+            s.add_image_texture(
+                load_image_texture(os.path.join(base_dir, t["file"])))
         else:
             raise ValueError(f"unknown texture type: {kind}")
 

@@ -7,9 +7,10 @@ are the reference's, so the two packages' tables compare leaf by leaf
 (tests/test_torch_scene.py, tests/test_torch_parser.py).
 
 The tables carry the four primitive families (spheres, axis-aligned
-rects, cylinders, triangles), the materials, the solid and checker
-textures and the emissive-primitive index. Image textures raise
-NotImplementedError until ROADMAP Queue B2(c), BVHs until A-8.
+rects, cylinders, triangles), the materials, the solid, checker and
+image textures (the image atlas: every image of a scene shares one
+size) and the emissive-primitive index. BVHs raise NotImplementedError
+until ROADMAP Queue A-8.
 
 Material type ids: 0=lambertian, 1=metal, 2=dielectric, 3=diffuse_light.
 Texture type ids: 0=solid_color, 1=checker, 2=image.
@@ -41,8 +42,8 @@ RECT_YZ = 0
 RECT_XZ = 1
 RECT_XY = 2
 
-IMAGE_TEXTURES = ("image textures are not ported yet "
-                  "(ROADMAP Queue B2(c))")
+# the families' names, in family order (rt_tpu's img_on names)
+FAMILY_NAMES = ("sphere", "rect", "cylinder", "triangle")
 
 
 def _pad_size(n: int, minimum: int = 4) -> int:
@@ -158,6 +159,9 @@ class SceneTables:
     tex_type: torch.Tensor     # [Nx] i32
     tex_color: torch.Tensor    # [Nx,3] f32 solid value / checker even
     tex_color2: torch.Tensor   # [Nx,3] f32 checker odd
+    tex_image: torch.Tensor    # [Nx] i32 index into images, -1 if none
+    images: torch.Tensor       # [Ni,TH,TW,3] f32 RGB in [0,1]; one
+                               # [1,1,1,3] zero image when none
 
     camera: CameraDef
     background: torch.Tensor   # [3] f32
@@ -172,6 +176,11 @@ class SceneTables:
     # (n_spheres, n_rects, n_cylinders, n_triangles)
     counts: Tuple[int, int, int, int] = (0, 0, 0, 0)
     n_lights: int = 0
+    # the families whose live rows' materials sample an image texture
+    # (names of FAMILY_NAMES, sorted), and whether a light's emission is
+    # one (rt_tpu's static img_on / nee_img; image_usage)
+    img_on: Tuple[str, ...] = ()
+    nee_img: bool = False
 
     @property
     def n_spheres(self) -> int:
@@ -181,6 +190,11 @@ class SceneTables:
     def has_families(self) -> bool:
         """A live rect, cylinder or triangle row."""
         return any(self.counts[1:])
+
+    @property
+    def has_images(self) -> bool:
+        """A live primitive samples an image texture."""
+        return bool(self.img_on)
 
     def to(self, device) -> "SceneTables":
         kw = {}
@@ -215,8 +229,7 @@ class SceneTables:
 @dataclasses.dataclass
 class SceneDef:
     """Host-side mutable scene under construction (rt_tpu/scene/types.py
-    SceneDef, without image textures). Call build_tables() to
-    freeze."""
+    SceneDef). Call build_tables() to freeze."""
 
     width: int = 400
     height: int = 225
@@ -229,6 +242,7 @@ class SceneDef:
     objects: List[dict] = dataclasses.field(default_factory=list)
     materials: List[dict] = dataclasses.field(default_factory=list)
     textures: List[dict] = dataclasses.field(default_factory=list)
+    images: List[np.ndarray] = dataclasses.field(default_factory=list)
     camera_params: Optional[dict] = None
 
     # the Taichi reference's swapped triangle-UV weights
@@ -312,6 +326,14 @@ class SceneDef:
         self.textures.append(
             {"type": "checker", "even": list(map(float, even)),
              "odd": list(map(float, odd))})
+        return len(self.textures) - 1
+
+    def add_image_texture(self, image_rgb) -> int:
+        """image_rgb: [H,W,3] float RGB in [0,1] (scene/assets.
+        load_image_texture); u indexes its first axis, v its second."""
+        self.images.append(np.asarray(image_rgb, dtype=np.float32))
+        self.textures.append({"type": "image",
+                              "image": len(self.images) - 1})
         return len(self.textures) - 1
 
     def set_camera(self, lookfrom, lookat, vup, vfov_deg, aperture,
@@ -481,6 +503,7 @@ def build_tables(s: SceneDef, device="cpu", *,
     tex_type = np.zeros(nx, i32)
     tex_color = np.zeros((nx, 3), f32)
     tex_color2 = np.zeros((nx, 3), f32)
+    tex_image = np.full(nx, -1, i32)
     for i, t in enumerate(s.textures):
         kind = t["type"]
         if kind == "solid_color":
@@ -491,9 +514,19 @@ def build_tables(s: SceneDef, device="cpu", *,
             tex_color[i] = t["even"]
             tex_color2[i] = t["odd"]
         elif kind == "image":
-            raise NotImplementedError(IMAGE_TEXTURES)
+            tex_type[i] = TEX_IMAGE
+            tex_image[i] = t["image"]
         else:
             raise ValueError(f"unknown texture type: {kind}")
+
+    if s.images:
+        th, tw = s.images[0].shape[:2]
+        for img in s.images:
+            if img.shape[:2] != (th, tw):
+                raise ValueError("all image textures must share one size")
+        images = np.stack(s.images).astype(f32)
+    else:
+        images = np.zeros((1, 1, 1, 3), f32)
 
     # the emissive-primitive index (rt_tpu/scene/types.py:639-672): the
     # live emissive rows of the four families, in family order
@@ -508,6 +541,10 @@ def build_tables(s: SceneDef, device="cpu", *,
     n_lights = len(l_fam)
     light_fam = np.asarray(l_fam if n_lights else [0], i32)
     light_pid = np.asarray(l_pid if n_lights else [0], i32)
+    img_on, nee_img = image_usage(
+        tex_type, mat_tex, ((sph_mat, sph_obj), (rect_mat, rect_obj),
+                            (cyl_mat, cyl_obj), (tri_mat, tri_obj)),
+        light_fam[:n_lights], light_pid[:n_lights])
 
     def t(x):
         return torch.from_numpy(x).to(device)
@@ -526,10 +563,28 @@ def build_tables(s: SceneDef, device="cpu", *,
         mat_type=t(mat_type), mat_albedo=t(mat_albedo),
         mat_fuzz=t(mat_fuzz), mat_ior=t(mat_ior), mat_tex=t(mat_tex),
         tex_type=t(tex_type), tex_color=t(tex_color),
-        tex_color2=t(tex_color2),
+        tex_color2=t(tex_color2), tex_image=t(tex_image), images=t(images),
         camera=s.camera.to(device),
         background=t(np.asarray(s.background, f32)),
         light_fam=t(light_fam), light_pid=t(light_pid),
         counts=(len(sph), len(rect), len(cyl), len(tri)),
-        n_lights=n_lights,
+        n_lights=n_lights, img_on=img_on, nee_img=nee_img,
     )
+
+
+def image_usage(tex_type, mat_tex, families, light_fam, light_pid):
+    """(img_on, nee_img) of a scene's tables (rt_tpu/scene/types.py
+    :628-672): the names of the families (FAMILY_NAMES, sorted) with a
+    live row whose material samples an image texture, and whether a
+    light's does. families: (mat, obj) row arrays of each family in
+    family order; light_fam, light_pid: the lights' (family, row)."""
+    tex_type, mat_tex = np.asarray(tex_type), np.asarray(mat_tex)
+    mat_img = (mat_tex >= 0) & (tex_type[np.maximum(mat_tex, 0)]
+                                == TEX_IMAGE)
+    img_on = tuple(sorted(
+        name for name, (mat, obj) in zip(FAMILY_NAMES, families)
+        if (mat_img[np.asarray(mat)] & (np.asarray(obj) >= 0)).any()))
+    nee_img = any(bool(mat_img[int(np.asarray(families[f][0])[p])])
+                  for f, p in zip(np.asarray(light_fam).tolist(),
+                                  np.asarray(light_pid).tolist()))
+    return img_on, nee_img

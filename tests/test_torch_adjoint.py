@@ -206,12 +206,12 @@ def test_slot_column_routes_textures_then_materials():
     assert int(slot.max()) < tt.mega.n_slots
 
 
-# the ids are the ones these cases had while geometry fields raised
-# NotImplementedError; now a GEOM_FIELDS entry outside geom_spec is a
-# ValueError, as in the reference
+# the ids are the ones these cases had while geometry fields and the image
+# atlas raised NotImplementedError; now a GEOM_FIELDS entry outside
+# geom_spec is a ValueError, as in the reference, and "images" is taken
+# (err None: the replay runs and its gradient has the atlas's shape)
 @pytest.mark.parametrize("field,err", [
-    pytest.param("images", NotImplementedError,
-                 id="images-NotImplementedError"),
+    pytest.param("images", None, id="images-NotImplementedError"),
     pytest.param("sph_center", ValueError,
                  id="sph_center-NotImplementedError"),
     pytest.param("mat_fuzz", ValueError, id="mat_fuzz-NotImplementedError"),
@@ -220,6 +220,11 @@ def test_replay_rejects_unported_fields(field, err):
     _, _, tt, cfg = make_scene(8, 6, 2)
     img_fn = treplay.make_replay_render(tt, cfg, 1, torch.arange(4),
                                         torch.zeros(4, dtype=torch.long))
+    if err is None:
+        p = getattr(tt, field).clone().requires_grad_(True)
+        img_fn({field: p}).sum().backward()
+        assert p.grad.shape == p.shape and bool(torch.isfinite(p.grad).all())
+        return
     with pytest.raises(err):
         img_fn({field: torch.zeros(3)})
 

@@ -1062,3 +1062,212 @@ def test_fit_cli_nee_runs_the_kernels(tmp_path, extra, kernel):
                   + extra)
     assert rc == 0
     assert counts[kernel].launches > before
+
+
+def _image_scene(dev, name, w, h, depth, tmp_path):
+    """A scene with image textures on the card: "families", two 64x64
+    seeded images on a sphere, both rect orientations, a cylinder and a
+    triangle, with an image-textured sphere light and triangle light
+    (tests/test_torch_images.py's scene, without JAX); "demo", a copy of
+    demo_scene.json with image textures on the blue sphere and the
+    xz_rect light; "mesh", mesh_scene on plane441.obj textured, with the
+    Taichi UV swap."""
+    import json
+
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.io.image import write_png
+    from rt_tpu_torch.scene import parser
+
+    rs = np.random.default_rng(7)
+    a, b = (rs.random((64, 64, 3)).astype(np.float32) for _ in range(2))
+    if name == "families":
+        s = types.SceneDef(width=w, height=h, samples_per_pixel=1,
+                           max_depth=depth, background=(0.2, 0.25, 0.3))
+        ta, tb = s.add_image_texture(a), s.add_image_texture(b)
+        ma, mb = s.add_lambertian(ta), s.add_lambertian(tb)
+        s.add_sphere((0, 0, -2), 0.5, ma)
+        s.add_sphere((0, -100.5, -2), 100, s.add_lambertian(
+            s.add_checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))))
+        s.add_rect("xy_rect", -2, 2, -1, 2, -3.5, mb)
+        s.add_rect("yz_rect", -1, 1, -3, -1, 1.8, ma)
+        s.add_cylinder(0.25, -0.3, 0.3, mb, rotate=((1, 0, 0), 90.0),
+                       translate=(0.9, -0.2, -1.6))
+        s.add_triangle((0.4, -0.5, -1.2), (0.9, -0.5, -1.4),
+                       (0.6, 0.2, -1.3), ma, uv1=(0, 0), uv2=(1, 0),
+                       uv3=(0, 1))
+        s.add_sphere((-0.9, -0.2, -1.5), 0.3,
+                     s.add_metal((0.8, 0.8, 0.7), 0.3))
+        s.add_sphere((-0.4, -0.3, -1.2), 0.2, s.add_dielectric(1.5))
+        s.add_sphere((1.6, 0.4, -1.4), 0.25, s.add_diffuse_light(tb))
+        s.add_triangle((-2.2, 0.1, -2.6), (-1.4, 0.1, -3.0),
+                       (-1.8, 1.0, -2.8), s.add_diffuse_light(ta),
+                       uv1=(0.1, 0.2), uv2=(0.9, 0.1), uv3=(0.5, 0.8))
+        s.set_camera((0, 0.3, 1.2), (0, 0, -2), (0, 1, 0), 55, 0.0)
+        return types.build_tables(s, device=dev), RenderConfig(
+            width=w, height=h, samples_per_pixel=1, max_depth=depth)
+    png = str(tmp_path / "a.png")
+    write_png(png, (a * 255).astype(np.uint8))
+    if name == "mesh":
+        sdef, cfg = builders.mesh_scene(f"{ROOT}/scenes/plane441.obj",
+                                        width=w, height=h, spp=1,
+                                        max_depth=depth, texture_path=png)
+        sdef.taichi_tri_uv = True
+        return types.build_tables(sdef, device=dev), cfg
+    write_png(str(tmp_path / "b.png"), (b * 255).astype(np.uint8))
+    data = json.loads(open(f"{ROOT}/scenes/demo_scene.json").read())
+    tex = data["texture"]["data"]
+    tex += [{"type": "image", "file": "a.png"},
+            {"type": "image", "file": "b.png"}]
+    data["material"]["data"][1]["texture"] = len(tex) - 2
+    data["material"]["data"][4]["texture"] = len(tex) - 1
+    path = tmp_path / "textured.json"
+    path.write_text(json.dumps(data))
+    sdef, cfg = parser.parse_scene(str(path))
+    sdef.resize(w, h)
+    return types.build_tables(sdef, device=dev), cfg.replace(
+        width=w, height=h, samples_per_pixel=1, max_depth=depth)
+
+
+IMG_FLAGS = {"none": {}, "nee": dict(nee=True),
+             "mis_glossy": dict(nee=True, mis=True, nee_glossy=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", sorted(IMG_FLAGS))
+@pytest.mark.parametrize("name", ["families", "demo"])
+def test_image_kernels_match_plain(tmp_path, name, flags):
+    """B2 and B3 with image textures (the kImages instantiations; with
+    nee, an image-textured light's texel at the light point) against their
+    plain versions at 192x108, depth 8, p_rr 0 and 0.9: every lane's
+    radiance bit for bit (atan2f / acosf are torch.atan2 / torch.acos's
+    libdevice calls), the kernels launched."""
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.ops.camera import generate_rays
+
+    dev = _card()
+    tt, cfg = _image_scene(dev, name, 192, 108, 8, tmp_path)
+    assert tt.mega.img is not None and tt.nee_img
+    px = torch.arange(192 * 108, device=dev)
+    ro, rd = generate_rays(tt.camera, 192, 108, px % 192, px // 192, 1, 0,
+                           cfg.enable_defocus)
+    for p_rr in (0.0, 0.9):
+        c = cfg.replace(p_rr=p_rr, max_depth=8, **IMG_FLAGS[flags])
+        for fn, eng, count in (
+                (cuda_mega.mega_trace, "mega", cuda_mega.mega_segment),
+                (cuda_queue.queue_trace, "queue", cuda_queue.queue_launch)):
+            ce = c.replace(engine=eng, compact_every=2, queue_steps=3)
+            before = count.launches
+            k = fn(tt, ce, ro, rd, px, 1, 0)
+            torch.cuda.synchronize()
+            assert count.launches > before, eng
+            assert torch.equal(k, fn(tt, ce, ro, rd, px, 1, 0, plain=True)), \
+                (eng, p_rr)
+            assert float(k.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["families", "mesh"])
+def test_image_capture_and_regen_match_plain(tmp_path, name):
+    """B4 takes textured tables and B7 samples the atlas (kImages): both
+    equal their plain versions on every lane at 192x108, depth 8, p_rr
+    0.9, and the regen frame equals the mega frame bit for bit."""
+    from rt_tpu_torch.ops import cuda_mega
+    from rt_tpu_torch.ops.camera import generate_rays
+    from rt_tpu_torch.render.renderer import render
+
+    dev = _card()
+    tt, cfg = _image_scene(dev, name, 192, 108, 8, tmp_path)
+    cfg = cfg.replace(p_rr=0.9, samples_per_pixel=2)
+    px = torch.arange(192 * 108, device=dev)
+    ro, rd = generate_rays(tt.camera, 192, 108, px % 192, px // 192, 0, 0,
+                           cfg.enable_defocus)
+    before = cuda_mega.mega_capture.launches
+    codes, death = cuda_mega.mega_capture(tt, cfg, ro, rd, px, 0, 0)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_capture.launches == before + 1
+    p_codes, p_death = cuda_mega.mega_capture(tt, cfg, ro, rd, px, 0, 0,
+                                              plain=True)
+    assert torch.equal(codes, p_codes) and torch.equal(death, p_death)
+    before = cuda_mega.mega_regen.launches
+    regen = render(tt, cfg.replace(engine="mega", regen=True), device="cuda")
+    assert cuda_mega.mega_regen.launches > before
+    mega = render(tt, cfg.replace(engine="mega"), device="cuda")
+    assert torch.equal(regen, mega)
+    pix = px.to(torch.int32)
+    k = cuda_mega.mega_trace_regen(tt, cfg.replace(engine="mega"), pix,
+                                   pix // 192, 0, 2)
+    p = cuda_mega.mega_trace_regen(tt, cfg.replace(engine="mega"), pix,
+                                   pix // 192, 0, 2, plain=True)
+    assert torch.equal(k, p) and float(k.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nee", [False, True])
+@pytest.mark.parametrize("name", ["families", "demo"])
+def test_image_adjoints_match_plain(tmp_path, name, nee):
+    """B5 and B6 with the atlas gradient (one atomicAdd per channel of a
+    texel-sampled hit; with nee also the image lights' Le cotangent)
+    against the plain adjoint, within 1e-5 + 1e-3 max|g| per field, the
+    atlas included, and B6 against B5."""
+    from rt_tpu_torch.ops import camera, cuda_mega, cuda_queue
+
+    dev = _card()
+    tt, cfg = _image_scene(dev, name, 192, 108, 8, tmp_path)
+    cfg = cfg.replace(nee=nee, compact_every=2)
+    pix = torch.arange(192 * 108, device=dev)
+    ro, rd = camera.generate_rays(tt.camera, 192, 108, pix % 192, pix // 192,
+                                  0, 0, cfg.enable_defocus)
+    L = cuda_queue.queue_trace(tt, cfg.replace(engine="queue"), ro, rd, pix,
+                               0, 0)
+    g = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 1e-3, (192 * 108, 3)).astype(np.float32)).to(dev)
+    adj = (tt, cfg, ro, rd, pix, 0, 0, L, g, 8, False)
+    want = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+    before = (cuda_mega.mega_adjoint_segment.launches,
+              cuda_queue.queue_adjoint_launch.launches)
+    k_m = cuda_mega.mega_trace_adjoint(*adj)
+    k_q = cuda_queue.queue_trace_adjoint(*adj, check_once=True)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_adjoint_segment.launches > before[0]
+    assert cuda_queue.queue_adjoint_launch.launches > before[1]
+    for a, b in ((want, k_m), (want, k_q), (k_m, k_q)):
+        for key in ADJ_FIELDS + ("images",):
+            x, y = a[key].double(), b[key].double()
+            assert x.shape == y.shape, key
+            mag = max(float(x.abs().max()), 1e-12)
+            assert float((x - y).abs().max()) <= 1e-5 + 1e-3 * mag, key
+    assert float(want["images"].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,kernel", [
+    ([], "queue_adjoint_launch"), (["--engine", "mega"],
+                                   "mega_adjoint_segment"),
+    (["--method", "tape"], "mega_capture")], ids=["replay", "mega", "tape"])
+def test_fit_cli_images_runs_the_kernels(tmp_path, extra, kernel):
+    """`fit -f <the textured demo copy> --fields images` on the card at
+    96x54, depth 8: exit 0 (the loss fell) and the method's kernel
+    launched."""
+    from rt_tpu_torch import cli
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.render.renderer import render
+
+    dev = _card()
+    tt, cfg = _image_scene(dev, "demo", 96, 54, 8, tmp_path)
+    img = tt.images.clone()
+    img[0] = img[0] * 0.5 + 0.25
+    import dataclasses
+    out = render(dataclasses.replace(tt, images=img),
+                 cfg.replace(engine="queue", samples_per_pixel=16),
+                 device="cuda")
+    np.savez(tmp_path / "t.npz", img=(out / 16).cpu().numpy())
+    counts = {"queue_adjoint_launch": cuda_queue.queue_adjoint_launch,
+              "mega_adjoint_segment": cuda_mega.mega_adjoint_segment,
+              "mega_capture": cuda_mega.mega_capture}
+    before = counts[kernel].launches
+    rc = cli.main(["fit", "-f", str(tmp_path / "textured.json"),
+                   "--target", str(tmp_path / "t.npz"), "--fields",
+                   "images", "-spp", "4", "--steps", "3", "-d", "8",
+                   "--out", str(tmp_path / "out")] + extra)
+    assert rc == 0
+    assert counts[kernel].launches > before

@@ -142,13 +142,18 @@ def test_fit_resample_moves_the_samples():
 
 
 def test_fit_rejects_tape_and_unknown_methods():
-    """method="tape" runs (tests/test_torch_tape.py) but refuses the
-    fields of families not ported yet; an unknown method is refused."""
+    """method="tape" runs (tests/test_torch_tape.py); it refused the
+    image atlas until image textures were ported and takes it now (on
+    this scene, whose primitives sample no image, its gradient is zero
+    and it stays as it was; tests/test_torch_images_adjoint.py trains
+    one); an unknown method is refused."""
     _, _, tt, cfg = make_scene(8, 6, 2)
     target = np.zeros((6, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match=r"B2\(c\)"):
-        tinverse.fit(tt, cfg, target, method="tape", device="cpu",
-                     init_params={"images": np.zeros((1, 4, 4, 3))})
+    init = np.full((1, 4, 4, 3), 0.5, np.float32)
+    rec, hist = tinverse.fit(tt, cfg, target, method="tape", device="cpu",
+                             steps=1, init_params={"images": init})
+    np.testing.assert_array_equal(rec["images"], init)
+    assert len(hist) == 1 and np.isfinite(hist[0])
     with pytest.raises(ValueError):
         tinverse.fit(tt, cfg, target, method="fd", device="cpu")
 
@@ -185,8 +190,9 @@ def test_scan_loop_message_names_the_route():
 
 def test_port_and_scripts_import_no_jax():
     """No import statement of the port, chip_smoke.py or profile_torch.py
-    (at module level or inside a function) names jax, jaxlib or rt_tpu:
-    the card's machine runs them without the reference."""
+    (at module level or inside a function) names
+    jax, jaxlib or rt_tpu: the card's machine runs them without the
+    reference."""
     import ast
     import pathlib
 

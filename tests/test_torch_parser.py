@@ -193,17 +193,27 @@ def test_apply_transforms_on_tensors():
 
 
 def test_image_textures_raise(tmp_path):
+    """Image textures raised here until they were ported; the parser's
+    `"image" {file}` (relative to the scene's directory), the textured
+    mesh and an image texture carried across by tables_from_numpy are
+    taken now (tests/test_torch_images.py holds them against rt_tpu).
+    BVHs still raise, naming their queue item."""
+    from rt_tpu_torch.io.image import write_png
+
+    u8 = np.random.default_rng(4).integers(0, 256, (6, 5, 3), np.uint8)
+    write_png(str(tmp_path / "x.png"), u8)
     data = json.loads(open(DEMO).read())
     data["texture"]["data"].append({"type": "image", "file": "x.png"})
-    with pytest.raises(NotImplementedError, match=r"B2\(c\)"):
-        tparser.parse_scene_dict(data, base_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match=r"B2\(c\)"):
-        tbuilders.mesh_scene(MESH, texture_path=str(tmp_path / "x.png"))
+    sdef, _ = tparser.parse_scene_dict(data, base_dir=str(tmp_path))
+    assert sdef.textures[-1] == {"type": "image", "image": 0}
+    np.testing.assert_array_equal(sdef.images[0],
+                                  u8.astype(np.float32) / 255.0)
+    sdef, _ = tbuilders.mesh_scene(MESH, texture_path=str(tmp_path / "x.png"))
+    assert ttypes.build_tables(sdef).img_on == ("triangle",)
     leaves = jax_leaves(jtypes.build_tables(jbuilders.cover_scene(grid=1)[0]))
     leaves["tex_type"] = leaves["tex_type"].copy()
     leaves["tex_type"][0] = ttypes.TEX_IMAGE
-    with pytest.raises(NotImplementedError, match=r"B2\(c\)"):
-        tables_from_numpy(leaves)
+    assert int(tables_from_numpy(leaves).tex_type[0]) == ttypes.TEX_IMAGE
     with pytest.raises(NotImplementedError, match="A-8"):
         ttypes.build_tables(tparser.parse_scene(DEMO)[0],
                             bvh_types=("sphere",))

@@ -110,21 +110,32 @@ def test_to_device_round_trip():
 
 def test_tables_from_numpy_rejects_other_families():
     """Rects and cylinders carry across with their counts and light
-    index (tests/test_torch_parser.py compares every leaf); the family
-    still refused is the image textures' (ROADMAP Queue B2(c))."""
+    index (tests/test_torch_parser.py compares every leaf). Image
+    textures, once refused, carry across too: a texture turned into an
+    image keeps its type, image id and the atlas, and the static img_on
+    follows the primitives that sample it (tests/test_torch_images.py
+    compares scenes with images leaf by leaf)."""
     sj, _ = jbuilders.cover_scene(grid=2, lights=True)  # rect + cylinder
     leaves = jax_leaves(jtypes.build_tables(sj))
     tt = tables_from_numpy(leaves)
     assert tt.counts == (19, 1, 1, 0) and tt.n_lights == 2
+    assert tt.img_on == () and not tt.nee_img
     leaves["tex_type"] = leaves["tex_type"].copy()
     leaves["tex_type"][0] = ttypes.TEX_IMAGE
-    with pytest.raises(NotImplementedError, match="image"):
-        tables_from_numpy(leaves)
+    leaves["tex_image"] = leaves["tex_image"].copy()
+    leaves["tex_image"][0] = 0
+    carried = tables_from_numpy(leaves)
+    assert int(carried.tex_type[0]) == ttypes.TEX_IMAGE
+    assert int(carried.tex_image[0]) == 0
+    assert torch.equal(carried.images, torch.from_numpy(leaves["images"]))
+    # texture 0 is the ground sphere's checker; no light samples it
+    assert carried.img_on == ("sphere",) and carried.nee_img is False
 
 
 def test_build_tables_rejects_other_families():
-    """A rect joins its own table; image textures and unknown object
-    types are refused."""
+    """A rect joins its own table; unknown object types are refused.
+    Image textures, once refused, join the atlas; images of two sizes
+    are refused, as rt_tpu refuses them."""
     st, _ = tbuilders.three_sphere_scene()
     st.objects.append({"type": "xy_rect", "x0": 0.0, "x1": 1.0, "y0": 0.0,
                        "y1": 1.0, "k": 0.0, "material": 0})
@@ -134,8 +145,16 @@ def test_build_tables_rejects_other_families():
     with pytest.raises(ValueError, match="torus"):
         ttypes.build_tables(st)
     st, _ = tbuilders.three_sphere_scene()
-    st.textures.append({"type": "image", "image": 0})
-    with pytest.raises(NotImplementedError, match="image"):
+    img = np.linspace(0.0, 1.0, 4 * 5 * 3, dtype=np.float32).reshape(4, 5, 3)
+    tex = st.add_image_texture(img)
+    st.materials[0] = {"type": "lambertian", "texture": tex}
+    tt = ttypes.build_tables(st)
+    assert int(tt.tex_type[tex]) == ttypes.TEX_IMAGE
+    assert int(tt.tex_image[tex]) == 0
+    assert torch.equal(tt.images, torch.from_numpy(img)[None])
+    assert tt.img_on == ("sphere",) and tt.has_images
+    st.add_image_texture(np.zeros((5, 4, 3), np.float32))
+    with pytest.raises(ValueError, match="one size"):
         ttypes.build_tables(st)
 
 

@@ -284,6 +284,10 @@ def test_tape_gradient_matches_finite_difference():
         assert abs(got - fd) <= max(2e-5, 0.05 * abs(fd)), (i, c, got, fd)
 
 
+# "images" raised NotImplementedError until image textures were ported;
+# its case keeps the refusal's values (and so its id) and checks that it
+# is taken now: both tape paths run and give the atlas's shape
+# (tests/test_torch_images_adjoint.py holds its values)
 @pytest.mark.parametrize("field,err,match", [
     ("cyl_w2o", ValueError, "tape gradients cover"),
     ("images", NotImplementedError, r"B2\(c\)")])
@@ -292,10 +296,18 @@ def test_tape_refuses_unknown_and_unported_fields(field, err, match):
     px, py = (torch.from_numpy(x) for x in pixels())
     tgt = torch.zeros((W * H, 3))
     loss = ttape.make_tape_loss_fn(tt, cfg, 1, px, py, tgt)
-    with pytest.raises(err, match=match):
-        loss({field: torch.zeros(3)})
-    with pytest.raises(err, match=match):
-        ttape.make_tape_vg(tt, cfg, px, py, tgt)({field: torch.zeros(3)})
+    if field == "images":
+        # the scene samples no image: the loss runs, the atlas's gradient
+        # is zero
+        p = getattr(tt, field).clone().requires_grad_(True)
+        assert bool(torch.isfinite(loss({field: p})))
+        _, grads = ttape.make_tape_vg(tt, cfg, px, py, tgt)({field: p})
+        assert grads[field].shape == p.shape and not bool(grads[field].any())
+    else:
+        with pytest.raises(err, match=match):
+            loss({field: torch.zeros(3)})
+        with pytest.raises(err, match=match):
+            ttape.make_tape_vg(tt, cfg, px, py, tgt)({field: torch.zeros(3)})
     assert (field in ttape.TAPE_FIELDS) == (field != "cyl_w2o")
     assert ttape.TAPE_FIELDS == jtape.TAPE_FIELDS
 

@@ -89,8 +89,10 @@ directory that it removes.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
+import glob
 import importlib.util
 import io
 import json
@@ -105,6 +107,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# another checkout of the port (--parent) whose B2 / B3 / B5 / B6 phase
+# 48 times beside this one's, in turns, and whose registers it compares
+PARENT = None
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FP32_OPS = 67e12      # FP32 outside the tensor cores, op/s
@@ -145,6 +150,10 @@ SHADOW_SETUP_OPS = 17
 UV_OPS = (11, 14, 23, 53)
 TEXEL_OPS = 10
 TEXEL_BYTES = 32
+# FP32 operations of one lane's test of one chunk box under culling
+# (bounce.cuh box_visible); a shadow ray's box tests are left out of the
+# bound, which stays a lower bound
+BOX_OPS = 26
 
 W, H, SPP, DEPTH = 1920, 1080, 2, 50     # rt_tpu bench.py:67-71 shape
 MAIN_SPP = 16                            # bench.py's one-launch spp
@@ -322,7 +331,7 @@ def regen_segment(tb, cb, pixel, spp, seg_iters, plain, sample_base=0,
                   seed=0):
     """One init segment of B7 (or, with plain, of its plain version) over
     the pixel ids `pixel` of cb's frame: (state, samp, bvec, depth)."""
-    from rt_tpu_torch.ops import cuda_mega, mega_plain
+    from rt_tpu_torch.ops import cuda_mega, mega_plain, mega_tables
 
     dev = pixel.device
     b = pixel.shape[0]
@@ -331,7 +340,8 @@ def regen_segment(tb, cb, pixel, spp, seg_iters, plain, sample_base=0,
     samp, bvec, depth = (torch.zeros(b, dtype=torch.int32, device=dev)
                          for _ in range(3))
     fn = mega_plain.regen_plain if plain else cuda_mega.mega_regen
-    fn(tb.mega.table, tb.mega.cam, state, pix, pix // cb.width, samp, bvec,
+    ms = mega_tables.scene_for(tb, cb)
+    fn(ms.table, ms.cam, state, pix, pix // cb.width, samp, bvec,
        sample_base, seed, seg_iters, max_depth=cb.max_depth, spp=spp,
        init=True, width=cb.width, height=cb.height,
        defocus=cb.enable_defocus,
@@ -548,10 +558,39 @@ def texel_terms(calls=1):
     return ops, sum(hits) * TEXEL_BYTES, sum(hits)
 
 
-def reset_texels():
+def reset_plain_counts():
+    """Zero what the plain versions count for a bound: texel-sampled
+    hits, the closest-hit rows and chunk boxes the lanes tested, the
+    shadow rays and their rows."""
     from rt_tpu_torch.ops import mega_plain
 
     mega_plain.winner_uv.texels = [0, 0, 0, 0]
+    mega_plain.closest_hit.rows = [0, 0, 0, 0]
+    mega_plain.closest_hit.boxes = 0
+    mega_plain.shadow_occluded.rays = 0
+    mega_plain.shadow_occluded.rows = [0, 0, 0, 0]
+
+
+def hit_terms(bounces, calls=1):
+    """FP32 operations of `bounces` ray-bounces' hit loops over the rows
+    the lanes tested, from what the plain version counted over `calls`
+    equal calls since reset_plain_counts (mega_plain.closest_hit: the
+    kernels take the same per-lane chunk decisions): each (lane, row)
+    pair at its family's FAMILY_OPS, each chunk box at BOX_OPS, and the
+    ray setup. Without culling it is bounces x hit_ops(tables)."""
+    from rt_tpu_torch.ops import mega_plain
+
+    rows = [n // calls for n in mega_plain.closest_hit.rows]
+    return (sum(o * n for o, n in zip(FAMILY_OPS, rows))
+            + BOX_OPS * (mega_plain.closest_hit.boxes // calls)
+            + SETUP_OPS * bounces)
+
+
+def rows_tested(calls=1):
+    """The (lane, row) pairs of one call's hit loops, per family."""
+    from rt_tpu_torch.ops import mega_plain
+
+    return [n // calls for n in mega_plain.closest_hit.rows]
 
 
 def counters():
@@ -564,6 +603,74 @@ def counters():
             "queue_adjoint_launch": cuda_queue.queue_adjoint_launch,
             "mega_capture": cuda_mega.mega_capture,
             "mega_regen": cuda_mega.mega_regen}
+
+
+KERNELS = ["sphere_hit", "mega", "queue", "mega_adjoint", "queue_adjoint",
+           "capture", "regen"]
+
+
+def build_all():
+    """Build every kernel library of the tree that rt_tpu_torch is imported
+    from, one nvcc per source, all started together: the library paths."""
+    from rt_tpu_torch.ops import cuda_build
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
+        return list(ex.map(cuda_build.build, KERNELS))
+
+
+def ptxas_registers(root):
+    """{"library:kernel": registers} from the ptxas reports that
+    ops/cuda_build.py keeps beside the libraries built under root."""
+    out = {}
+    pattern = os.path.join(root, "rt_tpu_torch", "_build", "lib*.so.log")
+    for log in sorted(glob.glob(pattern)):
+        lib = os.path.basename(log)[3:].split("-")[0]
+        fn = None
+        for line in open(log):
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn and " registers" in line and "Used " in line:
+                out[f"{lib}:{fn}"] = int(
+                    line.split("Used ")[1].split(" register")[0])
+                fn = None
+    return out
+
+
+def ab_times(root):
+    """B2 / B3 / B5 / B6 at phases 11 / 13's shape (cover_scene 1920x1080,
+    depth 50, one trace call of sample 0 and its exact adjoint call)
+    under rng without culling, with the package imported from root (this
+    tree or another checkout of it): one JSON line of mean ms over 5
+    calls after a warm-up."""
+    sys.path.insert(0, root)
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.ops.camera import generate_rays
+    from rt_tpu_torch.scene.builders import cover_scene
+    from rt_tpu_torch.scene.types import build_tables
+
+    build_all()
+    dev = torch.device("cuda")
+    sdef, cfg = cover_scene(width=W, height=H, spp=MAIN_SPP, max_depth=DEPTH)
+    cfg = cfg.replace(rays_per_batch=1 << 25, compact_schedule=(2, 3, 5, 10),
+                      compact_group=16, cull_chunks=False)
+    tables = build_tables(sdef, device=dev)
+    px = torch.arange(W * H, device=dev)
+    ro, rd = generate_rays(tables.camera, W, H, px % W, px // W, 0, 0,
+                           cfg.enable_defocus)
+    args = (tables, cfg, ro, rd, px, 0, 0)
+    L = cuda_queue.queue_trace(*args)
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1.0 / (W * H), (W * H, 3)).astype(np.float32)).to(dev)
+    adj = args + (L, g, DEPTH, False)
+    out = {}
+    for name, fn, a in (
+            ("mega_segment", cuda_mega.mega_trace, args),
+            ("queue_launch", cuda_queue.queue_trace, args),
+            ("mega_adjoint_segment", cuda_mega.mega_trace_adjoint, adj),
+            ("queue_adjoint_launch", cuda_queue.queue_trace_adjoint, adj)):
+        out[name] = cuda_ms(lambda: fn(*a), 10)[0]
+    print(json.dumps(out))
+    return 0
 
 
 def reset_counts():
@@ -616,13 +723,11 @@ def main() -> int:
 
     with phase("2 build"):
         # one nvcc per source, all started together
-        kernels = ["sphere_hit", "mega", "queue", "mega_adjoint",
-                   "queue_adjoint", "capture", "regen"]
+        kernels = KERNELS
         for k in kernels:  # build from the checkout's sources
             cuda_build.library_path(k).unlink(missing_ok=True)
         t0 = time.time()
-        with concurrent.futures.ThreadPoolExecutor(len(kernels)) as ex:
-            libs = list(ex.map(cuda_build.build, kernels))
+        libs = build_all()
         build_s = time.time() - t0
         print(f"  built {len(libs)} libraries in {build_s:.2f} s")
         for k, lib in zip(kernels, libs):
@@ -881,21 +986,26 @@ def main() -> int:
             st = {}
             k_out = fn(*main_args, stats=st)
             ms, _ = cuda_ms(lambda: fn(*main_args), 5)
+            reset_plain_counts()
             pms, p_out = cuda_ms(lambda: fn(*main_args, plain=True), 1)
             err = lanes_close(k_out, p_out, f"{name} vs plain")
-            ops = st["ray_bounces"] * (SPHERE_OPS_PER_PAIR * rows_k
-                                       + SETUP_OPS)
+            ops = hit_terms(st["ray_bounces"], calls=2)
+            ops_all = st["ray_bounces"] * (SPHERE_OPS_PER_PAIR * rows_k
+                                           + SETUP_OPS)
             nbytes = (W * H * (12 + 12 + 4 + 12)   # ro, rd, pixel in; rgb out
                       + rows_k * 17 * 4)           # the packed table
-            b_ms = max(ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
-            b_by = ("operations" if ops / PEAK_FP32_OPS
-                    >= nbytes / PEAK_HBM_BYTES else "bytes")
+            b_ms, b_by = bound_of(ops, nbytes)
             rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
-                              bound_by=b_by, err=err)
+                              bound_by=b_by, err=err,
+                              bound_all_rows_ms=bound_of(ops_all, nbytes)[0],
+                              rows_tested=rows_tested(calls=2)[0])
             print(f"  {name}: trace {ms:.4f} ms, plain {pms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by}: {st['ray_bounces']} ray-bounces "
-                  f"x {rows_k} rows, {ops:.4g} ops, {nbytes:.4g} bytes; "
-                  f"{b_ms / ms:.1%} of the bound); {smi}", flush=True)
+                  f"{b_ms:.4f} ms ({b_by}: {st['ray_bounces']} ray-bounces, "
+                  f"{rows[name]['rows_tested']} (lane, row) pairs tested of "
+                  f"{st['ray_bounces'] * rows_k}, {ops:.4g} ops, "
+                  f"{nbytes:.4g} bytes; {b_ms / ms:.1%} of the bound; over "
+                  f"all rows {rows[name]['bound_all_rows_ms']:.4f} ms); "
+                  f"{smi}", flush=True)
         err_mega = max(err_mega, rows["mega_segment"].pop("err"))
         err_queue = max(err_queue, rows["queue_launch"].pop("err"))
 
@@ -989,26 +1099,31 @@ def main() -> int:
             st = {}
             k_out = fn(*adj_args, stats=st)
             ms, _ = cuda_ms(lambda: fn(*adj_args), 5)
+            reset_plain_counts()
             pms, p_out = cuda_ms(lambda: fn(*adj_args, plain=True), 1)
             err = grads_close(p_out, k_out, f"{name} vs plain")
-            ops = st["ray_bounces"] * (SPHERE_OPS_PER_PAIR * rows_k
-                                       + SETUP_OPS + ADJOINT_OPS)
+            ops = (hit_terms(st["ray_bounces"], calls=2)
+                   + st["ray_bounces"] * ADJOINT_OPS)
+            ops_all = st["ray_bounces"] * (SPHERE_OPS_PER_PAIR * rows_k
+                                           + SETUP_OPS + ADJOINT_OPS)
             nbytes = (W * H * (12 + 12 + 4 + 12 + 12)  # ro, rd, pixel, L, g
                       + rows_k * 18 * 4               # the packed table
                       + 8 * n_slots * 4)              # gradients out
-            b_ms = max(ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
-            b_by = ("operations" if ops / PEAK_FP32_OPS
-                    >= nbytes / PEAK_HBM_BYTES else "bytes")
+            b_ms, b_by = bound_of(ops, nbytes)
             rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
-                              bound_by=b_by)
+                              bound_by=b_by,
+                              bound_all_rows_ms=bound_of(ops_all, nbytes)[0],
+                              rows_tested=rows_tested(calls=2)[0])
             if name == "mega_adjoint_segment":
                 err_b5 = max(err_b5, err)
             else:
                 err_b6 = max(err_b6, err)
             print(f"  {name}: adjoint call {ms:.4f} ms, plain {pms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}: {st['ray_bounces']} "
-                  f"ray-bounces x {rows_k} rows, {ops:.4g} ops, "
-                  f"{nbytes:.4g} bytes; {b_ms / ms:.1%} of the bound), "
+                  f"ray-bounces, {rows[name]['rows_tested']} (lane, row) "
+                  f"pairs tested, {ops:.4g} ops, {nbytes:.4g} bytes; "
+                  f"{b_ms / ms:.1%} of the bound; over all rows "
+                  f"{rows[name]['bound_all_rows_ms']:.4f} ms), "
                   f"{st['launches']} launches; {smi}", flush=True)
 
     s1, c1 = cover_scene(width=W, height=H, spp=1, max_depth=DEPTH)
@@ -1152,7 +1267,7 @@ def main() -> int:
     from profile_torch import FAMILY_FIELDS, tape_workload
     from rt_tpu_torch.diff import tape
     from rt_tpu_torch.diff.replay import make_replay_render
-    from rt_tpu_torch.ops import mega_plain
+    from rt_tpu_torch.ops import mega_plain, mega_tables
     from rt_tpu_torch.render.integrator import RayState, _bounce
 
     small = {}
@@ -1215,12 +1330,15 @@ def main() -> int:
                                  c1s.enable_defocus)
         cap_args = (t1, c1s, ro_, rd_, px1, 0, 0)
         ms_b4, got = cuda_ms(lambda: cuda_mega.mega_capture(*cap_args), 5)
+        reset_plain_counts()
         pms_b4, want = cuda_ms(
             lambda: cuda_mega.mega_capture(*cap_args, plain=True), 1)
+        b4_ops = hit_terms(0, calls=2)  # the setup is added below
         err_b4 += capture_mismatch(got, want, "B4 vs plain")
         death = got[1]
         ran = torch.zeros(W * H, dtype=torch.int32, device=dev)
-        cuda_mega.mega_segment(t1.mega.table, mega_plain.fresh_state(ro_, rd_),
+        cuda_mega.mega_segment(mega_tables.scene_for(t1, c1s).table,
+                               mega_plain.fresh_state(ro_, rd_),
                                px1.to(torch.int32), 0, 0, 0, DEPTH, depth=ran,
                                **mega_plain.trace_options(t1, c1s))
         want_ran = torch.where(death < DEPTH, death + 1, death)
@@ -1230,13 +1348,12 @@ def main() -> int:
                 f"{int((ran != want_ran).sum())} lanes")
         bounces = int(ran.sum())
         rows_1 = t1.mega.table.shape[0]
-        ops = bounces * (SPHERE_OPS_PER_PAIR * rows_1 + SETUP_OPS)
+        ops = b4_ops + bounces * SETUP_OPS
+        ops_all = bounces * (SPHERE_OPS_PER_PAIR * rows_1 + SETUP_OPS)
         nbytes = (W * H * (13 * 4 + 4)         # fresh state, pixel in
                   + rows_1 * 18 * 4            # the packed table
                   + (DEPTH + 1) * W * H * 4)   # codes, death out
-        b4_bound = max(ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
-        b4_by = ("operations" if ops / PEAK_FP32_OPS
-                 >= nbytes / PEAK_HBM_BYTES else "bytes")
+        b4_bound, b4_by = bound_of(ops, nbytes)
         print(f"  death consistent with B2's per-lane bounce counts on all "
               f"{W * H} lanes ({bounces} ray-bounces); mega_capture "
               f"{ms_b4:.4f} ms, plain {pms_b4:.4f} ms, bound "
@@ -1244,7 +1361,9 @@ def main() -> int:
               f"bytes; {b4_bound / ms_b4:.1%} of the bound); {smi}",
               flush=True)
         rows["mega_capture"] = dict(ms=ms_b4, plain_ms=pms_b4,
-                                    bound_ms=b4_bound, bound_by=b4_by)
+                                    bound_ms=b4_bound, bound_by=b4_by,
+                                    bound_all_rows_ms=bound_of(ops_all,
+                                                               nbytes)[0])
 
     with phase(f"20 tape step: cover_scene {W}x{H} depth {DEPTH} spp 1, "
                "all fields (scripts/bench_tape_r3.py)"):
@@ -1515,6 +1634,7 @@ def main() -> int:
         ms16, k16 = cuda_ms(lambda: regen_segment(*seg16, plain=False), 3)
         torch.cuda.synchronize()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        reset_plain_counts()
         ev[0].record()
         p16 = regen_segment(*seg16, plain=True)
         ev[1].record()
@@ -1522,20 +1642,19 @@ def main() -> int:
         pms16 = ev[0].elapsed_time(ev[1])
         err_b7 = max(err_b7, regen_mismatch(k16, p16, f"spp {MAIN_SPP}"))
         bounces16 = int(k16[3].sum())
-        ops = (bounces16 * (SPHERE_OPS_PER_PAIR * rows_k + SETUP_OPS)
-               + CAMERA_OPS * MAIN_SPP * W * H)
+        ops = hit_terms(bounces16) + CAMERA_OPS * MAIN_SPP * W * H
+        ops_all = (bounces16 * (SPHERE_OPS_PER_PAIR * rows_k + SETUP_OPS)
+                   + CAMERA_OPS * MAIN_SPP * W * H)
         nbytes = (W * H * (4 + 4 + 13 * 4 + 4 + 4)  # pixel, py in; state,
                   + rows_k * 18 * 4)               # samp, bvec out; table
-        b7_bound = max(ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
-        b7_by = ("operations" if ops / PEAK_FP32_OPS
-                 >= nbytes / PEAK_HBM_BYTES else "bytes")
+        b7_bound, b7_by = bound_of(ops, nbytes)
         # B2's lane occupancy over the same samples, one segment each
         occ2, kw16 = [], mega_plain.trace_options(t16, c16m)
         for smp in range(MAIN_SPP):
             ro_, rd_ = generate_rays(t16.camera, W, H, px_b, py_b, smp, 0,
                                      c16m.enable_defocus)
             d_s = torch.zeros(W * H, dtype=torch.int32, device=dev)
-            cuda_mega.mega_segment(t16.mega.table,
+            cuda_mega.mega_segment(mega_tables.scene_for(t16, c16m).table,
                                    mega_plain.fresh_state(ro_, rd_),
                                    pix_b.to(torch.int32), smp, 0, 0, DEPTH,
                                    depth=d_s, **kw16)
@@ -1545,13 +1664,16 @@ def main() -> int:
               f"(phase 11's B2 trace call x {MAIN_SPP}: "
               f"{rows['mega_segment']['ms'] * MAIN_SPP:.4f} ms), plain "
               f"{pms16:.4f} ms, bound {b7_bound:.4f} ms ({b7_by}: "
-              f"{bounces16} ray-bounces x {rows_k} rows + {MAIN_SPP} x "
+              f"{bounces16} ray-bounces, (lane, row) pairs tested "
+              f"{rows_tested()} + {MAIN_SPP} x "
               f"{W * H} camera rays, {ops:.4g} ops, {nbytes:.4g} bytes; "
               f"{b7_bound / ms16:.1%} of the bound); lane occupancy from "
               f"per-lane bounce counts: B7 {lane_occupancy(k16[3]):.4f}, "
               f"B2 one segment per sample {occ_b2:.4f}; {smi}", flush=True)
         rows["mega_regen"] = dict(ms=ms16, plain_ms=pms16, bound_ms=b7_bound,
-                                  bound_by=b7_by)
+                                  bound_by=b7_by,
+                                  bound_all_rows_ms=bound_of(ops_all,
+                                                             nbytes)[0])
 
     from rt_tpu_torch import cli
 
@@ -1657,13 +1779,15 @@ def main() -> int:
         if differ or demo["regen"]["bounces"] != demo["mega"]["bounces"]:
             raise AssertionError("the regen frame is not the mega frame")
 
-    def family_workload(label, sd, cb, spp):
+    def family_workload(label, sd, cb, spp, b7_spp=None):
         """A family scene at 1920x1080: its frames on queue, mega and
         regen (launches, paths/s, the regen frame against the mega frame
         bit for bit, the queue frame against it by images_close), then
         one B2 and one B3 trace call of sample 0 and one B7 call over
-        all spp samples, each timed with CUDA events and held against
-        its plain version on every lane, beside its bound."""
+        b7_spp samples (by default all spp), each timed with CUDA events
+        and held against its plain version on every lane, beside its
+        bound."""
+        b7_spp = b7_spp or spp
         cb = cb.replace(rays_per_batch=1 << 25,
                         compact_schedule=(2, 3, 5, 10), compact_group=16)
         tb = build_tables(sd, device=dev)
@@ -1720,21 +1844,23 @@ def main() -> int:
             st = {}
             k_out = fn(*args, stats=st)
             ms, _ = cuda_ms(lambda: fn(*args), 5)
-            reset_texels()
+            reset_plain_counts()
             pms, p_out = cuda_ms(lambda: fn(*args, plain=True), 1)
             differ = int((k_out != p_out).any(-1).sum())
             t_ops, t_bytes, t_hits = texel_terms(calls=2)
-            ops = st["ray_bounces"] * ops_row + t_ops
+            ops = hit_terms(st["ray_bounces"], calls=2) + t_ops
             b_ms, b_by = bound_of(ops, w_ * h_ * (12 + 12 + 4 + 12)
                                   + nbytes_tab + t_bytes)
             texel_note = (f" + {t_hits} texel-sampled hits"
                           if t_hits else "")
             print(f"  {label} {name}: trace {ms:.4f} ms, plain {pms:.4f} ms "
                   f"({differ} of {w_ * h_} lanes differ), bound {b_ms:.4f} "
-                  f"ms ({b_by}: {st['ray_bounces']} ray-bounces x "
-                  f"{ops_row} ops for rows {tb.counts}{texel_note}, "
-                  f"{ops:.4g} ops; {b_ms / ms:.1%} of the bound); {smi}",
-                  flush=True)
+                  f"ms ({b_by}: {st['ray_bounces']} ray-bounces, (lane, "
+                  f"row) pairs tested {rows_tested(calls=2)} of "
+                  f"{st['ray_bounces']} x rows {tb.counts}{texel_note}, "
+                  f"{ops:.4g} ops; {b_ms / ms:.1%} of the bound; over all "
+                  f"rows {bound_of(st['ray_bounces'] * ops_row, 0)[0]:.4f} "
+                  f"ms); {smi}", flush=True)
             if differ:
                 raise AssertionError(f"{label}: {name} != plain")
             out[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
@@ -1745,26 +1871,28 @@ def main() -> int:
         cbm = cb.replace(engine="mega")
         px_b, py_b, pix_b = (torch.from_numpy(x).to(dev)
                              for x in _block_order(w_, h_))
-        seg = (tb, cbm, pix_b, spp, spp * (depth + 1))
+        seg = (tb, cbm, pix_b, b7_spp, b7_spp * (depth + 1))
         ms7, k7 = cuda_ms(lambda: regen_segment(*seg, plain=False), 3)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        reset_texels()
+        reset_plain_counts()
         torch.cuda.synchronize()
         ev[0].record()
         p7 = regen_segment(*seg, plain=True)
         ev[1].record()
         torch.cuda.synchronize()
         pms7 = ev[0].elapsed_time(ev[1])
-        err = regen_mismatch(k7, p7, f"{label} B7 vs plain, spp {spp}")
+        err = regen_mismatch(k7, p7, f"{label} B7 vs plain, spp {b7_spp}")
         bounces = int(k7[3].sum())
         t_ops, t_bytes, _ = texel_terms()
-        ops = bounces * ops_row + CAMERA_OPS * spp * w_ * h_ + t_ops
+        ops = hit_terms(bounces) + CAMERA_OPS * b7_spp * w_ * h_ + t_ops
         b_ms, b_by = bound_of(ops, w_ * h_ * (4 + 4 + 13 * 4 + 4 + 4)
                               + nbytes_tab + t_bytes)
-        print(f"  {label} mega_regen at spp {spp}: {ms7:.4f} ms per call, "
+        print(f"  {label} mega_regen at spp {b7_spp}: {ms7:.4f} ms per "
+              f"call, "
               f"plain {pms7:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {bounces} "
-              f"ray-bounces x {ops_row} ops + {spp} x {w_ * h_} camera "
-              f"rays, {ops:.4g} ops; {b_ms / ms7:.1%} of the bound); lane "
+              f"ray-bounces, (lane, row) pairs tested {rows_tested()} + "
+              f"{b7_spp} x {w_ * h_} camera rays, {ops:.4g} ops; "
+              f"{b_ms / ms7:.1%} of the bound); lane "
               f"occupancy {lane_occupancy(k7[3]):.4f}; {smi}", flush=True)
         out["mega_regen"] = dict(ms=ms7, plain_ms=pms7, bound_ms=b_ms,
                                  bound_by=b_by, max_abs_err=err,
@@ -1776,8 +1904,9 @@ def main() -> int:
                f"{MAIN_SPP}: 487 spheres, an xy_rect and a cylinder light"):
         sd, cb = cover_scene(width=W, height=H, spp=MAIN_SPP,
                              max_depth=DEPTH, lights=True)
+        # its B7 call over 4 samples: the plain version's spp 16 took 20 s
         families["cover_lights"] = family_workload("cover_lights", sd, cb,
-                                                   MAIN_SPP)
+                                                   MAIN_SPP, b7_spp=4)
     with phase(f"31 mesh_scene(plane441.obj) {W}x{H} depth 16 spp 4: 800 "
                "triangles and 3 spheres, gradient sky, exhaust background"):
         from rt_tpu_torch.scene.builders import mesh_scene
@@ -1843,12 +1972,12 @@ def main() -> int:
         w_, h_, depth = cb.width, cb.height, cb.max_depth
         pix, ro_, rd_, L, g = adjoint_inputs(tb, cb, w_, h_, 0, g_std)
         args = (tb, cb, ro_, rd_, pix, 0, 0)
-        ops_row = hit_ops(tb)
         nbytes_tab = table_bytes(tb)
         out = {}
         ms4, got = cuda_ms(lambda: cuda_mega.mega_capture(*args), 3)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
+        reset_plain_counts()
         ev[0].record()
         want = cuda_mega.mega_capture(*args, plain=True)
         ev[1].record()
@@ -1857,13 +1986,13 @@ def main() -> int:
         capture_mismatch(got, want, f"{label} B4 vs plain")
         death = got[1]
         bounces = int(torch.where(death < depth, death + 1, death).sum())
-        b_ms, b_by = bound_of(bounces * ops_row,
+        b_ms, b_by = bound_of(hit_terms(bounces),
                               w_ * h_ * (13 * 4 + 4) + nbytes_tab
                               + (depth + 1) * w_ * h_ * 4)
         print(f"  {label} mega_capture: {ms4:.4f} ms, plain {pms4:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}: {bounces} ray-bounces x "
-              f"{ops_row} ops; {b_ms / ms4:.1%} of the bound); {smi}",
-              flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}: {bounces} ray-bounces, (lane, "
+              f"row) pairs tested {rows_tested()}; {b_ms / ms4:.1%} of the "
+              f"bound); {smi}", flush=True)
         out["mega_capture"] = dict(ms=ms4, plain_ms=pms4, bound_ms=b_ms,
                                    bound_by=b_by, max_abs_err=0, launches=1)
         adj = (*args, L, g, depth, False)
@@ -1874,20 +2003,22 @@ def main() -> int:
             st = {}
             k_out = fn(*adj, stats=st)
             ms, _ = cuda_ms(lambda: fn(*adj), 3)
-            reset_texels()
+            reset_plain_counts()
             pms, p_out = cuda_ms(lambda: fn(*adj, plain=True), 1)
             err = grads_close(p_out, k_out, f"{label} {name} vs plain")
             # a texel-sampled hit reads its sector and adds to it
             t_ops, t_bytes, _ = texel_terms(calls=2)
             b_ms, b_by = bound_of(
-                st["ray_bounces"] * (ops_row + ADJOINT_OPS) + t_ops,
+                hit_terms(st["ray_bounces"], calls=2)
+                + st["ray_bounces"] * ADJOINT_OPS + t_ops,
                 w_ * h_ * (12 + 12 + 4 + 12 + 12) + nbytes_tab
                 + 8 * tb.mega.n_slots * 4 + 2 * t_bytes
                 + (tb.mega.img.atlas.numel() * 4 if tb.mega.img is not None
                    else 0))
             print(f"  {label} {name}: adjoint call {ms:.4f} ms, plain "
                   f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-                  f"{st['ray_bounces']} ray-bounces x {ops_row} ops; "
+                  f"{st['ray_bounces']} ray-bounces, (lane, row) pairs "
+                  f"tested {rows_tested(calls=2)}; "
                   f"{b_ms / ms:.1%} of the bound), {st['launches']} "
                   f"launches; {smi}", flush=True)
             out[name] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
@@ -2179,7 +2310,6 @@ def main() -> int:
         px_ = torch.arange(W * H, device=dev)
         ro_, rd_ = generate_rays(tb.camera, W, H, px_ % W, px_ // W, 0, 0,
                                  cb.enable_defocus)
-        ops_row = hit_ops(tb)
         nbytes_tab = table_bytes(tb) + tb.mega.lights.numel() * 4
         cn = cb.replace(nee=True)
 
@@ -2188,7 +2318,8 @@ def main() -> int:
             shadow rays' any-hit rows the plain version just counted."""
             rows = mega_plain.shadow_occluded.rows
             rays = mega_plain.shadow_occluded.rays
-            ops = (ray_bounces * ops_row + rays * SHADOW_SETUP_OPS
+            ops = (hit_terms(ray_bounces, calls=2)
+                   + rays * SHADOW_SETUP_OPS
                    + sum(o * n for o, n in zip(FAMILY_OPS, rows)))
             return (*bound_of(ops, extra_bytes + nbytes_tab), ops, rays)
 
@@ -2199,16 +2330,16 @@ def main() -> int:
             st = {}
             k_out = fn(*args, stats=st)
             ms, _ = cuda_ms(lambda: fn(*args), 5)
-            mega_plain.shadow_occluded.rays = 0
-            mega_plain.shadow_occluded.rows = [0, 0, 0, 0]
+            reset_plain_counts()
             pms, p_out = cuda_ms(lambda: fn(*args, plain=True), 1)
             differ = int((k_out != p_out).any(-1).sum())
             b_ms, b_by, ops, rays = nee_bound(
                 st["ray_bounces"], W * H * (12 + 12 + 4 + 12))
             print(f"  nee {name}: trace {ms:.4f} ms, plain {pms:.4f} ms "
                   f"({differ} of {W * H} lanes differ), bound {b_ms:.4f} ms "
-                  f"({b_by}: {st['ray_bounces']} ray-bounces x {ops_row} "
-                  f"ops + {rays} shadow rays with "
+                  f"({b_by}: {st['ray_bounces']} ray-bounces, (lane, row) "
+                  f"pairs tested {rows_tested(calls=2)} + {rays} shadow rays "
+                  f"with "
                   f"{mega_plain.shadow_occluded.rows} rows tested, "
                   f"{ops:.4g} ops; {b_ms / ms:.1%} of the bound); {smi}",
                   flush=True)
@@ -2231,8 +2362,7 @@ def main() -> int:
             st = {}
             k_out = fn(*adj, stats=st)
             ms, _ = cuda_ms(lambda: fn(*adj), 3)
-            mega_plain.shadow_occluded.rays = 0
-            mega_plain.shadow_occluded.rows = [0, 0, 0, 0]
+            reset_plain_counts()
             pms, p_out = cuda_ms(lambda: fn(*adj, plain=True), 1)
             err = grads_close(p_out, k_out, f"nee {name} vs plain")
             b_ms, b_by, ops, rays = nee_bound(
@@ -2282,7 +2412,7 @@ def main() -> int:
 
     with phase("40 main path: python -m rt_tpu_torch fit -f "
                "scenes/demo_scene.json --nee (960x540, depth 40, spp 4, 3 "
-               "steps): replay, mega, tape"):
+               "steps): replay, mega, tape (depth 16)"):
         sd, cd = demo_scene()
         p = sd.camera_params
         td = build_tables(sd, device=dev)
@@ -2295,10 +2425,12 @@ def main() -> int:
                      device="cuda") / cd.samples_per_pixel
         base = ["fit", "-f", DEMO, "--target", "T.npz", "--fields",
                 "tex_color,mat_albedo", "-spp", "4", "--steps", "3", "--nee"]
+        # the tape fit at depth 16: at 40 its replay took 27 s
         calls = (("replay", [], ("queue_launch", "queue_adjoint_launch")),
                  ("mega", ["--engine", "mega"],
                   ("mega_segment", "mega_adjoint_segment")),
-                 ("tape", ["--method", "tape"], ("mega_capture",)))
+                 ("tape", ["--method", "tape", "-d", "16"],
+                  ("mega_capture",)))
         nee_fit = {}
         with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
             np.savez("T.npz", img=img.cpu().numpy())
@@ -2555,24 +2687,24 @@ def main() -> int:
         ro_, rd_ = generate_rays(tb.camera, W, H, px_ % W, px_ // W, 0, 0,
                                  cb.enable_defocus)
         args = (tb, cb, ro_, rd_, px_, 0, 0)
-        ops_row = hit_ops(tb)
         for name, fn in (("mega_segment", cuda_mega.mega_trace),
                          ("queue_launch", cuda_queue.queue_trace)):
             st = {}
             k_out = fn(*args, stats=st)
             ms, _ = cuda_ms(lambda: fn(*args), 5)
-            reset_texels()
+            reset_plain_counts()
             pms, p_out = cuda_ms(lambda: fn(*args, plain=True), 1)
             differ = int((k_out != p_out).any(-1).sum())
             t_ops, t_bytes, t_hits = texel_terms(calls=2)
-            ops = st["ray_bounces"] * ops_row + t_ops
+            ops = hit_terms(st["ray_bounces"], calls=2) + t_ops
             b_ms, b_by = bound_of(ops, W * H * (12 + 12 + 4 + 12)
                                   + table_bytes(tb) + t_bytes)
             print(f"  textured cover {name}: trace {ms:.4f} ms (untextured, "
                   f"phase 11: {rows[name]['ms']:.4f} ms), plain {pms:.4f} "
                   f"ms ({differ} of {W * H} lanes differ), bound "
-                  f"{b_ms:.4f} ms ({b_by}: {st['ray_bounces']} ray-bounces "
-                  f"x {ops_row} ops + {t_hits} texel-sampled hits, "
+                  f"{b_ms:.4f} ms ({b_by}: {st['ray_bounces']} ray-bounces, "
+                  f"(lane, row) pairs tested {rows_tested(calls=2)} + "
+                  f"{t_hits} texel-sampled hits, "
                   f"{ops:.4g} ops; {b_ms / ms:.1%} of the bound); {smi}",
                   flush=True)
             if differ:
@@ -2646,6 +2778,398 @@ def main() -> int:
                 raise AssertionError(f"fit --fields images {key}: exit "
                                      f"{rc}, launched {counts}")
             img_cli[f"fit_{key}"] = dict(sec=sec, launches=counts)
+    # ---- QMC, chunk culling and the spatial sort (B2-B7) ----
+    from rt_tpu_torch.ops import mega_tables
+    from rt_tpu_torch.scene.builders import mesh_scene
+
+    err_flags = {"b5": 0.0, "b6": 0.0}
+
+    def small_scenes():
+        """The 192x108 scenes of phases 45-46: (label, SceneDef, cfg)."""
+        yield ("cover, depth 12", *cover_scene(
+            width=SMALL_W, height=SMALL_H, spp=1, max_depth=12))
+        yield ("all-families scene, depth 12",
+               *all_families_scene(SMALL_W, SMALL_H, 1, 12))
+        yield ("cover_lights, depth 12", *cover_scene(
+            width=SMALL_W, height=SMALL_H, spp=1, max_depth=12, lights=True))
+        yield ("mesh_scene, depth 8", *mesh_scene(
+            MESH, width=SMALL_W, height=SMALL_H, spp=1, max_depth=8))
+        sd, cb = mesh_scene(MESH, width=SMALL_W, height=SMALL_H, spp=1,
+                            max_depth=8,
+                            texture_path=os.path.join(tmpd, "mesh.png"))
+        sd.taichi_tri_uv = True
+        yield "textured mesh, depth 8", sd, cb
+
+    def kernels_vs_plain(tb, cb, label, nee=None):
+        """B2 and B3 (bit for bit, with the light sampler's flags nee),
+        B4 (codes and deaths) and B7 (every word; both without light
+        sampling, by design) and B5 / B6 (grads_close, NEE without MIS or
+        glossy) against their plain versions on the 192x108 frame under
+        cb. Returns B4's (codes, death) and the rays."""
+        px_ = torch.arange(SMALL_W * SMALL_H, device=dev)
+        ro_, rd_ = generate_rays(tb.camera, SMALL_W, SMALL_H, px_ % SMALL_W,
+                                 px_ // SMALL_W, 0, 0, cb.enable_defocus,
+                                 cb.sampler)
+        # queue_steps 3: B3's lanes resume across launches
+        args = (tb, cb.replace(queue_steps=3, **(nee or {})), ro_, rd_, px_,
+                0, 0)
+        for name, fn in (("B2", cuda_mega.mega_trace),
+                         ("B3", cuda_queue.queue_trace)):
+            k_out, p_out = fn(*args), fn(*args, plain=True)
+            differ = int((k_out != p_out).any(-1).sum())
+            print(f"  {label} {nee or ''}: {name} vs plain on {px_.numel()} "
+                  f"lanes, {differ} differ, mean radiance "
+                  f"{float(k_out.mean()):.4f}", flush=True)
+            if differ:
+                raise AssertionError(f"{label}: {name} is not its plain "
+                                     "version bit for bit")
+        cap = (tb, cb, ro_, rd_, px_, 0, 0)
+        got = cuda_mega.mega_capture(*cap)
+        capture_mismatch(got, cuda_mega.mega_capture(*cap, plain=True),
+                         f"{label}: B4 vs plain")
+        seg = (tb, cb, px_, 2, 2 * (cb.max_depth + 1))
+        regen_mismatch(regen_segment(*seg, plain=False),
+                       regen_segment(*seg, plain=True), f"{label}: B7 vs "
+                       "plain")
+        ca = cb.replace(nee=bool(nee), queue_steps=3)
+        L = cuda_queue.queue_trace(tb, ca, ro_, rd_, px_, 0, 0)
+        g = torch.from_numpy(np.random.default_rng(5).normal(
+            0, 1.0 / px_.numel(), (px_.numel(), 3)).astype(np.float32)).to(dev)
+        adj = (tb, ca, ro_, rd_, px_, 0, 0, L, g, ca.max_depth, False)
+        plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+        err_flags["b5"] = max(err_flags["b5"], grads_close(
+            plain, cuda_mega.mega_trace_adjoint(*adj), f"{label}: B5"))
+        err_flags["b6"] = max(err_flags["b6"], grads_close(
+            plain, cuda_queue.queue_trace_adjoint(*adj, check_once=True),
+            f"{label}: B6"))
+        return got, (ro_, rd_, px_)
+
+    def code_ties(tb, cb, ro_, rd_, got, want):
+        """Where B4's culled codes and the unculled plain capture's differ
+        on a lane alive entering the bounce (its first such bounce): the
+        count, and how many are ties, both winners at the same t within
+        float32 rounding on that bounce's ray (diff/tape._known_t), which
+        the plain bounce without culling replays to."""
+        from rt_tpu_torch.diff.tape import _known_t
+
+        (kc, kd), (pc, pd) = got, want
+        depth = kc.shape[0]
+        live = (torch.arange(depth, device=dev)[:, None]
+                <= torch.minimum(kd, pd)[None, :])
+        diff = (kc != pc) & live
+        lanes = torch.nonzero(diff.any(0))[:, 0]
+        if lanes.numel() == 0:
+            return 0, 0
+        first = torch.argmax(diff[:, lanes].to(torch.int8), 0)
+        c0 = cb.replace(cull_chunks=False)
+        kw = mega_plain.trace_options(tb, c0)
+        tab = mega_tables.scene_for(tb, c0).table
+        state = mega_plain.fresh_state(ro_[lanes], rd_[lanes])
+        ties = 0
+        for b in range(depth):
+            at = torch.nonzero(first == b)[:, 0]
+            if at.numel():
+                o, d = state[0:3, at].T, state[3:6, at].T
+                a, w = kc[b, lanes[at]].long(), pc[b, lanes[at]].long()
+                ta = _known_t(tb, o, d, a >> 24, a & 0xFFFFFF)
+                tw = _known_t(tb, o, d, w >> 24, w & 0xFFFFFF)
+                ties += int(((a >= 0) & (w >= 0) & ((ta - tw).abs()
+                                                    <= 1e-6 * tw.abs()))
+                            .sum())
+            state = mega_plain.do_bounce_plain(tab, state, lanes, 0, b, 0,
+                                               **kw)
+        return lanes.numel(), ties
+
+    with phase(f"45 QMC: B2 / B3 / B4 / B7 vs plain bit for bit, B5 / B6 "
+               f"within 1e-5 + 1e-3 max|g| at {SMALL_W}x{SMALL_H}"):
+        for label, sd, cb in small_scenes():
+            if label.startswith("mesh_scene"):
+                continue  # phase 46 runs it; its texture twin runs here
+            tb = build_tables(sd, device=dev)
+            cq = cb.replace(sampler="qmc", compact_schedule=(2, 3, 5, 10),
+                            compact_group=16)
+            kernels_vs_plain(tb, cq, f"{label}, qmc",
+                             dict(nee=True, mis=True)
+                             if label.startswith("cover_lights") else None)
+        sd, cb = cover_scene(width=SMALL_W, height=SMALL_H, spp=1,
+                             max_depth=12)
+        kernels_vs_plain(build_tables(sd, device=dev),
+                         cb.replace(sampler="qmc", p_rr=0.9,
+                                    cull_chunks=False),
+                         "cover, qmc, p_rr 0.9, no culling")
+
+    ties_seen = {}
+    with phase(f"46 culling: B2-B7 vs plain at {SMALL_W}x{SMALL_H}, B4's "
+               "codes against the capture without culling, and a wrong "
+               "emitter row under mis"):
+        for label, sd, cb in small_scenes():
+            if label.startswith("all-families"):
+                continue
+            tb = build_tables(sd, device=dev)
+            cc = cb.replace(cull_chunks=True, compact_schedule=(2, 3, 5, 10),
+                            compact_group=16)
+            cull = mega_tables.scene_for(tb, cc).cull
+            print(f"  {label}: sphere chunks "
+                  f"{None if cull.sph is None else cull.sph.shape[0]}, "
+                  f"triangle chunks "
+                  f"{None if cull.tri is None else cull.tri.shape[0]}",
+                  flush=True)
+            for nee in ((None, dict(nee=True), dict(nee=True, mis=True))
+                        if label.startswith("cover_lights") else (None,)):
+                got, (ro_, rd_, px_) = kernels_vs_plain(tb, cc, label, nee)
+            want = cuda_mega.mega_capture(tb, cc.replace(cull_chunks=False),
+                                          ro_, rd_, px_, 0, 0, plain=True)
+            n_diff, n_ties = code_ties(tb, cc, ro_, rd_, got, want)
+            ties_seen[label] = (n_diff, n_ties)
+            print(f"  {label}: B4's culled codes against the unculled plain "
+                  f"capture: {n_diff} lanes differ, {n_ties} of them on a "
+                  "tie", flush=True)
+            if n_diff != n_ties:
+                raise AssertionError(f"{label}: culled codes differ off a "
+                                     "tie")
+        # MIS's emitter match names a SceneTables row: a light table whose
+        # sphere lights name another row must change the frame
+        tl = build_tables(light_scene(SMALL_W, SMALL_H, 1, 8)[0], device=dev)
+        cm = light_scene(SMALL_W, SMALL_H, 1, 8)[1].replace(
+            nee=True, mis=True, engine="mega", cull_chunks=True)
+        px_ = torch.arange(SMALL_W * SMALL_H, device=dev)
+        ro_, rd_ = generate_rays(tl.camera, SMALL_W, SMALL_H, px_ % SMALL_W,
+                                 px_ // SMALL_W, 0, 0, False)
+        args = (tl, cm, ro_, rd_, px_, 0, 0)
+        right = cuda_mega.mega_trace(*args)
+        if not torch.equal(right, cuda_mega.mega_trace(*args, plain=True)):
+            raise AssertionError("light scene under mis: B2 != plain")
+        orig = tl.mega
+        lights = orig.lights.clone()
+        sph = lights[:, mega_tables.L_FAM] == 0.0
+        lights[sph, mega_tables.L_ROW] = (lights[sph, mega_tables.L_ROW]
+                                          + 1.0) % tl.n_spheres
+        tl.__dict__["mega"] = dataclasses.replace(orig, lights=lights)
+        try:
+            wrong = cuda_mega.mega_trace(*args)
+        finally:
+            tl.__dict__["mega"] = orig
+        moved = int((wrong != right).any(-1).sum())
+        print(f"  light scene, nee + mis, culled: sorted sphere rows "
+              f"{mega_tables.scene_for(tl, cm).cull.sph_rows.tolist()}; "
+              f"with the sphere lights' rows moved by one, {moved} of "
+              f"{px_.numel()} lanes differ from the plain version", flush=True)
+        if moved == 0:
+            raise AssertionError("a wrong emitter row passed the check")
+
+    settings = {"rng, no culling": dict(cull_chunks=False),
+                "rng, culling": {}, "qmc, culling": dict(sampler="qmc"),
+                "spatial sort": dict(compact_sort="spatial")}
+    flag_frames = {}
+    with phase(f"47 frames at {W}x{H} in four settings (rng without and "
+               "with culling, qmc, the spatial sort): cover depth 50 spp "
+               "16, cover_lights depth 50 spp 16, mesh depth 16 spp 4; one "
+               "B2 / B3 call each against the rows the lanes tested"):
+        for label, (sd, cb), spp in (
+                ("cover", (s16, c16), MAIN_SPP),
+                ("cover_lights", cover_scene(width=W, height=H, spp=MAIN_SPP,
+                                             max_depth=DEPTH, lights=True),
+                 MAIN_SPP),
+                ("mesh", mesh_scene(MESH, width=W, height=H, spp=4,
+                                    max_depth=16), 4)):
+            tb = t16 if label == "cover" else build_tables(sd, device=dev)
+            # regen_compact -1: B7's segments regroup lanes, so the
+            # spatial sort moves them there too
+            cb = cb.replace(rays_per_batch=1 << 25,
+                            compact_schedule=(2, 3, 5, 10), compact_group=16,
+                            regen_compact=-1)
+            rows_all = sum(tb.counts)
+            imgs = {}
+            out = flag_frames[label] = {}
+            for key, over in settings.items():
+                cs = cb.replace(**over)
+                rec = out[key] = {}
+                for engine, regen in (("queue", False), ("mega", False),
+                                      ("mega", True)):
+                    st = {}
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    img = render(tb, cs.replace(engine=engine, regen=regen),
+                                 device="cuda", stats=st)
+                    torch.cuda.synchronize()
+                    sec = time.time() - t0
+                    counts = read_counts()
+                    name = ("regen" if regen else engine)
+                    own = counts["mega_regen" if regen else "queue_launch"
+                                 if engine == "queue" else "mega_segment"]
+                    if own <= 0 or own != st["launches"] or \
+                            not bool(torch.isfinite(img).all()):
+                        raise AssertionError(f"{label} {key} {name}: "
+                                             f"launches {counts}")
+                    imgs[(key, name)] = img.cpu().numpy()
+                    rec[name] = dict(sec=sec, launches=own,
+                                     ray_bounces=st["ray_bounces"])
+                    print(f"  {label} {key} {name}: {sec:.4f} s = "
+                          f"{W * H * spp / sec:.0f} paths/s, {own} launches, "
+                          f"{st['ray_bounces']} ray-bounces; {smi}",
+                          flush=True)
+                if key == "spatial sort":
+                    continue  # its calls are "rng, culling"'s
+                px_ = torch.arange(W * H, device=dev)
+                ro_, rd_ = generate_rays(tb.camera, W, H, px_ % W, px_ // W,
+                                         0, 0, cs.enable_defocus, cs.sampler)
+                args = (tb, cs, ro_, rd_, px_, 0, 0)
+                reset_plain_counts()
+                p_out = cuda_mega.mega_trace(*args, plain=True)
+                for name, fn in (("mega_segment", cuda_mega.mega_trace),
+                                 ("queue_launch", cuda_queue.queue_trace)):
+                    st = {}
+                    k_out = fn(*args, stats=st)
+                    ms, _ = cuda_ms(lambda: fn(*args), 3)
+                    if not torch.equal(k_out, p_out):
+                        raise AssertionError(f"{label} {key}: {name} != "
+                                             "plain")
+                    ops = hit_terms(st["ray_bounces"])
+                    nbytes = W * H * (12 + 12 + 4 + 12) + table_bytes(tb)
+                    b_ms, b_by = bound_of(ops, nbytes)
+                    b_all = bound_of(st["ray_bounces"] * hit_ops(tb),
+                                     nbytes)[0]
+                    tested = sum(rows_tested())
+                    rec[name] = dict(ms=ms, ray_bounces=st["ray_bounces"],
+                                     rows_tested=tested, bound_ms=b_ms,
+                                     bound_by=b_by, bound_all_rows_ms=b_all)
+                    print(f"  {label} {key} {name}: call {ms:.4f} ms, "
+                          f"{st['ray_bounces']} ray-bounces, {tested} (lane,"
+                          f" row) pairs tested of "
+                          f"{st['ray_bounces'] * rows_all} "
+                          f"({tested / (st['ray_bounces'] * rows_all):.2%}), "
+                          f"bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of "
+                          f"it), over all rows {b_all:.4f} ms "
+                          f"({b_all / ms:.1%}); {smi}", flush=True)
+            frac, mx = images_close(imgs[("rng, no culling", "queue")],
+                                    imgs[("rng, culling", "queue")], spp)
+            same = all(np.array_equal(imgs[("spatial sort", e)],
+                                      imgs[("rng, culling", e)])
+                       for e in ("mega", "regen"))
+            print(f"  {label}: culled vs unculled queue frame {frac:.3%} "
+                  f"pixels beyond 2e-3, max diff {mx:.4g}; spatial vs dead "
+                  f"sort (mega, regen) bit-equal: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{label}: the spatial sort changed a "
+                                     "frame")
+
+    ab = {}
+    with phase(f"48 the runtime flags at phases 11 / 13's shape ({W * H} "
+               f"lanes, depth {DEPTH}): B2 / B3 / B5 / B6 under rng without "
+               "and with culling and qmc with culling, in turns"):
+        ab_cfgs = {"rng, no culling": c16.replace(cull_chunks=False),
+                   "rng, culling": c16,
+                   "qmc, culling": c16.replace(sampler="qmc")}
+        calls = {"mega_segment": (cuda_mega.mega_trace, main_args),
+                 "queue_launch": (cuda_queue.queue_trace, main_args),
+                 "mega_adjoint_segment": (cuda_mega.mega_trace_adjoint,
+                                          adj_args),
+                 "queue_adjoint_launch": (cuda_queue.queue_trace_adjoint,
+                                          adj_args)}
+        order = list(ab_cfgs) + list(ab_cfgs)[::-1]
+        for name, (fn, a) in calls.items():
+            times = {k: [] for k in ab_cfgs}
+            for key in order:
+                cfg_k = ab_cfgs[key]
+                args_k = (a[0], cfg_k) + tuple(a[2:])
+                times[key].append(cuda_ms(lambda: fn(*args_k), 3)[0])
+            ab[name] = {k: sum(v) / len(v) for k, v in times.items()}
+            base = ab[name]["rng, no culling"]
+            print(f"  {name}: " + ", ".join(
+                f"{k} {v:.4f} ms ({v / base:.3f})"
+                for k, v in ab[name].items()) + f"; {smi}", flush=True)
+        regs = ptxas_registers(ROOT)
+        if not regs:
+            raise AssertionError("no ptxas report beside the libraries")
+        print(f"  ptxas registers of this build: {len(regs)} "
+              f"instantiations, {min(regs.values())}-{max(regs.values())}",
+              flush=True)
+        if PARENT:
+            # the parent's tree beside this one, in turns: parent, this,
+            # this, parent, each in its own process
+            got = {}
+            for root in (PARENT, ROOT, ROOT, PARENT, PARENT, ROOT):
+                res = subprocess.run(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                     "--ab-times", root], capture_output=True, text=True,
+                    check=True)
+                got.setdefault(root, []).append(
+                    json.loads(res.stdout.strip().splitlines()[-1]))
+            for name in calls:
+                ps = [r[name] for r in got[PARENT]]
+                cs = [r[name] for r in got[ROOT]]
+                p, c = float(np.mean(ps)), float(np.mean(cs))
+                ab[name]["parent, rng, no culling"] = p
+                ab[name]["this tree in its own process"] = c
+                print(f"  {name} (rng, no culling): parent {p:.4f} ms "
+                      f"({', '.join(f'{v:.4f}' for v in ps)}), this tree "
+                      f"{c:.4f} ms ({', '.join(f'{v:.4f}' for v in cs)}): "
+                      f"{c / p:.3f}; {smi}", flush=True)
+            old = ptxas_registers(PARENT)
+            moved = {k: (old[k], v) for k, v in regs.items()
+                     if k in old and old[k] != v}
+            print(f"  registers against the parent: {len(old)} "
+                  f"instantiations there, {len(moved)} moved: {moved}",
+                  flush=True)
+
+    with phase("49 main path: python -m rt_tpu_torch render -f "
+               "scenes/demo_scene.json --sampler qmc and --no-cull (960x540, "
+               "spp 128, depth 40); fit(sampler='qmc') on it (replay on "
+               "queue and mega, tape; 3 steps, spp 4)"):
+        sd, cd = demo_scene()
+        dw, dh, dspp = cd.width, cd.height, cd.samples_per_pixel
+        flag_cli = {}
+        for key, flags in (("qmc", ["--sampler", "qmc"]),
+                           ("no_cull", ["--no-cull"])):
+            with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                rc = cli.main(["render", "-f", DEMO, "-o", "d.ppm"] + flags)
+                torch.cuda.synchronize()
+                sec = time.time() - t0
+                counts = read_counts()
+                vals = np.array(open("d.ppm").read().split()[4:],
+                                dtype=np.float64)
+            print(f"  render {' '.join(flags)}: exit {rc}, {sec:.4f} s = "
+                  f"{dw * dh * dspp / sec:.0f} paths/s; launches {counts}; "
+                  f"mean {vals.mean():.3f}; {smi}", flush=True)
+            if rc != 0 or counts["queue_launch"] <= 0 or \
+                    vals.size != dw * dh * 3 or not np.isfinite(vals).all():
+                raise AssertionError(f"render {flags}: exit {rc}, launched "
+                                     f"{counts}, or a bad image")
+            flag_cli[key] = dict(sec=sec, launches=counts["queue_launch"])
+        td = build_tables(sd, device=dev)
+        cq = cd.replace(samples_per_pixel=4, sampler="qmc",
+                        compact_schedule=(2, 3, 5, 10), compact_group=16)
+        target = (render(td, cq.replace(engine="queue"), device="cuda")
+                  / 4).cpu().numpy()
+        rs = np.random.default_rng(9)
+        init = {k: getattr(td, k) * torch.from_numpy(rs.uniform(
+                    0.6, 1.4, tuple(getattr(td, k).shape)).astype(
+                    np.float32)).to(dev)
+                for k in ("tex_color", "mat_albedo")}
+        for key, engine, method, want in (
+                ("replay", "queue", "replay", "queue_adjoint_launch"),
+                ("mega", "mega", "replay", "mega_adjoint_segment"),
+                ("tape", "queue", "tape", "mega_capture")):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, hist = fit(td, cq.replace(engine=engine), target,
+                          fields=("tex_color", "mat_albedo"), spp=4, steps=3,
+                          learning_rate=0.05, init_params=init,
+                          method=method, device="cuda")
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            counts = read_counts()
+            print(f"  fit(sampler='qmc') {key}: loss {hist}, {sec:.4f} s for "
+                  f"3 steps; launches {counts}; {smi}", flush=True)
+            if not hist[-1] < hist[0] or counts[want] <= 0:
+                raise AssertionError(f"fit qmc {key}: loss {hist}, "
+                                     f"launches {counts}")
+            flag_cli[f"fit_{key}"] = dict(sec=sec, launches=counts)
     img_tmp.cleanup()
 
     def img_entry(name, train_key=None, fit_key=None):
@@ -2671,7 +3195,23 @@ def main() -> int:
         the kernels line."""
         return {k: v[name] for k, v in families.items()}
 
-    print(f"[45 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    def flag_entry(name, frame=None):
+        """A kernel's numbers under the samplers and culling settings,
+        for its entry in the kernels line: phase 47's frames (frame: the
+        engine) and calls, phase 48's times."""
+        out = {}
+        if frame:
+            out["frames"] = {lab: {k: v[frame] for k, v in f.items()}
+                             for lab, f in flag_frames.items()}
+        calls = {lab: {k: v[name] for k, v in f.items() if name in v}
+                 for lab, f in flag_frames.items()}
+        if any(calls.values()):
+            out["calls"] = calls
+        if name in ab:
+            out["ab_ms"] = ab[name]
+        return out
+
+    print(f"[50 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -2698,6 +3238,7 @@ def main() -> int:
         "nee": {**nee_rows["mega_segment"],
                 "cli_fit_launches": nee_fit["mega"]["launches"][
                     "mega_segment"]},
+        "qmc_cull": flag_entry("mega_segment", "mega"),
     }, {
         "name": "queue_launch",
         "route": "cuda",
@@ -2719,13 +3260,18 @@ def main() -> int:
                                         for k, v in nee_cli.items()},
                 "cli_fit_launches": nee_fit["replay"]["launches"][
                     "queue_launch"]},
+        "qmc_cull": {**flag_entry("queue_launch", "queue"),
+                     "cli_render": {k: v for k, v in flag_cli.items()
+                                    if not k.startswith("fit_")},
+                     "fit_qmc": {k: v for k, v in flag_cli.items()
+                                 if k.startswith("fit_")}},
     }, {
         "name": "mega_adjoint_segment",
         "route": "cuda",
         "source": "rt_tpu_torch/csrc/mega_adjoint.cu",
         "replaces": "rt_tpu/ops/pallas_mega.py:2183",
         "launches": train[("mega", TRAIN_BWD_DEPTH)]["launches"],
-        "max_abs_err": err_b5,
+        "max_abs_err": max(err_b5, err_flags["b5"]),
         **rows["mega_adjoint_segment"],
         "library_ms": None,
         "cli_fit_launches": fit_cli["mega"]["launches"][
@@ -2742,13 +3288,15 @@ def main() -> int:
                 "max_abs_err_small": err_nee_b5,
                 "cli_fit_launches": nee_fit["mega"]["launches"][
                     "mega_adjoint_segment"]},
+        "qmc_cull": {**flag_entry("mega_adjoint_segment"),
+                     "max_abs_err_small": err_flags["b5"]},
     }, {
         "name": "queue_adjoint_launch",
         "route": "cuda",
         "source": "rt_tpu_torch/csrc/queue_adjoint.cu",
         "replaces": "rt_tpu/ops/pallas_queue.py:543",
         "launches": train[("queue", TRAIN_BWD_DEPTH)]["launches"],
-        "max_abs_err": err_b6,
+        "max_abs_err": max(err_b6, err_flags["b6"]),
         **rows["queue_adjoint_launch"],
         "library_ms": None,
         "cli_fit_launches": fit_cli["replay"]["launches"][
@@ -2764,6 +3312,8 @@ def main() -> int:
                 "max_abs_err_small": err_nee_b6,
                 "cli_fit_launches": nee_fit["replay"]["launches"][
                     "queue_adjoint_launch"]},
+        "qmc_cull": {**flag_entry("queue_adjoint_launch"),
+                     "max_abs_err_small": err_flags["b6"]},
     }, {
         "name": "mega_capture",
         "route": "cuda",
@@ -2778,6 +3328,7 @@ def main() -> int:
                      for k, v in family_rows("mega_capture").items()},
         "img": img_entry("mega_capture", train_key="tape",
                          fit_key="fit_tape"),
+        "qmc_cull": {"culled_codes_off_unculled_and_ties": ties_seen},
     }, {
         "name": "mega_regen",
         "route": "cuda",
@@ -2789,6 +3340,7 @@ def main() -> int:
         "library_ms": None,
         "families": family_rows("mega_regen"),
         "img": img_entry("mega_regen"),
+        "qmc_cull": flag_entry("mega_regen", "regen"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2797,4 +3349,19 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description="smoke run of rt_tpu_torch on "
+                                 "one CUDA GPU (see the module doc)")
+    ap.add_argument("--parent", default=None,
+                    help="another checkout of the port: phase 48 times its "
+                         "B2 / B3 / B5 / B6 beside this tree's and compares "
+                         "registers")
+    ap.add_argument("--ab-times", default=None, metavar="ROOT",
+                    help="only time B2 / B3 / B5 / B6 (phase 48's helper) "
+                         "with the package of ROOT")
+    opts = ap.parse_args()
+    if opts.ab_times:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device")
+        sys.exit(ab_times(os.path.abspath(opts.ab_times)))
+    PARENT = os.path.abspath(opts.parent) if opts.parent else None
     sys.exit(main())

@@ -85,6 +85,7 @@ def cmd_render(args) -> int:
         cfg = cfg.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
     elif ce is not None:
         cfg = cfg.replace(compact_every=ce)
+    cfg = cfg.replace(cull_chunks=args.cull, sampler=args.sampler)
     if args.nee:
         cfg = cfg.replace(nee=True)
     if args.mis:
@@ -289,6 +290,15 @@ def main(argv=None) -> int:
                     help="mega: live-lane grouping every N bounces (-1 "
                          "auto, 0 off; default: the schedule 2,3,5,10 in "
                          "groups of 16 for depth >= 16, else off)")
+    rp.add_argument("--cull", action="store_true", default=True,
+                    help="chunk culling in the kernels: Morton-sorted "
+                         "sphere and triangle chunks, each lane skipping "
+                         "the chunks its ray misses (default on)")
+    rp.add_argument("--no-cull", dest="cull", action="store_false")
+    rp.add_argument("--sampler", default="rng", choices=("rng", "qmc"),
+                    help="sample sequence: counter-based pseudo-random "
+                         "(rng, the default) or Owen-scrambled Sobol' "
+                         "(qmc: lower error at equal spp; on every engine)")
     rp.add_argument("--nee", action="store_true",
                     help="next-event estimation: area-sample one light per "
                          "lambertian bounce with a shadow ray (the "

@@ -22,11 +22,19 @@ regeneration kernel (ops/cuda_mega.mega_trace_regen, csrc/regen.cu),
 segmented by regen_compact (with compact_group and regen_shrink); other
 engines ignore it, as the reference's do.
 
-The port reads cull_chunks and mxu_intersect as off: the sphere and
-triangle tables are in scene order and nothing is culled, so on exact-t
-ties it may pick another sphere or triangle than rt_tpu's Morton-sorted
-tables (ROADMAP C-3). What it lacks raises NotImplementedError
-(check_supported).
+cull_chunks (the default, as the reference's) Morton-sorts the sphere
+and triangle rows the megakernels read into chunks of 32 with per-chunk
+boxes, where the reference does (ops/mega_tables.MegaScene.of), and each
+lane of B2-B7 skips a chunk whose box its ray misses or lies beyond its
+closest hit so far; cull_chunks=False keeps the rows in scene order and
+tests every one. The reference culls a chunk for a tile of 2048 lanes at
+once, so the two differ only on lanes whose own slab test and their
+tile's part on a grazing hit. sampler "qmc" draws every path dimension
+from the Owen-scrambled Sobol' sequence (ops/qmc.py) on every engine;
+compact_sort "spatial" orders the groups of the segmented traces by
+direction octant and Morton cell (ops/cuda_mega._segmented).
+mxu_intersect is a TPU mechanism and is read as off. What the port lacks
+raises NotImplementedError (check_supported).
 
 nee, mis and nee_glossy follow the reference's rule (`nee_on`): light
 sampling runs only when cfg.nee is set and the scene has an emitter;
@@ -42,6 +50,8 @@ from typing import Optional, Tuple
 import torch
 
 ENGINES = ("plain", "pallas", "mega", "queue")
+SAMPLERS = ("rng", "qmc")
+COMPACT_SORTS = ("dead", "spatial")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +68,7 @@ class RenderConfig:
     enable_defocus: bool = False
     p_rr: float = 0.0
     seed: int = 0
-    sampler: str = "rng"                # "rng" ("qmc" not ported yet)
+    sampler: str = "rng"                # "rng" | "qmc"
     nee: bool = False
     mis: bool = False
     nee_glossy: bool = False
@@ -73,7 +83,7 @@ class RenderConfig:
     cull_chunks: bool = True
     mxu_intersect: bool = False
     compact_shrink: bool = True
-    compact_sort: str = "dead"
+    compact_sort: str = "dead"          # "dead" | "spatial"
     regen: bool = False
     regen_compact: int = 0
     regen_shrink: bool = True
@@ -95,17 +105,15 @@ def check_supported(cfg: RenderConfig) -> None:
     """Raise for a configuration the port cannot render yet."""
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r} (want {ENGINES})")
-    if cfg.sampler != "rng":
-        raise NotImplementedError(
-            f"sampler={cfg.sampler!r}: QMC is not ported yet "
-            "(ROADMAP Queue A-6)")
+    if cfg.sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {cfg.sampler!r} (want "
+                         f"{SAMPLERS})")
     if cfg.traversal != "linear":
         raise NotImplementedError("BVH traversal is not ported yet "
                                   "(ROADMAP Queue A-8)")
-    if cfg.compact_sort != "dead":
-        raise NotImplementedError(
-            f"compact_sort={cfg.compact_sort!r}: only 'dead' is ported yet "
-            "(ROADMAP Queue B2)")
+    if cfg.compact_sort not in COMPACT_SORTS:
+        raise ValueError(f"unknown compact_sort {cfg.compact_sort!r} (want "
+                         f"{COMPACT_SORTS})")
     if cfg.loop != "while":
         raise NotImplementedError(
             f"loop={cfg.loop!r}: the port runs the 'while' loop only; its "

@@ -4,8 +4,8 @@
 //
 // Replaces: rt_tpu/ops/pallas_mega.py `do_bounce` (:1011-1896) of
 // `_make_do_bounce`, restricted to what the port carries: Russian
-// roulette (:1016-1019), the closest hit without MXU or chunk culling
-// over the spheres (`_sph_chunk_math` :1067-1097), rects (`rect_body`
+// roulette (:1016-1019), the closest hit without MXU over the spheres
+// (`_sph_chunk_math` :1067-1097), rects (`rect_body`
 // :1141-1163), cylinders (`cyl_body` :1165-1222) and triangles
 // (`_tri_chunk_math` :1224-1267) in that order, merged as `_merge`
 // (:753-763) does, the winner's attributes and normal (:1290-1317), the
@@ -17,8 +17,9 @@
 // textures: the winner's UV (:1327-1390) and texel (:1392-1410), an
 // image-textured light's texel at the light point's UV (`nee_img`
 // :1623-1664) and, in the adjoint, the atlas gradient (:1741-1790); and
-// `_make_background` (:774). The expressions are the reference's, in
-// its order;
+// `_make_background` (:774); the sampler "qmc" (rng.cuh Draw) and chunk
+// culling (`chunk_visible` :1099-1140, `box_visible` :845-868). The
+// expressions are the reference's, in its order;
 // ops/mega_plain.do_bounce_plain is the plain twin. The adjoint
 // variant, do_bounce<true> (the reference's `adjoint=True` block
 // :1700-1800), runs the same expressions and adds the suffix-identity
@@ -58,6 +59,25 @@
 // as the closest-hit test for the other families, and 17 of setup (a,
 // w.s, |s|^2, the max and 1/a); the light sample's own arithmetic is
 // left out of the bound, as the shading is.
+//
+// Chunk culling (cfg.cull_chunks; Scene::sbnd / tbnd not null): the
+// Morton-sorted sphere rows, and triangle rows, come in chunks of
+// kChunk with a box each (ops/mega_tables.Cull), and a lane skips a
+// chunk whose box its ray does not meet at t >= t_min, or meets only
+// beyond its closest hit so far (beyond kTHi for a shadow ray), or that
+// is empty (a chunk of pad rows). The TPU takes that decision once for
+// a tile of 2048 lanes (a chunk is skipped when no live lane of the
+// tile needs it); here each lane takes it for itself, where the GPU's
+// lanes diverge anyway, and its plain twin (mega_plain._culled_best)
+// takes the same decision in the same order, so kernel and plain agree
+// on every lane. A sorted row names its SceneTables row through
+// Scene::sph_rows / tri_rows, which B4's tape codes and MIS's emitter
+// match use (scene_row). Culling is a runtime flag of the scene,
+// uniform over a launch, not a template parameter: its branch left the
+// cull-off code's time within the noise of the A/B runs (PERF.md, PR
+// 13). The sampler is the template flag kQmc: as a runtime flag its
+// branch at each draw site cost the "rng" code 3-7% (B3, B2), so every
+// kernel instantiates both samplers and the launchers pick.
 //
 // NEE (kNee, a scene with lights and cfg.nee): the light rows
 // (ops/mega_tables.light_table, a handful) are read through __ldg. The
@@ -136,6 +156,12 @@ constexpr float kInv2Pi =
     static_cast<float>(1.0 / (2.0 * 3.14159265358979323846));
 constexpr float kInv4Pi =
     static_cast<float>(1.0 / (4.0 * 3.14159265358979323846));
+// rows per culled chunk (ops/mega_tables.SPH_CHUNK) and the floats of a
+// chunk's box (bmin3, bmax3, 2 pad)
+constexpr int kChunk = 32;
+constexpr int kBoxCols = 8;
+// the slab test's stand-in for an unbounded axis (mega_plain.BIG)
+constexpr float kBig = 3.0e38f;
 // rows staged in shared memory (40 KB); the rest are read from global
 constexpr int kStageRows = 2048;
 static_assert(kStageRows * 20 <= 48 * 1024,
@@ -175,6 +201,16 @@ struct Scene {
   int n_lights;
   int mis, glossy;
   float nee_w;
+  // the sampler (1: "qmc", which the launchers turn into the kQmc
+  // instantiation) and chunk culling: the [K, kBoxCols] chunk
+  // boxes of the sorted sphere / triangle rows (null: that family is in
+  // scene order) and each sorted row's SceneTables row (null: the row
+  // is its own)
+  int qmc;
+  const float* sbnd;
+  const float* tbnd;
+  const int* sph_rows;
+  const int* tri_rows;
 };
 
 // The scene of a kImages instantiation: the image atlas [Ni, img_th,
@@ -201,6 +237,11 @@ using SceneOf = typename std::conditional<kImages, ImageScene, Scene>::type;
 #define RTT_FAMILY_ARGS                                                  \
   const float *rect, int n_rect, const float *cyl, int n_cyl,           \
       const float *tri, int n_tri
+// Every launcher's sampler and chunk culling, right after its scalars
+// (ops/cuda_mega.sort_args); the pointers null without culling.
+#define RTT_SORT_ARGS                                                   \
+  int qmc, const float *sbnd, const float *tbnd, const int *sph_rows,   \
+      const int *tri_rows
 // Every launcher's light table and NEE flags, after its scalars
 // (ops/cuda_mega.nee_args); lights null and n_lights 0 without NEE.
 #define RTT_NEE_ARGS const float *lights, int n_lights, int mis, int glossy
@@ -211,17 +252,18 @@ using SceneOf = typename std::conditional<kImages, ImageScene, Scene>::type;
   const float *atlas, int img_th, int img_tw, const float *uv_rect,     \
       const float *uv_cyl, const float *uv_tri
 
-// The instantiation K<kTail, kFamilies, kNee, I> of a kernel template
-// that a scene runs, I (kImages) a constant: the instantiations with
-// and without it take different scene types.
-#define RTT_PICK(K, tail, fam, nee, I)                                    \
-  ((tail) ? ((fam) ? ((nee) ? K<true, true, true, I> : K<true, true, false, I>) \
-                   : ((nee) ? K<true, false, true, I>                     \
-                            : K<true, false, false, I>))                  \
-          : ((fam) ? ((nee) ? K<false, true, true, I>                     \
-                            : K<false, true, false, I>)                   \
-                   : ((nee) ? K<false, false, true, I>                    \
-                            : K<false, false, false, I>)))
+// The instantiation K<kTail, kFamilies, kNee, I, Q> of a kernel
+// template that a scene runs, I (kImages) and Q (kQmc) constants: the
+// instantiations with and without images take different scene types.
+#define RTT_PICK(K, tail, fam, nee, I, Q)                                  \
+  ((tail) ? ((fam) ? ((nee) ? K<true, true, true, I, Q>                    \
+                            : K<true, true, false, I, Q>)                  \
+                   : ((nee) ? K<true, false, true, I, Q>                   \
+                            : K<true, false, false, I, Q>))                \
+          : ((fam) ? ((nee) ? K<false, true, true, I, Q>                   \
+                            : K<false, true, false, I, Q>)                 \
+                   : ((nee) ? K<false, false, true, I, Q>                  \
+                            : K<false, false, false, I, Q>)))
 
 __host__ inline Scene make_scene(const float* table, int n,
                                  RTT_SCENE_ARGS) {
@@ -246,6 +288,19 @@ __host__ inline Scene make_scene(const float* table, int n,
   s.n_lights = 0;
   s.mis = s.glossy = 0;
   s.nee_w = 0.0f;
+  s.qmc = 0;
+  s.sbnd = s.tbnd = nullptr;
+  s.sph_rows = s.tri_rows = nullptr;
+  return s;
+}
+
+// A scene with a launcher's sampler and chunk culling.
+__host__ inline Scene with_sort(Scene s, RTT_SORT_ARGS) {
+  s.qmc = qmc;
+  s.sbnd = sbnd;
+  s.tbnd = tbnd;
+  s.sph_rows = sph_rows;
+  s.tri_rows = tri_rows;
   return s;
 }
 
@@ -396,6 +451,53 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
+// (near, far) of the slab lo <= o + t d <= hi along one axis
+// (`axis_slab` :1112-1122): an axis the ray does not move along is all
+// of t or none of it.
+__device__ __forceinline__ void slab(float o, float d, float lo, float hi,
+                                     float& near, float& far) {
+  if (d != 0.0f) {
+    const float inv = 1.0f / d;
+    const float n0 = (lo - o) * inv, f0 = (hi - o) * inv;
+    near = nan_min(n0, f0);
+    far = nan_max(n0, f0);
+  } else {
+    const bool inside = o >= lo && o <= hi;
+    near = inside ? -kBig : kBig;
+    far = inside ? kBig : -kBig;
+  }
+}
+
+// Whether a lane visits the chunk whose box is `box` (kBoxCols floats):
+// the box holds a row, and the ray o + t d meets it at some t >= t_min
+// from an entry no later than t_hi (its closest hit so far, or kTHi for
+// a shadow ray): `chunk_visible` :1099-1140 and `box_visible` :845-868
+// for one lane, mega_plain.box_span's arithmetic. 26 FP32 operations:
+// 3 divisions, 6 subtractions, 6 multiplies, 11 min / max.
+__device__ __forceinline__ bool box_visible(const float* box, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float t_min,
+                                            float t_hi) {
+  const float lo0 = __ldg(box), hi0 = __ldg(box + 3);
+  if (!(lo0 <= hi0)) return false;  // the empty box of a pad chunk
+  float n1, f1, n2, f2, n3, f3;
+  slab(ox, dx, lo0, hi0, n1, f1);
+  slab(oy, dy, __ldg(box + 1), __ldg(box + 4), n2, f2);
+  slab(oz, dz, __ldg(box + 2), __ldg(box + 5), n3, f3);
+  const float tn = nan_max(nan_max(n1, n2), n3);
+  const float tf = nan_min(nan_min(f1, f2), f3);
+  return tf >= nan_max(tn, t_min) && tn <= t_hi;
+}
+
+// The SceneTables row of row `row` of family `fam`'s table: itself, or
+// for a Morton-sorted family the row it was sorted from
+// (mega_plain.scene_rows).
+__device__ __forceinline__ int scene_row(const Scene& s, int fam, int row) {
+  if (fam == kFamSphere && s.sph_rows) return __ldg(s.sph_rows + row);
+  if (fam == kFamTri && s.tri_rows) return __ldg(s.tri_rows + row);
+  return row;
+}
+
 // One (lane, cylinder) pair (`cyl_body` :1165-1200): the ray in object
 // space through the w2o rows, the radial quadratic, the nearer root in
 // the z window first. 62 FP32 operations: 33 for the object-space ray,
@@ -501,19 +603,33 @@ __device__ __forceinline__ bool shadow_any_hit(const Scene& s, float sx,
   const float rd_ro = wx * sx + wy * sy + wz * sz;
   const float ro_sq = sx * sx + sy * sy + sz * sz;
   const float inv_a = 1.0f / fmaxf(a_s, 1e-20f);
-  for (int j = 0; j < s.n_smem; ++j)
-    if (shadow_sphere(s.hit4[j], s.valid + j, sx, sy, sz, wx, wy, wz, a_s,
-                      rd_ro, ro_sq, inv_a, s.t_min))
-      return true;
-  if (kTail) {
-    for (int j = s.n_smem; j < s.n; ++j) {
-      const float* r = s.table + static_cast<size_t>(j) * kCols;
-      if (shadow_sphere(make_float4(__ldg(r + kV), __ldg(r + kV + 1),
-                                    __ldg(r + kV + 2), __ldg(r + kC2r)),
-                        r + kValid, sx, sy, sz, wx, wy, wz, a_s, rd_ro,
-                        ro_sq, inv_a, s.t_min))
+  // rows [j0, j1) of the sphere table, staged or (kTail) in global memory
+  const auto spheres = [&](int j0, int j1) {
+    const int staged = j1 < s.n_smem ? j1 : s.n_smem;
+    for (int j = j0; j < staged; ++j)
+      if (shadow_sphere(s.hit4[j], s.valid + j, sx, sy, sz, wx, wy, wz, a_s,
+                        rd_ro, ro_sq, inv_a, s.t_min))
         return true;
+    if (kTail) {
+      for (int j = j0 > s.n_smem ? j0 : s.n_smem; j < j1; ++j) {
+        const float* r = s.table + static_cast<size_t>(j) * kCols;
+        if (shadow_sphere(make_float4(__ldg(r + kV), __ldg(r + kV + 1),
+                                      __ldg(r + kV + 2), __ldg(r + kC2r)),
+                          r + kValid, sx, sy, sz, wx, wy, wz, a_s, rd_ro,
+                          ro_sq, inv_a, s.t_min))
+          return true;
+      }
     }
+    return false;
+  };
+  if (s.sbnd) {
+    for (int c = 0; c < s.n; c += kChunk)
+      if (box_visible(s.sbnd + (c / kChunk) * kBoxCols, sx, sy, sz, wx, wy,
+                      wz, s.t_min, kTHi) &&
+          spheres(c, c + kChunk < s.n ? c + kChunk : s.n))
+        return true;
+  } else if (spheres(0, s.n)) {
+    return true;
   }
   if constexpr (kFamilies) {
     for (int j = 0; j < s.n_rect; ++j)
@@ -524,10 +640,16 @@ __device__ __forceinline__ bool shadow_any_hit(const Scene& s, float sx,
       if (hit_cyl(s.cyl + static_cast<size_t>(j) * kFCols, sx, sy, sz, wx,
                   wy, wz, s.t_min) <= kTHi)
         return true;
-    for (int j = 0; j < s.n_tri; ++j)
-      if (hit_tri(s.tri + static_cast<size_t>(j) * kFCols, sx, sy, sz, wx,
-                  wy, wz, s.t_min) <= kTHi)
-        return true;
+    for (int c = 0; c < s.n_tri; c += kChunk) {
+      if (s.tbnd && !box_visible(s.tbnd + (c / kChunk) * kBoxCols, sx, sy, sz,
+                                 wx, wy, wz, s.t_min, kTHi))
+        continue;
+      const int end = c + kChunk < s.n_tri ? c + kChunk : s.n_tri;
+      for (int j = c; j < end; ++j)
+        if (hit_tri(s.tri + static_cast<size_t>(j) * kFCols, sx, sy, sz, wx,
+                    wy, wz, s.t_min) <= kTHi)
+          return true;
+    }
   }
   return false;
 }
@@ -636,17 +758,18 @@ __device__ __forceinline__ float glossy_density(float cosr, float fuzz) {
 // The weight of the emission a bounce under NEE adds (:1487-1527): under
 // MIS the balance heuristic against the previous bounce's density
 // (alive = 2 + p_prev; p_prev 0: weight 1), the hit emitter's area from
-// its light row, matched by family and row; without MIS 0 after a
-// light-sampled bounce (alive 0.5), else 1.
+// its light row, matched by family and SceneTables row; without MIS 0
+// after a light-sampled bounce (alive 0.5), else 1.
 __device__ __forceinline__ float emission_weight(
     const Scene& s, float alive, int fam, int row, float px, float py,
     float pz, float ox, float oy, float oz, float nx, float ny, float nz) {
   if (!s.mis) return alive == 0.5f ? 0.0f : 1.0f;
   float area_h = 0.0f;
+  const float srow = static_cast<float>(scene_row(s, fam, row));
   for (int k = 0; k < s.n_lights; ++k) {
     const float* l = s.lights + static_cast<size_t>(k) * kLCols;
     if (__ldg(l + kLFam) == static_cast<float>(fam) &&
-        __ldg(l + kLRow) == static_cast<float>(row)) {
+        __ldg(l + kLRow) == srow) {
       area_h = __ldg(l + kLArea);
       break;
     }
@@ -678,15 +801,16 @@ struct NeeSample {
   int ltexel;
 };
 
-template <bool kTail, bool kFamilies, bool kImages = false>
+template <bool kTail, bool kFamilies, bool kImages = false,
+          bool kQmc = false>
 __device__ __forceinline__ NeeSample nee_sample(
-    const SceneOf<kImages>& s, uint32_t pre, float px, float py, float pz,
+    const SceneOf<kImages>& s, const Draw& pre, float px, float py, float pz,
     float nx, float ny, float nz, bool is_met, float fuzz, float ref_x,
     float ref_y, float ref_z) {
   NeeSample out{0.0f, 0.0f, 0.0f, 0.0f, 0, false, -1};
-  const float u_pick = uniform(pre, kNeePick);
-  const float u1 = uniform(pre, kNeeU1);
-  const float u2 = uniform(pre, kNeeU2);
+  const float u_pick = uniform<kQmc>(pre, kNeePick);
+  const float u1 = uniform<kQmc>(pre, kNeeU1);
+  const float u2 = uniform<kQmc>(pre, kNeeU2);
   int li = static_cast<int>(u_pick * static_cast<float>(s.n_lights));
   if (li > s.n_lights - 1) li = s.n_lights - 1;
   const float* lt = s.lights + static_cast<size_t>(li) * kLCols;
@@ -945,7 +1069,8 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 }
 
 // Advance a live lane (alive > 0) one bounce at RNG coordinate `pre`
-// (rng.cuh prefix of seed, pixel, sample, bounce). A lane that does
+// (rng.cuh Draw of seed, pixel, sample, bounce under the scene's
+// sampler). A lane that does
 // not scatter leaves with alive = 0. kAdjoint also adds the bounce's
 // cotangents to adj's accumulators (see ops/adjoint_plain.py); the lane
 // advances exactly as in the forward. kTail (a table of more than
@@ -954,7 +1079,8 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 // need it (PERF.md, PR 6), so the kernels instantiate both and the
 // launchers choose (has_tail). kCapture (the tape capture, capture.cu)
 // also reports the winner's tape code in *code, `family << 24 | row`
-// (pallas_mega.py:1882-1892), or -1 on a miss: it runs the hit pass
+// with its SceneTables row (scene_row; pallas_mega.py:1882-1892), or
+// -1 on a miss: it runs the hit pass
 // before it applies the roulette, so that a lane the roulette stops
 // still records this bounce's winner, as the reference's kernel does
 // (it evaluates the hit on every lane). Without kCapture the roulette
@@ -977,14 +1103,16 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 // its (u, v) as its albedo, and under kNee an image-textured light its
 // texel at the light point; with kAdjoint such a winner's or light's
 // cotangents go to the texel's row of the atlas gradient, not to its
-// slot.
+// slot. kQmc draws from the scrambled Sobol' sequence (rng.cuh), `pre`
+// then keyed on kQmcTag.
 template <bool kAdjoint, bool kTail, bool kCapture = false,
-          bool kFamilies = false, bool kNee = false, bool kImages = false>
+          bool kFamilies = false, bool kNee = false, bool kImages = false,
+          bool kQmc = false>
 __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
-                                          uint32_t pre, const Adj& adj,
+                                          const Draw& pre, const Adj& adj,
                                           int* code = nullptr) {
   bool rr_stop = false;
-  if (s.p_rr > 0.0f && !(uniform(pre, kRR) <= s.p_rr)) {
+  if (s.p_rr > 0.0f && !(uniform<kQmc>(pre, kRR) <= s.p_rr)) {
     if constexpr (!kCapture) {
       L.alive = 0.0f;  // roulette: the lane stops and adds nothing
       return;
@@ -1003,17 +1131,29 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
   float t_best = CUDART_INF_F;
   int id_best = 0;
   int fam_best = kFamSphere;
-  for (int j = 0; j < s.n_smem; ++j)
-    hit_row(s.hit4[j], s.valid + j, j, ox, oy, oz, dx, dy, dz, a, rd_dot_ro,
-            ro_sq, inv_a, s.t_min, t_best, id_best);
-  if (kTail) {
-    for (int j = s.n_smem; j < s.n; ++j) {
-      const float* r = s.table + static_cast<size_t>(j) * kCols;
-      hit_row(make_float4(__ldg(r + kV), __ldg(r + kV + 1),
-                          __ldg(r + kV + 2), __ldg(r + kC2r)),
-              r + kValid, j, ox, oy, oz, dx, dy, dz, a, rd_dot_ro, ro_sq,
-              inv_a, s.t_min, t_best, id_best);
+  // rows [j0, j1) of the sphere table, staged or (kTail) in global memory
+  const auto spheres = [&](int j0, int j1) {
+    const int staged = j1 < s.n_smem ? j1 : s.n_smem;
+    for (int j = j0; j < staged; ++j)
+      hit_row(s.hit4[j], s.valid + j, j, ox, oy, oz, dx, dy, dz, a,
+              rd_dot_ro, ro_sq, inv_a, s.t_min, t_best, id_best);
+    if (kTail) {
+      for (int j = j0 > s.n_smem ? j0 : s.n_smem; j < j1; ++j) {
+        const float* r = s.table + static_cast<size_t>(j) * kCols;
+        hit_row(make_float4(__ldg(r + kV), __ldg(r + kV + 1),
+                            __ldg(r + kV + 2), __ldg(r + kC2r)),
+                r + kValid, j, ox, oy, oz, dx, dy, dz, a, rd_dot_ro, ro_sq,
+                inv_a, s.t_min, t_best, id_best);
+      }
     }
+  };
+  if (s.sbnd) {  // chunk by chunk, each against the closest hit so far
+    for (int c = 0; c < s.n; c += kChunk)
+      if (box_visible(s.sbnd + (c / kChunk) * kBoxCols, ox, oy, oz, dx, dy,
+                      dz, s.t_min, t_best))
+        spheres(c, c + kChunk < s.n ? c + kChunk : s.n);
+  } else {
+    spheres(0, s.n);
   }
 
   if constexpr (kFamilies) {
@@ -1025,14 +1165,22 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
       take(hit_cyl(s.cyl + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
                    dy, dz, s.t_min),
            kFamCyl, j, t_best, fam_best, id_best);
-    for (int j = 0; j < s.n_tri; ++j)
-      take(hit_tri(s.tri + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
-                   dy, dz, s.t_min),
-           kFamTri, j, t_best, fam_best, id_best);
+    for (int c = 0; c < s.n_tri; c += kChunk) {
+      if (s.tbnd && !box_visible(s.tbnd + (c / kChunk) * kBoxCols, ox, oy,
+                                 oz, dx, dy, dz, s.t_min, t_best))
+        continue;
+      const int end = c + kChunk < s.n_tri ? c + kChunk : s.n_tri;
+      for (int j = c; j < end; ++j)
+        take(hit_tri(s.tri + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
+                     dy, dz, s.t_min),
+             kFamTri, j, t_best, fam_best, id_best);
+    }
   }
 
   if constexpr (kCapture) {
-    *code = t_best < CUDART_INF_F ? (fam_best << 24) | id_best : -1;
+    *code = t_best < CUDART_INF_F
+                ? (fam_best << 24) | scene_row(s, fam_best, id_best)
+                : -1;
     if (rr_stop) {
       L.alive = 0.0f;
       return;
@@ -1159,7 +1307,7 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
   float ref_x = 0.0f, ref_y = 0.0f, ref_z = 0.0f;  // mirror (not lambertian)
   if (mtype == kLambertian) {
     float bx, by, bz;
-    unit_ball(pre, bx, by, bz);
+    unit_ball<kQmc>(pre, bx, by, bz);
     new_dx = nx + bx;
     new_dy = ny + by;
     new_dz = nz + bz;
@@ -1178,7 +1326,7 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
     ref_z = uz - 2.0f * u_dot_n * nz;
     if (mtype == kMetal) {
       float bx, by, bz;
-      unit_ball(pre, bx, by, bz);
+      unit_ball<kQmc>(pre, bx, by, bz);
       const float fuzz = param;
       new_dx = ref_x + fuzz * bx;
       new_dy = ref_y + fuzz * by;
@@ -1198,7 +1346,7 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
       const float one_mc = 1.0f - cos_theta;
       const float om2 = one_mc * one_mc;
       const float schlick = r0 + (1.0f - r0) * om2 * om2 * one_mc;
-      if (cannot || schlick > uniform(pre, kDielRefl)) {
+      if (cannot || schlick > uniform<kQmc>(pre, kDielRefl)) {
         new_dx = ref_x;
         new_dy = ref_y;
         new_dz = ref_z;
@@ -1224,7 +1372,7 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
     sampled = mtype == kLambertian ||
               (s.glossy && mtype == kMetal && param > 0.0f);
     if (sampled) {
-      ns = nee_sample<kTail, kFamilies, kImages>(
+      ns = nee_sample<kTail, kFamilies, kImages, kQmc>(
           s, pre, px, py, pz, nx, ny, nz, mtype == kMetal, param, ref_x,
           ref_y, ref_z);
       if (ns.okl != 0.0f) {

@@ -4,7 +4,8 @@
 // `_regen_kernel` (:2361-2381), the thin-lens camera of
 // gpu-version/camera.cuh:31-39 with the CPU versions' defocus. It must
 // give rt_tpu_torch/ops/camera.generate_rays's bits on the card, so it
-// takes the same draws, at prefix(seed, pixel, sample, 0), and repeats
+// takes the same draws, at bounce 0 of the sampler kQmc selects (rng.cuh
+// Draw: "rng" or "qmc"), and repeats
 // its float32 expressions in their order: s = (px + ru) / ((w-1) or 1),
 // the lens disk r = sqrt(u1), phi = 2pi * u2, the offset
 // u * (lr * (r cos phi)) + v * (lr * (r sin phi)), and the direction
@@ -52,17 +53,20 @@ __host__ inline Camera make_camera(const float* vec, int width, int height,
 
 // Origin and direction of the camera ray through pixel (px, py), whose
 // id is `pixel` (py * width + px), for sample `sample`.
+template <bool kQmc>
 __device__ __forceinline__ void camera_ray(const Camera& c, uint32_t seed,
                                            uint32_t pixel, int px, int py,
                                            uint32_t sample, float ro[3],
                                            float rd[3]) {
-  const uint32_t pre = prefix(seed, pixel, sample, 0u);
-  const float s = (static_cast<float>(px) + uniform(pre, kPixelU)) / c.w_den;
-  const float t = (static_cast<float>(py) + uniform(pre, kPixelV)) / c.h_den;
+  const Draw pre = draw_at(lane_key(seed, pixel, sample, kQmc), sample, 0u);
+  const float s =
+      (static_cast<float>(px) + uniform<kQmc>(pre, kPixelU)) / c.w_den;
+  const float t =
+      (static_cast<float>(py) + uniform<kQmc>(pre, kPixelV)) / c.h_den;
   float off[3] = {0.0f, 0.0f, 0.0f};
   if (c.defocus) {
-    const float r = sqrtf(uniform(pre, kLensU1));
-    const float phi = 6.28318530717958647692f * uniform(pre, kLensU2);
+    const float r = sqrtf(uniform<kQmc>(pre, kLensU1));
+    const float phi = 6.28318530717958647692f * uniform<kQmc>(pre, kLensU2);
     const float rl0 = c.lens_radius * (r * cosf(phi));
     const float rl1 = c.lens_radius * (r * sinf(phi));
     for (int j = 0; j < 3; ++j) off[j] = c.u[j] * rl0 + c.v[j] * rl1;

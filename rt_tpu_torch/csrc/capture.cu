@@ -8,8 +8,9 @@
 // Pallas TPU kernel launched by capture_segment (:2056, pallas_call
 // :2097) and driven by mega_capture (:2144), for spheres, rects,
 // cylinders and triangles with solid, checker and image textures, no
-// NEE, sampler "rng". No code or death depends on a texel (a scatter's
-// direction and its absorption read no albedo), so the kernel reads no
+// NEE, the samplers "rng" and "qmc", chunk culling. No code or death
+// depends on a texel (a scatter's direction and its absorption read no
+// albedo), so the kernel reads no
 // atlas: it takes textured tables as they are. Contract kept from it: the
 // 13-word state of fresh primary rays, per-lane pixel ids, one sample
 // index, max_depth bounces from bounce 0; out codes [max_depth, B] int32
@@ -54,7 +55,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies>
+template <bool kTail, bool kFamilies, bool kQmc>
 __global__ void __launch_bounds__(kMaxThreads)
 capture_kernel(rtt::Scene scene, const float* __restrict__ state,
                long long stride, int n, const int* __restrict__ pixel,
@@ -69,15 +70,15 @@ capture_kernel(rtt::Scene scene, const float* __restrict__ state,
   rtt::Lane L;
   rtt::load_lane(state + i, stride, L);
 
-  const uint32_t lane_key =
-      rtt::fold(rtt::fold(scene.seed, static_cast<uint32_t>(pixel[i])),
-                static_cast<uint32_t>(sample));
+  const uint32_t smp = static_cast<uint32_t>(sample);
+  const uint32_t lane_key = rtt::lane_key(
+      scene.seed, static_cast<uint32_t>(pixel[i]), smp, kQmc);
   int* out = codes + i;
   int b = 0, alive_after = 0;
   while (b < max_depth && L.alive > 0.0f) {
     int code = -1;
-    rtt::do_bounce<false, kTail, true, kFamilies>(
-        scene, L, rtt::fold(lane_key, static_cast<uint32_t>(b)),
+    rtt::do_bounce<false, kTail, true, kFamilies, false, false, kQmc>(
+        scene, L, rtt::draw_at(lane_key, smp, static_cast<uint32_t>(b)),
         rtt::Adj{}, &code);
     out[static_cast<long long>(b) * stride] = code;
     if (L.alive > 0.0f) ++alive_after;
@@ -92,27 +93,36 @@ capture_kernel(rtt::Scene scene, const float* __restrict__ state,
 // table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri [n_*, 32]
 // f32 or null with 0 rows; state [13, stride] f32 of
 // fresh rays (read only), of which lanes [0, n) are traced; pixel [>= n]
-// i32; one sample index for every lane; codes [max_depth, stride] i32
+// i32; one sample index for every lane; qmc, sbnd, tbnd, sph_rows,
+// tri_rows as mega.cu's (a code names the SceneTables row); codes
+// [max_depth, stride] i32
 // and death [>= n] i32, written whole for lanes [0, n). Launches on
 // `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int capture_launch(const float* table, int rows,
                               RTT_FAMILY_ARGS, const float* state,
                               long long stride, int n,
                               const int* pixel, int sample, int max_depth,
-                              RTT_SCENE_ARGS, int* codes, int* death,
+                              RTT_SCENE_ARGS, RTT_SORT_ARGS, int* codes,
+                              int* death,
                               int threads, void* stream) {
-  const rtt::Scene scene = rtt::with_families(
-      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
-                      bg_g, bg_b, exhaust_bg),
-      rect, n_rect, cyl, n_cyl, tri, n_tri);
+  const rtt::Scene scene = rtt::with_sort(
+      rtt::with_families(
+          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
+                          bg_r, bg_g, bg_b, exhaust_bg),
+          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      qmc, sbnd, tbnd, sph_rows, tri_rows);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const int blocks = (n + threads - 1) / threads;
   const bool fam = rtt::has_families(scene);
-  const auto kernel =
-      rtt::has_tail(rows)
-          ? (fam ? capture_kernel<true, true> : capture_kernel<true, false>)
-          : (fam ? capture_kernel<false, true>
-                 : capture_kernel<false, false>);
+  const auto pick = [&](auto qmc_tag) {
+    constexpr bool kQmc = decltype(qmc_tag)::value;
+    return rtt::has_tail(rows)
+               ? (fam ? capture_kernel<true, true, kQmc>
+                      : capture_kernel<true, false, kQmc>)
+               : (fam ? capture_kernel<false, true, kQmc>
+                      : capture_kernel<false, false, kQmc>);
+  };
+  const auto kernel = qmc ? pick(std::true_type{}) : pick(std::false_type{});
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       scene, state, stride, n, pixel, sample, max_depth, codes, death);
   return static_cast<int>(cudaGetLastError());

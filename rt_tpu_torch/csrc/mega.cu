@@ -5,7 +5,7 @@
 // Pallas TPU kernel launched by mega_segment (:2460, pallas_call :2524),
 // for spheres, rects, cylinders and triangles with solid, checker and
 // image textures (kImages), NEE / MIS / glossy light sampling (kNee),
-// sampler "rng".
+// the samplers "rng" and "qmc", and chunk culling.
 // Contract kept from it: the 13-word ray state in and out (origin,
 // direction, throughput, radiance, alive), per-lane pixel and sample
 // ids, a start bounce that offsets the RNG's bounce coordinate, at most
@@ -26,7 +26,8 @@
 // kStageRows are read from global memory), then each thread traces its
 // lane to the end of the segment; the rect, cylinder and triangle rows
 // are read through the read-only cache (kFamilies, only for scenes that
-// have them). No culling, no Morton sort: rows are in scene order.
+// have them). With culling the rows are Morton-sorted and each lane
+// skips the chunks its ray misses (bounce.cuh).
 // Dead lanes exit at once, so the trace around the kernel
 // (ops/cuda_mega.mega_trace) groups live lanes between segments and
 // launches only the live prefix.
@@ -39,7 +40,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kNee, bool kImages>
+template <bool kTail, bool kFamilies, bool kNee, bool kImages, bool kQmc>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
             long long stride,
@@ -60,11 +61,12 @@ mega_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
   const uint32_t pix = static_cast<uint32_t>(pixel[i]);
   const uint32_t smp =
       static_cast<uint32_t>(sample ? sample[i] : sample_scalar);
-  const uint32_t lane_key = rtt::fold(rtt::fold(scene.seed, pix), smp);
+  const uint32_t lane_key = rtt::lane_key(scene.seed, pix, smp, kQmc);
   int b = 0;
   while (b < max_depth && L.alive > 0.0f) {
-    rtt::do_bounce<false, kTail, false, kFamilies, kNee, kImages>(
-        scene, L, rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)),
+    rtt::do_bounce<false, kTail, false, kFamilies, kNee, kImages, kQmc>(
+        scene, L,
+        rtt::draw_at(lane_key, smp, static_cast<uint32_t>(start_bounce + b)),
         rtt::Adj{});
     ++b;
   }
@@ -80,7 +82,9 @@ mega_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
 // [n_*, 32] f32 or null with 0 rows; atlas [Ni, img_th, img_tw, 3] f32
 // and uv_rect, uv_cyl, uv_tri [n_*, 17] f32, or null (no image
 // textures); lights [n_lights, 33] f32 or null (no NEE), mis and glossy
-// 0 / 1; state [13, stride] f32, of
+// 0 / 1; qmc 0 / 1, sbnd / tbnd [ceil(rows / 32), 8] and [ceil(n_tri /
+// 32), 8] f32 chunk boxes and sph_rows [rows] / tri_rows [n_tri] i32, or
+// null (that family unsorted); state [13, stride] f32, of
 // which lanes [0, n) are traced in place; pixel [>= n] i32; sample
 // [>= n] i32 or null (then every lane uses sample_scalar); depth
 // [>= n] i32 or null (else each lane's bounce count is added to it).
@@ -92,13 +96,15 @@ extern "C" int mega_segment_launch(const float* table, int rows,
                                    const int* pixel, const int* sample,
                                    int sample_scalar, int start_bounce,
                                    int max_depth, RTT_SCENE_ARGS,
-                                   RTT_NEE_ARGS, int* depth, int threads,
-                                   void* stream) {
+                                   RTT_SORT_ARGS, RTT_NEE_ARGS, int* depth,
+                                   int threads, void* stream) {
   const rtt::Scene scene = rtt::with_nee(
-      rtt::with_families(
-          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
-                          bg_r, bg_g, bg_b, exhaust_bg),
-          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      rtt::with_sort(
+          rtt::with_families(
+              rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp,
+                              grad_bg, bg_r, bg_g, bg_b, exhaust_bg),
+              rect, n_rect, cyl, n_cyl, tri, n_tri),
+          qmc, sbnd, tbnd, sph_rows, tri_rows),
       lights, n_lights, mis, glossy);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const int blocks = (n + threads - 1) / threads;
@@ -110,10 +116,18 @@ extern "C" int mega_segment_launch(const float* table, int rows,
         max_depth, depth);
     return static_cast<int>(cudaGetLastError());
   };
-  return atlas ? launch(rtt::with_images(scene, atlas, img_th, img_tw,
-                                         uv_rect, uv_cyl, uv_tri),
-                        RTT_PICK(mega_kernel, tail, fam, nee, true))
-               : launch(scene, RTT_PICK(mega_kernel, tail, fam, nee, false));
+  if (atlas) {
+    const auto sc = rtt::with_images(scene, atlas, img_th, img_tw, uv_rect,
+                                     uv_cyl, uv_tri);
+    return qmc ? launch(sc, RTT_PICK(mega_kernel, tail, fam, nee, true,
+                                     true))
+               : launch(sc, RTT_PICK(mega_kernel, tail, fam, nee, true,
+                                     false));
+  }
+  return qmc ? launch(scene, RTT_PICK(mega_kernel, tail, fam, nee, false,
+                                      true))
+             : launch(scene, RTT_PICK(mega_kernel, tail, fam, nee, false,
+                                      false));
 }
 
 extern "C" const char* mega_error_string(int code) {

@@ -6,7 +6,8 @@
 // :2620) and driven by mega_trace_adjoint (:3079), for spheres, rects,
 // cylinders and triangles with solid, checker and image textures
 // (kImages), NEE without MIS or glossy (kNee; the reference's kernel
-// takes nee and n_lights only, :2203-2204), sampler "rng".
+// takes nee and n_lights only, :2203-2204), the samplers "rng" and
+// "qmc", chunk culling.
 // Contract kept from it: the forward megakernel's segment (mega.cu) with
 // two more per-lane inputs, the sample's radiance L and its loss
 // cotangent g, replayed bounce by bounce from the counter RNG with
@@ -52,7 +53,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kNee, bool kImages>
+template <bool kTail, bool kFamilies, bool kNee, bool kImages, bool kQmc>
 __global__ void __launch_bounds__(kMaxThreads)
 mega_adjoint_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
                     long long stride, int n, const int* __restrict__ pixel,
@@ -84,11 +85,13 @@ mega_adjoint_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
     const uint32_t pix = static_cast<uint32_t>(pixel[i]);
     const uint32_t smp =
         static_cast<uint32_t>(sample ? sample[i] : sample_scalar);
-    const uint32_t lane_key = rtt::fold(rtt::fold(scene.seed, pix), smp);
+    const uint32_t lane_key = rtt::lane_key(scene.seed, pix, smp, kQmc);
     int b = 0;
     while (b < max_depth && L.alive > 0.0f) {
-      rtt::do_bounce<true, kTail, false, kFamilies, kNee, kImages>(
-          scene, L, rtt::fold(lane_key, static_cast<uint32_t>(start_bounce + b)),
+      rtt::do_bounce<true, kTail, false, kFamilies, kNee, kImages, kQmc>(
+          scene, L,
+          rtt::draw_at(lane_key, smp,
+                       static_cast<uint32_t>(start_bounce + b)),
           adj);
       ++b;
     }
@@ -114,7 +117,8 @@ mega_adjoint_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
 
 // table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri [n_*, 32]
 // f32 or null with 0 rows; atlas [Ni, img_th, img_tw, 3] f32 and uv_rect,
-// uv_cyl, uv_tri [n_*, 17] f32, or null (no image textures); lights
+// uv_cyl, uv_tri [n_*, 17] f32, or null (no image textures); qmc, sbnd,
+// tbnd, sph_rows, tri_rows as mega_segment_launch's; lights
 // [n_lights, 33] f32 or null (no NEE); state [19, stride] f32 (the
 // forward's 13 rows, then L and g), of which lanes [0, n) are replayed
 // in place; pixel [>= n] i32; sample [>= n] i32 or null (then
@@ -131,15 +135,18 @@ extern "C" int mega_adjoint_launch(const float* table, int rows,
                                    const int* pixel, const int* sample,
                                    int sample_scalar, int start_bounce,
                                    int max_depth, RTT_SCENE_ARGS,
+                                   RTT_SORT_ARGS,
                                    const float* lights, int n_lights,
                                    float* grad, int n_slots, int shared_acc,
                                    float* gimg, int* depth, int threads,
                                    void* stream) {
   const rtt::Scene scene = rtt::with_nee(
-      rtt::with_families(
-          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
-                          bg_r, bg_g, bg_b, exhaust_bg),
-          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      rtt::with_sort(
+          rtt::with_families(
+              rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp,
+                              grad_bg, bg_r, bg_g, bg_b, exhaust_bg),
+              rect, n_rect, cyl, n_cyl, tri, n_tri),
+          qmc, sbnd, tbnd, sph_rows, tri_rows),
       lights, n_lights, 0, 0);
   const size_t smem =
       shared_acc ? rtt::after_table_bytes(rows) +
@@ -161,12 +168,18 @@ extern "C" int mega_adjoint_launch(const float* table, int rows,
         max_depth, grad, n_slots, shared_acc, gimg, depth);
     return static_cast<int>(cudaGetLastError());
   };
-  return atlas
-             ? launch(rtt::with_images(scene, atlas, img_th, img_tw, uv_rect,
-                                       uv_cyl, uv_tri),
-                      RTT_PICK(mega_adjoint_kernel, tail, fam, nee, true))
-             : launch(scene,
-                      RTT_PICK(mega_adjoint_kernel, tail, fam, nee, false));
+  if (atlas) {
+    const auto sc = rtt::with_images(scene, atlas, img_th, img_tw, uv_rect,
+                                     uv_cyl, uv_tri);
+    return qmc ? launch(sc, RTT_PICK(mega_adjoint_kernel, tail, fam, nee,
+                                     true, true))
+               : launch(sc, RTT_PICK(mega_adjoint_kernel, tail, fam, nee,
+                                     true, false));
+  }
+  return qmc ? launch(scene, RTT_PICK(mega_adjoint_kernel, tail, fam, nee,
+                                      false, true))
+             : launch(scene, RTT_PICK(mega_adjoint_kernel, tail, fam, nee,
+                                      false, false));
 }
 
 extern "C" const char* mega_adjoint_error_string(int code) {

@@ -5,7 +5,8 @@
 // queue_launch (:310, pallas_call :378) and driven by queue_trace
 // (:404), for spheres, rects, cylinders and triangles with solid,
 // checker and image textures (kImages), NEE / MIS / glossy light
-// sampling (kNee), sampler "rng". Contract kept from it:
+// sampling (kNee), the samplers "rng" and "qmc", chunk culling.
+// Contract kept from it:
 // every primary ray (ro, rd, pixel, sample) is traced to its end
 // through the same bounce body as the megakernel (bounce.cuh), one
 // bounce per step, with the lane's own
@@ -43,7 +44,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kNee, bool kImages>
+template <bool kTail, bool kFamilies, bool kNee, bool kImages, bool kQmc>
 __global__ void __launch_bounds__(kThreads)
 queue_kernel(rtt::SceneOf<kImages> scene, const float* __restrict__ ro,
              const float* __restrict__ rd, const int* __restrict__ pixel,
@@ -55,7 +56,7 @@ queue_kernel(rtt::SceneOf<kImages> scene, const float* __restrict__ ro,
   extern __shared__ float4 smem[];
   rtt::stage_table(scene, smem);
   __syncthreads();
-  rtt::queue_loop<false, kTail, kFamilies, kNee, kImages>(
+  rtt::queue_loop<false, kTail, kFamilies, kNee, kImages, kQmc>(
       scene, ro, rd, pixel, sample, sample_scalar, nullptr, nullptr, b,
       pool_f, pool_i, pool_lanes, counters, out, nullptr, 0, nullptr, depth,
       written, max_depth, budget);
@@ -65,25 +66,29 @@ queue_kernel(rtt::SceneOf<kImages> scene, const float* __restrict__ ro,
 
 // The instantiation a scene of `rows` sphere rows, with or without
 // rect / cylinder / triangle rows and light sampling, runs, with image
-// textures (kImages) or without.
-template <bool kImages>
+// textures (kImages) or without, under the sampler kQmc selects.
+template <bool kImages, bool kQmc>
 static auto pick_kernel(int rows, bool families, bool nee) {
-  return RTT_PICK(queue_kernel, rtt::has_tail(rows), families, nee, kImages);
+  return RTT_PICK(queue_kernel, rtt::has_tail(rows), families, nee, kImages,
+                  kQmc);
 }
 
 // Blocks of `threads` threads the card holds at once with the table's
 // shared memory: the persistent grid (negative: minus a CUDA error).
 extern "C" int queue_grid_blocks(int rows, int families, int nee, int images,
-                                 int threads) {
+                                 int qmc, int threads) {
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   int per_sm = 0, dev = 0, sms = 0;
   const auto occupancy = [&](auto kernel) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                          threads, smem);
   };
+  const bool f = families != 0, e = nee != 0;
   cudaError_t err =
-      images ? occupancy(pick_kernel<true>(rows, families != 0, nee != 0))
-             : occupancy(pick_kernel<false>(rows, families != 0, nee != 0));
+      images ? (qmc ? occupancy(pick_kernel<true, true>(rows, f, e))
+                    : occupancy(pick_kernel<true, false>(rows, f, e)))
+             : (qmc ? occupancy(pick_kernel<false, true>(rows, f, e))
+                    : occupancy(pick_kernel<false, false>(rows, f, e)));
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -94,7 +99,8 @@ extern "C" int queue_grid_blocks(int rows, int families, int nee, int images,
 // table [rows, 18] f32; rect, cyl, tri [n_*, 32] f32 or null with 0
 // rows; atlas [Ni, img_th, img_tw, 3] f32 and uv_rect, uv_cyl, uv_tri
 // [n_*, 17] f32, or null (no image textures); lights [n_lights, 33] f32
-// or null (no NEE), mis and glossy 0 / 1; ro, rd [b, 3] f32; pixel [b]
+// or null (no NEE), mis and glossy 0 / 1; qmc, sbnd, tbnd, sph_rows,
+// tri_rows as mega.cu's; ro, rd [b, 3] f32; pixel [b]
 // i32; sample [b] i32 or null (then sample_scalar); pool_f [13,
 // blocks*threads] f32 and pool_i [4, blocks*threads] i32 (pool_i row 0 =
 // -1 before the first launch); counters [2] u32 (fresh-ray cursor,
@@ -109,13 +115,16 @@ extern "C" int queue_launch(const float* table, int rows, RTT_FAMILY_ARGS,
                             float* pool_f, int* pool_i, unsigned* counters,
                             float* out, int* depth, int* written,
                             int max_depth, int budget, RTT_SCENE_ARGS,
-                            RTT_NEE_ARGS, int blocks, int threads,
+                            RTT_SORT_ARGS, RTT_NEE_ARGS, int blocks,
+                            int threads,
                             void* stream) {
   const rtt::Scene scene = rtt::with_nee(
-      rtt::with_families(
-          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
-                          bg_r, bg_g, bg_b, exhaust_bg),
-          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      rtt::with_sort(
+          rtt::with_families(
+              rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp,
+                              grad_bg, bg_r, bg_g, bg_b, exhaust_bg),
+              rect, n_rect, cyl, n_cyl, tri, n_tri),
+          qmc, sbnd, tbnd, sph_rows, tri_rows),
       lights, n_lights, mis, glossy);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const bool fam = rtt::has_families(scene), nee = rtt::has_nee(scene);
@@ -125,10 +134,14 @@ extern "C" int queue_launch(const float* table, int rows, RTT_FAMILY_ARGS,
         blocks * threads, counters, out, depth, written, max_depth, budget);
     return static_cast<int>(cudaGetLastError());
   };
-  return atlas ? launch(rtt::with_images(scene, atlas, img_th, img_tw,
-                                         uv_rect, uv_cyl, uv_tri),
-                        pick_kernel<true>(rows, fam, nee))
-               : launch(scene, pick_kernel<false>(rows, fam, nee));
+  if (atlas) {
+    const auto sc = rtt::with_images(scene, atlas, img_th, img_tw, uv_rect,
+                                     uv_cyl, uv_tri);
+    return qmc ? launch(sc, pick_kernel<true, true>(rows, fam, nee))
+               : launch(sc, pick_kernel<true, false>(rows, fam, nee));
+  }
+  return qmc ? launch(scene, pick_kernel<false, true>(rows, fam, nee))
+             : launch(scene, pick_kernel<false, false>(rows, fam, nee));
 }
 
 extern "C" const char* queue_error_string(int code) {

@@ -28,7 +28,7 @@ namespace rtt {
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <bool kAdjoint, bool kTail, bool kFamilies = false,
-          bool kNee = false, bool kImages = false>
+          bool kNee = false, bool kImages = false, bool kQmc = false>
 __device__ __forceinline__ void queue_loop(
     const SceneOf<kImages>& scene, const float* __restrict__ ro,
     const float* __restrict__ rd, const int* __restrict__ pixel,
@@ -49,8 +49,10 @@ __device__ __forceinline__ void queue_loop(
   if (slot >= 0) {  // resume the lane a previous launch saved
     load_lane(pool_f + tid, P, L);
     if (kAdjoint) load_lg(pool_f + tid, P, adj);
-    lane_key = fold(fold(scene.seed, static_cast<uint32_t>(pool_i[P + tid])),
-                    static_cast<uint32_t>(pool_i[2 * P + tid]));
+    lane_key = rtt::lane_key(scene.seed,
+                             static_cast<uint32_t>(pool_i[P + tid]),
+                             static_cast<uint32_t>(pool_i[2 * P + tid]),
+                             kQmc);
     bounce = pool_i[3 * P + tid];
   }
   int pix = slot >= 0 ? pool_i[P + tid] : 0;
@@ -99,8 +101,8 @@ __device__ __forceinline__ void queue_loop(
           }
           pix = pixel[idx];
           smp = sample ? sample[idx] : sample_scalar;
-          lane_key = fold(fold(scene.seed, static_cast<uint32_t>(pix)),
-                          static_cast<uint32_t>(smp));
+          lane_key = rtt::lane_key(scene.seed, static_cast<uint32_t>(pix),
+                                   static_cast<uint32_t>(smp), kQmc);
           bounce = 0;
         }
       }
@@ -110,8 +112,11 @@ __device__ __forceinline__ void queue_loop(
     if (slot >= 0) {
       // ---- one bounce; then exhaustion and retirement ----
       if (bounce < max_depth && L.alive > 0.0f) {
-        do_bounce<kAdjoint, kTail, false, kFamilies, kNee, kImages>(
-            scene, L, fold(lane_key, static_cast<uint32_t>(bounce)), adj);
+        do_bounce<kAdjoint, kTail, false, kFamilies, kNee, kImages, kQmc>(
+            scene, L,
+            draw_at(lane_key, static_cast<uint32_t>(smp),
+                    static_cast<uint32_t>(bounce)),
+            adj);
         ++bounce;
       }
       if (L.alive > 0.0f && bounce >= max_depth) {

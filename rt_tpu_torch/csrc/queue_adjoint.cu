@@ -5,7 +5,8 @@
 // pallas_call :801) and driven by queue_trace_adjoint (:829), for
 // spheres, rects, cylinders and triangles with solid, checker and image
 // textures (kImages), NEE without MIS or glossy (kNee, as the
-// reference's kernel, :564), sampler "rng". Contract kept from it: the
+// reference's kernel, :564), the samplers "rng" and "qmc", chunk
+// culling. Contract kept from it: the
 // adjoint megakernel's replay
 // (mega_adjoint.cu: do_bounce<true> of bounce.cuh, the same cotangents
 // into the same [8, n_slots] gradient block and atlas gradient) inside
@@ -41,7 +42,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kNee, bool kImages>
+template <bool kTail, bool kFamilies, bool kNee, bool kImages, bool kQmc>
 __global__ void __launch_bounds__(kThreads)
 queue_adjoint_kernel(rtt::SceneOf<kImages> scene, const float* __restrict__ ro,
                      const float* __restrict__ rd,
@@ -64,7 +65,7 @@ queue_adjoint_kernel(rtt::SceneOf<kImages> scene, const float* __restrict__ ro,
     for (int k = threadIdx.x; k < n_acc; k += blockDim.x) acc[k] = 0.0f;
   }
   __syncthreads();
-  rtt::queue_loop<true, kTail, kFamilies, kNee, kImages>(
+  rtt::queue_loop<true, kTail, kFamilies, kNee, kImages, kQmc>(
       scene, ro, rd, pixel, sample, sample_scalar, lin, gin, b, pool_f,
       pool_i, pool_lanes, counters, nullptr, acc, n_slots, gimg, depth,
       written, max_depth, budget);
@@ -86,11 +87,11 @@ size_t smem_bytes(int rows, int n_slots, int shared_acc) {
 
 // The instantiation a scene of `rows` sphere rows, with or without
 // rect / cylinder / triangle rows and light sampling, runs, with image
-// textures (kImages) or without.
-template <bool kImages>
+// textures (kImages) or without, under the sampler kQmc selects.
+template <bool kImages, bool kQmc>
 auto pick(int rows, bool families, bool nee) {
   return RTT_PICK(queue_adjoint_kernel, rtt::has_tail(rows), families, nee,
-                  kImages);
+                  kImages, kQmc);
 }
 
 template <class Kernel>
@@ -108,7 +109,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // shared_acc) and the registers of the instantiation the scene runs:
 // the persistent grid (negative: minus a CUDA error).
 extern "C" int queue_adjoint_grid_blocks(int rows, int families, int nee,
-                                         int images, int n_slots,
+                                         int images, int qmc, int n_slots,
                                          int shared_acc, int threads) {
   const size_t smem = smem_bytes(rows, n_slots, shared_acc);
   int per_sm = 0, dev = 0, sms = 0;
@@ -119,9 +120,12 @@ extern "C" int queue_adjoint_grid_blocks(int rows, int families, int nee,
                                                         threads, smem);
     return e;
   };
+  const bool f = families != 0, e = nee != 0;
   cudaError_t err =
-      images ? occupancy(pick<true>(rows, families != 0, nee != 0))
-             : occupancy(pick<false>(rows, families != 0, nee != 0));
+      images ? (qmc ? occupancy(pick<true, true>(rows, f, e))
+                    : occupancy(pick<true, false>(rows, f, e)))
+             : (qmc ? occupancy(pick<false, true>(rows, f, e))
+                    : occupancy(pick<false, false>(rows, f, e)));
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -132,7 +136,8 @@ extern "C" int queue_adjoint_grid_blocks(int rows, int families, int nee,
 // table [rows, 18] f32; rect, cyl, tri [n_*, 32] f32 or null with 0
 // rows; atlas [Ni, img_th, img_tw, 3] f32 and uv_rect, uv_cyl, uv_tri
 // [n_*, 17] f32, or null (no image textures); lights [n_lights, 33] f32
-// or null (no NEE); ro, rd, lin (L),
+// or null (no NEE); qmc, sbnd, tbnd, sph_rows, tri_rows as mega.cu's;
+// ro, rd, lin (L),
 // gin (g) [b, 3] f32; pixel [b]
 // i32; sample [b] i32 or null (then sample_scalar); pool_f [19,
 // blocks*threads] f32 and pool_i [4, blocks*threads] i32 (pool_i row 0
@@ -149,14 +154,16 @@ extern "C" int queue_adjoint_launch(
     const int* pixel, const int* sample, int sample_scalar, const float* lin,
     const float* gin, int b, float* pool_f, int* pool_i, unsigned* counters,
     float* grad, int n_slots, int shared_acc, float* gimg, int* depth,
-    int* written, int max_depth, int budget, RTT_SCENE_ARGS,
+    int* written, int max_depth, int budget, RTT_SCENE_ARGS, RTT_SORT_ARGS,
     const float* lights, int n_lights, int blocks, int threads,
     void* stream) {
   const rtt::Scene scene = rtt::with_nee(
-      rtt::with_families(
-          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
-                          bg_r, bg_g, bg_b, exhaust_bg),
-          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      rtt::with_sort(
+          rtt::with_families(
+              rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp,
+                              grad_bg, bg_r, bg_g, bg_b, exhaust_bg),
+              rect, n_rect, cyl, n_cyl, tri, n_tri),
+          qmc, sbnd, tbnd, sph_rows, tri_rows),
       lights, n_lights, 0, 0);
   const size_t smem = smem_bytes(rows, n_slots, shared_acc);
   const bool fam = rtt::has_families(scene), nee = rtt::has_nee(scene);
@@ -169,10 +176,14 @@ extern "C" int queue_adjoint_launch(
         depth, written, max_depth, budget);
     return static_cast<int>(cudaGetLastError());
   };
-  return atlas ? launch(rtt::with_images(scene, atlas, img_th, img_tw,
-                                         uv_rect, uv_cyl, uv_tri),
-                        pick<true>(rows, fam, nee))
-               : launch(scene, pick<false>(rows, fam, nee));
+  if (atlas) {
+    const auto sc = rtt::with_images(scene, atlas, img_th, img_tw, uv_rect,
+                                     uv_cyl, uv_tri);
+    return qmc ? launch(sc, pick<true, true>(rows, fam, nee))
+               : launch(sc, pick<true, false>(rows, fam, nee));
+  }
+  return qmc ? launch(scene, pick<false, true>(rows, fam, nee))
+             : launch(scene, pick<false, false>(rows, fam, nee));
 }
 
 extern "C" const char* queue_adjoint_error_string(int code) {

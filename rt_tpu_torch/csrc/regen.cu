@@ -4,7 +4,8 @@
 // Replaces: rt_tpu/ops/pallas_mega.py::_regen_kernel (:2288-2458), the
 // Pallas TPU kernel launched by mega_regen (:3226, pallas_call :3276),
 // for spheres, rects, cylinders and triangles with solid, checker and
-// image textures (kImages), no NEE, sampler "rng".
+// image textures (kImages), no NEE, the samplers "rng" and "qmc" (also
+// for the camera rays), chunk culling.
 // Contract kept from it: each lane owns one pixel and owes the samples
 // [sample_base, sample_base + spp); it carries its sample and bounce
 // counters (samp, bvec) beside the 13-word ray state, and each of at
@@ -48,7 +49,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <bool kTail, bool kFamilies, bool kImages>
+template <bool kTail, bool kFamilies, bool kImages, bool kQmc>
 __global__ void __launch_bounds__(kMaxThreads)
 regen_kernel(rtt::SceneOf<kImages> scene, rtt::Camera cam,
              float* __restrict__ state,
@@ -73,8 +74,8 @@ regen_kernel(rtt::SceneOf<kImages> scene, rtt::Camera cam,
   if (init) {
     sm = sample_base;
     bv = 0;
-    rtt::camera_ray(cam, scene.seed, pix, x, y, static_cast<uint32_t>(sm),
-                    ro, rd);
+    rtt::camera_ray<kQmc>(cam, scene.seed, pix, x, y,
+                          static_cast<uint32_t>(sm), ro, rd);
     L = rtt::Lane{ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], 1.0f, 1.0f,
                   1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
   } else {
@@ -94,8 +95,8 @@ regen_kernel(rtt::SceneOf<kImages> scene, rtt::Camera cam,
     if (L.alive == 0.0f && sm + 1 < end) {  // (2) the next sample
       ++sm;
       bv = 0;
-      rtt::camera_ray(cam, scene.seed, pix, x, y, static_cast<uint32_t>(sm),
-                      ro, rd);
+      rtt::camera_ray<kQmc>(cam, scene.seed, pix, x, y,
+                            static_cast<uint32_t>(sm), ro, rd);
       L.ox = ro[0];
       L.oy = ro[1];
       L.oz = ro[2];
@@ -106,10 +107,11 @@ regen_kernel(rtt::SceneOf<kImages> scene, rtt::Camera cam,
       L.alive = 1.0f;
     }
     if (L.alive > 0.0f) {  // (3) one bounce
-      rtt::do_bounce<false, kTail, false, kFamilies, false, kImages>(
+      rtt::do_bounce<false, kTail, false, kFamilies, false, kImages, kQmc>(
           scene, L,
-          rtt::prefix(scene.seed, pix, static_cast<uint32_t>(sm),
-                      static_cast<uint32_t>(bv)),
+          rtt::draw_at(rtt::lane_key(scene.seed, pix,
+                                     static_cast<uint32_t>(sm), kQmc),
+                       static_cast<uint32_t>(sm), static_cast<uint32_t>(bv)),
           rtt::Adj{});
       ++bounces;
     }
@@ -127,7 +129,8 @@ regen_kernel(rtt::SceneOf<kImages> scene, rtt::Camera cam,
 // table [rows, 18] f32 (ops/mega_tables.py); rect, cyl, tri [n_*, 32]
 // f32 or null with 0 rows; atlas [Ni, img_th, img_tw, 3] f32 and
 // uv_rect, uv_cyl, uv_tri [n_*, 17] f32, or null (no image textures);
-// cam: 19 host floats
+// qmc, sbnd, tbnd, sph_rows, tri_rows as mega.cu's (qmc also for the
+// camera rays); cam: 19 host floats
 // (ops/camera.camera_vec), read before the launch; state [13, stride]
 // f32, of which lanes [0, n) advance in place; pixel, py [>= n] i32;
 // samp, bvec [>= n] i32, read unless init and written; depth [>= n] i32
@@ -142,11 +145,14 @@ extern "C" int mega_regen_launch(const float* table, int rows,
                                  int spp, int seg_iters,
                                  int max_depth, int init, int width,
                                  int height, int defocus, RTT_SCENE_ARGS,
+                                 RTT_SORT_ARGS,
                                  int* depth, int threads, void* stream) {
-  const rtt::Scene scene = rtt::with_families(
-      rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg, bg_r,
-                      bg_g, bg_b, exhaust_bg),
-      rect, n_rect, cyl, n_cyl, tri, n_tri);
+  const rtt::Scene scene = rtt::with_sort(
+      rtt::with_families(
+          rtt::make_scene(table, rows, seed, t_min, p_rr, rr_comp, grad_bg,
+                          bg_r, bg_g, bg_b, exhaust_bg),
+          rect, n_rect, cyl, n_cyl, tri, n_tri),
+      qmc, sbnd, tbnd, sph_rows, tri_rows);
   const rtt::Camera camera = rtt::make_camera(cam, width, height, defocus);
   const size_t smem = rtt::table_smem_bytes(rows);  // <= 40 KB
   const int blocks = (n + threads - 1) / threads;
@@ -157,18 +163,23 @@ extern "C" int mega_regen_launch(const float* table, int rows,
         spp, seg_iters, max_depth, init, depth);
     return static_cast<int>(cudaGetLastError());
   };
-  if (atlas)
-    return launch(
-        rtt::with_images(scene, atlas, img_th, img_tw, uv_rect, uv_cyl,
-                         uv_tri),
-        tail ? (fam ? regen_kernel<true, true, true>
-                    : regen_kernel<true, false, true>)
-             : (fam ? regen_kernel<false, true, true>
-                    : regen_kernel<false, false, true>));
-  return launch(scene, tail ? (fam ? regen_kernel<true, true, false>
-                                   : regen_kernel<true, false, false>)
-                            : (fam ? regen_kernel<false, true, false>
-                                   : regen_kernel<false, false, false>));
+  // the instantiation of the scene's tail, families, images and sampler
+  const auto pick = [&](auto img_tag, auto qmc_tag) {
+    constexpr bool kImg = decltype(img_tag)::value;
+    constexpr bool kQ = decltype(qmc_tag)::value;
+    return tail ? (fam ? regen_kernel<true, true, kImg, kQ>
+                       : regen_kernel<true, false, kImg, kQ>)
+                : (fam ? regen_kernel<false, true, kImg, kQ>
+                       : regen_kernel<false, false, kImg, kQ>);
+  };
+  if (atlas) {
+    const auto sc = rtt::with_images(scene, atlas, img_th, img_tw, uv_rect,
+                                     uv_cyl, uv_tri);
+    return qmc ? launch(sc, pick(std::true_type{}, std::true_type{}))
+               : launch(sc, pick(std::true_type{}, std::false_type{}));
+  }
+  return qmc ? launch(scene, pick(std::false_type{}, std::true_type{}))
+             : launch(scene, pick(std::false_type{}, std::false_type{}));
 }
 
 extern "C" const char* mega_regen_error_string(int code) {

@@ -4,8 +4,9 @@
 Scene parameters are tensors of `SceneTables`; a parameter set is a dict
 of field names, swapped in with `dataclasses.replace` (`apply_params`),
 so every step builds new tables and their packed form
-(`SceneTables.mega`) is never stale. Every random draw is a pure hash of
-its coordinates (ops/rng.py), so sampling is detached: gradients flow
+(`SceneTables.mega`, `mega_culled`) is never stale. Every random draw is
+a pure hash of its coordinates (ops/rng.py, or ops/qmc.py under
+cfg.sampler "qmc"), so sampling is detached: gradients flow
 through the radiometric terms only, as in the reference.
 
 The estimators of the port:

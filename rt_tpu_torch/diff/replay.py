@@ -42,7 +42,8 @@ so mis or nee_glossy raise ValueError, as the reference's replay does
 
 Scope: REPLAY_FIELDS (tex_color, tex_color2, mat_albedo, background,
 images) and GEOM_FIELDS by geom_spec, spheres, rects, cylinders and
-triangles with solid / checker / image textures, NEE, sampler "rng". A
+triangles with solid / checker / image textures, NEE, the samplers
+"rng" and "qmc" (rng.resolve), chunk culling on the kernels. A
 family row's cotangents land in its gradient slot (its texture row, or
 its material's), so a rect light's emission trains its tex_color row.
 A texel-sampled hit's, and an image-textured light's, land in the
@@ -201,6 +202,7 @@ class ReplayRender:
             tans[f][(j,) + idx] = 1.0
         s = int(sample)
         pixel, seed = self.pixel, self.seed
+        smp = rng.resolve(cfg.sampler)
         ro, rd = self.rays(tbl, s)
         if self.geom_tape:
             codes = capture_tape(tbl, cfg, ro, rd, pixel, s, seed)
@@ -220,10 +222,10 @@ class ReplayRender:
                 break
             survive = torch.ones_like(alive)
             if cfg.p_rr > 0.0:
-                survive = rng.uniform(seed, pixel, s, i, rng.RR) <= cfg.p_rr
+                survive = smp.uniform(seed, pixel, s, i, rng.RR) <= cfg.p_rr
             live = alive & survive
-            ball = rng.in_unit_ball(seed, pixel, s, i)
-            refl_u = rng.uniform(seed, pixel, s, i, rng.DIEL_REFL)
+            ball = smp.in_unit_ball(seed, pixel, s, i)
+            refl_u = smp.uniform(seed, pixel, s, i, rng.DIEL_REFL)
             code = codes[i] if self.geom_tape else None
 
             def f(o, d, P, C, pp, code=code, live=live, ball=ball,

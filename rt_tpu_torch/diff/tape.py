@@ -48,7 +48,9 @@ geometry differentiate, the shadow test is a recomputed any-hit and
 carries no gradient (rt_tpu/diff/tape.py:228-337).
 
 Scope: spheres, rects, cylinders and triangles with solid / checker /
-image textures, NEE / MIS / glossy, sampler "rng", and every field of
+image textures, NEE / MIS / glossy, the samplers "rng" and "qmc"
+(rng.resolve; the capture's codes name SceneTables rows under chunk
+culling too), and every field of
 TAPE_FIELDS (the reference's names). The replay's texel gather is
 geom.take_rows over the flattened atlas (ops/materials.py), so autograd
 scatter-adds the "images" gradient with index_add_; the capture's codes
@@ -149,6 +151,7 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
         if engine not in ("plain", "pallas"):
             raise ValueError(f"capture engine must be 'mega', 'plain' or "
                              f"'pallas'; got {engine!r}")
+        smp = rng.resolve(cfg.sampler)
         o, d = ro.detach(), rd.detach()
         b = o.shape[0]
         alive = torch.ones(b, dtype=torch.bool, device=o.device)
@@ -159,11 +162,11 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
                 break
             survive = torch.ones_like(alive)
             if cfg.p_rr > 0.0:
-                survive = rng.uniform(seed, pixel, sample, i,
+                survive = smp.uniform(seed, pixel, sample, i,
                                       rng.RR) <= cfg.p_rr
             hit = intersect(tables, o, d, engine=engine)
-            ball = rng.in_unit_ball(seed, pixel, sample, i)
-            refl_u = rng.uniform(seed, pixel, sample, i, rng.DIEL_REFL)
+            ball = smp.in_unit_ball(seed, pixel, sample, i)
+            refl_u = smp.uniform(seed, pixel, sample, i, rng.DIEL_REFL)
             sc, _ = materials.shade(tables, hit.mat, d, hit.normal,
                                     hit.front_face, hit.u, hit.v, hit.p,
                                     ball, refl_u)
@@ -220,14 +223,15 @@ def _tape_bounce(tables: SceneTables, cfg: RenderConfig, st, code, pixel,
     initial_prev_diff), unused without light sampling."""
     o, d, tp, rgb, alive, prev_diff = st
     nee = nee_on(cfg, tables)
+    smp = rng.resolve(cfg.sampler)
     survive = torch.ones_like(alive)
     if cfg.p_rr > 0.0:
-        survive = rng.uniform(seed, pixel, sample, bounce, rng.RR) <= cfg.p_rr
+        survive = smp.uniform(seed, pixel, sample, bounce, rng.RR) <= cfg.p_rr
 
     hit_mask = code >= 0
     hit = _attributes_for_tape(tables, o, d, code)
-    ball = rng.in_unit_ball(seed, pixel, sample, bounce)
-    refl_u = rng.uniform(seed, pixel, sample, bounce, rng.DIEL_REFL)
+    ball = smp.in_unit_ball(seed, pixel, sample, bounce)
+    refl_u = smp.uniform(seed, pixel, sample, bounce, rng.DIEL_REFL)
     sc, em = materials.shade(tables, hit.mat, d, hit.normal, hit.front_face,
                              hit.u, hit.v, hit.p, ball, refl_u)
     bg = background_color(tables, cfg, d)

@@ -4,7 +4,7 @@ path-replay gradient for one sample (the counterpart of
 rt_tpu/ops/pallas_mega.py `do_bounce`'s adjoint block :1700-1800 and the
 `_adjoint_kernel` epilogue :2255-2285, for spheres, rects, cylinders
 and triangles with solid, checker and image textures, NEE without MIS
-or glossy, sampler "rng").
+or glossy, the samplers "rng" and "qmc", chunk culling).
 
 The replay runs `mega_plain.bounce_plain`, the forward's own bounce, so
 C_after, the attenuation and P are the forward's bits, and adds each
@@ -47,6 +47,7 @@ from typing import Optional
 import torch
 
 from rt_tpu_torch.ops import mega_plain as mp
+from rt_tpu_torch.ops.mega_tables import scene_for
 
 ACC_ROWS = 8
 BG_ROW = 6
@@ -143,7 +144,7 @@ def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     gcot: its cotangent [B,3]. stats, when given, gains "ray_bounces".
 
     Pre-condition: mega_tables.mega_supported(tables)."""
-    ms = tables.mega
+    ms = scene_for(tables, cfg)
     kw = mp.trace_options(tables, cfg)
     nee = mp.nee_options(tables, cfg, adjoint=True)
     dev = ro.device

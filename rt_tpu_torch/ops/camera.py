@@ -91,13 +91,12 @@ def generate_rays(cam: CameraDef, width, height, px, py, sample_idx, seed,
                   enable_defocus: bool, sampler: str = "rng"):
     """px, py: [B] integer pixel coords (x right, y up from bottom);
     sample_idx: one sample index, or one per lane ([B] integer tensor).
-    Returns (ro [B,3], rd [B,3]) on px's device."""
-    if sampler != "rng":
-        raise NotImplementedError(
-            f"sampler={sampler!r}: QMC is not ported yet (ROADMAP Queue A-6)")
+    sampler: "rng" or "qmc" (rng.resolve). Returns (ro [B,3], rd [B,3])
+    on px's device."""
+    smp = rng.resolve(sampler)
     pixel = py.to(torch.int64) * width + px.to(torch.int64)
-    ru = rng.uniform(seed, pixel, sample_idx, 0, rng.PIXEL_U)
-    rv = rng.uniform(seed, pixel, sample_idx, 0, rng.PIXEL_V)
+    ru = smp.uniform(seed, pixel, sample_idx, 0, rng.PIXEL_U)
+    rv = smp.uniform(seed, pixel, sample_idx, 0, rng.PIXEL_V)
     # ((w-1) or 1): a 1-pixel-wide/tall frame would divide by zero. The
     # divisors are device tensors: torch divides a CUDA tensor by a
     # Python number as a product with its float32 reciprocal, which
@@ -106,7 +105,7 @@ def generate_rays(cam: CameraDef, width, height, px, py, sample_idx, seed,
     t = (py.to(torch.float32) + rv) / _divisor(height, px.device)
 
     if enable_defocus:
-        disk = rng.in_unit_disk(seed, pixel, sample_idx, 0)
+        disk = smp.in_unit_disk(seed, pixel, sample_idx, 0)
         rd_lens = cam.lens_radius * disk
         offset = (cam.u[None, :] * rd_lens[:, :1]
                   + cam.v[None, :] * rd_lens[:, 1:2])

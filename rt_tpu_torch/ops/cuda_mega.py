@@ -3,7 +3,9 @@ PyTorch version, and the segmented trace around them (the counterpart of
 rt_tpu/ops/pallas_mega.py `_mega_kernel` :1899, `mega_segment` :2460,
 `_compact` :2716 and `mega_trace` :2934, for spheres, rects, cylinders
 and triangles with solid, checker and image textures, NEE / MIS / glossy
-light sampling, sampler "rng").
+light sampling, the samplers "rng" and "qmc" (`qmc`), chunk culling
+(`cull`, mega_tables.Cull: the sorted tables' chunk boxes, which the
+launchers take with the sorted sphere table, scene_for)).
 
 `mega_segment` launches csrc/mega.cu (built by nvcc at first use,
 ops/cuda_build.py) for CUDA tensors and raises if it cannot; for CPU
@@ -25,8 +27,10 @@ atlas and the UV tables. The state is updated in place;
 `depth`, when given, gains each lane's number of bounces.
 
 `mega_trace` runs the reference's segment schedule (`compact_every`,
-`compact_schedule`) with a stable group partition between segments
-(groups of `compact_group` lanes with any live lane first), traces only
+`compact_schedule`) with a stable group permutation between segments
+(groups of `compact_group` lanes with any live lane first; with
+`compact_sort` "spatial" ordered by direction octant and Morton cell,
+group_order), traces only
 the live prefix of the next segment (`compact_shrink`), and undoes the
 composed permutation once at the end. Per-lane radiance does not depend on the
 schedule (the tests hold it bit-equal on the CPU).
@@ -68,9 +72,10 @@ from typing import Optional
 
 import torch
 
-from rt_tpu_torch.ops import adjoint_plain, cuda_build
+from rt_tpu_torch.ops import adjoint_plain, cuda_build, mega_tables
 from rt_tpu_torch.ops import mega_plain as mp
-from rt_tpu_torch.ops.mega_tables import F_COLS, NL_COLS, S_COLS, U_COLS
+from rt_tpu_torch.ops.mega_tables import (F_COLS, NL_COLS, S_COLS,
+                                          SPH_CHUNK, U_COLS, scene_for)
 
 THREADS = 256
 # the most table rows the int32 offsets of the kernels address
@@ -105,6 +110,9 @@ NEE_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 # the atlas, its height and width and the UV tables (RTT_IMG_ARGS)
 IMG_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p]
+# the sampler flag, the chunk boxes and the SceneTables rows of the
+# sorted families (RTT_SORT_ARGS)
+SORT_TYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4
 
 
 def family_args(fam, device):
@@ -145,6 +153,33 @@ def image_args(img, fam, device):
     return tuple(out)
 
 
+def sort_args(qmc, cull, tab, fam, device):
+    """The sampler flag and the chunk boxes (mega_tables.Cull, or None)
+    as the C launchers take them: (qmc, sphere boxes, triangle boxes,
+    sphere rows, triangle rows), a pointer None where that family is not
+    sorted. The boxes cover the sphere table `tab` and the triangle table
+    of `fam` in chunks of SPH_CHUNK rows."""
+    if cull is None:
+        return (int(bool(qmc)), None, None, None, None)
+    cull.check(tab)
+    out = [int(bool(qmc))]
+    n_rows = (tab.shape[0], fam.tri.shape[0] if fam is not None else 0)
+    for name, boxes, n in (("sph", cull.sph, n_rows[0]),
+                           ("tri", cull.tri, n_rows[1])):
+        k = -(-n // SPH_CHUNK)
+        if boxes is not None:
+            cuda_build.check_tensor(f"cull.{name}", boxes, torch.float32,
+                                    (k, 8), device)
+        out.append(None if boxes is None else boxes.data_ptr())
+    for name, rows, n in (("sph_rows", cull.sph_rows, n_rows[0]),
+                          ("tri_rows", cull.tri_rows, n_rows[1])):
+        if rows is not None:
+            cuda_build.check_tensor(f"cull.{name}", rows, torch.int32, (n,),
+                                    device)
+        out.append(None if rows is None else rows.data_ptr())
+    return tuple(out)
+
+
 def nee_args(nee, device):
     """The light table and flags (mega_plain.Nee, or None) as the C
     launchers take them: (pointer or None, n_lights, mis, glossy)."""
@@ -171,6 +206,7 @@ def _library():
         vp, vp, ci,                   # pixel, sample (or null), sample
         ci, ci,                       # start_bounce, max_depth
         *SCALAR_TYPES,
+        *SORT_TYPES,                  # qmc, boxes, rows (or null)
         *NEE_TYPES,                   # lights, n_lights, mis, glossy
         vp, ci, vp]                   # depth (or null), threads, stream
     lib.mega_segment_launch.restype = ci
@@ -199,7 +235,7 @@ def lane_ints(name, x, n, device):
 def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
                        max_depth, *, n=None, t_min=1e-3, p_rr=0.0,
                        grad_bg=False, bg, exhaust_bg=False, depth=None,
-                       fam=None, nee=None, img=None):
+                       fam=None, nee=None, img=None, qmc=False, cull=None):
     """The plain version of one segment (see the module doc)."""
     n = state.shape[1] if n is None else n
     sub = state[:, :n]
@@ -212,7 +248,7 @@ def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
         sub[:, idx] = mp.do_bounce_plain(
             tab, sub[:, idx], pixel[idx], samp, start_bounce + b, seed,
             t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam,
-            nee=nee, img=img)
+            nee=nee, img=img, qmc=qmc, cull=cull)
         if depth is not None:
             depth[idx] += 1
     if exhaust_bg:
@@ -224,7 +260,7 @@ def mega_segment_plain(tab, state, pixel, sample, seed, start_bounce,
 def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
                  *, n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
                  exhaust_bg=False, depth=None, fam=None, nee=None, img=None,
-                 threads=THREADS):
+                 qmc=False, cull=None, threads=THREADS):
     """One segment (see the module doc): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     dev = state.device
@@ -232,7 +268,8 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
         return mega_segment_plain(
             tab, state, pixel, sample, seed, start_bounce, max_depth, n=n,
             t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg,
-            exhaust_bg=exhaust_bg, depth=depth, fam=fam, nee=nee, img=img)
+            exhaust_bg=exhaust_bg, depth=depth, fam=fam, nee=nee, img=img,
+            qmc=qmc, cull=cull)
     if dev.type != "cuda":
         raise ValueError(f"mega_segment: unsupported device {dev}")
     if state.dim() != 2 or state.shape[0] != mp.NSTATE:
@@ -245,6 +282,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
     fam_args = family_args(fam, dev)
     img_args = image_args(img, fam, dev)
     light_args = nee_args(nee, dev)
+    cull_args = sort_args(qmc, cull, tab, fam, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
     pix_ptr, _ = lane_ints("pixel", pixel, n, dev)
@@ -265,7 +303,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
             stride, n,
             pix_ptr, samp_ptr, samp, int(start_bounce), int(max_depth),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            *light_args, depth_ptr, int(threads), stream)
+            *cull_args, *light_args, depth_ptr, int(threads), stream)
     if rc != 0:
         msg = lib.mega_error_string(rc).decode()
         raise RuntimeError(f"mega_segment launch failed: {msg} ({rc})")
@@ -334,16 +372,53 @@ def _padded_lanes(state, pixel, sample_idx, bp):
     return state, pix, (samp if samp is not None else int(sample_idx))
 
 
-def _segmented(state, ints, segs, group, shrink, run, pending=None):
+def group_order(state, live, group: int, sort: str = "dead"):
+    """The stable order of the groups of `group` lanes of a segmented
+    trace (`_compact` :2745-2777): groups with a live lane ([lanes]
+    bool) first; with sort "spatial" those ordered by the direction
+    octant of their live lanes' mean direction, then by the Morton cell
+    (18 bits) of their mean origin in the live groups' bounding box, so
+    that a block of lanes holds rays that meet the same chunks."""
+    g = live.shape[0] // group
+    alive_g = live.view(g, group).any(-1)
+    if sort != "spatial":
+        return torch.argsort((~alive_g).to(torch.int8), stable=True)
+    af = live.to(torch.float32).view(g, group)
+    cnt = torch.clamp(af.sum(-1), min=1.0)
+
+    def gmean(x):
+        return (x.reshape(g, group) * af).sum(-1) / cnt
+
+    mx, my, mz = (gmean(state[k]) for k in range(3))
+    ddx, ddy, ddz = (gmean(state[k]) for k in range(3, 6))
+    inf = torch.full((), float("inf"), device=state.device)
+
+    def q(v):
+        lo = torch.where(alive_g, v, inf).min()
+        hi = torch.where(alive_g, v, -inf).max()
+        span = torch.where(hi > lo, hi - lo, torch.ones_like(lo))
+        return torch.clamp((v - lo) / span * 255.0, 0.0, 255.0).to(
+            torch.int64)
+
+    morton = mega_tables.morton3(q(mx), q(my), q(mz)) >> 6
+    octant = ((ddx > 0).to(torch.int64) * 4 + (ddy > 0).to(torch.int64) * 2
+              + (ddz > 0).to(torch.int64))
+    key = torch.where(alive_g, octant * (1 << 18) + morton, 1 << 24)
+    return torch.argsort(key, stable=True)
+
+
+def _segmented(state, ints, segs, group, shrink, run, pending=None,
+               sort: str = "dead"):
     """Run the segments `segs` over the lanes: run(state, ints, start,
     seg, n_live, last) advances lanes [0, n_live) of state in place,
     start being the sum of the earlier segments. ints: per-lane tensors
     that move with their lanes (pixel ids, a per-lane sample, depth, ...;
     an entry that is not a tensor of one value per lane stays as it
     is). Between segments, whole groups of `group` lanes are
-    partitioned stably, groups with a pending lane first (pending(state,
-    ints) -> [lanes] bool; by default the alive lanes), and with
-    `shrink` only the pending prefix is traced next.
+    permuted stably by group_order (cfg.compact_sort), groups with a
+    pending lane first (pending(state, ints) -> [lanes] bool; by default
+    the alive lanes), and with `shrink` only the pending prefix is traced
+    next.
 
     Returns (state, ints, orig_g, launches), state and ints in the last
     partition's lane order: orig_g [groups] is each group's original
@@ -365,12 +440,10 @@ def _segmented(state, ints, segs, group, shrink, run, pending=None):
             break
         live = (state[mp.ALIVE] > 0.0 if pending is None
                 else pending(state, ints))
-        alive_g = live.view(g, group).any(-1)
-        live_groups = int(alive_g.sum())
+        live_groups = int(live.view(g, group).any(-1).sum())
         if live_groups == 0:
             break
-        # stable partition of whole groups, any-pending groups first
-        perm = torch.argsort((~alive_g).to(torch.int8), stable=True)
+        perm = group_order(state, live, group, sort)
         state = state.view(rows, g, group)[:, perm].reshape(rows, bp)
         ints = [x.view(g, group)[perm].reshape(bp)
                 if isinstance(x, torch.Tensor) and x.dim() > 0 else x
@@ -405,7 +478,7 @@ def mega_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     Pre-condition: mega_tables.mega_supported(tables)."""
     dev = ro.device
     b = ro.shape[0]
-    tab = tables.mega.table
+    tab = scene_for(tables, cfg).table
     segs = schedule(cfg)
     bp = _padded_size(b, segs, cfg)
     # pad lanes enter dead: they trace nothing and are cut at the end
@@ -425,7 +498,7 @@ def mega_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
 
     state, (_, _, depth), orig_g, launches = _segmented(
         state, (pix, sample, depth), segs, cfg.compact_group,
-        cfg.compact_shrink, run)
+        cfg.compact_shrink, run, sort=cfg.compact_sort)
     record_stats(stats, launches, depth)
     return _radiance(state, orig_g, b)
 
@@ -447,7 +520,7 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
                          max_depth, grad, *, n=None, t_min=1e-3, p_rr=0.0,
                          grad_bg=False, bg, exhaust_bg=False, depth=None,
                          fam=None, nee=None, img=None, gimg=None,
-                         threads=THREADS):
+                         qmc=False, cull=None, threads=THREADS):
     """One segment of the adjoint megakernel B5 (csrc/mega_adjoint.cu)
     on CUDA tensors: state [19, stride] (the forward's 13 rows, then L
     and g), lanes [0, n) replayed in place; grad [8, n_slots] is added
@@ -455,7 +528,8 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
     (acc_fits_smem); fam, img: the family tables and the images, as
     mega_segment, and with img the atlas gradient gimg [Ni * TH * TW,
     3], added to; nee: the light table (mega_plain.Nee without MIS or
-    glossy), or None."""
+    glossy), or None; qmc, cull: the sampler and the chunk boxes, as
+    mega_segment."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"mega_adjoint_segment: unsupported device {dev}")
@@ -474,6 +548,7 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
         raise ValueError("mega_adjoint_segment: the adjoint takes NEE "
                          "without mis or nee_glossy")
     light_args = nee_args(nee, dev)[:2]
+    cull_args = sort_args(qmc, cull, tab, fam, dev)
     n_slots = grad.shape[1] if grad.dim() == 2 else 0
     cuda_build.check_tensor("grad", grad, torch.float32,
                             (adjoint_plain.ACC_ROWS, n_slots), dev)
@@ -496,7 +571,7 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
             state.data_ptr(), stride, n,
             pix_ptr, samp_ptr, samp, int(start_bounce), int(max_depth),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            *light_args, grad.data_ptr(), n_slots,
+            *cull_args, *light_args, grad.data_ptr(), n_slots,
             int(acc_fits_smem(n_slots)), gimg_ptr, depth_ptr, int(threads),
             stream)
     if rc != 0:
@@ -540,6 +615,7 @@ def _adjoint_library():
         vp, vp, ci,                   # pixel, sample (or null), sample
         ci, ci,                       # start_bounce, max_depth
         *SCALAR_TYPES,
+        *SORT_TYPES,                  # qmc, boxes, rows (or null)
         vp, ci,                       # lights (or null), n_lights
         vp, ci, ci,                   # grad, n_slots, shared_acc
         vp,                           # gimg (or null)
@@ -573,7 +649,7 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
             tables, cfg, ro, rd, pixel, sample_idx, seed, L, gcot,
             depth_bwd, exhaust, stats=stats)
     dev = ro.device
-    ms = tables.mega
+    ms = scene_for(tables, cfg)
     kw = mp.trace_options(tables, cfg)
     nee = mp.nee_options(tables, cfg, adjoint=True)
     segs = schedule(cfg.replace(max_depth=int(depth_bwd)))
@@ -596,7 +672,7 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
 
     _, (_, _, depth), _, launches = _segmented(
         state, (pix, sample, depth), segs, cfg.compact_group,
-        cfg.compact_shrink, run)
+        cfg.compact_shrink, run, sort=cfg.compact_sort)
     record_stats(stats, launches, depth)
     return adjoint_plain.split_grads(grad, ms, kw["grad_bg"], gimg)
 
@@ -611,6 +687,7 @@ def _capture_library():
         vp, ctypes.c_longlong, ci,    # state, stride, n
         vp, ci, ci,                   # pixel, sample, max_depth
         *SCALAR_TYPES,
+        *SORT_TYPES,                  # qmc, boxes, rows (or null)
         vp, vp, ci, vp]               # codes, death, threads, stream
     lib.capture_launch.restype = ci
     lib.capture_error_string.argtypes = [ci]
@@ -633,8 +710,9 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     Every family's table must hold fewer than MAX_CODE_ROWS rows, the
     rows a code holds. Pre-condition: mega_tables.mega_supported(tables)."""
     dev = ro.device
-    tab = tables.mega.table
+    tab = scene_for(tables, cfg).table
     kw = mp.trace_options(tables, cfg)
+    kw.pop("img")   # no code or death depends on a texel
     sizes = [tab.shape[0]] + ([t.shape[0] for t in kw["fam"]]
                               if kw["fam"] is not None else [])
     if max(sizes) > MAX_CODE_ROWS:
@@ -653,6 +731,7 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
         raise ValueError(f"mega_capture: unsupported device {dev}")
     check_table(tab, dev)
     fam_args = family_args(kw["fam"], dev)
+    cull_args = sort_args(kw["qmc"], kw["cull"], tab, kw["fam"], dev)
     pix = pixel.to(device=dev, dtype=torch.int32).reshape(-1).contiguous()
     pix_ptr, _ = lane_ints("pixel", pix, b, dev)
     codes = torch.empty((max_depth, b), dtype=torch.int32, device=dev)
@@ -668,7 +747,8 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
             sample, max_depth,
             *_scalars(seed, kw["t_min"], kw["p_rr"], kw["grad_bg"], kw["bg"],
                       False),
-            codes.data_ptr(), death.data_ptr(), int(threads), stream)
+            *cull_args, codes.data_ptr(), death.data_ptr(), int(threads),
+            stream)
     if rc != 0:
         msg = lib.capture_error_string(rc).decode()
         raise RuntimeError(f"mega_capture launch failed: {msg} ({rc})")
@@ -694,6 +774,7 @@ def _regen_library():
                                       # max_depth, init
         ci, ci, ci,                   # width, height, defocus
         *SCALAR_TYPES,
+        *SORT_TYPES,                  # qmc, boxes, rows (or null)
         vp, ci, vp]                   # depth (or null), threads, stream
     lib.mega_regen_launch.restype = ci
     lib.mega_regen_error_string.argtypes = [ci]
@@ -704,19 +785,20 @@ def _regen_library():
 def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
                seg_iters, *, max_depth, spp, init, width, height, defocus,
                n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-               exhaust_bg=False, depth=None, fam=None, img=None,
-               threads=THREADS):
+               exhaust_bg=False, depth=None, fam=None, img=None, qmc=False,
+               cull=None, threads=THREADS):
     """One segment of the regeneration kernel B7 (the contract of
     mega_plain.regen_plain): csrc/regen.cu for CUDA tensors, the plain
     version for CPU tensors. state [13, B] f32, pixel, py, samp, bvec
-    (and depth) [B] int32; lanes [0, n) advance in place; fam, img: the
-    family tables and the images, as mega_segment. Returns (state, samp,
+    (and depth) [B] int32; lanes [0, n) advance in place; fam, img, qmc,
+    cull: the family tables, the images, the sampler (also of the camera
+    rays) and the chunk boxes, as mega_segment. Returns (state, samp,
     bvec)."""
     dev = state.device
     opts = dict(max_depth=max_depth, spp=spp, init=init, width=width,
                 height=height, defocus=defocus, n=n, t_min=t_min, p_rr=p_rr,
                 grad_bg=grad_bg, bg=bg, exhaust_bg=exhaust_bg, depth=depth,
-                fam=fam, img=img)
+                fam=fam, img=img, qmc=qmc, cull=cull)
     if dev.type == "cpu":
         return mp.regen_plain(tab, cam, state, pixel, py, samp, bvec,
                               sample_base, seed, seg_iters, **opts)
@@ -731,6 +813,7 @@ def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
     check_table(tab, dev)
     fam_args = family_args(fam, dev)
     img_args = image_args(img, fam, dev)
+    cull_args = sort_args(qmc, cull, tab, fam, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
     if len(cam) != 19:
@@ -759,7 +842,7 @@ def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
             int(max_depth), int(bool(init)), int(width), int(height),
             int(bool(defocus)),
             *_scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            depth_ptr, int(threads), stream)
+            *cull_args, depth_ptr, int(threads), stream)
     if rc != 0:
         msg = lib.mega_regen_error_string(rc).decode()
         raise RuntimeError(f"mega_regen launch failed: {msg} ({rc})")
@@ -816,7 +899,7 @@ def mega_trace_regen(tables, cfg, pixel, py, seed, spp, sample_base=0, *,
 
     Pre-condition: mega_tables.mega_supported(tables)."""
     dev = pixel.device
-    ms = tables.mega
+    ms = scene_for(tables, cfg)
     b = pixel.shape[0]
     shrink = bool(cfg.regen_shrink)
     segs = regen_schedule(int(spp), int(cfg.max_depth),
@@ -852,6 +935,6 @@ def mega_trace_regen(tables, cfg, pixel, py, seed, spp, sample_base=0, *,
 
     state, (_, _, _, _, depth), orig_g, launches = _segmented(
         state, (pix, pyv, samp, bvec, depth), segs, group, shrink, run,
-        pending)
+        pending, sort=cfg.compact_sort)
     record_stats(stats, launches, depth)
     return _radiance(state, orig_g, b)

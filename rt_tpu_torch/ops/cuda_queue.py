@@ -3,7 +3,8 @@ loop that relaunches it, and its plain PyTorch emulation (the
 counterpart of rt_tpu/ops/pallas_queue.py `_queue_kernel` :122,
 `_pack_into` :75, `queue_launch` :310 and `queue_trace` :404, for
 spheres, rects, cylinders and triangles with solid, checker and image
-textures, NEE / MIS / glossy light sampling, sampler "rng").
+textures, NEE / MIS / glossy light sampling, the samplers "rng" and
+"qmc", chunk culling).
 
 `queue_trace` runs csrc/queue.cu (built by nvcc at first use,
 ops/cuda_build.py) for CUDA tensors and raises if it cannot; for CPU
@@ -45,6 +46,7 @@ import torch
 from rt_tpu_torch.ops import adjoint_plain, cuda_build
 from rt_tpu_torch.ops import cuda_mega
 from rt_tpu_torch.ops import mega_plain as mp
+from rt_tpu_torch.ops.mega_tables import scene_for
 
 POOL_I = 4  # int32 pool rows: slot (-1 empty), pixel, sample, bounce
 # pool lanes of the plain emulation unless the caller sets them (the
@@ -56,7 +58,7 @@ PLAIN_POOL_LANES = 1 << 16
 def _library():
     lib = cuda_build.load("queue")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.queue_grid_blocks.argtypes = [ci, ci, ci, ci, ci]
+    lib.queue_grid_blocks.argtypes = [ci, ci, ci, ci, ci, ci]
     lib.queue_grid_blocks.restype = ci
     lib.queue_launch.argtypes = [
         vp, ci,                       # table, rows
@@ -67,6 +69,7 @@ def _library():
         vp, vp, vp,                   # out, depth, written
         ci, ci,                       # max_depth, budget
         *cuda_mega.SCALAR_TYPES,
+        *cuda_mega.SORT_TYPES,        # qmc, boxes, rows (or null)
         *cuda_mega.NEE_TYPES,         # lights, n_lights, mis, glossy
         ci, ci, vp]                   # blocks, threads, stream
     lib.queue_launch.restype = ci
@@ -77,25 +80,25 @@ def _library():
 
 def grid_blocks(rows: int, device, threads: int = cuda_mega.THREADS, *,
                 families: bool = False, nee: bool = False,
-                images: bool = False) -> int:
+                images: bool = False, qmc: bool = False) -> int:
     """Blocks the card holds at once for a table of `rows` sphere rows,
     with family rows or without, with light sampling or without, with
-    image textures or without: the persistent grid (pool lanes = blocks
-    * threads), queried from CUDA once per card, row count,
-    instantiation and block size."""
+    image textures or without, under either sampler: the persistent grid
+    (pool lanes = blocks * threads), queried from CUDA once per card,
+    row count, instantiation and block size."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return _grid_blocks(int(rows), bool(families), bool(nee), bool(images),
-                        index, int(threads))
+                        bool(qmc), index, int(threads))
 
 
 @functools.lru_cache(maxsize=None)
 def _grid_blocks(rows: int, families: bool, nee: bool, images: bool,
-                 index: int, threads: int) -> int:
+                 qmc: bool, index: int, threads: int) -> int:
     lib = _library()
     with torch.cuda.device(index):
         blocks = lib.queue_grid_blocks(rows, int(families), int(nee),
-                                       int(images), threads)
+                                       int(images), int(qmc), threads)
     if blocks <= 0:
         msg = lib.queue_error_string(-blocks).decode() if blocks else \
             "no block fits on a multiprocessor"
@@ -106,11 +109,12 @@ def _grid_blocks(rows: int, families: bool, nee: bool, images: bool,
 def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
                  *, seed, max_depth, budget, t_min=1e-3, p_rr=0.0,
                  grad_bg=False, bg, exhaust_bg=False, depth=None,
-                 written=None, fam=None, nee=None, img=None, blocks,
-                 threads=cuda_mega.THREADS):
+                 written=None, fam=None, nee=None, img=None, qmc=False,
+                 cull=None, blocks, threads=cuda_mega.THREADS):
     """One launch of the queue kernel on CUDA tensors (see queue.cu for
-    the operands; fam, nee, img: the family tables, the light sampler and
-    the images, as cuda_mega.mega_segment).
+    the operands; fam, nee, img, qmc, cull: the family tables, the light
+    sampler, the images, the sampler and the chunk boxes, as
+    cuda_mega.mega_segment).
     pool_f [13, blocks*threads], pool_i [4, blocks*threads] and counters
     [2] carry the queue from one launch to the next."""
     dev = ro.device
@@ -123,6 +127,7 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
     fam_args = cuda_mega.family_args(fam, dev)
     img_args = cuda_mega.image_args(img, fam, dev)
     light_args = cuda_mega.nee_args(nee, dev)
+    cull_args = cuda_mega.sort_args(qmc, cull, tab, fam, dev)
     chk("ro", ro, torch.float32, (b, 3), dev)
     chk("rd", rd, torch.float32, (b, 3), dev)
     chk("pixel", pixel, torch.int32, (b,), dev)
@@ -146,7 +151,7 @@ def queue_launch(tab, ro, rd, pixel, sample, pool_f, pool_i, counters, out,
             pool_i.data_ptr(), counters.data_ptr(), out.data_ptr(), *ptrs,
             int(max_depth), int(budget),
             *cuda_mega._scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            *light_args, int(blocks), int(threads), stream)
+            *cull_args, *light_args, int(blocks), int(threads), stream)
     if rc != 0:
         msg = lib.queue_error_string(rc).decode()
         raise RuntimeError(f"queue_launch failed: {msg} ({rc})")
@@ -162,7 +167,7 @@ def _operands(tables, cfg, ro, pixel, sample_idx, adjoint=False):
     dev = ro.device
     pix = pixel.to(device=dev, dtype=torch.int32).reshape(-1).contiguous()
     sample = cuda_mega.lane_vector(sample_idx, dev)
-    return (tables.mega.table, pix,
+    return (scene_for(tables, cfg).table, pix,
             int(sample_idx) if sample is None else sample,
             dict(mp.trace_options(tables, cfg),
                  nee=mp.nee_options(tables, cfg, adjoint=adjoint)))
@@ -194,7 +199,7 @@ def queue_trace(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     ro, rd = ro.contiguous(), rd.contiguous()
     blocks = grid_blocks(tab.shape[0], dev, families=kw["fam"] is not None,
                          nee=kw["nee"] is not None,
-                         images=kw["img"] is not None)
+                         images=kw["img"] is not None, qmc=kw["qmc"])
     if pool_lanes is not None:
         blocks = min(blocks, max(1, -(-int(pool_lanes) // cuda_mega.THREADS)))
     lanes = blocks * cuda_mega.THREADS
@@ -299,7 +304,7 @@ def queue_trace_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
 def _adjoint_library():
     lib = cuda_build.load("queue_adjoint")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.queue_adjoint_grid_blocks.argtypes = [ci, ci, ci, ci, ci, ci, ci]
+    lib.queue_adjoint_grid_blocks.argtypes = [ci] * 8
     lib.queue_adjoint_grid_blocks.restype = ci
     lib.queue_adjoint_launch.argtypes = [
         vp, ci,                       # table, rows
@@ -313,6 +318,7 @@ def _adjoint_library():
         vp, vp,                       # depth, written
         ci, ci,                       # max_depth, budget
         *cuda_mega.SCALAR_TYPES,
+        *cuda_mega.SORT_TYPES,        # qmc, boxes, rows (or null)
         vp, ci,                       # lights (or null), n_lights
         ci, ci, vp]                   # blocks, threads, stream
     lib.queue_adjoint_launch.restype = ci
@@ -324,27 +330,27 @@ def _adjoint_library():
 def adjoint_grid_blocks(rows: int, n_slots: int, device,
                         threads: int = cuda_mega.THREADS, *,
                         families: bool = False, nee: bool = False,
-                        images: bool = False) -> int:
+                        images: bool = False, qmc: bool = False) -> int:
     """The persistent grid of the queue adjoint (blocks the card holds at
     once with its shared memory: the staged table, and the accumulators
     when cuda_mega.acc_fits_smem; and with the registers of the
     instantiation with family rows or without, with NEE or without, with
-    image textures or without), once per card, shape and
-    instantiation."""
+    image textures or without, under either sampler), once per card,
+    shape and instantiation."""
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return _adjoint_grid_blocks(int(rows), bool(families), bool(nee),
-                                bool(images), int(n_slots), index,
+                                bool(images), bool(qmc), int(n_slots), index,
                                 int(threads))
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_grid_blocks(rows, families, nee, images, n_slots, index,
+def _adjoint_grid_blocks(rows, families, nee, images, qmc, n_slots, index,
                          threads):
     lib = _adjoint_library()
     with torch.cuda.device(index):
         blocks = lib.queue_adjoint_grid_blocks(
-            rows, int(families), int(nee), int(images), n_slots,
+            rows, int(families), int(nee), int(images), int(qmc), n_slots,
             int(cuda_mega.acc_fits_smem(n_slots)), threads)
     if blocks <= 0:
         msg = lib.queue_adjoint_error_string(-blocks).decode() if blocks \
@@ -358,14 +364,16 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
                          pool_i, counters, grad, *, seed, max_depth, budget,
                          t_min=1e-3, p_rr=0.0, grad_bg=False,
                          bg, exhaust_bg=False, depth=None, written=None,
-                         fam=None, nee=None, img=None, gimg=None, blocks,
+                         fam=None, nee=None, img=None, gimg=None,
+                         qmc=False, cull=None, blocks,
                          threads=cuda_mega.THREADS):
     """One launch of the queue adjoint on CUDA tensors (see
-    queue_adjoint.cu for the operands; fam, nee, img, gimg: the family
-    tables, the light table, the images and the atlas gradient, as
-    cuda_mega.mega_adjoint_segment). pool_f [19, blocks*threads], pool_i
-    [4, blocks*threads], counters [2], grad [8, n_slots] and gimg carry
-    the replay from one launch to the next."""
+    queue_adjoint.cu for the operands; fam, nee, img, gimg, qmc, cull: the
+    family tables, the light table, the images, the atlas gradient, the
+    sampler and the chunk boxes, as cuda_mega.mega_adjoint_segment).
+    pool_f [19, blocks*threads], pool_i [4, blocks*threads], counters
+    [2], grad [8, n_slots] and gimg carry the replay from one launch to
+    the next."""
     dev = ro.device
     if dev.type != "cuda":
         raise ValueError(f"queue_adjoint_launch: unsupported device {dev}")
@@ -380,6 +388,7 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
         raise ValueError("queue_adjoint_launch: the adjoint takes NEE "
                          "without mis or nee_glossy")
     light_args = cuda_mega.nee_args(nee, dev)[:2]
+    cull_args = cuda_mega.sort_args(qmc, cull, tab, fam, dev)
     for name, x in (("ro", ro), ("rd", rd), ("L", L), ("gcot", gcot)):
         chk(name, x, torch.float32, (b, 3), dev)
     chk("pixel", pixel, torch.int32, (b,), dev)
@@ -406,7 +415,7 @@ def queue_adjoint_launch(tab, ro, rd, pixel, sample, L, gcot, pool_f,
             gimg_ptr, *ptrs,
             int(max_depth), int(budget),
             *cuda_mega._scalars(seed, t_min, p_rr, grad_bg, bg, exhaust_bg),
-            *light_args, int(blocks), int(threads), stream)
+            *cull_args, *light_args, int(blocks), int(threads), stream)
     if rc != 0:
         msg = lib.queue_adjoint_error_string(rc).decode()
         raise RuntimeError(f"queue_adjoint_launch failed: {msg} ({rc})")
@@ -436,7 +445,7 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
             tables, cfg, ro, rd, pixel, sample_idx, seed, L, gcot,
             depth_bwd, exhaust, stats=stats)
     dev = ro.device
-    ms = tables.mega
+    ms = scene_for(tables, cfg)
     tab, pix, sample, kw = _operands(tables, cfg, ro, pixel, sample_idx,
                                      adjoint=True)
     b = ro.shape[0]
@@ -451,7 +460,7 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     blocks = adjoint_grid_blocks(tab.shape[0], ms.n_slots, dev,
                                  families=kw["fam"] is not None,
                                  nee=kw["nee"] is not None,
-                                 images=kw["img"] is not None)
+                                 images=kw["img"] is not None, qmc=kw["qmc"])
     if pool_lanes is not None:
         blocks = min(blocks, max(1, -(-int(pool_lanes) // cuda_mega.THREADS)))
     lanes = blocks * cuda_mega.THREADS

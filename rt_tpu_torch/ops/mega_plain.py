@@ -1,10 +1,22 @@
 """Plain PyTorch versions of the megakernels' per-lane math: the
 unit-ball twin of csrc/rng.cuh (its uniform draw is ops/rng.uniform's
-stream) and `do_bounce_plain`, the twin of csrc/bounce.cuh
+stream, or under the sampler "qmc" ops/qmc.uniform's) and
+`do_bounce_plain`, the twin of csrc/bounce.cuh
 (rt_tpu/ops/pallas_mega.py `_uniform` / `_unit_ball` :618-696,
 `_make_background` :774, `do_bounce` :1011-1896 for the four families,
 solid / checker / image textures, NEE / MIS / glossy light sampling,
-sampler "rng").
+the samplers "rng" and "qmc", chunk culling).
+
+Chunk culling (`cull`, mega_tables.Cull): the Morton-sorted sphere and
+triangle rows are visited chunk by chunk, and each lane skips a chunk
+whose box its ray does not meet at t >= t_min or meets only beyond its
+closest hit so far (`closest_hit`, `_culled_best`; for a shadow ray
+beyond T_HI, `shadow_occluded`): the per-lane form of the reference's
+`chunk_visible` :1099-1140 and `box_visible` :845-868, which decide
+for a tile of lanes at once. The kernels take the same decision in the
+same chunk order, so they stay bit-equal to these versions on every
+lane. A winner's tape code and MIS's emitter match name its SceneTables
+row (`scene_rows`).
 
 The ray state is the reference's 13 words per lane, held as one
 [13, B] float32 tensor (rows `O`..`ALIVE` below): origin, direction,
@@ -63,9 +75,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from rt_tpu_torch.config import nee_on
-from rt_tpu_torch.ops import camera, rng
+from rt_tpu_torch.ops import camera, qmc as qmc_mod, rng
 from rt_tpu_torch.ops.materials import texel_rows
 from rt_tpu_torch.ops.mega_tables import (
+    SPH_CHUNK,
     F_SLOT,
     L_AREA,
     L_CHECKER,
@@ -77,6 +90,7 @@ from rt_tpu_torch.ops.mega_tables import (
     L_SLOT,
     L_UV,
     MAX_LIGHT_ROWS,
+    scene_for,
     R_F1,
     R_F2,
     R_HI0,
@@ -131,12 +145,19 @@ HIT_PAIRS = HIT_CHUNK * 512
 FAM_SPHERE, FAM_RECT, FAM_CYLINDER, FAM_TRIANGLE = 0, 1, 2, 3
 
 
-def unit_ball(seed, pixel, sample, bounce):
+def sampler(qmc: bool):
+    """The draw module of a trace: ops/qmc.py under qmc, else ops/rng.py
+    (the kernels' `qmc` flag, pallas_mega `_uniform(..., qmc)`)."""
+    return qmc_mod if qmc else rng
+
+
+def unit_ball(seed, pixel, sample, bounce, qmc: bool = False):
     """The megakernel's unit-ball draw (pallas_mega._unit_ball): radius
     exp(log(u1)/3), not the wavefront's pow(u1, 1/3)."""
-    u1 = rng.uniform(seed, pixel, sample, bounce, rng.SCAT_U1)
-    u2 = rng.uniform(seed, pixel, sample, bounce, rng.SCAT_U2)
-    u3 = rng.uniform(seed, pixel, sample, bounce, rng.SCAT_U3)
+    smp = sampler(qmc)
+    u1 = smp.uniform(seed, pixel, sample, bounce, rng.SCAT_U1)
+    u2 = smp.uniform(seed, pixel, sample, bounce, rng.SCAT_U2)
+    u3 = smp.uniform(seed, pixel, sample, bounce, rng.SCAT_U3)
     r = torch.where(u1 > 0.0,
                     torch.exp(torch.log(torch.clamp(u1, min=1e-38))
                               * (1.0 / 3.0)),
@@ -331,16 +352,75 @@ def _sphere_shadow(tab, sx, sy, sz, wx, wy, wz, a_s, rd_ro, ro_sq, inv_a,
                | ((r2 >= t_min) & (r2 <= T_HI))))
 
 
-def shadow_occluded(tab, sx, sy, sz, wx, wy, wz, t_min, fam=None):
+BIG = 3.0e38   # the slab test's stand-in for an unbounded axis
+
+
+def _slab(o, d, lo, hi):
+    """(near, far) of the slab lo <= o + t d <= hi along one axis
+    (`axis_slab` :1112-1122): an axis the ray does not move along is
+    all of t or none of it."""
+    d_ok = d != 0.0
+    inv = 1.0 / torch.where(d_ok, d, 1.0)
+    near = (lo - o) * inv
+    far = (hi - o) * inv
+    near, far = torch.minimum(near, far), torch.maximum(near, far)
+    inside = (o >= lo) & (o <= hi)
+    near = torch.where(d_ok, near, torch.where(inside, -BIG, BIG))
+    far = torch.where(d_ok, far, torch.where(inside, BIG, -BIG))
+    return near, far
+
+
+def box_span(boxes, ox, oy, oz, dx, dy, dz):
+    """(tn, tf, nonempty): each lane's entry and exit t [lanes, K] of the
+    K chunk boxes [K, 8] (`chunk_visible` :1099-1140), and whether each
+    box holds a row ([K] bool: a chunk of pad rows has the empty box,
+    which the near / far swap would turn inside out)."""
+    lo, hi = boxes[None, :, 0:3], boxes[None, :, 3:6]
+    n1, f1 = _slab(ox[:, None], dx[:, None], lo[..., 0], hi[..., 0])
+    n2, f2 = _slab(oy[:, None], dy[:, None], lo[..., 1], hi[..., 1])
+    n3, f3 = _slab(oz[:, None], dz[:, None], lo[..., 2], hi[..., 2])
+    tn = torch.maximum(torch.maximum(n1, n2), n3)
+    tf = torch.minimum(torch.minimum(f1, f2), f3)
+    return tn, tf, boxes[:, 0] <= boxes[:, 3]
+
+
+def _chunk_rows(n: int, k: int, device) -> torch.Tensor:
+    """[K] rows of each chunk of SPH_CHUNK rows of an n-row table."""
+    return torch.clamp(n - SPH_CHUNK * torch.arange(k, device=device),
+                       max=SPH_CHUNK)
+
+
+def _shadow_block(hit, vis):
+    """(occluded [lanes], rows tested [lanes]) of a family's any-hit hit
+    [lanes, n] whose chunks a lane visits where vis [lanes, K]: a scan in
+    the kernel's order that skips the other chunks and stops at the first
+    occluder."""
+    n = hit.shape[1]
+    if vis is None:
+        any_h = hit.any(-1)
+        first = torch.argmax(hit.to(torch.int8), -1) + 1
+        return any_h, torch.where(any_h, first, n)
+    row_vis = vis.repeat_interleave(SPH_CHUNK, dim=1)[:, :n]
+    hit = hit & row_vis
+    any_h = hit.any(-1)
+    seen = torch.cumsum(row_vis.to(torch.int64), -1)
+    first = torch.argmax(hit.to(torch.int8), -1)
+    return any_h, torch.where(any_h, seen.gather(1, first[:, None])[:, 0],
+                              seen[:, -1])
+
+
+def shadow_occluded(tab, sx, sy, sz, wx, wy, wz, t_min, fam=None, cull=None):
     """[lanes] bool: whether anything of the sphere table `tab` or the
     family tables `fam` lies on the segment s + t w, t in [t_min, T_HI]
     (the twin of `_shadow_occluded`). A rect, cylinder or triangle
     occludes exactly when its closest-hit candidate t is at most T_HI:
     for those families the reference's any-hit tests are the candidate
-    tests with that bound added. shadow_occluded.rays counts the rays it
-    tests and shadow_occluded.rows, per family, the rows a scan in the
-    kernel's order that stops at the first occluder tests (a bound's
-    operation count reads them)."""
+    tests with that bound added. With `cull` (mega_tables.Cull) a lane
+    skips a sorted family's chunk whose box the segment misses
+    (`box_visible` :845-868 for one lane). shadow_occluded.rays counts
+    the rays it tests and shadow_occluded.rows, per family, the rows a
+    scan in the kernel's order that skips those chunks and stops at the
+    first occluder tests (a bound's operation count reads them)."""
     lanes = sx.shape[0]
     shadow_occluded.rays += lanes
     occ = torch.zeros(lanes, dtype=torch.bool, device=sx.device)
@@ -351,6 +431,8 @@ def shadow_occluded(tab, sx, sy, sz, wx, wy, wz, t_min, fam=None):
     ro_sq = sx * sx + sy * sy + sz * sz
     inv_a = 1.0 / torch.clamp(a_s, min=1e-20)
     lane = (sx, sy, sz, wx, wy, wz)
+    boxes = ((cull.sph, None, None, cull.tri) if cull is not None
+             else (None,) * 4)
     blocks = [(FAM_SPHERE, tab.shape[0], lambda sl: _sphere_shadow(
         tab, *(v[sl, None] for v in lane), a_s[sl, None], rd_ro[sl, None],
         ro_sq[sl, None], inv_a[sl, None], t_min))]
@@ -367,12 +449,15 @@ def shadow_occluded(tab, sx, sy, sz, wx, wy, wz, t_min, fam=None):
         chunk = max(1, HIT_PAIRS // n)
         hit = []
         for s in range(0, lanes, chunk):
-            h = block(slice(s, s + chunk))
-            any_h = h.any(-1)
-            first = torch.where(any_h, torch.argmax(h.to(torch.int8), -1) + 1,
-                                n)
-            done = occ[s:s + chunk]
-            shadow_occluded.rows[code] += int(torch.where(done, 0, first)
+            sl = slice(s, s + chunk)
+            vis = None
+            if boxes[code] is not None:
+                tn, tf, nonempty = box_span(boxes[code],
+                                            *(v[sl] for v in lane))
+                vis = (nonempty[None, :]
+                       & (tf >= torch.clamp(tn, min=t_min)) & (tn <= T_HI))
+            any_h, rows = _shadow_block(block(sl), vis)
+            shadow_occluded.rows[code] += int(torch.where(occ[sl], 0, rows)
                                               .sum())
             hit.append(any_h)
         occ = occ | torch.cat(hit)
@@ -383,26 +468,79 @@ shadow_occluded.rays = 0
 shadow_occluded.rows = [0, 0, 0, 0]
 
 
+def _last_argmin(t):
+    """(min, index) along the last axis; an equal t goes to the larger
+    index."""
+    n = t.shape[-1]
+    row = (n - 1) - torch.argmin(t.flip(-1), dim=-1)
+    return torch.gather(t, -1, row[..., None])[..., 0], row
+
+
 def _family_best(cand, n_rows, lanes, chunk):
     """(t_best, row) per lane of one family: cand(sl) gives the [lanes in
     sl, n_rows] candidate block; an equal t goes to the larger row."""
     t_parts, row_parts = [], []
     for s in range(0, lanes, chunk):
-        t = cand(slice(s, s + chunk))
-        row = (n_rows - 1) - torch.argmin(t.flip(-1), dim=-1)
-        t_parts.append(torch.gather(t, 1, row[:, None])[:, 0])
+        t, row = _last_argmin(cand(slice(s, s + chunk)))
+        t_parts.append(t)
         row_parts.append(row)
     return torch.cat(t_parts), torch.cat(row_parts)
 
 
-def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min, fam=None):
+def _take(t, t_best):
+    """Whether a candidate t replaces the running winner t_best: smaller,
+    or an equal finite t from a later chunk or family (`_merge`)."""
+    return (t < t_best) | (torch.isfinite(t) & (t == t_best))
+
+
+def _culled_best(cand, n_rows, boxes, ray, t_min, t_best, family, row, code,
+                 chunk):
+    """Fold one sorted family into the running winner (t_best, family,
+    row) chunk by chunk: a lane takes a chunk's winner only when the
+    chunk's box is nonempty, its ray meets the box at t >= t_min, and the
+    box starts no later than the lane's closest hit so far (the per-lane
+    form of `chunk_visible` :1099-1140). Returns the new winner and
+    the rows each lane tested [lanes]."""
+    lanes = t_best.shape[0]
+    k = boxes.shape[0]
+    sizes = _chunk_rows(n_rows, k, t_best.device)
+    outs = ([], [], [], [])
+    for s in range(0, lanes, chunk):
+        sl = slice(s, s + chunk)
+        t = cand(sl)
+        pad = k * SPH_CHUNK - n_rows
+        if pad:
+            t = torch.cat([t, t.new_full((t.shape[0], pad), INF)], dim=1)
+        tk, rk = _last_argmin(t.view(t.shape[0], k, SPH_CHUNK))
+        tn, tf, nonempty = box_span(boxes, *(v[sl] for v in ray))
+        hit_box = nonempty[None, :] & (tf >= torch.clamp(tn, min=t_min))
+        tb, fb, rb = t_best[sl], family[sl], row[sl]
+        tested = torch.zeros_like(rb)
+        for j in range(k):
+            vis = hit_box[:, j] & (tn[:, j] <= tb)
+            tested = tested + torch.where(vis, sizes[j], 0)
+            take = vis & _take(tk[:, j], tb)
+            tb = torch.where(take, tk[:, j], tb)
+            fb = torch.where(take, code, fb)
+            rb = torch.where(take, rk[:, j] + j * SPH_CHUNK, rb)
+        for out, v in zip(outs, (tb, fb, rb, tested)):
+            out.append(v)
+    return tuple(torch.cat(o) for o in outs)
+
+
+def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min, fam=None, cull=None):
     """(t_best, family, row) per lane: the hit pass of do_bounce over the
     spheres of `tab`, then the rects, cylinders and triangles of `fam`
     (mega_tables.Families, or None), in the reference's family order
-    without MXU or culling. Within a family an equal t goes to the
-    larger row; across families to the later family (`_merge`
-    :753-763). A lane that hits nothing reports t = inf (family and row
-    then mean nothing)."""
+    without MXU. Within a family an equal t goes to the larger row;
+    across families to the later family (`_merge` :753-763). With `cull`
+    (mega_tables.Cull) the sorted spheres and triangles are visited
+    chunk by chunk, each lane skipping the chunks its own slab test
+    rejects against its closest hit so far (_culled_best). A lane that
+    hits nothing reports t = inf (family and row then mean nothing).
+    closest_hit.rows counts, per family, the (lane, row) pairs tested,
+    and closest_hit.boxes the (lane, chunk box) pairs (a bound's
+    operation count reads them)."""
     lanes = ox.shape[0]
     dev = ox.device
     if lanes == 0:
@@ -419,8 +557,23 @@ def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min, fam=None):
                          rd_dot_ro[sl, None], ro_sq[sl, None],
                          inv_a[sl, None], t_min)
 
-    t_best, row = _family_best(sph, tab.shape[0], lanes, HIT_CHUNK)
-    family = torch.zeros_like(row)
+    boxes = (None,) * 4
+    if cull is not None:
+        cull.check(tab)
+        boxes = (cull.sph, None, None, cull.tri)
+    if boxes[FAM_SPHERE] is None:
+        t_best, row = _family_best(sph, tab.shape[0], lanes, HIT_CHUNK)
+        family = torch.zeros_like(row)
+        closest_hit.rows[FAM_SPHERE] += lanes * tab.shape[0]
+    else:
+        t_best, family, row, tested = _culled_best(
+            sph, tab.shape[0], boxes[FAM_SPHERE], lane, t_min,
+            ox.new_full((lanes,), INF),
+            torch.zeros(lanes, dtype=torch.long, device=dev),
+            torch.zeros(lanes, dtype=torch.long, device=dev), FAM_SPHERE,
+            HIT_CHUNK)
+        closest_hit.rows[FAM_SPHERE] += int(tested.sum())
+        closest_hit.boxes += lanes * boxes[FAM_SPHERE].shape[0]
     if fam is None:
         return t_best, family, row
     for code, ftab, fn in ((FAM_RECT, fam.rect, _rect_t),
@@ -429,14 +582,44 @@ def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min, fam=None):
         n = ftab.shape[0]
         if n == 0:
             continue
-        t, r = _family_best(
-            lambda sl: fn(ftab, *(v[sl, None] for v in lane), t_min),
-            n, lanes, max(1, HIT_PAIRS // n))
-        take = (t < t_best) | (torch.isfinite(t) & (t == t_best))
+
+        def cand(sl, ftab=ftab, fn=fn):
+            return fn(ftab, *(v[sl, None] for v in lane), t_min)
+
+        if boxes[code] is not None:
+            t_best, family, row, tested = _culled_best(
+                cand, n, boxes[code], lane, t_min, t_best, family, row, code,
+                max(1, HIT_PAIRS // n))
+            closest_hit.rows[code] += int(tested.sum())
+            closest_hit.boxes += lanes * boxes[code].shape[0]
+            continue
+        t, r = _family_best(cand, n, lanes, max(1, HIT_PAIRS // n))
+        closest_hit.rows[code] += lanes * n
+        take = _take(t, t_best)
         t_best = torch.where(take, t, t_best)
         family = torch.where(take, code, family)
         row = torch.where(take, r, row)
     return t_best, family, row
+
+
+closest_hit.rows = [0, 0, 0, 0]
+closest_hit.boxes = 0
+
+
+def scene_rows(cull, family, row):
+    """The SceneTables row [B] of each winner (family, row of its table):
+    the row itself, or for a Morton-sorted family (cull, mega_tables.Cull)
+    the row it was sorted from. Tape codes and MIS's emitter match name
+    that row."""
+    if cull is None:
+        return row
+    for code, rows in ((FAM_SPHERE, cull.sph_rows),
+                       (FAM_TRIANGLE, cull.tri_rows)):
+        if rows is not None:
+            is_f = family == code
+            row = torch.where(is_f, rows.long()[torch.where(is_f, row, 0)],
+                              row)
+    return row
 
 
 def winner_attrs(tab, fam, family, row, t_best, ox, oy, oz, dx, dy, dz):
@@ -601,7 +784,8 @@ class Bounce(NamedTuple):
 
 
 def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
-                    p_rr, grad_bg, bg, fam=None, nee=None, img=None):
+                    p_rr, grad_bg, bg, fam=None, nee=None, img=None,
+                    qmc=False, cull=None):
     """Advance every lane of `state` [13, B] one bounce; returns the new
     [13, B] state. Lanes whose alive word is 0 come out unchanged.
 
@@ -610,25 +794,31 @@ def do_bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min,
     None. pixel, sample, bounce: per-lane RNG coordinates ([B] integer
     tensors or ints); seed an int. bg: the constant sky colour, 3
     floats. nee: the light sampler's options (Nee), or None. img: the
-    atlas and UV tables (mega_tables.Images), or None."""
+    atlas and UV tables (mega_tables.Images), or None. qmc: draw from
+    the scrambled Sobol' sequence (ops/qmc.py) instead of ops/rng.py.
+    cull: the chunk boxes of the sorted tables (mega_tables.Cull), or
+    None."""
     return bounce_plain(tab, state, pixel, sample, bounce, seed,
                         t_min=t_min, p_rr=p_rr, grad_bg=grad_bg,
-                        bg=bg, fam=fam, nee=nee, img=img).state
+                        bg=bg, fam=fam, nee=nee, img=img, qmc=qmc,
+                        cull=cull).state
 
 
 def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
-                 grad_bg, bg, fam=None, nee=None, img=None) -> Bounce:
+                 grad_bg, bg, fam=None, nee=None, img=None, qmc=False,
+                 cull=None) -> Bounce:
     """do_bounce_plain with the intermediates its adjoint reads."""
     ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, cr, cg, cb, alive = state.unbind(0)
+    smp = sampler(qmc)
 
     live = alive > 0.0
     if p_rr > 0.0:
-        u_rr = rng.uniform(seed, pixel, sample, bounce, rng.RR)
+        u_rr = smp.uniform(seed, pixel, sample, bounce, rng.RR)
         live = live & (u_rr <= p_rr)
 
     a = dx * dx + dy * dy + dz * dz
     t_best, family, row = closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min,
-                                      fam)
+                                      fam, cull)
     attrs = winner_attrs(tab, fam, family, row, t_best, ox, oy, oz, dx, dy,
                          dz)
     v0, v1_, v2, v3 = (attrs[:, X_V + k] for k in range(4))
@@ -686,7 +876,7 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
     is_light = w_mtype == MAT_DIFFUSE_LIGHT
 
     # ---- scatter ----
-    bx, by, bz = unit_ball(seed, pixel, sample, bounce)
+    bx, by, bz = unit_ball(seed, pixel, sample, bounce, qmc)
 
     lam_x = nx + bx
     lam_y = ny2 + by
@@ -719,7 +909,7 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
     one_mc = 1.0 - cos_theta
     om2 = one_mc * one_mc
     schlick = r0 + (1.0 - r0) * om2 * om2 * one_mc
-    u_refl = rng.uniform(seed, pixel, sample, bounce, rng.DIEL_REFL)
+    u_refl = smp.uniform(seed, pixel, sample, bounce, rng.DIEL_REFL)
     choose_ref = cannot | (schlick > u_refl)
     # refract (vec3.cuh:125-131)
     rp_x = ratio * (ux + cos_theta * nx)
@@ -752,11 +942,13 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
     if nee is not None and nee.mis:
         # the balance heuristic on emission reached by a BSDF draw
         # (:1491-1515): alive = 2 + p_prev carries the previous bounce's
-        # density; the emitter's light row gives the area p_nee needs
+        # density; the emitter's light row (by its SceneTables row) gives
+        # the area p_nee needs
         lights = nee.lights
         n_lights = lights.shape[0]
+        srow = scene_rows(cull, family, row)
         match = ((lights[None, :, L_FAM] == family[:, None].to(torch.float32))
-                 & (lights[None, :, L_ROW] == row[:, None].to(torch.float32)))
+                 & (lights[None, :, L_ROW] == srow[:, None].to(torch.float32)))
         area_h = torch.where(match, lights[None, :, L_AREA], 0.0).sum(-1)
         vx_ = px_ - ox
         vy_ = py_ - oy
@@ -787,7 +979,7 @@ def bounce_plain(tab, state, pixel, sample, bounce, seed, *, t_min, p_rr,
             tab, fam, nee, (cr, cg, cb), (tpr, tpg, tpb),
             (alb_r, alb_g, alb_b), scattered & sampled, is_met, fuzz,
             (ref_x, ref_y, ref_z), (px_, py_, pz_), (nx, ny2, nz), pixel,
-            sample, bounce, seed, t_min, img)
+            sample, bounce, seed, t_min, img, qmc, cull)
         nee_out["em_scale"] = em_scale
 
     comp = 1.0 / p_rr if p_rr > 0.0 else 1.0
@@ -845,7 +1037,8 @@ def _glossy_density(cosr, fuzz):
 
 
 def _nee_block(tab, fam, nee: Nee, c, tp, alb, lam_lane, is_met, fuzz, ref,
-               p, n, pixel, sample, bounce, seed, t_min, img=None):
+               p, n, pixel, sample, bounce, seed, t_min, img=None, qmc=False,
+               cull=None):
     """The kernels' NEE block (pallas_mega.py:1529-1698): sample one
     light, test its shadow segment, add tp * albedo * Le * w to the
     radiance c of the lanes lam_lane; with img, an image-textured light's
@@ -853,9 +1046,10 @@ def _nee_block(tab, fam, nee: Nee, c, tp, alb, lam_lane, is_met, fuzz, ref,
     Returns (c, the Bounce's NEE fields)."""
     lights = nee.lights
     n_lights = lights.shape[0]
-    u_pick = rng.uniform(seed, pixel, sample, bounce, rng.NEE_PICK)
-    u1 = rng.uniform(seed, pixel, sample, bounce, rng.NEE_U1)
-    u2 = rng.uniform(seed, pixel, sample, bounce, rng.NEE_U2)
+    smp = sampler(qmc)
+    u_pick = smp.uniform(seed, pixel, sample, bounce, rng.NEE_PICK)
+    u1 = smp.uniform(seed, pixel, sample, bounce, rng.NEE_U1)
+    u2 = smp.uniform(seed, pixel, sample, bounce, rng.NEE_U2)
     li = torch.clamp((u_pick * n_lights).to(torch.int32), max=n_lights - 1)
     # [NL_COLS, B]: columns as mega_tables' module doc (the sampling
     # block at the reference's columns 9..23)
@@ -925,7 +1119,8 @@ def _nee_block(tab, fam, nee: Nee, c, tp, alb, lam_lane, is_met, fuzz, ref,
     idx = torch.nonzero(need)[:, 0]
     if idx.numel():
         occ[idx] = shadow_occluded(tab, px_[idx], py_[idx], pz_[idx],
-                                   wix[idx], wiy[idx], wiz[idx], t_min, fam)
+                                   wix[idx], wiy[idx], wiz[idx], t_min, fam,
+                                   cull)
 
     # a checker light's parity at the sample point
     sin_l = (torch.sin(10.0 * lpx) * torch.sin(10.0 * lpy)
@@ -970,7 +1165,8 @@ def _nee_block(tab, fam, nee: Nee, c, tp, alb, lam_lane, is_met, fuzz, ref,
 
 
 def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
-                  p_rr, grad_bg, bg, fam=None, img=None):
+                  p_rr, grad_bg, bg, fam=None, img=None, qmc=False,
+                  cull=None):
     """The plain version of the tape-capture kernel B4 (csrc/capture.cu,
     rt_tpu/ops/pallas_mega.py `_capture_kernel` :1978): trace the fresh
     rays of `state` [13, B] (pixel ids [B], one sample index) against the
@@ -983,11 +1179,12 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
     when lane i, alive entering bounce b, hits, and -1 on a miss and at
     every bounce after the lane's death. A lane that roulette stops at
     bounce b still records that bounce's winner, as the reference's
-    kernel evaluates the hit on every lane. death[i] is the number of
-    bounces after which the lane is still alive. The row is the pid
-    because the tables keep the scene's order (no Morton sort, ROADMAP
-    C-3). `state` is not changed. img (image textures) is taken and not
-    read: no code or death depends on a texel."""
+    kernel evaluates the hit on every lane (under culling the lane
+    visits the chunks its own ray meets). death[i] is the number of
+    bounces after which the lane is still alive. The row is the winner's
+    SceneTables row (scene_rows: a Morton-sorted row maps back to it).
+    `state` is not changed. img (image textures) is taken and not read:
+    no code or death depends on a texel."""
     b = state.shape[1]
     dev = state.device
     codes = torch.full((max_depth, b), -1, dtype=torch.int32, device=dev)
@@ -998,9 +1195,11 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
         if idx.numel() == 0:
             break
         bn = bounce_plain(tab, sub, pixel[idx], sample, k, seed, t_min=t_min,
-                          p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam)
-        codes[k, idx] = torch.where(bn.hit, (bn.family << 24) | bn.row,
-                                    -1).to(torch.int32)
+                          p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam,
+                          qmc=qmc, cull=cull)
+        codes[k, idx] = torch.where(
+            bn.hit, (bn.family << 24) | scene_rows(cull, bn.family, bn.row),
+            -1).to(torch.int32)
         keep = bn.scattered
         idx, sub = idx[keep], bn.state[:, keep]
         death[idx] += 1
@@ -1010,11 +1209,15 @@ def capture_plain(tab, state, pixel, sample, seed, max_depth, *, t_min,
 def trace_options(tables, cfg) -> dict:
     """The per-trace options of a segment, a queue launch and their
     adjoints, from the scene and the configuration (exhaust_bg aside):
-    the scalars, the family tables (MegaScene.fam) and the image atlas
-    with the UV tables (MegaScene.img)."""
+    the scalars, the family tables (MegaScene.fam), the image atlas with
+    the UV tables (MegaScene.img), the sampler and the chunk boxes
+    (MegaScene.cull) of mega_tables.scene_for(tables, cfg), whose sphere
+    table goes with them."""
+    ms = scene_for(tables, cfg)
     return dict(t_min=1e-3, p_rr=float(cfg.p_rr),
                 grad_bg=cfg.background_mode == "gradient",
-                bg=tables.mega.bg, fam=tables.mega.fam, img=tables.mega.img)
+                bg=ms.bg, fam=ms.fam, img=ms.img, qmc=cfg.sampler == "qmc",
+                cull=ms.cull)
 
 
 def exhaust(state, lanes, bg, grad_bg: bool):
@@ -1032,7 +1235,8 @@ def exhaust(state, lanes, bg, grad_bg: bool):
 def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
                 seg_iters, *, max_depth, spp, init, width, height, defocus,
                 n=None, t_min=1e-3, p_rr=0.0, grad_bg=False, bg,
-                exhaust_bg=False, depth=None, fam=None, img=None):
+                exhaust_bg=False, depth=None, fam=None, img=None, qmc=False,
+                cull=None):
     """The plain version of one segment of the regeneration kernel B7
     (csrc/regen.cu, rt_tpu/ops/pallas_mega.py `_regen_kernel` :2288):
     lanes [0, n) of state [13, B], pixel ids `pixel` and rows `py`
@@ -1044,8 +1248,8 @@ def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
     lane's next sample (samp + 1, bvec 0, a fresh camera ray); (3) one
     bounce at (samp, bvec), then bvec + 1. With init, the lanes first
     take sample_base's camera rays. cam: ops/camera.camera_vec's 19
-    floats. fam, img: the family tables and the images, as
-    do_bounce_plain. state, samp and
+    floats. fam, img, qmc, cull: as do_bounce_plain (qmc also for the
+    camera rays). state, samp and
     bvec are updated in place and returned; depth, when given, gains
     each lane's bounces."""
     n = state.shape[1] if n is None else int(n)
@@ -1059,7 +1263,8 @@ def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
 
     def rays(idx, sample):
         return camera.generate_rays(cam_def, width, height, pxl[idx],
-                                    pyl[idx], sample, seed, defocus)
+                                    pyl[idx], sample, seed, defocus,
+                                    "qmc" if qmc else "rng")
 
     if init:
         samp[:n] = int(sample_base)
@@ -1094,7 +1299,7 @@ def regen_plain(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
             st[:, li] = do_bounce_plain(
                 tab, st[:, li], pix[idx[li]], s_[li], b_[li], seed,
                 t_min=t_min, p_rr=p_rr, grad_bg=grad_bg, bg=bg, fam=fam,
-                img=img)
+                img=img, qmc=qmc, cull=cull)
             if depth is not None:
                 depth[idx[li]] += 1
         sub[:, idx] = st

@@ -90,11 +90,26 @@ Areas are the reference's formulas: 4 pi r^2, the rect's extent, the
 cylinder's lateral 2 pi r (zmax - zmin), half the triangle's edge cross
 product's length.
 
+Chunk culling (cfg.cull_chunks, `MegaScene.of(tables, cull=True)`,
+`_prep_scene` :2873-2899) reorders the sphere rows, and the triangle
+rows of a table of at least two chunks, along the Morton curve of their
+centres / centroids (`sort_spheres_morton` :299, `sort_triangles_morton`
+:337, `_morton3` :294: the same float32 quantisation to [0, 1023]^3, the
+same stable sort, pad rows last) and gives each chunk of SPH_CHUNK
+sorted rows its box (`Cull`): the kernels skip a chunk whose box a
+lane's ray misses. The triangle UV rows follow the triangles' order.
+Each sorted row keeps its SceneTables row in `Cull.sph_rows` /
+`tri_rows` (the reference's code tables, `codes_for` :2916-2927): the
+tape code of a winner and MIS's match of a hit emitter against the
+light table's L_ROW name that row, not the sorted one.
+
 The kernels
 (csrc/bounce.cuh) and the plain versions (ops/mega_plain.py,
 ops/adjoint_plain.py) read only these tables, in the form of
-`MegaScene`: built once per scene (`SceneTables.mega`), each cut after
-its last live row, since the pad rows behind it never hit.
+`MegaScene`: built once per scene and cull setting
+(`SceneTables.mega`, `SceneTables.mega_culled`; `scene_for` picks by
+cfg.cull_chunks), each cut after its last live row, since the pad rows
+behind it never hit.
 """
 
 from __future__ import annotations
@@ -418,6 +433,109 @@ def light_table(tables: SceneTables) -> torch.Tensor:
     return out
 
 
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread 10 bits to every third bit (the Morton interleave)."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def morton3(nx, ny, nz) -> torch.Tensor:
+    """The 30-bit Morton code of integer coordinates in [0, 1023]^3."""
+    return (_part1by2(nz) << 2) | (_part1by2(ny) << 1) | _part1by2(nx)
+
+
+def _morton_order(points, valid) -> torch.Tensor:
+    """The stable order of rows along the Morton curve of their points
+    [N, 3] over the valid rows' bounding box, invalid rows last."""
+    v = valid[:, None]
+    lo = torch.where(v, points, math.inf).amin(0)
+    hi = torch.where(v, points, -math.inf).amax(0)
+    # a tensor divisor: torch divides by a Python number as a product
+    # with its reciprocal on the card
+    span = torch.where(hi > lo, hi - lo, torch.ones_like(lo))
+    q = torch.clamp((points - lo) / span * 1023.0, 0.0, 1023.0).to(
+        torch.int64)
+    key = morton3(q[:, 0], q[:, 1], q[:, 2])
+    key = torch.where(valid, key, 1 << 30)
+    return torch.argsort(key, stable=True)
+
+
+def _chunk_bounds(bmin, bmax, valid, chunk: int) -> torch.Tensor:
+    """[K, 8] boxes (bmin3, bmax3, 0, 0) of consecutive chunks of rows
+    from the rows' own boxes bmin, bmax [N, 3] (N a multiple of chunk);
+    a chunk without a valid row gets the empty box (+inf, -inf)."""
+    k = bmin.shape[0] // chunk
+    v = valid[:, None]
+    lo = torch.where(v, bmin, math.inf).reshape(k, chunk, 3).amin(1)
+    hi = torch.where(v, bmax, -math.inf).reshape(k, chunk, 3).amax(1)
+    return torch.cat([lo, hi, lo.new_zeros((k, 2))], dim=1)
+
+
+def sort_spheres_morton(tab: torch.Tensor, chunk: int = SPH_CHUNK):
+    """(sorted table, bounds [K, 8], order) of a sphere table [N, S_COLS]
+    (N a multiple of chunk, or at most one chunk): the rows along the
+    Morton curve of their centres, and each chunk's box of its spheres
+    (centre -+ |radius|)."""
+    c = tab[:, X_V:X_V + 3]
+    order = _morton_order(c, tab[:, S_VALID] > 0.0)
+    tab = tab[order]
+    c, r = tab[:, X_V:X_V + 3], torch.abs(tab[:, X_RAD])[:, None]
+    bounds = _chunk_bounds(c - r, c + r, tab[:, S_VALID] > 0.0,
+                           min(max(tab.shape[0], 1), chunk))
+    return tab, bounds, order
+
+
+def _tri_vertices(tab):
+    v1 = tab[:, T_V1:T_V1 + 3]
+    v2 = v1 + tab[:, T_E1:T_E1 + 3]
+    return v1, v2, v2 + tab[:, T_E2:T_E2 + 3]
+
+
+def sort_triangles_morton(tab: torch.Tensor, chunk: int = SPH_CHUNK):
+    """(sorted table, bounds [K, 8], order) of a triangle table [N,
+    F_COLS]: sort_spheres_morton by centroid, each chunk's box that of
+    its triangles' vertices."""
+    v1, v2, v3 = _tri_vertices(tab)
+    third = torch.full((), 1.0 / 3.0, dtype=torch.float32, device=tab.device)
+    order = _morton_order((v1 + v2 + v3) * third, tab[:, T_VALID] > 0.0)
+    tab = tab[order]
+    v1, v2, v3 = _tri_vertices(tab)
+    bounds = _chunk_bounds(torch.minimum(torch.minimum(v1, v2), v3),
+                           torch.maximum(torch.maximum(v1, v2), v3),
+                           tab[:, T_VALID] > 0.0,
+                           min(max(tab.shape[0], 1), chunk))
+    return tab, bounds, order
+
+
+class Cull(NamedTuple):
+    """The chunk boxes of a culled scene (see the module doc): sph /
+    tri the [K, 8] boxes of the Morton-sorted sphere / triangle rows in
+    chunks of SPH_CHUNK, from the first row (None: that family is not
+    sorted); sph_rows / tri_rows [n] int32 the SceneTables row of each
+    sorted row; table: the sphere table the boxes go with
+    (MegaScene.table)."""
+
+    sph: Optional[torch.Tensor]
+    tri: Optional[torch.Tensor]
+    sph_rows: Optional[torch.Tensor]
+    tri_rows: Optional[torch.Tensor]
+    table: torch.Tensor
+
+    def check(self, tab: torch.Tensor) -> None:
+        """Raise unless `tab` is the sphere table these boxes go with:
+        the boxes of the sorted rows mean nothing to the rows in scene
+        order (pass scene_for(tables, cfg).table with
+        mega_plain.trace_options(tables, cfg))."""
+        if self.sph is not None and tab.data_ptr() != self.table.data_ptr():
+            raise ValueError("cull: the sphere table is not the sorted one "
+                             "the chunk boxes cover (scene_for(tables, "
+                             "cfg).table)")
+
+
 class Images(NamedTuple):
     """What the kernels read of a scene whose primitives sample image
     textures: the atlas (SceneTables.images, every texel a float3) and
@@ -454,7 +572,10 @@ class MegaScene:
     (its gradient's). `lights`: the light table (light_table), None when
     the scene has no emitter. `img`: the atlas and the UV tables
     (Images), None when no primitive samples an image texture, so that
-    the kernels run without the texture code."""
+    the kernels run without the texture code. `cull`: the chunk boxes
+    and SceneTables rows of the sorted families (Cull), None when
+    nothing is sorted (cull=False, or a scene with no sphere and fewer
+    than two triangle chunks), the tables then in scene order."""
 
     table: torch.Tensor          # [max(n_spheres, 1), S_COLS] f32
     fam: Optional[Families]
@@ -465,31 +586,53 @@ class MegaScene:
     atlas_shape: Tuple[int, ...] = (1, 1, 1, 3)
     lights: Optional[torch.Tensor] = None   # [n_lights, NL_COLS] f32
     img: Optional[Images] = None
+    cull: Optional[Cull] = None
 
     @property
     def n_slots(self) -> int:
         return self.n_tex + self.n_mat
 
     @classmethod
-    def of(cls, tables: SceneTables) -> "MegaScene":
-        tab = sphere_table(tables)[:max(tables.n_spheres, 1)]
+    def of(cls, tables: SceneTables, cull: bool = False) -> "MegaScene":
+        """The scene's tables; cull=True sorts them where the reference's
+        _prep_scene does: the spheres when the scene has one, the
+        triangles when their padded table holds at least two chunks."""
+        ns, nr, nc, nt = tables.counts
+        tab = sphere_table(tables)
+        tri_tab = pad_chunked(triangle_table(tables))
+        tri_uv = (pad_chunked(triangle_uv_table(tables)) if tables.has_images
+                  else None)
+        boxes = [None, None, None, None]
+        if cull and ns > 0:
+            tab, boxes[0], order = sort_spheres_morton(tab)
+            boxes[2] = order[:ns].to(torch.int32)
+        if cull and nt > 0 and tri_tab.shape[0] // min(
+                tri_tab.shape[0], SPH_CHUNK) >= 2:
+            tri_tab, boxes[1], order = sort_triangles_morton(tri_tab)
+            boxes[3] = order[:nt].to(torch.int32)
+            if tri_uv is not None:
+                tri_uv = tri_uv[order]
+        chunks = (-(-ns // SPH_CHUNK), -(-nt // SPH_CHUNK))
+        tab = tab[:max(ns, 1)].detach().contiguous()
+        cut = Cull(*(None if b is None else
+                     b[:chunks[k]].detach().contiguous() if k < 2 else
+                     b.detach().contiguous() for k, b in enumerate(boxes)),
+                   table=tab)
         fam = None
         if tables.has_families:
-            _, nr, nc, nt = tables.counts
             fam = Families(*(t[:n].detach().contiguous() for t, n in (
                 (rect_table(tables), nr), (cylinder_table(tables), nc),
-                (triangle_table(tables), nt))))
+                (tri_tab, nt))))
         img = None
         if tables.has_images:
-            _, nr, nc, nt = tables.counts
             img = Images(tables.images.detach().to(torch.float32)
                          .contiguous(),
                          *(t[:n].detach().contiguous() for t, n in (
                              (rect_uv_table(tables), nr),
                              (cylinder_uv_table(tables), nc),
-                             (triangle_uv_table(tables), nt))))
+                             (tri_uv, nt))))
         bg = tables.background.detach().to("cpu", torch.float32).tolist()
-        return cls(table=tab.detach().contiguous(), fam=fam,
+        return cls(table=tab, fam=fam,
                    bg=tuple(float(v) for v in bg),
                    cam=camera_vec(tables.camera),
                    n_tex=int(tables.tex_color.shape[0]),
@@ -497,4 +640,12 @@ class MegaScene:
                    atlas_shape=tuple(tables.images.shape),
                    lights=(light_table(tables).detach().contiguous()
                            if tables.n_lights else None),
-                   img=img)
+                   img=img,
+                   cull=None if all(b is None for b in boxes) else cut)
+
+
+def scene_for(tables: SceneTables, cfg) -> MegaScene:
+    """The MegaScene a trace under cfg reads: sorted and culled with
+    cfg.cull_chunks (SceneTables.mega_culled), else in scene order
+    (SceneTables.mega)."""
+    return tables.mega_culled if cfg.cull_chunks else tables.mega

@@ -40,6 +40,22 @@ _GOLD = 0x9E3779B9  # 2**32 / golden ratio; Weyl increment for key words
 _MASK = 0xFFFFFFFF
 
 
+def resolve(sampler: str):
+    """The draw module of a RenderConfig.sampler name (the reference's
+    rng.resolve): this module for "rng" (triple32), ops/qmc.py for "qmc"
+    (Owen-scrambled Sobol'). Both have uniform / in_unit_ball /
+    in_unit_disk with the same arguments."""
+    if sampler == "qmc":
+        from rt_tpu_torch.ops import qmc
+
+        return qmc
+    if sampler != "rng":
+        raise ValueError(f"unknown sampler {sampler!r} (want 'rng' or 'qmc')")
+    import sys
+
+    return sys.modules[__name__]
+
+
 def _u32(x):
     """A word as int64 in [0, 2**32) (Python ints stay Python ints)."""
     if isinstance(x, torch.Tensor):

@@ -93,12 +93,13 @@ def _nee_direct(tables: SceneTables, cfg: RenderConfig, hit, albedo,
     takes its fuzz-ball density for p_b. Le is materials.emitted at the
     sampled point and its UV, in each family's hit-UV convention."""
     L = tables.n_lights
-    u_pick = rng.uniform(seed, pixel, sample_idx, bounce_idx, rng.NEE_PICK)
+    smp = rng.resolve(cfg.sampler)
+    u_pick = smp.uniform(seed, pixel, sample_idx, bounce_idx, rng.NEE_PICK)
     li = torch.clamp((u_pick * L).to(torch.int32), max=L - 1).long()
     fam = tables.light_fam[li]
     pid = tables.light_pid[li].long()
-    u1 = rng.uniform(seed, pixel, sample_idx, bounce_idx, rng.NEE_U1)
-    u2 = rng.uniform(seed, pixel, sample_idx, bounce_idx, rng.NEE_U2)
+    u1 = smp.uniform(seed, pixel, sample_idx, bounce_idx, rng.NEE_U1)
+    u2 = smp.uniform(seed, pixel, sample_idx, bounce_idx, rng.NEE_U2)
 
     b = u1.shape[0]
     dev = u1.device
@@ -331,17 +332,18 @@ def _bounce(tables: SceneTables, cfg: RenderConfig, state: RayState,
     the next prev_diff), see nee_emission and nee_bounce."""
     o, d, tp, rgb, alive = state
     nee = prev_diff is not None
+    smp = rng.resolve(cfg.sampler)
 
     survive = torch.ones_like(alive)
     if cfg.p_rr > 0.0:
         # RR check precedes the hit test (4_0_path_tracing.py:45-46)
-        u_rr = rng.uniform(seed, pixel, sample_idx, bounce_idx, rng.RR)
+        u_rr = smp.uniform(seed, pixel, sample_idx, bounce_idx, rng.RR)
         survive = u_rr <= cfg.p_rr
 
     hit = intersect(tables, o, d, engine=cfg.engine)
 
-    ball = rng.in_unit_ball(seed, pixel, sample_idx, bounce_idx)
-    refl_u = rng.uniform(seed, pixel, sample_idx, bounce_idx, rng.DIEL_REFL)
+    ball = smp.in_unit_ball(seed, pixel, sample_idx, bounce_idx)
+    refl_u = smp.uniform(seed, pixel, sample_idx, bounce_idx, rng.DIEL_REFL)
     sc, em = materials.shade(tables, hit.mat, d, hit.normal, hit.front_face,
                              hit.u, hit.v, hit.p, ball, refl_u)
 

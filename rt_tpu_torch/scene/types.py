@@ -213,6 +213,15 @@ class SceneTables:
 
         return MegaScene.of(self)
 
+    @functools.cached_property
+    def mega_culled(self):
+        """The megakernels' tables with chunk culling (MegaScene.of with
+        cull=True: the Morton-sorted rows and their chunk boxes), built
+        at first use and kept with these tables."""
+        from rt_tpu_torch.ops.mega_tables import MegaScene
+
+        return MegaScene.of(self, cull=True)
+
     def leaves(self) -> Dict[str, torch.Tensor]:
         """Every tensor by name; camera fields as 'camera.<field>'."""
         out = {}

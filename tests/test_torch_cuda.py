@@ -475,8 +475,8 @@ def test_capture_kernel_matches_plain(scene, p_rr):
         assert int(codes.max()) >= 2048  # rows past the staged ones hit
     state = mega_plain.fresh_state(ro, rd)
     ran = torch.zeros(192 * 108, dtype=torch.int32, device=dev)
-    cuda_mega.mega_segment(tt.mega.table, state, pix.to(torch.int32), 0, 0,
-                           0, 50, depth=ran,
+    cuda_mega.mega_segment(mega_tables.scene_for(tt, cfg).table, state,
+                           pix.to(torch.int32), 0, 0, 0, 50, depth=ran,
                            **mega_plain.trace_options(tt, cfg))
     assert torch.equal(ran, torch.where(death < 50, death + 1, death))
 
@@ -582,7 +582,8 @@ def _regen_segment(tt, cfg, seg_iters, plain, sample_base=0, seed=0):
     samp, bvec, depth = (torch.zeros(w * h, dtype=torch.int32, device=dev)
                          for _ in range(3))
     fn = mega_plain.regen_plain if plain else cuda_mega.mega_regen
-    fn(tt.mega.table, tt.mega.cam, state, pix, pix // w, samp, bvec,
+    ms = mega_tables.scene_for(tt, cfg)
+    fn(ms.table, ms.cam, state, pix, pix // w, samp, bvec,
        sample_base, seed, seg_iters, max_depth=cfg.max_depth,
        spp=cfg.samples_per_pixel, init=True, width=w, height=h,
        defocus=cfg.enable_defocus,
@@ -676,7 +677,8 @@ def test_regen_wrapper_checks_inputs():
     tt, cfg = _regen_scene(dev, 16, 8, 2, 4)
     b = 16 * 8
     pix = torch.arange(b, dtype=torch.int32, device=dev)
-    args = [tt.mega.table, tt.mega.cam, torch.zeros((13, b), device=dev),
+    tab = mega_tables.scene_for(tt, cfg).table
+    args = [tab, tt.mega.cam, torch.zeros((13, b), device=dev),
             pix, pix // 16, torch.zeros(b, dtype=torch.int32, device=dev),
             torch.zeros(b, dtype=torch.int32, device=dev), 0, 0, 10]
     kw = dict(max_depth=4, spp=2, init=True, width=16, height=8,
@@ -688,7 +690,7 @@ def test_regen_wrapper_checks_inputs():
         return cuda_mega.mega_regen(*a, **{**kw, **over})
 
     with pytest.raises(TypeError):
-        call(0, tt.mega.table.double())
+        call(0, tab.double())
     with pytest.raises(ValueError, match="shape"):
         call(2, args[2][:12].contiguous())
     with pytest.raises(ValueError, match="on cpu"):
@@ -807,15 +809,15 @@ def test_family_tables_are_checked():
     pix = torch.arange(8, dtype=torch.int32, device=dev)
     kw = mega_plain.trace_options(tt, cfg)
     fam = kw.pop("fam")
+    tab = mega_tables.scene_for(tt, cfg).table
     for bad in (fam._replace(rect=fam.rect.double()),
                 fam._replace(cyl=fam.cyl[:, :31].contiguous()),
                 fam._replace(tri=fam.tri.cpu())):
         with pytest.raises((TypeError, ValueError)):
-            cuda_mega.mega_segment(tt.mega.table, state.clone(), pix, 0, 0, 0,
-                                   4, fam=bad, **kw)
+            cuda_mega.mega_segment(tab, state.clone(), pix, 0, 0, 0, 4,
+                                   fam=bad, **kw)
     before = cuda_mega.mega_segment.launches
-    cuda_mega.mega_segment(tt.mega.table, state, pix, 0, 0, 0, 4, fam=fam,
-                           **kw)
+    cuda_mega.mega_segment(tab, state, pix, 0, 0, 0, 4, fam=fam, **kw)
     assert cuda_mega.mega_segment.launches == before + 1
     assert fam.rect.shape[1] == mega_tables.F_COLS
 
@@ -1271,3 +1273,97 @@ def test_fit_cli_images_runs_the_kernels(tmp_path, extra, kernel):
                    "--out", str(tmp_path / "out")] + extra)
     assert rc == 0
     assert counts[kernel].launches > before
+
+
+FLAG_SETTINGS = {"qmc": dict(sampler="qmc"),
+                 "qmc_no_cull_rr": dict(sampler="qmc", cull_chunks=False,
+                                        p_rr=0.9),
+                 "cull": dict(cull_chunks=True),
+                 "cull_nee_mis": dict(cull_chunks=True, nee=True, mis=True)}
+
+
+def _flag_scene(dev, name):
+    if name == "cover":
+        sdef, cfg = builders.cover_scene(width=192, height=108, spp=1,
+                                         max_depth=12)
+        return types.build_tables(sdef, device=dev), cfg
+    if name == "lights":
+        return _light_scene(dev, 192, 108, 8)
+    return _family_scene(dev, name, 192, 108, 1, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(FLAG_SETTINGS))
+@pytest.mark.parametrize("name", ["cover", "mesh", "lights"])
+def test_qmc_and_culled_kernels_match_plain(name, setting):
+    """B2 and B3 (with the setting's light sampler), B4 and B7 under the
+    sampler "qmc" and under chunk culling against their plain versions
+    at 192x108: every lane bit for bit (B4's codes and deaths, B7's
+    every word), the kernels launched; B5 / B6 (NEE without MIS) within
+    1e-5 + 1e-3 max|g| per field."""
+    from rt_tpu_torch.ops import camera, cuda_mega, cuda_queue, mega_tables
+
+    dev = _card()
+    tt, cfg = _flag_scene(dev, name)
+    cfg = cfg.replace(compact_every=2, queue_steps=3,
+                      **FLAG_SETTINGS[setting])
+    if cfg.cull_chunks:
+        assert mega_tables.scene_for(tt, cfg).cull is not None
+    px = torch.arange(192 * 108, device=dev)
+    ro, rd = camera.generate_rays(tt.camera, 192, 108, px % 192, px // 192,
+                                  0, 0, cfg.enable_defocus, cfg.sampler)
+    for fn, eng, count in (
+            (cuda_mega.mega_trace, "mega", cuda_mega.mega_segment),
+            (cuda_queue.queue_trace, "queue", cuda_queue.queue_launch)):
+        ce = cfg.replace(engine=eng)
+        before = count.launches
+        k = fn(tt, ce, ro, rd, px, 0, 0)
+        torch.cuda.synchronize()
+        assert count.launches > before, eng
+        assert torch.equal(k, fn(tt, ce, ro, rd, px, 0, 0, plain=True)), eng
+    c0 = cfg.replace(nee=False, mis=False)
+    codes, death = cuda_mega.mega_capture(tt, c0, ro, rd, px, 0, 0)
+    p_codes, p_death = cuda_mega.mega_capture(tt, c0, ro, rd, px, 0, 0,
+                                              plain=True)
+    assert torch.equal(codes, p_codes) and torch.equal(death, p_death)
+    assert int(codes.max()) >= 0
+    for a, b in zip(_regen_segment(tt, c0, 14, False),
+                    _regen_segment(tt, c0, 14, True)):
+        assert torch.equal(a, b)
+    ca = cfg.replace(mis=False)
+    L = cuda_queue.queue_trace(tt, ca, ro, rd, px, 0, 0)
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1e-3, (192 * 108, 3)).astype(np.float32)).to(dev)
+    adj = (tt, ca, ro, rd, px, 0, 0, L, g, 8, False)
+    want = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+    _grads_close(want, cuda_mega.mega_trace_adjoint(*adj))
+    _grads_close(want, cuda_queue.queue_trace_adjoint(*adj, check_once=True))
+
+
+@pytest.mark.cuda
+def test_culled_launchers_check_the_sorted_table():
+    """The chunk boxes go with the sorted sphere table: a launcher given
+    the table in scene order beside culled options raises before the
+    kernel; the boxes are checked for type and shape."""
+    from rt_tpu_torch.ops import cuda_mega, mega_plain, mega_tables
+
+    dev = _card()
+    tt = types.build_tables(builders.cover_scene()[0], device=dev)
+    from rt_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig()
+    kw = mega_plain.trace_options(tt, cfg)
+    state = mega_plain.fresh_state(torch.zeros((8, 3), device=dev),
+                                   torch.ones((8, 3), device=dev))
+    pix = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="sorted"):
+        cuda_mega.mega_segment(tt.mega.table, state.clone(), pix, 0, 0, 0, 4,
+                               **kw)
+    tab = mega_tables.scene_for(tt, cfg).table
+    bad = kw["cull"]._replace(sph=kw["cull"].sph[:, :6].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        cuda_mega.mega_segment(tab, state.clone(), pix, 0, 0, 0, 4,
+                               **{**kw, "cull": bad})
+    before = cuda_mega.mega_segment.launches
+    cuda_mega.mega_segment(tab, state, pix, 0, 0, 0, 4, **kw)
+    assert cuda_mega.mega_segment.launches == before + 1

@@ -48,6 +48,7 @@ def test_plain_b2_b3_match_pallas_mega_per_lane(name):
     lanes across launches)."""
     jt, cj, tt, cfg = _scene(name, W, H, 1, 6)
     cj = cj.replace(engine="mega", cull_chunks=False)
+    cfg = cfg.replace(cull_chunks=False)
     px = np.tile(np.arange(W, dtype=np.int32), H)
     py = np.repeat(np.arange(H, dtype=np.int32), W)
     pix = (py * W + px).astype(np.uint32)
@@ -104,6 +105,7 @@ def _jax_regen(jt, cj, seg_iters, spp, depth):
 def test_plain_b7_matches_pallas_regen(name, seg_iters):
     spp, depth = 2, 6
     jt, cj, tt, cfg = _scene(name, W, H, spp, depth)
+    cfg = cfg.replace(cull_chunks=False)  # _jax_regen's
     j_rgb, j_samp, j_alive = _jax_regen(jt, cj, seg_iters, spp, depth)
     b = W * H
     pix = torch.arange(b, dtype=torch.int32)
@@ -196,7 +198,8 @@ def test_sphere_scenes_keep_the_sphere_only_tables(demo):
 
     _, _, tt, cfg = demo
     assert [t.shape[0] for t in tt.mega.fam] == [1, 1, 0]
-    assert mega_plain.trace_options(tt, cfg)["fam"] is tt.mega.fam
+    assert mega_plain.trace_options(tt, cfg)["fam"] is \
+        mega_tables.scene_for(tt, cfg).fam
     dna = _scene("dna", 8, 8, 1, 2)[2]
     assert [t.shape[0] for t in dna.mega.fam] == [0, 30, 0]
     cover = types.build_tables(builders.cover_scene(grid=1)[0])

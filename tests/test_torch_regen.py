@@ -28,7 +28,7 @@ from rt_tpu.render import renderer as jrenderer
 from rt_tpu.scene import builders as jbuilders
 from rt_tpu.scene import types as jtypes
 from rt_tpu_torch.config import RenderConfig, check_supported
-from rt_tpu_torch.ops import camera, cuda_mega, mega_plain
+from rt_tpu_torch.ops import camera, cuda_mega, mega_plain, mega_tables
 from rt_tpu_torch.render import renderer as trenderer
 from rt_tpu_torch.scene import builders as tbuilders
 from rt_tpu_torch.scene import types as ttypes
@@ -134,9 +134,12 @@ def test_regen_is_ignored_by_other_engines():
 
 def test_regen_config_is_supported():
     check_supported(RenderConfig(engine="mega", regen=True, regen_compact=-1))
+    check_supported(RenderConfig(engine="mega", regen=True,
+                                 compact_sort="spatial"))
     with pytest.raises(NotImplementedError):
         check_supported(RenderConfig(engine="mega", regen=True,
-                                     compact_sort="spatial"))
+                                     compact_sort="spatial",
+                                     traversal="bvh"))
 
 
 @pytest.mark.parametrize("name", ["cover", "cornell"])
@@ -215,7 +218,8 @@ def test_resumed_segments_equal_one_segment():
     tt, cfg = _scene("cornell", width=24, height=18, spp=3, max_depth=6)
     kw = dict(max_depth=6, spp=3, width=24, height=18, defocus=True,
               **mega_plain.trace_options(tt, cfg))
-    tab, cam = tt.mega.table, tt.mega.cam
+    ms = mega_tables.scene_for(tt, cfg)
+    tab, cam = ms.table, ms.cam
     one = _lanes(cfg)
     d_one = torch.zeros(24 * 18, dtype=torch.int32)
     cuda_mega.mega_regen(tab, cam, one["state"], one["pixel"], one["py"],

@@ -61,6 +61,7 @@ def _jax_regen(jt, cj, seg_iters):
 
 
 def _port_regen(tt, cfg, seg_iters):
+    cfg = cfg.replace(cull_chunks=False)  # _jax_regen's
     b = W * H
     pix = torch.arange(b, dtype=torch.int32)
     state = torch.zeros((13, b))

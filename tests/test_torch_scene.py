@@ -168,20 +168,37 @@ def test_config_fields_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("bad,exc", [
-    (dict(engine="mega", compact_sort="spatial"), NotImplementedError),
-    (dict(engine="mega", regen=True, compact_sort="spatial"),
+    # the spatial sort and QMC run (tests/test_torch_cull.py,
+    # test_torch_qmc.py); they hide no refusal
+    (dict(engine="mega", compact_sort="spatial", traversal="bvh"),
+     NotImplementedError),
+    (dict(engine="mega", regen=True, compact_sort="spatial", loop="scan"),
      NotImplementedError),
     (dict(engine="xla"), ValueError),
     # light sampling runs (tests/test_torch_nee.py); it hides no refusal
-    (dict(nee=True, sampler="qmc"), NotImplementedError),
+    (dict(nee=True, sampler="qmc", traversal="bvh"), NotImplementedError),
     (dict(nee=True, mis=True, traversal="bvh"), NotImplementedError),
-    (dict(sampler="qmc"), NotImplementedError),
+    (dict(sampler="qmc", loop="scan"), NotImplementedError),
     (dict(traversal="bvh"), NotImplementedError),
     (dict(loop="scan"), NotImplementedError),
 ])
 def test_config_unported_options_raise(bad, exc):
     with pytest.raises(exc):
         tconfig.check_supported(tconfig.RenderConfig(**bad))
+
+
+@pytest.mark.parametrize("opts,exc", [
+    (dict(sampler="qmc"), None), (dict(compact_sort="spatial"), None),
+    (dict(cull_chunks=False), None), (dict(sampler="sobol"), ValueError),
+    (dict(compact_sort="octant"), ValueError),
+])
+def test_config_takes_qmc_spatial_and_cull(opts, exc):
+    cfg = tconfig.RenderConfig(engine="mega", **opts)
+    if exc is None:
+        tconfig.check_supported(cfg)
+    else:
+        with pytest.raises(exc):
+            tconfig.check_supported(cfg)
 
 
 def test_resolve_device():

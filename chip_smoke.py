@@ -74,7 +74,18 @@ hero sphere textured by two 1024x1024 images, on queue, mega and regen,
 beside phase 10's frames, with one B2 / B3 call against the plain
 versions (43); and `render -f` of the textured demo copy (with and
 without --nee) and `fit ... --fields images` with the replay and the
-tape, whose loss must fall (44). Each phase prints its
+tape, whose loss must fall (44). QMC and chunk culling follow (45-49:
+the kernels against their plain versions under each, frames in four
+settings, the runtime flags' A/B, with --parent also B3 / B6 on four
+culled workloads, the queue frame and `render -f` against another
+checkout in turns), and B3 / B6's warp-cooperative hit closes it (50):
+ties at 192x108 and one call on cover, cover_lights with nee, the mesh
+and the textured mesh in the default build and scratch builds of other
+kDenseMax values (phase 2 builds them; --dense-grid adds two), against
+the plain versions and B5, timed in turns, with the cover frame in each
+build and the issued instructions per row from cuobjdump. Phase 2 also
+holds the registers of the kernels outside B3 / B6 to the parent's.
+Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -98,6 +109,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -110,6 +122,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # another checkout of the port (--parent) whose B2 / B3 / B5 / B6 phase
 # 48 times beside this one's, in turns, and whose registers it compares
 PARENT = None
+DENSE_GRID_ON = False
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FP32_OPS = 67e12      # FP32 outside the tensor cores, op/s
@@ -567,6 +580,8 @@ def reset_plain_counts():
     mega_plain.winner_uv.texels = [0, 0, 0, 0]
     mega_plain.closest_hit.rows = [0, 0, 0, 0]
     mega_plain.closest_hit.boxes = 0
+    mega_plain.closest_hit.need = [[0] * (mega_plain.WARP + 1)
+                                   for _ in range(4)]
     mega_plain.shadow_occluded.rays = 0
     mega_plain.shadow_occluded.rows = [0, 0, 0, 0]
 
@@ -607,44 +622,214 @@ def counters():
 
 KERNELS = ["sphere_hit", "mega", "queue", "mega_adjoint", "queue_adjoint",
            "capture", "regen"]
+# kDenseMax of B3 / B6's scratch builds (bounce.cuh warp_hit; phase 50):
+# the per-lane schedule and always dense; --dense-grid adds the grid's
+# other values. The default build's value is bounce.cuh's RTT_DENSE_MAX.
+DENSE_BUILDS = [0, 32]
+DENSE_GRID = (8, 24)
+# the libraries whose code the warp-cooperative hit of B3 / B6 left as it
+# was: phase 2 holds their ptxas registers, per instantiation, to the
+# parent's build (--parent) or to PARENT_REGS, the parent's on the card's
+# toolkit (CUDA 12.8, from a --parent run's printout): per library its
+# kernel and "bool template arguments:registers" of each instantiation
+PARENT_REGS = {
+    "capture": ("capture_kernel", """
+        000:40 001:40 010:46 011:48 100:40 101:40 110:46 111:48
+        """),
+    "mega": ("mega_kernel", """
+        00000:40 00001:48 00010:48 00011:48 00100:64 00101:64 00110:64
+        00111:64 01000:48 01001:48 01010:48 01011:48 01100:64 01101:64
+        01110:64 01111:64 10000:40 10001:48 10010:48 10011:48 10100:64
+        10101:64 10110:64 10111:64 11000:48 11001:48 11010:48 11011:48
+        11100:64 11101:64 11110:64 11111:64
+        """),
+    "mega_adjoint": ("mega_adjoint_kernel", """
+        00000:64 00001:62 00010:62 00011:62 00100:64 00101:80 00110:80
+        00111:80 01000:64 01001:62 01010:64 01011:64 01100:95 01101:80
+        01110:96 01111:80 10000:62 10001:60 10010:62 10011:64 10100:80
+        10101:80 10110:80 10111:80 11000:62 11001:64 11010:64 11011:64
+        11100:80 11101:80 11110:80 11111:80
+        """),
+    "regen": ("regen_kernel", """
+        0000:48 0001:60 0010:48 0011:64 0100:56 0101:56 0110:60 0111:60
+        1000:48 1001:60 1010:64 1011:60 1100:48 1101:48 1110:60 1111:48
+        """),
+    "sphere_hit": ("sphere_hit_kernel", """
+        :34
+        """),
+}
 
 
-def build_all():
+def parent_regs():
+    """PARENT_REGS as {"library:kernel<bits>": registers}."""
+    out = {}
+    for lib, (kernel, table) in PARENT_REGS.items():
+        for item in table.split():
+            bits, regs = item.split(":")
+            out[f"{lib}:{kernel}<{bits}>"] = int(regs)
+    return out
+
+
+def dense_defines(dense_max):
+    """The nvcc defines of a scratch build of B3 / B6 with kDenseMax."""
+    return (f"RTT_DENSE_MAX={dense_max}",)
+
+
+def default_dense_max():
+    """kDenseMax of the default build, from csrc/bounce.cuh."""
+    with open(os.path.join(ROOT, "rt_tpu_torch", "csrc", "bounce.cuh")) as f:
+        return int(re.search(r"#define RTT_DENSE_MAX (\d+)", f.read())
+                   .group(1))
+
+
+def build_all(extra=()):
     """Build every kernel library of the tree that rt_tpu_torch is imported
-    from, one nvcc per source, all started together: the library paths."""
+    from, and the scratch builds `extra` ((name, defines) pairs), one nvcc
+    per library, all started together: the library paths, KERNELS' then
+    extra's."""
     from rt_tpu_torch.ops import cuda_build
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
-        return list(ex.map(cuda_build.build, KERNELS))
+    jobs = [(k, ()) for k in KERNELS] + list(extra)
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        return list(ex.map(
+            lambda j: cuda_build.build(j[0], *([j[1]] if j[1] else [])),
+            jobs))
+
+
+@contextlib.contextmanager
+def dense_schedule(dense_max):
+    """Inside, B3 and B6 run from the scratch libraries built with
+    -DRTT_DENSE_MAX=dense_max (None: the default build): the wrappers'
+    library loaders and the grids they cached are swapped, so no option
+    reaches the port's entry points."""
+    from rt_tpu_torch.ops import cuda_queue
+
+    saved = cuda_queue._library, cuda_queue._adjoint_library
+
+    def clear():
+        cuda_queue._grid_blocks.cache_clear()
+        cuda_queue._adjoint_grid_blocks.cache_clear()
+
+    if dense_max is not None:
+        lib = saved[0](dense_defines(dense_max))
+        alib = saved[1](dense_defines(dense_max))
+        cuda_queue._library = lambda: lib
+        cuda_queue._adjoint_library = lambda: alib
+        clear()
+    try:
+        yield
+    finally:
+        cuda_queue._library, cuda_queue._adjoint_library = saved
+        clear()
+
+
+def kernel_key(fn):
+    """"kernel<bits>" of a mangled kernel name: its name without the
+    anonymous namespace (whose hash follows the source's path) and its
+    bool template arguments, 0 / 1 in order."""
+    m = re.search(r"([a-z_]+_kernel)(?:I((?:Lb[01]E)+)E)?", fn)
+    return f"{m.group(1)}<{''.join(re.findall('[01]', m.group(2) or ''))}>"
+
+
+def registers_of(lib):
+    """{"kernel<bits>": registers} from the ptxas report that
+    ops/cuda_build.py keeps beside the library `lib` (<lib>.log)."""
+    out, fn = {}, None
+    for line in open(f"{lib}.log"):
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and " registers" in line and "Used " in line:
+            out[kernel_key(fn)] = int(
+                line.split("Used ")[1].split(" register")[0])
+            fn = None
+    return out
 
 
 def ptxas_registers(root):
-    """{"library:kernel": registers} from the ptxas reports that
-    ops/cuda_build.py keeps beside the libraries built under root."""
+    """{"library:kernel<bits>": registers} of the libraries built under
+    root (one build of each: a fresh checkout's)."""
     out = {}
-    pattern = os.path.join(root, "rt_tpu_torch", "_build", "lib*.so.log")
-    for log in sorted(glob.glob(pattern)):
-        lib = os.path.basename(log)[3:].split("-")[0]
-        fn = None
-        for line in open(log):
-            if "Compiling entry function" in line:
-                fn = line.split("'")[1]
-            elif fn and " registers" in line and "Used " in line:
-                out[f"{lib}:{fn}"] = int(
-                    line.split("Used ")[1].split(" register")[0])
-                fn = None
+    pattern = os.path.join(root, "rt_tpu_torch", "_build", "lib*.so")
+    for lib in sorted(glob.glob(pattern)):
+        name = os.path.basename(lib)[3:].split("-")[0]
+        out.update({f"{name}:{k}": v for k, v in registers_of(lib).items()})
+    return out
+
+
+def sass_loops(lib, kernel):
+    """The loops of `kernel` ("kernel<bits>") in the SASS of the library
+    lib (cuobjdump -sass, beside nvcc): [(instructions, opcode counts)],
+    one per backward branch, or None without cuobjdump."""
+    from rt_tpu_torch.ops import cuda_build
+
+    cuobj = os.path.join(os.path.dirname(cuda_build.find_nvcc()),
+                         "cuobjdump")
+    if not os.path.exists(cuobj):
+        return None
+    sass = subprocess.run([cuobj, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    body = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+            if kernel_key(f.split("\n", 1)[0]) == kernel][0]
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []
+    for addr, txt in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", txt)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+                   for a, t in ins if lo <= a <= addr]
+            counts = {}
+            for op in ops:
+                for key in (op.split(".")[0], op):
+                    counts[key] = counts.get(key, 0) + 1
+            loops.append((len(ops), counts))
+    return loops
+
+
+def row_instructions(lib):
+    """Issued instructions per (lane, row) in B3's hit loops, from the
+    SASS of its instantiation with families (kTail, kNee, kImages, kQmc
+    off): the per-lane sphere loop (unrolled: its length over its
+    LDS.128 rows), the per-lane triangle loop (one row an iteration, 17+
+    LDG), and the dense path's loop per (ray, chunk) for spheres (10
+    shuffled ray words and the winner's t) and triangles (6 and the t),
+    where every thread tests one row; None where not found."""
+    loops = sass_loops(lib, "queue_kernel<01000>")
+    if loops is None:
+        return None
+    out = {"sphere_row": None, "triangle_row": None,
+           "dense_sphere_ray_chunk": None, "dense_triangle_ray_chunk": None}
+    for n, c in loops:
+        shfl, redux = c.get("SHFL", 0), c.get("REDUX", 0)
+        if redux == 1 and shfl >= 11 and c.get("LDS", 0) == 0:
+            out["dense_sphere_ray_chunk"] = n
+        elif redux == 1 and 7 <= shfl < 11 and c.get("LDG", 0) == 0:
+            out["dense_triangle_ray_chunk"] = n
+        elif not shfl and not redux and c.get("LDS.128", 0) >= 1 \
+                and c.get("MUFU", 0) == c["LDS.128"]:
+            out["sphere_row"] = n / c["LDS.128"]
+        elif not shfl and not redux and c.get("LDG", 0) >= 17 \
+                and c.get("MUFU", 0) == 1 and n < 200:
+            out["triangle_row"] = n
     return out
 
 
 def ab_times(root):
-    """B2 / B3 / B5 / B6 at phases 11 / 13's shape (cover_scene 1920x1080,
-    depth 50, one trace call of sample 0 and its exact adjoint call)
-    under rng without culling, with the package imported from root (this
-    tree or another checkout of it): one JSON line of mean ms over 5
-    calls after a warm-up."""
+    """Times of the package imported from root (this tree or another
+    checkout of it), one JSON line: B2 / B3 / B5 / B6 at phases 11 / 13's
+    shape (cover_scene 1920x1080, depth 50, one trace call of sample 0
+    and its exact adjoint call) under rng without culling; B3 / B6 with
+    culling (the default) on cover, cover_lights with nee (depth 50), the
+    mesh and the textured mesh (depth 16), as phase 50; mean ms over 5
+    calls after a warm-up. Then the bench-shape queue frame (spp 16, mean
+    s of 3 after one) and `render -f scenes/demo_scene.json` (s, the
+    second of two runs)."""
     sys.path.insert(0, root)
+    from rt_tpu_torch import cli
     from rt_tpu_torch.ops import cuda_mega, cuda_queue
     from rt_tpu_torch.ops.camera import generate_rays
+    from rt_tpu_torch.render.renderer import render
     from rt_tpu_torch.scene.builders import cover_scene
     from rt_tpu_torch.scene.types import build_tables
 
@@ -668,9 +853,93 @@ def ab_times(root):
             ("queue_launch", cuda_queue.queue_trace, args),
             ("mega_adjoint_segment", cuda_mega.mega_trace_adjoint, adj),
             ("queue_adjoint_launch", cuda_queue.queue_trace_adjoint, adj)):
-        out[name] = cuda_ms(lambda: fn(*a), 10)[0]
+        out[name] = cuda_ms(lambda: fn(*a), 5)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, tb, cb in warp_scenes(tmp, dev):
+            rays = generate_rays(tb.camera, W, H, px % W, px // W, 0, 0,
+                                 cb.enable_defocus, cb.sampler)
+            a = (tb, cb, *rays, px, 0, 0)
+            L = cuda_queue.queue_trace(*a)
+            ad = a + (L, g, cb.max_depth, False)
+            out[f"queue_launch {label}"] = cuda_ms(
+                lambda: cuda_queue.queue_trace(*a), 5)[0]
+            out[f"queue_adjoint_launch {label}"] = cuda_ms(
+                lambda: cuda_queue.queue_trace_adjoint(*ad), 5)[0]
+        frame_cfg = cfg.replace(cull_chunks=True, engine="queue")
+        secs = []
+        for rep in range(4):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            render(tables, frame_cfg, device="cuda")
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+        out["queue frame s"] = float(np.mean(secs[1:]))
+        with contextlib.chdir(tmp), \
+                contextlib.redirect_stdout(io.StringIO()):
+            for rep in range(2):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                if cli.main(["render", "-f", DEMO, "-o", "d.ppm"]) != 0:
+                    raise AssertionError("render -f demo failed")
+                torch.cuda.synchronize()
+                out["render -f demo s"] = time.time() - t0
     print(json.dumps(out))
     return 0
+
+
+def warp_scenes(tmpd, dev):
+    """The bench-shape workloads of B3 / B6's warp-cooperative hit
+    (phases 48 and 50), with culling: (label, tables, cfg) of cover and
+    cover_lights with nee at depth 50, the mesh and the mesh textured by a
+    seeded 512x512 PNG (Taichi's UV swap) at depth 16."""
+    from rt_tpu_torch.scene.builders import cover_scene, mesh_scene
+    from rt_tpu_torch.scene.types import build_tables
+
+    sd, cb = cover_scene(width=W, height=H, spp=1, max_depth=DEPTH)
+    yield "cover", build_tables(sd, device=dev), cb
+    sd, cb = cover_scene(width=W, height=H, spp=1, max_depth=DEPTH,
+                         lights=True)
+    yield "cover_lights, nee", build_tables(sd, device=dev), cb.replace(
+        nee=True)
+    sd, cb = mesh_scene(MESH, width=W, height=H, spp=1, max_depth=16)
+    yield "mesh", build_tables(sd, device=dev), cb
+    png = seeded_png(os.path.join(tmpd, "warp_mesh.png"), 512, 23)
+    sd, cb = mesh_scene(MESH, width=W, height=H, spp=1, max_depth=16,
+                        texture_path=png)
+    sd.taichi_tri_uv = True
+    yield "textured mesh", build_tables(sd, device=dev), cb
+
+
+def tie_scene(w, h, depth):
+    """Equal hits: a ground sphere, 25 spheres each given twice (same
+    centre and radius, different albedo: adjacent rows of one chunk once
+    Morton-sorted) and one sphere given 40 times (lambertian and metal
+    copies, across two chunks), so that the rule "an equal t goes to the
+    later row" picks the colour: (SceneDef, RenderConfig)."""
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.scene.types import SceneDef
+
+    s = SceneDef(width=w, height=h, samples_per_pixel=1, max_depth=depth,
+                 background=(0.3, 0.4, 0.5))
+    s.add_sphere((0, -100.5, -2), 100, s.add_lambertian_color((0.5, 0.5,
+                                                               0.5)))
+    k = 0
+    for i in range(5):
+        for j in range(5):
+            for _ in range(2):
+                k += 1
+                s.add_sphere((-1.2 + 0.6 * i, -0.3, -3.0 + 0.6 * j), 0.2,
+                             s.add_lambertian_color(
+                                 ((k * 0.37) % 1, (k * 0.61) % 1,
+                                  (k * 0.13) % 1)))
+    for m in range(40):
+        mat = (s.add_metal((0.9, 0.8 * (m % 2), 0.3), 0.1 * (m % 3))
+               if m % 3 == 0 else
+               s.add_lambertian_color(((m * 0.29) % 1, (m * 0.47) % 1, 0.5)))
+        s.add_sphere((0.0, 0.3, -1.6), 0.35, mat)
+    s.set_camera((0, 0.5, 1.0), (0, 0, -2), (0, 1, 0), 60, 0.0)
+    return s, RenderConfig(width=w, height=h, samples_per_pixel=1,
+                           max_depth=depth)
 
 
 def reset_counts():
@@ -721,21 +990,69 @@ def main() -> int:
               f"devices {torch.cuda.device_count()}, installed {found}",
               flush=True)
 
-    with phase("2 build"):
-        # one nvcc per source, all started together
-        kernels = KERNELS
-        for k in kernels:  # build from the checkout's sources
-            cuda_build.library_path(k).unlink(missing_ok=True)
+    dense_max = default_dense_max()
+    dense_builds = DENSE_BUILDS + (list(DENSE_GRID) if DENSE_GRID_ON else [])
+    with phase(f"2 build (and B3 / B6 with kDenseMax {dense_builds}; the "
+               "registers of B1, B2, B4, B5, B7 against the parent's)"):
+        # one nvcc per library, all started together
+        scratch = [(k, dense_defines(d)) for d in dense_builds
+                   for k in ("queue", "queue_adjoint")]
+        jobs = [(k, ()) for k in KERNELS] + scratch
+        for k, d in jobs:  # build from the checkout's sources
+            cuda_build.library_path(k, d).unlink(missing_ok=True)
+        parent_build = None
+        if PARENT:  # the parent's libraries, built beside these
+            parent_build = subprocess.Popen(
+                [sys.executable, "-c", f"import sys; sys.path.insert(0, "
+                 f"{PARENT!r}); import chip_smoke; chip_smoke.build_all()"],
+                cwd=PARENT)
         t0 = time.time()
-        libs = build_all()
+        libs = build_all(scratch)
         build_s = time.time() - t0
         print(f"  built {len(libs)} libraries in {build_s:.2f} s")
-        for k, lib in zip(kernels, libs):
+        for (k, d), lib in zip(jobs, libs):
             print(f"  {os.path.relpath(lib, ROOT)}: nvcc "
-                  f"{' '.join(cuda_build.flags(k))}")
+                  f"{' '.join(cuda_build.flags(k, d))}")
             log = lib.with_name(lib.name + ".log").read_text().strip()
             for line in log.splitlines():
                 print(f"  nvcc: {line}")
+        regs = {f"{k}:{kk}": v for (k, d), lib in zip(jobs, libs) if not d
+                for kk, v in registers_of(lib).items()}
+        for (k, d), lib in zip(jobs, libs):
+            if not d and k not in ("queue", "queue_adjoint"):
+                continue
+            r = registers_of(lib)
+            print(f"  {k} {' '.join(d) or f'(kDenseMax {dense_max})'}: "
+                  f"{len(r)} instantiations, registers {min(r.values())}-"
+                  f"{max(r.values())}", flush=True)
+        if parent_build is not None:
+            if parent_build.wait() != 0:
+                raise AssertionError("the parent's build failed")
+            old = ptxas_registers(PARENT)
+        else:
+            old = parent_regs()
+        same = [k for k in regs if k.split(":")[0] not in
+                ("queue", "queue_adjoint")]
+        moved = {k: (old.get(k), regs[k]) for k in same
+                 if old.get(k) != regs[k]}
+        print(f"  registers of B1, B2, B4, B5, B7 against the parent's "
+              f"({'its build' if PARENT else 'PARENT_REGS'}): {len(same)} "
+              f"instantiations, {len(moved)} moved {moved}", flush=True)
+        if moved:
+            raise AssertionError("a kernel outside B3 / B6 changed its "
+                                 "registers")
+        if PARENT:
+            q_moved = {k: (old.get(k), v) for k, v in regs.items()
+                       if k not in same and old.get(k) != v}
+            print(f"  B3 / B6 against the parent's: {len(regs) - len(same)}"
+                  f" instantiations, registers moved {q_moved}", flush=True)
+            # the table this tree holds when run without --parent
+            table = {}
+            for k, v in sorted(old.items()):
+                lib, kern = k.split(":")
+                if lib not in ("queue", "queue_adjoint"):
+                    table.setdefault(lib, {})[kern] = v
+            print(f"  PARENT_REGS = {json.dumps(table)}", flush=True)
 
     sdef, cfg = cover_scene(width=W, height=H, spp=SPP, max_depth=DEPTH)
     tables = build_tables(sdef, device=dev)
@@ -3054,7 +3371,7 @@ def main() -> int:
                 raise AssertionError(f"{label}: the spatial sort changed a "
                                      "frame")
 
-    ab = {}
+    ab, parent_ab = {}, {}
     with phase(f"48 the runtime flags at phases 11 / 13's shape ({W * H} "
                f"lanes, depth {DEPTH}): B2 / B3 / B5 / B6 under rng without "
                "and with culling and qmc with culling, in turns"):
@@ -3079,12 +3396,6 @@ def main() -> int:
             print(f"  {name}: " + ", ".join(
                 f"{k} {v:.4f} ms ({v / base:.3f})"
                 for k, v in ab[name].items()) + f"; {smi}", flush=True)
-        regs = ptxas_registers(ROOT)
-        if not regs:
-            raise AssertionError("no ptxas report beside the libraries")
-        print(f"  ptxas registers of this build: {len(regs)} "
-              f"instantiations, {min(regs.values())}-{max(regs.values())}",
-              flush=True)
         if PARENT:
             # the parent's tree beside this one, in turns: parent, this,
             # this, parent, each in its own process
@@ -3096,22 +3407,23 @@ def main() -> int:
                     check=True)
                 got.setdefault(root, []).append(
                     json.loads(res.stdout.strip().splitlines()[-1]))
-            for name in calls:
-                ps = [r[name] for r in got[PARENT]]
-                cs = [r[name] for r in got[ROOT]]
+            for key in got[ROOT][0]:
+                ps = [r[key] for r in got[PARENT]]
+                cs = [r[key] for r in got[ROOT]]
                 p, c = float(np.mean(ps)), float(np.mean(cs))
-                ab[name]["parent, rng, no culling"] = p
-                ab[name]["this tree in its own process"] = c
-                print(f"  {name} (rng, no culling): parent {p:.4f} ms "
+                name, _, label = key.partition(" ")
+                if name in calls and not label:
+                    ab[name]["parent, rng, no culling"] = p
+                    ab[name]["this tree in its own process"] = c
+                else:
+                    parent_ab[key] = dict(parent=ps, this=cs)
+                unit = "s" if key.endswith(" s") else "ms"
+                print(f"  {key}{'' if label else ' (rng, no culling)'}: "
+                      f"parent {p:.4f} {unit} "
                       f"({', '.join(f'{v:.4f}' for v in ps)}), this tree "
-                      f"{c:.4f} ms ({', '.join(f'{v:.4f}' for v in cs)}): "
+                      f"{c:.4f} {unit} "
+                      f"({', '.join(f'{v:.4f}' for v in cs)}): "
                       f"{c / p:.3f}; {smi}", flush=True)
-            old = ptxas_registers(PARENT)
-            moved = {k: (old[k], v) for k, v in regs.items()
-                     if k in old and old[k] != v}
-            print(f"  registers against the parent: {len(old)} "
-                  f"instantiations there, {len(moved)} moved: {moved}",
-                  flush=True)
 
     with phase("49 main path: python -m rt_tpu_torch render -f "
                "scenes/demo_scene.json --sampler qmc and --no-cull (960x540, "
@@ -3170,6 +3482,180 @@ def main() -> int:
                 raise AssertionError(f"fit qmc {key}: loss {hist}, "
                                      f"launches {counts}")
             flag_cli[f"fit_{key}"] = dict(sec=sec, launches=counts)
+    # ---- B3 / B6's warp-cooperative closest hit (bounce.cuh warp_hit) ----
+    builds = [None] + dense_builds
+
+    def build_name(d):
+        return (f"kDenseMax {dense_max} (default)" if d is None
+                else f"kDenseMax {d}")
+
+    warp = {"dense_max": dense_max, "ties": {}, "calls": {}}
+    with phase(f"50 B3 / B6's warp-cooperative hit in the default build "
+               f"(kDenseMax {dense_max}) and the scratch builds with "
+               f"kDenseMax {dense_builds}: ties at {SMALL_W}x{SMALL_H} "
+               "(duplicated spheres in one chunk and across two, the grid "
+               f"mesh's shared edges); one call at {W}x{H} on cover, "
+               "cover_lights with nee, the mesh and the textured mesh, "
+               "against the plain versions and B5, timed in turns"):
+        from rt_tpu_torch.ops import mega_plain, mega_tables
+        from rt_tpu_torch.scene.builders import mesh_scene
+
+        sd_tie, cb_tie = tie_scene(SMALL_W, SMALL_H, 12)
+        for label, sd, cb in (
+                ("duplicated spheres, depth 12", sd_tie, cb_tie),
+                ("mesh, depth 8", *mesh_scene(MESH, width=SMALL_W,
+                                              height=SMALL_H, spp=1,
+                                              max_depth=8))):
+            tb = build_tables(sd, device=dev)
+            ms_ = mega_tables.scene_for(tb, cb)
+            px_ = torch.arange(SMALL_W * SMALL_H, device=dev)
+            ro_, rd_ = generate_rays(tb.camera, SMALL_W, SMALL_H,
+                                     px_ % SMALL_W, px_ // SMALL_W, 0, 0,
+                                     cb.enable_defocus)
+            dup = None
+            if label.startswith("duplicated"):
+                # the primary rays whose winner is a duplicated sphere
+                chunks = ms_.cull.sph.shape[0]
+                _, fam, row = mega_plain.closest_hit(
+                    ms_.table, *ro_.T, *rd_.T, 1e-3, cull=ms_.cull)
+                dup = int((mega_plain.scene_rows(ms_.cull, fam, row)
+                           > 0).sum())
+                print(f"  {label}: {chunks} sphere chunks, {dup} of "
+                      f"{px_.numel()} primary rays take a duplicated "
+                      "sphere", flush=True)
+                if chunks < 3 or dup == 0:
+                    raise AssertionError("the tie scene has no ties")
+            args = (tb, cb, ro_, rd_, px_, 0, 0)
+            want = cuda_queue.queue_trace(*args, plain=True)
+            g = torch.from_numpy(np.random.default_rng(7).normal(
+                0, 1e-3, (px_.numel(), 3)).astype(np.float32)).to(dev)
+            adj = args + (want, g, cb.max_depth, False)
+            g_plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+            g_b5 = cuda_mega.mega_trace_adjoint(*adj)
+            grads_close(g_plain, g_b5, f"{label}: B5 vs plain")
+            for d in builds:
+                with dense_schedule(d):
+                    for steps in (0, 3):
+                        got = cuda_queue.queue_trace(
+                            tb, cb.replace(queue_steps=steps), *args[2:],
+                            check_once=True)
+                        n_bad = int((got != want).any(-1).sum())
+                        print(f"  {label}, {build_name(d)}, queue_steps "
+                              f"{steps}: B3 lanes differing from plain "
+                              f"{n_bad} of {px_.numel()}", flush=True)
+                        if n_bad:
+                            raise AssertionError(f"{label}: B3 != plain")
+                    g6 = cuda_queue.queue_trace_adjoint(*adj,
+                                                        check_once=True)
+                    e6 = grads_close(g_plain, g6, f"{label}, "
+                                     f"{build_name(d)}: B6 vs plain")
+                    grads_close(g_b5, g6, f"{label}, {build_name(d)}: B6 "
+                                "vs B5")
+                    err_flags["b6"] = max(err_flags["b6"], e6)
+            warp["ties"][label] = dict(lanes=px_.numel(),
+                                       duplicated_winners=dup)
+
+        sass = row_instructions(libs[KERNELS.index("queue")])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        try:
+            mhz = float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.max.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.split()[0])
+        except (FileNotFoundError, subprocess.CalledProcessError,
+                ValueError, IndexError):
+            mhz = None
+        # a thread-instruction per lane a clock: 4 schedulers x 32 lanes
+        issue_rate = sms * 128 * mhz * 1e6 if mhz else None
+        print(f"  issued instructions (cuobjdump -sass of the queue "
+              f"library, queue_kernel<01000>): {sass}; issue rate "
+              f"{sms} SMs x 128 lanes x {mhz} MHz = {issue_rate} "
+              f"instructions/s", flush=True)
+        warp["sass_instructions"] = sass
+        with tempfile.TemporaryDirectory() as wtmp:
+            for label, tb, cb in warp_scenes(wtmp, dev):
+                px_ = torch.arange(W * H, device=dev)
+                rays = generate_rays(tb.camera, W, H, px_ % W, px_ // W, 0,
+                                     0, cb.enable_defocus, cb.sampler)
+                args = (tb, cb, *rays, px_, 0, 0)
+                st = {}
+                reset_plain_counts()
+                want = cuda_queue.queue_trace(*args, plain=True, stats=st)
+                pairs = rows_tested()
+                nbytes = W * H * (12 + 12 + 4 + 12) + table_bytes(tb)
+                b_ms, b_by = bound_of(hit_terms(st["ray_bounces"]), nbytes)
+                issue_ms = None
+                if sass and issue_rate and sass["sphere_row"] and \
+                        sass["triangle_row"]:
+                    issue_ms = 1e3 * (pairs[0] * sass["sphere_row"]
+                                      + pairs[3] * sass["triangle_row"]) \
+                        / issue_rate
+                need = mega_plain.closest_hit.need
+                g = torch.from_numpy(np.random.default_rng(8).normal(
+                    0, 1.0 / (W * H), (W * H, 3)).astype(np.float32)).to(dev)
+                adj = args + (want, g, cb.max_depth, False)
+                g_plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+                g_b5 = cuda_mega.mega_trace_adjoint(*adj)
+                times = {d: ([], []) for d in builds}
+                for i, d in enumerate(builds + builds[::-1]):
+                    with dense_schedule(d):
+                        if i < len(builds):  # the first visit checks
+                            got = cuda_queue.queue_trace(*args)
+                            if not torch.equal(got, want):
+                                raise AssertionError(
+                                    f"{label}, {build_name(d)}: B3 != plain")
+                            g6 = cuda_queue.queue_trace_adjoint(*adj)
+                            e6 = grads_close(g_plain, g6, f"{label}, "
+                                             f"{build_name(d)}: B6 vs plain")
+                            grads_close(g_b5, g6, f"{label}, "
+                                        f"{build_name(d)}: B6 vs B5")
+                            err_flags["b6"] = max(err_flags["b6"], e6)
+                        times[d][0].append(cuda_ms(
+                            lambda: cuda_queue.queue_trace(*args), 3)[0])
+                        times[d][1].append(cuda_ms(
+                            lambda: cuda_queue.queue_trace_adjoint(*adj),
+                            3)[0])
+                rec = warp["calls"][label] = dict(
+                    ray_bounces=st["ray_bounces"], rows_tested=pairs,
+                    bound_ms=b_ms, bound_by=b_by, issue_bound_ms=issue_ms,
+                    warp_need={"sphere": need[0], "triangle": need[3]},
+                    queue_launch={}, queue_adjoint_launch={})
+                base = [float(np.mean(v)) for v in times[None]]
+                for d in builds:
+                    b3, b6 = (float(np.mean(v)) for v in times[d])
+                    rec["queue_launch"][build_name(d)] = b3
+                    rec["queue_adjoint_launch"][build_name(d)] = b6
+                    print(f"  {label}, {build_name(d)}: B3 {b3:.4f} ms "
+                          f"({b3 / base[0]:.3f}), B6 {b6:.4f} ms "
+                          f"({b6 / base[1]:.3f}); {smi}", flush=True)
+                eff = {fam: sum(n * v for n, v in enumerate(h))
+                       / max(1, mega_plain.WARP * sum(h[1:]))
+                       for fam, h in rec["warp_need"].items() if sum(h)}
+                print(f"  {label}: {st['ray_bounces']} ray-bounces, (lane, "
+                      f"row) pairs tested {pairs}, FP32 bound {b_ms:.4f} ms "
+                      f"({b_by}), issue bound of the pairs {issue_ms} ms; "
+                      f"the plain queue's 32-lane groups: lanes needing a "
+                      f"chunk the group visits, per lane of 32 {eff}",
+                      flush=True)
+
+        # the main path's frame (phase 10's queue frame) in each build
+        frame_s = {d: [] for d in builds}
+        cq = c16.replace(engine="queue")
+        render(t16, cq, device="cuda")  # warm-up
+        for rep in range(4):
+            for d in (builds if rep % 2 == 0 else builds[::-1]):
+                with dense_schedule(d):
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    render(t16, cq, device="cuda")
+                    torch.cuda.synchronize()
+                    frame_s[d].append(time.time() - t0)
+        warp["frames"] = {build_name(d): v for d, v in frame_s.items()}
+        for d, v in frame_s.items():
+            print(f"  cover frame {W}x{H} spp {MAIN_SPP} queue, "
+                  f"{build_name(d)}: mean {np.mean(v):.4f} s "
+                  f"({', '.join(f'{x:.4f}' for x in v)}); {smi}", flush=True)
+
     img_tmp.cleanup()
 
     def img_entry(name, train_key=None, fit_key=None):
@@ -3189,6 +3675,22 @@ def main() -> int:
                                     err_img["b6"] if name ==
                                     "queue_adjoint_launch" else 0.0)
         return out
+
+    def warp_entry(name):
+        """The warp-cooperative hit's numbers for B3's / B6's entry in the
+        kernels line: phase 50's ties, calls (this kernel's time per
+        build) and SASS counts, and phase 48's A/B against --parent."""
+        calls = {lab: {**{k: v for k, v in rec.items() if k not in
+                          ("queue_launch", "queue_adjoint_launch")},
+                       "ms": rec[name]}
+                 for lab, rec in warp["calls"].items()}
+        ab_p = {k: v for k, v in parent_ab.items()
+                if k.startswith(name + " ")
+                or (name == "queue_launch" and k.endswith(" s"))}
+        return {"dense_max": dense_max, "ties": warp["ties"],
+                "sass_instructions": warp["sass_instructions"],
+                "calls": calls, "cover_frames_s": warp["frames"],
+                "parent_ab": ab_p}
 
     def family_rows(name):
         """A kernel's numbers on the family workloads, for its entry in
@@ -3211,7 +3713,7 @@ def main() -> int:
             out["ab_ms"] = ab[name]
         return out
 
-    print(f"[50 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    print(f"[51 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -3265,6 +3767,7 @@ def main() -> int:
                                     if not k.startswith("fit_")},
                      "fit_qmc": {k: v for k, v in flag_cli.items()
                                  if k.startswith("fit_")}},
+        "warp_hit": warp_entry("queue_launch"),
     }, {
         "name": "mega_adjoint_segment",
         "route": "cuda",
@@ -3314,6 +3817,7 @@ def main() -> int:
                     "queue_adjoint_launch"]},
         "qmc_cull": {**flag_entry("queue_adjoint_launch"),
                      "max_abs_err_small": err_flags["b6"]},
+        "warp_hit": warp_entry("queue_adjoint_launch"),
     }, {
         "name": "mega_capture",
         "route": "cuda",
@@ -3358,7 +3862,11 @@ if __name__ == "__main__":
     ap.add_argument("--ab-times", default=None, metavar="ROOT",
                     help="only time B2 / B3 / B5 / B6 (phase 48's helper) "
                          "with the package of ROOT")
+    ap.add_argument("--dense-grid", action="store_true",
+                    help=f"phase 50 also builds and times B3 / B6 with "
+                         f"kDenseMax {DENSE_GRID}")
     opts = ap.parse_args()
+    DENSE_GRID_ON = opts.dense_grid
     if opts.ab_times:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")

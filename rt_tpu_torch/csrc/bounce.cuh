@@ -67,10 +67,12 @@
 // beyond its closest hit so far (beyond kTHi for a shadow ray), or that
 // is empty (a chunk of pad rows). The TPU takes that decision once for
 // a tile of 2048 lanes (a chunk is skipped when no live lane of the
-// tile needs it); here each lane takes it for itself, where the GPU's
-// lanes diverge anyway, and its plain twin (mega_plain._culled_best)
-// takes the same decision in the same order, so kernel and plain agree
-// on every lane. A sorted row names its SceneTables row through
+// tile needs it); here each lane takes it for itself, and its plain twin
+// (mega_plain._culled_best) takes the same decision in the same order,
+// so kernel and plain agree on every lane. The queue kernels (kWarp) test
+// a chunk that few lanes need with the whole warp, one needing ray at a
+// time (warp_hit); the decisions and winners stay each lane's. A sorted
+// row names its SceneTables row through
 // Scene::sph_rows / tri_rows, which B4's tape codes and MIS's emitter
 // match use (scene_row). Culling is a runtime flag of the scene,
 // uniform over a launch, not a template parameter: its branch left the
@@ -381,13 +383,12 @@ __host__ __device__ inline size_t after_table_bytes(int n) {
 // One (lane, row) pair of the closest-hit loop; `valid` is read only
 // where the discriminant is not negative, as the loop did before the
 // rows were split between shared and global memory.
-__device__ __forceinline__ void hit_row(float4 c, const float* valid, int j,
-                                        float ox, float oy, float oz,
-                                        float dx, float dy, float dz,
-                                        float a, float rd_dot_ro,
-                                        float ro_sq, float inv_a,
-                                        float t_min, float& t_best,
-                                        int& id_best) {
+__device__ __forceinline__ float sphere_t(float4 c, const float* valid,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float a, float rd_dot_ro,
+                                          float ro_sq, float inv_a,
+                                          float t_min) {
   const float hb = rd_dot_ro - (c.x * dx + c.y * dy + c.z * dz);
   const float c_term = ro_sq - 2.0f * (c.x * ox + c.y * oy + c.z * oz) + c.w;
   const float disc = hb * hb - a * c_term;
@@ -396,6 +397,18 @@ __device__ __forceinline__ void hit_row(float4 c, const float* valid, int j,
   const float root2 = (-hb + sqrtd) * inv_a;
   float t = root1 >= t_min ? root1 : (root2 >= t_min ? root2 : CUDART_INF_F);
   if (!(disc >= 0.0f && *valid > 0.0f)) t = CUDART_INF_F;
+  return t;
+}
+
+__device__ __forceinline__ void hit_row(float4 c, const float* valid, int j,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float a, float rd_dot_ro,
+                                        float ro_sq, float inv_a,
+                                        float t_min, float& t_best,
+                                        int& id_best) {
+  const float t = sphere_t(c, valid, ox, oy, oz, dx, dy, dz, a, rd_dot_ro,
+                           ro_sq, inv_a, t_min);
   // rows arrive in ascending order, so `<=` is "t < best, or equal t
   // and a larger row": the reference's later-wins tie-break
   if (t <= t_best) {
@@ -531,43 +544,55 @@ __device__ __forceinline__ float hit_cyl(const float* r, float ox, float oy,
   return (delta >= 0.0f && __ldg(r + kYValid) > 0.0f) ? t : CUDART_INF_F;
 }
 
-// cross(e, w) . n for the triangle's edge at column k (the inside test)
-__device__ __forceinline__ float edge_dot(const float* r, int k, float wx,
+// cross(e, w) . n for the triangle's edge at column k (the inside test);
+// col(k) reads column k of the row
+template <class Col>
+__device__ __forceinline__ float edge_dot(const Col& col, int k, float wx,
                                           float wy, float wz) {
-  const float ex = __ldg(r + k), ey = __ldg(r + k + 1), ez = __ldg(r + k + 2);
+  const float ex = col(k), ey = col(k + 1), ez = col(k + 2);
   const float cxp = ey * wz - ez * wy;
   const float cyp = ez * wx - ex * wz;
   const float czp = ex * wy - ey * wx;
-  return cxp * __ldg(r + kV) + cyp * __ldg(r + kV + 1) +
-         czp * __ldg(r + kV + 2);
+  return cxp * col(kV) + cyp * col(kV + 1) + czp * col(kV + 2);
 }
 
 // One (lane, triangle) pair (`_tri_chunk_math` :1224-1267): the plane
 // distance signed toward the origin's side, the three edge tests
 // (strict, one sign), and only rays heading into the plane. 71 FP32
 // operations: 6 for oc_n, 6 for d_n, 1 for oc_n's sign, 1 for t, 9 for
-// r - v1, 14 + 17 + 17 for the three edge tests.
+// r - v1, 14 + 17 + 17 for the three edge tests. col(k) reads column k
+// of the row: from global memory (hit_tri) or from registers (the
+// queue's warp-cooperative hit, TriRow).
+template <class Col>
+__device__ __forceinline__ float tri_t(const Col& col, float ox, float oy,
+                                       float oz, float dx, float dy, float dz,
+                                       float t_min) {
+  const float oc_n =
+      (col(kV) * ox + col(kV + 1) * oy + col(kV + 2) * oz) - col(kTD0);
+  const float sign = oc_n < 0.0f ? -1.0f : 1.0f;
+  const float d_n = (col(kV) * dx + col(kV + 1) * dy + col(kV + 2) * dz) *
+                    sign;
+  const float oc_ns = oc_n * sign;
+  const float t = -oc_ns / (d_n != 0.0f ? d_n : 1.0f);
+  const float rx = ox + t * dx - col(kTV1);
+  const float ry = oy + t * dy - col(kTV1 + 1);
+  const float rz = oz + t * dz - col(kTV1 + 2);
+  const float s1 = edge_dot(col, kTE1, rx, ry, rz);
+  const float s2 = edge_dot(col, kTE2, rx - col(kTE1), ry - col(kTE1 + 1),
+                            rz - col(kTE1 + 2));
+  const float s3 = edge_dot(col, kTE3, rx + col(kTE3), ry + col(kTE3 + 1),
+                            rz + col(kTE3 + 2));
+  const bool inside = (s1 > 0.0f && s2 > 0.0f && s3 > 0.0f) ||
+                      (s1 < 0.0f && s2 < 0.0f && s3 < 0.0f);
+  const bool valid = d_n < 0.0f && inside && t >= t_min && col(kTValid) > 0.0f;
+  return valid ? t : CUDART_INF_F;
+}
+
 __device__ __forceinline__ float hit_tri(const float* r, float ox, float oy,
                                          float oz, float dx, float dy,
                                          float dz, float t_min) {
-  const float oc_n = odot(r, kV, ox, oy, oz) - __ldg(r + kTD0);
-  const float sign = oc_n < 0.0f ? -1.0f : 1.0f;
-  const float d_n = odot(r, kV, dx, dy, dz) * sign;
-  const float oc_ns = oc_n * sign;
-  const float t = -oc_ns / (d_n != 0.0f ? d_n : 1.0f);
-  const float rx = ox + t * dx - __ldg(r + kTV1);
-  const float ry = oy + t * dy - __ldg(r + kTV1 + 1);
-  const float rz = oz + t * dz - __ldg(r + kTV1 + 2);
-  const float s1 = edge_dot(r, kTE1, rx, ry, rz);
-  const float s2 = edge_dot(r, kTE2, rx - __ldg(r + kTE1),
-                            ry - __ldg(r + kTE1 + 1), rz - __ldg(r + kTE1 + 2));
-  const float s3 = edge_dot(r, kTE3, rx + __ldg(r + kTE3),
-                            ry + __ldg(r + kTE3 + 1), rz + __ldg(r + kTE3 + 2));
-  const bool inside = (s1 > 0.0f && s2 > 0.0f && s3 > 0.0f) ||
-                      (s1 < 0.0f && s2 < 0.0f && s3 < 0.0f);
-  const bool valid = d_n < 0.0f && inside && t >= t_min &&
-                     __ldg(r + kTValid) > 0.0f;
-  return valid ? t : CUDART_INF_F;
+  return tri_t([r](int k) { return __ldg(r + k); }, ox, oy, oz, dx, dy, dz,
+               t_min);
 }
 
 // Whether the shadow segment s + t w, t in [t_min, kTHi], meets one
@@ -1068,6 +1093,174 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
   return att != 0.0f ? g * (Lk - c) / att : 0.0f;
 }
 
+// ---- the warp-cooperative closest hit (kWarp: the queue kernels) ----
+//
+// Under culling a lane skips the chunks its ray misses, but a warp runs
+// the union of its lanes' chunks: 32 rows in turn, with the lanes that
+// skip the chunk masked off. After the first bounce a queue warp's lanes
+// hold unrelated rays, so few of them need each chunk and much of the
+// row loop runs masked. When at most kDenseMax lanes need a chunk the
+// warp tests it densely instead: thread l holds row c + l, and for each
+// needing ray in turn (its origin, direction and constants shuffled from
+// its lane) every thread tests that ray against its own row, and the
+// warp reduces to the closest row. Above kDenseMax the needing lanes run
+// the per-lane row loop, which then wastes little.
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Needing lanes at or below which the warp tests a chunk densely: a
+// compile-time constant (chip_smoke.py builds scratch libraries with
+// -DRTT_DENSE_MAX=0, the per-lane schedule, and 32, always dense).
+#ifndef RTT_DENSE_MAX
+#define RTT_DENSE_MAX 16
+#endif
+constexpr int kDenseMax = RTT_DENSE_MAX;
+static_assert(kDenseMax >= 0 && kDenseMax <= 32, "kDenseMax in [0, 32]");
+
+// The smallest candidate t of the warp's 32 rows and, among equal t, the
+// largest row whose bit is set in `rows` (the rows the chunk holds): the
+// row a sequential `<=` loop over the rows in ascending order ends on,
+// and the t it holds (the winner's own bits, returned in t_win). Every
+// lane of the warp calls it. t is >= t_min or +inf and never NaN, so the
+// order key below orders the candidates as floats do; -0.0f (t_min 0)
+// first becomes +0.0f, since the float compare holds -0 and +0 equal and
+// the key would not.
+__device__ __forceinline__ int warp_last_min(float t, unsigned rows,
+                                             float& t_win) {
+  const unsigned bits = __float_as_uint(t + 0.0f);
+  // a float's order as an unsigned integer (negatives flipped)
+  const unsigned key = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  const unsigned least = __reduce_min_sync(kFull, key);
+  const int last = 31 - __clz(__ballot_sync(kFull, key == least) & rows);
+  t_win = __shfl_sync(kFull, t, last);
+  return last;
+}
+
+// The hit columns of one triangle row, held in registers by the thread
+// that tests it (tri_t reads them through the accessor below).
+struct TriRow {
+  float v[kTValid + 1];
+  __device__ __forceinline__ float operator()(int k) const { return v[k]; }
+};
+
+__device__ __forceinline__ TriRow load_tri(const float* r) {
+  TriRow row;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) row.v[kV + k] = __ldg(r + kV + k);
+#pragma unroll
+  for (int k = kTV1; k <= kTValid; ++k) row.v[k] = __ldg(r + k);
+  return row;
+}
+
+// The mask of the rows [c, end) of a chunk, bit l for row c + l.
+__device__ __forceinline__ unsigned chunk_rows(int c, int end) {
+  return end - c >= 32 ? kFull : (1u << (end - c)) - 1u;
+}
+
+// The closest hit of do_bounce<..., kWarp> (see above): every lane of
+// the warp calls it, `active` those with a ray; the others help. It folds
+// each family into (t_best, fam_best, id_best) in do_bounce's order and
+// with its `<=` rule: the sorted spheres chunk by chunk (densely when at
+// most kDenseMax lanes need a chunk, else do_bounce's per-lane loop
+// `spheres(j0, j1)`), then per lane the rects and cylinders
+// (`rects_cyls()`), then the triangles (`tris(j0, j1)` per lane, by
+// chunks as the spheres when sorted). Without culling every lane with a
+// ray needs every row, so the per-lane loops run.
+template <bool kTail, bool kFamilies, class Spheres, class RectsCyls,
+          class Tris>
+__device__ __forceinline__ void warp_hit(
+    const Scene& s, bool active, const Spheres& spheres,
+    const RectsCyls& rects_cyls, const Tris& tris, float ox, float oy,
+    float oz, float dx, float dy, float dz, float a, float rd_dot_ro,
+    float ro_sq, float inv_a, float& t_best, int& fam_best, int& id_best) {
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  if (s.sbnd) {
+    for (int c = 0; c < s.n; c += kChunk) {
+      const int end = c + kChunk < s.n ? c + kChunk : s.n;
+      const bool need =
+          active && box_visible(s.sbnd + (c / kChunk) * kBoxCols, ox, oy, oz,
+                                dx, dy, dz, s.t_min, t_best);
+      const unsigned needs = __ballot_sync(kFull, need);
+      if (needs == 0u) continue;
+      if (__popc(needs) > kDenseMax) {
+        if (need) spheres(c, end);
+        continue;
+      }
+      // thread `lane` holds row c + lane (past the table: no hit)
+      const int j = c + lane;
+      float4 h = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float v = 0.0f;
+      if (j < s.n_smem) {
+        h = s.hit4[j];
+        v = s.valid[j];
+      } else if (kTail && j < end) {
+        const float* r = s.table + static_cast<size_t>(j) * kCols;
+        h = make_float4(__ldg(r + kV), __ldg(r + kV + 1), __ldg(r + kV + 2),
+                        __ldg(r + kC2r));
+        v = __ldg(r + kValid);
+      }
+      const unsigned rows = chunk_rows(c, end);
+      for (unsigned m = needs; m; m &= m - 1u) {
+        const int src = __ffs(m) - 1;
+        const float t = sphere_t(
+            h, &v, __shfl_sync(kFull, ox, src), __shfl_sync(kFull, oy, src),
+            __shfl_sync(kFull, oz, src), __shfl_sync(kFull, dx, src),
+            __shfl_sync(kFull, dy, src), __shfl_sync(kFull, dz, src),
+            __shfl_sync(kFull, a, src), __shfl_sync(kFull, rd_dot_ro, src),
+            __shfl_sync(kFull, ro_sq, src), __shfl_sync(kFull, inv_a, src),
+            s.t_min);
+        float tw;
+        const int row = c + warp_last_min(t, rows, tw);
+        if (lane == src && tw <= t_best) {
+          t_best = tw;
+          id_best = row;
+        }
+      }
+    }
+  } else if (active) {
+    spheres(0, s.n);
+  }
+
+  if constexpr (kFamilies) {
+    if (active) rects_cyls();
+    if (!s.tbnd) {
+      if (active) tris(0, s.n_tri);
+      return;
+    }
+    for (int c = 0; c < s.n_tri; c += kChunk) {
+      const int end = c + kChunk < s.n_tri ? c + kChunk : s.n_tri;
+      const bool need =
+          active && box_visible(s.tbnd + (c / kChunk) * kBoxCols, ox, oy, oz,
+                                dx, dy, dz, s.t_min, t_best);
+      const unsigned needs = __ballot_sync(kFull, need);
+      if (needs == 0u) continue;
+      if (__popc(needs) > kDenseMax) {
+        if (need) tris(c, end);
+        continue;
+      }
+      const int j = c + lane;
+      TriRow tri{};  // past the table: all zero, so no hit
+      if (j < end) tri = load_tri(s.tri + static_cast<size_t>(j) * kFCols);
+      const unsigned rows = chunk_rows(c, end);
+      for (unsigned m = needs; m; m &= m - 1u) {
+        const int src = __ffs(m) - 1;
+        const float t = tri_t(
+            tri, __shfl_sync(kFull, ox, src), __shfl_sync(kFull, oy, src),
+            __shfl_sync(kFull, oz, src), __shfl_sync(kFull, dx, src),
+            __shfl_sync(kFull, dy, src), __shfl_sync(kFull, dz, src),
+            s.t_min);
+        float tw;
+        const int row = c + warp_last_min(t, rows, tw);
+        if (lane == src && tw <= t_best) {  // take()'s rule
+          t_best = tw;
+          fam_best = kFamTri;
+          id_best = row;
+        }
+      }
+    }
+  }
+}
+
 // Advance a live lane (alive > 0) one bounce at RNG coordinate `pre`
 // (rng.cuh Draw of seed, pixel, sample, bounce under the scene's
 // sampler). A lane that does
@@ -1107,12 +1300,20 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
 // then keyed on kQmcTag.
 template <bool kAdjoint, bool kTail, bool kCapture = false,
           bool kFamilies = false, bool kNee = false, bool kImages = false,
-          bool kQmc = false>
+          bool kQmc = false, bool kWarp = false>
 __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
                                           const Draw& pre, const Adj& adj,
-                                          int* code = nullptr) {
+                                          int* code = nullptr,
+                                          bool active = true) {
   bool rr_stop = false;
-  if (s.p_rr > 0.0f && !(uniform<kQmc>(pre, kRR) <= s.p_rr)) {
+  if constexpr (kWarp) {
+    // every lane of the warp is here; those without a ray to advance
+    // only help with the hit and leave L as it is
+    if (active && s.p_rr > 0.0f && !(uniform<kQmc>(pre, kRR) <= s.p_rr)) {
+      L.alive = 0.0f;  // roulette: the lane stops and adds nothing
+      active = false;
+    }
+  } else if (s.p_rr > 0.0f && !(uniform<kQmc>(pre, kRR) <= s.p_rr)) {
     if constexpr (!kCapture) {
       L.alive = 0.0f;  // roulette: the lane stops and adds nothing
       return;
@@ -1147,16 +1348,8 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
       }
     }
   };
-  if (s.sbnd) {  // chunk by chunk, each against the closest hit so far
-    for (int c = 0; c < s.n; c += kChunk)
-      if (box_visible(s.sbnd + (c / kChunk) * kBoxCols, ox, oy, oz, dx, dy,
-                      dz, s.t_min, t_best))
-        spheres(c, c + kChunk < s.n ? c + kChunk : s.n);
-  } else {
-    spheres(0, s.n);
-  }
-
-  if constexpr (kFamilies) {
+  // the rects and cylinders, then triangle rows [j0, j1) (kFamilies)
+  const auto rects_cyls = [&]() {
     for (int j = 0; j < s.n_rect; ++j)
       take(hit_rect(s.rect + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
                     dy, dz, s.t_min),
@@ -1165,15 +1358,34 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
       take(hit_cyl(s.cyl + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
                    dy, dz, s.t_min),
            kFamCyl, j, t_best, fam_best, id_best);
+  };
+  const auto tris = [&](int j0, int j1) {
+    for (int j = j0; j < j1; ++j)
+      take(hit_tri(s.tri + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
+                   dy, dz, s.t_min),
+           kFamTri, j, t_best, fam_best, id_best);
+  };
+  if constexpr (kWarp) {
+    warp_hit<kTail, kFamilies>(s, active, spheres, rects_cyls, tris, ox, oy,
+                               oz, dx, dy, dz, a, rd_dot_ro, ro_sq, inv_a,
+                               t_best, fam_best, id_best);
+    if (!active) return;
+  } else if (s.sbnd) {  // chunk by chunk, each against the closest hit so far
+    for (int c = 0; c < s.n; c += kChunk)
+      if (box_visible(s.sbnd + (c / kChunk) * kBoxCols, ox, oy, oz, dx, dy,
+                      dz, s.t_min, t_best))
+        spheres(c, c + kChunk < s.n ? c + kChunk : s.n);
+  } else {
+    spheres(0, s.n);
+  }
+
+  if constexpr (kFamilies && !kWarp) {
+    rects_cyls();
     for (int c = 0; c < s.n_tri; c += kChunk) {
       if (s.tbnd && !box_visible(s.tbnd + (c / kChunk) * kBoxCols, ox, oy,
                                  oz, dx, dy, dz, s.t_min, t_best))
         continue;
-      const int end = c + kChunk < s.n_tri ? c + kChunk : s.n_tri;
-      for (int j = c; j < end; ++j)
-        take(hit_tri(s.tri + static_cast<size_t>(j) * kFCols, ox, oy, oz, dx,
-                     dy, dz, s.t_min),
-             kFamTri, j, t_best, fam_best, id_best);
+      tris(c, c + kChunk < s.n_tri ? c + kChunk : s.n_tri);
     }
   }
 

@@ -15,16 +15,43 @@
 // radiance per input lane, equal to the megakernel's per lane and the
 // same bits whatever the step budget per launch.
 //
-// What bounds it: FP32 operations, as the megakernel (per lane-bounce
-// and table row 23 for a sphere, 36 for a rect, 62 for a cylinder, 71
-// for a triangle, plus the shading), against one read of each primary
-// ray and one write of its radiance.
+// What bounds it: the issue of the hit loop's instructions. Its FP32
+// operations per (lane, row) pair, the bound chip_smoke.py reports, are
+// 23 for a sphere, 36 for a rect, 62 for a cylinder and 71 for a
+// triangle (FMA counted as two; plus the shading), against one read of
+// each primary ray and one write of its radiance. Built without FMA
+// contraction (bit-equal to the plain version) and with IEEE sqrt and
+// division, a sphere row issues 55.5 instructions and a triangle row 134
+// in the per-lane loops (cuobjdump -sass of this library, the
+// instantiation with families: branches and the sqrt's range test
+// included), so the issue rate alone puts a sphere row 4.8x above its
+// FP32 bound. Under chunk culling the schedule costs more on top: a lane
+// skips the chunks its ray misses, but a warp runs the union of its
+// lanes' chunks with the others masked off, and after the first bounce a
+// queue warp's lanes hold unrelated rays; on cover about half of that
+// row loop ran masked (mega_plain.closest_hit.need, PERF.md).
 //
 // Design: persistent threads (the loop is queue.cuh's, shared with the
-// adjoint B6). The grid is what the card holds at once (SMs x resident
-// blocks); each thread owns one pool lane and loops: when its lane is
-// empty it takes the next fresh ray, and it advances its lane one bounce
-// per step. The refill is the GPU form of the TPU's order-preserving
+// adjoint B6), and a warp-cooperative closest hit (bounce.cuh warp_hit):
+// every lane of a warp enters each step's hit together, and for each
+// culled chunk the warp ballots the lanes whose ray needs it. When at
+// most kDenseMax (16) lanes do, thread l holds row c + l and the warp
+// takes the needing rays one after another, each tested against all 32
+// rows at once: the ray's words shuffled from its lane, one row test per
+// thread, __reduce_min_sync on the t's order key, a ballot for the last
+// equal row and the winner's t shuffled back (77 instructions per (ray,
+// chunk) for spheres, 128 for triangles). Above kDenseMax, as on most
+// primary bounces, the needing lanes run the rows in turn. Both give the
+// per-lane loop's bits: each (ray, row) t is the same expression, and
+// "least t, ties to the last row, then `<=` against the running best" is
+// the sequential `<=` loop. kDenseMax is a compile-time constant
+// (RTT_DENSE_MAX) chosen on the card, where 16 beat 8, 24 and 32 on the
+// default frame (PERF.md).
+//
+// The queue itself: the grid is what the card holds at once (SMs x
+// resident blocks); each thread owns one pool lane and loops: when its
+// lane is empty it takes the next fresh ray, and it advances its lane one
+// bounce per step. The refill is the GPU form of the TPU's order-preserving
 // pack: __ballot_sync finds the warp's empty lanes, one atomicAdd per
 // warp claims that many fresh indices from a global cursor (in index
 // order, so fresh work stays screen-coherent), and __popc of the lower

@@ -25,8 +25,6 @@
 
 namespace rtt {
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
 template <bool kAdjoint, bool kTail, bool kFamilies = false,
           bool kNee = false, bool kImages = false, bool kQmc = false>
 __device__ __forceinline__ void queue_loop(
@@ -41,7 +39,7 @@ __device__ __forceinline__ void queue_loop(
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned lane = threadIdx.x & 31u;
   const long long P = pool_lanes;
-  Lane L;
+  Lane L{};  // a lane that never takes a ray still helps with the hit
   Adj adj{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, acc, n_slots, gimg};
   int slot = pool_i[tid];
   uint32_t lane_key = 0;
@@ -109,16 +107,18 @@ __device__ __forceinline__ void queue_loop(
     }
     if (!__any_sync(kFull, slot >= 0)) break;  // warp empty, cursor spent
 
+    // ---- one bounce: every lane of the warp enters it together (its
+    // closest hit is warp-cooperative, bounce.cuh warp_hit); a lane
+    // with a live ray below max_depth advances, the others help ----
+    const bool go = slot >= 0 && bounce < max_depth && L.alive > 0.0f;
+    do_bounce<kAdjoint, kTail, false, kFamilies, kNee, kImages, kQmc, true>(
+        scene, L,
+        draw_at(lane_key, static_cast<uint32_t>(smp),
+                static_cast<uint32_t>(bounce)),
+        adj, nullptr, go);
+    if (go) ++bounce;
     if (slot >= 0) {
-      // ---- one bounce; then exhaustion and retirement ----
-      if (bounce < max_depth && L.alive > 0.0f) {
-        do_bounce<kAdjoint, kTail, false, kFamilies, kNee, kImages, kQmc>(
-            scene, L,
-            draw_at(lane_key, static_cast<uint32_t>(smp),
-                    static_cast<uint32_t>(bounce)),
-            adj);
-        ++bounce;
-      }
+      // ---- exhaustion and retirement ----
       if (L.alive > 0.0f && bounce >= max_depth) {
         if (scene.exhaust_bg) {
           if (kAdjoint)

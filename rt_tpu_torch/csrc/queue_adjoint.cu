@@ -18,14 +18,19 @@
 // relaunches. With exhaust_bg, a lane alive at max_depth adds g * P to
 // the background.
 //
-// What bounds it: as the adjoint megakernel, FP32 operations (per
-// lane-bounce and table row 23 for a sphere, 36 for a rect, 62 for a
-// cylinder, 71 for a triangle, plus the shading and cotangents), against
-// one read of each primary ray, its L and g.
+// What bounds it: as the forward B3 (queue.cu), the issue of the hit
+// loop's instructions: per (lane, row) pair 23 FP32 operations for a
+// sphere, 36 for a rect, 62 for a cylinder, 71 for a triangle (plus the
+// shading and cotangents), issued without FMA contraction as about 55
+// instructions a sphere row and 134 a triangle row, against one read of
+// each primary ray, its L and g; under culling, on top, the rows a warp
+// runs for the union of its lanes' chunks with most lanes masked.
 //
-// Design: queue.cu's persistent threads and warp refill (queue.cuh's
-// loop, with kAdjoint: ballot, one atomicAdd per warp on the fresh-ray
-// cursor, popc ranks; the pool carries L and g in rows 13-18), with the
+// Design: queue.cu's persistent threads, warp refill and warp-cooperative
+// closest hit (queue.cuh's loop, with kAdjoint: ballot, one atomicAdd per
+// warp on the fresh-ray cursor, popc ranks; the pool carries L and g in
+// rows 13-18; a chunk at most kDenseMax lanes need is tested by the whole
+// warp, one needing ray at a time, bounce.cuh warp_hit), with the
 // per-block accumulators of mega_adjoint.cu in shared memory, zeroed at
 // the start of every launch and added to the global block at its end
 // (or, when they do not fit, the global block directly); the family

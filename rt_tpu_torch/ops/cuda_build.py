@@ -60,31 +60,35 @@ def find_nvcc() -> str:
         "; the CUDA kernels of rt_tpu_torch need the CUDA toolkit")
 
 
-def flags(name: str) -> tuple:
-    """The nvcc flags of csrc/<name>.cu."""
-    return NVCC_FLAGS + LIB_FLAGS.get(name, ())
+def flags(name: str, defines: tuple = ()) -> tuple:
+    """The nvcc flags of csrc/<name>.cu, with `-D` for each of `defines`
+    (e.g. "RTT_DENSE_MAX=0": a scratch build of a compile-time constant,
+    which the package itself never passes)."""
+    return (NVCC_FLAGS + LIB_FLAGS.get(name, ())
+            + tuple(f"-D{d}" for d in defines))
 
 
-def library_path(name: str) -> Path:
-    """Where the library for csrc/<name>.cu lives, keyed by content."""
-    h = hashlib.sha256(" ".join(flags(name)).encode())
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """Where the library for csrc/<name>.cu lives, keyed by content and
+    flags."""
+    h = hashlib.sha256(" ".join(flags(name, defines)).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the keyed library exists. The
-    compiler's report (ptxas registers, shared memory, spills) is kept
-    beside it as <library>.log."""
-    path = library_path(name)
+def build(name: str, defines: tuple = ()) -> Path:
+    """Compile csrc/<name>.cu (with `defines`) unless the keyed library
+    exists. The compiler's report (ptxas registers, shared memory,
+    spills) is kept beside it as <library>.log."""
+    path = library_path(name, defines)
     if path.exists():
         return path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *flags(name), "-o", str(tmp),
+    cmd = [nvcc, *flags(name, defines), "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -110,7 +114,7 @@ def check_tensor(name, x, dtype, shape, device):
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu's library, once per
-    process."""
-    return ctypes.CDLL(str(build(name)))
+    process and `defines`."""
+    return ctypes.CDLL(str(build(name, defines)))

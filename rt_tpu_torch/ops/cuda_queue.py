@@ -55,8 +55,10 @@ PLAIN_POOL_LANES = 1 << 16
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_build.load("queue")
+def _library(defines: tuple = ()):
+    """csrc/queue.cu's library with its C signatures (`defines`: a scratch
+    build's, see cuda_build.flags)."""
+    lib = cuda_build.load("queue", defines)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.queue_grid_blocks.argtypes = [ci, ci, ci, ci, ci, ci]
     lib.queue_grid_blocks.restype = ci
@@ -301,8 +303,8 @@ def queue_trace_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_library():
-    lib = cuda_build.load("queue_adjoint")
+def _adjoint_library(defines: tuple = ()):
+    lib = cuda_build.load("queue_adjoint", defines)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.queue_adjoint_grid_blocks.argtypes = [ci] * 8
     lib.queue_adjoint_grid_blocks.restype = ci

@@ -141,6 +141,8 @@ INF = float("inf")
 # blocks of about as many (lane, row) pairs
 HIT_CHUNK = 1 << 16
 HIT_PAIRS = HIT_CHUNK * 512
+# lanes of a GPU warp: closest_hit.need groups lanes by it
+WARP = 32
 # family codes of the winner (ops/intersect PTYPE_*)
 FAM_SPHERE, FAM_RECT, FAM_CYLINDER, FAM_TRIANGLE = 0, 1, 2, 3
 
@@ -516,8 +518,10 @@ def _culled_best(cand, n_rows, boxes, ray, t_min, t_best, family, row, code,
         hit_box = nonempty[None, :] & (tf >= torch.clamp(tn, min=t_min))
         tb, fb, rb = t_best[sl], family[sl], row[sl]
         tested = torch.zeros_like(rb)
+        need = []
         for j in range(k):
             vis = hit_box[:, j] & (tn[:, j] <= tb)
+            need.append(vis)
             tested = tested + torch.where(vis, sizes[j], 0)
             take = vis & _take(tk[:, j], tb)
             tb = torch.where(take, tk[:, j], tb)
@@ -525,7 +529,24 @@ def _culled_best(cand, n_rows, boxes, ray, t_min, t_best, family, row, code,
             rb = torch.where(take, rk[:, j] + j * SPH_CHUNK, rb)
         for out, v in zip(outs, (tb, fb, rb, tested)):
             out.append(v)
+        _count_warp_need(torch.stack(need, 1), code)
     return tuple(torch.cat(o) for o in outs)
+
+
+def _count_warp_need(need, code):
+    """Add to closest_hit.need[code][n] the (group, chunk) pairs of need
+    [lanes, K] (lane visits chunk) in which n lanes of a group of 32
+    consecutive lanes (the last one padded) visit the chunk: a per-lane
+    row loop runs the chunk for the whole group when n > 0, n of 32
+    lanes unmasked."""
+    pad = -need.shape[0] % WARP
+    if pad:
+        need = torch.cat([need, need.new_zeros((pad, need.shape[1]))])
+    per = need.view(-1, WARP, need.shape[1]).sum(1)
+    hist = torch.bincount(per.flatten(), minlength=WARP + 1).tolist()
+    acc = closest_hit.need[code]
+    for n, v in enumerate(hist):
+        acc[n] += v
 
 
 def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min, fam=None, cull=None):
@@ -540,7 +561,9 @@ def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min, fam=None, cull=None):
     hits nothing reports t = inf (family and row then mean nothing).
     closest_hit.rows counts, per family, the (lane, row) pairs tested,
     and closest_hit.boxes the (lane, chunk box) pairs (a bound's
-    operation count reads them)."""
+    operation count reads them); closest_hit.need, per culled family, how
+    many of 32 consecutive lanes visit each chunk (_count_warp_need: an
+    estimate of a warp's masked share in the kernels' per-lane loop)."""
     lanes = ox.shape[0]
     dev = ox.device
     if lanes == 0:
@@ -604,6 +627,7 @@ def closest_hit(tab, ox, oy, oz, dx, dy, dz, t_min, fam=None, cull=None):
 
 closest_hit.rows = [0, 0, 0, 0]
 closest_hit.boxes = 0
+closest_hit.need = [[0] * (WARP + 1) for _ in range(4)]
 
 
 def scene_rows(cull, family, row):

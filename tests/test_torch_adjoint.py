@@ -31,6 +31,11 @@ from rt_tpu_torch.ops import adjoint_plain, camera, cuda_mega, cuda_queue
 from rt_tpu_torch.ops import mega_tables
 from rt_tpu_torch.scene.convert import params_from_numpy, tables_from_numpy
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 FIELDS = ("tex_color", "tex_color2", "mat_albedo", "background")
 
 

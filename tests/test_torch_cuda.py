@@ -1367,3 +1367,58 @@ def test_culled_launchers_check_the_sorted_table():
     before = cuda_mega.mega_segment.launches
     cuda_mega.mega_segment(tab, state, pix, 0, 0, 0, 4, **kw)
     assert cuda_mega.mega_segment.launches == before + 1
+
+
+def _smoke():
+    """chip_smoke.py as a module (its tie scene and its scratch builds of
+    B3 / B6)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_max", [None, 0, 32])
+@pytest.mark.parametrize("name", ["ties", "mesh"])
+def test_warp_hit_on_ties_matches_plain(name, dense_max):
+    """B3 / B6's warp-cooperative closest hit (bounce.cuh warp_hit) on
+    equal hits at 192x108: chip_smoke.tie_scene (spheres given twice in one
+    chunk, one sphere given 40 times across two chunks, each copy its own
+    colour) and the grid mesh's shared edges, in the default build (None)
+    and the scratch builds with kDenseMax 0 (the per-lane loop) and 32
+    (always dense): B3 bit for bit against its plain version at
+    queue_steps 0 and 3, B6 within 1e-5 + 1e-3 max|g| of the plain adjoint
+    and of B5."""
+    from rt_tpu_torch.ops import camera, cuda_mega, cuda_queue
+
+    dev = _card()
+    smoke = _smoke()
+    if name == "ties":
+        sdef, cfg = smoke.tie_scene(192, 108, 12)
+        tt = types.build_tables(sdef, device=dev)
+    else:
+        tt, cfg = _family_scene(dev, "mesh", 192, 108, 1, 8)
+    assert mega_tables.scene_for(tt, cfg).cull is not None
+    px = torch.arange(192 * 108, device=dev)
+    ro, rd = camera.generate_rays(tt.camera, 192, 108, px % 192, px // 192,
+                                  0, 0, cfg.enable_defocus)
+    want = cuda_queue.queue_trace(tt, cfg, ro, rd, px, 0, 0, plain=True)
+    g = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1e-3, (192 * 108, 3)).astype(np.float32)).to(dev)
+    adj = (tt, cfg, ro, rd, px, 0, 0, want, g, cfg.max_depth, False)
+    g_plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
+    g_b5 = cuda_mega.mega_trace_adjoint(*adj)
+    with smoke.dense_schedule(dense_max):
+        for steps in (0, 3):
+            before = cuda_queue.queue_launch.launches
+            got = cuda_queue.queue_trace(tt, cfg.replace(queue_steps=steps),
+                                         ro, rd, px, 0, 0, check_once=True)
+            assert cuda_queue.queue_launch.launches > before
+            assert torch.equal(got, want), steps
+        g6 = cuda_queue.queue_trace_adjoint(*adj, check_once=True)
+    _grads_close(g_plain, g6)
+    _grads_close(g_b5, g6)

@@ -39,6 +39,11 @@ from rt_tpu_torch.scene import types as ttypes
 from test_mega import _grid_obj
 from test_torch_nee import light_scene
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 
 def _scene(name, tmp_path, w, h, spp, depth):
     """(rt_tpu's tables and config, the port's) of a scene: cover(grid=3)

@@ -24,6 +24,11 @@ from rt_tpu_torch.scene.convert import params_from_numpy
 from test_torch_adjoint import (FIELDS, assert_grads_close, jparams,
                                 make_scene, pixels, port_grads)
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 
 def _target(n, seed=6):
     return np.random.RandomState(seed).uniform(0.0, 0.6, (n, 3)).astype(

@@ -38,6 +38,11 @@ from rt_tpu_torch.scene.convert import params_from_numpy
 from test_torch_adjoint import FIELDS, assert_grads_close, jparams, \
     pixels, port_grads
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 VARIANTS = {"compact2": ({"compact_every": 2}, {}),
             "trunc3": ({}, {"bwd_depth": 3}),
             "exhaust": ({"exhaust_mode": "background", "max_depth": 3}, {})}

@@ -31,6 +31,11 @@ from rt_tpu_torch.ops import cuda_mega, cuda_queue, mega_plain, mega_tables
 from rt_tpu_torch.render.renderer import render as trender
 from test_torch_families import _scene
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H = 32, 18
 SEED, BASE = 3, 5
 

@@ -43,6 +43,11 @@ from rt_tpu_torch.scene import types as ttypes
 from rt_tpu_torch.scene.convert import params_from_numpy
 from test_torch_tape import alive_entering, assert_close_per_field
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H = 24, 16
 GEOM = ("rect_k", "rect_lo", "rect_hi", "cyl_radius", "cyl_zmin",
         "cyl_zmax", "tri_v1", "tri_v2", "tri_v3")

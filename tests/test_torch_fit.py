@@ -37,6 +37,11 @@ from rt_tpu_torch.render.renderer import render
 from rt_tpu_torch.scene import types as ttypes
 from rt_tpu_torch.scene.parser import scene_to_dict
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H, SPP, DEPTH = 32, 18, 4, 3
 
 

@@ -32,6 +32,11 @@ from rt_tpu_torch.scene.types import (MAT_DIELECTRIC, MAT_METAL,
                                       SceneDef, build_tables)
 from test_torch_tape import mixed_scene, pixels
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 
 def _perturbed(tables, die, as_jax=False):
     """The reference test's start point: sphere 0 moved up 0.05 and

@@ -49,6 +49,11 @@ from rt_tpu_torch.scene import types as ttypes
 from rt_tpu_torch.scene.convert import tables_from_numpy
 from test_torch_scene import jax_leaves
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, "scenes", "demo_scene.json")
 MESH = os.path.join(ROOT, "scenes", "plane441.obj")

@@ -43,6 +43,11 @@ from rt_tpu_torch.scene.convert import params_from_numpy
 from test_torch_adjoint import pixels, port_grads
 from test_torch_images import both_tables, textured_demo
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H = 16, 12
 FIELDS = ("images", "tex_color", "mat_albedo", "background")
 

@@ -35,6 +35,11 @@ from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.ops import cuda_mega, cuda_queue, mega_plain, mega_tables
 from test_torch_images import both_tables
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H = 16, 12
 SEED = 3
 

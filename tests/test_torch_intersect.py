@@ -26,6 +26,11 @@ from rt_tpu_torch.ops import materials as tmaterials
 from rt_tpu_torch.scene import builders as tbuilders
 from rt_tpu_torch.scene import types as ttypes
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 SCENES = {"cover_grid4": ("cover_scene", dict(grid=4)),
           "three_sphere": ("three_sphere_scene", {})}
 

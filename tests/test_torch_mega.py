@@ -28,6 +28,11 @@ from rt_tpu_torch.render import renderer as trenderer
 from rt_tpu_torch.scene import builders as tbuilders
 from rt_tpu_torch.scene import types as ttypes
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 SCENES = {"three_sphere": ("three_sphere_scene", {}),
           "cover_grid3": ("cover_scene", dict(grid=3)),
           "cornell": ("cornell_spheres_scene", {})}

@@ -38,6 +38,11 @@ from rt_tpu_torch.render import integrator as tintegrator
 from rt_tpu_torch.render.renderer import render as trender
 from rt_tpu_torch.scene import types as ttypes
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, "scenes", "demo_scene.json")
 W, H = 24, 16

@@ -32,6 +32,11 @@ from test_torch_adjoint import FIELDS, assert_grads_close, jparams, \
     pixels, port_grads
 from test_torch_families_adjoint import _target, rect_lit
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H = 16, 12
 
 

@@ -31,6 +31,11 @@ from rt_tpu_torch.ops import cuda_mega, cuda_queue
 from rt_tpu_torch.scene import types as ttypes
 from test_torch_nee import light_scene
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H = 16, 12
 SEED = 3
 

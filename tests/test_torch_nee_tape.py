@@ -43,6 +43,11 @@ from rt_tpu_torch.scene import types as ttypes
 from rt_tpu_torch.scene.convert import params_from_numpy
 from test_torch_nee import FLAGS, light_scene
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H = 24, 16
 FIELDS = ("tex_color", "mat_albedo", "mat_fuzz", "sph_center", "sph_radius",
           "rect_lo")

@@ -44,6 +44,11 @@ from test_torch_adjoint import (assert_grads_close, jparams, make_scene,
 from test_torch_regen_pallas import _jax_regen, _port_regen
 from test_torch_tape import W as TW, H as TH, mixed_scene, pixels as tpix
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 PURPOSES = sorted(jqmc._SITE) + [jrng.SCENE_GEN]
 
 

@@ -27,6 +27,11 @@ from rt_tpu_torch.render import renderer as trenderer
 from rt_tpu_torch.scene import builders as tbuilders
 from rt_tpu_torch.scene import types as ttypes
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -30,6 +30,11 @@ from rt_tpu.ops.camera import generate_rays as jrays
 from rt_tpu_torch.ops import cuda_mega, mega_plain
 from test_torch_regen import _scene
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H, SPP, DEPTH = 32, 24, 2, 6
 SEED, BASE = 3, 5
 

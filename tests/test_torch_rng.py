@@ -13,6 +13,11 @@ import torch
 from rt_tpu.ops import rng as jrng
 from rt_tpu_torch.ops import rng as trng
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 EDGE = np.array([0, 1, 0xFFFFFFFF, 0x7FFFFFFF, 0x80000000], np.uint64)
 
 

@@ -16,6 +16,11 @@ from rt_tpu_torch.scene import builders as tbuilders
 from rt_tpu_torch.scene import types as ttypes
 from rt_tpu_torch.scene.convert import tables_from_numpy
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 SCENES = {
     "cover_grid4": ("cover_scene", dict(grid=4)),
     "cover": ("cover_scene", {}),

@@ -36,6 +36,11 @@ from rt_tpu_torch.render.renderer import render
 from rt_tpu_torch.scene import types as ttypes
 from rt_tpu_torch.scene.convert import params_from_numpy
 
+# One intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core in each of them
+# oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 W, H = 24, 16
 FIELDS = ("mat_albedo", "mat_fuzz", "mat_ior", "tex_color", "tex_color2",
           "sph_center", "sph_radius")

@@ -1,0 +1,246 @@
+"""The warp-cooperative closest hit of the queue kernels B3 / B6
+(csrc/bounce.cuh `warp_hit`, `warp_last_min`), emulated step by step in
+numpy on one warp of 32 lanes, against the sequential `<=` loop the
+per-lane kernels run and against the plain version's chunk fold
+(ops/mega_plain `_last_argmin` + `_take`).
+
+The emulation does what the kernel does per chunk c, in ascending order:
+each lane with a ray decides whether it needs the chunk against its own
+closest hit so far (a stand-in for box_visible: the box's entry t no
+later than t_best), the warp ballots the needing lanes, and when at most
+kDenseMax of them need it thread l holds row c + l: for each needing
+lane src in turn every thread computes its row's t for src's ray (+inf
+past the table's end), the warp takes the least order key of t + 0.0f
+(__reduce_min_sync), the ballot of the threads holding it, masked to the
+chunk's rows, and its last set bit, shuffles that thread's t, and lane
+src folds it with `if (t_win <= t_best)`. Above kDenseMax the needing
+lanes run the rows in turn with the same `<=`. The kernel's results must
+be the sequential loop's bits: t_best's bits and its row (on a miss too,
+where the `<=` loop ends on the chunk's last row), and the plain
+version's t_best and, where it is finite, its row (the plain fold takes
+no infinite tie, so a miss's row means nothing there)."""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from rt_tpu_torch.ops import mega_plain
+
+torch.set_num_threads(1)
+
+WARP = 32
+CHUNK = 32
+SRC = Path(__file__).resolve().parents[1] / "rt_tpu_torch" / "csrc"
+# the default build's kDenseMax, read from the source the kernels build
+K_DENSE_MAX = int(re.search(r"#define RTT_DENSE_MAX (\d+)",
+                            (SRC / "bounce.cuh").read_text()).group(1))
+
+
+def order_key(t):
+    """warp_last_min's key of float32 t: t + 0.0f (-0 becomes +0), its bits
+    as an unsigned integer, negatives flipped so that keys order as the
+    floats do."""
+    bits = (t + np.float32(0.0)).astype(np.float32).view(np.uint32)
+    neg = (bits & np.uint32(0x80000000)) != 0
+    return np.where(neg, ~bits, bits | np.uint32(0x80000000)).astype(
+        np.uint32)
+
+
+def warp_last_min(t, rows):
+    """(t_win, last) of warp_last_min: t [32] float32, one per thread;
+    rows the chunk's row mask."""
+    key = order_key(t)
+    least = key.min()                                   # __reduce_min_sync
+    eq = sum(1 << l for l in range(WARP) if key[l] == least)  # __ballot_sync
+    last = (eq & rows).bit_length() - 1                 # 31 - __clz
+    return t[last], last                                # __shfl_sync
+
+
+def sequential(t, entry, active):
+    """The per-lane kernels' loop: per lane, chunks in ascending order, a
+    chunk taken when entry <= t_best, its rows in ascending order with
+    `if (t <= t_best)`. t [32, N] float32; entry [32, K]."""
+    n = t.shape[1]
+    best = np.full(WARP, np.inf, np.float32)
+    row = np.zeros(WARP, np.int64)
+    for l in range(WARP):
+        if not active[l]:
+            continue
+        for c in range(0, n, CHUNK):
+            if not entry[l, c // CHUNK] <= best[l]:
+                continue
+            for j in range(c, min(c + CHUNK, n)):
+                if t[l, j] <= best[l]:
+                    best[l], row[l] = t[l, j], j
+    return best, row
+
+
+def warp_fold(t, entry, active, dense_max):
+    """The warp-cooperative loop of warp_hit, step by step."""
+    n = t.shape[1]
+    best = np.full(WARP, np.inf, np.float32)
+    row = np.zeros(WARP, np.int64)
+    dense_chunks = 0
+    for c in range(0, n, CHUNK):
+        end = min(c + CHUNK, n)
+        need = [bool(active[l] and entry[l, c // CHUNK] <= best[l])
+                for l in range(WARP)]
+        needs = sum(1 << l for l in range(WARP) if need[l])  # __ballot_sync
+        if needs == 0:
+            continue
+        if bin(needs).count("1") > dense_max:
+            for l in range(WARP):
+                if need[l]:
+                    for j in range(c, end):
+                        if t[l, j] <= best[l]:
+                            best[l], row[l] = t[l, j], j
+            continue
+        dense_chunks += 1
+        rows = (1 << (end - c)) - 1
+        m = needs
+        while m:
+            src = (m & -m).bit_length() - 1                 # __ffs(m) - 1
+            m &= m - 1
+            # thread l tests src's ray against row c + l
+            tl = np.full(WARP, np.inf, np.float32)
+            tl[:end - c] = t[src, c:end]
+            tw, last = warp_last_min(tl, rows)
+            if tw <= best[src]:
+                best[src], row[src] = tw, c + last
+    return best, row, dense_chunks
+
+
+def plain_fold(t, entry, active):
+    """ops/mega_plain's chunk fold (_culled_best's loop): each chunk's
+    _last_argmin, taken where the lane needs the chunk and _take holds."""
+    n = t.shape[1]
+    k = -(-n // CHUNK)
+    tp = torch.full((WARP, k * CHUNK), float("inf"))
+    tp[:, :n] = torch.from_numpy(t)
+    tk, rk = mega_plain._last_argmin(tp.view(WARP, k, CHUNK))
+    tb = torch.full((WARP,), float("inf"))
+    rb = torch.zeros(WARP, dtype=torch.long)
+    act = torch.from_numpy(active)
+    ent = torch.from_numpy(entry)
+    for j in range(k):
+        vis = act & (ent[:, j] <= tb)
+        take = vis & mega_plain._take(tk[:, j], tb)
+        tb = torch.where(take, tk[:, j], tb)
+        rb = torch.where(take, rk[:, j] + j * CHUNK, rb)
+    return tb.numpy(), rb.numpy()
+
+
+def make_case(case, n_active, seed):
+    """(t [32, N], box entry [32, K], active [32]) of a named case."""
+    rs = np.random.default_rng(seed)
+    n = {"partial_last": 77, "all_inf_chunk": 96}.get(case, 128)
+    k = -(-n // CHUNK)
+    # coarse values so that equal t within and across chunks are common
+    t = rs.integers(1, 40, (WARP, n)).astype(np.float32) * np.float32(0.25)
+    t[rs.random((WARP, n)) < 0.5] = np.inf              # rows missed
+    if case == "ties_in_chunk":
+        t[:, 3:9] = t[:, 3:4]
+        t[:, 20:31] = np.float32(0.5)
+    elif case == "ties_across_chunks":
+        t[:, 30:34] = np.float32(0.25)                  # rows 30-33
+        t[:, 64 + 5] = np.float32(0.25)
+    elif case == "all_inf_chunk":
+        t[:, 32:64] = np.inf
+        t[:8] = np.inf                                  # 8 lanes miss all
+    elif case == "neg_zero":                            # t_min 0
+        z = rs.random((WARP, n)) < 0.2
+        t[z] = np.where(rs.random(z.sum()) < 0.5, np.float32(-0.0),
+                        np.float32(0.0))
+    # a box's entry t: the first chunk always visible, later ones by
+    # entry <= t_best, as box_visible against the closest hit so far
+    entry = rs.integers(0, 40, (WARP, k)).astype(np.float32) * np.float32(
+        0.25)
+    entry[:, 0] = -np.inf
+    active = np.zeros(WARP, bool)
+    active[rs.choice(WARP, n_active, replace=False)] = True
+    if case == "partial_last":
+        # the partial chunk misses every ray, and one lane with a ray
+        # misses everything: its `<=` loop ends on the table's last row,
+        # not on a thread past it
+        t[:, 64:] = np.inf
+        t[np.flatnonzero(active)[0]] = np.inf
+    return t, entry, active
+
+
+CASES = ["random", "ties_in_chunk", "ties_across_chunks", "all_inf_chunk",
+         "partial_last", "neg_zero"]
+
+
+@pytest.mark.parametrize("n_active", [1, 7, 32])
+@pytest.mark.parametrize("case", CASES)
+def test_dense_fold_matches_sequential_and_plain(case, n_active):
+    """Always dense (kDenseMax 32): every chunk any lane needs goes through
+    warp_last_min; the winner's t bits and row equal the sequential `<=`
+    loop's on every lane, and the plain fold's t (its row where t is
+    finite)."""
+    for seed in range(3):
+        t, entry, active = make_case(case, n_active, seed)
+        want_t, want_r = sequential(t, entry, active)
+        got_t, got_r, dense = warp_fold(t, entry, active, WARP)
+        assert dense >= 1
+        np.testing.assert_array_equal(got_t.view(np.uint32),
+                                      want_t.view(np.uint32))
+        np.testing.assert_array_equal(got_r, want_r)
+        plain_t, plain_r = plain_fold(t, entry, active)
+        np.testing.assert_array_equal(plain_t.view(np.uint32),
+                                      want_t.view(np.uint32))
+        fin = np.isfinite(want_t)
+        np.testing.assert_array_equal(plain_r[fin], want_r[fin])
+        if case == "neg_zero":
+            assert (want_t == 0).any()
+
+
+@pytest.mark.parametrize("n_active", [1, 7, 32])
+def test_mixed_schedule_matches_sequential(n_active):
+    """The default build's kDenseMax: chunks with more needing lanes take
+    the per-lane loop, the others the dense fold; the result is the
+    sequential loop's on every lane."""
+    assert 0 < K_DENSE_MAX <= WARP
+    for seed in range(3):
+        t, entry, active = make_case("ties_in_chunk", n_active, 10 + seed)
+        want_t, want_r = sequential(t, entry, active)
+        got_t, got_r, _ = warp_fold(t, entry, active, K_DENSE_MAX)
+        np.testing.assert_array_equal(got_t.view(np.uint32),
+                                      want_t.view(np.uint32))
+        np.testing.assert_array_equal(got_r, want_r)
+
+
+def test_order_key_orders_as_floats():
+    """The key orders float32 values as `<` does, -0 and +0 alike, +inf
+    above every finite value."""
+    v = np.array([-np.inf, -3.5, -1e-30, -0.0, 0.0, 1e-30, 1e-3, 2.0,
+                  3.4e38, np.inf], np.float32)
+    k = order_key(v)
+    assert k[3] == k[4]
+    for i in range(len(v)):
+        for j in range(len(v)):
+            assert (k[i] < k[j]) == (v[i] < v[j]), (v[i], v[j])
+
+
+def test_count_warp_need_histogram():
+    """mega_plain's estimate of the warp's masked share: per culled family,
+    how many (32-lane group, chunk) pairs have n lanes visiting the chunk,
+    the last group padded with lanes that visit nothing."""
+    need = torch.zeros((70, 3), dtype=torch.bool)
+    need[0:5, 0] = True      # group 0: 5 lanes need chunk 0
+    need[32:64, 1] = True    # group 1: all 32 need chunk 1
+    need[69, 2] = True       # group 2 (6 lanes, padded): 1 needs chunk 2
+    saved = mega_plain.closest_hit.need
+    mega_plain.closest_hit.need = [[0] * (WARP + 1) for _ in range(4)]
+    try:
+        mega_plain._count_warp_need(need, mega_plain.FAM_TRIANGLE)
+        hist = mega_plain.closest_hit.need[mega_plain.FAM_TRIANGLE]
+        assert sum(mega_plain.closest_hit.need[0]) == 0
+    finally:
+        mega_plain.closest_hit.need = saved
+    want = [0] * (WARP + 1)
+    want[0], want[1], want[5], want[32] = 6, 1, 1, 1
+    assert hist == want

@@ -76,15 +76,19 @@ versions (43); and `render -f` of the textured demo copy (with and
 without --nee) and `fit ... --fields images` with the replay and the
 tape, whose loss must fall (44). QMC and chunk culling follow (45-49:
 the kernels against their plain versions under each, frames in four
-settings, the runtime flags' A/B, with --parent also B3 / B6 on four
-culled workloads, the queue frame and `render -f` against another
-checkout in turns), and B3 / B6's warp-cooperative hit closes it (50):
-ties at 192x108 and one call on cover, cover_lights with nee, the mesh
-and the textured mesh in the default build and scratch builds of other
-kDenseMax values (phase 2 builds them; --dense-grid adds two), against
-the plain versions and B5, timed in turns, with the cover frame in each
-build and the issued instructions per row from cuobjdump. Phase 2 also
-holds the registers of the kernels outside B3 / B6 to the parent's.
+settings, the runtime flags' A/B, with --parent also B1 on phase 3's
+rays, B2 / B3 / B6 on four culled workloads, the queue, mega and hybrid
+frames and `render -f` against another checkout in turns), and the
+warp-cooperative hit of B2 / B3 / B6 closes it (50): ties at 192x108
+and one call on cover, cover_lights with nee, the mesh and the textured
+mesh in the default build and scratch builds of other kDenseMax values
+(phase 2 builds them; --dense-grid adds two), against the plain
+versions and B5, timed in turns, with the cover frame in each build and
+the issued instructions per row from cuobjdump. Phase 2 also holds the
+registers of B3-B7 to the parent's and prints B1 / B2's beside the
+parent's; phase 3 holds B1 (one float4 row a sphere, several rays a
+thread, the root only where disc >= 0) to the parent's B1 lane for lane
+with --parent and counts its issued instructions per pair.
 Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
@@ -131,6 +135,9 @@ PEAK_HBM_BYTES = 3.35e12   # HBM3, byte/s
 # loop and bounce.cuh's hit loop, FMA counted as two and the sqrt as one
 # (see the notes there)
 SPHERE_OPS_PER_PAIR = 23
+# of which the discriminant's (hb, c_term, disc), all B1 does for a pair
+# whose disc < 0 (ops/intersect._sphere_t up to `disc`)
+SPHERE_DISC_OPS = 17
 # FP32 operations every ray-bounce of bounce.cuh does besides its hit
 # loop: the ray's a, d.o, |o|^2 and 1/a. The shading after the hit loop
 # depends on the material hit and is not counted, so the bound stays a
@@ -395,6 +402,40 @@ def lane_occupancy(*launches, warp=32):
     return num / den
 
 
+def disc_pairs(centers, radii, live, ro, rd, chunk=1 << 15):
+    """The (ray, live sphere) pairs whose discriminant is >= 0: those for
+    which B1 computes the roots (the plain version's expressions up to
+    disc, ops/intersect._sphere_t)."""
+    cx, cy, cz = (centers[None, :, k] for k in range(3))
+    c2r = ((centers * centers).sum(-1) - radii * radii)[None, :]
+    n = 0
+    for s in range(0, ro.shape[0], chunk):
+        o, d = ro[s:s + chunk], rd[s:s + chunk]
+        a = (d * d).sum(-1)[:, None]
+        hb = (d * o).sum(-1)[:, None] - (d[:, 0:1] * cx + d[:, 1:2] * cy
+                                         + d[:, 2:3] * cz)
+        c_term = ((o * o).sum(-1)[:, None]
+                  - 2.0 * (o[:, 0:1] * cx + o[:, 1:2] * cy + o[:, 2:3] * cz)
+                  + c2r)
+        n += int(((hb * hb - a * c_term >= 0.0) & live[None, :]).sum())
+    return n
+
+
+def b1_hits(root, path):
+    """B1 of the package imported from root (another checkout) on the
+    sphere table and rays that phase 3 saved to `path`; writes its t and
+    pid to path + ".out"."""
+    sys.path.insert(0, root)
+    from rt_tpu_torch.ops import cuda_intersect
+
+    dev = torch.device("cuda")
+    d = torch.load(path)
+    t, pid = cuda_intersect.sphere_closest_hit(
+        *(d[k].to(dev) for k in ("centers", "radii", "live", "ro", "rd")))
+    torch.save({"t": t.cpu(), "pid": pid.cpu()}, path + ".out")
+    return 0
+
+
 def hit_ops(tables):
     """FP32 operations of one ray-bounce's hit loop over the scene's live
     rows of every family, plus the ray setup (the shading is left out,
@@ -627,11 +668,16 @@ KERNELS = ["sphere_hit", "mega", "queue", "mega_adjoint", "queue_adjoint",
 # other values. The default build's value is bounce.cuh's RTT_DENSE_MAX.
 DENSE_BUILDS = [0, 32]
 DENSE_GRID = (8, 24)
-# the libraries whose code the warp-cooperative hit of B3 / B6 left as it
-# was: phase 2 holds their ptxas registers, per instantiation, to the
-# parent's build (--parent) or to PARENT_REGS, the parent's on the card's
-# toolkit (CUDA 12.8, from a --parent run's printout): per library its
-# kernel and "bool template arguments:registers" of each instantiation
+# the libraries built again in each scratch build of kDenseMax: B2, B3, B6
+DENSE_LIBS = ("mega", "queue", "queue_adjoint")
+# phase 2 holds the ptxas registers of HELD_LIBS (B3-B7), per
+# instantiation, to the parent's build (--parent) or to PARENT_REGS, and
+# prints those of MOVED_LIBS (B1 and B2, redesigned) beside the parent's.
+# PARENT_REGS: the parent's registers on the card's toolkit (CUDA 12.8,
+# from a --parent run's printout), per library its kernel and "bool
+# template arguments:registers" of each instantiation
+HELD_LIBS = ("queue", "queue_adjoint", "capture", "mega_adjoint", "regen")
+MOVED_LIBS = ("sphere_hit", "mega")
 PARENT_REGS = {
     "capture": ("capture_kernel", """
         000:40 001:40 010:46 011:48 100:40 101:40 110:46 111:48
@@ -649,6 +695,20 @@ PARENT_REGS = {
         01110:96 01111:80 10000:62 10001:60 10010:62 10011:64 10100:80
         10101:80 10110:80 10111:80 11000:62 11001:64 11010:64 11011:64
         11100:80 11101:80 11110:80 11111:80
+        """),
+    "queue": ("queue_kernel", """
+        00000:56 00001:57 00010:60 00011:60 00100:64 00101:64 00110:75
+        00111:74 01000:64 01001:64 01010:64 01011:64 01100:77 01101:77
+        01110:77 01111:77 10000:56 10001:59 10010:60 10011:60 10100:64
+        10101:64 10110:64 10111:64 11000:64 11001:64 11010:64 11011:64
+        11100:77 11101:79 11110:77 11111:77
+        """),
+    "queue_adjoint": ("queue_adjoint_kernel", """
+        00000:64 00001:64 00010:64 00011:64 00100:80 00101:78 00110:80
+        00111:80 01000:79 01001:78 01010:76 01011:76 01100:89 01101:89
+        01110:95 01111:94 10000:64 10001:64 10010:64 10011:64 10100:78
+        10101:78 10110:80 10111:80 11000:78 11001:77 11010:77 11011:77
+        11100:89 11101:93 11110:95 11111:94
         """),
     "regen": ("regen_kernel", """
         0000:48 0001:60 0010:48 0011:64 0100:56 0101:56 0110:60 0111:60
@@ -698,13 +758,14 @@ def build_all(extra=()):
 
 @contextlib.contextmanager
 def dense_schedule(dense_max):
-    """Inside, B3 and B6 run from the scratch libraries built with
+    """Inside, B2, B3 and B6 run from the scratch libraries built with
     -DRTT_DENSE_MAX=dense_max (None: the default build): the wrappers'
     library loaders and the grids they cached are swapped, so no option
     reaches the port's entry points."""
-    from rt_tpu_torch.ops import cuda_queue
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
 
-    saved = cuda_queue._library, cuda_queue._adjoint_library
+    saved = (cuda_queue._library, cuda_queue._adjoint_library,
+             cuda_mega._library)
 
     def clear():
         cuda_queue._grid_blocks.cache_clear()
@@ -713,13 +774,16 @@ def dense_schedule(dense_max):
     if dense_max is not None:
         lib = saved[0](dense_defines(dense_max))
         alib = saved[1](dense_defines(dense_max))
+        mlib = saved[2](dense_defines(dense_max))
         cuda_queue._library = lambda: lib
         cuda_queue._adjoint_library = lambda: alib
+        cuda_mega._library = lambda: mlib
         clear()
     try:
         yield
     finally:
-        cuda_queue._library, cuda_queue._adjoint_library = saved
+        (cuda_queue._library, cuda_queue._adjoint_library,
+         cuda_mega._library) = saved
         clear()
 
 
@@ -756,10 +820,10 @@ def ptxas_registers(root):
     return out
 
 
-def sass_loops(lib, kernel):
-    """The loops of `kernel` ("kernel<bits>") in the SASS of the library
-    lib (cuobjdump -sass, beside nvcc): [(instructions, opcode counts)],
-    one per backward branch, or None without cuobjdump."""
+def sass_listing(lib, kernel):
+    """[(address, instruction)] of `kernel` ("kernel<bits>") in the SASS
+    of the library lib (cuobjdump -sass, beside nvcc), or None without
+    cuobjdump."""
     from rt_tpu_torch.ops import cuda_build
 
     cuobj = os.path.join(os.path.dirname(cuda_build.find_nvcc()),
@@ -770,32 +834,78 @@ def sass_loops(lib, kernel):
                           text=True, check=True).stdout
     body = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
             if kernel_key(f.split("\n", 1)[0]) == kernel][0]
-    ins = [(int(a, 16), t.strip()) for a, t in
-           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    return [(int(a, 16), t.strip()) for a, t in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+
+
+def opcode(txt):
+    """An instruction's opcode without its predicate."""
+    return re.sub(r"^@!?U?P\w+\s+", "", txt).split()[0]
+
+
+def sass_loops(lib, kernel):
+    """The loops of `kernel` in the SASS of the library lib:
+    [(instructions, opcode counts)], one per backward branch, or None
+    without cuobjdump."""
+    ins = sass_listing(lib, kernel)
+    if ins is None:
+        return None
     loops = []
     for addr, txt in ins:
         m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", txt)
         if m and int(m.group(1), 16) < addr:
             lo = int(m.group(1), 16)
-            ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
-                   for a, t in ins if lo <= a <= addr]
+            ops = [opcode(t) for a, t in ins if lo <= a <= addr]
             counts = {}
             for op in ops:
-                for key in (op.split(".")[0], op):
+                for key in {op.split(".")[0], op}:
                     counts[key] = counts.get(key, 0) + 1
             loops.append((len(ops), counts))
     return loops
 
 
-def row_instructions(lib):
-    """Issued instructions per (lane, row) in B3's hit loops, from the
-    SASS of its instantiation with families (kTail, kNee, kImages, kQmc
-    off): the per-lane sphere loop (unrolled: its length over its
+def b1_instructions(lib):
+    """Issued instructions per (ray, sphere) pair in B1's row loop, from
+    the SASS of sphere_hit_kernel: the loop that reads rows (LDS.128) and
+    takes roots (one MUFU.RSQ a pair of its unrolled body). Instructions
+    that a forward branch of the loop skips, to a target inside it, are
+    the root path (disc >= 0); the rest every pair runs. {"loop",
+    "pairs", "rows", "miss_pair", "root_pair"}, or None."""
+    ins = sass_listing(lib, "sphere_hit_kernel<>")
+    if ins is None:
+        return None
+    out = None
+    for addr, txt in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", txt)
+        if not (m and int(m.group(1), 16) < addr):
+            continue
+        body = [(a, t) for a, t in ins if int(m.group(1), 16) <= a <= addr]
+        ops = [opcode(t) for _, t in body]
+        pairs, rows = ops.count("MUFU.RSQ"), ops.count("LDS.128")
+        if not (pairs and rows) or (out and out["loop"] <= len(body)):
+            continue  # the innermost such loop
+        skipped = set()
+        for a, t in body:
+            f = re.search(r"^@!?U?P\w+\s+BRA\b.*?(0x[0-9a-f]+)", t)
+            if f and a < int(f.group(1), 16) <= addr:
+                skipped |= {b for b, _ in body
+                            if a < b < int(f.group(1), 16)}
+        out = dict(loop=len(body), pairs=pairs, rows=rows,
+                   miss_pair=(len(body) - len(skipped)) / pairs,
+                   root_pair=len(skipped) / pairs)
+    return out
+
+
+def row_instructions(lib, kernel="queue_kernel<01000>"):
+    """Issued instructions per (lane, row) in the hit loops of B3 (or of
+    `kernel`, B2's mega_kernel<01000>), from the SASS of its
+    instantiation with families (kTail, kNee, kImages, kQmc off): the
+    per-lane sphere loop (unrolled: its length over its
     LDS.128 rows), the per-lane triangle loop (one row an iteration, 17+
     LDG), and the dense path's loop per (ray, chunk) for spheres (10
     shuffled ray words and the winner's t) and triangles (6 and the t),
     where every thread tests one row; None where not found."""
-    loops = sass_loops(lib, "queue_kernel<01000>")
+    loops = sass_loops(lib, kernel)
     if loops is None:
         return None
     out = {"sphere_row": None, "triangle_row": None,
@@ -819,15 +929,17 @@ def ab_times(root):
     """Times of the package imported from root (this tree or another
     checkout of it), one JSON line: B2 / B3 / B5 / B6 at phases 11 / 13's
     shape (cover_scene 1920x1080, depth 50, one trace call of sample 0
-    and its exact adjoint call) under rng without culling; B3 / B6 with
-    culling (the default) on cover, cover_lights with nee (depth 50), the
-    mesh and the textured mesh (depth 16), as phase 50; mean ms over 5
-    calls after a warm-up. Then the bench-shape queue frame (spp 16, mean
-    s of 3 after one) and `render -f scenes/demo_scene.json` (s, the
-    second of two runs)."""
+    and its exact adjoint call) under rng without culling; B2 / B3 / B6
+    with culling (the default) on cover, cover_lights with nee (depth
+    50), the mesh and the textured mesh (depth 16), as phase 50; B1 on
+    phase 3's 1080p primary rays; mean ms over 5 calls (B1 20) after a
+    warm-up. Then the bench-shape queue and mega frames (spp 16, mean s
+    of 3 after one), phase 4's hybrid frame (spp 2, mean s of 2 after
+    one) and `render -f scenes/demo_scene.json` (s, the second of two
+    runs)."""
     sys.path.insert(0, root)
     from rt_tpu_torch import cli
-    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.ops import cuda_intersect, cuda_mega, cuda_queue
     from rt_tpu_torch.ops.camera import generate_rays
     from rt_tpu_torch.render.renderer import render
     from rt_tpu_torch.scene.builders import cover_scene
@@ -854,26 +966,41 @@ def ab_times(root):
             ("mega_adjoint_segment", cuda_mega.mega_trace_adjoint, adj),
             ("queue_adjoint_launch", cuda_queue.queue_trace_adjoint, adj)):
         out[name] = cuda_ms(lambda: fn(*a), 5)[0]
+    b1_args = (tables.sph_center, tables.sph_radius, tables.sph_obj >= 0,
+               ro, rd)
+    out["sphere_closest_hit"] = cuda_ms(
+        lambda: cuda_intersect.sphere_closest_hit(*b1_args), 20)[0]
     with tempfile.TemporaryDirectory() as tmp:
         for label, tb, cb in warp_scenes(tmp, dev):
             rays = generate_rays(tb.camera, W, H, px % W, px // W, 0, 0,
                                  cb.enable_defocus, cb.sampler)
             a = (tb, cb, *rays, px, 0, 0)
+            am = (tb, cb.replace(compact_schedule=cfg.compact_schedule,
+                                 compact_group=cfg.compact_group), *a[2:])
             L = cuda_queue.queue_trace(*a)
             ad = a + (L, g, cb.max_depth, False)
+            out[f"mega_segment {label}"] = cuda_ms(
+                lambda: cuda_mega.mega_trace(*am), 5)[0]
             out[f"queue_launch {label}"] = cuda_ms(
                 lambda: cuda_queue.queue_trace(*a), 5)[0]
             out[f"queue_adjoint_launch {label}"] = cuda_ms(
                 lambda: cuda_queue.queue_trace_adjoint(*ad), 5)[0]
-        frame_cfg = cfg.replace(cull_chunks=True, engine="queue")
-        secs = []
-        for rep in range(4):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            render(tables, frame_cfg, device="cuda")
-            torch.cuda.synchronize()
-            secs.append(time.time() - t0)
-        out["queue frame s"] = float(np.mean(secs[1:]))
+        frames = (("queue frame s", cfg.replace(cull_chunks=True,
+                                                engine="queue"), 4),
+                  ("mega frame s", cfg.replace(cull_chunks=True,
+                                               engine="mega"), 4),
+                  ("hybrid frame s", cfg.replace(
+                      cull_chunks=True, engine="pallas",
+                      samples_per_pixel=SPP, rays_per_batch=1 << 21), 3))
+        for key, frame_cfg, reps in frames:
+            secs = []
+            for rep in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                render(tables, frame_cfg, device="cuda")
+                torch.cuda.synchronize()
+                secs.append(time.time() - t0)
+            out[key] = float(np.mean(secs[1:]))
         with contextlib.chdir(tmp), \
                 contextlib.redirect_stdout(io.StringIO()):
             for rep in range(2):
@@ -992,11 +1119,12 @@ def main() -> int:
 
     dense_max = default_dense_max()
     dense_builds = DENSE_BUILDS + (list(DENSE_GRID) if DENSE_GRID_ON else [])
-    with phase(f"2 build (and B3 / B6 with kDenseMax {dense_builds}; the "
-               "registers of B1, B2, B4, B5, B7 against the parent's)"):
+    with phase(f"2 build (and B2 / B3 / B6 with kDenseMax {dense_builds}; "
+               "the registers of B3-B7 held to the parent's, B1 / B2's "
+               "beside it)"):
         # one nvcc per library, all started together
         scratch = [(k, dense_defines(d)) for d in dense_builds
-                   for k in ("queue", "queue_adjoint")]
+                   for k in DENSE_LIBS]
         jobs = [(k, ()) for k in KERNELS] + scratch
         for k, d in jobs:  # build from the checkout's sources
             cuda_build.library_path(k, d).unlink(missing_ok=True)
@@ -1019,7 +1147,7 @@ def main() -> int:
         regs = {f"{k}:{kk}": v for (k, d), lib in zip(jobs, libs) if not d
                 for kk, v in registers_of(lib).items()}
         for (k, d), lib in zip(jobs, libs):
-            if not d and k not in ("queue", "queue_adjoint"):
+            if not d and k not in DENSE_LIBS:
                 continue
             r = registers_of(lib)
             print(f"  {k} {' '.join(d) or f'(kDenseMax {dense_max})'}: "
@@ -1031,28 +1159,43 @@ def main() -> int:
             old = ptxas_registers(PARENT)
         else:
             old = parent_regs()
-        same = [k for k in regs if k.split(":")[0] not in
-                ("queue", "queue_adjoint")]
-        moved = {k: (old.get(k), regs[k]) for k in same
+        src = "its build" if PARENT else "PARENT_REGS"
+        held = [k for k in regs if k.split(":")[0] in HELD_LIBS]
+        moved = {k: (old.get(k), regs[k]) for k in held
                  if old.get(k) != regs[k]}
-        print(f"  registers of B1, B2, B4, B5, B7 against the parent's "
-              f"({'its build' if PARENT else 'PARENT_REGS'}): {len(same)} "
-              f"instantiations, {len(moved)} moved {moved}", flush=True)
+        print(f"  registers of B3-B7 against the parent's ({src}): "
+              f"{len(held)} instantiations, {len(moved)} moved {moved}",
+              flush=True)
         if moved:
-            raise AssertionError("a kernel outside B3 / B6 changed its "
-                                 "registers")
+            raise AssertionError("a kernel of B3-B7 changed its registers")
+        for lib in MOVED_LIBS:
+            pairs = {k.split(":")[1]: (old.get(k), v) for k, v in
+                     sorted(regs.items()) if k.split(":")[0] == lib}
+            print(f"  {lib} registers (parent's, this tree's; {src}): "
+                  f"{len(pairs)} instantiations, "
+                  f"{sum(a != b for a, b in pairs.values())} moved "
+                  f"{pairs}", flush=True)
         if PARENT:
-            q_moved = {k: (old.get(k), v) for k, v in regs.items()
-                       if k not in same and old.get(k) != v}
-            print(f"  B3 / B6 against the parent's: {len(regs) - len(same)}"
-                  f" instantiations, registers moved {q_moved}", flush=True)
             # the table this tree holds when run without --parent
             table = {}
             for k, v in sorted(old.items()):
                 lib, kern = k.split(":")
-                if lib not in ("queue", "queue_adjoint"):
-                    table.setdefault(lib, {})[kern] = v
+                table.setdefault(lib, {})[kern] = v
             print(f"  PARENT_REGS = {json.dumps(table)}", flush=True)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+    except (FileNotFoundError, subprocess.CalledProcessError,
+            ValueError, IndexError):
+        mhz = None
+    # a thread-instruction per lane a clock: 4 schedulers x 32 lanes
+    issue_rate = sms * 128 * mhz * 1e6 if mhz else None
+    issue_note = (f"{sms} SMs x 128 lanes x {mhz} MHz = {issue_rate} "
+                  "instructions/s")
 
     sdef, cfg = cover_scene(width=W, height=H, spp=SPP, max_depth=DEPTH)
     tables = build_tables(sdef, device=dev)
@@ -1093,17 +1236,55 @@ def main() -> int:
         p_ms, _ = cuda_ms(
             lambda: cuda_intersect.sphere_closest_hit_plain(*full), 3)
         b = ro_f.shape[0]
-        ops = SPHERE_OPS_PER_PAIR * b * n_live
+        # the roots only where disc >= 0 (csrc/sphere_hit.cu): 23
+        # operations there, the discriminant's 17 elsewhere
+        roots = disc_pairs(*full)
+        b1_pairs = dict(pairs=b * n_live, disc_nonnegative=roots)
+        ops = (SPHERE_OPS_PER_PAIR * roots
+               + SPHERE_DISC_OPS * (b * n_live - roots))
         nbytes = (b * (12 + 12 + 4 + 4)            # ro, rd in; t, pid out
                   + n_rows * (12 + 4 + 1))         # centers, radii, live
-        bound_ms = max(ops / PEAK_FP32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
-        bound_by = ("operations" if ops / PEAK_FP32_OPS
-                    >= nbytes / PEAK_HBM_BYTES else "bytes")
+        bound_ms, bound_by = bound_of(ops, nbytes)
+        b1_sass = b1_instructions(libs[KERNELS.index("sphere_hit")])
+        b1_issue_ms = (1e3 * (b * n_live * b1_sass["miss_pair"]
+                              + roots * b1_sass["root_pair"]) / issue_rate
+                       if b1_sass and issue_rate else None)
         print(f"  sphere_closest_hit at B={b}, N={n_rows} ({n_live} live): "
               f"kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {ops:.4g} ops, {nbytes:.4g} bytes); "
-              f"{smi}", flush=True)
+              f"({bound_by}: {ops:.4g} ops, {b * n_live} pairs of which "
+              f"{roots} with disc >= 0, {nbytes:.4g} bytes); issued "
+              f"instructions (cuobjdump -sass) {b1_sass}, issue bound "
+              f"{b1_issue_ms} ms; {smi}", flush=True)
+
+        # this B1 against the parent's, lane for lane, on all of phase 3's
+        # rays
+        b1_parent = None
+        if PARENT:
+            ro_all = torch.cat([ro, ro_f])
+            rd_all = torch.cat([rd, rd_f])
+            t_new, pid_new = cuda_intersect.sphere_closest_hit(
+                centers, radii, live, ro_all, rd_all)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "b1.pt")
+                torch.save({"centers": centers.cpu(), "radii": radii.cpu(),
+                            "live": live.cpu(), "ro": ro_all.cpu(),
+                            "rd": rd_all.cpu()}, path)
+                subprocess.run([sys.executable, os.path.join(
+                    ROOT, "chip_smoke.py"), "--b1-hits", PARENT, path],
+                    check=True)
+                prev = torch.load(path + ".out")
+            t_bits = t_new.cpu().view(torch.int32) != prev["t"].view(
+                torch.int32)
+            pid_off = pid_new.cpu() != prev["pid"]
+            b1_parent = dict(rays=int(t_new.numel()),
+                             t_bits_differ=int(t_bits.sum()),
+                             pid_differs=int(pid_off.sum()),
+                             lanes_differ=int((t_bits | pid_off).sum()))
+            print(f"  sphere_closest_hit against the parent's B1 on "
+                  f"{b1_parent['rays']} rays: {b1_parent['lanes_differ']} "
+                  f"lanes differ (t bits {b1_parent['t_bits_differ']}, pid "
+                  f"{b1_parent['pid_differs']})", flush=True)
 
     with phase("4 main path: cover_scene 1920x1080 depth 50 engine pallas"):
         cfg_main = cfg.replace(engine="pallas", rays_per_batch=1 << 21)
@@ -3482,7 +3663,8 @@ def main() -> int:
                 raise AssertionError(f"fit qmc {key}: loss {hist}, "
                                      f"launches {counts}")
             flag_cli[f"fit_{key}"] = dict(sec=sec, launches=counts)
-    # ---- B3 / B6's warp-cooperative closest hit (bounce.cuh warp_hit) ----
+    # ---- B2 / B3 / B6's warp-cooperative closest hit (bounce.cuh
+    # warp_hit) ----
     builds = [None] + dense_builds
 
     def build_name(d):
@@ -3490,8 +3672,8 @@ def main() -> int:
                 else f"kDenseMax {d}")
 
     warp = {"dense_max": dense_max, "ties": {}, "calls": {}}
-    with phase(f"50 B3 / B6's warp-cooperative hit in the default build "
-               f"(kDenseMax {dense_max}) and the scratch builds with "
+    with phase(f"50 B2 / B3 / B6's warp-cooperative hit in the default "
+               f"build (kDenseMax {dense_max}) and the scratch builds with "
                f"kDenseMax {dense_builds}: ties at {SMALL_W}x{SMALL_H} "
                "(duplicated spheres in one chunk and across two, the grid "
                f"mesh's shared edges); one call at {W}x{H} on cover, "
@@ -3527,6 +3709,7 @@ def main() -> int:
                     raise AssertionError("the tie scene has no ties")
             args = (tb, cb, ro_, rd_, px_, 0, 0)
             want = cuda_queue.queue_trace(*args, plain=True)
+            want_m = cuda_mega.mega_trace(*args, plain=True)
             g = torch.from_numpy(np.random.default_rng(7).normal(
                 0, 1e-3, (px_.numel(), 3)).astype(np.float32)).to(dev)
             adj = args + (want, g, cb.max_depth, False)
@@ -3545,6 +3728,16 @@ def main() -> int:
                               f"{n_bad} of {px_.numel()}", flush=True)
                         if n_bad:
                             raise AssertionError(f"{label}: B3 != plain")
+                    for every in (None, 2):  # segments: default, 2 bounces
+                        cm = cb if every is None else cb.replace(
+                            compact_every=every)
+                        got = cuda_mega.mega_trace(tb, cm, *args[2:])
+                        n_bad = int((got != want_m).any(-1).sum())
+                        print(f"  {label}, {build_name(d)}, compact_every "
+                              f"{every}: B2 lanes differing from plain "
+                              f"{n_bad} of {px_.numel()}", flush=True)
+                        if n_bad:
+                            raise AssertionError(f"{label}: B2 != plain")
                     g6 = cuda_queue.queue_trace_adjoint(*adj,
                                                         check_once=True)
                     e6 = grads_close(g_plain, g6, f"{label}, "
@@ -3556,22 +3749,14 @@ def main() -> int:
                                        duplicated_winners=dup)
 
         sass = row_instructions(libs[KERNELS.index("queue")])
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        try:
-            mhz = float(subprocess.run(
-                ["nvidia-smi", "--query-gpu=clocks.max.sm",
-                 "--format=csv,noheader,nounits"], capture_output=True,
-                text=True, check=True).stdout.split()[0])
-        except (FileNotFoundError, subprocess.CalledProcessError,
-                ValueError, IndexError):
-            mhz = None
-        # a thread-instruction per lane a clock: 4 schedulers x 32 lanes
-        issue_rate = sms * 128 * mhz * 1e6 if mhz else None
-        print(f"  issued instructions (cuobjdump -sass of the queue "
-              f"library, queue_kernel<01000>): {sass}; issue rate "
-              f"{sms} SMs x 128 lanes x {mhz} MHz = {issue_rate} "
-              f"instructions/s", flush=True)
+        sass_b2 = row_instructions(libs[KERNELS.index("mega")],
+                                   "mega_kernel<01000>")
+        print(f"  issued instructions (cuobjdump -sass) of the queue "
+              f"library, queue_kernel<01000>: {sass}; of the mega library, "
+              f"mega_kernel<01000>: {sass_b2}; issue rate {issue_note}",
+              flush=True)
         warp["sass_instructions"] = sass
+        warp["sass_instructions_b2"] = sass_b2
         with tempfile.TemporaryDirectory() as wtmp:
             for label, tb, cb in warp_scenes(wtmp, dev):
                 px_ = torch.arange(W * H, device=dev)
@@ -3584,19 +3769,26 @@ def main() -> int:
                 pairs = rows_tested()
                 nbytes = W * H * (12 + 12 + 4 + 12) + table_bytes(tb)
                 b_ms, b_by = bound_of(hit_terms(st["ray_bounces"]), nbytes)
-                issue_ms = None
-                if sass and issue_rate and sass["sphere_row"] and \
-                        sass["triangle_row"]:
-                    issue_ms = 1e3 * (pairs[0] * sass["sphere_row"]
-                                      + pairs[3] * sass["triangle_row"]) \
-                        / issue_rate
-                need = mega_plain.closest_hit.need
+                def issue_of(sa):
+                    if sa and issue_rate and sa["sphere_row"] and \
+                            sa["triangle_row"]:
+                        return 1e3 * (pairs[0] * sa["sphere_row"]
+                                      + pairs[3] * sa["triangle_row"]) \
+                            / issue_rate
+                    return None
+
+                issue_ms, issue_b2_ms = issue_of(sass), issue_of(sass_b2)
+                am = (tb, cb.replace(compact_schedule=c16.compact_schedule,
+                                     compact_group=c16.compact_group),
+                      *args[2:])
+                need = [list(h) for h in mega_plain.closest_hit.need]
+                want_m = cuda_mega.mega_trace(*am, plain=True)
                 g = torch.from_numpy(np.random.default_rng(8).normal(
                     0, 1.0 / (W * H), (W * H, 3)).astype(np.float32)).to(dev)
                 adj = args + (want, g, cb.max_depth, False)
                 g_plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
                 g_b5 = cuda_mega.mega_trace_adjoint(*adj)
-                times = {d: ([], []) for d in builds}
+                times = {d: ([], [], []) for d in builds}
                 for i, d in enumerate(builds + builds[::-1]):
                     with dense_schedule(d):
                         if i < len(builds):  # the first visit checks
@@ -3604,6 +3796,10 @@ def main() -> int:
                             if not torch.equal(got, want):
                                 raise AssertionError(
                                     f"{label}, {build_name(d)}: B3 != plain")
+                            if not torch.equal(cuda_mega.mega_trace(*am),
+                                               want_m):
+                                raise AssertionError(
+                                    f"{label}, {build_name(d)}: B2 != plain")
                             g6 = cuda_queue.queue_trace_adjoint(*adj)
                             e6 = grads_close(g_plain, g6, f"{label}, "
                                              f"{build_name(d)}: B6 vs plain")
@@ -3615,25 +3811,32 @@ def main() -> int:
                         times[d][1].append(cuda_ms(
                             lambda: cuda_queue.queue_trace_adjoint(*adj),
                             3)[0])
+                        times[d][2].append(cuda_ms(
+                            lambda: cuda_mega.mega_trace(*am), 3)[0])
                 rec = warp["calls"][label] = dict(
                     ray_bounces=st["ray_bounces"], rows_tested=pairs,
                     bound_ms=b_ms, bound_by=b_by, issue_bound_ms=issue_ms,
+                    issue_bound_b2_ms=issue_b2_ms,
                     warp_need={"sphere": need[0], "triangle": need[3]},
-                    queue_launch={}, queue_adjoint_launch={})
+                    queue_launch={}, queue_adjoint_launch={},
+                    mega_segment={})
                 base = [float(np.mean(v)) for v in times[None]]
                 for d in builds:
-                    b3, b6 = (float(np.mean(v)) for v in times[d])
+                    b3, b6, b2 = (float(np.mean(v)) for v in times[d])
                     rec["queue_launch"][build_name(d)] = b3
                     rec["queue_adjoint_launch"][build_name(d)] = b6
+                    rec["mega_segment"][build_name(d)] = b2
                     print(f"  {label}, {build_name(d)}: B3 {b3:.4f} ms "
                           f"({b3 / base[0]:.3f}), B6 {b6:.4f} ms "
-                          f"({b6 / base[1]:.3f}); {smi}", flush=True)
+                          f"({b6 / base[1]:.3f}), B2 {b2:.4f} ms "
+                          f"({b2 / base[2]:.3f}); {smi}", flush=True)
                 eff = {fam: sum(n * v for n, v in enumerate(h))
                        / max(1, mega_plain.WARP * sum(h[1:]))
                        for fam, h in rec["warp_need"].items() if sum(h)}
                 print(f"  {label}: {st['ray_bounces']} ray-bounces, (lane, "
                       f"row) pairs tested {pairs}, FP32 bound {b_ms:.4f} ms "
-                      f"({b_by}), issue bound of the pairs {issue_ms} ms; "
+                      f"({b_by}), issue bound of the pairs {issue_ms} ms "
+                      f"(B3's SASS), {issue_b2_ms} ms (B2's); "
                       f"the plain queue's 32-lane groups: lanes needing a "
                       f"chunk the group visits, per lane of 32 {eff}",
                       flush=True)
@@ -3676,21 +3879,36 @@ def main() -> int:
                                     "queue_adjoint_launch" else 0.0)
         return out
 
+    # phase 48's frames against --parent, by the kernel whose entry
+    # carries them
+    frame_of = {"queue frame s": "queue_launch",
+                "render -f demo s": "queue_launch",
+                "mega frame s": "mega_segment",
+                "hybrid frame s": "sphere_closest_hit"}
+
+    def parent_entry(name):
+        """Phase 48's A/B against --parent of the kernel `name`: its calls
+        and the frames of its engine."""
+        return {k: v for k, v in parent_ab.items()
+                if k == name or k.startswith(name + " ")
+                or frame_of.get(k) == name}
+
     def warp_entry(name):
-        """The warp-cooperative hit's numbers for B3's / B6's entry in the
-        kernels line: phase 50's ties, calls (this kernel's time per
-        build) and SASS counts, and phase 48's A/B against --parent."""
+        """The warp-cooperative hit's numbers for B2's / B3's / B6's entry
+        in the kernels line: phase 50's ties, calls (this kernel's time
+        per build) and SASS counts, and phase 48's A/B against
+        --parent."""
         calls = {lab: {**{k: v for k, v in rec.items() if k not in
-                          ("queue_launch", "queue_adjoint_launch")},
+                          ("queue_launch", "queue_adjoint_launch",
+                           "mega_segment")},
                        "ms": rec[name]}
                  for lab, rec in warp["calls"].items()}
-        ab_p = {k: v for k, v in parent_ab.items()
-                if k.startswith(name + " ")
-                or (name == "queue_launch" and k.endswith(" s"))}
         return {"dense_max": dense_max, "ties": warp["ties"],
-                "sass_instructions": warp["sass_instructions"],
+                "sass_instructions": warp["sass_instructions_b2" if name ==
+                                          "mega_segment" else
+                                          "sass_instructions"],
                 "calls": calls, "cover_frames_s": warp["frames"],
-                "parent_ab": ab_p}
+                "parent_ab": parent_entry(name)}
 
     def family_rows(name):
         """A kernel's numbers on the family workloads, for its entry in
@@ -3726,6 +3944,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "pairs": b1_pairs,
+        "issue_bound_ms": b1_issue_ms,
+        "sass_instructions": b1_sass,
+        "against_parent": b1_parent,
+        "parent_ab": parent_entry("sphere_closest_hit"),
     }, {
         "name": "mega_segment",
         "route": "cuda",
@@ -3741,6 +3964,7 @@ def main() -> int:
                 "cli_fit_launches": nee_fit["mega"]["launches"][
                     "mega_segment"]},
         "qmc_cull": flag_entry("mega_segment", "mega"),
+        "warp_hit": warp_entry("mega_segment"),
     }, {
         "name": "queue_launch",
         "route": "cuda",
@@ -3856,20 +4080,28 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="smoke run of rt_tpu_torch on "
                                  "one CUDA GPU (see the module doc)")
     ap.add_argument("--parent", default=None,
-                    help="another checkout of the port: phase 48 times its "
-                         "B2 / B3 / B5 / B6 beside this tree's and compares "
-                         "registers")
+                    help="another checkout of the port: phase 2 compares "
+                         "registers, phase 3 its B1 lane for lane and "
+                         "phase 48 times its B1 / B2 / B3 / B5 / B6 and "
+                         "frames beside this tree's")
     ap.add_argument("--ab-times", default=None, metavar="ROOT",
-                    help="only time B2 / B3 / B5 / B6 (phase 48's helper) "
-                         "with the package of ROOT")
+                    help="only time B1 / B2 / B3 / B5 / B6 and the frames "
+                         "(phase 48's helper) with the package of ROOT")
+    ap.add_argument("--b1-hits", nargs=2, default=None,
+                    metavar=("ROOT", "PATH"),
+                    help="only run B1 of the package of ROOT on the rays "
+                         "saved in PATH (phase 3's helper)")
     ap.add_argument("--dense-grid", action="store_true",
                     help=f"phase 50 also builds and times B3 / B6 with "
                          f"kDenseMax {DENSE_GRID}")
     opts = ap.parse_args()
     DENSE_GRID_ON = opts.dense_grid
-    if opts.ab_times:
+    if opts.ab_times or opts.b1_hits:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
+        if opts.b1_hits:
+            sys.exit(b1_hits(os.path.abspath(opts.b1_hits[0]),
+                             opts.b1_hits[1]))
         sys.exit(ab_times(os.path.abspath(opts.ab_times)))
     PARENT = os.path.abspath(opts.parent) if opts.parent else None
     sys.exit(main())

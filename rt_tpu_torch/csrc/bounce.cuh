@@ -69,10 +69,10 @@
 // a tile of 2048 lanes (a chunk is skipped when no live lane of the
 // tile needs it); here each lane takes it for itself, and its plain twin
 // (mega_plain._culled_best) takes the same decision in the same order,
-// so kernel and plain agree on every lane. The queue kernels (kWarp) test
-// a chunk that few lanes need with the whole warp, one needing ray at a
-// time (warp_hit); the decisions and winners stay each lane's. A sorted
-// row names its SceneTables row through
+// so kernel and plain agree on every lane. The queue kernels and the
+// forward megakernel (kWarp) test a chunk that few lanes need with the
+// whole warp, one needing ray at a time (warp_hit); the decisions and
+// winners stay each lane's. A sorted row names its SceneTables row through
 // Scene::sph_rows / tri_rows, which B4's tape codes and MIS's emitter
 // match use (scene_row). Culling is a runtime flag of the scene,
 // uniform over a launch, not a template parameter: its branch left the
@@ -1093,14 +1093,15 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
   return att != 0.0f ? g * (Lk - c) / att : 0.0f;
 }
 
-// ---- the warp-cooperative closest hit (kWarp: the queue kernels) ----
+// ---- the warp-cooperative closest hit (kWarp: B2, B3, B6) ----
 //
 // Under culling a lane skips the chunks its ray misses, but a warp runs
 // the union of its lanes' chunks: 32 rows in turn, with the lanes that
 // skip the chunk masked off. After the first bounce a queue warp's lanes
-// hold unrelated rays, so few of them need each chunk and much of the
-// row loop runs masked. When at most kDenseMax lanes need a chunk the
-// warp tests it densely instead: thread l holds row c + l, and for each
+// hold unrelated rays, and a megakernel warp's lanes die one by one, so
+// few of them need each chunk and much of the row loop runs masked.
+// When at most kDenseMax lanes need a chunk the warp tests it densely
+// instead: thread l holds row c + l, and for each
 // needing ray in turn (its origin, direction and constants shuffled from
 // its lane) every thread tests that ray against its own row, and the
 // warp reduces to the closest row. Above kDenseMax the needing lanes run

@@ -11,26 +11,41 @@
 // ids, a start bounce that offsets the RNG's bounce coordinate, at most
 // max_depth bounces, and the sky credited to lanes still alive when the
 // segment is the last (exhaust_bg). The TPU loops a 2048-lane tile while
-// any lane of it is alive; here each thread loops its own lane while it
-// is alive, which gives every lane the same result.
+// any lane of it is alive; here a warp loops while any of its lanes has a
+// bounce to go, and each lane advances only its own, which gives every
+// lane the same result.
 //
 // What bounds it: FP32 operations, per (lane, table row) pair of the
 // hit loop 23 for a sphere, 36 for a rect, 62 for a cylinder, 71 for a
 // triangle, plus the winner's shading (bounce.cuh), against 13 words of
-// state read and written per lane per segment.
+// state read and written per lane per segment. Under culling the issue
+// of the hit loop is the limit: a warp runs the union of its lanes'
+// chunks, with the lanes that skip a chunk masked off.
 //
 // Design: one thread per lane (the state, the running closest hit and
 // the RNG prefix in registers); the block stages the table's
 // intersection columns in shared memory once (20 B a row, 9.8 KB for
 // the 488 live rows of the cover scene; rows past bounce.cuh's
-// kStageRows are read from global memory), then each thread traces its
-// lane to the end of the segment; the rect, cylinder and triangle rows
-// are read through the read-only cache (kFamilies, only for scenes that
-// have them). With culling the rows are Morton-sorted and each lane
-// skips the chunks its ray misses (bounce.cuh).
-// Dead lanes exit at once, so the trace around the kernel
+// kStageRows are read from global memory); the rect, cylinder and
+// triangle rows are read through the read-only cache (kFamilies, only
+// for scenes that have them). With culling the rows are Morton-sorted
+// and each lane skips the chunks its ray misses (bounce.cuh). The hit
+// is the queue kernels' warp-cooperative one (do_bounce<..., kWarp>,
+// bounce.cuh warp_hit): a chunk that at most kDenseMax lanes of a warp
+// need is tested by the whole warp, one needing ray at a time, each
+// thread against its own row, with the per-lane loop's bits. So every
+// thread of a warp enters every bounce's hit: a thread past n, or whose
+// lane is dead on entry, loads and stores nothing and only helps; a
+// lane that dies (a miss, the roulette) or reaches max_depth stops
+// advancing and helps until no lane of its warp has a bounce to go.
+// The wrapper refuses a block that is not whole warps. A warp whose
+// lanes are all dead costs nothing, so the trace around the kernel
 // (ops/cuda_mega.mega_trace) groups live lanes between segments and
 // launches only the live prefix.
+//
+// The families instantiations keep the dense triangle rows, though
+// their 17 registers take them from 48 to 64: with only the sphere
+// chunks dense, B2 was 14% slower on the mesh (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -51,25 +66,31 @@ mega_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
   rtt::stage_table(scene, smem);
   __syncthreads();
 
+  // every thread of a warp stays to the end: one past n or with a dead
+  // lane loads and stores nothing and only helps with the hit
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   float* s = state + i;
-  if (!(s[12 * stride] > 0.0f)) return;  // dead lanes are left as they are
-  rtt::Lane L;
-  rtt::load_lane(s, stride, L);
-
-  const uint32_t pix = static_cast<uint32_t>(pixel[i]);
-  const uint32_t smp =
-      static_cast<uint32_t>(sample ? sample[i] : sample_scalar);
-  const uint32_t lane_key = rtt::lane_key(scene.seed, pix, smp, kQmc);
+  const bool mine = i < n && s[12 * stride] > 0.0f;
+  rtt::Lane L{};
+  uint32_t smp = 0, lane_key = 0;
+  if (mine) {
+    rtt::load_lane(s, stride, L);
+    const uint32_t pix = static_cast<uint32_t>(pixel[i]);
+    smp = static_cast<uint32_t>(sample ? sample[i] : sample_scalar);
+    lane_key = rtt::lane_key(scene.seed, pix, smp, kQmc);
+  }
   int b = 0;
-  while (b < max_depth && L.alive > 0.0f) {
-    rtt::do_bounce<false, kTail, false, kFamilies, kNee, kImages, kQmc>(
+  for (;;) {
+    const bool go = mine && b < max_depth && L.alive > 0.0f;
+    if (!__any_sync(rtt::kFull, go)) break;
+    rtt::do_bounce<false, kTail, false, kFamilies, kNee, kImages, kQmc,
+                   true>(
         scene, L,
         rtt::draw_at(lane_key, smp, static_cast<uint32_t>(start_bounce + b)),
-        rtt::Adj{});
-    ++b;
+        rtt::Adj{}, nullptr, go);
+    if (go) ++b;
   }
+  if (!mine) return;
   if (scene.exhaust_bg && L.alive > 0.0f) rtt::exhaust(scene, L);
 
   rtt::store_lane(s, stride, L);

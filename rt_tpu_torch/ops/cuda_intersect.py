@@ -42,6 +42,16 @@ def sphere_closest_hit_plain(centers, radii, live, ro, rd, t_min=1e-3):
     return torch.cat(t_parts), torch.cat(pid_parts)
 
 
+def pack_table(centers, radii, live):
+    """The kernel's [N,4] rows: cx, cy, cz, |c|^2 - r^2 (the c2r of
+    pallas_intersect.py:114 and of the plain version), with c2r = +inf
+    for a pad row (live False), whose discriminant then fails as a miss's
+    does (csrc/sphere_hit.cu)."""
+    c2r = (centers * centers).sum(-1) - radii * radii
+    c2r = torch.where(live, c2r, torch.full_like(c2r, float("inf")))
+    return torch.cat([centers, c2r[:, None]], dim=1).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("sphere_hit")
@@ -73,10 +83,7 @@ def sphere_closest_hit(centers, radii, live, ro, rd, t_min=1e-3):
     check("ro", ro, torch.float32, (b, 3), dev)
     check("rd", rd, torch.float32, (b, 3), dev)
 
-    # [N,5] rows: cx, cy, cz, |c|^2 - r^2, live (pallas_intersect.py:114)
-    c2r = (centers * centers).sum(-1) - radii * radii
-    table = torch.cat([centers, c2r[:, None],
-                       live.to(torch.float32)[:, None]], dim=1).contiguous()
+    table = pack_table(centers, radii, live)
     t = torch.empty(b, dtype=torch.float32, device=dev)
     pid = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:

@@ -195,8 +195,10 @@ def nee_args(nee, device):
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_build.load("mega")
+def _library(defines: tuple = ()):
+    """csrc/mega.cu's library with its C signatures (`defines`: a scratch
+    build's, see cuda_build.flags)."""
+    lib = cuda_build.load("mega", defines)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.mega_segment_launch.argtypes = [
         vp, ci,                       # table, rows
@@ -285,6 +287,10 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
     cull_args = sort_args(qmc, cull, tab, fam, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
+    if int(threads) <= 0 or int(threads) % mp.WARP:
+        # the warp-cooperative hit wants every lane of a warp (mega.cu)
+        raise ValueError(f"threads = {threads}, want a multiple of "
+                         f"{mp.WARP}")
     pix_ptr, _ = lane_ints("pixel", pixel, n, dev)
     if pix_ptr is None:
         raise ValueError("pixel: want a per-lane int32 tensor")

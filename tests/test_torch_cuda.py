@@ -80,6 +80,101 @@ def test_sphere_hit_wrapper_checks_inputs():
     assert empty[0].shape == (0,)
 
 
+def _b1_case(case, b=3077):
+    """(centers, radii, live, ro, rd, extra) of one of B1's edge cases as
+    numpy arrays, b rays (3077: not a multiple of the rays a thread nor of
+    a block's tile). ties: 40 spheres, each given three times; pad: 300
+    spheres, a third of them pad rows (live False) placed in front of the
+    live ones; miss: spheres behind every ray; t_min: a unit sphere whose
+    near root lies just under or over t_min (1e-3), extra the near root;
+    stages: 2,500 spheres, more than one shared-memory stage."""
+    rs = np.random.default_rng(31)
+    extra = None
+    if case == "ties":
+        c = np.repeat(rs.normal(0, 2, (40, 3)), 3, 0)
+        r = np.repeat(rs.uniform(0.2, 0.8, 40), 3)
+        live = np.ones(120, bool)
+    elif case == "pad":
+        c = rs.normal(0, 2, (300, 3))
+        r = rs.uniform(0.2, 0.6, 300)
+        live = rs.random(300) >= 1 / 3
+        # each pad row sits nearer the camera than a live row
+        c[~live] = c[rs.choice(np.flatnonzero(live), (~live).sum())] \
+            + np.array([0.0, 0.0, 0.5])
+    elif case == "miss":
+        c = rs.normal(0, 1, (64, 3)) + np.array([0.0, 0.0, -50.0])
+        r = rs.uniform(0.2, 0.6, 64)
+        live = np.ones(64, bool)
+    elif case == "t_min":
+        c = np.concatenate([np.zeros((1, 3)), rs.normal(0, 1, (15, 3))
+                            + np.array([0.0, 0.0, 40.0])])
+        r = np.concatenate([[1.0], rs.uniform(0.2, 0.6, 15)])
+        live = np.ones(16, bool)
+    else:  # stages
+        c = rs.normal(0, 6, (2500, 3))
+        r = rs.uniform(0.05, 0.4, 2500)
+        live = rs.random(2500) >= 0.1
+    if case == "miss":
+        ro = rs.normal(0, 1, (b, 3))
+        rd = rs.normal(0, 0.2, (b, 3)) + np.array([0.0, 0.0, 1.0])
+    elif case == "t_min":
+        # origin on the -z side at distance 1 + d from the centre, so the
+        # roots are d and d + 2
+        extra = rs.choice(np.array([0.5, 0.9, 0.99, 1.01, 1.1, 2.0]) * 1e-3,
+                          b)
+        ro = np.stack([np.zeros(b), np.zeros(b), -1.0 - extra], 1)
+        rd = np.tile([0.0, 0.0, 1.0], (b, 1))
+    else:
+        ro = rs.normal(0, 1, (b, 3)) + np.array([0.0, 0.0, 12.0])
+        aim = c[rs.integers(0, c.shape[0], b)] + rs.normal(0, 0.3, (b, 3))
+        rd = aim - ro
+    rd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+    f32 = np.float32
+    return (c.astype(f32), r.astype(f32), live, ro.astype(f32),
+            rd.astype(f32), extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "pad", "miss", "t_min", "stages"])
+def test_sphere_hit_edge_cases_match_plain(case):
+    """B1 (one float4 row a sphere, c2r = +inf for a pad row, several rays
+    a thread, the root only where disc >= 0, pid = N-1 on a miss) against
+    its plain version on 3,077 rays: B1's gates (>= 99.9% of lanes, t
+    within rtol 2e-4 / atol 1e-4) and the contract's exact rules: a miss
+    reports row N-1, a pad row never wins, equal spheres go to the last
+    copy, a near root under t_min gives way to the far root."""
+    dev = _card()
+    c, r, live, ro, rd, extra = _b1_case(case)
+    args = [torch.from_numpy(x).to(dev) for x in (c, r, live, ro, rd)]
+    before = cuda_intersect.sphere_closest_hit.launches
+    t_k, pid_k = cuda_intersect.sphere_closest_hit(*args)
+    torch.cuda.synchronize()
+    assert cuda_intersect.sphere_closest_hit.launches == before + 1
+    t_p, pid_p = cuda_intersect.sphere_closest_hit_plain(*args)
+    t_k, pid_k, t_p, pid_p = (x.cpu().numpy() for x in (t_k, pid_k, t_p,
+                                                        pid_p))
+    n = c.shape[0]
+    hit = np.isfinite(t_p)
+    assert np.mean(hit == np.isfinite(t_k)) >= 0.999
+    assert np.mean(pid_k == pid_p) >= 0.999
+    both = hit & np.isfinite(t_k)
+    close = np.abs(t_k[both] - t_p[both]) <= 1e-4 + 2e-4 * np.abs(t_p[both])
+    assert close.size == 0 or close.mean() >= 0.999
+    assert (pid_k[~np.isfinite(t_k)] == n - 1).all()
+    assert live[pid_k[np.isfinite(t_k)]].all()
+    if case == "miss":
+        assert not np.isfinite(t_k).any()
+    elif case == "ties":
+        assert both.mean() > 0.5
+        assert (pid_k[both] % 3 == 2).all()
+    elif case == "t_min":
+        want = np.where(extra >= 1e-3, extra, extra + 2.0)
+        assert np.allclose(t_k, want, rtol=2e-4, atol=1e-4)
+        assert (pid_k == 0).all()
+    else:
+        assert both.mean() > 0.2
+
+
 @pytest.mark.cuda
 def test_pallas_render_uses_kernel_once_per_bounce():
     dev = _card()
@@ -1422,3 +1517,99 @@ def test_warp_hit_on_ties_matches_plain(name, dense_max):
         g6 = cuda_queue.queue_trace_adjoint(*adj, check_once=True)
     _grads_close(g_plain, g6)
     _grads_close(g_b5, g6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tail", "families", "nee", "images",
+                                  "qmc"])
+def test_mega_segment_ragged_lanes_match_plain(tmp_path, case):
+    """B2's warp-cooperative loop (every thread of a warp stays in it; a
+    thread past n or with a dead lane only helps with the hit) on one
+    segment, in the kTail (3,000 rows), kFamilies (the mesh, culled),
+    kNee (with MIS, on a scene of every family), kImages and kQmc
+    (culled, p_rr 0.9) instantiations:
+    n = 2,997 lanes of 3,072 (not a multiple of 32), every seventh lane
+    dead on entry, a per-lane sample array, start bounce 2, 6 bounces,
+    the sky credited at the end and the depth counter, against
+    mega_segment_plain bit for bit; lanes past n are left as they were."""
+    from rt_tpu_torch.ops import camera, cuda_mega, mega_plain
+
+    dev = _card()
+    w, h = 64, 48
+    if case == "tail":
+        sdef, cfg = builders.random_spheres_scene(3000, 64, width=w,
+                                                  height=h, max_depth=6)
+        tt = types.build_tables(sdef, device=dev)
+    elif case == "families":
+        tt, cfg = _family_scene(dev, "mesh", w, h, 1, 6)
+    elif case == "nee":
+        tt, cfg = _light_scene(dev, w, h, 6)
+        cfg = cfg.replace(nee=True, mis=True)
+    elif case == "images":
+        tt, cfg = _image_scene(dev, "families", w, h, 6, tmp_path)
+        cfg = cfg.replace(nee=True)
+    else:
+        sdef, cfg = builders.cover_scene(width=w, height=h, spp=1,
+                                         max_depth=6)
+        tt = types.build_tables(sdef, device=dev)
+        cfg = cfg.replace(sampler="qmc", p_rr=0.9)
+    kw = mega_plain.trace_options(tt, cfg)
+    nee = mega_plain.nee_options(tt, cfg)
+    tab = mega_tables.scene_for(tt, cfg).table
+    assert (case == "tail") == (tab.shape[0] > 2048)
+    assert (case in ("families", "nee", "images")) == (kw["fam"] is not
+                                                      None)
+    assert (case in ("nee", "images")) == (nee is not None)
+    assert (case == "images") == (kw["img"] is not None)
+    px = torch.arange(w * h, device=dev)
+    ro, rd = camera.generate_rays(tt.camera, w, h, px % w, px // w, 3, 0,
+                                  cfg.enable_defocus, cfg.sampler)
+    state = mega_plain.fresh_state(ro, rd)
+    state[mega_plain.ALIVE, ::7] = 0.0
+    n = w * h - 75
+    rs = np.random.default_rng(12)
+    sample = torch.from_numpy(rs.integers(0, 9, w * h).astype(np.int32)).to(
+        dev)
+    pix = px.to(torch.int32)
+    depth0 = torch.from_numpy(rs.integers(0, 3, w * h).astype(np.int32)).to(
+        dev)
+    got, want = state.clone(), state.clone()
+    d_got, d_want = depth0.clone(), depth0.clone()
+    seg = dict(n=n, exhaust_bg=True, nee=nee, **kw)
+    before = cuda_mega.mega_segment.launches
+    cuda_mega.mega_segment(tab, got, pix, sample, 5, 2, 6, depth=d_got,
+                           **seg)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_segment.launches == before + 1
+    cuda_mega.mega_segment_plain(tab, want, pix, sample, 5, 2, 6,
+                                 depth=d_want, **seg)
+    assert torch.equal(got, want)
+    assert torch.equal(d_got, d_want)
+    assert torch.equal(got[:, n:], state[:, n:])
+    alive = state[mega_plain.ALIVE, :n] > 0.0
+    assert bool(((d_got - depth0)[:n][alive] >= 1).all())
+    assert bool(((d_got - depth0)[:n][~alive] == 0).all())
+
+
+@pytest.mark.cuda
+def test_mega_segment_refuses_threads_off_the_warp():
+    """The warp-cooperative hit needs whole warps: threads=48 is refused
+    before the launch; 64 launches."""
+    from rt_tpu_torch.ops import cuda_mega, mega_plain
+
+    dev = _card()
+    tt = types.build_tables(builders.three_sphere_scene()[0], device=dev)
+    ro, rd = (x.to(dev) for x in _rays(100, seed=11))
+    pix = torch.arange(100, device=dev, dtype=torch.int32)
+    before = cuda_mega.mega_segment.launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cuda_mega.mega_segment(tt.mega.table, mega_plain.fresh_state(ro, rd),
+                               pix, 0, 0, 0, 4, bg=tt.mega.bg, threads=48)
+    assert cuda_mega.mega_segment.launches == before
+    got = mega_plain.fresh_state(ro, rd)
+    cuda_mega.mega_segment(tt.mega.table, got, pix, 0, 0, 0, 4,
+                           bg=tt.mega.bg, threads=64)
+    want = cuda_mega.mega_segment_plain(tt.mega.table,
+                                        mega_plain.fresh_state(ro, rd), pix,
+                                        0, 0, 0, 4, bg=tt.mega.bg)
+    assert torch.equal(got, want)

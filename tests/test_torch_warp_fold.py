@@ -213,6 +213,56 @@ def test_mixed_schedule_matches_sequential(n_active):
         np.testing.assert_array_equal(got_r, want_r)
 
 
+def mega_loop(n_lanes, dense_max, seed, max_depth=6):
+    """B2's loop in mega.cu on one warp, bounce by bounce: lanes past n
+    (n_lanes of the 32 hold a lane) and lanes dead on entry never go;
+    a lane goes while it is alive and below max_depth, and dies after its
+    own number of bounces (a miss, or the roulette); every thread enters
+    each bounce's warp_fold while any lane goes, those that do not go
+    helping. Each bounce's winners of the lanes that go are checked
+    against the sequential loop; returns (bounces per lane, steps, each
+    lane's bounces to death)."""
+    rs = np.random.default_rng(seed)
+    alive = np.arange(WARP) < n_lanes
+    alive[rs.random(WARP) < 0.2] = False               # dead on entry
+    alive[0] = n_lanes > 0
+    life = rs.integers(1, 9, WARP)                      # bounces to death
+    b = np.zeros(WARP, np.int64)
+    steps = 0
+    while True:
+        go = alive & (b < max_depth)
+        if not go.any():                                # __any_sync
+            break
+        t, entry, _ = make_case("ties_in_chunk", WARP, seed * 100 + steps)
+        want_t, want_r = sequential(t, entry, go)
+        got_t, got_r, _ = warp_fold(t, entry, go, dense_max)
+        np.testing.assert_array_equal(got_t[go].view(np.uint32),
+                                      want_t[go].view(np.uint32))
+        np.testing.assert_array_equal(got_r[go], want_r[go])
+        # a helper's own winner stays empty: it folds nothing
+        assert np.isinf(got_t[~go]).all() and (got_r[~go] == 0).all()
+        b[go] += 1
+        alive &= b < life
+        steps += 1
+    return b, steps, life
+
+
+@pytest.mark.parametrize("dense_max", [0, K_DENSE_MAX, WARP])
+@pytest.mark.parametrize("n_lanes", [32, 19, 1])
+def test_mega_loop_with_lanes_dropping_out(n_lanes, dense_max):
+    """B2's warp-cooperative loop: the active lanes change between
+    bounces (lanes die) and lanes past n only help, yet each lane's
+    winner at each of its bounces is the per-lane sequential loop's, and
+    the warp runs as many steps as its longest-lived lane."""
+    for seed in range(3):
+        b, steps, life = mega_loop(n_lanes, dense_max, 7 + seed)
+        assert (b[n_lanes:] == 0).all()
+        assert steps == b.max()
+        went = b > 0
+        np.testing.assert_array_equal(b[went],
+                                      np.minimum(life[went], 6))
+
+
 def test_order_key_orders_as_floats():
     """The key orders float32 values as `<` does, -0 and +0 alike, +inf
     above every finite value."""

@@ -77,16 +77,17 @@ without --nee) and `fit ... --fields images` with the replay and the
 tape, whose loss must fall (44). QMC and chunk culling follow (45-49:
 the kernels against their plain versions under each, frames in four
 settings, the runtime flags' A/B, with --parent also B1 on phase 3's
-rays, B2 / B3 / B6 on four culled workloads, the queue, mega and hybrid
-frames and `render -f` against another checkout in turns), and the
-warp-cooperative hit of B2 / B3 / B6 closes it (50): ties at 192x108
-and one call on cover, cover_lights with nee, the mesh and the textured
-mesh in the default build and scratch builds of other kDenseMax values
-(phase 2 builds them; --dense-grid adds two), against the plain
-versions and B5, timed in turns, with the cover frame in each build and
-the issued instructions per row from cuobjdump. Phase 2 also holds the
-registers of B3-B7 to the parent's and prints B1 / B2's beside the
-parent's; phase 3 holds B1 (one float4 row a sphere, several rays a
+rays, B2 / B3 / B5 / B6 on four culled workloads, B7 on cover and the
+mesh, the queue, mega, regen and hybrid frames, the mega replay step and
+`render -f` against another checkout in turns), and the warp-cooperative
+hit of B2 / B3 / B5 / B6 / B7 closes it (50): ties at 192x108 and one
+call on cover, cover_lights with nee, the mesh and the textured mesh in
+the default build and scratch builds of other kDenseMax values (phase 2
+builds them; --dense-grid adds two), against the plain versions, timed
+in turns, with the cover frame in each build and the issued
+instructions per row from cuobjdump. Phase 2 also holds the registers
+of B1-B4 and B6 to the parent's and prints B5 / B7's (and their spills)
+beside the parent's; phase 3 holds B1 (one float4 row a sphere, several rays a
 thread, the root only where disc >= 0) to the parent's B1 lane for lane
 with --parent and counts its issued instructions per pair.
 Each phase prints its
@@ -123,8 +124,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# another checkout of the port (--parent) whose B2 / B3 / B5 / B6 phase
-# 48 times beside this one's, in turns, and whose registers it compares
+# another checkout of the port (--parent) whose B1-B3 and B5-B7 phase 48
+# times beside this one's, in turns, and whose registers it compares
 PARENT = None
 DENSE_GRID_ON = False
 
@@ -663,30 +664,31 @@ def counters():
 
 KERNELS = ["sphere_hit", "mega", "queue", "mega_adjoint", "queue_adjoint",
            "capture", "regen"]
-# kDenseMax of B3 / B6's scratch builds (bounce.cuh warp_hit; phase 50):
+# kDenseMax of the scratch builds (bounce.cuh warp_hit; phase 50):
 # the per-lane schedule and always dense; --dense-grid adds the grid's
 # other values. The default build's value is bounce.cuh's RTT_DENSE_MAX.
 DENSE_BUILDS = [0, 32]
 DENSE_GRID = (8, 24)
-# the libraries built again in each scratch build of kDenseMax: B2, B3, B6
-DENSE_LIBS = ("mega", "queue", "queue_adjoint")
-# phase 2 holds the ptxas registers of HELD_LIBS (B3-B7), per
+# the libraries built again in each scratch build of kDenseMax: the
+# kernels of the warp-cooperative hit, B2, B3, B5, B6 and B7
+DENSE_LIBS = ("mega", "queue", "queue_adjoint", "mega_adjoint", "regen")
+# phase 2 holds the ptxas registers of HELD_LIBS (B1-B4 and B6), per
 # instantiation, to the parent's build (--parent) or to PARENT_REGS, and
-# prints those of MOVED_LIBS (B1 and B2, redesigned) beside the parent's.
+# prints those of MOVED_LIBS (B5 and B7, redesigned) beside the parent's.
 # PARENT_REGS: the parent's registers on the card's toolkit (CUDA 12.8,
 # from a --parent run's printout), per library its kernel and "bool
 # template arguments:registers" of each instantiation
-HELD_LIBS = ("queue", "queue_adjoint", "capture", "mega_adjoint", "regen")
-MOVED_LIBS = ("sphere_hit", "mega")
+HELD_LIBS = ("queue", "queue_adjoint", "capture", "mega", "sphere_hit")
+MOVED_LIBS = ("mega_adjoint", "regen")
 PARENT_REGS = {
     "capture": ("capture_kernel", """
         000:40 001:40 010:46 011:48 100:40 101:40 110:46 111:48
         """),
     "mega": ("mega_kernel", """
-        00000:40 00001:48 00010:48 00011:48 00100:64 00101:64 00110:64
-        00111:64 01000:48 01001:48 01010:48 01011:48 01100:64 01101:64
-        01110:64 01111:64 10000:40 10001:48 10010:48 10011:48 10100:64
-        10101:64 10110:64 10111:64 11000:48 11001:48 11010:48 11011:48
+        00000:48 00001:48 00010:48 00011:48 00100:64 00101:64 00110:64
+        00111:64 01000:64 01001:64 01010:64 01011:64 01100:64 01101:75
+        01110:64 01111:64 10000:48 10001:48 10010:48 10011:48 10100:64
+        10101:64 10110:64 10111:64 11000:64 11001:64 11010:64 11011:64
         11100:64 11101:64 11110:64 11111:64
         """),
     "mega_adjoint": ("mega_adjoint_kernel", """
@@ -715,7 +717,7 @@ PARENT_REGS = {
         1000:48 1001:60 1010:64 1011:60 1100:48 1101:48 1110:60 1111:48
         """),
     "sphere_hit": ("sphere_hit_kernel", """
-        :34
+        :64
         """),
 }
 
@@ -731,7 +733,7 @@ def parent_regs():
 
 
 def dense_defines(dense_max):
-    """The nvcc defines of a scratch build of B3 / B6 with kDenseMax."""
+    """The nvcc defines of a scratch build with kDenseMax."""
     return (f"RTT_DENSE_MAX={dense_max}",)
 
 
@@ -758,32 +760,31 @@ def build_all(extra=()):
 
 @contextlib.contextmanager
 def dense_schedule(dense_max):
-    """Inside, B2, B3 and B6 run from the scratch libraries built with
-    -DRTT_DENSE_MAX=dense_max (None: the default build): the wrappers'
-    library loaders and the grids they cached are swapped, so no option
-    reaches the port's entry points."""
+    """Inside, B2, B3, B5, B6 and B7 run from the scratch libraries built
+    with -DRTT_DENSE_MAX=dense_max (None: the default build): the
+    wrappers' library loaders and the grids they cached are swapped, so
+    no option reaches the port's entry points."""
     from rt_tpu_torch.ops import cuda_mega, cuda_queue
 
-    saved = (cuda_queue._library, cuda_queue._adjoint_library,
-             cuda_mega._library)
+    loaders = ((cuda_queue, "_library"), (cuda_queue, "_adjoint_library"),
+               (cuda_mega, "_library"), (cuda_mega, "_adjoint_library"),
+               (cuda_mega, "_regen_library"))
+    saved = [getattr(mod, name) for mod, name in loaders]
 
     def clear():
         cuda_queue._grid_blocks.cache_clear()
         cuda_queue._adjoint_grid_blocks.cache_clear()
 
     if dense_max is not None:
-        lib = saved[0](dense_defines(dense_max))
-        alib = saved[1](dense_defines(dense_max))
-        mlib = saved[2](dense_defines(dense_max))
-        cuda_queue._library = lambda: lib
-        cuda_queue._adjoint_library = lambda: alib
-        cuda_mega._library = lambda: mlib
+        for (mod, name), load in zip(loaders, saved):
+            lib = load(dense_defines(dense_max))
+            setattr(mod, name, lambda lib=lib: lib)
         clear()
     try:
         yield
     finally:
-        (cuda_queue._library, cuda_queue._adjoint_library,
-         cuda_mega._library) = saved
+        for (mod, name), load in zip(loaders, saved):
+            setattr(mod, name, load)
         clear()
 
 
@@ -805,6 +806,22 @@ def registers_of(lib):
         elif fn and " registers" in line and "Used " in line:
             out[kernel_key(fn)] = int(
                 line.split("Used ")[1].split(" register")[0])
+            fn = None
+    return out
+
+
+def spills_of(lib):
+    """{"kernel<bits>": (spill store bytes, spill load bytes)} of each
+    kernel in the ptxas report beside the library `lib` (<lib>.log)."""
+    out, fn = {}, None
+    for line in open(f"{lib}.log"):
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ")[1].strip()
+        elif fn and "spill stores" in line:
+            if "_kernel" in fn:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              "loads", line)
+                out[kernel_key(fn)] = (int(m.group(1)), int(m.group(2)))
             fn = None
     return out
 
@@ -929,19 +946,22 @@ def ab_times(root):
     """Times of the package imported from root (this tree or another
     checkout of it), one JSON line: B2 / B3 / B5 / B6 at phases 11 / 13's
     shape (cover_scene 1920x1080, depth 50, one trace call of sample 0
-    and its exact adjoint call) under rng without culling; B2 / B3 / B6
-    with culling (the default) on cover, cover_lights with nee (depth
-    50), the mesh and the textured mesh (depth 16), as phase 50; B1 on
-    phase 3's 1080p primary rays; mean ms over 5 calls (B1 20) after a
-    warm-up. Then the bench-shape queue and mega frames (spp 16, mean s
-    of 3 after one), phase 4's hybrid frame (spp 2, mean s of 2 after
-    one) and `render -f scenes/demo_scene.json` (s, the second of two
-    runs)."""
+    and its exact adjoint call) under rng without culling; B2 / B3 / B5 /
+    B6 with culling (the default) on cover, cover_lights with nee (depth
+    50), the mesh and the textured mesh (depth 16), as phase 50; B7's
+    culled regen call (phase 27's) on cover at spp 16 and on the mesh at
+    spp 4; B1 on phase 3's 1080p primary rays; mean ms over 5 calls (B1
+    20, B7 3) after a warm-up. Then the bench-shape queue, mega and regen
+    frames (spp 16, mean s of 3 after one), phase 4's hybrid frame (spp
+    2, mean s of 2 after one), phase 14's mega replay step (bwd_depth 8,
+    mean s of 3 after one) and `render -f scenes/demo_scene.json` (s,
+    the second of two runs)."""
     sys.path.insert(0, root)
     from rt_tpu_torch import cli
+    from rt_tpu_torch.diff.replay import make_replay_loss_fn
     from rt_tpu_torch.ops import cuda_intersect, cuda_mega, cuda_queue
     from rt_tpu_torch.ops.camera import generate_rays
-    from rt_tpu_torch.render.renderer import render
+    from rt_tpu_torch.render.renderer import _block_order, render
     from rt_tpu_torch.scene.builders import cover_scene
     from rt_tpu_torch.scene.types import build_tables
 
@@ -985,10 +1005,23 @@ def ab_times(root):
                 lambda: cuda_queue.queue_trace(*a), 5)[0]
             out[f"queue_adjoint_launch {label}"] = cuda_ms(
                 lambda: cuda_queue.queue_trace_adjoint(*ad), 5)[0]
+            adm = am + (L, g, cb.max_depth, False)
+            out[f"mega_adjoint_segment {label}"] = cuda_ms(
+                lambda: cuda_mega.mega_trace_adjoint(*adm), 5)[0]
+            if label in ("cover", "mesh"):  # phases 27 and 31's B7 call
+                spp = MAIN_SPP if label == "cover" else 4
+                pix_b = torch.from_numpy(_block_order(W, H)[2]).to(dev)
+                seg = (tb, am[1].replace(engine="mega"), pix_b, spp,
+                       spp * (cb.max_depth + 1))
+                out[f"mega_regen {label}"] = cuda_ms(
+                    lambda: regen_segment(*seg, plain=False), 3)[0]
         frames = (("queue frame s", cfg.replace(cull_chunks=True,
                                                 engine="queue"), 4),
                   ("mega frame s", cfg.replace(cull_chunks=True,
                                                engine="mega"), 4),
+                  ("regen frame s", cfg.replace(cull_chunks=True,
+                                                engine="mega", regen=True,
+                                                regen_compact=0), 4),
                   ("hybrid frame s", cfg.replace(
                       cull_chunks=True, engine="pallas",
                       samples_per_pixel=SPP, rays_per_batch=1 << 21), 3))
@@ -1001,6 +1034,25 @@ def ab_times(root):
                 torch.cuda.synchronize()
                 secs.append(time.time() - t0)
             out[key] = float(np.mean(secs[1:]))
+        # phase 14's mega replay step: cover at spp 1, bwd_depth 8
+        s1, c1 = cover_scene(width=W, height=H, spp=1, max_depth=DEPTH)
+        c1 = c1.replace(compact_schedule=(2, 3, 5, 10), compact_group=16,
+                        engine="mega")
+        t1 = build_tables(s1, device=dev)
+        tgt = torch.rand((W * H, 3), generator=torch.Generator()
+                         .manual_seed(0)).to(dev)
+        loss_fn = make_replay_loss_fn(t1, c1, 1, px % W, px // W, tgt,
+                                      bwd_depth=TRAIN_BWD_DEPTH)
+        secs = []
+        for rep in range(4):
+            params = {k: getattr(t1, k).clone().requires_grad_(True)
+                      for k in ("tex_color", "mat_albedo")}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loss_fn(params).backward()
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+        out["mega replay step s"] = float(np.mean(secs[1:]))
         with contextlib.chdir(tmp), \
                 contextlib.redirect_stdout(io.StringIO()):
             for rep in range(2):
@@ -1012,6 +1064,12 @@ def ab_times(root):
                 out["render -f demo s"] = time.time() - t0
     print(json.dumps(out))
     return 0
+
+
+# phase 50's timed calls, by wrapper, in the order of its times
+WARP_KERNELS = {"queue_launch": "B3", "queue_adjoint_launch": "B6",
+                "mega_segment": "B2", "mega_adjoint_segment": "B5",
+                "mega_regen": "B7 (spp 2)"}
 
 
 def warp_scenes(tmpd, dev):
@@ -1119,9 +1177,9 @@ def main() -> int:
 
     dense_max = default_dense_max()
     dense_builds = DENSE_BUILDS + (list(DENSE_GRID) if DENSE_GRID_ON else [])
-    with phase(f"2 build (and B2 / B3 / B6 with kDenseMax {dense_builds}; "
-               "the registers of B3-B7 held to the parent's, B1 / B2's "
-               "beside it)"):
+    with phase(f"2 build (and B2 / B3 / B5 / B6 / B7 with kDenseMax "
+               f"{dense_builds}; the registers of B1-B4 and B6 held to the "
+               "parent's, B5 / B7's beside it)"):
         # one nvcc per library, all started together
         scratch = [(k, dense_defines(d)) for d in dense_builds
                    for k in DENSE_LIBS]
@@ -1163,11 +1221,12 @@ def main() -> int:
         held = [k for k in regs if k.split(":")[0] in HELD_LIBS]
         moved = {k: (old.get(k), regs[k]) for k in held
                  if old.get(k) != regs[k]}
-        print(f"  registers of B3-B7 against the parent's ({src}): "
+        print(f"  registers of B1-B4 and B6 against the parent's ({src}): "
               f"{len(held)} instantiations, {len(moved)} moved {moved}",
               flush=True)
         if moved:
-            raise AssertionError("a kernel of B3-B7 changed its registers")
+            raise AssertionError("a kernel of B1-B4 or B6 changed its "
+                                 "registers")
         for lib in MOVED_LIBS:
             pairs = {k.split(":")[1]: (old.get(k), v) for k, v in
                      sorted(regs.items()) if k.split(":")[0] == lib}
@@ -1175,6 +1234,14 @@ def main() -> int:
                   f"{len(pairs)} instantiations, "
                   f"{sum(a != b for a, b in pairs.values())} moved "
                   f"{pairs}", flush=True)
+            spills = {"this tree": spills_of(libs[KERNELS.index(lib)])}
+            if PARENT:
+                spills["parent"] = spills_of(glob.glob(os.path.join(
+                    PARENT, "rt_tpu_torch", "_build", f"lib{lib}-*.so"))[0])
+            for who, sp in spills.items():
+                print(f"  {lib} spill bytes (stores, loads), {who}: "
+                      f"{ {k: v for k, v in sp.items() if any(v)} or 'none'}",
+                      flush=True)
         if PARENT:
             # the table this tree holds when run without --parent
             table = {}
@@ -3672,13 +3739,14 @@ def main() -> int:
                 else f"kDenseMax {d}")
 
     warp = {"dense_max": dense_max, "ties": {}, "calls": {}}
-    with phase(f"50 B2 / B3 / B6's warp-cooperative hit in the default "
-               f"build (kDenseMax {dense_max}) and the scratch builds with "
-               f"kDenseMax {dense_builds}: ties at {SMALL_W}x{SMALL_H} "
-               "(duplicated spheres in one chunk and across two, the grid "
-               f"mesh's shared edges); one call at {W}x{H} on cover, "
-               "cover_lights with nee, the mesh and the textured mesh, "
-               "against the plain versions and B5, timed in turns"):
+    with phase(f"50 B2 / B3 / B5 / B6 / B7's warp-cooperative hit in the "
+               f"default build (kDenseMax {dense_max}) and the scratch "
+               f"builds with kDenseMax {dense_builds}: ties at "
+               f"{SMALL_W}x{SMALL_H} (duplicated spheres in one chunk and "
+               "across two, the grid mesh's shared edges); one call at "
+               f"{W}x{H} on cover, cover_lights with nee, the mesh and the "
+               "textured mesh (B7 at spp 2), against the plain versions, "
+               "timed in turns"):
         from rt_tpu_torch.ops import mega_plain, mega_tables
         from rt_tpu_torch.scene.builders import mesh_scene
 
@@ -3714,8 +3782,9 @@ def main() -> int:
                 0, 1e-3, (px_.numel(), 3)).astype(np.float32)).to(dev)
             adj = args + (want, g, cb.max_depth, False)
             g_plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
-            g_b5 = cuda_mega.mega_trace_adjoint(*adj)
-            grads_close(g_plain, g_b5, f"{label}: B5 vs plain")
+            regen = (tb, cb.replace(engine="mega"), px_, px_ // SMALL_W, 3,
+                     2)
+            want_r = cuda_mega.mega_trace_regen(*regen, plain=True)
             for d in builds:
                 with dense_schedule(d):
                     for steps in (0, 3):
@@ -3742,9 +3811,20 @@ def main() -> int:
                                                         check_once=True)
                     e6 = grads_close(g_plain, g6, f"{label}, "
                                      f"{build_name(d)}: B6 vs plain")
-                    grads_close(g_b5, g6, f"{label}, {build_name(d)}: B6 "
+                    g5 = cuda_mega.mega_trace_adjoint(*adj)
+                    e5 = grads_close(g_plain, g5, f"{label}, "
+                                     f"{build_name(d)}: B5 vs plain")
+                    grads_close(g5, g6, f"{label}, {build_name(d)}: B6 "
                                 "vs B5")
                     err_flags["b6"] = max(err_flags["b6"], e6)
+                    err_flags["b5"] = max(err_flags["b5"], e5)
+                    got = cuda_mega.mega_trace_regen(*regen)
+                    n_bad = int((got != want_r).any(-1).sum())
+                    print(f"  {label}, {build_name(d)}: B7 spp 2 pixels "
+                          f"differing from plain {n_bad} of {px_.numel()}",
+                          flush=True)
+                    if n_bad:
+                        raise AssertionError(f"{label}: B7 != plain")
             warp["ties"][label] = dict(lanes=px_.numel(),
                                        duplicated_winners=dup)
 
@@ -3786,9 +3866,20 @@ def main() -> int:
                 g = torch.from_numpy(np.random.default_rng(8).normal(
                     0, 1.0 / (W * H), (W * H, 3)).astype(np.float32)).to(dev)
                 adj = args + (want, g, cb.max_depth, False)
+                adm = am + (want, g, cb.max_depth, False)
                 g_plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
-                g_b5 = cuda_mega.mega_trace_adjoint(*adj)
-                times = {d: ([], [], []) for d in builds}
+                regen = (tb, am[1].replace(engine="mega"), px_, px_ // W, 0,
+                         2)
+                want_r = cuda_mega.mega_trace_regen(*regen, plain=True)
+                timed = {  # WARP_KERNELS' calls
+                    "queue_launch": lambda: cuda_queue.queue_trace(*args),
+                    "queue_adjoint_launch":
+                        lambda: cuda_queue.queue_trace_adjoint(*adj),
+                    "mega_segment": lambda: cuda_mega.mega_trace(*am),
+                    "mega_adjoint_segment":
+                        lambda: cuda_mega.mega_trace_adjoint(*adm),
+                    "mega_regen": lambda: cuda_mega.mega_trace_regen(*regen)}
+                times = {d: {k: [] for k in WARP_KERNELS} for d in builds}
                 for i, d in enumerate(builds + builds[::-1]):
                     with dense_schedule(d):
                         if i < len(builds):  # the first visit checks
@@ -3803,33 +3894,34 @@ def main() -> int:
                             g6 = cuda_queue.queue_trace_adjoint(*adj)
                             e6 = grads_close(g_plain, g6, f"{label}, "
                                              f"{build_name(d)}: B6 vs plain")
-                            grads_close(g_b5, g6, f"{label}, "
+                            g5 = cuda_mega.mega_trace_adjoint(*adm)
+                            e5 = grads_close(g_plain, g5, f"{label}, "
+                                             f"{build_name(d)}: B5 vs plain")
+                            grads_close(g5, g6, f"{label}, "
                                         f"{build_name(d)}: B6 vs B5")
                             err_flags["b6"] = max(err_flags["b6"], e6)
-                        times[d][0].append(cuda_ms(
-                            lambda: cuda_queue.queue_trace(*args), 3)[0])
-                        times[d][1].append(cuda_ms(
-                            lambda: cuda_queue.queue_trace_adjoint(*adj),
-                            3)[0])
-                        times[d][2].append(cuda_ms(
-                            lambda: cuda_mega.mega_trace(*am), 3)[0])
+                            err_flags["b5"] = max(err_flags["b5"], e5)
+                            if not torch.equal(
+                                    cuda_mega.mega_trace_regen(*regen),
+                                    want_r):
+                                raise AssertionError(
+                                    f"{label}, {build_name(d)}: B7 != plain")
+                        for k, fn in timed.items():
+                            times[d][k].append(cuda_ms(fn, 3)[0])
                 rec = warp["calls"][label] = dict(
                     ray_bounces=st["ray_bounces"], rows_tested=pairs,
                     bound_ms=b_ms, bound_by=b_by, issue_bound_ms=issue_ms,
                     issue_bound_b2_ms=issue_b2_ms,
                     warp_need={"sphere": need[0], "triangle": need[3]},
-                    queue_launch={}, queue_adjoint_launch={},
-                    mega_segment={})
-                base = [float(np.mean(v)) for v in times[None]]
-                for d in builds:
-                    b3, b6, b2 = (float(np.mean(v)) for v in times[d])
-                    rec["queue_launch"][build_name(d)] = b3
-                    rec["queue_adjoint_launch"][build_name(d)] = b6
-                    rec["mega_segment"][build_name(d)] = b2
-                    print(f"  {label}, {build_name(d)}: B3 {b3:.4f} ms "
-                          f"({b3 / base[0]:.3f}), B6 {b6:.4f} ms "
-                          f"({b6 / base[1]:.3f}), B2 {b2:.4f} ms "
-                          f"({b2 / base[2]:.3f}); {smi}", flush=True)
+                    **{k: {} for k in WARP_KERNELS})
+                for d in builds:  # the default build (None) first
+                    ms_d = {k: float(np.mean(v)) for k, v in times[d].items()}
+                    for k, v in ms_d.items():
+                        rec[k][build_name(d)] = v
+                    print(f"  {label}, {build_name(d)}: " + ", ".join(
+                        f"{WARP_KERNELS[k]} {v:.4f} ms "
+                        f"({v / rec[k][build_name(None)]:.3f})"
+                        for k, v in ms_d.items()) + f"; {smi}", flush=True)
                 eff = {fam: sum(n * v for n, v in enumerate(h))
                        / max(1, mega_plain.WARP * sum(h[1:]))
                        for fam, h in rec["warp_need"].items() if sum(h)}
@@ -3884,6 +3976,8 @@ def main() -> int:
     frame_of = {"queue frame s": "queue_launch",
                 "render -f demo s": "queue_launch",
                 "mega frame s": "mega_segment",
+                "regen frame s": "mega_regen",
+                "mega replay step s": "mega_adjoint_segment",
                 "hybrid frame s": "sphere_closest_hit"}
 
     def parent_entry(name):
@@ -3898,9 +3992,8 @@ def main() -> int:
         in the kernels line: phase 50's ties, calls (this kernel's time
         per build) and SASS counts, and phase 48's A/B against
         --parent."""
-        calls = {lab: {**{k: v for k, v in rec.items() if k not in
-                          ("queue_launch", "queue_adjoint_launch",
-                           "mega_segment")},
+        calls = {lab: {**{k: v for k, v in rec.items()
+                          if k not in WARP_KERNELS},
                        "ms": rec[name]}
                  for lab, rec in warp["calls"].items()}
         return {"dense_max": dense_max, "ties": warp["ties"],
@@ -4017,6 +4110,7 @@ def main() -> int:
                     "mega_adjoint_segment"]},
         "qmc_cull": {**flag_entry("mega_adjoint_segment"),
                      "max_abs_err_small": err_flags["b5"]},
+        "warp_hit": warp_entry("mega_adjoint_segment"),
     }, {
         "name": "queue_adjoint_launch",
         "route": "cuda",
@@ -4069,6 +4163,7 @@ def main() -> int:
         "families": family_rows("mega_regen"),
         "img": img_entry("mega_regen"),
         "qmc_cull": flag_entry("mega_regen", "regen"),
+        "warp_hit": warp_entry("mega_regen"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4082,18 +4177,18 @@ if __name__ == "__main__":
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port: phase 2 compares "
                          "registers, phase 3 its B1 lane for lane and "
-                         "phase 48 times its B1 / B2 / B3 / B5 / B6 and "
-                         "frames beside this tree's")
+                         "phase 48 times its B1-B3, B5-B7, the replay step "
+                         "and frames beside this tree's")
     ap.add_argument("--ab-times", default=None, metavar="ROOT",
-                    help="only time B1 / B2 / B3 / B5 / B6 and the frames "
+                    help="only time B1-B3, B5-B7, the replay step and frames "
                          "(phase 48's helper) with the package of ROOT")
     ap.add_argument("--b1-hits", nargs=2, default=None,
                     metavar=("ROOT", "PATH"),
                     help="only run B1 of the package of ROOT on the rays "
                          "saved in PATH (phase 3's helper)")
     ap.add_argument("--dense-grid", action="store_true",
-                    help=f"phase 50 also builds and times B3 / B6 with "
-                         f"kDenseMax {DENSE_GRID}")
+                    help=f"phase 50 also builds and times B2 / B3 / B5 / "
+                         f"B6 / B7 with kDenseMax {DENSE_GRID}")
     opts = ap.parse_args()
     DENSE_GRID_ON = opts.dense_grid
     if opts.ab_times or opts.b1_hits:

@@ -69,9 +69,11 @@
 // a tile of 2048 lanes (a chunk is skipped when no live lane of the
 // tile needs it); here each lane takes it for itself, and its plain twin
 // (mega_plain._culled_best) takes the same decision in the same order,
-// so kernel and plain agree on every lane. The queue kernels and the
-// forward megakernel (kWarp) test a chunk that few lanes need with the
-// whole warp, one needing ray at a time (warp_hit); the decisions and
+// so kernel and plain agree on every lane. The queue kernels, the
+// megakernel, its adjoint and the regeneration kernel (kWarp: B2, B3,
+// B5, B6, B7; the tape capture B4 keeps the per-lane loop) test a
+// chunk that few lanes need with the whole warp, one needing ray at a
+// time (warp_hit); the decisions and
 // winners stay each lane's. A sorted row names its SceneTables row through
 // Scene::sph_rows / tri_rows, which B4's tape codes and MIS's emitter
 // match use (scene_row). Culling is a runtime flag of the scene,
@@ -1093,7 +1095,7 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
   return att != 0.0f ? g * (Lk - c) / att : 0.0f;
 }
 
-// ---- the warp-cooperative closest hit (kWarp: B2, B3, B6) ----
+// ---- the warp-cooperative closest hit (kWarp: B2, B3, B5, B6, B7) ----
 //
 // Under culling a lane skips the chunks its ray misses, but a warp runs
 // the union of its lanes' chunks: 32 rows in turn, with the lanes that

@@ -29,8 +29,17 @@
 // cotangent sums are float atomics on a few hot addresses (on the cover
 // scene about half the lanes hit the ground's checker).
 //
-// Design: one thread per lane, as mega.cu, with the family rows read
-// through the read-only cache (kFamilies). Each block keeps its own
+// Design: one thread per lane and mega.cu's warp loop, with the family
+// rows read through the read-only cache (kFamilies). A warp loops while
+// any of its lanes has a bounce to go, and every thread of it enters
+// each bounce, do_bounce<true, ..., kWarp>, whose closest hit is
+// warp-cooperative (bounce.cuh warp_hit, as in B6): a culled chunk that
+// at most kDenseMax lanes need is tested by the whole warp, one needing
+// ray at a time. A thread past n, or whose lane is dead on entry, or
+// that died or reached max_depth, only helps with the hit: do_bounce
+// returns for it before the shading, so it adds nothing to the
+// accumulators, and it loads and stores nothing. The wrapper refuses a
+// block that is not whole warps. Each block keeps its own
 // accumulators in shared memory (6 * n_slots + 3 floats, 24 KB for the
 // cover scene's 1,024 slots), zeroed before the trace and added to the
 // global block once at the end, non-zero entries only: the per-bounce
@@ -72,34 +81,38 @@ mega_adjoint_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
   }
   __syncthreads();
 
+  // every thread of a warp runs the loop and every thread of the block
+  // reaches the flush's __syncthreads: one past n or with a dead lane
+  // loads, credits and stores nothing and only helps with the hit
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float* s = state + i;
-  // dead lanes and lanes past n trace nothing, but every thread reaches
-  // the flush's __syncthreads
-  if (i < n && s[12 * stride] > 0.0f) {
-    rtt::Lane L;
+  const bool mine = i < n && s[12 * stride] > 0.0f;
+  rtt::Lane L{};
+  rtt::Adj adj{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, acc, n_slots, gimg};
+  uint32_t smp = 0, lane_key = 0;
+  if (mine) {
     rtt::load_lane(s, stride, L);
-    rtt::Adj adj{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, acc, n_slots, gimg};
     rtt::load_lg(s, stride, adj);
-
     const uint32_t pix = static_cast<uint32_t>(pixel[i]);
-    const uint32_t smp =
-        static_cast<uint32_t>(sample ? sample[i] : sample_scalar);
-    const uint32_t lane_key = rtt::lane_key(scene.seed, pix, smp, kQmc);
-    int b = 0;
-    while (b < max_depth && L.alive > 0.0f) {
-      rtt::do_bounce<true, kTail, false, kFamilies, kNee, kImages, kQmc>(
-          scene, L,
-          rtt::draw_at(lane_key, smp,
-                       static_cast<uint32_t>(start_bounce + b)),
-          adj);
-      ++b;
-    }
+    smp = static_cast<uint32_t>(sample ? sample[i] : sample_scalar);
+    lane_key = rtt::lane_key(scene.seed, pix, smp, kQmc);
+  }
+  int b = 0;
+  for (;;) {
+    const bool go = mine && b < max_depth && L.alive > 0.0f;
+    if (!__any_sync(rtt::kFull, go)) break;
+    rtt::do_bounce<true, kTail, false, kFamilies, kNee, kImages, kQmc,
+                   true>(
+        scene, L,
+        rtt::draw_at(lane_key, smp, static_cast<uint32_t>(start_bounce + b)),
+        adj, nullptr, go);
+    if (go) ++b;
+  }
+  if (mine) {
     if (scene.exhaust_bg && L.alive > 0.0f) {
       rtt::credit_bg(scene, L, adj);
       rtt::exhaust(scene, L);
     }
-
     rtt::store_lane(s, stride, L);
     if (depth) depth[i] += b;
   }

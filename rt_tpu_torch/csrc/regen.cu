@@ -21,9 +21,10 @@
 // round alike. With `init`, segment 0 makes sample_base's camera rays
 // here; later segments resume the state, samp and bvec they are given,
 // so a capped segment resumed later equals one uncapped run. The TPU
-// loops a 2048-lane tile while any lane of it is pending; here each
-// thread loops while its own lane is, which gives every lane the same
-// state and samp (a finished lane's bvec stops counting).
+// loops a 2048-lane tile while any lane of it is pending; here a warp
+// loops while any of its lanes is, and each lane advances only while it
+// is pending itself, which gives every lane the same state, samp and
+// bvec (a finished lane's bvec stops counting, as the plain version's).
 //
 // What bounds it: FP32 operations, as mega.cu: per (lane, table row)
 // pair of the hit loop 23 for a sphere, 36 for a rect, 62 for a
@@ -32,13 +33,22 @@
 // ints per lane are read and written once per segment.
 //
 // Design: one thread per lane; the block stages the table's hit columns
-// in shared memory (bounce.cuh) and each thread runs mega.cu's bounce,
-// do_bounce<false, kTail, false, kFamilies>, with the camera ray made
-// in registers. A
-// warp runs to its slowest lane over spp samples rather than over one,
-// so its lanes stay busy until the last sample's tail. The trace
-// around it (ops/cuda_mega.mega_trace_regen) may cap segments by
-// seg_iters and group pending lanes between them.
+// in shared memory (bounce.cuh) and the warp runs mega.cu's loop around
+// its bounce, do_bounce<false, kTail, false, kFamilies, ..., kWarp>,
+// with the camera ray made in registers. Each iteration every thread of
+// the warp computes whether its lane is pending, the warp leaves when
+// none is (__any_sync), the pending lanes take steps (1) and (2) each
+// for itself, and then every thread enters the bounce, whose closest
+// hit is warp-cooperative (bounce.cuh warp_hit: a culled chunk that at
+// most kDenseMax lanes need is tested by the whole warp, one needing ray
+// at a time, with the per-lane loop's bits); a lane that is alive after
+// step (2) advances, the others only help. So no thread leaves before
+// the loop ends: a thread past n, or whose lane is not pending on entry,
+// loads and stores nothing and only helps. A warp runs to its slowest
+// lane over spp samples rather than over one, so its lanes stay busy
+// until the last sample's tail. The wrapper refuses a block that is not
+// whole warps. The trace around it (ops/cuda_mega.mega_trace_regen) may
+// cap segments by seg_iters and group pending lanes between them.
 
 #include <cuda_runtime.h>
 
@@ -61,62 +71,71 @@ regen_kernel(rtt::SceneOf<kImages> scene, rtt::Camera cam,
   rtt::stage_table(scene, smem);
   __syncthreads();
 
+  // every thread of a warp stays to the end: one past n, or whose lane is
+  // not pending on entry, loads and stores nothing and only helps
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   float* s = state + i;
-  const uint32_t pix = static_cast<uint32_t>(pixel[i]);
-  const int y = py[i];
-  const int x = pixel[i] - y * cam.width;
   const int end = sample_base + spp;  // the first sample not owed
-  rtt::Lane L;
-  int sm, bv;
+  rtt::Lane L{};
+  int sm = 0, bv = 0, x = 0, y = 0;
+  uint32_t pix = 0;
   float ro[3], rd[3];
-  if (init) {
-    sm = sample_base;
-    bv = 0;
-    rtt::camera_ray<kQmc>(cam, scene.seed, pix, x, y,
-                          static_cast<uint32_t>(sm), ro, rd);
-    L = rtt::Lane{ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], 1.0f, 1.0f,
-                  1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  } else {
-    sm = samp[i];
-    bv = bvec[i];
-    if (!(s[12 * stride] > 0.0f) && sm + 1 >= end) return;  // not pending
-    rtt::load_lane(s, stride, L);
+  bool mine = i < n;
+  if (mine) {
+    pix = static_cast<uint32_t>(pixel[i]);
+    y = py[i];
+    x = pixel[i] - y * cam.width;
+    if (init) {
+      sm = sample_base;
+      rtt::camera_ray<kQmc>(cam, scene.seed, pix, x, y,
+                            static_cast<uint32_t>(sm), ro, rd);
+      L = rtt::Lane{ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], 1.0f, 1.0f,
+                    1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+    } else {
+      sm = samp[i];
+      bv = bvec[i];
+      mine = s[12 * stride] > 0.0f || sm + 1 < end;  // pending on entry
+      if (mine) rtt::load_lane(s, stride, L);
+    }
   }
 
   int bounces = 0;
-  for (int it = 0; it < seg_iters && (L.alive > 0.0f || sm + 1 < end);
-       ++it) {
-    if (L.alive > 0.0f && bv >= max_depth) {  // (1) depth ran out
-      if (scene.exhaust_bg) rtt::exhaust(scene, L);
-      L.alive = 0.0f;
+  for (int it = 0; it < seg_iters; ++it) {  // seg_iters: warp-uniform
+    const bool pending = mine && (L.alive > 0.0f || sm + 1 < end);
+    if (!__any_sync(rtt::kFull, pending)) break;
+    if (pending) {
+      if (L.alive > 0.0f && bv >= max_depth) {  // (1) depth ran out
+        if (scene.exhaust_bg) rtt::exhaust(scene, L);
+        L.alive = 0.0f;
+      }
+      if (L.alive == 0.0f && sm + 1 < end) {  // (2) the next sample
+        ++sm;
+        bv = 0;
+        rtt::camera_ray<kQmc>(cam, scene.seed, pix, x, y,
+                              static_cast<uint32_t>(sm), ro, rd);
+        L.ox = ro[0];
+        L.oy = ro[1];
+        L.oz = ro[2];
+        L.dx = rd[0];
+        L.dy = rd[1];
+        L.dz = rd[2];
+        L.tpr = L.tpg = L.tpb = 1.0f;
+        L.alive = 1.0f;
+      }
     }
-    if (L.alive == 0.0f && sm + 1 < end) {  // (2) the next sample
-      ++sm;
-      bv = 0;
-      rtt::camera_ray<kQmc>(cam, scene.seed, pix, x, y,
-                            static_cast<uint32_t>(sm), ro, rd);
-      L.ox = ro[0];
-      L.oy = ro[1];
-      L.oz = ro[2];
-      L.dx = rd[0];
-      L.dy = rd[1];
-      L.dz = rd[2];
-      L.tpr = L.tpg = L.tpb = 1.0f;
-      L.alive = 1.0f;
-    }
-    if (L.alive > 0.0f) {  // (3) one bounce
-      rtt::do_bounce<false, kTail, false, kFamilies, false, kImages, kQmc>(
-          scene, L,
-          rtt::draw_at(rtt::lane_key(scene.seed, pix,
-                                     static_cast<uint32_t>(sm), kQmc),
-                       static_cast<uint32_t>(sm), static_cast<uint32_t>(bv)),
-          rtt::Adj{});
-      ++bounces;
-    }
-    ++bv;
+    // (3) one bounce: every thread of the warp enters it
+    const bool go = pending && L.alive > 0.0f;
+    rtt::do_bounce<false, kTail, false, kFamilies, false, kImages, kQmc,
+                   true>(
+        scene, L,
+        rtt::draw_at(rtt::lane_key(scene.seed, pix,
+                                   static_cast<uint32_t>(sm), kQmc),
+                     static_cast<uint32_t>(sm), static_cast<uint32_t>(bv)),
+        rtt::Adj{}, nullptr, go);
+    if (go) ++bounces;
+    if (pending) ++bv;  // only a lane pending at the top counts
   }
+  if (!mine) return;
 
   rtt::store_lane(s, stride, L);
   samp[i] = sm;

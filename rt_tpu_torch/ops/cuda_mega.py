@@ -217,6 +217,14 @@ def _library(defines: tuple = ()):
     return lib
 
 
+def check_threads(threads):
+    """The warp-cooperative hit of B2, B5 and B7 wants every lane of a
+    warp in every bounce: a block of whole warps."""
+    if int(threads) <= 0 or int(threads) % mp.WARP:
+        raise ValueError(f"threads = {threads}, want a multiple of "
+                         f"{mp.WARP}")
+
+
 def check_table(tab, device):
     n = tab.shape[0] if tab.dim() == 2 else -1
     cuda_build.check_tensor("table", tab, torch.float32, (n, S_COLS), device)
@@ -287,10 +295,7 @@ def mega_segment(tab, state, pixel, sample, seed, start_bounce, max_depth,
     cull_args = sort_args(qmc, cull, tab, fam, dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
-    if int(threads) <= 0 or int(threads) % mp.WARP:
-        # the warp-cooperative hit wants every lane of a warp (mega.cu)
-        raise ValueError(f"threads = {threads}, want a multiple of "
-                         f"{mp.WARP}")
+    check_threads(threads)
     pix_ptr, _ = lane_ints("pixel", pixel, n, dev)
     if pix_ptr is None:
         raise ValueError("pixel: want a per-lane int32 tensor")
@@ -560,6 +565,7 @@ def mega_adjoint_segment(tab, state, pixel, sample, seed, start_bounce,
                             (adjoint_plain.ACC_ROWS, n_slots), dev)
     if not 0 <= n <= stride:
         raise ValueError(f"n = {n}, want 0..{stride}")
+    check_threads(threads)
     pix_ptr, _ = lane_ints("pixel", pixel, n, dev)
     if pix_ptr is None:
         raise ValueError("pixel: want a per-lane int32 tensor")
@@ -610,8 +616,9 @@ def acc_fits_smem(n_slots: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_library():
-    lib = cuda_build.load("mega_adjoint")
+def _adjoint_library(defines: tuple = ()):
+    """csrc/mega_adjoint.cu's library (`defines` as _library's)."""
+    lib = cuda_build.load("mega_adjoint", defines)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.mega_adjoint_launch.argtypes = [
         vp, ci,                       # table, rows
@@ -766,8 +773,9 @@ mega_capture.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _regen_library():
-    lib = cuda_build.load("regen")
+def _regen_library(defines: tuple = ()):
+    """csrc/regen.cu's library (`defines` as _library's)."""
+    lib = cuda_build.load("regen", defines)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.mega_regen_launch.argtypes = [
         vp, ci,                       # table, rows
@@ -824,6 +832,7 @@ def mega_regen(tab, cam, state, pixel, py, samp, bvec, sample_base, seed,
         raise ValueError(f"n = {n}, want 0..{stride}")
     if len(cam) != 19:
         raise ValueError(f"cam: {len(cam)} floats, want 19")
+    check_threads(threads)
     ptrs = []
     for name, x in (("pixel", pixel), ("py", py), ("samp", samp),
                     ("bvec", bvec)):

@@ -1487,7 +1487,9 @@ def test_warp_hit_on_ties_matches_plain(name, dense_max):
     and the scratch builds with kDenseMax 0 (the per-lane loop) and 32
     (always dense): B3 bit for bit against its plain version at
     queue_steps 0 and 3, B6 within 1e-5 + 1e-3 max|g| of the plain adjoint
-    and of B5."""
+    and of B5 (the default build's); in the same build B5 (mega_adjoint.cu)
+    within that of the plain adjoint and of B6, and B7's regen render
+    (regen.cu, spp 2) bit for bit against its plain version."""
     from rt_tpu_torch.ops import camera, cuda_mega, cuda_queue
 
     dev = _card()
@@ -1507,6 +1509,8 @@ def test_warp_hit_on_ties_matches_plain(name, dense_max):
     adj = (tt, cfg, ro, rd, px, 0, 0, want, g, cfg.max_depth, False)
     g_plain = cuda_queue.queue_trace_adjoint(*adj, plain=True)
     g_b5 = cuda_mega.mega_trace_adjoint(*adj)
+    regen = (tt, cfg.replace(engine="mega"), px, px // 192, 3, 2)
+    want_r = cuda_mega.mega_trace_regen(*regen, plain=True)
     with smoke.dense_schedule(dense_max):
         for steps in (0, 3):
             before = cuda_queue.queue_launch.launches
@@ -1515,8 +1519,39 @@ def test_warp_hit_on_ties_matches_plain(name, dense_max):
             assert cuda_queue.queue_launch.launches > before
             assert torch.equal(got, want), steps
         g6 = cuda_queue.queue_trace_adjoint(*adj, check_once=True)
+        before = cuda_mega.mega_adjoint_segment.launches
+        g5 = cuda_mega.mega_trace_adjoint(*adj)
+        assert cuda_mega.mega_adjoint_segment.launches > before
+        before = cuda_mega.mega_regen.launches
+        got_r = cuda_mega.mega_trace_regen(*regen)
+        torch.cuda.synchronize()
+        assert cuda_mega.mega_regen.launches > before
     _grads_close(g_plain, g6)
     _grads_close(g_b5, g6)
+    _grads_close(g_plain, g5)
+    _grads_close(g5, g6)
+    assert torch.equal(got_r, want_r)
+
+
+def _ragged_scene(dev, case, w, h, tmp_path, tail=(3000, 64)):
+    """(tables, cfg) at depth 6 of one instantiation of the warp loops:
+    "tail" (random_spheres_scene(*tail): spheres past the staged rows,
+    n_materials shared materials or one a sphere), "families" (the mesh,
+    culled), "nee" (every light family; cfg.nee left to the caller),
+    "images" (the families textured), "qmc" (cover, culled, p_rr 0.9)."""
+    if case == "tail":
+        sdef, cfg = builders.random_spheres_scene(*tail, width=w, height=h,
+                                                  max_depth=6)
+        return types.build_tables(sdef, device=dev), cfg
+    if case == "families":
+        return _family_scene(dev, "mesh", w, h, 1, 6)
+    if case == "nee":
+        return _light_scene(dev, w, h, 6)
+    if case == "images":
+        return _image_scene(dev, "families", w, h, 6, tmp_path)
+    sdef, cfg = builders.cover_scene(width=w, height=h, spp=1, max_depth=6)
+    return (types.build_tables(sdef, device=dev),
+            cfg.replace(sampler="qmc", p_rr=0.9))
 
 
 @pytest.mark.cuda
@@ -1536,23 +1571,9 @@ def test_mega_segment_ragged_lanes_match_plain(tmp_path, case):
 
     dev = _card()
     w, h = 64, 48
-    if case == "tail":
-        sdef, cfg = builders.random_spheres_scene(3000, 64, width=w,
-                                                  height=h, max_depth=6)
-        tt = types.build_tables(sdef, device=dev)
-    elif case == "families":
-        tt, cfg = _family_scene(dev, "mesh", w, h, 1, 6)
-    elif case == "nee":
-        tt, cfg = _light_scene(dev, w, h, 6)
-        cfg = cfg.replace(nee=True, mis=True)
-    elif case == "images":
-        tt, cfg = _image_scene(dev, "families", w, h, 6, tmp_path)
-        cfg = cfg.replace(nee=True)
-    else:
-        sdef, cfg = builders.cover_scene(width=w, height=h, spp=1,
-                                         max_depth=6)
-        tt = types.build_tables(sdef, device=dev)
-        cfg = cfg.replace(sampler="qmc", p_rr=0.9)
+    tt, cfg = _ragged_scene(dev, case, w, h, tmp_path)
+    if case in ("nee", "images"):
+        cfg = cfg.replace(nee=True, mis=case == "nee")
     kw = mega_plain.trace_options(tt, cfg)
     nee = mega_plain.nee_options(tt, cfg)
     tab = mega_tables.scene_for(tt, cfg).table
@@ -1613,3 +1634,189 @@ def test_mega_segment_refuses_threads_off_the_warp():
                                         mega_plain.fresh_state(ro, rd), pix,
                                         0, 0, 0, 4, bg=tt.mega.bg)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tail", "families", "images", "qmc"])
+def test_regen_ragged_lanes_match_plain(tmp_path, case):
+    """B7's warp loop (regen.cu: every thread of a warp stays in it; a
+    thread past n, or whose lane is not pending on entry, only helps) on
+    resumed segments (init 0) in its kTail, kFamilies, kImages and kQmc
+    (culled, p_rr 0.9) instantiations: 1,000 lanes of 1,024 at 256
+    threads, entered from three iterations of an init segment, every
+    fifth lane then dead with no sample owed (not pending) and every
+    seventh dead with samples owed; a segment of 5 iterations, then one
+    to the end, each against regen_plain bit for bit (state, samp, bvec,
+    the depth count); lanes past n and lanes not pending keep every
+    stored value."""
+    from rt_tpu_torch.ops import cuda_mega, mega_plain
+
+    dev = _card()
+    w, h, spp = 40, 25, 4
+    tt, cfg = _ragged_scene(dev, case, w, h, tmp_path)
+    ms = mega_tables.scene_for(tt, cfg)
+    b, n = 1024, 1000
+    pix = torch.arange(b, dtype=torch.int32, device=dev) % (w * h)
+    py = pix // w
+    state = torch.zeros((13, b), device=dev)
+    samp, bvec = (torch.zeros(b, dtype=torch.int32, device=dev)
+                  for _ in range(2))
+    opts = dict(max_depth=cfg.max_depth, spp=spp, width=w, height=h,
+                defocus=cfg.enable_defocus, exhaust_bg=True,
+                **mega_plain.trace_options(tt, cfg))
+    mega_plain.regen_plain(ms.table, ms.cam, state, pix, py, samp, bvec, 0,
+                           5, 3, init=True, **opts)
+    state[mega_plain.ALIVE, ::7] = 0.0
+    idle = torch.zeros(b, dtype=torch.bool, device=dev)
+    idle[:n:5] = True
+    state[mega_plain.ALIVE, idle] = 0.0
+    samp[idle] = spp - 1
+    depth = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 4, b).astype(np.int32)).to(dev)
+    entry = (state, samp, bvec, depth)
+    got = [x.clone() for x in entry]
+    want = [x.clone() for x in entry]
+    for seg_iters in (5, spp * (cfg.max_depth + 1)):
+        before = cuda_mega.mega_regen.launches
+        cuda_mega.mega_regen(ms.table, ms.cam, *got[:1], pix, py, *got[1:3],
+                             0, 5, seg_iters, init=False, n=n,
+                             depth=got[3], **opts)
+        torch.cuda.synchronize()
+        assert cuda_mega.mega_regen.launches == before + 1
+        mega_plain.regen_plain(ms.table, ms.cam, *want[:1], pix, py,
+                               *want[1:3], 0, 5, seg_iters, init=False, n=n,
+                               depth=want[3], **opts)
+        for k, (a, c) in enumerate(zip(got, want)):
+            assert torch.equal(a, c), (seg_iters, k)
+    keep = idle.clone()
+    keep[n:] = True
+    for a, e in zip(got, entry):
+        assert torch.equal(a[..., keep], e[..., keep])
+    assert bool((got[0][mega_plain.ALIVE, :n] == 0.0).all())
+    assert bool((got[1][:n] == spp - 1).all())
+    assert bool((got[3][:n][~idle[:n]] > entry[3][:n][~idle[:n]]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tail", "families", "nee", "images",
+                                  "qmc"])
+def test_mega_adjoint_ragged_lanes_match_plain(tmp_path, case):
+    """B5's warp loop (mega_adjoint.cu: every thread of a warp runs it,
+    every thread of a block reaches the flush; a thread past n or with a
+    dead lane only helps and credits nothing) on one segment in its kTail
+    (5,000 rows of their own material: the accumulators past the shared
+    memory, shared_acc off), kFamilies, kNee, kImages (with the atlas
+    gradient) and kQmc (p_rr 0.9) instantiations: 1,000 lanes of 1,024
+    at 256 threads, every seventh dead on entry, per-lane samples, the
+    sky credited at the end. The gradients are within 1e-5 + 1e-3 max|g| of the plain
+    adjoint over the live lanes; each lane's path and depth count are
+    the plain forward segment's bits; lanes past n, dead lanes and the
+    L, g rows are left as they were."""
+    from rt_tpu_torch.ops import adjoint_plain, camera, cuda_mega, mega_plain
+
+    dev = _card()
+    w, h = 40, 25
+    tt, cfg = _ragged_scene(dev, case, w, h, tmp_path, tail=(5000, 0))
+    if case in ("nee", "images"):
+        cfg = cfg.replace(nee=True)
+    ms = mega_tables.scene_for(tt, cfg)
+    kw = mega_plain.trace_options(tt, cfg)
+    nee = mega_plain.nee_options(tt, cfg, adjoint=True)
+    assert (case in ("nee", "images")) == (nee is not None)
+    assert cuda_mega.acc_fits_smem(ms.n_slots) == (case != "tail")
+    b, n = 1024, 1000
+    px = torch.arange(b, device=dev) % (w * h)
+    ro, rd = camera.generate_rays(tt.camera, w, h, px % w, px // w, 3, 0,
+                                  cfg.enable_defocus, cfg.sampler)
+    rs = np.random.default_rng(21)
+    L, g = (torch.from_numpy(rs.normal(0, s_, (b, 3)).astype(np.float32))
+            .to(dev) for s_ in (1.0, 1e-3))
+    sample = torch.from_numpy(rs.integers(0, 9, b).astype(np.int32)).to(dev)
+    state = torch.cat([mega_plain.fresh_state(ro, rd), L.T, g.T])
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    live[::7] = False
+    live[n:] = False
+    state[mega_plain.ALIVE, ::7] = 0.0
+    entry = state.clone()
+    depth = torch.zeros(b, dtype=torch.int32, device=dev)
+    grad = torch.zeros((adjoint_plain.ACC_ROWS, ms.n_slots), device=dev)
+    gimg = adjoint_plain.atlas_grad(ms, dev)
+    pix = px.to(torch.int32)
+    before = cuda_mega.mega_adjoint_segment.launches
+    cuda_mega.mega_adjoint_segment(ms.table, state, pix, sample, 5, 0,
+                                   cfg.max_depth, grad, n=n,
+                                   exhaust_bg=True, depth=depth, nee=nee,
+                                   gimg=gimg, **kw)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_adjoint_segment.launches == before + 1
+    got = adjoint_plain.split_grads(grad, ms, kw["grad_bg"], gimg)
+    want = adjoint_plain.trace_adjoint_plain(
+        tt, cfg, ro[live], rd[live], px[live], sample[live], 5, L[live],
+        g[live], cfg.max_depth, True)
+    _grads_close(want, got)
+    assert any(float(v.abs().max()) > 0.0 for v in want.values()
+               if v is not None)
+    fwd = entry[:13].clone()
+    d_want = torch.zeros_like(depth)
+    cuda_mega.mega_segment_plain(ms.table, fwd, pix, sample, 5, 0,
+                                 cfg.max_depth, n=n, exhaust_bg=True,
+                                 depth=d_want, nee=nee, **kw)
+    assert torch.equal(state[:13], fwd)
+    assert torch.equal(depth, d_want)
+    assert torch.equal(state[13:], entry[13:])
+    assert torch.equal(state[:, ~live], entry[:, ~live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["regen", "adjoint"])
+def test_regen_and_adjoint_refuse_threads_off_the_warp(kernel):
+    """B7 and B5 run the warp-cooperative hit too: mega_regen and
+    mega_adjoint_segment refuse threads=48 before the launch; 64
+    launches and matches the plain version (B7 bit for bit, B5 within
+    1e-5 + 1e-3 max|g|)."""
+    from rt_tpu_torch.ops import adjoint_plain, cuda_mega, mega_plain
+
+    dev = _card()
+    if kernel == "regen":
+        tt, cfg = _regen_scene(dev, 16, 8, 2, 4)
+        ms = mega_tables.scene_for(tt, cfg)
+        b = 16 * 8
+        pix = torch.arange(b, dtype=torch.int32, device=dev)
+
+        def run(fn, **kw):
+            out = [torch.zeros((13, b), device=dev)] + [
+                torch.zeros(b, dtype=torch.int32, device=dev)
+                for _ in range(2)]
+            fn(ms.table, ms.cam, out[0], pix, pix // 16, out[1], out[2], 0,
+               0, 10, max_depth=4, spp=2, init=True, width=16, height=8,
+               defocus=True, **mega_plain.trace_options(tt, cfg), **kw)
+            return out
+
+        fn, plain = cuda_mega.mega_regen, mega_plain.regen_plain
+    else:
+        tt, cfg, ro, rd, pix, L, g = _adj_sample(dev, 16, 8, 4)
+        ms = mega_tables.scene_for(tt, cfg)
+        kw0 = mega_plain.trace_options(tt, cfg)
+        lanes = torch.cat([mega_plain.fresh_state(ro, rd), L.T, g.T])
+
+        def run(fn, **kw):
+            grad = torch.zeros((adjoint_plain.ACC_ROWS, ms.n_slots),
+                               device=dev)
+            fn(ms.table, lanes.clone(), pix.to(torch.int32), 0, 0, 0, 4,
+               grad, **kw0, **kw)
+            return adjoint_plain.split_grads(grad, ms, kw0["grad_bg"], None)
+
+        fn, plain = cuda_mega.mega_adjoint_segment, None
+    before = fn.launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        run(fn, threads=48)
+    assert fn.launches == before
+    got = run(fn, threads=64)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    if plain is not None:
+        for a, c in zip(got, run(plain)):
+            assert torch.equal(a, c)
+    else:
+        _grads_close(adjoint_plain.trace_adjoint_plain(
+            tt, cfg, ro, rd, pix, 0, 0, L, g, 4, False), got)

@@ -22,6 +22,7 @@ no infinite tie, so a miss's row means nothing there)."""
 
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -213,6 +214,20 @@ def test_mixed_schedule_matches_sequential(n_active):
         np.testing.assert_array_equal(got_r, want_r)
 
 
+def warp_bounce(go, dense_max, case_seed):
+    """One bounce's closest hit, entered by every thread of the warp: the
+    winners of the lanes that go (go [32] bool) are the sequential loop's,
+    a helper's winner stays empty (it folds nothing). Returns (t, row)."""
+    t, entry, _ = make_case("ties_in_chunk", WARP, case_seed)
+    want_t, want_r = sequential(t, entry, go)
+    got_t, got_r, _ = warp_fold(t, entry, go, dense_max)
+    np.testing.assert_array_equal(got_t[go].view(np.uint32),
+                                  want_t[go].view(np.uint32))
+    np.testing.assert_array_equal(got_r[go], want_r[go])
+    assert np.isinf(got_t[~go]).all() and (got_r[~go] == 0).all()
+    return got_t, got_r
+
+
 def mega_loop(n_lanes, dense_max, seed, max_depth=6):
     """B2's loop in mega.cu on one warp, bounce by bounce: lanes past n
     (n_lanes of the 32 hold a lane) and lanes dead on entry never go;
@@ -233,14 +248,7 @@ def mega_loop(n_lanes, dense_max, seed, max_depth=6):
         go = alive & (b < max_depth)
         if not go.any():                                # __any_sync
             break
-        t, entry, _ = make_case("ties_in_chunk", WARP, seed * 100 + steps)
-        want_t, want_r = sequential(t, entry, go)
-        got_t, got_r, _ = warp_fold(t, entry, go, dense_max)
-        np.testing.assert_array_equal(got_t[go].view(np.uint32),
-                                      want_t[go].view(np.uint32))
-        np.testing.assert_array_equal(got_r[go], want_r[go])
-        # a helper's own winner stays empty: it folds nothing
-        assert np.isinf(got_t[~go]).all() and (got_r[~go] == 0).all()
+        warp_bounce(go, dense_max, seed * 100 + steps)
         b[go] += 1
         alive &= b < life
         steps += 1
@@ -261,6 +269,257 @@ def test_mega_loop_with_lanes_dropping_out(n_lanes, dense_max):
         went = b > 0
         np.testing.assert_array_equal(b[went],
                                       np.minimum(life[went], 6))
+
+
+# B7's lanes owe REGEN_SPP samples of at most REGEN_DEPTH bounces each
+REGEN_SPP, REGEN_DEPTH = 4, 5
+UNCAPPED = 1000     # more iterations than any lane needs: one segment
+
+
+def regen_lanes(seed):
+    """A resumed segment's entry (init 0) for one warp: each lane's alive,
+    samp, bvec, and life[l, s], the bounces sample s of lane l lives (a
+    path dies after its bounce at bvec when bvec + 1 >= life). Some lanes
+    are dead with nothing owed (not pending on entry); some are alive at
+    bvec max_depth (retired by step (1) at once)."""
+    rs = np.random.default_rng(seed)
+    samp = rs.integers(0, REGEN_SPP, WARP)
+    bvec = rs.integers(0, REGEN_DEPTH + 1, WARP)
+    alive = rs.random(WARP) < 0.6
+    idle = rs.random(WARP) < 0.25
+    alive[idle] = False
+    samp[idle] = REGEN_SPP - 1
+    alive[0], samp[0], bvec[0] = True, 0, 0            # lane 0 owes all
+    life = rs.integers(1, 9, (WARP, REGEN_SPP))
+    return dict(alive=alive, samp=samp, bvec=bvec, life=life)
+
+
+def regen_steps(lane, pending):
+    """Steps (1) and (2) of B7's iteration for the lanes `pending`: retire
+    a lane alive at max_depth, then start the next sample of a dead lane
+    that owes one. Returns the lanes that bounce (alive after (2))."""
+    alive, samp, bvec = lane["alive"], lane["samp"], lane["bvec"]
+    alive[pending & alive & (bvec >= REGEN_DEPTH)] = False
+    nxt = pending & ~alive & (samp + 1 < REGEN_SPP)
+    samp[nxt] += 1
+    bvec[nxt] = 0
+    alive[nxt] = True
+    return pending & alive
+
+
+def regen_bounce(lane, go, bounces, coords):
+    """Step (3) for the lanes `go`: the bounce at (samp, bvec), recorded
+    in coords, and each path's death by its life."""
+    alive, samp, bvec, life = (lane[k] for k in ("alive", "samp", "bvec",
+                                                 "life"))
+    for l in np.flatnonzero(go):
+        coords.append((int(l), int(samp[l]), int(bvec[l])))
+        alive[l] = bvec[l] + 1 < life[l, samp[l]]
+    bounces[go] += 1
+
+
+def regen_loop(n_lanes, dense_max, entry, seg_iters, seed):
+    """B7's loop in regen.cu on one warp, iteration by iteration: n_lanes
+    of the 32 threads hold a lane; a lane not pending on entry (dead, no
+    sample owed) is not handled; each iteration computes `pending`
+    (alive, or a sample owed), leaves when no lane is (__any_sync), runs
+    steps (1) and (2) on the pending lanes, then every thread enters the
+    bounce's warp_fold, the lanes alive after (2) going, and bvec + 1 for
+    the lanes pending at the top only. Returns (the lanes' state, bounces,
+    the bounces' (lane, samp, bvec), iterations run)."""
+    lane = {k: v.copy() for k, v in entry.items()}
+    mine = (np.arange(WARP) < n_lanes) & (
+        lane["alive"] | (lane["samp"] + 1 < REGEN_SPP))
+    bounces = np.zeros(WARP, np.int64)
+    coords = []
+    steps = 0
+    for it in range(seg_iters):
+        pending = mine & (lane["alive"] | (lane["samp"] + 1 < REGEN_SPP))
+        if not pending.any():                           # __any_sync
+            break
+        go = regen_steps(lane, pending)
+        warp_bounce(go, dense_max, seed * 1000 + it)    # every thread
+        regen_bounce(lane, go, bounces, coords)
+        lane["bvec"][pending] += 1
+        steps += 1
+    return lane, bounces, coords, steps
+
+
+def regen_sequential(n_lanes, entry, seg_iters):
+    """The per-lane loop B7 ran before its warp loop: each lane alone while
+    it is pending, at most seg_iters iterations. Returns (state, bounces,
+    coords, iterations per lane)."""
+    lane = {k: v.copy() for k, v in entry.items()}
+    bounces = np.zeros(WARP, np.int64)
+    iters = np.zeros(WARP, np.int64)
+    coords = []
+    for l in range(n_lanes):
+        one = np.arange(WARP) == l
+        while iters[l] < seg_iters and (
+                lane["alive"][l] or lane["samp"][l] + 1 < REGEN_SPP):
+            go = regen_steps(lane, one)
+            regen_bounce(lane, go, bounces, coords)
+            lane["bvec"][l] += 1
+            iters[l] += 1
+    return lane, bounces, coords, iters
+
+
+def regen_plain_run(n_lanes, entry, seg_iters, monkeypatch):
+    """ops/mega_plain.regen_plain itself on the lanes (pixel = lane), its
+    bounce replaced by the lanes' lives and its camera by constant rays:
+    its bookkeeping of samp, bvec, the depth count and alive. Returns
+    (state, bounces, coords, lanes past n untouched)."""
+    coords = []
+    life = torch.from_numpy(entry["life"])
+
+    def bounce(tab, st, pix, s_, b_, seed, **kw):
+        coords.extend(zip(pix.tolist(), s_.tolist(), b_.tolist()))
+        out = st.clone()
+        out[mega_plain.ALIVE] = (b_ + 1 < life[pix, s_]).float()
+        return out
+
+    def rays(cam_def, w, h, px, py, sample, *args):
+        return torch.zeros((px.shape[0], 3)), torch.ones((px.shape[0], 3))
+
+    monkeypatch.setattr(mega_plain, "do_bounce_plain", bounce)
+    monkeypatch.setattr(mega_plain, "camera", SimpleNamespace(
+        camera_of_vec=lambda cam, dev: None, generate_rays=rays))
+    state = torch.zeros((mega_plain.NSTATE, WARP))
+    state[mega_plain.ALIVE] = torch.from_numpy(entry["alive"]).float()
+    before = state.clone()
+    samp = torch.from_numpy(entry["samp"]).to(torch.int32)
+    bvec = torch.from_numpy(entry["bvec"]).to(torch.int32)
+    depth = torch.zeros(WARP, dtype=torch.int32)
+    lanes = torch.arange(WARP, dtype=torch.int32)
+    mega_plain.regen_plain(
+        None, [0.0] * 19, state, lanes, torch.zeros_like(lanes), samp, bvec,
+        0, 0, seg_iters, max_depth=REGEN_DEPTH, spp=REGEN_SPP, init=False,
+        width=WARP, height=1, defocus=False, n=n_lanes, bg=None,
+        depth=depth)
+    lane = dict(alive=(state[mega_plain.ALIVE] > 0).numpy(),
+                samp=samp.numpy().astype(np.int64),
+                bvec=bvec.numpy().astype(np.int64))
+    untouched = torch.equal(state[:, n_lanes:], before[:, n_lanes:])
+    return lane, depth.numpy().astype(np.int64), coords, untouched
+
+
+def assert_lanes_equal(a, b, n_lanes):
+    for k in ("alive", "samp", "bvec"):
+        np.testing.assert_array_equal(a[k][:n_lanes], b[k][:n_lanes], k)
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("dense_max", [0, K_DENSE_MAX, WARP])
+@pytest.mark.parametrize("n_lanes", [32, 19, 1])
+def test_regen_loop_matches_per_lane_and_plain(n_lanes, dense_max, capped,
+                                               monkeypatch):
+    """B7's warp loop (regen.cu): lanes past n, lanes not pending on entry,
+    per-lane lives and owed samples, every thread in each bounce's
+    warp_fold. Each lane's (samp, bvec, bounces, alive) and bounce
+    coordinates equal the per-lane sequential loop's and regen_plain's
+    (bvec + 1 only while the lane is pending), the warp runs as many
+    iterations as its slowest pending lane, lanes past n keep their
+    values, and with a cap of seg_iters that falls mid-sample, two
+    segments equal one uncapped segment."""
+    for seed in range(3):
+        entry = regen_lanes(40 + seed)
+        first = 7 if capped else UNCAPPED
+        got, bounces, coords, steps = regen_loop(n_lanes, dense_max, entry,
+                                                 first, seed)
+        want, want_b, want_c, iters = regen_sequential(n_lanes, entry,
+                                                       first)
+        plain, plain_b, plain_c, untouched = regen_plain_run(
+            n_lanes, entry, first, monkeypatch)
+        for other, other_b, other_c in ((want, want_b, want_c),
+                                        (plain, plain_b, plain_c)):
+            assert_lanes_equal(got, other, n_lanes)
+            np.testing.assert_array_equal(bounces[:n_lanes],
+                                          other_b[:n_lanes])
+            assert sorted(coords) == sorted(other_c)
+        assert steps == iters.max() and steps <= first
+        assert untouched and (bounces[n_lanes:] == 0).all()
+        for k in ("alive", "samp", "bvec"):
+            np.testing.assert_array_equal(got[k][n_lanes:],
+                                          entry[k][n_lanes:])
+        idle = ~entry["alive"][:n_lanes] & (
+            entry["samp"][:n_lanes] + 1 >= REGEN_SPP)
+        assert (got["bvec"][:n_lanes][idle]
+                == entry["bvec"][:n_lanes][idle]).all()
+        if not capped:
+            assert not got["alive"][:n_lanes].any()
+            assert (got["samp"][:n_lanes] == REGEN_SPP - 1).all()
+            continue
+        # the cap fell mid-sample: a lane alive past its first bounce
+        assert (got["alive"] & (got["bvec"] > 0))[:n_lanes].any()
+        rest = {**got, "life": entry["life"]}
+        got2, bounces2, coords2, _ = regen_loop(n_lanes, dense_max, rest,
+                                                UNCAPPED, seed + 7)
+        one, one_b, one_c, _ = regen_loop(n_lanes, dense_max, entry,
+                                          UNCAPPED, seed)
+        assert_lanes_equal(got2, one, n_lanes)
+        np.testing.assert_array_equal(bounces + bounces2, one_b)
+        assert sorted(coords + coords2) == sorted(one_c)
+
+
+def adjoint_loop(n_lanes, dense_max, seed, max_depth=6):
+    """B5's loop in mega_adjoint.cu on one warp: lanes past n and lanes
+    dead on entry never go; every thread enters each bounce's warp_fold
+    while any lane goes; a lane that goes adds its cotangent to its
+    winner's slot (a miss: the sky's), a helper adds nothing; a lane
+    alive at max_depth credits the sky after the loop; every thread then
+    reaches the flush. Returns (the slots, bounces, steps, threads at
+    the flush)."""
+    rs = np.random.default_rng(seed)
+    mine = np.arange(WARP) < n_lanes
+    mine[rs.random(WARP) < 0.2] = False                 # dead on entry
+    mine[0] = n_lanes > 0
+    life = rs.integers(1, 9, WARP)
+    g = rs.integers(1, 100, WARP)
+    acc = np.zeros(4 * CHUNK + 1, np.int64)             # rows, then sky
+    alive = mine.copy()
+    b = np.zeros(WARP, np.int64)
+    steps = 0
+    while True:
+        go = mine & alive & (b < max_depth)
+        if not go.any():                                # __any_sync
+            break
+        t, row = warp_bounce(go, dense_max, seed * 100 + steps)
+        for l in np.flatnonzero(go):
+            acc[row[l] if np.isfinite(t[l]) else -1] += g[l]
+        b[go] += 1
+        alive &= ~go | (b < life)
+        steps += 1
+    for l in np.flatnonzero(mine & alive):              # exhaust_bg
+        acc[-1] += g[l]
+    at_flush = WARP                                     # no thread left
+    return acc, b, steps, at_flush, (mine, life, g)
+
+
+@pytest.mark.parametrize("dense_max", [0, K_DENSE_MAX, WARP])
+@pytest.mark.parametrize("n_lanes", [32, 19, 1])
+def test_adjoint_loop_helpers_credit_nothing(n_lanes, dense_max):
+    """B5's warp loop: the slots equal a per-lane replay's (each lane's
+    k-th bounce against that bounce's rows, alone), so the helpers (past
+    n, dead on entry, dead or at max_depth) credit nothing; each lane
+    runs min(life, max_depth) bounces, the warp as many steps as its
+    longest; every thread reaches the flush."""
+    for seed in range(3):
+        acc, b, steps, at_flush, (mine, life, g) = adjoint_loop(
+            n_lanes, dense_max, 30 + seed)
+        want = np.zeros_like(acc)
+        for l in np.flatnonzero(mine):
+            one = np.arange(WARP) == l
+            for k in range(min(life[l], 6)):
+                t, entry, _ = make_case("ties_in_chunk", WARP,
+                                        (30 + seed) * 100 + k)
+                best, row = sequential(t, entry, one)
+                want[row[l] if np.isfinite(best[l]) else -1] += g[l]
+            if life[l] > 6:
+                want[-1] += g[l]
+        np.testing.assert_array_equal(acc, want)
+        np.testing.assert_array_equal(b, np.where(mine, np.minimum(life, 6),
+                                                  0))
+        assert steps == b.max() and at_flush == WARP
 
 
 def test_order_key_orders_as_floats():

@@ -77,19 +77,20 @@ without --nee) and `fit ... --fields images` with the replay and the
 tape, whose loss must fall (44). QMC and chunk culling follow (45-49:
 the kernels against their plain versions under each, frames in four
 settings, the runtime flags' A/B, with --parent also B1 on phase 3's
-rays, B2 / B3 / B5 / B6 on four culled workloads, B7 on cover and the
-mesh, the queue, mega, regen and hybrid frames, the mega replay step and
-`render -f` against another checkout in turns), and the warp-cooperative
-hit of B2 / B3 / B5 / B6 / B7 closes it (50): ties at 192x108 and one
-call on cover, cover_lights with nee, the mesh and the textured mesh in
-the default build and scratch builds of other kDenseMax values (phase 2
-builds them; --dense-grid adds two), against the plain versions, timed
-in turns, with the cover frame in each build and the issued
-instructions per row from cuobjdump. Phase 2 also holds the registers
-of B1-B4 and B6 to the parent's and prints B5 / B7's (and their spills)
-beside the parent's; phase 3 holds B1 (one float4 row a sphere, several rays a
-thread, the root only where disc >= 0) to the parent's B1 lane for lane
-with --parent and counts its issued instructions per pair.
+rays, B2 / B3 / B5 / B6 / B4 on four culled workloads, B7 on cover and
+the mesh, the queue, mega, regen and hybrid frames, the mega replay step,
+the tape step and `render -f` against another checkout in turns), and
+the warp-cooperative hit of B2-B7 closes it (50): ties at 192x108 (B4
+with p_rr 0 and 0.9) and one call on cover, cover_lights with nee, the
+mesh and the textured mesh in the default build and scratch builds of
+other kDenseMax values (phase 2 builds them; --dense-grid adds two),
+against the plain versions, timed in turns, with the cover frame in each
+build and the issued instructions per row from cuobjdump. Phase 2 also
+holds the registers of B1-B3 and B5-B7 to the parent's and prints B4's
+(and its spills) beside the parent's; phase 3 holds B1 (one float4 row a
+sphere, several rays a thread, the root only where disc >= 0) to the
+parent's B1 lane for lane with --parent and counts its issued
+instructions per pair.
 Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
@@ -670,16 +671,18 @@ KERNELS = ["sphere_hit", "mega", "queue", "mega_adjoint", "queue_adjoint",
 DENSE_BUILDS = [0, 32]
 DENSE_GRID = (8, 24)
 # the libraries built again in each scratch build of kDenseMax: the
-# kernels of the warp-cooperative hit, B2, B3, B5, B6 and B7
-DENSE_LIBS = ("mega", "queue", "queue_adjoint", "mega_adjoint", "regen")
-# phase 2 holds the ptxas registers of HELD_LIBS (B1-B4 and B6), per
+# kernels of the warp-cooperative hit, B2-B7
+DENSE_LIBS = ("mega", "queue", "queue_adjoint", "mega_adjoint", "regen",
+              "capture")
+# phase 2 holds the ptxas registers of HELD_LIBS (B1-B3 and B5-B7), per
 # instantiation, to the parent's build (--parent) or to PARENT_REGS, and
-# prints those of MOVED_LIBS (B5 and B7, redesigned) beside the parent's.
+# prints those of MOVED_LIBS (B4, redesigned) beside the parent's.
 # PARENT_REGS: the parent's registers on the card's toolkit (CUDA 12.8,
 # from a --parent run's printout), per library its kernel and "bool
 # template arguments:registers" of each instantiation
-HELD_LIBS = ("queue", "queue_adjoint", "capture", "mega", "sphere_hit")
-MOVED_LIBS = ("mega_adjoint", "regen")
+HELD_LIBS = ("queue", "queue_adjoint", "mega", "sphere_hit", "mega_adjoint",
+             "regen")
+MOVED_LIBS = ("capture",)
 PARENT_REGS = {
     "capture": ("capture_kernel", """
         000:40 001:40 010:46 011:48 100:40 101:40 110:46 111:48
@@ -692,10 +695,10 @@ PARENT_REGS = {
         11100:64 11101:64 11110:64 11111:64
         """),
     "mega_adjoint": ("mega_adjoint_kernel", """
-        00000:64 00001:62 00010:62 00011:62 00100:64 00101:80 00110:80
-        00111:80 01000:64 01001:62 01010:64 01011:64 01100:95 01101:80
-        01110:96 01111:80 10000:62 10001:60 10010:62 10011:64 10100:80
-        10101:80 10110:80 10111:80 11000:62 11001:64 11010:64 11011:64
+        00000:62 00001:48 00010:64 00011:60 00100:80 00101:80 00110:80
+        00111:80 01000:64 01001:64 01010:64 01011:64 01100:80 01101:80
+        01110:80 01111:80 10000:62 10001:64 10010:64 10011:60 10100:64
+        10101:80 10110:80 10111:80 11000:64 11001:64 11010:64 11011:64
         11100:80 11101:80 11110:80 11111:80
         """),
     "queue": ("queue_kernel", """
@@ -713,8 +716,8 @@ PARENT_REGS = {
         11100:89 11101:93 11110:95 11111:94
         """),
     "regen": ("regen_kernel", """
-        0000:48 0001:60 0010:48 0011:64 0100:56 0101:56 0110:60 0111:60
-        1000:48 1001:60 1010:64 1011:60 1100:48 1101:48 1110:60 1111:48
+        0000:53 0001:59 0010:58 0011:62 0100:64 0101:64 0110:64 0111:64
+        1000:56 1001:62 1010:48 1011:62 1100:64 1101:64 1110:64 1111:64
         """),
     "sphere_hit": ("sphere_hit_kernel", """
         :64
@@ -760,15 +763,16 @@ def build_all(extra=()):
 
 @contextlib.contextmanager
 def dense_schedule(dense_max):
-    """Inside, B2, B3, B5, B6 and B7 run from the scratch libraries built
-    with -DRTT_DENSE_MAX=dense_max (None: the default build): the
+    """Inside, B2-B7 run from the scratch libraries built with
+    -DRTT_DENSE_MAX=dense_max (None: the default build): the
     wrappers' library loaders and the grids they cached are swapped, so
     no option reaches the port's entry points."""
     from rt_tpu_torch.ops import cuda_mega, cuda_queue
 
     loaders = ((cuda_queue, "_library"), (cuda_queue, "_adjoint_library"),
                (cuda_mega, "_library"), (cuda_mega, "_adjoint_library"),
-               (cuda_mega, "_regen_library"))
+               (cuda_mega, "_regen_library"),
+               (cuda_mega, "_capture_library"))
     saved = [getattr(mod, name) for mod, name in loaders]
 
     def clear():
@@ -944,21 +948,25 @@ def row_instructions(lib, kernel="queue_kernel<01000>"):
 
 def ab_times(root):
     """Times of the package imported from root (this tree or another
-    checkout of it), one JSON line: B2 / B3 / B5 / B6 at phases 11 / 13's
-    shape (cover_scene 1920x1080, depth 50, one trace call of sample 0
-    and its exact adjoint call) under rng without culling; B2 / B3 / B5 /
-    B6 with culling (the default) on cover, cover_lights with nee (depth
-    50), the mesh and the textured mesh (depth 16), as phase 50; B7's
+    checkout of it), one JSON line: B2 / B3 / B5 / B6 / B4 at phases 11 /
+    13 / 19's shape (cover_scene 1920x1080, depth 50, one trace call of
+    sample 0, its exact adjoint call, one capture) under rng without
+    culling; B2 / B3 / B5 / B6 / B4 with culling (the default) on cover,
+    cover_lights with nee (B4: its capture, which has no NEE; depth 50),
+    the mesh and the textured mesh (depth 16), as phase 50; B7's
     culled regen call (phase 27's) on cover at spp 16 and on the mesh at
     spp 4; B1 on phase 3's 1080p primary rays; mean ms over 5 calls (B1
     20, B7 3) after a warm-up. Then the bench-shape queue, mega and regen
     frames (spp 16, mean s of 3 after one), phase 4's hybrid frame (spp
     2, mean s of 2 after one), phase 14's mega replay step (bwd_depth 8,
-    mean s of 3 after one) and `render -f scenes/demo_scene.json` (s,
-    the second of two runs)."""
+    mean s of 3 after one), phase 20's tape step (make_tape_vg on the
+    all-fields workload, mean s of 3 after one, and its capture's ms) and
+    `render -f scenes/demo_scene.json` (s, the second of two runs)."""
     sys.path.insert(0, root)
+    from profile_torch import tape_workload
     from rt_tpu_torch import cli
     from rt_tpu_torch.diff.replay import make_replay_loss_fn
+    from rt_tpu_torch.diff.tape import make_tape_vg
     from rt_tpu_torch.ops import cuda_intersect, cuda_mega, cuda_queue
     from rt_tpu_torch.ops.camera import generate_rays
     from rt_tpu_torch.render.renderer import _block_order, render
@@ -986,6 +994,8 @@ def ab_times(root):
             ("mega_adjoint_segment", cuda_mega.mega_trace_adjoint, adj),
             ("queue_adjoint_launch", cuda_queue.queue_trace_adjoint, adj)):
         out[name] = cuda_ms(lambda: fn(*a), 5)[0]
+    out["mega_capture"] = cuda_ms(lambda: cuda_mega.mega_capture(*args),
+                                  5)[0]
     b1_args = (tables.sph_center, tables.sph_radius, tables.sph_obj >= 0,
                ro, rd)
     out["sphere_closest_hit"] = cuda_ms(
@@ -1008,6 +1018,8 @@ def ab_times(root):
             adm = am + (L, g, cb.max_depth, False)
             out[f"mega_adjoint_segment {label}"] = cuda_ms(
                 lambda: cuda_mega.mega_trace_adjoint(*adm), 5)[0]
+            out[f"mega_capture {label}"] = cuda_ms(
+                lambda: cuda_mega.mega_capture(*a), 5)[0]
             if label in ("cover", "mesh"):  # phases 27 and 31's B7 call
                 spp = MAIN_SPP if label == "cover" else 4
                 pix_b = torch.from_numpy(_block_order(W, H)[2]).to(dev)
@@ -1053,6 +1065,20 @@ def ab_times(root):
             torch.cuda.synchronize()
             secs.append(time.time() - t0)
         out["mega replay step s"] = float(np.mean(secs[1:]))
+        # phase 20's tape step: the capture (B4), then the replay
+        t_tp, c_tp, p_tp, tgt_tp = tape_workload(W, H, DEPTH, dev)
+        vg = make_tape_vg(t_tp, c_tp, px % W, px // W, tgt_tp)
+        secs, caps = [], []
+        for rep in range(4):
+            times = {}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            vg(p_tp, times=times)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            caps.append(times["capture_s"])
+        out["tape step s"] = float(np.mean(secs[1:]))
+        out["tape capture ms"] = 1e3 * float(np.mean(caps[1:]))
         with contextlib.chdir(tmp), \
                 contextlib.redirect_stdout(io.StringIO()):
             for rep in range(2):
@@ -1069,7 +1095,7 @@ def ab_times(root):
 # phase 50's timed calls, by wrapper, in the order of its times
 WARP_KERNELS = {"queue_launch": "B3", "queue_adjoint_launch": "B6",
                 "mega_segment": "B2", "mega_adjoint_segment": "B5",
-                "mega_regen": "B7 (spp 2)"}
+                "mega_regen": "B7 (spp 2)", "mega_capture": "B4"}
 
 
 def warp_scenes(tmpd, dev):
@@ -1177,9 +1203,9 @@ def main() -> int:
 
     dense_max = default_dense_max()
     dense_builds = DENSE_BUILDS + (list(DENSE_GRID) if DENSE_GRID_ON else [])
-    with phase(f"2 build (and B2 / B3 / B5 / B6 / B7 with kDenseMax "
-               f"{dense_builds}; the registers of B1-B4 and B6 held to the "
-               "parent's, B5 / B7's beside it)"):
+    with phase(f"2 build (and B2-B7 with kDenseMax {dense_builds}; the "
+               "registers of B1-B3 and B5-B7 held to the parent's, B4's "
+               "beside it)"):
         # one nvcc per library, all started together
         scratch = [(k, dense_defines(d)) for d in dense_builds
                    for k in DENSE_LIBS]
@@ -1221,11 +1247,11 @@ def main() -> int:
         held = [k for k in regs if k.split(":")[0] in HELD_LIBS]
         moved = {k: (old.get(k), regs[k]) for k in held
                  if old.get(k) != regs[k]}
-        print(f"  registers of B1-B4 and B6 against the parent's ({src}): "
+        print(f"  registers of B1-B3 and B5-B7 against the parent's ({src}): "
               f"{len(held)} instantiations, {len(moved)} moved {moved}",
               flush=True)
         if moved:
-            raise AssertionError("a kernel of B1-B4 or B6 changed its "
+            raise AssertionError("a kernel of B1-B3 or B5-B7 changed its "
                                  "registers")
         for lib in MOVED_LIBS:
             pairs = {k.split(":")[1]: (old.get(k), v) for k, v in
@@ -3739,14 +3765,14 @@ def main() -> int:
                 else f"kDenseMax {d}")
 
     warp = {"dense_max": dense_max, "ties": {}, "calls": {}}
-    with phase(f"50 B2 / B3 / B5 / B6 / B7's warp-cooperative hit in the "
+    with phase(f"50 B2-B7's warp-cooperative hit in the "
                f"default build (kDenseMax {dense_max}) and the scratch "
                f"builds with kDenseMax {dense_builds}: ties at "
                f"{SMALL_W}x{SMALL_H} (duplicated spheres in one chunk and "
                "across two, the grid mesh's shared edges); one call at "
                f"{W}x{H} on cover, cover_lights with nee, the mesh and the "
-               "textured mesh (B7 at spp 2), against the plain versions, "
-               "timed in turns"):
+               "textured mesh (B7 at spp 2; B4 with p_rr 0 and 0.9 on the "
+               "ties), against the plain versions, timed in turns"):
         from rt_tpu_torch.ops import mega_plain, mega_tables
         from rt_tpu_torch.scene.builders import mesh_scene
 
@@ -3785,6 +3811,9 @@ def main() -> int:
             regen = (tb, cb.replace(engine="mega"), px_, px_ // SMALL_W, 3,
                      2)
             want_r = cuda_mega.mega_trace_regen(*regen, plain=True)
+            cap = {p: (tb, cb.replace(p_rr=p), *args[2:]) for p in (0.0, 0.9)}
+            want_c = {p: cuda_mega.mega_capture(*a, plain=True)
+                      for p, a in cap.items()}
             for d in builds:
                 with dense_schedule(d):
                     for steps in (0, 3):
@@ -3825,18 +3854,27 @@ def main() -> int:
                           flush=True)
                     if n_bad:
                         raise AssertionError(f"{label}: B7 != plain")
+                    for p, a in cap.items():  # raises on a difference
+                        capture_mismatch(cuda_mega.mega_capture(*a),
+                                         want_c[p], f"{label}, "
+                                         f"{build_name(d)}, p_rr {p}: B4 "
+                                         "vs plain")
             warp["ties"][label] = dict(lanes=px_.numel(),
                                        duplicated_winners=dup)
 
         sass = row_instructions(libs[KERNELS.index("queue")])
         sass_b2 = row_instructions(libs[KERNELS.index("mega")],
                                    "mega_kernel<01000>")
+        sass_b4 = row_instructions(libs[KERNELS.index("capture")],
+                                   "capture_kernel<010>")
         print(f"  issued instructions (cuobjdump -sass) of the queue "
               f"library, queue_kernel<01000>: {sass}; of the mega library, "
-              f"mega_kernel<01000>: {sass_b2}; issue rate {issue_note}",
+              f"mega_kernel<01000>: {sass_b2}; of the capture library, "
+              f"capture_kernel<010>: {sass_b4}; issue rate {issue_note}",
               flush=True)
         warp["sass_instructions"] = sass
         warp["sass_instructions_b2"] = sass_b2
+        warp["sass_instructions_b4"] = sass_b4
         with tempfile.TemporaryDirectory() as wtmp:
             for label, tb, cb in warp_scenes(wtmp, dev):
                 px_ = torch.arange(W * H, device=dev)
@@ -3857,7 +3895,8 @@ def main() -> int:
                             / issue_rate
                     return None
 
-                issue_ms, issue_b2_ms = issue_of(sass), issue_of(sass_b2)
+                issue_ms, issue_b2_ms, issue_b4_ms = (
+                    issue_of(sass), issue_of(sass_b2), issue_of(sass_b4))
                 am = (tb, cb.replace(compact_schedule=c16.compact_schedule,
                                      compact_group=c16.compact_group),
                       *args[2:])
@@ -3871,6 +3910,7 @@ def main() -> int:
                 regen = (tb, am[1].replace(engine="mega"), px_, px_ // W, 0,
                          2)
                 want_r = cuda_mega.mega_trace_regen(*regen, plain=True)
+                want_c = cuda_mega.mega_capture(*args, plain=True)
                 timed = {  # WARP_KERNELS' calls
                     "queue_launch": lambda: cuda_queue.queue_trace(*args),
                     "queue_adjoint_launch":
@@ -3878,7 +3918,8 @@ def main() -> int:
                     "mega_segment": lambda: cuda_mega.mega_trace(*am),
                     "mega_adjoint_segment":
                         lambda: cuda_mega.mega_trace_adjoint(*adm),
-                    "mega_regen": lambda: cuda_mega.mega_trace_regen(*regen)}
+                    "mega_regen": lambda: cuda_mega.mega_trace_regen(*regen),
+                    "mega_capture": lambda: cuda_mega.mega_capture(*args)}
                 times = {d: {k: [] for k in WARP_KERNELS} for d in builds}
                 for i, d in enumerate(builds + builds[::-1]):
                     with dense_schedule(d):
@@ -3906,12 +3947,16 @@ def main() -> int:
                                     want_r):
                                 raise AssertionError(
                                     f"{label}, {build_name(d)}: B7 != plain")
+                            capture_mismatch(cuda_mega.mega_capture(*args),
+                                             want_c, f"{label}, "
+                                             f"{build_name(d)}: B4 vs plain")
                         for k, fn in timed.items():
                             times[d][k].append(cuda_ms(fn, 3)[0])
                 rec = warp["calls"][label] = dict(
                     ray_bounces=st["ray_bounces"], rows_tested=pairs,
                     bound_ms=b_ms, bound_by=b_by, issue_bound_ms=issue_ms,
                     issue_bound_b2_ms=issue_b2_ms,
+                    issue_bound_b4_ms=issue_b4_ms,
                     warp_need={"sphere": need[0], "triangle": need[3]},
                     **{k: {} for k in WARP_KERNELS})
                 for d in builds:  # the default build (None) first
@@ -3928,7 +3973,8 @@ def main() -> int:
                 print(f"  {label}: {st['ray_bounces']} ray-bounces, (lane, "
                       f"row) pairs tested {pairs}, FP32 bound {b_ms:.4f} ms "
                       f"({b_by}), issue bound of the pairs {issue_ms} ms "
-                      f"(B3's SASS), {issue_b2_ms} ms (B2's); "
+                      f"(B3's SASS), {issue_b2_ms} ms (B2's), {issue_b4_ms} "
+                      f"ms (B4's); "
                       f"the plain queue's 32-lane groups: lanes needing a "
                       f"chunk the group visits, per lane of 32 {eff}",
                       flush=True)
@@ -3978,6 +4024,8 @@ def main() -> int:
                 "mega frame s": "mega_segment",
                 "regen frame s": "mega_regen",
                 "mega replay step s": "mega_adjoint_segment",
+                "tape step s": "mega_capture",
+                "tape capture ms": "mega_capture",
                 "hybrid frame s": "sphere_closest_hit"}
 
     def parent_entry(name):
@@ -3988,18 +4036,19 @@ def main() -> int:
                 or frame_of.get(k) == name}
 
     def warp_entry(name):
-        """The warp-cooperative hit's numbers for B2's / B3's / B6's entry
-        in the kernels line: phase 50's ties, calls (this kernel's time
+        """The warp-cooperative hit's numbers for a B2-B7 entry in the
+        kernels line: phase 50's ties, calls (this kernel's time
         per build) and SASS counts, and phase 48's A/B against
         --parent."""
         calls = {lab: {**{k: v for k, v in rec.items()
                           if k not in WARP_KERNELS},
                        "ms": rec[name]}
                  for lab, rec in warp["calls"].items()}
+        sass_key = {"mega_segment": "sass_instructions_b2",
+                    "mega_capture": "sass_instructions_b4"}.get(
+                        name, "sass_instructions")
         return {"dense_max": dense_max, "ties": warp["ties"],
-                "sass_instructions": warp["sass_instructions_b2" if name ==
-                                          "mega_segment" else
-                                          "sass_instructions"],
+                "sass_instructions": warp[sass_key],
                 "calls": calls, "cover_frames_s": warp["frames"],
                 "parent_ab": parent_entry(name)}
 
@@ -4151,6 +4200,7 @@ def main() -> int:
         "img": img_entry("mega_capture", train_key="tape",
                          fit_key="fit_tape"),
         "qmc_cull": {"culled_codes_off_unculled_and_ties": ties_seen},
+        "warp_hit": warp_entry("mega_capture"),
     }, {
         "name": "mega_regen",
         "route": "cuda",
@@ -4177,18 +4227,19 @@ if __name__ == "__main__":
     ap.add_argument("--parent", default=None,
                     help="another checkout of the port: phase 2 compares "
                          "registers, phase 3 its B1 lane for lane and "
-                         "phase 48 times its B1-B3, B5-B7, the replay step "
-                         "and frames beside this tree's")
+                         "phase 48 times its B1-B7, the replay and tape "
+                         "steps and frames beside this tree's")
     ap.add_argument("--ab-times", default=None, metavar="ROOT",
-                    help="only time B1-B3, B5-B7, the replay step and frames "
-                         "(phase 48's helper) with the package of ROOT")
+                    help="only time B1-B7, the replay and tape steps and "
+                         "frames (phase 48's helper) with the package of "
+                         "ROOT")
     ap.add_argument("--b1-hits", nargs=2, default=None,
                     metavar=("ROOT", "PATH"),
                     help="only run B1 of the package of ROOT on the rays "
                          "saved in PATH (phase 3's helper)")
     ap.add_argument("--dense-grid", action="store_true",
-                    help=f"phase 50 also builds and times B2 / B3 / B5 / "
-                         f"B6 / B7 with kDenseMax {DENSE_GRID}")
+                    help=f"phase 50 also builds and times B2-B7 with "
+                         f"kDenseMax {DENSE_GRID}")
     opts = ap.parse_args()
     DENSE_GRID_ON = opts.dense_grid
     if opts.ab_times or opts.b1_hits:

@@ -5,7 +5,8 @@ device time.
     python3 profile_torch.py [--width 1920] [--height 1080] [--spp 1]
                              [--depth 50] [--engine queue] [--top 25]
                              [--train [--bwd-depth 8] |
-                              --tape [--gather index_select|index] |
+                              --tape [--lights]
+                                     [--gather index_select|index] |
                               --regen [--regen-compact 0]]
 
 Renders cover_scene once untimed (build, warm-up), then once under
@@ -16,7 +17,9 @@ at --bwd-depth, 0 = exact), the reference's training step
 (scripts/bench_grad_queue_r5.py); with --tape, one step of the winner
 tape (diff/tape.make_tape_vg: the capture kernel B4, then the
 death-sorted replay under autograd) on the reference's all-fields
-workload (scripts/bench_tape_r3.py, `tape_workload`); --gather index
+workload (scripts/bench_tape_r3.py, `tape_workload`; --lights: on
+cover_scene(lights=True) with the rect and cylinder fields added);
+--gather index
 runs that step with the parameter tables indexed per lane by `table[row]`
 in place of ops/geometry.take_rows (index_select), the A/B of their
 backward passes. --regen renders with engine "mega" and regen=True
@@ -25,7 +28,8 @@ segmented by --regen-compact). It prints: wall
 seconds, the summed
 device time of all kernels and its share of the wall time (the rest is
 the device waiting on the host), the ops and kernels by device time,
-and one JSON line with the totals. Engines "queue" and "mega" render at
+with --tape the capture kernel's device time and share of the wall, and
+one JSON line with the totals. Engines "queue" and "mega" render at
 the bench.py shape's settings (one launch of up to 1<<25 rays, the
 compaction schedule 2,3,5,10 in groups of 16). Needs a CUDA GPU;
 imports no JAX.
@@ -101,6 +105,8 @@ def main() -> int:
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--bwd-depth", type=int, default=8)
     ap.add_argument("--tape", action="store_true")
+    ap.add_argument("--lights", action="store_true",
+                    help="--tape on cover_scene(lights=True)")
     ap.add_argument("--gather", default="index_select",
                     choices=["index_select", "index"])
     ap.add_argument("--regen", action="store_true")
@@ -137,7 +143,8 @@ def main() -> int:
             geometry.take_rows = lambda table, idx: table[idx]
 
         tables, cfg, params, tgt = tape_workload(args.width, args.height,
-                                                 args.depth, "cuda")
+                                                 args.depth, "cuda",
+                                                 lights=args.lights)
         pix = torch.arange(args.width * args.height, device="cuda")
         vg = make_tape_vg(tables, cfg, pix % args.width, pix // args.width,
                           tgt)
@@ -178,7 +185,8 @@ def main() -> int:
     device_us = sum(_device_us(e) for e in rows if e.device_type == cuda)
     ops = [e for e in rows if e.device_type != cuda and _device_us(e) > 0]
     kernels = [e for e in rows if e.device_type == cuda]
-    what = (f"tape step (gather {args.gather})" if args.tape else
+    what = (f"tape step (gather {args.gather}"
+            f"{', lights' if args.lights else ''})" if args.tape else
             f"training step (bwd_depth {args.bwd_depth or 'exact'})"
             if args.train else
             f"regen render (regen_compact {args.regen_compact})"
@@ -194,11 +202,18 @@ def main() -> int:
             us = _device_us(e)
             print(f"{e.key[:48]:<48} {us / 1e3:>10.3f} "
                   f"{us / device_us:>7.1%} {e.count:>7}")
+    # the tape's capture kernel B4, by name, and its share of the wall
+    b4_us = sum(_device_us(e) for e in kernels if "capture_kernel" in e.key)
+    if args.tape:
+        print(f"capture_kernel (B4): {b4_us / 1e3:.3f} ms device, "
+              f"{b4_us / 1e6 / wall:.2%} of wall")
     print(json.dumps({"card": card, "engine": args.engine,
                       "train": args.train, "tape": args.tape,
+                      "lights": args.tape and args.lights,
                       "gather": args.gather, "regen": args.regen,
                       "wall_s": wall,
-                      "device_busy_s": device_us / 1e6, **stats}))
+                      "device_busy_s": device_us / 1e6,
+                      "capture_kernel_s": b4_us / 1e6, **stats}))
     return 0
 
 

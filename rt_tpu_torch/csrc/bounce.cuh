@@ -69,12 +69,11 @@
 // a tile of 2048 lanes (a chunk is skipped when no live lane of the
 // tile needs it); here each lane takes it for itself, and its plain twin
 // (mega_plain._culled_best) takes the same decision in the same order,
-// so kernel and plain agree on every lane. The queue kernels, the
-// megakernel, its adjoint and the regeneration kernel (kWarp: B2, B3,
-// B5, B6, B7; the tape capture B4 keeps the per-lane loop) test a
-// chunk that few lanes need with the whole warp, one needing ray at a
-// time (warp_hit); the decisions and
-// winners stay each lane's. A sorted row names its SceneTables row through
+// so kernel and plain agree on every lane. Every kernel that runs
+// do_bounce (B2-B7: the queue kernels, the megakernel, its adjoint, the
+// tape capture and the regeneration kernel) tests a chunk that few lanes
+// need with the whole warp, one needing ray at a time (warp_hit); the
+// decisions and winners stay each lane's. A sorted row names its SceneTables row through
 // Scene::sph_rows / tri_rows, which B4's tape codes and MIS's emitter
 // match use (scene_row). Culling is a runtime flag of the scene,
 // uniform over a launch, not a template parameter: its branch left the
@@ -1095,7 +1094,7 @@ __device__ __forceinline__ float att_cot(float g, float Lk, float c,
   return att != 0.0f ? g * (Lk - c) / att : 0.0f;
 }
 
-// ---- the warp-cooperative closest hit (kWarp: B2, B3, B5, B6, B7) ----
+// ---- the warp-cooperative closest hit (B2-B7) ----
 //
 // Under culling a lane skips the chunks its ray misses, but a warp runs
 // the union of its lanes' chunks: 32 rows in turn, with the lanes that
@@ -1160,7 +1159,7 @@ __device__ __forceinline__ unsigned chunk_rows(int c, int end) {
   return end - c >= 32 ? kFull : (1u << (end - c)) - 1u;
 }
 
-// The closest hit of do_bounce<..., kWarp> (see above): every lane of
+// The closest hit of do_bounce (see above): every lane of
 // the warp calls it, `active` those with a ray; the others help. It folds
 // each family into (t_best, fam_best, id_best) in do_bounce's order and
 // with its `<=` rule: the sorted spheres chunk by chunk (densely when at
@@ -1266,7 +1265,9 @@ __device__ __forceinline__ void warp_hit(
 
 // Advance a live lane (alive > 0) one bounce at RNG coordinate `pre`
 // (rng.cuh Draw of seed, pixel, sample, bounce under the scene's
-// sampler). A lane that does
+// sampler). Every lane of the warp calls it together (warp_hit), those
+// with a lane to advance with `active`; the others only help with the
+// hit and leave L as it is. A lane that does
 // not scatter leaves with alive = 0. kAdjoint also adds the bounce's
 // cotangents to adj's accumulators (see ops/adjoint_plain.py); the lane
 // advances exactly as in the forward. kTail (a table of more than
@@ -1279,8 +1280,10 @@ __device__ __forceinline__ void warp_hit(
 // -1 on a miss: it runs the hit pass
 // before it applies the roulette, so that a lane the roulette stops
 // still records this bounce's winner, as the reference's kernel does
-// (it evaluates the hit on every lane). Without kCapture the roulette
-// returns first and the code is as it was before the flag. kFamilies
+// (it evaluates the hit on every lane): such a lane enters warp_hit as
+// an active lane with its own chunk decisions, writes its code and only
+// then stops. Without kCapture a lane that the roulette stops leaves the
+// hit to the others. kFamilies
 // (a scene with rect, cylinder or triangle rows, has_families) compiles
 // their hit loops after the spheres' and the winner's reads from its
 // family's table, its gradient slot from column kFSlot (a sphere's is
@@ -1303,25 +1306,19 @@ __device__ __forceinline__ void warp_hit(
 // then keyed on kQmcTag.
 template <bool kAdjoint, bool kTail, bool kCapture = false,
           bool kFamilies = false, bool kNee = false, bool kImages = false,
-          bool kQmc = false, bool kWarp = false>
+          bool kQmc = false>
 __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
                                           const Draw& pre, const Adj& adj,
-                                          int* code = nullptr,
-                                          bool active = true) {
+                                          int* code, bool active) {
+  // every lane of the warp is here; those without a ray to advance only
+  // help with the hit and leave L as it is
   bool rr_stop = false;
-  if constexpr (kWarp) {
-    // every lane of the warp is here; those without a ray to advance
-    // only help with the hit and leave L as it is
-    if (active && s.p_rr > 0.0f && !(uniform<kQmc>(pre, kRR) <= s.p_rr)) {
-      L.alive = 0.0f;  // roulette: the lane stops and adds nothing
-      active = false;
-    }
-  } else if (s.p_rr > 0.0f && !(uniform<kQmc>(pre, kRR) <= s.p_rr)) {
+  if (active && s.p_rr > 0.0f && !(uniform<kQmc>(pre, kRR) <= s.p_rr)) {
     if constexpr (!kCapture) {
       L.alive = 0.0f;  // roulette: the lane stops and adds nothing
-      return;
+      active = false;
     } else {
-      rr_stop = true;
+      rr_stop = true;  // it still takes its part in the hit, below
     }
   }
   const float ox = L.ox, oy = L.oy, oz = L.oz;
@@ -1368,29 +1365,10 @@ __device__ __forceinline__ void do_bounce(const SceneOf<kImages>& s, Lane& L,
                    dy, dz, s.t_min),
            kFamTri, j, t_best, fam_best, id_best);
   };
-  if constexpr (kWarp) {
-    warp_hit<kTail, kFamilies>(s, active, spheres, rects_cyls, tris, ox, oy,
-                               oz, dx, dy, dz, a, rd_dot_ro, ro_sq, inv_a,
-                               t_best, fam_best, id_best);
-    if (!active) return;
-  } else if (s.sbnd) {  // chunk by chunk, each against the closest hit so far
-    for (int c = 0; c < s.n; c += kChunk)
-      if (box_visible(s.sbnd + (c / kChunk) * kBoxCols, ox, oy, oz, dx, dy,
-                      dz, s.t_min, t_best))
-        spheres(c, c + kChunk < s.n ? c + kChunk : s.n);
-  } else {
-    spheres(0, s.n);
-  }
-
-  if constexpr (kFamilies && !kWarp) {
-    rects_cyls();
-    for (int c = 0; c < s.n_tri; c += kChunk) {
-      if (s.tbnd && !box_visible(s.tbnd + (c / kChunk) * kBoxCols, ox, oy,
-                                 oz, dx, dy, dz, s.t_min, t_best))
-        continue;
-      tris(c, c + kChunk < s.n_tri ? c + kChunk : s.n_tri);
-    }
-  }
+  warp_hit<kTail, kFamilies>(s, active, spheres, rects_cyls, tris, ox, oy,
+                             oz, dx, dy, dz, a, rd_dot_ro, ro_sq, inv_a,
+                             t_best, fam_best, id_best);
+  if (!active) return;
 
   if constexpr (kCapture) {
     *code = t_best < CUDART_INF_F

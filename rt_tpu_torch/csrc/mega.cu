@@ -30,8 +30,8 @@
 // triangle rows are read through the read-only cache (kFamilies, only
 // for scenes that have them). With culling the rows are Morton-sorted
 // and each lane skips the chunks its ray misses (bounce.cuh). The hit
-// is the queue kernels' warp-cooperative one (do_bounce<..., kWarp>,
-// bounce.cuh warp_hit): a chunk that at most kDenseMax lanes of a warp
+// is the queue kernels' warp-cooperative one (do_bounce, bounce.cuh
+// warp_hit): a chunk that at most kDenseMax lanes of a warp
 // need is tested by the whole warp, one needing ray at a time, each
 // thread against its own row, with the per-lane loop's bits. So every
 // thread of a warp enters every bounce's hit: a thread past n, or whose
@@ -83,8 +83,7 @@ mega_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
   for (;;) {
     const bool go = mine && b < max_depth && L.alive > 0.0f;
     if (!__any_sync(rtt::kFull, go)) break;
-    rtt::do_bounce<false, kTail, false, kFamilies, kNee, kImages, kQmc,
-                   true>(
+    rtt::do_bounce<false, kTail, false, kFamilies, kNee, kImages, kQmc>(
         scene, L,
         rtt::draw_at(lane_key, smp, static_cast<uint32_t>(start_bounce + b)),
         rtt::Adj{}, nullptr, go);

@@ -32,7 +32,7 @@
 // Design: one thread per lane and mega.cu's warp loop, with the family
 // rows read through the read-only cache (kFamilies). A warp loops while
 // any of its lanes has a bounce to go, and every thread of it enters
-// each bounce, do_bounce<true, ..., kWarp>, whose closest hit is
+// each bounce, do_bounce<true, ...>, whose closest hit is
 // warp-cooperative (bounce.cuh warp_hit, as in B6): a culled chunk that
 // at most kDenseMax lanes need is tested by the whole warp, one needing
 // ray at a time. A thread past n, or whose lane is dead on entry, or
@@ -101,8 +101,7 @@ mega_adjoint_kernel(rtt::SceneOf<kImages> scene, float* __restrict__ state,
   for (;;) {
     const bool go = mine && b < max_depth && L.alive > 0.0f;
     if (!__any_sync(rtt::kFull, go)) break;
-    rtt::do_bounce<true, kTail, false, kFamilies, kNee, kImages, kQmc,
-                   true>(
+    rtt::do_bounce<true, kTail, false, kFamilies, kNee, kImages, kQmc>(
         scene, L,
         rtt::draw_at(lane_key, smp, static_cast<uint32_t>(start_bounce + b)),
         adj, nullptr, go);

@@ -111,7 +111,7 @@ __device__ __forceinline__ void queue_loop(
     // closest hit is warp-cooperative, bounce.cuh warp_hit); a lane
     // with a live ray below max_depth advances, the others help ----
     const bool go = slot >= 0 && bounce < max_depth && L.alive > 0.0f;
-    do_bounce<kAdjoint, kTail, false, kFamilies, kNee, kImages, kQmc, true>(
+    do_bounce<kAdjoint, kTail, false, kFamilies, kNee, kImages, kQmc>(
         scene, L,
         draw_at(lane_key, static_cast<uint32_t>(smp),
                 static_cast<uint32_t>(bounce)),

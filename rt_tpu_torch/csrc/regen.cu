@@ -34,7 +34,7 @@
 //
 // Design: one thread per lane; the block stages the table's hit columns
 // in shared memory (bounce.cuh) and the warp runs mega.cu's loop around
-// its bounce, do_bounce<false, kTail, false, kFamilies, ..., kWarp>,
+// its bounce, do_bounce<false, kTail, false, kFamilies, ...>,
 // with the camera ray made in registers. Each iteration every thread of
 // the warp computes whether its lane is pending, the warp leaves when
 // none is (__any_sync), the pending lanes take steps (1) and (2) each
@@ -125,8 +125,7 @@ regen_kernel(rtt::SceneOf<kImages> scene, rtt::Camera cam,
     }
     // (3) one bounce: every thread of the warp enters it
     const bool go = pending && L.alive > 0.0f;
-    rtt::do_bounce<false, kTail, false, kFamilies, false, kImages, kQmc,
-                   true>(
+    rtt::do_bounce<false, kTail, false, kFamilies, false, kImages, kQmc>(
         scene, L,
         rtt::draw_at(rtt::lane_key(scene.seed, pix,
                                    static_cast<uint32_t>(sm), kQmc),

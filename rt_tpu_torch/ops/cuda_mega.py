@@ -218,8 +218,8 @@ def _library(defines: tuple = ()):
 
 
 def check_threads(threads):
-    """The warp-cooperative hit of B2, B5 and B7 wants every lane of a
-    warp in every bounce: a block of whole warps."""
+    """The warp-cooperative hit of B2, B4, B5 and B7 wants every lane of
+    a warp in every bounce: a block of whole warps."""
     if int(threads) <= 0 or int(threads) % mp.WARP:
         raise ValueError(f"threads = {threads}, want a multiple of "
                          f"{mp.WARP}")
@@ -691,8 +691,9 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
 
 
 @functools.lru_cache(maxsize=None)
-def _capture_library():
-    lib = cuda_build.load("capture")
+def _capture_library(defines: tuple = ()):
+    """csrc/capture.cu's library (`defines` as _library's)."""
+    lib = cuda_build.load("capture", defines)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.capture_launch.argtypes = [
         vp, ci,                       # table, rows
@@ -719,7 +720,8 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
     is taken, as the reference does).
 
     CUDA tensors launch kernel B4 (csrc/capture.cu) once and raise if it
-    cannot; CPU tensors, or plain=True, run mega_plain.capture_plain.
+    cannot (threads: whole warps, see check_threads); CPU tensors, or
+    plain=True, run mega_plain.capture_plain.
     Every family's table must hold fewer than MAX_CODE_ROWS rows, the
     rows a code holds. Pre-condition: mega_tables.mega_supported(tables)."""
     dev = ro.device
@@ -742,6 +744,7 @@ def mega_capture(tables, cfg, ro, rd, pixel, sample_idx, seed, *,
                                 **kw)
     if dev.type != "cuda":
         raise ValueError(f"mega_capture: unsupported device {dev}")
+    check_threads(threads)
     check_table(tab, dev)
     fam_args = family_args(kw["fam"], dev)
     cull_args = sort_args(kw["qmc"], kw["cull"], tab, kw["fam"], dev)

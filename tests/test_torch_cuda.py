@@ -5,6 +5,7 @@ The file imports no JAX (run it without the JAX-importing conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import functools
 import os
 
 import numpy as np
@@ -1488,8 +1489,11 @@ def test_warp_hit_on_ties_matches_plain(name, dense_max):
     (always dense): B3 bit for bit against its plain version at
     queue_steps 0 and 3, B6 within 1e-5 + 1e-3 max|g| of the plain adjoint
     and of B5 (the default build's); in the same build B5 (mega_adjoint.cu)
-    within that of the plain adjoint and of B6, and B7's regen render
-    (regen.cu, spp 2) bit for bit against its plain version."""
+    within that of the plain adjoint and of B6, B7's regen render
+    (regen.cu, spp 2) bit for bit against its plain version, and B4's
+    codes and deaths (capture.cu) bit for bit against capture_plain with
+    p_rr 0 and 0.9 (a lane the roulette stops still records its
+    winner)."""
     from rt_tpu_torch.ops import camera, cuda_mega, cuda_queue
 
     dev = _card()
@@ -1511,6 +1515,9 @@ def test_warp_hit_on_ties_matches_plain(name, dense_max):
     g_b5 = cuda_mega.mega_trace_adjoint(*adj)
     regen = (tt, cfg.replace(engine="mega"), px, px // 192, 3, 2)
     want_r = cuda_mega.mega_trace_regen(*regen, plain=True)
+    cap_cfgs = [cfg.replace(p_rr=p) for p in (0.0, 0.9)]
+    want_c = [cuda_mega.mega_capture(tt, c, ro, rd, px, 0, 0, plain=True)
+              for c in cap_cfgs]
     with smoke.dense_schedule(dense_max):
         for steps in (0, 3):
             before = cuda_queue.queue_launch.launches
@@ -1526,6 +1533,21 @@ def test_warp_hit_on_ties_matches_plain(name, dense_max):
         got_r = cuda_mega.mega_trace_regen(*regen)
         torch.cuda.synchronize()
         assert cuda_mega.mega_regen.launches > before
+        got_c = []
+        for c in cap_cfgs:
+            before = cuda_mega.mega_capture.launches
+            got_c.append(cuda_mega.mega_capture(tt, c, ro, rd, px, 0, 0))
+            assert cuda_mega.mega_capture.launches == before + 1
+    for (codes, death), (p_codes, p_death), c in zip(got_c, want_c,
+                                                     cap_cfgs):
+        assert torch.equal(codes, p_codes), c.p_rr
+        assert torch.equal(death, p_death), c.p_rr
+    # the roulette stops lanes on a hit, whose code they record
+    def died_on_a_hit(codes, death):
+        at = codes.gather(0, death.long().clamp(max=codes.shape[0] - 1)[None])
+        return int(((death < codes.shape[0]) & (at[0] >= 0)).sum())
+
+    assert died_on_a_hit(*want_c[1]) > died_on_a_hit(*want_c[0])
     _grads_close(g_plain, g6)
     _grads_close(g_b5, g6)
     _grads_close(g_plain, g5)
@@ -1698,6 +1720,44 @@ def test_regen_ragged_lanes_match_plain(tmp_path, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tail", "families", "qmc"])
+def test_capture_ragged_lanes_match_plain(tmp_path, case):
+    """B4's warp loop (capture.cu: every thread of a warp stays in it; a
+    thread past n only helps, a lane the roulette stops records its
+    winner first) in its kTail (3,000 rows), kFamilies (the mesh,
+    culled) and kQmc (cover, culled, p_rr 0.9) instantiations: 1,000
+    lanes of 1,024 at 256 threads, sample 4, depth 6, codes and deaths
+    bit for bit against capture_plain, and the deaths against B2's
+    bounce counts on the same rays (death + 1 for a lane that ends
+    early)."""
+    from rt_tpu_torch.ops import camera, cuda_mega, mega_plain
+
+    dev = _card()
+    w, h = 40, 25
+    tt, cfg = _ragged_scene(dev, case, w, h, tmp_path)
+    px = torch.arange(w * h, device=dev)
+    ro, rd = camera.generate_rays(tt.camera, w, h, px % w, px // w, 4, 0,
+                                  cfg.enable_defocus, cfg.sampler)
+    before = cuda_mega.mega_capture.launches
+    codes, death = cuda_mega.mega_capture(tt, cfg, ro, rd, px, 4, 0,
+                                          threads=256)
+    torch.cuda.synchronize()
+    assert cuda_mega.mega_capture.launches == before + 1
+    p_codes, p_death = cuda_mega.mega_capture(tt, cfg, ro, rd, px, 4, 0,
+                                              plain=True)
+    assert torch.equal(codes, p_codes)
+    assert torch.equal(death, p_death)
+    assert bool((death < cfg.max_depth).any())
+    ran = torch.zeros(w * h, dtype=torch.int32, device=dev)
+    cuda_mega.mega_segment(mega_tables.scene_for(tt, cfg).table,
+                           mega_plain.fresh_state(ro, rd),
+                           px.to(torch.int32), 4, 0, 0, cfg.max_depth,
+                           depth=ran, **mega_plain.trace_options(tt, cfg))
+    assert torch.equal(ran, torch.where(death < cfg.max_depth, death + 1,
+                                        death))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["tail", "families", "nee", "images",
                                   "qmc"])
 def test_mega_adjoint_ragged_lanes_match_plain(tmp_path, case):
@@ -1768,12 +1828,12 @@ def test_mega_adjoint_ragged_lanes_match_plain(tmp_path, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["regen", "adjoint"])
+@pytest.mark.parametrize("kernel", ["regen", "adjoint", "capture"])
 def test_regen_and_adjoint_refuse_threads_off_the_warp(kernel):
-    """B7 and B5 run the warp-cooperative hit too: mega_regen and
-    mega_adjoint_segment refuse threads=48 before the launch; 64
-    launches and matches the plain version (B7 bit for bit, B5 within
-    1e-5 + 1e-3 max|g|)."""
+    """B7, B5 and B4 run the warp-cooperative hit too: mega_regen,
+    mega_adjoint_segment and mega_capture refuse threads=48 before the
+    launch; 64 launches and matches the plain version (B7 and B4 bit for
+    bit, B5 within 1e-5 + 1e-3 max|g|)."""
     from rt_tpu_torch.ops import adjoint_plain, cuda_mega, mega_plain
 
     dev = _card()
@@ -1793,7 +1853,7 @@ def test_regen_and_adjoint_refuse_threads_off_the_warp(kernel):
             return out
 
         fn, plain = cuda_mega.mega_regen, mega_plain.regen_plain
-    else:
+    elif kernel == "adjoint":
         tt, cfg, ro, rd, pix, L, g = _adj_sample(dev, 16, 8, 4)
         ms = mega_tables.scene_for(tt, cfg)
         kw0 = mega_plain.trace_options(tt, cfg)
@@ -1807,6 +1867,16 @@ def test_regen_and_adjoint_refuse_threads_off_the_warp(kernel):
             return adjoint_plain.split_grads(grad, ms, kw0["grad_bg"], None)
 
         fn, plain = cuda_mega.mega_adjoint_segment, None
+    else:
+        tt, cfg = _regen_scene(dev, 16, 8, 1, 4, p_rr=0.9)
+        ro, rd = (x.to(dev) for x in _rays(100, seed=11))
+        pix = torch.arange(100, device=dev)
+
+        def run(fn, **kw):
+            return fn(tt, cfg, ro, rd, pix, 0, 0, **kw)
+
+        fn = cuda_mega.mega_capture
+        plain = functools.partial(fn, plain=True)
     before = fn.launches
     with pytest.raises(ValueError, match="multiple of 32"):
         run(fn, threads=48)

@@ -1,8 +1,8 @@
-"""The warp-cooperative closest hit of the queue kernels B3 / B6
-(csrc/bounce.cuh `warp_hit`, `warp_last_min`), emulated step by step in
-numpy on one warp of 32 lanes, against the sequential `<=` loop the
-per-lane kernels run and against the plain version's chunk fold
-(ops/mega_plain `_last_argmin` + `_take`).
+"""The warp-cooperative closest hit of the kernels B2-B7
+(csrc/bounce.cuh `warp_hit`, `warp_last_min`) and the warp loops around
+it, emulated step by step in numpy on one warp of 32 lanes, against the
+sequential `<=` loop of one lane at a time and against the plain
+version's chunk fold (ops/mega_plain `_last_argmin` + `_take`).
 
 The emulation does what the kernel does per chunk c, in ascending order:
 each lane with a ray decides whether it needs the chunk against its own
@@ -269,6 +269,167 @@ def test_mega_loop_with_lanes_dropping_out(n_lanes, dense_max):
         went = b > 0
         np.testing.assert_array_equal(b[went],
                                       np.minimum(life[went], 6))
+
+
+UNSET = -7          # an element of B4's codes no thread has written
+
+
+def capture_case(seed, max_depth, all_stop_at):
+    """B4's per-(bounce, lane) data on one warp: each bounce's (t, entry)
+    from make_case (lane l's ray at bounce b; every fifth (bounce, lane)
+    misses every row), the roulette's stops per (bounce, lane) (every
+    lane at bounce all_stop_at, unless None), each row's family and its
+    SceneTables row (scene_row of a Morton-sorted row)."""
+    rs = np.random.default_rng(seed)
+    cases = []
+    for b in range(max_depth):
+        t, entry, _ = make_case("ties_in_chunk", WARP, seed * 100 + b)
+        t[rs.random(WARP) < 0.2] = np.inf
+        cases.append((t, entry))
+    stop = rs.random((max_depth, WARP)) < 0.25
+    if all_stop_at is not None:
+        stop[all_stop_at] = True
+    n = cases[0][0].shape[1]
+    return cases, stop, rs.integers(0, 4, n), rs.permutation(n)
+
+
+def tape_code(t, row, fam, scene_row):
+    """kCapture's code of a winner: `family << 24 | SceneTables row`, -1
+    on a miss."""
+    return int(fam[row] << 24 | scene_row[row]) if np.isfinite(t) else -1
+
+
+def capture_loop(n_lanes, dense_max, data, max_depth):
+    """B4's loop in capture.cu on one warp, iteration by iteration: n_lanes
+    of the 32 threads hold a lane; iteration b is bounce b of every lane
+    that goes (alive), left when none does (__any_sync); every thread
+    enters the bounce's warp_fold, the lanes that go active, a lane that
+    the roulette stops among them (it records this bounce's winner, then
+    dies); a miss kills the lane. Each thread with a lane stores row b
+    (its code, -1 once dead) in iteration b, then the rows [b,
+    max_depth) with -1. Returns (codes [max_depth, 32], UNSET where no
+    thread stored; death [32]; the stores as (row, lanes) in issue
+    order)."""
+    cases, stop, fam, scene_row = data
+    mine = np.arange(WARP) < n_lanes
+    alive = mine.copy()
+    codes = np.full((max_depth, WARP), UNSET, np.int64)
+    death = np.full(WARP, UNSET, np.int64)
+    after = np.zeros(WARP, np.int64)
+    stores = []
+    b = 0
+    while b < max_depth:
+        go = alive.copy()
+        if not go.any():                                # __any_sync
+            break
+        t, entry = cases[b]
+        want_t, want_r = sequential(t, entry, go)
+        got_t, got_r, _ = warp_fold(t, entry, go, dense_max)
+        np.testing.assert_array_equal(got_t[go].view(np.uint32),
+                                      want_t[go].view(np.uint32))
+        np.testing.assert_array_equal(got_r[go], want_r[go])
+        code = np.full(WARP, -1, np.int64)
+        for l in np.flatnonzero(go):
+            code[l] = tape_code(got_t[l], got_r[l], fam, scene_row)
+        codes[b, mine] = code[mine]                     # every lane, row b
+        stores.append((b, mine.copy()))
+        alive = go & (code >= 0) & ~stop[b]
+        after += alive
+        b += 1
+    for r in range(b, max_depth):                       # the rows after
+        codes[r, mine] = -1
+        stores.append((r, mine.copy()))
+    death[mine] = after[mine]
+    return codes, death, stores
+
+
+def capture_sequential(n_lanes, data, max_depth):
+    """The per-lane loop B4 ran before its warp loop: each lane alone,
+    bounce by bounce while alive, its code stored at its bounce, then -1
+    for each bounce after its death."""
+    cases, stop, fam, scene_row = data
+    codes = np.full((max_depth, WARP), UNSET, np.int64)
+    death = np.full(WARP, UNSET, np.int64)
+    for l in range(n_lanes):
+        one = np.arange(WARP) == l
+        b, after, alive = 0, 0, True
+        while b < max_depth and alive:
+            t, entry = cases[b]
+            bt, br = sequential(t, entry, one)
+            codes[b, l] = tape_code(bt[l], br[l], fam, scene_row)
+            alive = codes[b, l] >= 0 and not stop[b, l]
+            after += alive
+            b += 1
+        codes[b:, l] = -1
+        death[l] = after
+    return codes, death
+
+
+def capture_plain_run(n_lanes, data, max_depth, monkeypatch):
+    """ops/mega_plain.capture_plain itself on the lanes (pixel = lane),
+    its bounce replaced by the lanes' data through the plain chunk fold:
+    its bookkeeping of codes and deaths. Returns (codes, death) of the
+    n_lanes lanes."""
+    cases, stop, fam, scene_row = data
+
+    def bounce(tab, st, pix, sample, k, seed, **kw):
+        active = np.zeros(WARP, bool)
+        active[pix.numpy()] = True
+        t, entry = cases[k]
+        tb, rb = (torch.from_numpy(x)[pix] for x in plain_fold(t, entry,
+                                                                active))
+        hit = torch.isfinite(tb)
+        return SimpleNamespace(
+            hit=hit, family=torch.from_numpy(fam)[rb],
+            row=torch.from_numpy(scene_row)[rb], state=st,
+            scattered=hit & ~torch.from_numpy(stop[k])[pix])
+
+    monkeypatch.setattr(mega_plain, "bounce_plain", bounce)
+    codes, death = mega_plain.capture_plain(
+        None, torch.zeros((mega_plain.NSTATE, n_lanes)),
+        torch.arange(n_lanes), 0, 0, max_depth, t_min=1e-3, p_rr=0.5,
+        grad_bg=False, bg=None)
+    return codes.numpy().astype(np.int64), death.numpy().astype(np.int64)
+
+
+@pytest.mark.parametrize("all_stop_at", [None, 0, 2])
+@pytest.mark.parametrize("dense_max", [0, K_DENSE_MAX, WARP])
+@pytest.mark.parametrize("n_lanes", [32, 19, 1])
+def test_capture_loop_matches_per_lane_and_plain(n_lanes, dense_max,
+                                                 all_stop_at, monkeypatch):
+    """B4's warp loop (capture.cu): lanes past n, misses, lanes that the
+    roulette stops (at all_stop_at every live lane of the warp at once),
+    every thread in each bounce's warp_fold. The codes and deaths equal
+    the per-lane sequential loop's and capture_plain's, code for code
+    and death for death;
+    each element of a lane's codes is stored once and lanes past n store
+    nothing; every store of the warp writes one row for all its lanes
+    (one segment); and a lane the roulette stops on a hit records that
+    hit."""
+    max_depth = 6
+    for seed in range(3):
+        data = capture_case(50 + seed, max_depth, all_stop_at)
+        codes, death, stores = capture_loop(n_lanes, dense_max, data,
+                                            max_depth)
+        want, want_death = capture_sequential(n_lanes, data, max_depth)
+        np.testing.assert_array_equal(codes, want)
+        np.testing.assert_array_equal(death, want_death)
+        plain, plain_death = capture_plain_run(n_lanes, data, max_depth,
+                                               monkeypatch)
+        np.testing.assert_array_equal(codes[:, :n_lanes], plain)
+        np.testing.assert_array_equal(death[:n_lanes], plain_death)
+        mine = np.arange(WARP) < n_lanes
+        assert (codes[:, ~mine] == UNSET).all()
+        assert sorted(r for r, _ in stores) == list(range(max_depth))
+        assert all((lanes == mine).all() for _, lanes in stores)
+        # a death bounce that ends on a hit: the roulette's stop
+        lane = np.arange(WARP)[mine]
+        ends = death[mine] < max_depth
+        at = codes[np.minimum(death[mine], max_depth - 1), lane]
+        if all_stop_at is not None:
+            assert (death[mine] <= all_stop_at).all()
+        if seed == 0 and n_lanes == WARP:
+            assert (ends & (at >= 0)).any()
 
 
 # B7's lanes owe REGEN_SPP samples of at most REGEN_DEPTH bounces each

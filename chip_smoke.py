@@ -90,7 +90,24 @@ holds the registers of B1-B3 and B5-B7 to the parent's and prints B4's
 (and its spills) beside the parent's; phase 3 holds B1 (one float4 row a
 sphere, several rays a thread, the root only where disc >= 0) to the
 parent's B1 lane for lane with --parent and counts its issued
-instructions per pair.
+instructions per pair. The render drivers close the run, each through
+the CLI's entry point (rt_tpu_torch.cli.main, what `python -m
+rt_tpu_torch` calls) with the launches counted: `animate --kind dna
+--frames 4` at 1920x1080, spp 16, depth 50 with --video (queue, B3),
+its frame 2 byte-equal to the synchronous render's PNG, one frame on
+mega (B2), blue on scenes/demo_scene.json at 960x540, and --farm 2 at
+192x108 byte-equal to a serial run (51); render_progressive on
+demo_scene.json at 960x540, spp 128, depth 40, stopped at spp 64 and
+resumed in one-sample passes, bit-equal to the one-shot render on queue
+(B3) and held to it on mega regen (B7), `render --checkpoint` and the
+regen passes of 8 then 16 within the rounding bound, and one B3 call at
+sample base 64 bit-equal to its plain version (52); render_adaptive on
+cover at 1920x1080, spp 16 (queue), its spend against the rule, its
+frame mean against phase 10's, and its last round's lanes with their
+per-lane starts on B3 and B2 bit-equal to their plain versions, then
+`render -f demo_scene.json --adaptive` (53); `parse`, `render
+--both-formats --view-gamma --log`, `animate --format jpg` and `render
+--bvh / --sharded` refusing with their ROADMAP items (54).
 Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
@@ -100,8 +117,8 @@ the plain version's time and its bound on this card (B2-B7 also on the
 two family workloads).
 
 Needs one CUDA GPU and nvcc; imports neither JAX nor the JAX package.
-Writes only to rt_tpu_torch/_build/ (ignored by git) and a temporary
-directory that it removes.
+Writes only to rt_tpu_torch/_build/ (ignored by git) and temporary
+directories that it removes.
 """
 
 from __future__ import annotations
@@ -1153,6 +1170,434 @@ def tie_scene(w, h, depth):
                            max_depth=depth)
 
 
+def sums_within(a, b, passes, spp, label):
+    """Two sums of the same spp per-sample radiances that add them in
+    other orders (passes partial sums against one sequence). Each addition
+    rounds by at most 2^-24 of the running sum and radiance is
+    non-negative, so |a - b| <= (2 spp + passes) 2^-24 |b|, + 1e-6 for sums
+    near 0: the tolerance of progressive passes longer than one sample.
+    Prints the largest relative difference and the share of values within
+    the reference's rtol 1e-6 / atol 1e-6 (tests/test_progressive.py:25).
+    Returns the largest absolute difference."""
+    a = torch.as_tensor(a, dtype=torch.float64).cpu()
+    b = torch.as_tensor(b, dtype=torch.float64).cpu()
+    err = (a - b).abs()
+    bound = (2 * spp + passes) * 2.0 ** -24 * b.abs() + 1e-6
+    ref_ok = (err <= 1e-6 + 1e-6 * b.abs()).double().mean().item()
+    rel = (err / b.abs().clamp(min=1e-6)).max().item()
+    print(f"  {label}: max abs diff {err.max().item():.4g}, max relative "
+          f"{rel:.4g}; {ref_ok:.6f} of values within rtol 1e-6 / atol "
+          f"1e-6; bound ({2 * spp} + {passes}) x 2^-24 of the sum: "
+          f"{int((err > bound).sum())} values beyond", flush=True)
+    if bool((err > bound).any()):
+        raise AssertionError(f"{label}: beyond the rounding bound")
+    return err.max().item()
+
+
+def adaptive_spend(spp, n_pix, rounds=16, sel_frac=0.125):
+    """The total paths render_adaptive spends at its defaults, restated
+    from its rule (rt_tpu/render/adaptive.py:99-146): the base pass
+    2 * (spp_base // 2) samples a pixel, spp_base = max(4, spp // 2) made
+    even; each round k samples on b_sel pixels, b_sel the top 1/8 of the
+    frame padded to 128 lanes (narrowed to the round's share where that is
+    smaller), k the round's share over b_sel; a round runs while the spend
+    stays within the budget plus b_sel - 1. Returns (spend, b_sel, k)."""
+    base = max(4, spp // 2)
+    base = min(spp, base + base % 2)
+    n_base = 2 * (base // 2) or 1
+    budget = (spp - n_base) * n_pix
+    if budget <= 0:
+        return n_base * n_pix, 0, 0
+    per_round = budget // rounds
+    pad = lambda x: -(-max(x, 1) // 128) * 128  # noqa: E731
+    b_sel = min(pad(int(n_pix * sel_frac)), n_pix)
+    if per_round < b_sel:
+        b_sel = min(pad(per_round), n_pix)
+    k = max(1, per_round // b_sel)
+    if b_sel >= n_pix:
+        b_sel, k = n_pix, max(1, per_round // n_pix)
+    runs = 0
+    while runs < rounds and (runs + 1) * k * b_sel <= budget + b_sel - 1:
+        runs += 1
+    return n_base * n_pix + runs * k * b_sel, b_sel, k
+
+
+def driver_phases(dev, smi, c16, t16, uniform, cli):
+    """Phases 51-54: the render drivers and the CLI's render surface on
+    the card. uniform: phase 10's queue frame (radiance sum, spp
+    MAIN_SPP). Returns their numbers for the kernels line."""
+    import argparse
+
+    from rt_tpu_torch.drivers import animate
+    from rt_tpu_torch.io.image import read_png, write_png
+    from rt_tpu_torch.ops import cuda_mega, cuda_queue
+    from rt_tpu_torch.ops.camera import generate_rays
+    from rt_tpu_torch.render import adaptive, film
+    from rt_tpu_torch.render.adaptive import adaptive_mean, render_adaptive
+    from rt_tpu_torch.render.progressive import Checkpoint, \
+        render_progressive
+    from rt_tpu_torch.render.renderer import render
+    from rt_tpu_torch.scene.builders import dna_scene
+    from rt_tpu_torch.scene.parser import parse_scene
+    from rt_tpu_torch.scene.types import build_tables
+
+    drv = {"animate": {}, "progressive": {}, "adaptive": {}, "cli": {}}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmpd = tmp_dir.name
+    log = os.path.join(tmpd, "time.log")
+
+    def counted(fn):
+        """fn() between reset_counts and read_counts, timed."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.time() - t0, read_counts()
+
+    def only(counts, *names):
+        """The launches of `names`, failing if one is 0 or another kernel
+        launched."""
+        if any(counts[n] <= 0 for n in names) or any(
+                v for k, v in counts.items() if k not in names):
+            raise AssertionError(f"launches {counts}, want only {names}")
+        return {n: counts[n] for n in names}
+
+    with phase(f"51 animate: python -m rt_tpu_torch animate --kind dna "
+               f"--frames 4 at {W}x{H} spp {MAIN_SPP} depth {DEPTH} "
+               "--video (queue, B3); one mega frame (B2); blue on "
+               "scenes/demo_scene.json at 960x540; --farm 2 at "
+               f"{SMALL_W}x{SMALL_H} against a serial run"):
+        d = os.path.join(tmpd, "dna")
+        avi = os.path.join(d, "dna.avi")
+        size = ["-w", str(W), "--height", str(H), "-spp", str(MAIN_SPP),
+                "-d", str(DEPTH)]
+        rc, sec, counts = counted(lambda: cli.main(
+            ["animate", "--kind", "dna", "--frames", "4", "--outdir", d,
+             "--video", avi] + size))
+        frames = sorted(glob.glob(os.path.join(d, "frame_*.png")))
+        head = open(avi, "rb").read(12) if os.path.exists(avi) else b""
+        if rc != 0 or len(frames) != 4 or head[:4] != b"RIFF" or \
+                head[8:12] != b"AVI ":
+            raise AssertionError(f"animate exited {rc}, wrote {frames}, "
+                                 f"video header {head!r}")
+        q = only(counts, "queue_launch")
+        # frame 2 against a direct render of the same frame, written by
+        # the synchronous path (render, finalize with gamma, write_png)
+        sdef, cfg = dna_scene(angle_deg=2.0, width=W, height=H,
+                              spp=MAIN_SPP, max_depth=DEPTH)
+        cfg = animate._frame_cfg(argparse.Namespace(
+            width=W, height=H, spp=MAIN_SPP, max_depth=DEPTH,
+            engine="queue"), cfg)
+        tb = build_tables(sdef, device=dev)
+        render(tb, cfg, device="cuda")  # warm
+        img, render_s, _ = counted(lambda: render(tb, cfg, device="cuda"))
+        t0 = time.time()
+        u8 = film.finalize(img, MAIN_SPP, gamma=True)
+        finalize_s = time.time() - t0
+        direct = os.path.join(tmpd, "direct.png")
+        t0 = time.time()
+        write_png(direct, u8)
+        png_s = time.time() - t0
+        same = open(direct, "rb").read() == open(frames[2], "rb").read()
+        print(f"  animate dna: exit {rc}, {sec:.4f} s for 4 frames = "
+              f"{sec / 4:.4f} s per frame (the video included), launches "
+              f"{q}; one frame alone: render {render_s:.4f} s, finalize "
+              f"(download) {finalize_s:.4f} s, PNG encode {png_s:.4f} s "
+              f"({png_s / (sec / 4):.1%} of a frame); frame 2 == the "
+              f"synchronous render's PNG: {same}; {smi}", flush=True)
+        if not same:
+            raise AssertionError("the pipelined frame 2 differs from the "
+                                 "synchronous path's")
+        drv["animate"]["dna"] = dict(
+            s=sec, s_per_frame=sec / 4, launches=q["queue_launch"],
+            render_s=render_s, finalize_s=finalize_s, png_s=png_s)
+
+        dm = os.path.join(tmpd, "dna_mega")
+        rc, sec, counts = counted(lambda: cli.main(
+            ["animate", "--kind", "dna", "--frames", "1", "--engine",
+             "mega", "--outdir", dm] + size))
+        m = only(counts, "mega_segment")
+        png = read_png(os.path.join(dm, "frame_0000.png"))
+        print(f"  animate dna --engine mega, 1 frame: exit {rc}, "
+              f"{sec:.4f} s, launches {m}", flush=True)
+        if rc != 0 or png.shape != (H, W, 3) or png.max() == 0:
+            raise AssertionError(f"mega animate exited {rc}")
+        drv["animate"]["dna_mega"] = dict(s=sec,
+                                          launches=m["mega_segment"])
+
+        db = os.path.join(tmpd, "blue")
+        rc, sec, counts = counted(lambda: cli.main(
+            ["animate", "--kind", "blue", "--scene", DEMO, "--frames", "2",
+             "--deg-per-frame", "10", "-w", "960", "--height", "540",
+             "-spp", str(MAIN_SPP), "-d", "40", "--outdir", db]))
+        b = only(counts, "queue_launch")
+        written = sorted(os.listdir(db))
+        print(f"  animate blue (demo_scene.json, 960x540, spp {MAIN_SPP}, "
+              f"depth 40), 2 frames: exit {rc}, {sec:.4f} s, launches {b}, "
+              f"wrote {written}", flush=True)
+        if rc != 0 or written != ["frame_0000.png", "frame_0001.png",
+                                  "scene_0000.json", "scene_0001.json"]:
+            raise AssertionError(f"blue animate exited {rc}")
+        drv["animate"]["blue"] = dict(s=sec, launches=b["queue_launch"])
+
+        small = ["--frames", "4", "-w", str(SMALL_W), "--height",
+                 str(SMALL_H), "-spp", str(MAIN_SPP), "-d", str(DEPTH)]
+        ds, df = os.path.join(tmpd, "serial"), os.path.join(tmpd, "farm")
+        rc_s, sec_s, _ = counted(lambda: cli.main(
+            ["animate", "--kind", "dna", "--outdir", ds] + small))
+        t0 = time.time()
+        rc_f = cli.main(["animate", "--kind", "dna", "--outdir", df,
+                         "--farm", "2"] + small)
+        sec_f = time.time() - t0
+        names = sorted(os.listdir(ds))
+        equal = names == sorted(os.listdir(df)) and all(
+            open(os.path.join(ds, n), "rb").read()
+            == open(os.path.join(df, n), "rb").read() for n in names)
+        print(f"  --farm 2 (two worker processes on this card) at "
+              f"{SMALL_W}x{SMALL_H}, 4 frames: exit {rc_f}, {sec_f:.4f} s "
+              f"(serial {sec_s:.4f} s); frames byte-equal to the serial "
+              f"run's: {equal} ({names})", flush=True)
+        if rc_s != 0 or rc_f != 0 or len(names) != 4 or not equal:
+            raise AssertionError("the farm's frames differ from the serial "
+                                 "run's")
+        drv["animate"]["farm"] = dict(s=sec_f, serial_s=sec_s)
+
+    with phase("52 progressive: render_progressive on "
+               "scenes/demo_scene.json (960x540, spp 128, depth 40) "
+               "stopped at spp 64 and resumed, queue (B3) and mega regen "
+               "(B7); render --checkpoint; B3 at sample base 64"):
+        sd, cd = demo_scene()
+        dw, dh, dspp = cd.width, cd.height, cd.samples_per_pixel
+        # the CLI's configuration: the compaction schedule at depth >= 16
+        cd = cd.replace(compact_schedule=(2, 3, 5, 10), compact_group=16)
+        td = build_tables(sd, device=dev)
+        for name, ce, kern in (
+                ("queue", cd.replace(engine="queue"), "queue_launch"),
+                ("regen", cd.replace(engine="mega", regen=True),
+                 "mega_regen")):
+            render(td, ce.replace(samples_per_pixel=2), device="cuda")
+            one, one_s, c1 = counted(lambda: render(td, ce, device="cuda"))
+            ck = os.path.join(tmpd, f"{name}.npz")
+
+            def resume(ck=ck, ce=ce, per=1):
+                render_progressive(td, ce.replace(samples_per_pixel=64),
+                                   checkpoint_path=ck, checkpoint_every=32,
+                                   samples_per_pass=per, device="cuda")
+                if Checkpoint.load(ck).samples_done != 64:
+                    raise AssertionError("the stop at spp 64 was not saved")
+                return render_progressive(td, ce, checkpoint_path=ck,
+                                          checkpoint_every=32,
+                                          samples_per_pass=per,
+                                          device="cuda")
+
+            (acc, done), prog_s, c2 = counted(resume)
+            bit = bool(torch.equal(acc, one))
+            print(f"  {name}: one-shot spp {dspp} {one_s:.4f} s (launches "
+                  f"{only(c1, kern)}); stopped at 64 and resumed to {done} "
+                  f"in one-sample passes {prog_s:.4f} s (launches "
+                  f"{only(c2, kern)}, {prog_s / one_s:.3f}x the one-shot, "
+                  f"two checkpoint writes included); bit-equal to the "
+                  f"one-shot: {bit}", flush=True)
+            rec = drv["progressive"][name] = dict(
+                oneshot_s=one_s, progressive_s=prog_s,
+                oneshot_launches=c1[kern], progressive_launches=c2[kern],
+                one_sample_passes_bit_equal=bit)
+            if not bit:
+                if name == "queue":
+                    raise AssertionError("queue: the resumed render is not "
+                                         "the one-shot render bit for bit")
+                rec["one_sample_passes_max_abs_err"] = sums_within(
+                    acc, one, dspp, dspp, f"{name} one-sample passes")
+            # the CLI's pass schedule: --checkpoint-every 32 gives passes
+            # of 8 samples to spp 64, then of 16 (min(32, spp // 8))
+            ck2 = os.path.join(tmpd, f"{name}_cli.npz")
+            out = os.path.join(tmpd, f"{name}_cli.png")
+            if name == "queue":
+                runs = [cli.main(["render", "-f", DEMO, "--checkpoint", ck2,
+                                  "--checkpoint-every", "32", "-spp", str(s),
+                                  "-o", out, "--log", log])
+                        for s in (64, dspp)]
+                if runs != [0, 0]:
+                    raise AssertionError(f"render --checkpoint exited {runs}")
+                label = "render --checkpoint (CLI) to 64, then 128"
+            else:  # the CLI has no regen flag: the same calls directly
+                for s in (64, dspp):
+                    render_progressive(td, ce.replace(samples_per_pixel=s),
+                                       checkpoint_path=ck2,
+                                       checkpoint_every=32, device="cuda")
+                label = "regen passes of 8, then 16"
+            saved = Checkpoint.load(ck2)
+            if saved.samples_done != dspp:
+                raise AssertionError(f"{label}: {saved.samples_done} done")
+            rec["cli_schedule_max_abs_err"] = sums_within(
+                saved.pixel_sum, one, 64 // 8 + 64 // 16, dspp, label)
+            if name == "queue":
+                png = read_png(out)
+                if png.shape != (dh, dw, 3) or png.max() == 0:
+                    raise AssertionError("render --checkpoint wrote a bad "
+                                         "PNG")
+
+        # one B3 call at sample base 64 on every pixel, against the plain
+        # version bit for bit
+        cq = cd.replace(engine="queue")
+        px = torch.arange(dw * dh, device=dev)
+        ro, rd = generate_rays(td.camera, dw, dh, px % dw, px // dw, 64,
+                               cq.seed, cq.enable_defocus, cq.sampler)
+        args = (td, cq, ro, rd, px, 64, cq.seed)
+        ms, k_q = cuda_ms(lambda: cuda_queue.queue_trace(*args), 3)
+        p_q = cuda_queue.queue_trace(*args, plain=True)
+        same = bool(torch.equal(k_q, p_q))
+        print(f"  B3 at sample base 64 on {dw * dh} lanes: {ms:.4f} ms, "
+              f"bit-equal to the plain version: {same}; {smi}", flush=True)
+        if not same:
+            raise AssertionError("B3 at sample base 64 differs from plain")
+        drv["progressive"]["b3_base64_ms"] = ms
+
+    with phase(f"53 adaptive: render_adaptive on cover_scene {W}x{H} spp "
+               f"{MAIN_SPP} depth {DEPTH} (queue, B3); one round's lanes "
+               "on B3 and B2 against their plain versions; render -f "
+               "scenes/demo_scene.json --adaptive"):
+        ca = c16.replace(engine="queue")
+        rounds, round_s = [], []
+        real = adaptive.render_pixels
+
+        def spy(*a, **k):
+            """render_pixels, its arguments kept and its device work
+            timed (synchronised at both ends)."""
+            rounds.append(a)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            round_s.append(time.time() - t0)
+            return out
+
+        adaptive.render_pixels = spy
+        try:
+            (acc, n), sec, counts = counted(
+                lambda: render_adaptive(t16, ca, device="cuda"))
+        finally:
+            adaptive.render_pixels = real
+        q = only(counts, "queue_launch")
+        want, b_sel, k = adaptive_spend(MAIN_SPP, W * H)
+        total = int(n.sum())
+        mean_a = float(adaptive_mean(acc, n).mean())
+        mean_u = float(np.mean(uniform)) / MAIN_SPP
+        print(f"  {sec:.4f} s ({len(rounds)} rounds of {k} samples on "
+              f"{b_sel} pixels, their render_pixels calls {sum(round_s):.4f}"
+              f" s, the rest the base pass and the host's bookkeeping), "
+              f"launches {q}; n.sum() {total}, the rule's "
+              f"{want}, uniform {MAIN_SPP * W * H}; n from {int(n.min())} "
+              f"to {int(n.max())}; frame mean {mean_a:.5f} against phase "
+              f"10's uniform {mean_u:.5f} ({mean_a / mean_u - 1:+.3%}); "
+              f"{smi}", flush=True)
+        if total != want or abs(total - MAIN_SPP * W * H) > \
+                len(rounds) * 128 * k:
+            raise AssertionError("adaptive spent other than its rule")
+        if not np.isfinite(acc).all() or abs(mean_a / mean_u - 1) > 0.02:
+            raise AssertionError("the adaptive frame's mean is off")
+        # the last round's lanes, each from its own start (the first
+        # round's all start at the base count), on B3 and B2
+        _, _, xs, ys, starts, k0, seed = rounds[-1][:7]
+        lx = torch.from_numpy(np.asarray(xs)).to(dev)
+        ly = torch.from_numpy(np.asarray(ys)).to(dev)
+        ls = torch.from_numpy(np.asarray(starts)).to(dev)
+        pix = ly.long() * W + lx.long()
+        ro, rd = generate_rays(t16.camera, W, H, lx, ly, ls, seed,
+                               ca.enable_defocus, ca.sampler)
+        errs = {}
+        for name, fn, ce in (
+                ("B3", cuda_queue.queue_trace, ca),
+                ("B2", cuda_mega.mega_trace, c16.replace(engine="mega"))):
+            got = fn(t16, ce, ro, rd, pix, ls, seed)
+            ref = fn(t16, ce, ro, rd, pix, ls, seed, plain=True)
+            errs[name] = (got - ref).abs().max().item()
+            print(f"  round {len(rounds)}, {name}: {lx.numel()} lanes (starts "
+                  f"{int(ls.min())}-{int(ls.max())}), bit-equal to the "
+                  f"plain version: {torch.equal(got, ref)}", flush=True)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{name} with per-lane starts differs "
+                                     "from its plain version")
+        if int(ls.min()) == int(ls.max()):
+            raise AssertionError("the last round's lanes share one start")
+        drv["adaptive"] = dict(s=sec, launches=q["queue_launch"],
+                               render_pixels_s=sum(round_s),
+                               spend=total, rounds=len(rounds), k=k,
+                               b_sel=b_sel, mean=mean_a, uniform_mean=mean_u,
+                               round_lanes=int(lx.numel()))
+        out = os.path.join(tmpd, "adaptive.png")
+        rc, sec, counts = counted(lambda: cli.main(
+            ["render", "-f", DEMO, "--adaptive", "-o", out, "--log", log]))
+        q = only(counts, "queue_launch")
+        print(f"  render -f demo_scene.json --adaptive: exit {rc}, "
+              f"{sec:.4f} s, launches {q}", flush=True)
+        if rc != 0 or read_png(out).max() == 0:
+            raise AssertionError(f"render --adaptive exited {rc}")
+        drv["adaptive"]["cli"] = dict(s=sec, launches=q["queue_launch"])
+
+    with phase("54 CLI breadth: parse, render --both-formats --view-gamma "
+               "--log, animate --format jpg, render --bvh / --sharded"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["parse", DEMO])
+        got = json.loads(buf.getvalue())
+        sd, _ = parse_scene(DEMO)
+        want = {"width": sd.width, "height": sd.height,
+                "samples_per_pixel": sd.samples_per_pixel,
+                "max_depth": sd.max_depth, "objects": len(sd.objects),
+                "materials": len(sd.materials),
+                "textures": len(sd.textures), "output_file": sd.output_file}
+        print(f"  parse: exit {rc}, {got}", flush=True)
+        if rc != 0 or got != want:
+            raise AssertionError(f"parse printed {got}, want {want}")
+
+        base = os.path.join(tmpd, "both.png")
+        log2 = os.path.join(tmpd, "both.log")
+        rc, sec, counts = counted(lambda: cli.main(
+            ["render", "--coded", "cover", "-w", str(CLI_W), "--height",
+             str(CLI_H), "-spp", "2", "-d", "50", "-o", base,
+             "--both-formats", "--view-gamma", "--log", log2]))
+        lines = open(log2).read().splitlines()
+        ppm = os.path.join(tmpd, "both.ppm")
+        print(f"  render --both-formats --view-gamma --log: exit {rc}, "
+              f"launches {only(counts, 'queue_launch')}, wrote "
+              f"{sorted(f for f in os.listdir(tmpd) if f.startswith('both'))}"
+              f", log {lines}", flush=True)
+        if rc != 0 or not os.path.exists(ppm) or read_png(base).max() == 0 \
+                or len(lines) != 1 or not lines[0].startswith(
+                    f"rt_tpu_torch, width {CLI_W} height {CLI_H} spp 2"):
+            raise AssertionError("render --both-formats / --log failed")
+
+        dj = os.path.join(tmpd, "jpg")
+        rc = cli.main(["animate", "--kind", "dna", "--frames", "2", "-w",
+                       str(CLI_W), "--height", str(CLI_H), "-spp", "4",
+                       "-d", "16", "--format", "jpg", "--outdir", dj])
+        jpgs = sorted(os.listdir(dj))
+        heads = [open(os.path.join(dj, f), "rb").read(2) for f in jpgs]
+        print(f"  animate --format jpg: exit {rc}, {jpgs}", flush=True)
+        if rc != 0 or jpgs != ["frame_0000.jpg", "frame_0001.jpg"] or \
+                any(h != b"\xff\xd8" for h in heads):
+            raise AssertionError("animate --format jpg failed")
+
+        procs = {flag: subprocess.Popen(
+            [sys.executable, "-m", "rt_tpu_torch", "render", flag, "--log",
+             log], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for flag in ("--bvh", "--sharded")}
+        for flag, queue in (("--bvh", "A-8"), ("--sharded", "A-9")):
+            out, err = procs[flag].communicate(timeout=300)
+            last = err.strip().splitlines()[-1] if err.strip() else ""
+            print(f"  render {flag}: exit {procs[flag].returncode}, {last}",
+                  flush=True)
+            if procs[flag].returncode == 0 or queue not in last or \
+                    "NotImplementedError" not in last:
+                raise AssertionError(f"render {flag} did not refuse naming "
+                                     f"{queue}")
+        drv["cli"] = dict(both_formats_launches=counts["queue_launch"])
+    tmp_dir.cleanup()
+    return drv
+
+
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
@@ -1424,7 +1869,8 @@ def main() -> int:
             out = os.path.join(tmp, "cover.png")
             cmd = [sys.executable, "-m", "rt_tpu_torch", "render", "--coded",
                    "cover", "-w", str(CLI_W), "--height", str(CLI_H),
-                   "-spp", "2", "-d", "50", "-o", out]
+                   "-spp", "2", "-d", "50", "-o", out,
+                   "--log", os.path.join(tmp, "time.log")]
             res = subprocess.run(cmd, cwd=ROOT, capture_output=True,
                                  text=True, timeout=300)
             print("  " + (res.stdout + res.stderr).strip().replace("\n", "\n  "))
@@ -3318,7 +3764,8 @@ def main() -> int:
             torch.cuda.synchronize()
             t0 = time.time()
             rc = cli.main(["render", "-f", tex_demo, "-o",
-                           os.path.join(tmpd, f"{key}.ppm")] + flags)
+                           os.path.join(tmpd, f"{key}.ppm"), "--log",
+                           os.path.join(tmpd, "time.log")] + flags)
             torch.cuda.synchronize()
             sec = time.time() - t0
             counts = read_counts()
@@ -3999,6 +4446,8 @@ def main() -> int:
 
     img_tmp.cleanup()
 
+    drv = driver_phases(dev, smi, c16, t16, main["queue"]["img"], cli)
+
     def img_entry(name, train_key=None, fit_key=None):
         """A kernel's numbers with image textures, for its entry in the
         kernels line: its call on the textured mesh (and cover) at
@@ -4073,7 +4522,7 @@ def main() -> int:
             out["ab_ms"] = ab[name]
         return out
 
-    print(f"[51 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    print(f"[55 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -4107,6 +4556,8 @@ def main() -> int:
                     "mega_segment"]},
         "qmc_cull": flag_entry("mega_segment", "mega"),
         "warp_hit": warp_entry("mega_segment"),
+        "drivers": {"animate_mega": drv["animate"]["dna_mega"],
+                    "adaptive_round_lanes": drv["adaptive"]["round_lanes"]},
     }, {
         "name": "queue_launch",
         "route": "cuda",
@@ -4134,6 +4585,12 @@ def main() -> int:
                      "fit_qmc": {k: v for k, v in flag_cli.items()
                                  if k.startswith("fit_")}},
         "warp_hit": warp_entry("queue_launch"),
+        "drivers": {"animate": {k: v for k, v in drv["animate"].items()
+                                if k != "dna_mega"},
+                    "progressive": drv["progressive"]["queue"],
+                    "b3_sample_base_64_ms": drv["progressive"][
+                        "b3_base64_ms"],
+                    "adaptive": drv["adaptive"], "cli": drv["cli"]},
     }, {
         "name": "mega_adjoint_segment",
         "route": "cuda",
@@ -4213,6 +4670,7 @@ def main() -> int:
         "families": family_rows("mega_regen"),
         "img": img_entry("mega_regen"),
         "qmc_cull": flag_entry("mega_regen", "regen"),
+        "drivers": {"progressive": drv["progressive"]["regen"]},
         "warp_hit": warp_entry("mega_regen"),
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,26 +1,39 @@
 """Command-line interface (the port of rt_tpu/cli.py):
 
-  python -m rt_tpu_torch render   one frame (rt_tpu/cli.py:27-235) of a
+  python -m rt_tpu_torch render   one frame (rt_tpu/cli.py:27-254) of a
       JSON scene of the reference's schema (`-f scene.json`, as
       gpu-version/main.cu:454-460) or a coded scene (`--coded`), with
       the -w / --height / -spp / -d overrides (image textures load
       relative to the scene's directory; --taichi-uv swaps the triangle
       UV weights as the Taichi reference does). Output is chosen by
-      extension: PNG (no gamma, as the reference's write_image) or PPM
-      (sqrt gamma, as write_color); without -o, the scene's output_file
-      (main.png for a coded scene).
+      extension: PNG or JPEG (no gamma, as the reference's write_image;
+      --view-gamma applies sqrt) or PPM (sqrt gamma, as write_color);
+      --both-formats writes the .ppm and the .png of one render, as
+      jsonmain does; without -o, the scene's output_file (main.png for a
+      coded scene). --checkpoint renders in passes and resumes exactly
+      (render/progressive.py), --adaptive spends the spp budget on the
+      noisiest pixels (render/adaptive.py), --progress prints the tiles
+      or passes; each render appends its RenderStats line to --log
+      (rt_tpu_torch-time.log). --bvh (ROADMAP Queue A-8) and --sharded
+      (A-9) are not ported yet and raise.
+  python -m rt_tpu_torch parse    parse a scene JSON and print its
+      summary (rt_tpu/cli.py `cmd_parse` :413-426).
   python -m rt_tpu_torch fit      inverse rendering (rt_tpu/cli.py
       `cmd_fit` :265-410): recover scene parameters so the render of the
       JSON scene (the initial guess) matches a target image; writes
       recovered.npz and after.png to --out and exits 0 when the loss
       fell.
+  python -m rt_tpu_torch animate  a frame sequence (drivers/animate.py:
+      blue, dna, points, dolly), optionally farmed over --farm worker
+      processes and assembled into a --video.
 
-Both run on CUDA unless --device cpu is given.
+render, fit and animate run on CUDA unless --device cpu is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -68,13 +81,40 @@ def _load(args):
     return sdef, cfg, args.output or out
 
 
+def _write_outputs(img, spp, out_path, both=False, view_gamma=False):
+    """Write the image by extension (PPM with sqrt gamma; PNG or JPEG
+    without, unless view_gamma); with both=True write the .ppm and the
+    .png of one render, as jsonmain does (gpu-version/main.cu:510-517).
+    Returns the paths written."""
+    from rt_tpu_torch.io.image import write_image
+    from rt_tpu_torch.render import film
+
+    base = (out_path[:-4] if out_path.endswith((".png", ".ppm", ".jpg"))
+            else out_path)
+    paths = [base + ".ppm", base + ".png"] if both else [out_path]
+    for p in paths:
+        if p.endswith(".ppm"):
+            with open(p, "w") as f:
+                f.write(film.to_ppm(img, spp))
+        else:
+            write_image(p, film.finalize(img, spp, gamma=view_gamma))
+    return paths
+
+
 def cmd_render(args) -> int:
     from rt_tpu_torch.config import resolve_device
-    from rt_tpu_torch.io.image import write_image
     from rt_tpu_torch.render import film
     from rt_tpu_torch.render.renderer import render
     from rt_tpu_torch.scene.types import build_tables
+    from rt_tpu_torch.utils.metrics import RenderStats
 
+    if args.bvh:
+        raise NotImplementedError("render --bvh: BVH traversal is not "
+                                  "ported yet (ROADMAP Queue A-8)")
+    if args.sharded:
+        raise NotImplementedError("render --sharded: multi-device "
+                                  "rendering is not ported yet (ROADMAP "
+                                  "Queue A-9)")
     dev = resolve_device(args.device)
     sdef, cfg, out = _load(args)
     cfg = cfg.replace(engine=args.engine)
@@ -96,7 +136,25 @@ def cmd_render(args) -> int:
 
     stats = {}
     t0 = time.time()
-    img = render(tables, cfg, device=dev, stats=stats)
+    if args.checkpoint:
+        from rt_tpu_torch.render.progressive import render_progressive
+
+        img, _ = render_progressive(
+            tables, cfg, checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every, progress=args.progress,
+            device=dev)
+    elif args.adaptive:
+        from rt_tpu_torch.render.adaptive import adaptive_mean, \
+            render_adaptive
+
+        acc, n = render_adaptive(tables, cfg, progress=args.progress,
+                                 device=dev)
+        # per-pixel counts: a mean scaled back to a uniform-spp sum, so
+        # the writers' 1/spp scaling stays
+        img = adaptive_mean(acc, n) * cfg.samples_per_pixel
+    else:
+        img = render(tables, cfg, device=dev, stats=stats,
+                     progress=args.progress)
     neg = film.negative_pixels(img)  # waits for the device
     dt = time.time() - t0
     if neg:
@@ -104,19 +162,48 @@ def cmd_render(args) -> int:
               file=sys.stderr)
 
     spp = cfg.samples_per_pixel
-    if out.endswith(".ppm"):
-        with open(out, "w") as f:
-            f.write(film.to_ppm(img, spp))
-    else:
-        write_image(out, film.finalize(img, spp, gamma=False))
+    paths = _write_outputs(img, spp, out, both=args.both_formats,
+                           view_gamma=args.view_gamma)
+    # the append-only timing log (the reference's *.log regression
+    # surface, gpu-version/main.cu:338-345)
+    RenderStats(width=cfg.width, height=cfg.height, spp=spp,
+                max_depth=cfg.max_depth, seconds=dt,
+                engine=cfg.engine).append_to(args.log)
     counts = ", ".join(f"{k} {v}" for k, v in sorted(stats.items()))
     sampling = "".join(f", {k}" for k in ("nee", "mis", "nee_glossy")
                        if getattr(cfg, k))
-    print(f"wrote {out} ({cfg.width}x{cfg.height} @ {spp}spp, depth "
-          f"{cfg.max_depth}{sampling}, engine {cfg.engine} on {args.device}, "
-          f"{dt:.2f}s, paths/s {cfg.width * cfg.height * spp / dt:.0f}; "
-          f"{counts})")
+    mode = (", checkpointed" if args.checkpoint else
+            ", adaptive" if args.adaptive else "")
+    print(f"wrote {' and '.join(paths)} ({cfg.width}x{cfg.height} @ "
+          f"{spp}spp, depth {cfg.max_depth}{sampling}{mode}, engine "
+          f"{cfg.engine} on {args.device}, {dt:.2f}s, paths/s "
+          f"{cfg.width * cfg.height * spp / dt:.0f}; {counts})")
     return 0
+
+
+def cmd_parse(args) -> int:
+    """Parser smoke test: the reference's second CMake target, a binary
+    that only runs parse_scene (gpu-version/parser.cu:1-4)."""
+    from rt_tpu_torch.scene.parser import parse_scene
+
+    sdef, _ = parse_scene(args.scene)
+    print(json.dumps({
+        "width": sdef.width, "height": sdef.height,
+        "samples_per_pixel": sdef.samples_per_pixel,
+        "max_depth": sdef.max_depth,
+        "objects": len(sdef.objects), "materials": len(sdef.materials),
+        "textures": len(sdef.textures), "output_file": sdef.output_file,
+    }, indent=2))
+    return 0
+
+
+def cmd_animate(args) -> int:
+    from rt_tpu_torch.config import resolve_device
+    from rt_tpu_torch.drivers.animate import run_animation
+
+    if not (args.farm and args.farm_platform == "cpu"):
+        resolve_device(args.device)  # no CUDA raises here, not per frame
+    return run_animation(args)
 
 
 def _parse_component(spec: str):
@@ -314,8 +401,38 @@ def main(argv=None) -> int:
                     help="replicate the Taichi reference's swapped "
                          "triangle-UV barycentrics (hittable.py:57-60,233) "
                          "for pixel-comparable textured-mesh renders")
+    rp.add_argument("--view-gamma", action="store_true",
+                    help="apply sqrt gamma to PNG / JPEG output (the "
+                         "reference's PNG writer does not; PPM always does)")
+    rp.add_argument("--both-formats", action="store_true",
+                    help="write both the .ppm and the .png of one render, "
+                         "as the reference's jsonmain "
+                         "(gpu-version/main.cu:510-517)")
+    rp.add_argument("--progress", action="store_true",
+                    help="print the tiles (or passes, rounds) done")
+    rp.add_argument("--log", default="rt_tpu_torch-time.log",
+                    help="append the render's RenderStats line here")
+    rp.add_argument("--adaptive", action="store_true",
+                    help="adaptive sampling: spend the spp budget on the "
+                         "noisiest pixels (two-stage variance-driven "
+                         "allocation, render/adaptive.py)")
+    rp.add_argument("--checkpoint", default=None,
+                    help="progressive checkpoint file (.npz); resumes "
+                         "exactly if it exists")
+    rp.add_argument("--checkpoint-every", type=int, default=32,
+                    help="samples between checkpoint writes")
+    rp.add_argument("--bvh", action="store_true",
+                    help="BVH traversal (not ported yet, ROADMAP Queue "
+                         "A-8: raises)")
+    rp.add_argument("--sharded", action="store_true",
+                    help="render over every local device (not ported yet, "
+                         "ROADMAP Queue A-9: raises)")
     rp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     rp.set_defaults(fn=cmd_render)
+
+    pp = sub.add_parser("parse", help="parse a scene JSON and summarize")
+    pp.add_argument("scene")
+    pp.set_defaults(fn=cmd_parse)
 
     fp = sub.add_parser(
         "fit", help="inverse rendering: recover scene parameters from a "
@@ -385,6 +502,57 @@ def main(argv=None) -> int:
                     help="output directory (recovered.npz, after.png)")
     fp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     fp.set_defaults(fn=cmd_fit)
+
+    anp = sub.add_parser("animate", help="render a frame sequence "
+                         "(blue.py / dna.py-style video synthesis)")
+    anp.add_argument("--kind", choices=["blue", "dna", "points", "dolly"],
+                     default="dna")
+    anp.add_argument("--frames", type=int, default=3)
+    anp.add_argument("--start", type=int, default=0)
+    anp.add_argument("--num-hosts", type=int, default=1,
+                     help="frame-farm size: partition the frame range "
+                          "across hosts (blue.py's per-GPU split)")
+    anp.add_argument("--host-index", type=int, default=0)
+    anp.add_argument("--retries", type=int, default=1,
+                     help="per-frame retry count (frames are idempotent)")
+    anp.add_argument("--engine", default="queue",
+                     choices=["queue", "mega", "pallas", "plain"])
+    anp.add_argument("--deg-per-frame", type=float, default=1.0)
+    anp.add_argument("--outdir", default="frames")
+    anp.add_argument("-w", "--width", type=int, default=400)
+    anp.add_argument("--height", type=int, default=225)
+    anp.add_argument("-spp", "--spp", type=int, default=16)
+    anp.add_argument("-d", "--max-depth", type=int, default=16)
+    anp.add_argument("--scene", default=None,
+                     help="base scene JSON to mutate per frame (blue mode)")
+    anp.add_argument("--points-dir", default=None,
+                     help="per-frame point cloud dir (points mode: frame i "
+                          "reads {i+1}.txt)")
+    anp.add_argument("--obj", default=None, help="OBJ mesh (points mode)")
+    anp.add_argument("--texture", default=None,
+                     help="PNG image texture for the mesh (points mode)")
+    anp.add_argument("--taichi-uv", action="store_true",
+                     help="swapped-weight triangle UVs "
+                          "(taichi-version/hittable.py:57-60,233)")
+    anp.add_argument("--farm", type=int, default=0,
+                     help="one-command local process farm: spawn N "
+                          "workers over the frame range and wait "
+                          "(gpu-version/blue.py:24-35)")
+    anp.add_argument("--farm-platform", default="inherit",
+                     choices=["inherit", "cpu"],
+                     help="device of the farmed workers: inherit (the "
+                          "default) gives them --device, cpu runs them "
+                          "with --device cpu")
+    anp.add_argument("--format", default="png", choices=["png", "jpg"],
+                     help="frame file format (jpg: the Taichi reference's "
+                          "ti.imwrite frames, main.py:216)")
+    anp.add_argument("--video", default=None,
+                     help="assemble the frames into a video after "
+                          "rendering (.mp4 through ffmpeg when it is on "
+                          "PATH, else an MJPEG .avi; .gif)")
+    anp.add_argument("--fps", type=int, default=30)
+    anp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    anp.set_defaults(fn=cmd_animate)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,1 +1,2 @@
-"""Image writers (stdlib only: no Pillow)."""
+"""Image writers (PNG and PPM from the standard library, JPEG through
+Pillow) and video assembly."""

@@ -1,6 +1,6 @@
-"""Image writers: PPM (text) and PNG, from the standard library only
-(rt_tpu/io/image.py, without its native and Pillow paths: PNG is encoded
-against the spec with zlib and struct)."""
+"""Image writers: PPM (text) and PNG from the standard library (encoded
+against the spec with zlib and struct), JPEG through Pillow
+(rt_tpu/io/image.py, without its native path)."""
 
 from __future__ import annotations
 
@@ -104,12 +104,26 @@ def read_png(path: str) -> np.ndarray:
     return out.reshape(h, w, nc)[..., :3].copy()
 
 
+def write_jpg(path: str, u8_topdown: np.ndarray, quality: int = 95) -> None:
+    """JPEG through Pillow, as rt_tpu/io/image.py `write_jpg`: the Taichi
+    and naive references write JPEG frames (ti.imwrite out{i}.jpg,
+    taichi-version/main.py:216). Pillow is imported here only, so the
+    PNG and PPM writers need nothing beyond the standard library."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            "JPEG output needs Pillow; write .png or .ppm instead") from e
+    Image.fromarray(np.ascontiguousarray(u8_topdown.astype(np.uint8)),
+                    "RGB").save(path, quality=quality)
+
+
 def write_image(path: str, u8_topdown: np.ndarray) -> None:
-    """Write by extension: .ppm (text P3), else PNG. JPEG needs Pillow,
-    which this package does not use."""
-    if path.endswith((".jpg", ".jpeg")):
-        raise ValueError(f"{path}: JPEG needs Pillow; write .png or .ppm")
+    """Write by extension: .ppm (text P3), .jpg / .jpeg (Pillow), else
+    PNG."""
     if path.endswith(".ppm"):
         write_ppm(path, u8_topdown)
+    elif path.endswith((".jpg", ".jpeg")):
+        write_jpg(path, u8_topdown)
     else:
         write_png(path, u8_topdown)

@@ -21,14 +21,20 @@ def negative_pixels(image_sum) -> int:
     return int((torch.as_tensor(image_sum) < 0.0).any(dim=-1).sum())
 
 
-def finalize(image_sum, spp: int, gamma: bool) -> np.ndarray:
-    """1/spp scale (+ sqrt gamma) -> u8 [H,W,3], rows flipped so row 0 =
-    top scanline (the reference writes j = height-1 .. 0)."""
+def finalize_u8(image_sum, spp: int, gamma: bool) -> torch.Tensor:
+    """finalize's u8 image [H,W,3] as a tensor where the sum lies (the
+    animation pipeline downloads it without waiting)."""
     img = torch.as_tensor(image_sum).to(torch.float64) / float(spp)
     if gamma:
         img = torch.sqrt(torch.clamp(img, min=0.0))
     u8 = (256.0 * torch.clamp(img, 0.0, 0.999)).to(torch.uint8)
-    return u8.flip(0).cpu().numpy()
+    return u8.flip(0)
+
+
+def finalize(image_sum, spp: int, gamma: bool) -> np.ndarray:
+    """1/spp scale (+ sqrt gamma) -> u8 [H,W,3], rows flipped so row 0 =
+    top scanline (the reference writes j = height-1 .. 0)."""
+    return finalize_u8(image_sum, spp, gamma).cpu().numpy()
 
 
 def to_ppm(image_sum, spp: int, gamma: bool = True) -> str:
@@ -38,3 +44,9 @@ def to_ppm(image_sum, spp: int, gamma: bool = True) -> str:
     lines = [f"P3\n{w} {h}\n255\n"]
     lines.extend(f"{r} {g} {b}\n" for r, g, b in u8.reshape(-1, 3))
     return "".join(lines)
+
+
+def to_png_u8(image_sum, spp: int, gamma: bool = False) -> np.ndarray:
+    """u8 image for the PNG writer. gamma=False matches the reference's
+    write_image (no sqrt, color.cuh:21-29)."""
+    return finalize(image_sum, spp, gamma=gamma)

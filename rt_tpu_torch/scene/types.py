@@ -65,8 +65,12 @@ class CameraDef:
     lens_radius: torch.Tensor   # []
 
     def to(self, device) -> "CameraDef":
-        return CameraDef(**{f.name: getattr(self, f.name).to(device)
-                            for f in dataclasses.fields(self)})
+        """The camera on device; self when every field is there already."""
+        kw = {f.name: getattr(self, f.name).to(device)
+              for f in dataclasses.fields(self)}
+        if all(v is getattr(self, k) for k, v in kw.items()):
+            return self
+        return CameraDef(**kw)
 
 
 def make_camera(
@@ -197,12 +201,17 @@ class SceneTables:
         return bool(self.img_on)
 
     def to(self, device) -> "SceneTables":
+        """The tables on device. When every tensor is there already this
+        is self, so the packs cached on it (`mega`, `mega_culled`) serve
+        every render of the same tables."""
         kw = {}
         for f in dataclasses.fields(self):
             val = getattr(self, f.name)
             kw[f.name] = (val.to(device) if isinstance(val, (torch.Tensor,
                                                             CameraDef))
                           else val)
+        if all(v is getattr(self, k) for k, v in kw.items()):
+            return self
         return SceneTables(**kw)
 
     @functools.cached_property

@@ -1890,3 +1890,93 @@ def test_regen_and_adjoint_refuse_threads_off_the_warp(kernel):
     else:
         _grads_close(adjoint_plain.trace_adjoint_plain(
             tt, cfg, ro, rd, pix, 0, 0, L, g, 4, False), got)
+
+
+def _sparse_lanes(dev, w, h, n, seed):
+    """n pixels of a w x h frame, unsorted, each with its own sample start
+    in [0, 8): adaptive sampling's round lanes."""
+    rs = np.random.default_rng(seed)
+    sel = torch.from_numpy(rs.choice(w * h, n, replace=False)).to(dev)
+    starts = torch.from_numpy(rs.integers(0, 8, n)).to(dev)
+    return sel % w, sel // w, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["queue", "mega"])
+def test_per_lane_starts_on_sparse_lanes_match_plain(engine):
+    """B3 and B2 with a per-lane sample vector on 2,001 unsorted pixels of
+    a 192x108 cover frame (not a multiple of the block), depth 50, through
+    render_pixels' trace: bit for bit their plain versions on the same
+    lanes, and each launch counted."""
+    from rt_tpu_torch.ops import camera, cuda_mega, cuda_queue
+
+    dev = _card()
+    sdef, cfg = builders.cover_scene(width=192, height=108, spp=1,
+                                     max_depth=50)
+    cfg = cfg.replace(engine=engine, compact_schedule=(2, 3, 5, 10),
+                      compact_group=16)
+    tt = types.build_tables(sdef, device=dev)
+    px, py, starts = _sparse_lanes(dev, 192, 108, 2001, 5)
+    pix = py.long() * 192 + px.long()
+    fn = cuda_queue.queue_trace if engine == "queue" else cuda_mega.mega_trace
+    counter = (cuda_queue.queue_launch if engine == "queue"
+               else cuda_mega.mega_segment)
+    for i in range(3):
+        s = starts + i
+        ro, rd = camera.generate_rays(tt.camera, 192, 108, px, py, s, 9,
+                                      cfg.enable_defocus)
+        before = counter.launches
+        k = fn(tt, cfg, ro, rd, pix, s, 9)
+        torch.cuda.synchronize()
+        assert counter.launches > before
+        p = fn(tt, cfg, ro, rd, pix, s, 9, plain=True)
+        assert torch.equal(k, p), (engine, i)
+
+
+@pytest.mark.cuda
+def test_progressive_resume_on_queue_is_bit_equal(tmp_path):
+    """render_progressive on the card (queue, B3) stopped at 4 samples and
+    resumed to 8 with one-sample passes: the one-shot render's sum bit for
+    bit."""
+    from rt_tpu_torch.render.progressive import render_progressive
+    from rt_tpu_torch.render.renderer import render
+
+    dev = _card()
+    sdef, cfg = builders.cover_scene(width=192, height=108, spp=8,
+                                     max_depth=50)
+    cfg = cfg.replace(engine="queue")
+    tt = types.build_tables(sdef, device=dev)
+    ref = render(tt, cfg, device=dev)
+    ck = str(tmp_path / "ck.npz")
+    render_progressive(tt, cfg.replace(samples_per_pixel=4),
+                       checkpoint_path=ck, checkpoint_every=2,
+                       samples_per_pass=1, device=dev)
+    acc, done = render_progressive(tt, cfg, checkpoint_path=ck,
+                                   samples_per_pass=1, device=dev)
+    assert done == 8 and acc.device.type == "cuda"
+    assert torch.equal(acc, ref)
+
+
+@pytest.mark.cuda
+def test_frame_pipeline_on_the_card_matches_sync(tmp_path):
+    """FramePipeline on the card (pinned download behind the next frame's
+    launches) writes the synchronous path's PNGs byte for byte."""
+    from rt_tpu_torch.drivers.animate import FramePipeline
+    from rt_tpu_torch.io.image import write_png
+    from rt_tpu_torch.render import film
+    from rt_tpu_torch.render.renderer import render
+
+    dev = _card()
+    pipe = FramePipeline("cuda")
+    for i in range(3):
+        sdef, cfg = builders.dna_scene(angle_deg=10 * i, width=320,
+                                       height=180, spp=4, max_depth=16)
+        cfg = cfg.replace(engine="queue")
+        tt = types.build_tables(sdef)
+        pipe.submit(tt, cfg, str(tmp_path / f"pipe_{i}.png"))
+        write_png(str(tmp_path / f"sync_{i}.png"), film.finalize(
+            render(tt, cfg, device=dev), 4, gamma=True))
+    assert pipe.flush()[0].endswith("pipe_2.png")
+    for i in range(3):
+        assert (tmp_path / f"pipe_{i}.png").read_bytes() == \
+            (tmp_path / f"sync_{i}.png").read_bytes()

@@ -203,6 +203,8 @@ def test_film_matches_jax():
     assert tfilm.to_ppm(torch.from_numpy(img), 3) == jfilm.to_ppm(img, 3)
     np.testing.assert_array_equal(tfilm.finalize(img, 3, gamma=False),
                                   jfilm.to_png_u8(img, 3))
+    np.testing.assert_array_equal(tfilm.to_png_u8(img, 3),
+                                  jfilm.to_png_u8(img, 3))
     assert tfilm.negative_pixels(img) == jfilm.negative_pixels(img) > 0
 
 
@@ -221,8 +223,11 @@ def test_png_bytes_match_jax_and_read_back(tmp_path):
         f.write("P3\n5 7\n255\n")
         f.writelines(f"{r} {g} {b}\n" for r, g, b in u8.reshape(-1, 3))
     assert open(q).read() == open(jq).read()
-    with pytest.raises(ValueError, match="Pillow"):
-        timage.write_image(str(tmp_path / "x.jpg"), u8)
+    # JPEG through Pillow, byte for byte as rt_tpu's writer
+    timage.write_image(str(tmp_path / "x.jpg"), u8)
+    jimage.write_image(str(tmp_path / "j.jpg"), u8)
+    assert (tmp_path / "x.jpg").read_bytes() == \
+        (tmp_path / "j.jpg").read_bytes()
     bad = bytearray(open(p, "rb").read())
     bad[20] ^= 0xFF  # inside IHDR
     (tmp_path / "bad.png").write_bytes(bytes(bad))

@@ -106,8 +106,23 @@ cover at 1920x1080, spp 16 (queue), its spend against the rule, its
 frame mean against phase 10's, and its last round's lanes with their
 per-lane starts on B3 and B2 bit-equal to their plain versions, then
 `render -f demo_scene.json --adaptive` (53); `parse`, `render
---both-formats --view-gamma --log`, `animate --format jpg` and `render
---bvh / --sharded` refusing with their ROADMAP items (54).
+--both-formats --view-gamma --log`, `animate --format jpg`, `render
+--bvh` rendering and `render --sharded` refusing with its ROADMAP item
+(54). The BVH follows (55): on cover, plane441, dna and a seeded
+131,072-triangle height field, the native and NumPy builds (their
+seconds; equal arrays, or where centroids tie a valid NumPy tree that
+walks to the same t), intersect(traversal="bvh") against the linear
+scan on the 1920x1080 primary rays (the height field on 16,384 of them;
+every lane whose hit or t differs grazes an edge in float64), frames at
+1920x1080, spp 1, depth 8 on the plain engine (and the hybrid on cover)
+with and without the BVH with the walks' host reads, and `render
+--bvh` on scenes/demo_scene.json bit-equal to `render` on queue (B3),
+the regen render of tables with BVHs bit-equal too (B7), the plain
+engine within images_close. The example closes the run (56): every
+demo of `python -m rt_tpu_torch.examples.inverse_render` at its own
+size (3 steps where it takes --steps; the albedo demo at its default
+80, exit 0), each one's loss falling, with its seconds per step and
+each kernel's launches; --sharded refuses naming A-9.
 Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
@@ -126,6 +141,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import glob
 import importlib.util
 import io
@@ -1537,7 +1553,8 @@ def driver_phases(dev, smi, c16, t16, uniform, cli):
         drv["adaptive"]["cli"] = dict(s=sec, launches=q["queue_launch"])
 
     with phase("54 CLI breadth: parse, render --both-formats --view-gamma "
-               "--log, animate --format jpg, render --bvh / --sharded"):
+               "--log, animate --format jpg, render --bvh renders, render "
+               "--sharded refuses"):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["parse", DEMO])
@@ -1580,22 +1597,552 @@ def driver_phases(dev, smi, c16, t16, uniform, cli):
                 any(h != b"\xff\xd8" for h in heads):
             raise AssertionError("animate --format jpg failed")
 
+        bvh_png = os.path.join(tmpd, "bvh.png")
         procs = {flag: subprocess.Popen(
             [sys.executable, "-m", "rt_tpu_torch", "render", flag, "--log",
-             log], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for flag in ("--bvh", "--sharded")}
-        for flag, queue in (("--bvh", "A-8"), ("--sharded", "A-9")):
-            out, err = procs[flag].communicate(timeout=300)
-            last = err.strip().splitlines()[-1] if err.strip() else ""
-            print(f"  render {flag}: exit {procs[flag].returncode}, {last}",
-                  flush=True)
-            if procs[flag].returncode == 0 or queue not in last or \
-                    "NotImplementedError" not in last:
-                raise AssertionError(f"render {flag} did not refuse naming "
-                                     f"{queue}")
+             log, "-w", str(CLI_W), "--height", str(CLI_H), "-spp", "2", "-d",
+             "8", "-o", bvh_png], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for flag in ("--bvh", "--sharded")}
+        out, err = procs["--bvh"].communicate(timeout=300)
+        print(f"  render --bvh: exit {procs['--bvh'].returncode}, "
+              f"{out.strip().splitlines()[-1] if out.strip() else err}",
+              flush=True)
+        if procs["--bvh"].returncode != 0 or read_png(bvh_png).max() == 0:
+            raise AssertionError("render --bvh did not render")
+        out, err = procs["--sharded"].communicate(timeout=300)
+        last = err.strip().splitlines()[-1] if err.strip() else ""
+        print(f"  render --sharded: exit {procs['--sharded'].returncode}, "
+              f"{last}", flush=True)
+        if procs["--sharded"].returncode == 0 or "A-9" not in last or \
+                "NotImplementedError" not in last:
+            raise AssertionError("render --sharded did not refuse naming "
+                                 "A-9")
         drv["cli"] = dict(both_formats_launches=counts["queue_launch"])
     tmp_dir.cleanup()
     return drv
+
+
+# the BVH (phase 55)
+BVH_ALL = ("sphere", "rect", "cylinder", "triangle")
+BVH_DEPTH = 8                 # the frames of phase 55(c), spp 1
+BIG_CELLS = 256               # the height field: 2 x 256 x 256 triangles
+BIG_RAYS = 16384              # its rays held against the linear scan
+LINEAR_CHUNK = 1 << 17        # rays a linear intersect takes at once
+
+
+def height_field_obj(path, cells=BIG_CELLS, seed=19):
+    """A seeded height field of cells x cells quads, two triangles each,
+    as an OBJ: vertices on [-1.2, 1.2]^2, z a sum of six seeded waves
+    plus jitter (plane441.obj's square, finer and not flat)."""
+    rng = np.random.default_rng(seed)
+    n = cells + 1
+    u = np.linspace(-1.2, 1.2, n)
+    x, y = np.meshgrid(u, u, indexing="xy")
+    z = rng.normal(0.0, 0.003, x.shape)
+    for _ in range(6):
+        kx, ky = rng.uniform(1.0, 6.0, 2)
+        px, py = rng.uniform(0.0, 2.0 * np.pi, 2)
+        z += rng.uniform(0.02, 0.06) * np.sin(kx * x + px) * np.cos(ky * y
+                                                                     + py)
+    idx = np.arange(1, n * n + 1).reshape(n, n)
+    a, b, c, d = idx[:-1, :-1], idx[:-1, 1:], idx[1:, :-1], idx[1:, 1:]
+    faces = np.concatenate([np.stack([a, b, d], -1).reshape(-1, 3),
+                            np.stack([a, d, c], -1).reshape(-1, 3)])
+    verts = np.stack([x, y, z], -1).reshape(-1, 3)
+    with open(path, "w") as f:
+        f.write("".join(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n"
+                        for p in verts))
+        f.write("".join(f"f {i} {j} {k}\n" for i, j, k in faces))
+    return len(faces)
+
+
+def linear_hits(intersect, tables, ro, rd):
+    """intersect(traversal="linear") in chunks of rays (its [rays, rows]
+    candidates at 1080p would not fit): at most LINEAR_CHUNK rays and
+    2^27 (ray, row) pairs of the largest family a chunk; fields joined."""
+    rows = max(tables.sph_center.shape[0], tables.rect_k.shape[0],
+               tables.cyl_radius.shape[0], tables.tri_v1.shape[0])
+    chunk = max(64, min(LINEAR_CHUNK, (1 << 27) // rows))
+    parts = [intersect(tables, ro[s:s + chunk], rd[s:s + chunk])
+             for s in range(0, ro.shape[0], chunk)]
+    return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+
+
+def graze_margin(tables, ptype, pid, ro, rd):
+    """Per lane, how near in float64 the ray passes to an edge or a
+    silhouette of the primitive of family ptype, row pid, in units of the
+    magnitudes that float32 rounds when it decides the hit (so a float32
+    disagreement on a graze reads as a few times 2^-23): 0 at the edge,
+    inf where ptype is no family of the tables. Sphere: |disc| / (hb^2 +
+    a |c|) of the half-b quadratic. Rect: the plane point's distance to
+    the rect's outline over |o| + |t d|, or |d_k| / |d| for a ray along
+    its plane. Cylinder (in object space): the radial quadratic's |delta|
+    / (b^2 + 4 a |c|), each root's distance to the ends of the z window
+    over |o| + |t d|, or a / |d|^2 for a ray along its axis. Triangle: the
+    plane point's distance to the nearest edge over |o| + |t d|, or the
+    cosine between the ray and its plane."""
+    o, d = ro.double(), rd.double()
+    m = torch.full(ptype.shape, float("inf"), dtype=torch.float64,
+                   device=ro.device)
+
+    def rows(fam, n):
+        return torch.where(ptype == fam, pid.long(), 0) if n else None
+
+    def dot(x, y):
+        return (x * y).sum(-1)
+
+    n_sph, n_rect, n_cyl, n_tri = tables.counts
+    row = rows(0, n_sph)
+    if row is not None:
+        oc = o - tables.sph_center[row].double()
+        r = tables.sph_radius[row].double()
+        a, hb = dot(d, d), dot(oc, d)
+        cc = dot(oc, oc) - r * r
+        g = (hb * hb - a * cc).abs() / (hb * hb + a * cc.abs())
+        m = torch.where(ptype == 0, g, m)
+    row = rows(1, n_rect)
+    if row is not None:
+        ax = tables.rect_axis[row].long()[:, None]
+        k = tables.rect_k[row].double()
+        lo, hi = tables.rect_lo[row].double(), tables.rect_hi[row].double()
+        free = torch.cat([torch.where(ax == 0, 1, 0),
+                          torch.where(ax == 2, 1, 2)], dim=1)
+        dk = torch.gather(d, 1, ax)[:, 0]
+        t = (k - torch.gather(o, 1, ax)[:, 0]) / torch.where(dk == 0, 1.0,
+                                                              dk)
+        q = torch.gather(o, 1, free) + t[:, None] * torch.gather(d, 1, free)
+        out = torch.maximum(lo - q, q - hi)          # > 0 outside an edge
+        sdf = torch.where(out.amax(-1) > 0, out.clamp(min=0).norm(dim=-1),
+                          -out.amax(-1))
+        scale = o.norm(dim=-1) + (t[:, None] * d).norm(dim=-1)
+        g = torch.minimum(sdf / scale, dk.abs() / d.norm(dim=-1))
+        m = torch.where(ptype == 1, g, m)
+    row = rows(2, n_cyl)
+    if row is not None:
+        w2o = tables.cyl_w2o[row].double()
+        oo = (w2o[:, :3, :3] @ o[:, :, None])[:, :, 0] + w2o[:, :3, 3]
+        od = (w2o[:, :3, :3] @ d[:, :, None])[:, :, 0]
+        r = tables.cyl_radius[row].double()
+        zmin, zmax = tables.cyl_zmin[row].double(), tables.cyl_zmax[row].double()
+        a = od[:, 0] ** 2 + od[:, 1] ** 2
+        b = 2.0 * (od[:, 0] * oo[:, 0] + od[:, 1] * oo[:, 1])
+        c = oo[:, 0] ** 2 + oo[:, 1] ** 2 - r * r
+        delta = b * b - 4.0 * a * c
+        g = torch.minimum(delta.abs() / (b * b + 4.0 * a * c.abs()),
+                          a / dot(od, od))
+        sq = delta.clamp(min=0).sqrt()
+        for root in ((-b - sq) / (2 * a), (-b + sq) / (2 * a)):
+            pz = oo[:, 2] + root * od[:, 2]
+            scale = oo.norm(dim=-1) + (root[:, None] * od).norm(dim=-1)
+            g = torch.minimum(g, torch.minimum((pz - zmin).abs(),
+                                               (pz - zmax).abs()) / scale)
+        m = torch.where(ptype == 2, g, m)
+    row = rows(3, n_tri)
+    if row is not None:
+        v = [getattr(tables, f"tri_v{i}")[row].double() for i in (1, 2, 3)]
+        n0 = torch.cross(v[1] - v[0], v[2] - v[0], dim=-1)
+        dn = dot(d, n0)
+        t = dot(v[0] - o, n0) / torch.where(dn == 0, 1.0, dn)
+        q = o + t[:, None] * d
+        dist = []
+        for va, vb in ((v[0], v[1]), (v[1], v[2]), (v[2], v[0])):
+            e = vb - va
+            s = (dot(q - va, e) / dot(e, e)).clamp(0.0, 1.0)
+            dist.append((q - va - s[:, None] * e).norm(dim=-1))
+        scale = o.norm(dim=-1) + (t[:, None] * d).norm(dim=-1)
+        g = torch.minimum(torch.stack(dist).amin(0) / scale,
+                          dn.abs() / (d.norm(dim=-1) * n0.norm(dim=-1)))
+        m = torch.where(ptype == 3, g, m)
+    return m
+
+
+# the graze_margin that explains a differing lane: 84 float32 ulps of
+# the magnitudes rounded (the lanes that differ read 1-2)
+GRAZE = 1e-5
+
+
+def bvh_vs_linear(hb, hl, label, tables, ro, rd):
+    """The walk against the scan on the same rays, with
+    tests/test_bvh.py:65-73's tolerances per lane: hit masks equal, t
+    within rtol 1e-3 / atol 5e-3 where a lane hits, the same (family,
+    row) on more than 99.5% of the lanes that hit. The walk's leaf tests
+    are the reference's oc-form quadratics and the scan's the expanded
+    ones, which round otherwise, so a ray that grazes a silhouette or an
+    edge can hit in one and miss in the other (ROADMAP C-5's class). So
+    at most 0.1% of lanes may differ, and every lane whose hit or t
+    differs, of any family, must graze the nearer of the two answers'
+    primitives (the one that one side found and the other did not):
+    within GRAZE of its edge in float64 (graze_margin)."""
+    tb = torch.where(hb.hit, hb.t, 0.0)
+    tl = torch.where(hl.hit, hl.t, 0.0)
+    hit_off = hb.hit != hl.hit
+    t_off = (tb - tl).abs() > 5e-3 + 1e-3 * tl.abs()
+    row_off = hl.hit & ((hb.pid != hl.pid) | (hb.ptype != hl.ptype))
+    off = hit_off | t_off | row_off
+    n_off = int(off.sum())
+    agree = 1.0 - float(row_off.sum()) / max(int(hl.hit.sum()), 1)
+    lanes = torch.nonzero(hit_off | t_off)[:, 0]
+    # the nearer answer of each lane: the walk's where it hits nearer
+    walk = hb.hit[lanes] & (~hl.hit[lanes] | (hb.t[lanes] <= hl.t[lanes]))
+    ptype = torch.where(walk, hb.ptype[lanes], hl.ptype[lanes])
+    pid = torch.where(walk, hb.pid[lanes], hl.pid[lanes])
+    m = graze_margin(tables, ptype, pid, ro[lanes], rd[lanes])
+    # the check's power: the share of the lanes that agree whose hit is
+    # as near an edge as GRAZE (a wrong lane passes by chance as often)
+    same = hb.hit & hl.hit & ~off
+    m_same = graze_margin(tables, hb.ptype[same], hb.pid[same], ro[same],
+                          rd[same])
+    by_family = {}
+    for fam, fname in enumerate(("sphere", "rect", "cylinder", "triangle")):
+        sel, sel_same = ptype == fam, hb.ptype[same] == fam
+        if bool(sel.any()) or bool(sel_same.any()):
+            by_family[fname] = dict(
+                lanes=int(sel.sum()), max_margin=float(
+                    m[sel].max()) if bool(sel.any()) else None,
+                agreeing_hits=int(sel_same.sum()), agreeing_within=float(
+                    (m_same[sel_same] <= GRAZE).double().mean()))
+    unexplained = int((m > GRAZE).sum())
+    worst = float(m.max()) if lanes.numel() else 0.0
+    print(f"  {label}: {hb.hit.numel()} rays, {float(hl.hit.float().mean()):.4f}"
+          f" hit; lanes that differ {n_off} ({n_off / hb.hit.numel():.4%}):"
+          f" hit masks {int(hit_off.sum())}, t outside tolerance "
+          f"{int(t_off.sum())}, (family, row) {int(row_off.sum())} (agree "
+          f"{agree:.6f}); the {lanes.numel()} hit or t lanes by the nearer "
+          f"answer's family, their largest float64 graze margin, and the "
+          f"share of agreeing hits within {GRAZE:g}: {by_family}; "
+          f"{unexplained} beyond {GRAZE:g}", flush=True)
+    for j, i in enumerate(lanes[:6].tolist()):
+        print(f"    lane {i}: walk hit {bool(hb.hit[i])} t "
+              f"{float(hb.t[i]):.7g} ({int(hb.ptype[i])}, {int(hb.pid[i])});"
+              f" scan hit {bool(hl.hit[i])} t {float(hl.t[i]):.7g} "
+              f"({int(hl.ptype[i])}, {int(hl.pid[i])}); margin "
+              f"{float(m[j]):.3g}", flush=True)
+    if n_off > 1e-3 * hb.hit.numel() or unexplained or agree <= 0.995:
+        raise AssertionError(f"{label}: the BVH walk disagrees with the "
+                             "linear scan")
+    return dict(rays=int(hb.hit.numel()), hit_share=float(
+        hl.hit.float().mean()), lanes_differ=n_off,
+        hit_masks_differ=int(hit_off.sum()), t_off=int(t_off.sum()),
+        row_agree=agree, graze_by_family=by_family, max_graze_margin=worst)
+
+
+def bvh_phase(dev, smi, cli):
+    """Phase 55: the BVH at full width (see the module doc). Returns its
+    numbers for the kernels line."""
+    from rt_tpu_torch.accel import bvh
+    from rt_tpu_torch.io import native
+    from rt_tpu_torch.io.image import read_png
+    from rt_tpu_torch.ops.camera import generate_rays
+    from rt_tpu_torch.ops.intersect import intersect
+    from rt_tpu_torch.render.renderer import render
+    from rt_tpu_torch.scene.builders import cover_scene, dna_scene, \
+        mesh_scene
+    from rt_tpu_torch.scene.parser import parse_scene
+    from rt_tpu_torch.scene.types import BVH_FAMILIES, BVH_KEYS, \
+        build_tables
+
+    out = {"builds": {}, "intersect": {}, "frames": {}, "cli": {}}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmpd = tmp_dir.name
+    big = os.path.join(tmpd, "height256.obj")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        for k in bvh.COUNTS:
+            bvh.COUNTS[k] = 0
+        reset_counts()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.time() - t0, dict(bvh.COUNTS), read_counts()
+
+    with phase(f"55 the BVH at full width: native vs NumPy builds, "
+               f"intersect(traversal='bvh') vs 'linear' on {W}x{H} primary "
+               f"rays, frames at {W}x{H} spp 1 depth {BVH_DEPTH}, render "
+               "--bvh on scenes/demo_scene.json"):
+        if not native.available():
+            raise AssertionError("the native BVH library did not build or "
+                                 "load")
+        print(f"  native library "
+              f"{os.path.relpath(native.library_path(), ROOT)} (g++ "
+              f"{' '.join(native.CXX_FLAGS)})", flush=True)
+        n_big = height_field_obj(big, BIG_CELLS)
+        scenes = {
+            "cover": cover_scene(width=W, height=H, spp=1,
+                                 max_depth=BVH_DEPTH),
+            "plane441": mesh_scene(MESH, width=W, height=H, spp=1,
+                                   max_depth=BVH_DEPTH),
+            "dna": dna_scene(width=W, height=H, spp=1, max_depth=BVH_DEPTH),
+            "height256": mesh_scene(big, width=W, height=H, spp=1,
+                                    max_depth=BVH_DEPTH),
+        }
+        tables = {}
+        for name, (sdef, cfg) in scenes.items():
+            t0 = time.time()
+            tables[name] = build_tables(sdef, device=dev, bvh_types=BVH_ALL)
+            print(f"  {name}: tables with every family's BVH "
+                  f"{tables[name].bvh_for} in {time.time() - t0:.3f} s "
+                  f"(counts {tables[name].counts})", flush=True)
+        if n_big != 2 * BIG_CELLS * BIG_CELLS or \
+                tables["height256"].counts[3] != n_big:
+            raise AssertionError("the height field has the wrong size")
+
+        for name, tb in tables.items():
+            cfg = scenes[name][1]
+            px = torch.arange(W * H, device=dev)
+            ro, rd = generate_rays(tb.camera, W, H, px % W, px // W, 0,
+                                   cfg.seed, cfg.enable_defocus)
+            sub = (torch.linspace(0, W * H - 1, BIG_RAYS, device=dev).long()
+                   if name == "height256" else px)
+            # (b) primary rays: the walk against the scan
+            hb, s_b, reads, _ = timed(lambda: intersect(
+                tb, ro, rd, traversal="bvh"))
+            rec = dict(bvh_s=s_b, **reads)
+            if name == "height256":
+                hs, s_s, reads_s, _ = timed(lambda: intersect(
+                    tb, ro[sub], rd[sub], traversal="bvh"))
+                hl, s_l, _, _ = timed(lambda: linear_hits(
+                    intersect, tb, ro[sub], rd[sub]))
+                rec.update(bvh_subset_s=s_s, linear_subset_s=s_l,
+                           **bvh_vs_linear(hs, hl, f"{name}, {BIG_RAYS} of "
+                                           "the primary rays", tb, ro[sub],
+                                           rd[sub]))
+                print(f"  {name}: walk on all {W * H} rays {s_b:.4f} s "
+                      f"({reads}); on {BIG_RAYS} rays {s_s:.4f} s against "
+                      f"the scan's {s_l:.4f} s", flush=True)
+            else:
+                hs = hb
+                hl, s_l, _, _ = timed(lambda: linear_hits(intersect, tb, ro,
+                                                          rd))
+                rec.update(linear_s=s_l, **bvh_vs_linear(hb, hl, name, tb,
+                                                         ro, rd))
+                print(f"  {name}: walk {s_b:.4f} s ({reads}), scan "
+                      f"{s_l:.4f} s", flush=True)
+            out["intersect"][name] = rec
+
+            # (a) the native build against the NumPy one: equal arrays, or
+            # where centroids tie (the two order tied primitives
+            # otherwise, as rt_tpu's two builders do) a valid tree whose
+            # walk finds the same hits
+            rows = {}
+            for fam in tb.bvh_for:
+                lo, hi = tb.family_boxes(fam)
+                t0 = time.time()
+                nat = native.native_build_bvh(lo, hi)
+                t_nat = time.time() - t0
+                t0 = time.time()
+                py = bvh._python_build(lo, hi)
+                t_py = time.time() - t0
+                prefix = dict(BVH_FAMILIES)[fam]
+                keys = tuple(zip(BVH_KEYS, ("obj_id", "left_id", "next_id",
+                                            "bmin", "bmax")))
+                if not all(np.array_equal(
+                        getattr(tb, f"{prefix}_bvh_{k}").cpu().numpy(),
+                        nat[v]) for k, v in keys):
+                    raise AssertionError(f"{name} {fam}: the tables' BVH "
+                                         "is not the native build")
+                differ = int(sum((nat[v] != py[v]).reshape(len(py[v]), -1)
+                                 .any(-1).sum() for _, v in keys[:1]))
+                rec_f = dict(primitives=len(lo), nodes=len(nat["obj_id"]),
+                             bytes=sum(int(nat[v].nbytes) for _, v in keys),
+                             native_s=t_nat, numpy_s=t_py,
+                             leaves_ordered_otherwise=differ)
+                if differ or not all(np.array_equal(nat[v], py[v])
+                                     for _, v in keys):
+                    leaves = np.sort(py["obj_id"][py["obj_id"] >= 0])
+                    inner = np.nonzero(py["obj_id"] < 0)[0]
+                    kids = np.concatenate([py["left_id"][inner],
+                                           py["right_id"][inner]])
+                    par = np.concatenate([inner, inner])
+                    valid = (np.array_equal(leaves, np.arange(len(lo)))
+                             and (py["bmin"][par] <= py["bmin"][kids]).all()
+                             and (py["bmax"][par] >= py["bmax"][kids]).all())
+                    alt = dataclasses.replace(tb, **{
+                        f"{prefix}_bvh_{k}": torch.from_numpy(py[v]).to(dev)
+                        for k, v in keys})
+                    ha = intersect(alt, ro[sub], rd[sub], traversal="bvh")
+                    same_t = torch.equal(torch.where(ha.hit, ha.t, 0.0),
+                                         torch.where(hs.hit, hs.t, 0.0))
+                    pid_eq = float(((ha.pid == hs.pid) & (
+                        ha.ptype == hs.ptype))[hs.hit].float().mean())
+                    rec_f.update(numpy_tree_valid=valid, walk_t_equal=same_t,
+                                 walk_rows_agree=pid_eq)
+                    if not (valid and same_t and pid_eq > 0.999):
+                        raise AssertionError(f"{name} {fam}: the NumPy tree "
+                                             "is invalid or walks otherwise")
+                    verdict = (f"arrays differ on {differ} of "
+                               f"{len(nat['obj_id'])} leaf slots (tied "
+                               f"centroids), the NumPy tree valid, its walk's "
+                               f"t bit-equal and rows agree {pid_eq:.6f} on "
+                               f"{sub.numel()} rays")
+                else:
+                    verdict = "arrays equal"
+                print(f"  {name} {fam}: {len(lo)} primitives, "
+                      f"{rec_f['nodes']} nodes ({rec_f['bytes'] / 1e6:.2f} "
+                      f"MB), native build {t_nat:.4f} s, NumPy build "
+                      f"{t_py:.4f} s ({t_py / max(t_nat, 1e-9):.1f}x); "
+                      f"{verdict}", flush=True)
+                rows[fam] = rec_f
+            out["builds"][name] = rows
+
+        # (c) frames: the plain and hybrid engines walk the BVH
+        imgs = {}
+        for name, engine, trav in (("cover", "plain", "linear"),
+                                   ("cover", "plain", "bvh"),
+                                   ("cover", "pallas", "bvh"),
+                                   ("plane441", "plain", "linear"),
+                                   ("plane441", "plain", "bvh"),
+                                   ("height256", "plain", "bvh")):
+            cfg = scenes[name][1].replace(engine=engine, traversal=trav)
+            if trav == "bvh":
+                # the whole frame in one trace call: the walk's steps are
+                # launch-bound, so tiles would multiply them (the linear
+                # frames keep the default tile for their [rays, rows]
+                # candidates)
+                cfg = cfg.replace(rays_per_batch=W * H)
+            img, sec, reads, launches = timed(lambda: render(
+                tables[name], cfg, device=dev))
+            img = img.cpu().numpy()
+            imgs[(name, engine, trav)] = img
+            if not np.isfinite(img).all() or img.min() < 0 or img.mean() <= 0:
+                raise AssertionError(f"{name} {engine} {trav}: bad frame")
+            launched = {k: v for k, v in launches.items() if v}
+            print(f"  {name} {engine} {trav} frame {W}x{H} spp 1 depth "
+                  f"{BVH_DEPTH}: {sec:.4f} s, mean {img.mean():.5f}, walks "
+                  f"{reads}, kernel launches {launched}; {smi}", flush=True)
+            out["frames"][f"{name} {engine} {trav}"] = dict(
+                s=sec, mean=float(img.mean()), launches=launched, **reads)
+            if engine == "pallas" and launched:
+                raise AssertionError("the hybrid frame with the BVH launched "
+                                     "B1 on a sphere-only scene")
+        for name, engine in (("cover", "plain"), ("cover", "pallas"),
+                             ("plane441", "plain")):
+            # at spp 1 an outlier pixel is one path whose hit flipped, and
+            # a path carries at most the gradient sky's brightest value,
+            # 1.0 (no emitter, every attenuation <= 1)
+            frac, mx = images_close(imgs[(name, engine, "bvh")],
+                                    imgs[(name, "plain", "linear")], 1,
+                                    outlier_atol=1.0)
+            print(f"  {name} {engine} bvh against plain linear: "
+                  f"images_close ({frac:.4%} pixels beyond 2e-3, max "
+                  f"{mx:.4g})", flush=True)
+
+        # (d) the CLI and the library on demo_scene.json: the kernels read
+        # no BVH; the plain engine walks it
+        log = os.path.join(tmpd, "t.log")
+        pngs = {}
+        for label, extra in (("queue --bvh", ["--bvh"]), ("queue", []),
+                             ("plain --bvh", ["--engine", "plain", "--bvh",
+                                              "-spp", "2", "-d", "8"]),
+                             ("plain", ["--engine", "plain", "-spp", "2",
+                                        "-d", "8"])):
+            p = os.path.join(tmpd, label.replace(" ", "_") + ".png")
+            rc, sec, reads, launches = timed(lambda: cli.main(
+                ["render", "-f", DEMO, "-o", p, "--log", log] + extra))
+            launched = {k: v for k, v in launches.items() if v}
+            print(f"  render -f demo_scene.json {' '.join(extra)}: exit {rc},"
+                  f" {sec:.4f} s, walks {reads}, launches {launched}",
+                  flush=True)
+            if rc != 0:
+                raise AssertionError(f"render {label} exited {rc}")
+            pngs[label] = read_png(p)
+            out["cli"][label] = dict(s=sec, launches=launched, **reads)
+        if not np.array_equal(pngs["queue --bvh"], pngs["queue"]):
+            raise AssertionError("render --bvh on queue differs from render")
+        sd, dcfg = parse_scene(DEMO)
+        with_bvh = build_tables(sd, device=dev, bvh_types=BVH_ALL)
+        plain_t = build_tables(sd, device=dev)
+        for engine, extra in (("queue", {}), ("mega", {"regen": True})):
+            c = dcfg.replace(engine=engine, **extra)
+            a = render(with_bvh, c.replace(traversal="bvh"), device=dev)
+            b = render(plain_t, c, device=dev)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{engine} {extra}: the frame with BVHs "
+                                     "differs")
+            print(f"  library {engine} {extra} 960x540 spp "
+                  f"{dcfg.samples_per_pixel} depth {dcfg.max_depth}: tables "
+                  f"with BVHs under traversal 'bvh' bit-equal to without",
+                  flush=True)
+        c = dcfg.replace(engine="plain", samples_per_pixel=2, max_depth=8)
+        frac, mx = images_close(
+            render(with_bvh, c.replace(traversal="bvh"), device=dev).cpu(),
+            render(plain_t, c, device=dev).cpu(), 2)
+        print(f"  plain --bvh against plain on demo_scene.json (spp 2, depth "
+              f"8): images_close ({frac:.4%} beyond 2e-3, max {mx:.4g})",
+              flush=True)
+        out["cli"]["bit_equal"] = ["queue --bvh", "library queue",
+                                   "library regen"]
+    tmp_dir.cleanup()
+    return out
+
+
+def example_phase(dev, smi):
+    """Phase 56: every demo of rt_tpu_torch/examples/inverse_render.py at
+    its own size on the card (--steps 3 where a demo takes it; the albedo
+    demo at its default 80 steps, which must exit 0), each one's loss
+    falling, its seconds per step and each kernel's launches; --sharded
+    refuses naming A-9. Returns the numbers for the kernels line."""
+    from rt_tpu_torch.examples import inverse_render as ex
+
+    out = {}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmpd = tmp_dir.name
+
+    def args(*extra):
+        return ex.make_parser().parse_args(["--outdir", tmpd, *extra])
+
+    texture = np.random.default_rng(23).random((100, 100, 3)).astype(
+        np.float32)
+    three = args("--steps", "3")
+    demos = (
+        ("albedo (autograd, 80 steps)", lambda: ex.albedo_demo(args()), 80,
+         True),
+        ("albedo --replay", lambda: ex.albedo_demo(
+            args("--steps", "3", "--replay")), 3, False),
+        ("position (fit_fd, 60 steps)", lambda: ex.position_demo(), 60, False),
+        ("grad-1080p", lambda: ex.grad_1080p_demo(three), 1, True),
+        ("material-geom", lambda: ex.material_geom_demo(three), 3, False),
+        ("joint-1080p", lambda: ex.joint_1080p_demo(three), 3, False),
+        ("cover-albedo", lambda: ex.cover_albedo_demo(three), 3, False),
+        ("camera", lambda: ex.camera_demo(three), 3, False),
+        ("tape-1080p", lambda: ex.tape_1080p_demo(three), 1, True),
+        ("texture (a seeded 100x100 image)", lambda: ex.texture_demo(
+            three, image=texture), 3, False),
+    )
+    with phase("56 the example: python -m rt_tpu_torch.examples."
+               "inverse_render, every demo at its own size"):
+        for label, fn, steps, must_pass in demos:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code, hist = fn()
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            launched = {k: v for k, v in read_counts().items() if v}
+            for line in buf.getvalue().splitlines():
+                print(f"    {line}")
+            print(f"  {label}: exit {code}, loss {hist[0]:.6g} -> "
+                  f"{hist[-1]:.6g}, {sec:.3f} s ({sec / steps:.4f} s a step "
+                  f"over {steps}), launches {launched}; {smi}", flush=True)
+            if not hist[-1] < hist[0] or (must_pass and code != 0):
+                raise AssertionError(f"{label}: exit {code}, loss {hist}")
+            out[label] = dict(exit=code, loss=[hist[0], hist[-1]], s=sec,
+                              s_per_step=sec / steps, launches=launched)
+        proc = subprocess.run(
+            [sys.executable, "-m", "rt_tpu_torch.examples.inverse_render",
+             "--sharded", "--outdir", tmpd], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        last = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() \
+            else ""
+        print(f"  --sharded: exit {proc.returncode}, {last}", flush=True)
+        if proc.returncode == 0 or "A-9" not in last or \
+                "NotImplementedError" not in last:
+            raise AssertionError("--sharded did not refuse naming A-9")
+    tmp_dir.cleanup()
+    return out
 
 
 def reset_counts():
@@ -4447,6 +4994,13 @@ def main() -> int:
     img_tmp.cleanup()
 
     drv = driver_phases(dev, smi, c16, t16, main["queue"]["img"], cli)
+    bvh_rec = bvh_phase(dev, smi, cli)
+    example = example_phase(dev, smi)
+
+    def example_entry(name):
+        """A kernel's launches in each demo of phase 56 that launched it."""
+        return {k: v["launches"][name] for k, v in example.items()
+                if name in v["launches"]}
 
     def img_entry(name, train_key=None, fit_key=None):
         """A kernel's numbers with image textures, for its entry in the
@@ -4522,7 +5076,7 @@ def main() -> int:
             out["ab_ms"] = ab[name]
         return out
 
-    print(f"[55 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    print(f"[57 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -4540,6 +5094,9 @@ def main() -> int:
         "sass_instructions": b1_sass,
         "against_parent": b1_parent,
         "parent_ab": parent_entry("sphere_closest_hit"),
+        "example": example_entry("sphere_closest_hit"),
+        # the hybrid cover frame walks its BVH in place of this kernel
+        "bvh_hybrid_cover_frame": bvh_rec["frames"]["cover pallas bvh"],
     }, {
         "name": "mega_segment",
         "route": "cuda",
@@ -4556,6 +5113,7 @@ def main() -> int:
                     "mega_segment"]},
         "qmc_cull": flag_entry("mega_segment", "mega"),
         "warp_hit": warp_entry("mega_segment"),
+        "example": example_entry("mega_segment"),
         "drivers": {"animate_mega": drv["animate"]["dna_mega"],
                     "adaptive_round_lanes": drv["adaptive"]["round_lanes"]},
     }, {
@@ -4585,12 +5143,14 @@ def main() -> int:
                      "fit_qmc": {k: v for k, v in flag_cli.items()
                                  if k.startswith("fit_")}},
         "warp_hit": warp_entry("queue_launch"),
+        "example": example_entry("queue_launch"),
         "drivers": {"animate": {k: v for k, v in drv["animate"].items()
                                 if k != "dna_mega"},
                     "progressive": drv["progressive"]["queue"],
                     "b3_sample_base_64_ms": drv["progressive"][
                         "b3_base64_ms"],
                     "adaptive": drv["adaptive"], "cli": drv["cli"]},
+        "bvh_cli": bvh_rec["cli"],
     }, {
         "name": "mega_adjoint_segment",
         "route": "cuda",
@@ -4617,6 +5177,7 @@ def main() -> int:
         "qmc_cull": {**flag_entry("mega_adjoint_segment"),
                      "max_abs_err_small": err_flags["b5"]},
         "warp_hit": warp_entry("mega_adjoint_segment"),
+        "example": example_entry("mega_adjoint_segment"),
     }, {
         "name": "queue_adjoint_launch",
         "route": "cuda",
@@ -4642,6 +5203,7 @@ def main() -> int:
         "qmc_cull": {**flag_entry("queue_adjoint_launch"),
                      "max_abs_err_small": err_flags["b6"]},
         "warp_hit": warp_entry("queue_adjoint_launch"),
+        "example": example_entry("queue_adjoint_launch"),
     }, {
         "name": "mega_capture",
         "route": "cuda",
@@ -4658,6 +5220,7 @@ def main() -> int:
                          fit_key="fit_tape"),
         "qmc_cull": {"culled_codes_off_unculled_and_ties": ties_seen},
         "warp_hit": warp_entry("mega_capture"),
+        "example": example_entry("mega_capture"),
     }, {
         "name": "mega_regen",
         "route": "cuda",
@@ -4671,7 +5234,9 @@ def main() -> int:
         "img": img_entry("mega_regen"),
         "qmc_cull": flag_entry("mega_regen", "regen"),
         "drivers": {"progressive": drv["progressive"]["regen"]},
+        "bvh_bit_equal": "library regen" in bvh_rec["cli"]["bit_equal"],
         "warp_hit": warp_entry("mega_regen"),
+        "example": example_entry("mega_regen"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,10 @@
       (render/progressive.py), --adaptive spends the spp budget on the
       noisiest pixels (render/adaptive.py), --progress prints the tiles
       or passes; each render appends its RenderStats line to --log
-      (rt_tpu_torch-time.log). --bvh (ROADMAP Queue A-8) and --sharded
-      (A-9) are not ported yet and raise.
+      (rt_tpu_torch-time.log). --bvh builds the four families' BVHs and
+      walks them where an engine intersects ("plain", "pallas"; the
+      kernels of "queue" and "mega" read none, as the reference's do).
+      --sharded (ROADMAP Queue A-9) is not ported yet and raises.
   python -m rt_tpu_torch parse    parse a scene JSON and print its
       summary (rt_tpu/cli.py `cmd_parse` :413-426).
   python -m rt_tpu_torch fit      inverse rendering (rt_tpu/cli.py
@@ -108,9 +110,6 @@ def cmd_render(args) -> int:
     from rt_tpu_torch.scene.types import build_tables
     from rt_tpu_torch.utils.metrics import RenderStats
 
-    if args.bvh:
-        raise NotImplementedError("render --bvh: BVH traversal is not "
-                                  "ported yet (ROADMAP Queue A-8)")
     if args.sharded:
         raise NotImplementedError("render --sharded: multi-device "
                                   "rendering is not ported yet (ROADMAP "
@@ -132,7 +131,11 @@ def cmd_render(args) -> int:
         cfg = cfg.replace(nee=True, mis=True)
     if args.nee_glossy:
         cfg = cfg.replace(nee=True, nee_glossy=True)
-    tables = build_tables(sdef, device=dev)
+    # every family's BVH, as rt_tpu/cli.py:204-208 builds them
+    tables = build_tables(sdef, device=dev, bvh_types=(
+        "sphere", "rect", "cylinder", "triangle") if args.bvh else ())
+    if args.bvh:
+        cfg = cfg.replace(traversal="bvh")
 
     stats = {}
     t0 = time.time()
@@ -422,8 +425,8 @@ def main(argv=None) -> int:
     rp.add_argument("--checkpoint-every", type=int, default=32,
                     help="samples between checkpoint writes")
     rp.add_argument("--bvh", action="store_true",
-                    help="BVH traversal (not ported yet, ROADMAP Queue "
-                         "A-8: raises)")
+                    help="build each family's BVH and walk it where the "
+                         "engine intersects (plain, pallas)")
     rp.add_argument("--sharded", action="store_true",
                     help="render over every local device (not ported yet, "
                          "ROADMAP Queue A-9: raises)")

@@ -36,6 +36,12 @@ direction octant and Morton cell (ops/cuda_mega._segmented).
 mxu_intersect is a TPU mechanism and is read as off. What the port lacks
 raises NotImplementedError (check_supported).
 
+traversal "bvh" walks the threaded BVHs of the tables' families
+(build_tables(..., bvh_types=...), accel/bvh.py) in the intersector of
+the wavefront engines ("plain", "pallas"), the replays and the
+wavefront capture. The kernels of "mega", "queue" and regen read no
+BVH, as the reference's do: there it changes nothing.
+
 nee, mis and nee_glossy follow the reference's rule (`nee_on`): light
 sampling runs only when cfg.nee is set and the scene has an emitter;
 mis and nee_glossy take effect only with it, so a scene without lights
@@ -51,6 +57,7 @@ import torch
 
 ENGINES = ("plain", "pallas", "mega", "queue")
 SAMPLERS = ("rng", "qmc")
+TRAVERSALS = ("linear", "bvh")
 COMPACT_SORTS = ("dead", "spatial")
 
 
@@ -108,9 +115,9 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {cfg.sampler!r} (want "
                          f"{SAMPLERS})")
-    if cfg.traversal != "linear":
-        raise NotImplementedError("BVH traversal is not ported yet "
-                                  "(ROADMAP Queue A-8)")
+    if cfg.traversal not in TRAVERSALS:
+        raise ValueError(f"unknown traversal {cfg.traversal!r} (want "
+                         f"{TRAVERSALS})")
     if cfg.compact_sort not in COMPACT_SORTS:
         raise ValueError(f"unknown compact_sort {cfg.compact_sort!r} (want "
                          f"{COMPACT_SORTS})")

@@ -232,7 +232,8 @@ class ReplayRender:
                   refl_u=refl_u, pd=pd, i=i):
                 t2 = apply_params(base, pp)
                 hit = (_attributes_for_tape(t2, o, d, code) if code is not None
-                       else intersect(t2, o, d, engine="plain"))
+                       else intersect(t2, o, d, engine="plain",
+                                      traversal=cfg.traversal))
                 sc, em = materials.shade(t2, hit.mat, d, hit.normal,
                                          hit.front_face, hit.u, hit.v,
                                          hit.p, ball, refl_u)

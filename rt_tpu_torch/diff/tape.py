@@ -164,7 +164,8 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
             if cfg.p_rr > 0.0:
                 survive = smp.uniform(seed, pixel, sample, i,
                                       rng.RR) <= cfg.p_rr
-            hit = intersect(tables, o, d, engine=engine)
+            hit = intersect(tables, o, d, engine=engine,
+                            traversal=cfg.traversal)
             ball = smp.in_unit_ball(seed, pixel, sample, i)
             refl_u = smp.uniform(seed, pixel, sample, i, rng.DIEL_REFL)
             sc, _ = materials.shade(tables, hit.mat, d, hit.normal,

@@ -340,7 +340,8 @@ def _bounce(tables: SceneTables, cfg: RenderConfig, state: RayState,
         u_rr = smp.uniform(seed, pixel, sample_idx, bounce_idx, rng.RR)
         survive = u_rr <= cfg.p_rr
 
-    hit = intersect(tables, o, d, engine=cfg.engine)
+    hit = intersect(tables, o, d, engine=cfg.engine,
+                    traversal=cfg.traversal)
 
     ball = smp.in_unit_ball(seed, pixel, sample_idx, bounce_idx)
     refl_u = smp.uniform(seed, pixel, sample_idx, bounce_idx, rng.DIEL_REFL)

@@ -5,9 +5,9 @@ SceneTables` as NumPy arrays (the caller exports them with np.asarray;
 camera leaves under 'camera.<field>') and returns this package's
 `SceneTables` on `device`, the four primitive families, the image
 textures (tex_image and the atlas `images`) and the light index
-included; the static img_on / nee_img are derived from the leaves
-(scene/types.image_usage). Leaves this package does not carry (BVHs)
-are ignored.
+included, and the threaded BVHs (the `*_bvh_*` leaves); the static
+img_on / nee_img are derived from the leaves (scene/types.image_usage)
+and so is bvh_for (`bvh_families`).
 `params_from_numpy` carries a parameter dict of rt_tpu's diff package
 (field name -> array; "camera" -> a camera whose fields are arrays)
 across the same way.
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from rt_tpu_torch.scene.types import (
+    BVH_FAMILIES,
     MAT_DIFFUSE_LIGHT,
     CameraDef,
     SceneTables,
@@ -30,7 +31,24 @@ from rt_tpu_torch.scene.types import (
 )
 
 _FAMILIES = ("sph", "rect", "cyl", "tri")
-_META = ("camera", "counts", "n_lights", "img_on", "nee_img")
+_META = ("camera", "counts", "n_lights", "img_on", "nee_img", "bvh_for")
+
+
+def bvh_families(leaves: Mapping[str, np.ndarray], counts) -> tuple:
+    """The families whose `*_bvh_*` leaves hold a real BVH, in
+    BVH_FAMILIES order (rt_tpu's bvh_for): a family with n live rows
+    whose BVH has 2n-1 nodes, other than the dummy (one node whose box
+    is all zeros, what rt_tpu stores for a family without a BVH)."""
+    n_of = dict(zip(_FAMILIES, counts))
+    out = []
+    for name, prefix in BVH_FAMILIES:
+        n = n_of[prefix]
+        obj = np.asarray(leaves[f"{prefix}_bvh_obj"])
+        box = np.concatenate([np.asarray(leaves[f"{prefix}_bvh_min"]),
+                              np.asarray(leaves[f"{prefix}_bvh_max"])])
+        if n and obj.shape[0] == 2 * n - 1 and (n > 1 or box.any()):
+            out.append(name)
+    return tuple(out)
 
 
 def tables_from_numpy(leaves: Mapping[str, np.ndarray],
@@ -55,7 +73,8 @@ def tables_from_numpy(leaves: Mapping[str, np.ndarray],
         np.asarray(leaves["light_fam"])[:n_lights],
         np.asarray(leaves["light_pid"])[:n_lights])
     return SceneTables(camera=cam, counts=counts, n_lights=n_lights,
-                       img_on=img_on, nee_img=nee_img, **tensors)
+                       img_on=img_on, nee_img=nee_img,
+                       bvh_for=bvh_families(leaves, counts), **tensors)
 
 
 def params_from_numpy(params: Mapping[str, np.ndarray],

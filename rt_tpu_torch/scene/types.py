@@ -9,8 +9,9 @@ are the reference's, so the two packages' tables compare leaf by leaf
 The tables carry the four primitive families (spheres, axis-aligned
 rects, cylinders, triangles), the materials, the solid, checker and
 image textures (the image atlas: every image of a scene shares one
-size) and the emissive-primitive index. BVHs raise NotImplementedError
-until ROADMAP Queue A-8.
+size), the emissive-primitive index and the threaded BVHs of the
+families that ask for one (`build_tables(..., bvh_types=...)`, walked
+under RenderConfig(traversal="bvh"); accel/bvh.py).
 
 Material type ids: 0=lambertian, 1=metal, 2=dielectric, 3=diffuse_light.
 Texture type ids: 0=solid_color, 1=checker, 2=image.
@@ -44,6 +45,29 @@ RECT_XY = 2
 
 # the families' names, in family order (rt_tpu's img_on names)
 FAMILY_NAMES = ("sphere", "rect", "cylinder", "triangle")
+
+
+# the families that may carry a BVH: (name, field prefix), in the order
+# rt_tpu's build_tables builds them (its bvh_for order)
+BVH_FAMILIES = (("sphere", "sph"), ("triangle", "tri"), ("rect", "rect"),
+                ("cylinder", "cyl"))
+# the suffixes of a family's five BVH fields, in accel/bvh.BVH's order
+BVH_KEYS = ("obj", "left", "next", "min", "max")
+
+
+def _dummy_bvh():
+    """The one-node arrays of an absent BVH (obj, left, next, min, max),
+    rt_tpu's dummies."""
+    return (torch.zeros(1, dtype=torch.int32),
+            torch.full((1,), -1, dtype=torch.int32),
+            torch.full((1,), -1, dtype=torch.int32),
+            torch.zeros((1, 3), dtype=torch.float32),
+            torch.zeros((1, 3), dtype=torch.float32))
+
+
+def _bvh_field(i: int):
+    """A SceneTables BVH field whose default is the dummy's array i."""
+    return dataclasses.field(default_factory=lambda: _dummy_bvh()[i])
 
 
 def _pad_size(n: int, minimum: int = 4) -> int:
@@ -177,6 +201,30 @@ class SceneTables:
     light_fam: torch.Tensor    # [max(n_lights, 1)] i32
     light_pid: torch.Tensor    # [max(n_lights, 1)] i32
 
+    # threaded BVHs over the live rows of each family (accel/bvh.py,
+    # rt_tpu/scene/types.py:176-216): dummy one-node arrays when absent;
+    # `bvh_for` says which are real
+    sph_bvh_obj: torch.Tensor = _bvh_field(0)
+    sph_bvh_left: torch.Tensor = _bvh_field(1)
+    sph_bvh_next: torch.Tensor = _bvh_field(2)
+    sph_bvh_min: torch.Tensor = _bvh_field(3)
+    sph_bvh_max: torch.Tensor = _bvh_field(4)
+    tri_bvh_obj: torch.Tensor = _bvh_field(0)
+    tri_bvh_left: torch.Tensor = _bvh_field(1)
+    tri_bvh_next: torch.Tensor = _bvh_field(2)
+    tri_bvh_min: torch.Tensor = _bvh_field(3)
+    tri_bvh_max: torch.Tensor = _bvh_field(4)
+    rect_bvh_obj: torch.Tensor = _bvh_field(0)
+    rect_bvh_left: torch.Tensor = _bvh_field(1)
+    rect_bvh_next: torch.Tensor = _bvh_field(2)
+    rect_bvh_min: torch.Tensor = _bvh_field(3)
+    rect_bvh_max: torch.Tensor = _bvh_field(4)
+    cyl_bvh_obj: torch.Tensor = _bvh_field(0)
+    cyl_bvh_left: torch.Tensor = _bvh_field(1)
+    cyl_bvh_next: torch.Tensor = _bvh_field(2)
+    cyl_bvh_min: torch.Tensor = _bvh_field(3)
+    cyl_bvh_max: torch.Tensor = _bvh_field(4)
+
     # (n_spheres, n_rects, n_cylinders, n_triangles)
     counts: Tuple[int, int, int, int] = (0, 0, 0, 0)
     n_lights: int = 0
@@ -185,6 +233,9 @@ class SceneTables:
     # one (rt_tpu's static img_on / nee_img; image_usage)
     img_on: Tuple[str, ...] = ()
     nee_img: bool = False
+    # the families that carry a real BVH, in rt_tpu's build order
+    # (BVH_FAMILIES), e.g. ("triangle",)
+    bvh_for: Tuple[str, ...] = ()
 
     @property
     def n_spheres(self) -> int:
@@ -230,6 +281,34 @@ class SceneTables:
         from rt_tpu_torch.ops.mega_tables import MegaScene
 
         return MegaScene.of(self, cull=True)
+
+    def family_boxes(self, name: str):
+        """(bmin, bmax) [n,3] NumPy float32: the boxes of the n live rows
+        of family `name` (FAMILY_NAMES), what its BVH is built over
+        (rt_tpu's per-family aabbs; a rect padded by 1e-4 on its axis)."""
+        from rt_tpu_torch.accel import bvh
+
+        n = self.counts[FAMILY_NAMES.index(name)]
+
+        def rows(field):
+            return getattr(self, field)[:n].cpu().numpy()
+
+        if name == "sphere":
+            return bvh.sphere_aabbs(rows("sph_center"), rows("sph_radius"))
+        if name == "triangle":
+            return bvh.triangle_aabbs(rows("tri_v1"), rows("tri_v2"),
+                                      rows("tri_v3"))
+        if name == "rect":
+            return bvh.rect_aabbs(rows("rect_axis"), rows("rect_lo"),
+                                  rows("rect_hi"), rows("rect_k"))
+        return bvh.cylinder_aabbs(rows("cyl_radius"), rows("cyl_zmin"),
+                                  rows("cyl_zmax"), rows("cyl_o2w"))
+
+    def bvh_arrays(self, prefix: str) -> Dict[str, torch.Tensor]:
+        """The BVH of family `prefix` (sph, tri, rect, cyl) as the dict
+        accel/bvh.traverse walks."""
+        return {k: getattr(self, f"{prefix}_bvh_{n}") for k, n in zip(
+            ("obj_id", "left_id", "next_id", "bmin", "bmax"), BVH_KEYS)}
 
     def leaves(self) -> Dict[str, torch.Tensor]:
         """Every tensor by name; camera fields as 'camera.<field>'."""
@@ -411,11 +490,15 @@ def _padded(rows, columns):
 
 def build_tables(s: SceneDef, device="cpu", *,
                  bvh_types: Sequence[str] = ()) -> SceneTables:
-    """Freeze a SceneDef into padded tables on `device`. bvh_types
-    (rt_tpu's threaded BVHs) is not ported yet and must be empty."""
-    if bvh_types:
-        raise NotImplementedError("BVHs are not ported yet (ROADMAP Queue "
-                                  "A-8)")
+    """Freeze a SceneDef into padded tables on `device`. bvh_types names
+    the families (sphere, triangle, rect, cylinder) whose live rows get a
+    threaded BVH, built on the host (accel/bvh.build_bvh), as rt_tpu's
+    build_tables does (types.py:584-626); a family without rows gets
+    none."""
+    unknown = set(bvh_types) - {name for name, _ in BVH_FAMILIES}
+    if unknown:
+        raise ValueError(f"unknown bvh_types {sorted(unknown)} (want among "
+                         f"{[name for name, _ in BVH_FAMILIES]})")
     if s.camera is None:
         raise ValueError("scene has no camera")
 
@@ -567,7 +650,7 @@ def build_tables(s: SceneDef, device="cpu", *,
     def t(x):
         return torch.from_numpy(x).to(device)
 
-    return SceneTables(
+    tables = SceneTables(
         sph_center=t(sph_center), sph_radius=t(sph_radius),
         sph_mat=t(sph_mat), sph_obj=t(sph_obj),
         rect_axis=t(rect_axis), rect_lo=t(rect_lo), rect_hi=t(rect_hi),
@@ -587,7 +670,23 @@ def build_tables(s: SceneDef, device="cpu", *,
         light_fam=t(light_fam), light_pid=t(light_pid),
         counts=(len(sph), len(rect), len(cyl), len(tri)),
         n_lights=n_lights, img_on=img_on, nee_img=nee_img,
+        **{f"{prefix}_bvh_{k}": a.to(device) for _, prefix in BVH_FAMILIES
+           for k, a in zip(BVH_KEYS, _dummy_bvh())},
     )
+    # each asked-for family's BVH over its live rows (types.py:584-626)
+    built = [name for name, _ in BVH_FAMILIES
+             if name in bvh_types and tables.counts[FAMILY_NAMES.index(name)]]
+    if not built:
+        return tables
+    from rt_tpu_torch.accel.bvh import build_bvh
+
+    fields = {}
+    for name, prefix in BVH_FAMILIES:
+        if name in built:
+            bv = build_bvh(*tables.family_boxes(name))
+            fields.update({f"{prefix}_bvh_{k}": t(a)
+                           for k, a in zip(BVH_KEYS, bv)})
+    return dataclasses.replace(tables, bvh_for=tuple(built), **fields)
 
 
 def image_usage(tex_type, mat_tex, families, light_fam, light_pid):

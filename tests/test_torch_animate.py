@@ -278,11 +278,19 @@ def test_render_output_flags(tmp_path):
     assert len(log.read_text().splitlines()) == 2
 
 
-@pytest.mark.parametrize("flag,queue", [("--bvh", "A-8"),
+@pytest.mark.parametrize("flag,queue", [("--bvh", None),
                                         ("--sharded", "A-9")])
-def test_render_unported_flags_raise(flag, queue):
+def test_render_unported_flags_raise(flag, queue, tmp_path):
+    """--sharded refuses, naming its ROADMAP item; --bvh renders (its
+    frames: tests/test_torch_bvh_cli.py)."""
+    args = ["render", flag, "--device", "cpu", "-w", "16", "--height", "9",
+            "-spp", "1", "-d", "2", "-o", str(tmp_path / "a.png"), "--log",
+            str(tmp_path / "t.log")]
+    if queue is None:
+        assert tcli.main(args) == 0 and (tmp_path / "a.png").exists()
+        return
     with pytest.raises(NotImplementedError, match=queue):
-        tcli.main(["render", flag, "--device", "cpu"])
+        tcli.main(args)
 
 
 def test_assert_finite_names_the_field():

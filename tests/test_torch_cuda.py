@@ -1980,3 +1980,39 @@ def test_frame_pipeline_on_the_card_matches_sync(tmp_path):
     for i in range(3):
         assert (tmp_path / f"pipe_{i}.png").read_bytes() == \
             (tmp_path / f"sync_{i}.png").read_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cover", "demo"])
+def test_bvh_walk_on_the_card_matches_cpu(name):
+    """The BVH walk (accel/bvh.py, plain PyTorch) on CUDA tensors against
+    the same walk on the CPU: the native builder loaded, and the hits,
+    families and rows equal on >= 99.9% of lanes, t within rtol 2e-4 /
+    atol 1e-4 (tests/test_pallas.py) on >= 99.9% of the lanes where both
+    hit: the card sums the leaf tests' dot products in another order,
+    which moves an ill-conditioned lane (a ray grazing the radius-1000
+    ground sphere, ROADMAP C-5) by more."""
+    from rt_tpu_torch.io import native
+    from rt_tpu_torch.ops.intersect import intersect
+    from rt_tpu_torch.scene.parser import parse_scene
+
+    dev = _card()
+    assert native.available()
+    sdef = (builders.cover_scene(grid=5)[0] if name == "cover" else
+            parse_scene(os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "scenes",
+                "demo_scene.json"))[0])
+    fams = ("sphere", "rect", "cylinder", "triangle")
+    cpu = types.build_tables(sdef, bvh_types=fams)
+    card = types.build_tables(sdef, device=dev, bvh_types=fams)
+    ro, rd = _rays(1 << 15, seed=9)
+    hc = intersect(cpu, ro, rd, traversal="bvh")
+    hk = intersect(card, ro.to(dev), rd.to(dev), traversal="bvh")
+    hk = type(hk)(*(x.cpu() for x in hk))
+    assert hc.hit.float().mean() > 0.05
+    same = ((hc.hit == hk.hit) & (hc.ptype == hk.ptype)
+            & (hc.pid == hk.pid))
+    assert same.float().mean() >= 0.999
+    both = same & hc.hit
+    close = (hk.t[both] - hc.t[both]).abs() <= 1e-4 + 2e-4 * hc.t[both].abs()
+    assert close.float().mean() >= 0.999

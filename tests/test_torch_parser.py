@@ -202,7 +202,7 @@ def test_image_textures_raise(tmp_path):
     `"image" {file}` (relative to the scene's directory), the textured
     mesh and an image texture carried across by tables_from_numpy are
     taken now (tests/test_torch_images.py holds them against rt_tpu).
-    BVHs still raise, naming their queue item."""
+    BVHs, once refused too, build (tests/test_torch_bvh.py)."""
     from rt_tpu_torch.io.image import write_png
 
     u8 = np.random.default_rng(4).integers(0, 256, (6, 5, 3), np.uint8)
@@ -219,9 +219,14 @@ def test_image_textures_raise(tmp_path):
     leaves["tex_type"] = leaves["tex_type"].copy()
     leaves["tex_type"][0] = ttypes.TEX_IMAGE
     assert int(tables_from_numpy(leaves).tex_type[0]) == ttypes.TEX_IMAGE
-    with pytest.raises(NotImplementedError, match="A-8"):
-        ttypes.build_tables(tparser.parse_scene(DEMO)[0],
-                            bvh_types=("sphere",))
+    # a sphere BVH builds, and bvh_for is rt_tpu's
+    own = ttypes.build_tables(tparser.parse_scene(DEMO)[0],
+                              bvh_types=("sphere",))
+    ref = jtypes.build_tables(jparser.parse_scene(DEMO)[0],
+                              bvh_types=("sphere",))
+    assert own.bvh_for == ref.bvh_for == ("sphere",)
+    assert torch.equal(own.sph_bvh_obj, torch.from_numpy(
+        np.asarray(ref.sph_bvh_obj)))
 
 
 def test_tables_from_file():

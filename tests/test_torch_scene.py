@@ -173,23 +173,31 @@ def test_config_fields_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("bad,exc", [
-    # the spatial sort and QMC run (tests/test_torch_cull.py,
-    # test_torch_qmc.py); they hide no refusal
-    (dict(engine="mega", compact_sort="spatial", traversal="bvh"),
-     NotImplementedError),
+    # the spatial sort, QMC and the BVH run (tests/test_torch_cull.py,
+    # test_torch_qmc.py, test_torch_bvh.py); they hide no refusal
+    (dict(engine="mega", compact_sort="spatial", traversal="bvh"), None),
     (dict(engine="mega", regen=True, compact_sort="spatial", loop="scan"),
      NotImplementedError),
     (dict(engine="xla"), ValueError),
     # light sampling runs (tests/test_torch_nee.py); it hides no refusal
-    (dict(nee=True, sampler="qmc", traversal="bvh"), NotImplementedError),
-    (dict(nee=True, mis=True, traversal="bvh"), NotImplementedError),
+    (dict(nee=True, sampler="qmc", traversal="bvh"), None),
+    (dict(nee=True, mis=True, traversal="bvh"), None),
     (dict(sampler="qmc", loop="scan"), NotImplementedError),
-    (dict(traversal="bvh"), NotImplementedError),
+    (dict(traversal="bvh"), None),
     (dict(loop="scan"), NotImplementedError),
+    (dict(traversal="kdtree"), ValueError),
 ])
 def test_config_unported_options_raise(bad, exc):
-    with pytest.raises(exc):
-        tconfig.check_supported(tconfig.RenderConfig(**bad))
+    """What the port refuses (exc), and the configurations it takes
+    (None): traversal "bvh" with any engine and option, as rt_tpu's
+    config takes it; an unknown traversal is a ValueError, like an
+    unknown engine."""
+    cfg = tconfig.RenderConfig(**bad)
+    if exc is None:
+        tconfig.check_supported(cfg)
+    else:
+        with pytest.raises(exc):
+            tconfig.check_supported(cfg)
 
 
 @pytest.mark.parametrize("opts,exc", [

@@ -106,9 +106,8 @@ cover at 1920x1080, spp 16 (queue), its spend against the rule, its
 frame mean against phase 10's, and its last round's lanes with their
 per-lane starts on B3 and B2 bit-equal to their plain versions, then
 `render -f demo_scene.json --adaptive` (53); `parse`, `render
---both-formats --view-gamma --log`, `animate --format jpg`, `render
---bvh` rendering and `render --sharded` refusing with its ROADMAP item
-(54). The BVH follows (55): on cover, plane441, dna and a seeded
+--both-formats --view-gamma --log`, `animate --format jpg` and `render
+--bvh` rendering (54). The BVH follows (55): on cover, plane441, dna and a seeded
 131,072-triangle height field, the native and NumPy builds (their
 seconds; equal arrays, or where centroids tie a valid NumPy tree that
 walks to the same t), intersect(traversal="bvh") against the linear
@@ -118,11 +117,26 @@ every lane whose hit or t differs grazes an edge in float64), frames at
 with and without the BVH with the walks' host reads, and `render
 --bvh` on scenes/demo_scene.json bit-equal to `render` on queue (B3),
 the regen render of tables with BVHs bit-equal too (B7), the plain
-engine within images_close. The example closes the run (56): every
-demo of `python -m rt_tpu_torch.examples.inverse_render` at its own
-size (3 steps where it takes --steps; the albedo demo at its default
-80, exit 0), each one's loss falling, with its seconds per step and
-each kernel's launches; --sharded refuses naming A-9.
+engine within images_close. The example follows (56): every demo of
+`python -m rt_tpu_torch.examples.inverse_render` at its own size (3
+steps where it takes --steps; the albedo demo at its default 80, exit
+0; position at 20 of its 60 steps), each one's loss falling, with its seconds per step and each
+kernel's launches. Multi-process rendering and training
+(rt_tpu_torch/parallel/) follow: a NCCL process group of one rank at
+the bench shape, render_sharded_ex on queue (B3) and mega (B2)
+bit-equal to render with their seconds and launches, and `torchrun
+--nproc-per-node 1 -m rt_tpu_torch render --sharded` PNG-equal to
+`render` (57); two ranks on the one card in a gloo group (`chip_smoke.py
+--parallel-rank`), cover at 320x180, spp 4, depth 8: meshes (2, 1)
+bit-equal and (1, 2) within 1e-5 of render on queue and mega, fit with
+the replay on queue (B3 + B6) and on mega (B2 + B5) and the tape (B4)
+for 3 steps over the mesh, held to the same fits in one process within
+rtol 1e-5 / atol 1e-7 and equal bit for bit on the two ranks, and the
+example's joint demo with --sharded at 320x180, exit 0 on both ranks
+(58). The port's NumPy oracle (rt_tpu_torch/render/oracle.py) closes
+the run (59): against the queue (B3) and regen (B7) frames at 24x14,
+spp 4, depth 6 on three_sphere, cover with the gradient sky and
+cover_lights with NEE (queue), by images_close.
 Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
@@ -1553,8 +1567,7 @@ def driver_phases(dev, smi, c16, t16, uniform, cli):
         drv["adaptive"]["cli"] = dict(s=sec, launches=q["queue_launch"])
 
     with phase("54 CLI breadth: parse, render --both-formats --view-gamma "
-               "--log, animate --format jpg, render --bvh renders, render "
-               "--sharded refuses"):
+               "--log, animate --format jpg, render --bvh renders"):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["parse", DEMO])
@@ -1598,26 +1611,16 @@ def driver_phases(dev, smi, c16, t16, uniform, cli):
             raise AssertionError("animate --format jpg failed")
 
         bvh_png = os.path.join(tmpd, "bvh.png")
-        procs = {flag: subprocess.Popen(
-            [sys.executable, "-m", "rt_tpu_torch", "render", flag, "--log",
+        proc = subprocess.run(
+            [sys.executable, "-m", "rt_tpu_torch", "render", "--bvh", "--log",
              log, "-w", str(CLI_W), "--height", str(CLI_H), "-spp", "2", "-d",
-             "8", "-o", bvh_png], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-            for flag in ("--bvh", "--sharded")}
-        out, err = procs["--bvh"].communicate(timeout=300)
-        print(f"  render --bvh: exit {procs['--bvh'].returncode}, "
-              f"{out.strip().splitlines()[-1] if out.strip() else err}",
-              flush=True)
-        if procs["--bvh"].returncode != 0 or read_png(bvh_png).max() == 0:
+             "8", "-o", bvh_png], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+            else proc.stderr
+        print(f"  render --bvh: exit {proc.returncode}, {last}", flush=True)
+        if proc.returncode != 0 or read_png(bvh_png).max() == 0:
             raise AssertionError("render --bvh did not render")
-        out, err = procs["--sharded"].communicate(timeout=300)
-        last = err.strip().splitlines()[-1] if err.strip() else ""
-        print(f"  render --sharded: exit {procs['--sharded'].returncode}, "
-              f"{last}", flush=True)
-        if procs["--sharded"].returncode == 0 or "A-9" not in last or \
-                "NotImplementedError" not in last:
-            raise AssertionError("render --sharded did not refuse naming "
-                                 "A-9")
         drv["cli"] = dict(both_formats_launches=counts["queue_launch"])
     tmp_dir.cleanup()
     return drv
@@ -2080,9 +2083,10 @@ def bvh_phase(dev, smi, cli):
 def example_phase(dev, smi):
     """Phase 56: every demo of rt_tpu_torch/examples/inverse_render.py at
     its own size on the card (--steps 3 where a demo takes it; the albedo
-    demo at its default 80 steps, which must exit 0), each one's loss
-    falling, its seconds per step and each kernel's launches; --sharded
-    refuses naming A-9. Returns the numbers for the kernels line."""
+    demo at its default 80 steps, which must exit 0; position at 20 of
+    its 60), each one's loss falling, its seconds per step and each
+    kernel's launches (its --sharded runs in phase 58). Returns the
+    numbers for the kernels line."""
     from rt_tpu_torch.examples import inverse_render as ex
 
     out = {}
@@ -2100,7 +2104,10 @@ def example_phase(dev, smi):
          True),
         ("albedo --replay", lambda: ex.albedo_demo(
             args("--steps", "3", "--replay")), 3, False),
-        ("position (fit_fd, 60 steps)", lambda: ex.position_demo(), 60, False),
+        # 20 of the demo's 60 fit_fd steps: its plain-engine steps are
+        # host-bound (1.2-1.5 s each), and the run's time limit is shared
+        ("position (fit_fd, 20 steps)", lambda: ex.position_demo(steps=20),
+         20, False),
         ("grad-1080p", lambda: ex.grad_1080p_demo(three), 1, True),
         ("material-geom", lambda: ex.material_geom_demo(three), 3, False),
         ("joint-1080p", lambda: ex.joint_1080p_demo(three), 3, False),
@@ -2131,17 +2138,381 @@ def example_phase(dev, smi):
                 raise AssertionError(f"{label}: exit {code}, loss {hist}")
             out[label] = dict(exit=code, loss=[hist[0], hist[-1]], s=sec,
                               s_per_step=sec / steps, launches=launched)
-        proc = subprocess.run(
-            [sys.executable, "-m", "rt_tpu_torch.examples.inverse_render",
-             "--sharded", "--outdir", tmpd], cwd=ROOT, capture_output=True,
-            text=True, timeout=300)
-        last = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() \
-            else ""
-        print(f"  --sharded: exit {proc.returncode}, {last}", flush=True)
-        if proc.returncode == 0 or "A-9" not in last or \
-                "NotImplementedError" not in last:
-            raise AssertionError("--sharded did not refuse naming A-9")
     tmp_dir.cleanup()
+    return out
+
+
+# phases 57-58: multi-process rendering and training (rt_tpu_torch/
+# parallel/). Phase 58's size: cover_scene at PAR_W x PAR_H, spp PAR_SPP,
+# depth PAR_DEPTH; its fits take PAR_STEPS steps; the example's joint
+# demo runs at PAR_W x PAR_H for its default 80 steps.
+PAR_W, PAR_H, PAR_SPP, PAR_DEPTH, PAR_STEPS = 320, 180, 4, 8, 3
+PAR_MESHES = ((2, 1), (1, 2))
+PAR_FITS = (("replay_queue", "replay", "queue", ("tex_color", "mat_albedo")),
+            ("replay_mega", "replay", "mega", ("tex_color", "mat_albedo")),
+            ("tape", "tape", "mega", ("tex_color", "mat_albedo")))
+# the fields of phase 58's tape gradient (make_tape_vg, one call): the
+# geometry is held by its gradient, not by fits: Adam divides a
+# gradient by its own magnitude (plus eps 1e-8), so a component whose
+# gradient nearly cancels (a sphere's x seen head-on) moves by up to lr
+# times the relative rounding of its sum, which the ranks' order of
+# summation changes (my CPU check on cover 32x18: 31 of 1,464 sph_center
+# gradients below 1e-8, the fit's parameters 3e-6 apart after 3 steps
+# while every gradient agreed within 2.4e-10)
+PAR_TAPE_VG = ("sph_center", "sph_radius", "mat_albedo")
+
+
+def par_scene():
+    """Phase 58's tables (on the CPU), config and fit target."""
+    from rt_tpu_torch.scene.builders import cover_scene
+    from rt_tpu_torch.scene.types import build_tables
+
+    sdef, cfg = cover_scene(width=PAR_W, height=PAR_H, spp=PAR_SPP,
+                            max_depth=PAR_DEPTH)
+    return build_tables(sdef), cfg, np.full((PAR_H, PAR_W, 3), 0.3,
+                                            np.float32)
+
+
+def parallel_rank(rank: int, outdir: str) -> int:
+    """Phase 58's rank `rank` of two, both on cuda:0 in one gloo group
+    (init_distributed with explicit arguments, a file store in outdir):
+    render_sharded_ex on meshes (2, 1) and (1, 2) on queue and mega, the
+    PAR_FITS fits over the (2, 1) mesh, and the example's joint demo with
+    --sharded. Writes outdir/rank{rank}.npz (images, histories,
+    parameters, the tape's gradients summed over the ranks) and .json
+    (seconds, launches, the demo's exit code and printout)."""
+    from rt_tpu_torch.diff import inverse
+    from rt_tpu_torch.diff.tape import make_tape_vg
+    from rt_tpu_torch.examples import inverse_render as ex
+    from rt_tpu_torch.parallel import distributed
+    from rt_tpu_torch.parallel.mesh import make_mesh
+    from rt_tpu_torch.parallel.sharded import render_sharded_ex
+
+    dev = distributed.init_distributed(
+        device="cuda", backend="gloo", rank=rank, world_size=2,
+        init_method=f"file://{os.path.join(outdir, 'store')}",
+        timeout_s=600.0)
+    arrays, info = {}, {"device": str(dev)}
+
+    def timed(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(s=time.time() - t0, launches={
+            k: v for k, v in read_counts().items() if v})
+
+    try:
+        tables, cfg, target = par_scene()
+        for shape in PAR_MESHES:
+            mesh = make_mesh(shape)
+            for engine in ("queue", "mega"):
+                key = f"{shape[0]}x{shape[1]}_{engine}"
+                (img, spp), info[key] = timed(lambda: render_sharded_ex(
+                    tables, cfg.replace(engine=engine), mesh))
+                arrays[key] = img
+                info[key]["spp"] = spp
+        mesh = make_mesh()
+        tdev = tables.to(dev)
+        rows = inverse._pixel_rows(cfg, target, dev, mesh)
+        vg = make_tape_vg(tdev, cfg.replace(engine="mega"), *rows[:3],
+                          spp=PAR_SPP, n_valid=rows[4], row_offset=rows[3])
+        (loss, grads), info["tape_vg"] = timed(lambda: vg(
+            {k: getattr(tdev, k).clone() for k in PAR_TAPE_VG}))
+        summed = mesh.all_reduce_sum([loss] + [grads[k]
+                                               for k in PAR_TAPE_VG])
+        for k, v in zip(("loss",) + PAR_TAPE_VG, summed):
+            arrays[f"tape_vg_{k}"] = v.cpu().numpy()
+        for name, method, engine, fields in PAR_FITS:
+            (rec, hist), info[name] = timed(lambda: inverse.fit(
+                tables, cfg.replace(engine=engine), target, fields=fields,
+                spp=PAR_SPP, steps=PAR_STEPS, method=method, mesh=mesh))
+            arrays[f"{name}_history"] = np.asarray(hist)
+            for k, v in rec.items():
+                arrays[f"{name}_{k}"] = v
+        buf = io.StringIO()
+        args = ex.make_parser().parse_args(
+            ["--sharded", "--outdir", os.path.join(outdir, f"ex{rank}")])
+        with contextlib.redirect_stdout(buf):
+            (code, hist), info["example"] = timed(
+                lambda: ex.joint_1080p_demo(args, PAR_W, PAR_H))
+        info["example"].update(code=code, printout=buf.getvalue())
+        arrays["example_history"] = np.asarray(hist)
+    finally:
+        distributed.shutdown_distributed()
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    return 0
+
+
+def parallel_phases(dev, smi, c16, t16):
+    """Phases 57-58: a NCCL world of one at the bench shape
+    (render_sharded_ex on queue and mega bit-equal to render, `render
+    --sharded` under torchrun PNG-equal to `render`), then two ranks on
+    the one card over gloo (renders on meshes (2, 1) and (1, 2), three
+    fits over the (2, 1) mesh held to the same fits in one process, the
+    example's joint demo with --sharded). Returns their numbers for the
+    kernels line."""
+    import torch.distributed as dist
+
+    from rt_tpu_torch import cli
+    from rt_tpu_torch.diff import inverse
+    from rt_tpu_torch.diff.tape import make_tape_vg
+    from rt_tpu_torch.io.image import read_png
+    from rt_tpu_torch.parallel import distributed
+    from rt_tpu_torch.parallel.mesh import make_mesh
+    from rt_tpu_torch.parallel.sharded import render_sharded_ex
+    from rt_tpu_torch.render.renderer import render
+
+    out = {"p57": {}, "p58": {}}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmpd = tmp_dir.name
+    with phase(f"57 a NCCL world of one at {W}x{H} spp {MAIN_SPP} depth "
+               f"{DEPTH}: render_sharded_ex on queue and mega against "
+               "render, render --sharded under torchrun"):
+        dev1 = distributed.init_distributed(
+            device="cuda", rank=0, world_size=1,
+            init_method=f"file://{os.path.join(tmpd, 'store57')}",
+            timeout_s=600.0)
+        try:
+            mesh = make_mesh()
+            print(f"  backend {dist.get_backend()}, {mesh}", flush=True)
+            if dist.get_backend() != "nccl" or mesh.group is None or \
+                    mesh.device != dev1:
+                raise AssertionError("phase 57 is not a NCCL group of one")
+            for engine in ("queue", "mega"):
+                cfg_e = c16.replace(engine=engine)
+                own = "queue_launch" if engine == "queue" else "mega_segment"
+                render(t16, cfg_e, device="cuda")  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.time()
+                want = render(t16, cfg_e, device="cuda")
+                torch.cuda.synchronize()
+                sec_r = time.time() - t0
+                want = want.cpu().numpy()
+                render_sharded_ex(t16, cfg_e, mesh)  # warm-up (NCCL's setup)
+                reset_counts()
+                t0 = time.time()
+                img, spp = render_sharded_ex(t16, cfg_e, mesh)
+                sec_s = time.time() - t0
+                counts = {k: v for k, v in read_counts().items() if v}
+                equal = bool(np.array_equal(img, want))
+                print(f"  {engine}: render {sec_r:.4f} s, render_sharded_ex "
+                      f"{sec_s:.4f} s (spp {spp}, launches {counts}), "
+                      f"bit-equal {equal}; {smi}", flush=True)
+                if not equal or spp != MAIN_SPP or counts.get(own, 0) <= 0:
+                    raise AssertionError(f"57 {engine}: the sharded frame "
+                                         "differs or launched no kernel")
+                out["p57"][engine] = dict(render_s=sec_r, sharded_s=sec_s,
+                                          launches=counts)
+        finally:
+            distributed.shutdown_distributed()
+
+        size = ["--coded", "cover", "-w", str(W), "--height", str(H),
+                "-spp", str(MAIN_SPP), "-d", str(DEPTH)]
+        png_s = os.path.join(tmpd, "sharded.png")
+        png_u = os.path.join(tmpd, "render.png")
+        log = os.path.join(tmpd, "t.log")
+        t0 = time.time()
+        # no --log: torchrun's own parser (Python 3.12.3) reads it as an
+        # ambiguous prefix of --log-dir; the log goes to the default
+        # rt_tpu_torch-time.log in the working directory, tmpd
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "rt_tpu_torch", "render",
+             "--sharded", "-o", png_s] + size, cwd=tmpd,
+            env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+            text=True, timeout=600)
+        sec_cli = time.time() - t0
+        last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+            else proc.stderr[-2000:]
+        print(f"  torchrun --nproc-per-node 1 render --sharded: exit "
+              f"{proc.returncode} in {sec_cli:.2f} s: {last}", flush=True)
+        if proc.returncode != 0 or "sharded over 1 rank(s)" not in last:
+            raise AssertionError("render --sharded under torchrun failed")
+        reset_counts()
+        rc = cli.main(["render", "-o", png_u, "--log", log] + size)
+        same = bool(np.array_equal(read_png(png_s), read_png(png_u)))
+        print(f"  render (no --sharded): exit {rc}, PNG equal {same}",
+              flush=True)
+        if rc != 0 or not same:
+            raise AssertionError("render --sharded's PNG != render's")
+        out["p57"]["cli"] = dict(torchrun_s=sec_cli, png_equal=same)
+
+    with phase(f"58 two ranks on one card over gloo: meshes {PAR_MESHES} "
+               f"at {PAR_W}x{PAR_H} spp {PAR_SPP} depth {PAR_DEPTH}, "
+               f"{PAR_STEPS}-step fits, the example's --sharded"):
+        d58 = os.path.join(tmpd, "p58")
+        os.makedirs(d58)
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), d58], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=900)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, 9)
+                    p.wait()
+        sec_ranks = time.time() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            print(f"  rank {r}: exit {p.returncode} ({sec_ranks:.2f} s for "
+                  f"both)", flush=True)
+            if p.returncode != 0:
+                print(text[-6000:], flush=True)
+                raise AssertionError(f"58: rank {r} failed")
+        arrs = [dict(np.load(os.path.join(d58, f"rank{r}.npz")))
+                for r in range(2)]
+        infos = [json.load(open(os.path.join(d58, f"rank{r}.json")))
+                 for r in range(2)]
+        for k in arrs[0]:
+            if not np.array_equal(arrs[0][k], arrs[1][k]):
+                raise AssertionError(f"58: {k} differs between the ranks")
+        print(f"  devices {[i['device'] for i in infos]}; every array of "
+              f"the two ranks equal bit for bit ({len(arrs[0])} arrays)",
+              flush=True)
+        tables, cfg, target = par_scene()
+        for engine in ("queue", "mega"):
+            want = render(tables, cfg.replace(engine=engine),
+                          device="cuda").cpu().numpy()
+            for shape in PAR_MESHES:
+                key = f"{shape[0]}x{shape[1]}_{engine}"
+                got = arrs[0][key]
+                diff = float(np.abs(got - want).max())
+                exact = bool(np.array_equal(got, want))
+                print(f"  {key}: {infos[0][key]['s']:.4f} / "
+                      f"{infos[1][key]['s']:.4f} s, launches "
+                      f"{infos[0][key]['launches']} / "
+                      f"{infos[1][key]['launches']}, bit-equal {exact}, "
+                      f"max abs diff {diff:.4g}; {smi}", flush=True)
+                ok = exact if shape[1] == 1 else np.allclose(
+                    got, want, rtol=1e-5, atol=1e-5)
+                if not ok or infos[0][key]["spp"] != PAR_SPP:
+                    raise AssertionError(f"58 {key}: frame != render")
+                out["p58"][key] = dict(
+                    s=[i[key]["s"] for i in infos], bit_equal=exact,
+                    max_abs_diff=diff,
+                    launches=[i[key]["launches"] for i in infos])
+        tdev = tables.to("cuda")
+        px, py, tgt = inverse._frame(cfg, target, tdev.sph_center.device)
+        loss, grads = make_tape_vg(tdev, cfg.replace(engine="mega"), px, py,
+                                   tgt, spp=PAR_SPP)(
+            {k: getattr(tdev, k).clone() for k in PAR_TAPE_VG})
+        errs = {}
+        for k, v in [("loss", loss)] + [(k, grads[k]) for k in PAR_TAPE_VG]:
+            v = v.cpu().numpy()
+            got = arrs[0][f"tape_vg_{k}"]
+            errs[k] = float(np.abs(got - v).max())
+            if not np.allclose(got, v, rtol=1e-5, atol=1e-7):
+                raise AssertionError(f"58 tape_vg: {k} differs from one "
+                                     f"process's by {errs[k]}")
+        print(f"  the tape's gradient (make_tape_vg, {PAR_TAPE_VG}) summed "
+              f"over the ranks: {infos[0]['tape_vg']['s']:.4f} s, launches "
+              f"{infos[0]['tape_vg']['launches']} / "
+              f"{infos[1]['tape_vg']['launches']}; max abs diff to one "
+              f"process {errs} (largest gradient "
+              f"{float(grads['sph_center'].abs().max()):.4g}); {smi}",
+              flush=True)
+        out["p58"]["tape_vg"] = dict(
+            s=[i["tape_vg"]["s"] for i in infos], max_abs_diff=errs,
+            launches=[i["tape_vg"]["launches"] for i in infos])
+        for name, method, engine, fields in PAR_FITS:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            rec, hist = inverse.fit(
+                tables, cfg.replace(engine=engine), target, fields=fields,
+                spp=PAR_SPP, steps=PAR_STEPS, method=method, device="cuda")
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            errs = {}
+            for k, v in [("history", np.asarray(hist))] + sorted(
+                    rec.items()):
+                got = arrs[0][f"{name}_{k}"]
+                errs[k] = float(np.abs(got - v).max())
+                if not np.allclose(got, v, rtol=1e-5, atol=1e-7):
+                    raise AssertionError(
+                        f"58 {name}: {k} differs from one process's fit "
+                        f"by {errs[k]}")
+            print(f"  fit {name}: 2 ranks {infos[0][name]['s']:.4f} s "
+                  f"(launches {infos[0][name]['launches']} / "
+                  f"{infos[1][name]['launches']}), one process {sec:.4f} s "
+                  f"(launches {dict((k, v) for k, v in read_counts().items() if v)}); loss {hist[0]:.6g} -> "
+                  f"{hist[-1]:.6g}, max abs diff to one process {errs}; "
+                  f"{smi}", flush=True)
+            if not hist[-1] < hist[0]:
+                raise AssertionError(f"58 {name}: the loss did not fall")
+            out["p58"][name] = dict(
+                s=[i[name]["s"] for i in infos], single_s=sec,
+                max_abs_diff=errs,
+                launches=[i[name]["launches"] for i in infos])
+        exs = [i["example"] for i in infos]
+        for r, e in enumerate(exs):
+            for line in e["printout"].splitlines():
+                print(f"    rank {r}: {line}")
+        hist = arrs[0]["example_history"]
+        print(f"  the example's --sharded joint demo at {PAR_W}x{PAR_H}: "
+              f"exit {[e['code'] for e in exs]}, {exs[0]['s']:.2f} s, loss "
+              f"{hist[0]:.6g} -> {hist[-1]:.6g}, launches "
+              f"{exs[0]['launches']}; {smi}", flush=True)
+        if any(e["code"] != 0 for e in exs) or any(
+                "sharded fit over 2 device(s)" not in e["printout"]
+                for e in exs):
+            raise AssertionError("58: the example's --sharded failed")
+        out["p58"]["example"] = dict(s=exs[0]["s"], code=exs[0]["code"],
+                                     launches=[e["launches"] for e in exs])
+    tmp_dir.cleanup()
+    return out
+
+
+def oracle_phase(smi):
+    """Phase 59: the port's NumPy oracle (rt_tpu_torch.render.oracle)
+    against the queue (B3) and regen (B7) frames at the reference's
+    oracle size, 24x14, spp 4, depth 6: three_sphere, cover with the
+    gradient sky, and cover_scene(lights=True) with NEE on queue (regen
+    renders no NEE). Returns the launches and outlier shares."""
+    from rt_tpu_torch.render.oracle import render_oracle
+    from rt_tpu_torch.render.renderer import render
+    from rt_tpu_torch.scene.builders import cover_scene, three_sphere_scene
+    from rt_tpu_torch.scene.types import build_tables
+
+    size = dict(width=24, height=14, spp=4, max_depth=6)
+    scenes = (("three_sphere", three_sphere_scene(**size), {}),
+              ("cover_gradient_sky", cover_scene(grid=2, **size), {}),
+              ("cover_lights_nee", cover_scene(grid=2, lights=True, **size),
+               {"nee": True}))
+    out = {}
+    with phase("59 the NumPy oracle against B3 and B7 frames at 24x14 spp "
+               "4 depth 6"):
+        for name, (sdef, cfg), extra in scenes:
+            cfg = cfg.replace(**extra)
+            t0 = time.time()
+            want = render_oracle(sdef, cfg)
+            sec = time.time() - t0
+            tables = build_tables(sdef)
+            engines = {"queue": cfg.replace(engine="queue")}
+            if not cfg.nee:
+                engines["regen"] = cfg.replace(engine="mega", regen=True)
+            for label, c in engines.items():
+                reset_counts()
+                img = render(tables, c, device="cuda").cpu().numpy()
+                counts = {k: v for k, v in read_counts().items() if v}
+                own = "queue_launch" if label == "queue" else "mega_regen"
+                frac, mx = images_close(img, want, cfg.samples_per_pixel)
+                print(f"  {name} {label}: oracle {sec:.2f} s, launches "
+                      f"{counts}, {frac:.4%} pixels beyond 2e-3, max diff "
+                      f"{mx:.4g}; {smi}", flush=True)
+                if counts.get(own, 0) <= 0:
+                    raise AssertionError(f"59 {name} {label}: no {own}")
+                out[f"{name} {label}"] = dict(launches=counts,
+                                              outlier_frac=frac, max_diff=mx)
     return out
 
 
@@ -4996,6 +5367,20 @@ def main() -> int:
     drv = driver_phases(dev, smi, c16, t16, main["queue"]["img"], cli)
     bvh_rec = bvh_phase(dev, smi, cli)
     example = example_phase(dev, smi)
+    par = parallel_phases(dev, smi, c16, t16)
+    oracle = oracle_phase(smi)
+
+    def par_entry(name):
+        """A kernel's launches in phases 57-58 (each rank's in 58) and in
+        phase 59's frames."""
+        return {
+            "p57": {k: v["launches"][name] for k, v in par["p57"].items()
+                    if name in v.get("launches", {})},
+            "p58": {k: [r.get(name, 0) for r in v["launches"]]
+                    for k, v in par["p58"].items()
+                    if any(name in r for r in v["launches"])},
+            "p59": {k: v["launches"][name] for k, v in oracle.items()
+                    if name in v["launches"]}}
 
     def example_entry(name):
         """A kernel's launches in each demo of phase 56 that launched it."""
@@ -5076,7 +5461,7 @@ def main() -> int:
             out["ab_ms"] = ab[name]
         return out
 
-    print(f"[57 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    print(f"[60 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -5095,6 +5480,7 @@ def main() -> int:
         "against_parent": b1_parent,
         "parent_ab": parent_entry("sphere_closest_hit"),
         "example": example_entry("sphere_closest_hit"),
+        "parallel": par_entry("sphere_closest_hit"),
         # the hybrid cover frame walks its BVH in place of this kernel
         "bvh_hybrid_cover_frame": bvh_rec["frames"]["cover pallas bvh"],
     }, {
@@ -5114,6 +5500,7 @@ def main() -> int:
         "qmc_cull": flag_entry("mega_segment", "mega"),
         "warp_hit": warp_entry("mega_segment"),
         "example": example_entry("mega_segment"),
+        "parallel": par_entry("mega_segment"),
         "drivers": {"animate_mega": drv["animate"]["dna_mega"],
                     "adaptive_round_lanes": drv["adaptive"]["round_lanes"]},
     }, {
@@ -5144,6 +5531,7 @@ def main() -> int:
                                  if k.startswith("fit_")}},
         "warp_hit": warp_entry("queue_launch"),
         "example": example_entry("queue_launch"),
+        "parallel": par_entry("queue_launch"),
         "drivers": {"animate": {k: v for k, v in drv["animate"].items()
                                 if k != "dna_mega"},
                     "progressive": drv["progressive"]["queue"],
@@ -5178,6 +5566,7 @@ def main() -> int:
                      "max_abs_err_small": err_flags["b5"]},
         "warp_hit": warp_entry("mega_adjoint_segment"),
         "example": example_entry("mega_adjoint_segment"),
+        "parallel": par_entry("mega_adjoint_segment"),
     }, {
         "name": "queue_adjoint_launch",
         "route": "cuda",
@@ -5204,6 +5593,7 @@ def main() -> int:
                      "max_abs_err_small": err_flags["b6"]},
         "warp_hit": warp_entry("queue_adjoint_launch"),
         "example": example_entry("queue_adjoint_launch"),
+        "parallel": par_entry("queue_adjoint_launch"),
     }, {
         "name": "mega_capture",
         "route": "cuda",
@@ -5221,6 +5611,7 @@ def main() -> int:
         "qmc_cull": {"culled_codes_off_unculled_and_ties": ties_seen},
         "warp_hit": warp_entry("mega_capture"),
         "example": example_entry("mega_capture"),
+        "parallel": par_entry("mega_capture"),
     }, {
         "name": "mega_regen",
         "route": "cuda",
@@ -5237,6 +5628,7 @@ def main() -> int:
         "bvh_bit_equal": "library regen" in bvh_rec["cli"]["bit_equal"],
         "warp_hit": warp_entry("mega_regen"),
         "example": example_entry("mega_regen"),
+        "parallel": par_entry("mega_regen"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5260,11 +5652,20 @@ if __name__ == "__main__":
                     metavar=("ROOT", "PATH"),
                     help="only run B1 of the package of ROOT on the rays "
                          "saved in PATH (phase 3's helper)")
+    ap.add_argument("--parallel-rank", nargs=2, default=None,
+                    metavar=("RANK", "DIR"),
+                    help="only run phase 58's rank RANK of two, its file "
+                         "store and outputs in DIR (phase 58's helper)")
     ap.add_argument("--dense-grid", action="store_true",
                     help=f"phase 50 also builds and times B2-B7 with "
                          f"kDenseMax {DENSE_GRID}")
     opts = ap.parse_args()
     DENSE_GRID_ON = opts.dense_grid
+    if opts.parallel_rank:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device")
+        sys.exit(parallel_rank(int(opts.parallel_rank[0]),
+                               opts.parallel_rank[1]))
     if opts.ab_times or opts.b1_hits:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")

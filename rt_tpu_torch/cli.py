@@ -17,7 +17,10 @@
       (rt_tpu_torch-time.log). --bvh builds the four families' BVHs and
       walks them where an engine intersects ("plain", "pallas"; the
       kernels of "queue" and "mega" read none, as the reference's do).
-      --sharded (ROADMAP Queue A-9) is not ported yet and raises.
+      --sharded renders over the ranks of the process group that
+      torchrun's environment describes (parallel/: one rank per card,
+      NCCL), each its slab of pixels; rank 0 writes the image and the
+      log line. Without torchrun it is a world of one.
   python -m rt_tpu_torch parse    parse a scene JSON and print its
       summary (rt_tpu/cli.py `cmd_parse` :413-426).
   python -m rt_tpu_torch fit      inverse rendering (rt_tpu/cli.py
@@ -29,7 +32,11 @@
       blue, dna, points, dolly), optionally farmed over --farm worker
       processes and assembled into a --video.
 
-render, fit and animate run on CUDA unless --device cpu is given.
+render, fit and animate run on CUDA unless --device cpu is given. Under
+torchrun (`torchrun --nproc-per-node N -m rt_tpu_torch render --sharded
+...`) render --sharded and fit --sharded join the process group
+(parallel/distributed.init_distributed: NCCL on cards, gloo with
+--device cpu), and animate renders each frame over it.
 """
 
 from __future__ import annotations
@@ -105,16 +112,32 @@ def _write_outputs(img, spp, out_path, both=False, view_gamma=False):
 
 def cmd_render(args) -> int:
     from rt_tpu_torch.config import resolve_device
+    from rt_tpu_torch.parallel.distributed import shutdown_distributed
+
+    mesh = _mesh(args) if args.sharded else None
+    try:
+        return _render(args, mesh.device if mesh is not None
+                       else resolve_device(args.device), mesh)
+    finally:
+        if mesh is not None:
+            shutdown_distributed()
+
+
+def _mesh(args):
+    """The (tile, sample) mesh of --sharded: the process group of
+    torchrun's environment (a world of one without it) on --device."""
+    from rt_tpu_torch.parallel.distributed import init_distributed
+    from rt_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(device=init_distributed(device=args.device))
+
+
+def _render(args, dev, mesh) -> int:
     from rt_tpu_torch.render import film
     from rt_tpu_torch.render.renderer import render
     from rt_tpu_torch.scene.types import build_tables
     from rt_tpu_torch.utils.metrics import RenderStats
 
-    if args.sharded:
-        raise NotImplementedError("render --sharded: multi-device "
-                                  "rendering is not ported yet (ROADMAP "
-                                  "Queue A-9)")
-    dev = resolve_device(args.device)
     sdef, cfg, out = _load(args)
     cfg = cfg.replace(engine=args.engine)
     ce = args.compact_every
@@ -146,6 +169,15 @@ def cmd_render(args) -> int:
             tables, cfg, checkpoint_path=args.checkpoint,
             checkpoint_every=args.checkpoint_every, progress=args.progress,
             device=dev)
+    elif mesh is not None:
+        from rt_tpu_torch.parallel.sharded import render_sharded_ex
+
+        # the sharded renderer rounds spp up to the sample axis: the
+        # writers normalise by the spp actually rendered
+        img, spp_done = render_sharded_ex(tables, cfg, mesh,
+                                          progress=args.progress,
+                                          stats=stats)
+        cfg = cfg.replace(samples_per_pixel=spp_done)
     elif args.adaptive:
         from rt_tpu_torch.render.adaptive import adaptive_mean, \
             render_adaptive
@@ -160,6 +192,8 @@ def cmd_render(args) -> int:
                      progress=args.progress)
     neg = film.negative_pixels(img)  # waits for the device
     dt = time.time() - t0
+    if mesh is not None and mesh.rank != 0:
+        return 0  # rank 0 writes the image and the log line
     if neg:
         print(f"warning: {neg} pixels with negative radiance",
               file=sys.stderr)
@@ -170,12 +204,14 @@ def cmd_render(args) -> int:
     # the append-only timing log (the reference's *.log regression
     # surface, gpu-version/main.cu:338-345)
     RenderStats(width=cfg.width, height=cfg.height, spp=spp,
-                max_depth=cfg.max_depth, seconds=dt,
-                engine=cfg.engine).append_to(args.log)
+                max_depth=cfg.max_depth, seconds=dt, engine=cfg.engine,
+                n_devices=mesh.size if mesh is not None else 1
+                ).append_to(args.log)
     counts = ", ".join(f"{k} {v}" for k, v in sorted(stats.items()))
     sampling = "".join(f", {k}" for k in ("nee", "mis", "nee_glossy")
                        if getattr(cfg, k))
     mode = (", checkpointed" if args.checkpoint else
+            f", sharded over {mesh.size} rank(s)" if mesh is not None else
             ", adaptive" if args.adaptive else "")
     print(f"wrote {' and '.join(paths)} ({cfg.width}x{cfg.height} @ "
           f"{spp}spp, depth {cfg.max_depth}{sampling}{mode}, engine "
@@ -203,10 +239,19 @@ def cmd_parse(args) -> int:
 def cmd_animate(args) -> int:
     from rt_tpu_torch.config import resolve_device
     from rt_tpu_torch.drivers.animate import run_animation
+    from rt_tpu_torch.parallel.distributed import (init_distributed,
+                                                   shutdown_distributed)
 
-    if not (args.farm and args.farm_platform == "cpu"):
-        resolve_device(args.device)  # no CUDA raises here, not per frame
-    return run_animation(args)
+    if args.farm:
+        if args.farm_platform != "cpu":
+            resolve_device(args.device)  # no CUDA raises here, not per frame
+        return run_animation(args)
+    # under torchrun every frame renders over the process group's ranks
+    init_distributed(device=args.device)
+    try:
+        return run_animation(args)
+    finally:
+        shutdown_distributed()
 
 
 def _parse_component(spec: str):
@@ -243,12 +288,28 @@ def _load_target(args):
 
 
 def cmd_fit(args) -> int:
+    from rt_tpu_torch.config import resolve_device
+    from rt_tpu_torch.parallel.distributed import shutdown_distributed
+
+    mesh = _mesh(args) if args.sharded else None
+    try:
+        return _fit(args, mesh.device if mesh is not None
+                    else resolve_device(args.device), mesh)
+    finally:
+        if mesh is not None:
+            shutdown_distributed()
+
+
+def _fit(args, dev, mesh) -> int:
+    """fit on dev; with a mesh (--sharded) fit and fit_hybrid train over
+    its ranks (fit_camera takes no mesh, as the reference's), and rank 0
+    writes the outputs."""
     import os
 
     import numpy as np
     import torch
 
-    from rt_tpu_torch.config import check_supported, resolve_device
+    from rt_tpu_torch.config import check_supported
     from rt_tpu_torch.diff import inverse
     from rt_tpu_torch.io.image import write_image
     from rt_tpu_torch.render import film
@@ -256,10 +317,6 @@ def cmd_fit(args) -> int:
     from rt_tpu_torch.scene.parser import parse_scene
     from rt_tpu_torch.scene.types import build_tables
 
-    if args.sharded:
-        raise NotImplementedError("fit --sharded: multi-device training is "
-                                  "not ported yet (ROADMAP Queue A-9)")
-    dev = resolve_device(args.device)
     target = _load_target(args)
     h, w = target.shape[:2]
 
@@ -284,7 +341,6 @@ def cmd_fit(args) -> int:
     if fd_params and geom_spec:
         raise SystemExit("--fd and --geom are mutually exclusive "
                          "(CRN-FD vs tangent-replay geometry)")
-    os.makedirs(args.out, exist_ok=True)
     npz = os.path.join(args.out, "recovered.npz")
     after_png = os.path.join(args.out, "after.png")
     spp_after = cfg.samples_per_pixel
@@ -305,7 +361,7 @@ def cmd_fit(args) -> int:
             tables, cfg, target, init, recover=names, spp=args.spp,
             steps=args.steps, learning_rate=args.lr, device=dev)
         dt = time.time() - t0
-        np.savez_compressed(npz, **{k: np.asarray(v) for k, v in rec.items()})
+        saved = {k: np.asarray(v) for k, v in rec.items()}
         sdef.set_camera(rec["lookfrom"], rec["lookat"], rec["vup"],
                         rec["vfov_deg"], rec["aperture"],
                         rec.get("focus_dist"))
@@ -318,7 +374,7 @@ def cmd_fit(args) -> int:
                 tables, cfg, target, replay_fields=replay_fields,
                 fd_params=fd_params, spp=args.spp, steps=args.steps,
                 learning_rate=args.lr, eps=args.eps,
-                bwd_depth=args.bwd_depth, device=dev)
+                bwd_depth=args.bwd_depth, device=dev, mesh=mesh)
         else:
             if args.method == "tape" and geom_spec:
                 raise SystemExit(
@@ -329,9 +385,9 @@ def cmd_fit(args) -> int:
                 tables, cfg, target, fields=replay_fields, spp=args.spp,
                 steps=args.steps, learning_rate=args.lr, method=args.method,
                 geom_spec=geom_spec or None, bwd_depth=args.bwd_depth,
-                device=dev)
+                device=dev, mesh=mesh)
         dt = time.time() - t0
-        np.savez_compressed(npz, **rec)
+        saved = rec
         fitted = inverse.apply_params(
             tables, {k: torch.from_numpy(np.asarray(v, np.float32))
                      for k, v in rec.items()})
@@ -340,6 +396,10 @@ def cmd_fit(args) -> int:
             v = np.asarray(rec[f])
             shown.append((f, f"shape {v.shape}, first values "
                              f"{np.round(v.reshape(-1)[:6], 4).tolist()}"))
+    if mesh is not None and mesh.rank != 0:
+        return 0  # rank 0 writes recovered.npz, after.png and the log
+    os.makedirs(args.out, exist_ok=True)
+    np.savez_compressed(npz, **saved)
     after = render(fitted, cfg, device=dev) / spp_after
     write_image(after_png, film.finalize(after, 1, gamma=True))
 
@@ -428,8 +488,9 @@ def main(argv=None) -> int:
                     help="build each family's BVH and walk it where the "
                          "engine intersects (plain, pallas)")
     rp.add_argument("--sharded", action="store_true",
-                    help="render over every local device (not ported yet, "
-                         "ROADMAP Queue A-9: raises)")
+                    help="render over the ranks of the process group "
+                         "(torchrun's environment; a world of one "
+                         "without it), each its slab of pixels")
     rp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     rp.set_defaults(fn=cmd_render)
 
@@ -499,8 +560,9 @@ def main(argv=None) -> int:
                          "scene at 1080p; the reference picks mega on the "
                          "TPU); plain with --device cpu")
     fp.add_argument("--sharded", action="store_true",
-                    help="shard the pixel batch over devices (not ported "
-                         "yet, ROADMAP Queue A-9: raises)")
+                    help="shard the pixel batch over the ranks of the "
+                         "process group (torchrun's environment; a world of "
+                         "one without it); gradients summed over ranks")
     fp.add_argument("--out", default="fit_out",
                     help="output directory (recovered.npz, after.png)")
     fp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -39,8 +39,19 @@ with solid / checker / image textures ("images", the atlas, is a field
 of "ad", "replay" and "tape": texture recovery), and cfg.nee (light
 sampling in the forward and in every gradient; mis / nee_glossy with
 "ad", "tape" and the finite differences, while the path replay refuses
-them with ValueError, as the reference's does); QMC, BVH and sharding
-raise NotImplementedError naming their ROADMAP items.
+them with ValueError, as the reference's does).
+
+With a mesh (parallel/mesh.py), `fit` and `fit_hybrid` train data
+parallel over the ranks of the process group, as the reference's
+shard the pixel batch over every device: the frame's pixel list is
+padded as parallel/sharded._padded_pixel_list pads it (target rows
+padded with row 0), each rank takes its slab, masks its rows by their
+global index (< H*W) and divides by the whole frame's 3*H*W
+(`masked_mse`), so the ranks' losses and gradients sum to the
+single-process ones. Each step sums every gradient and the loss (and
+fit_hybrid's probe losses, before they are differenced) over the ranks
+in one all_reduce, then takes the Adam step: the parameters stay equal
+on every rank.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import torch
 from rt_tpu_torch.config import RenderConfig, resolve_device
 from rt_tpu_torch.ops.camera import make_camera
 from rt_tpu_torch.ops.mega_tables import mega_supported
+from rt_tpu_torch.parallel.mesh import Mesh
 from rt_tpu_torch.render.renderer import render_block
 from rt_tpu_torch.scene.types import CameraDef, SceneTables
 
@@ -103,11 +115,32 @@ def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
     return cfg.replace(engine="plain", loop="while")
 
 
+def masked_mse(se: torch.Tensor, n_valid: Optional[int] = None,
+               row_offset: int = 0, rows: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """The MSE of squared errors se [B,3] over the rows whose global
+    index is below n_valid, divided by 3 * n_valid. A row's global index
+    is row_offset + its index in se, or row_offset + rows[i] where the
+    rows come in another order (rows: their indices in the caller's
+    batch). A rank's slab of a padded frame passes its offset and the
+    frame's pixel count, so the ranks' losses sum to the frame's MSE.
+    n_valid None (or every row valid at offset 0) is the plain mean."""
+    n = se.shape[0]
+    if n_valid is None or (row_offset == 0 and rows is None
+                           and n_valid == n):
+        return torch.mean(se)
+    idx = torch.arange(n, device=se.device) if rows is None else rows
+    keep = (idx + row_offset < n_valid)[:, None]
+    return torch.where(keep, se, 0.0).sum() / float(3 * n_valid)
+
+
 def make_loss_fn(tables: SceneTables, cfg: RenderConfig, spp: int,
-                 n_valid: Optional[int] = None):
+                 n_valid: Optional[int] = None, row_offset: int = 0):
     """(params, px, py, target, sample_base=0) -> scalar MSE of the
     spp-sample render estimate against target rows [B,3], differentiable
-    by autograd. n_valid masks rows >= n_valid out of the mean."""
+    by autograd. n_valid masks rows whose global index (row_offset + the
+    row) is >= n_valid out of the mean and divides by 3 * n_valid
+    (masked_mse)."""
     cfg = _diff_cfg(cfg)
     seed = int(cfg.seed) & 0xFFFFFFFF
 
@@ -116,27 +149,48 @@ def make_loss_fn(tables: SceneTables, cfg: RenderConfig, spp: int,
         acc = render_block(tbl, cfg, px, py, int(sample_base), spp, seed,
                            cfg.width, cfg.height)
         se = (acc / float(spp) - target) ** 2
-        if n_valid is None or n_valid == px.shape[0]:
-            return torch.mean(se)
-        keep = (torch.arange(se.shape[0], device=se.device)
-                < n_valid)[:, None]
-        return torch.where(keep, se, 0.0).sum() / float(3 * n_valid)
+        return masked_mse(se, n_valid, row_offset)
 
     return loss_fn
 
 
+def _reduce_grads(mesh: Optional[Mesh], leaves, loss: torch.Tensor,
+                  extra: Sequence[torch.Tensor] = ()):
+    """Sum every leaf's .grad, the loss and `extra` over the mesh's
+    ranks in one collective; a leaf whose grad is None on every rank
+    keeps None. Returns (loss, extra) summed; without a mesh, as they
+    are."""
+    if mesh is None or mesh.group is None:
+        return loss, list(extra)
+    has = torch.tensor([x.grad is not None for x in leaves],
+                       dtype=torch.float32, device=loss.device)
+    grads = [torch.zeros_like(x) if x.grad is None else x.grad
+             for x in leaves]
+    out = mesh.all_reduce_sum(grads + [has, loss.detach()] + list(extra))
+    n = len(leaves)
+    for x, g, h in zip(leaves, out[:n], out[n].tolist()):
+        x.grad = g if h > 0 else None
+    return out[n + 1], out[n + 2:]
+
+
 def make_train_step(tables: SceneTables, cfg: RenderConfig, spp: int,
                     optimizer: torch.optim.Optimizer,
-                    n_valid: Optional[int] = None):
+                    mesh: Optional[Mesh] = None,
+                    n_valid: Optional[int] = None, row_offset: int = 0):
     """step(params, px, py, target, sample_base=0) -> loss (a float):
     one autograd step of make_loss_fn on `optimizer`, whose parameters
-    are the tensors of `params`."""
-    loss_fn = make_loss_fn(tables, cfg, spp, n_valid)
+    are the tensors of `params`. With a mesh, (px, py, target) are this
+    rank's slab, whose rows start at row_offset of the padded frame of
+    n_valid pixels: the gradients and the loss are summed over the
+    ranks before the step."""
+    loss_fn = make_loss_fn(tables, cfg, spp, n_valid, row_offset)
 
     def step(params, px, py, target, sample_base=0):
         optimizer.zero_grad()
         loss = loss_fn(params, px, py, target, sample_base)
         loss.backward()
+        loss, _ = _reduce_grads(mesh, [x for g in optimizer.param_groups
+                                       for x in g["params"]], loss)
         optimizer.step()
         return float(loss.detach())
 
@@ -149,7 +203,8 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
         init_params: Optional[Dict[str, torch.Tensor]] = None,
         method: str = "ad", geom_spec=None,
         bwd_depth: Optional[int] = None, resample: bool = False,
-        device="cuda") -> Tuple[Dict[str, np.ndarray], list]:
+        device="cuda", mesh: Optional[Mesh] = None
+        ) -> Tuple[Dict[str, np.ndarray], list]:
     """Inverse-rendering loop: recover `fields` of the scene from a target
     mean-radiance image [H,W,3] (row 0 = bottom scanline) with Adam
     (torch.optim.Adam; optax.adam's defaults), on `device` (CUDA unless
@@ -163,14 +218,16 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
     for a megakernel scene, else make_tape_loss_fn; "camera" may then be
     a parameter, a CameraDef). resample=True moves the sample window
     every step (SGD over fresh samples); else every step renders the
-    same samples.
+    same samples. mesh (parallel/mesh.make_mesh): train over its ranks,
+    each on its slab of the frame, on the mesh's device (see the module
+    doc); the parameters and the history are the same on every rank.
 
     Returns (recovered params as NumPy arrays, a CameraDef of them for
     "camera", and the per-step loss history)."""
     if method not in ("ad", "replay", "tape"):
         raise ValueError(f"method must be 'ad', 'replay' or 'tape'; got "
                          f"{method!r}")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     tables = tables.to(dev)
     params = (dict(init_params) if init_params is not None
               else extract_params(tables, fields))
@@ -181,45 +238,45 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
         tape.check_fields(params)
     leaves = tape.leaves_of(params)
     optimizer = torch.optim.Adam(leaves, lr=learning_rate)
-    px, py, tgt = _frame(cfg, target_image, dev)
+    px, py, tgt, row0, n_valid = _pixel_rows(cfg, target_image, dev, mesh)
 
     if method == "tape" and mega_supported(tables):
         # the fast step: one B4 capture, the death-sorted replay
-        vg = tape.make_tape_vg(tables, cfg, px, py, tgt, spp=spp)
+        vg = tape.make_tape_vg(tables, cfg, px, py, tgt, spp=spp,
+                               n_valid=n_valid, row_offset=row0)
 
         def step(s0):
             optimizer.zero_grad()
             loss, grads = vg(params, s0)
             for x, g in zip(leaves, tape.leaves_of(grads)):
                 x.grad = g
+            loss, _ = _reduce_grads(mesh, leaves, loss)
             optimizer.step()
             return float(loss)
-    elif method == "tape":
-        tape_loss = tape.make_tape_loss_fn(tables, cfg, spp, px, py, tgt)
+    elif method in ("tape", "replay"):
+        if method == "tape":
+            loss_of = tape.make_tape_loss_fn(
+                tables, cfg, spp, px, py, tgt, n_valid=n_valid,
+                row_offset=row0)
+        else:
+            from rt_tpu_torch.diff.replay import make_replay_loss_fn
+
+            loss_of = make_replay_loss_fn(
+                tables, cfg, spp, px, py, tgt, geom_spec=geom_spec,
+                bwd_depth=bwd_depth, n_valid=n_valid, row_offset=row0)
 
         def step(s0):
             optimizer.zero_grad()
-            loss = tape_loss(params, s0)
+            loss = loss_of(params, s0)
             loss.backward()
-            optimizer.step()
-            return float(loss.detach())
-    elif method == "replay":
-        from rt_tpu_torch.diff.replay import make_replay_loss_fn
-
-        replay_loss = make_replay_loss_fn(tables, cfg, spp, px, py, tgt,
-                                          geom_spec=geom_spec,
-                                          bwd_depth=bwd_depth)
-
-        def step(s0):
-            optimizer.zero_grad()
-            loss = replay_loss(params, s0)
-            loss.backward()
+            loss, _ = _reduce_grads(mesh, leaves, loss)
             optimizer.step()
             return float(loss.detach())
     else:
         if geom_spec:
             raise ValueError("geom_spec belongs to method='replay'")
-        train = make_train_step(tables, cfg, spp, optimizer)
+        train = make_train_step(tables, cfg, spp, optimizer, mesh,
+                                n_valid, row0)
 
         def step(s0):
             return train(params, px, py, tgt, s0)
@@ -235,6 +292,31 @@ def _frame(cfg: RenderConfig, target_image, dev):
     tgt = torch.as_tensor(np.asarray(target_image, np.float32)).reshape(
         -1, 3).to(dev)
     return pix % cfg.width, pix // cfg.width, tgt
+
+
+def _pixel_rows(cfg: RenderConfig, target_image, dev,
+                mesh: Optional[Mesh]):
+    """(px, py, target rows, row offset, n_valid) of this process: the
+    whole frame (offset 0, n_valid None) without a mesh; with one, this
+    rank's slab of the frame padded over the mesh's ranks as
+    parallel/sharded._padded_pixel_list pads it (target rows padded with
+    row 0), its first row's index in the padded frame, and H*W."""
+    if mesh is None:
+        return _frame(cfg, target_image, dev) + (0, None)
+    from rt_tpu_torch.parallel.sharded import _padded_pixel_list
+
+    px, py, n_pix = _padded_pixel_list(cfg.width, cfg.height, mesh.size)
+    flat = np.asarray(target_image, np.float32).reshape(-1, 3)
+    pad = px.shape[0] - n_pix
+    if pad:
+        flat = np.concatenate([flat, np.broadcast_to(flat[:1], (pad, 3))])
+    per = px.shape[0] // mesh.size
+    lo = mesh.rank * per
+    rows = slice(lo, lo + per)
+    return (torch.from_numpy(px[rows]).to(dev, torch.int64),
+            torch.from_numpy(py[rows]).to(dev, torch.int64),
+            torch.from_numpy(np.ascontiguousarray(flat[rows])).to(dev),
+            lo, n_pix)
 
 
 def _flatten_fd_components(fd_params) -> list:
@@ -260,14 +342,39 @@ def _shifted(params: Dict[str, torch.Tensor], field: str, idx: tuple,
 
 
 def _render_loss(tables: SceneTables, cfg: RenderConfig, px, py, tgt,
-                 spp: int, sample_base: int = 0) -> torch.Tensor:
+                 spp: int, sample_base: int = 0,
+                 n_valid: Optional[int] = None,
+                 row_offset: int = 0) -> torch.Tensor:
     """The MSE of the spp-sample estimate of the pixels (px, py) on
     cfg.engine against tgt rows, as a 0-d tensor on the device (a
-    forward render: no gradient is recorded)."""
+    forward render: no gradient is recorded); n_valid and row_offset
+    mask a rank's slab as masked_mse does."""
     with torch.no_grad():
         acc = render_block(tables, cfg, px, py, int(sample_base), int(spp),
                            int(cfg.seed) & 0xFFFFFFFF, cfg.width, cfg.height)
-        return torch.mean((acc / float(spp) - tgt) ** 2)
+        return masked_mse((acc / float(spp) - tgt) ** 2, n_valid,
+                          row_offset)
+
+
+def fd_losses(loss_of, params: Dict[str, torch.Tensor], flat_idx,
+              eps: float) -> torch.Tensor:
+    """The probe losses [2K] of central differences with common random
+    numbers: rows 2j and 2j+1 are loss_of(params) with component j of
+    flat_idx moved by +eps and -eps (loss_of returns a 0-d device
+    tensor)."""
+    return torch.stack([loss_of(_shifted(params, f, idx, d))
+                        for f, idx in flat_idx for d in (eps, -eps)])
+
+
+def fd_from_losses(losses: torch.Tensor, params: Dict[str, torch.Tensor],
+                   flat_idx, eps: float) -> Dict[str, torch.Tensor]:
+    """The gradient of fd_losses' probes: (loss(+eps) - loss(-eps)) /
+    (2 eps) per component of flat_idx, zero for the components not
+    listed."""
+    grads = {f: torch.zeros_like(v) for f, v in params.items()}
+    for j, (f, idx) in enumerate(flat_idx):
+        grads[f][idx] = (losses[2 * j] - losses[2 * j + 1]) / (2 * eps)
+    return grads
 
 
 def fd_gradient(loss_of, params: Dict[str, torch.Tensor], flat_idx,
@@ -276,12 +383,10 @@ def fd_gradient(loss_of, params: Dict[str, torch.Tensor], flat_idx,
     component) of flat_idx, (loss(+eps) - loss(-eps)) / (2 eps), where
     loss_of(params) is a 0-d device tensor; zero for the components not
     listed. Runs on the device; reads nothing back."""
-    grads = {f: torch.zeros_like(v) for f, v in params.items()}
-    for f, idx in flat_idx:
-        hi = loss_of(_shifted(params, f, idx, eps))
-        lo = loss_of(_shifted(params, f, idx, -eps))
-        grads[f][idx] = (hi - lo) / (2 * eps)
-    return grads
+    if not flat_idx:
+        return {f: torch.zeros_like(v) for f, v in params.items()}
+    return fd_from_losses(fd_losses(loss_of, params, flat_idx, eps),
+                          params, flat_idx, eps)
 
 
 def _adam_step(optimizer, leaves, grads) -> None:
@@ -429,7 +534,8 @@ def fit_hybrid(tables: SceneTables, cfg: RenderConfig, target_image,
                fd_params=None, spp: int = 4, fd_spp: Optional[int] = None,
                steps: int = 60, learning_rate: float = 3e-2,
                eps: float = 2e-2, bwd_depth: Optional[int] = None,
-               resample: bool = False, device="cuda"
+               resample: bool = False, device="cuda",
+               mesh: Optional[Mesh] = None
                ) -> Tuple[Dict[str, np.ndarray], list]:
     """Joint radiometric + geometry recovery in one Adam loop
     (rt_tpu/diff/inverse.py `fit_hybrid` :541).
@@ -443,7 +549,9 @@ def fit_hybrid(tables: SceneTables, cfg: RenderConfig, target_image,
     fields ride the replay's forward with an empty geom_spec (their
     replay gradient is zero and is overwritten by the FD estimate), so
     both estimators see the same parameters. resample=True moves the
-    sample window every step.
+    sample window every step. mesh: train over its ranks as fit does;
+    the probe losses are summed over the ranks with the gradients, in
+    one all_reduce, before they are differenced.
 
     Returns (the optimized fields as NumPy arrays, the replay loss at
     each step)."""
@@ -451,16 +559,17 @@ def fit_hybrid(tables: SceneTables, cfg: RenderConfig, target_image,
 
     fd_params = dict(fd_params or {})
     fd_spp = spp if fd_spp is None else int(fd_spp)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     tables = tables.to(dev)
-    px, py, tgt = _frame(cfg, target_image, dev)
+    px, py, tgt, row0, n_valid = _pixel_rows(cfg, target_image, dev, mesh)
     params = {k: _trainable(v, dev) for k, v in extract_params(
         tables, tuple(replay_fields) + tuple(fd_params)).items()}
     leaves = list(params.values())
     optimizer = torch.optim.Adam(leaves, lr=learning_rate)
     replay_loss = make_replay_loss_fn(
         tables, cfg, spp, px, py, tgt,
-        geom_spec={f: [] for f in fd_params}, bwd_depth=bwd_depth)
+        geom_spec={f: [] for f in fd_params}, bwd_depth=bwd_depth,
+        n_valid=n_valid, row_offset=row0)
     flat_idx = _flatten_fd_components(fd_params)
 
     history = []
@@ -469,13 +578,17 @@ def fit_hybrid(tables: SceneTables, cfg: RenderConfig, target_image,
         optimizer.zero_grad()
         loss = replay_loss(params, s0)
         loss.backward()
+        probes = []
+        if flat_idx:
+            probes = [fd_losses(
+                lambda pp: _render_loss(apply_params(tables, pp), cfg, px,
+                                        py, tgt, fd_spp, s0, n_valid, row0),
+                {k: v.detach() for k, v in params.items()}, flat_idx,
+                eps)]
+        loss, probes = _reduce_grads(mesh, leaves, loss, probes)
         grads = {k: v.grad for k, v in params.items()}
         if flat_idx:
-            cur = {k: v.detach() for k, v in params.items()}
-            fd = fd_gradient(
-                lambda pp: _render_loss(apply_params(tables, pp), cfg, px,
-                                        py, tgt, fd_spp, s0),
-                cur, flat_idx, eps)
+            fd = fd_from_losses(probes[0], params, flat_idx, eps)
             for f, idx in flat_idx:
                 grads[f][idx] = fd[f][idx]
         _adam_step(optimizer, leaves, [grads[k] for k in params])

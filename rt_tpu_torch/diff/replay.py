@@ -62,7 +62,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from rt_tpu_torch.config import RenderConfig, check_supported, nee_on
-from rt_tpu_torch.diff.inverse import apply_params
+from rt_tpu_torch.diff.inverse import apply_params, masked_mse
 from rt_tpu_torch.diff.tape import _attributes_for_tape, capture_tape
 from rt_tpu_torch.ops import adjoint_plain, cuda_mega, cuda_queue
 from rt_tpu_torch.ops import materials, rng
@@ -392,24 +392,21 @@ def make_replay_loss_fn(tables: SceneTables, cfg: RenderConfig, spp: int,
                         bwd_depth: Optional[int] = None,
                         n_valid: Optional[int] = None,
                         bwd_kernel: Optional[bool] = None,
-                        geom_tape: Optional[bool] = None):
+                        geom_tape: Optional[bool] = None,
+                        row_offset: int = 0):
     """(params, sample_base=0) -> scalar MSE against target rows [B,3],
     with the replay backward underneath (see make_replay_render).
-    n_valid masks rows >= n_valid out of the mean."""
+    n_valid masks rows whose global index (row_offset + the row) is >=
+    n_valid out of the mean and divides by 3 * n_valid
+    (inverse.masked_mse: a rank's slab of a padded frame)."""
     img_fn = make_replay_render(tables, cfg, spp, px, py,
                                 geom_spec=geom_spec, bwd_depth=bwd_depth,
                                 bwd_kernel=bwd_kernel, geom_tape=geom_tape)
     dev = tables.sph_center.device
     target = torch.as_tensor(target).to(device=dev, dtype=torch.float32)
-    n_rows = img_fn.px.shape[0]
-    if n_valid is not None and n_valid == n_rows:
-        n_valid = None
 
     def loss_fn(params, sample_base=0):
         se = (img_fn(params, sample_base) - target) ** 2
-        if n_valid is None:
-            return torch.mean(se)
-        keep = (torch.arange(n_rows, device=dev) < n_valid)[:, None]
-        return torch.where(keep, se, 0.0).sum() / float(3 * n_valid)
+        return masked_mse(se, n_valid, row_offset)
 
     return loss_fn

@@ -69,7 +69,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from rt_tpu_torch.config import RenderConfig, check_supported, nee_on
-from rt_tpu_torch.diff.inverse import apply_params
+from rt_tpu_torch.diff.inverse import apply_params, masked_mse
 from rt_tpu_torch.ops import cuda_mega, materials, rng
 from rt_tpu_torch.ops.camera import generate_rays
 from rt_tpu_torch.ops.intersect import (
@@ -380,23 +380,20 @@ def make_tape_render(tables: SceneTables, cfg: RenderConfig, spp: int,
 def make_tape_loss_fn(tables: SceneTables, cfg: RenderConfig, spp: int,
                       px, py, target, tape_engine: Optional[str] = None,
                       segment: Optional[int] = None,
-                      n_valid: Optional[int] = None):
+                      n_valid: Optional[int] = None, row_offset: int = 0):
     """(params, sample_base=0) -> scalar MSE against target rows [B,3];
     its backward gives reverse-mode gradients of every parameter in
-    params in one pass. n_valid masks rows >= n_valid out of the mean."""
+    params in one pass. n_valid masks rows whose global index
+    (row_offset + the row) is >= n_valid out of the mean and divides by
+    3 * n_valid (inverse.masked_mse)."""
     img_fn = make_tape_render(tables, cfg, spp, px, py,
                               tape_engine=tape_engine, segment=segment)
     dev = tables.sph_center.device
     target = torch.as_tensor(target).to(device=dev, dtype=torch.float32)
-    if n_valid is not None and n_valid == target.shape[0]:
-        n_valid = None
 
     def loss_fn(params, sample_base=0):
         se = (img_fn(params, sample_base) - target) ** 2
-        if n_valid is None:
-            return torch.mean(se)
-        keep = (torch.arange(se.shape[0], device=dev) < n_valid)[:, None]
-        return torch.where(keep, se, 0.0).sum() / float(3 * n_valid)
+        return masked_mse(se, n_valid, row_offset)
 
     return loss_fn
 
@@ -428,7 +425,8 @@ def _unflatten(flat, values) -> Dict:
 
 def make_tape_vg(tables: SceneTables, cfg: RenderConfig, px, py, target,
                  schedule=(1, 1, 2, 4, 8, 16), min_width: int = 1 << 16,
-                 spp: int = 1):
+                 spp: int = 1, n_valid: Optional[int] = None,
+                 row_offset: int = 0):
     """The fast all-parameters step of fit(method="tape"):
     step(params, sample_base=0) -> (loss, grads), the spp-sample tape
     estimate of the MSE against target rows [B,3] and its gradient for
@@ -452,7 +450,9 @@ def make_tape_vg(tables: SceneTables, cfg: RenderConfig, px, py, target,
          Each bounce runs under a checkpoint.
 
     Work drops from B * depth lane-bounces to about B times the mean
-    path length. Pre-condition: mega_supported(tables)."""
+    path length. n_valid and row_offset mask the rows of a rank's slab
+    by their global index, as inverse.masked_mse does. Pre-condition:
+    mega_supported(tables)."""
     if not mega_supported(tables):
         raise ValueError("make_tape_vg: the capture kernel needs a "
                          "megakernel scene (mega_supported)")
@@ -548,7 +548,8 @@ def make_tape_vg(tables: SceneTables, cfg: RenderConfig, px, py, target,
                 img = replay_sorted(tbl, codes[i], order, pid_s, s0 + i,
                                     widths)
                 acc = img if acc is None else acc + img
-            loss = torch.mean((acc / float(spp) - target[order]) ** 2)
+            loss = masked_mse((acc / float(spp) - target[order]) ** 2,
+                              n_valid, row_offset, rows=order)
             clock.lap("forward_s")
             # parameters no path reads (an atlas no primitive samples)
             # get zero gradients, as the reference's

@@ -13,7 +13,9 @@ Reference equivalents:
     (朴素光线追踪/4_0_path_tracing.py:135-150).
 
 Frames render one after another on one device; FramePipeline writes
-frame i while frame i+1 renders. The reference farms frames over
+frame i while frame i+1 renders. Under torchrun (a process group of
+more than one rank) each frame renders over all ranks instead
+(parallel/sharded.py) and rank 0 writes it. The reference farms frames over
 independent processes (blue.py:24-32); `--farm N` does the same with N
 worker processes, each taking a contiguous slice of the frame range
 (parallel/distributed.frame_range). Per-frame outputs are idempotent,
@@ -152,11 +154,30 @@ def _log_done(done):
 
 
 def _render_frame(pipeline, tables, cfg, path):
-    """Submit a frame; the line printed is the PREVIOUS frame completing.
-    One device per frame: the reference's branch that renders a frame
-    over every local device (render_sharded_ex,
-    rt_tpu/drivers/animate.py:166-170) is ROADMAP Queue A-9."""
-    _log_done(pipeline.submit(tables, cfg, path))
+    """Render a frame and write it. In a process group of more than one
+    rank (torchrun), the frame renders over the mesh of all ranks
+    (parallel/sharded.render_sharded_ex, normalised by the spp it
+    rendered) and rank 0 writes it, as the reference's branch for more
+    than one local device (rt_tpu/drivers/animate.py:149-155). In a
+    world of one the frame goes to the pipeline: the line printed is
+    the PREVIOUS frame completing."""
+    from rt_tpu_torch.parallel.distributed import world
+
+    rank, n_ranks = world()
+    if n_ranks == 1:
+        _log_done(pipeline.submit(tables, cfg, path))
+        return
+    from rt_tpu_torch.io.image import write_image
+    from rt_tpu_torch.parallel.mesh import make_mesh
+    from rt_tpu_torch.parallel.sharded import render_sharded_ex
+    from rt_tpu_torch.render import film
+
+    t0 = time.time()
+    img, spp = render_sharded_ex(tables, cfg, make_mesh())
+    if rank == 0:
+        write_image(path, film.finalize(img, spp, gamma=True))
+        print(f"wrote {os.path.basename(path)}: {time.time() - t0:.2f}s "
+              f"over {n_ranks} ranks", flush=True)
 
 
 def run_blue(args) -> int:

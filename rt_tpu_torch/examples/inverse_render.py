@@ -17,8 +17,10 @@ and "plain" on the CPU. The reference's albedo demo reverse-differentiates
 its fixed-trip "scan" loop; the port's autograd records the "while" loop
 (method "ad"). Each demo function takes its frame size as keywords whose
 defaults are the reference's, and a device (None: as above), and returns
-(exit code, loss history); main returns the exit code. --sharded (the
-device-mesh fit) is ROADMAP Queue A-9 and raises.
+(exit code, loss history); main returns the exit code. With --sharded
+the joint demo's fit_hybrid trains over the mesh of the process group
+(parallel/: torchrun's ranks, or a world of one), as the reference's
+does; the other demos ignore it, as there.
 """
 
 from __future__ import annotations
@@ -145,8 +147,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--outdir", default="inverse_out")
     ap.add_argument("--sharded", action="store_true",
-                    help="run the fit through the device-mesh path (not "
-                         "ported yet, ROADMAP Queue A-9: raises)")
+                    help="run the joint demo's fit over the (tile, sample) "
+                         "mesh of the process group's ranks (torchrun; a "
+                         "world of one without it)")
     ap.add_argument("--position", action="store_true",
                     help="run the FD position-recovery demo instead")
     ap.add_argument("--replay", action="store_true",
@@ -183,9 +186,6 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("--sharded: multi-device fits are not "
-                                  "ported yet (ROADMAP Queue A-9)")
     for flag, demo in (("position", position_demo),
                        ("joint_1080p", joint_1080p_demo),
                        ("texture", texture_demo),
@@ -335,6 +335,13 @@ def joint_1080p_demo(args, width=1920, height=1080, device=None):
     from rt_tpu_torch.diff.inverse import fit_hybrid
 
     dev = _device(device)
+    mesh = None
+    if args.sharded:
+        from rt_tpu_torch.parallel.distributed import init_distributed, world
+        from rt_tpu_torch.parallel.mesh import make_mesh
+
+        dev = init_distributed(device=dev)
+        mesh = make_mesh((world()[1], 1), device=dev)
     true_x, true_y = 0.25, 0.05
     true_albedo = (0.7, 0.15, 0.35)
     outdir = args.outdir
@@ -352,11 +359,13 @@ def joint_1080p_demo(args, width=1920, height=1080, device=None):
     _png(os.path.join(outdir, "joint_before.png"), _mean(tables_w, cfg, dev))
 
     t0 = time.time()
+    if mesh is not None:
+        print(f"sharded fit over {mesh.size} device(s)")
     rec, hist = fit_hybrid(tables_w, cfg, _host(target),
                            replay_fields=("tex_color",),
                            fd_params={"sph_center": [(0, 0), (0, 1)]},
                            spp=args.spp, fd_spp=2, steps=args.steps,
-                           learning_rate=3e-2, device=dev)
+                           learning_rate=3e-2, device=dev, mesh=mesh)
     dt = time.time() - t0
     print(f"{args.steps} joint steps at {width}x{height}: {dt:.1f}s "
           f"({dt / args.steps:.2f}s/step)")

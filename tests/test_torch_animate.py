@@ -281,16 +281,21 @@ def test_render_output_flags(tmp_path):
 @pytest.mark.parametrize("flag,queue", [("--bvh", None),
                                         ("--sharded", "A-9")])
 def test_render_unported_flags_raise(flag, queue, tmp_path):
-    """--sharded refuses, naming its ROADMAP item; --bvh renders (its
-    frames: tests/test_torch_bvh_cli.py)."""
-    args = ["render", flag, "--device", "cpu", "-w", "16", "--height", "9",
-            "-spp", "1", "-d", "2", "-o", str(tmp_path / "a.png"), "--log",
-            str(tmp_path / "t.log")]
+    """Flags that once refused: --bvh renders (its frames:
+    tests/test_torch_bvh_cli.py); --sharded (ROADMAP item A-9) without
+    torchrun is a world of one, whose frame on queue is the unsharded
+    render's bit for bit (tests/test_torch_parallel.py runs it over 2
+    torchrun ranks)."""
+    args = ["render", "--device", "cpu", "-w", "16", "--height", "9",
+            "-spp", "1", "-d", "2", "--log", str(tmp_path / "t.log")]
+    assert tcli.main(args + [flag, "-o", str(tmp_path / "a.png")]) == 0
+    assert (tmp_path / "a.png").exists()
     if queue is None:
-        assert tcli.main(args) == 0 and (tmp_path / "a.png").exists()
         return
-    with pytest.raises(NotImplementedError, match=queue):
-        tcli.main(args)
+    assert tcli.main(args + ["-o", str(tmp_path / "b.png")]) == 0
+    a, b = read_png(str(tmp_path / "a.png")), read_png(str(tmp_path / "b.png"))
+    assert a.max() > 0
+    np.testing.assert_array_equal(a, b)
 
 
 def test_assert_finite_names_the_field():

@@ -2016,3 +2016,36 @@ def test_bvh_walk_on_the_card_matches_cpu(name):
     both = same & hc.hit
     close = (hk.t[both] - hc.t[both]).abs() <= 1e-4 + 2e-4 * hc.t[both].abs()
     assert close.float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["queue", "mega"])
+def test_world_of_one_nccl_render_sharded_matches_render(engine, tmp_path):
+    """A NCCL process group of one rank (init_distributed with explicit
+    arguments): render_sharded_ex over its (1, 1) mesh, through the
+    collective, gives render's frame bit for bit on B3 / B2."""
+    import torch.distributed as dist
+
+    from rt_tpu_torch.parallel import distributed
+    from rt_tpu_torch.parallel.mesh import make_mesh
+    from rt_tpu_torch.parallel.sharded import render_sharded_ex
+    from rt_tpu_torch.render.renderer import render
+
+    _card()
+    sdef, cfg = builders.cover_scene(width=320, height=180, spp=4,
+                                     max_depth=8)
+    cfg = cfg.replace(engine=engine)
+    tables = types.build_tables(sdef)
+    dev = distributed.init_distributed(
+        device="cuda", rank=0, world_size=1,
+        init_method=f"file://{tmp_path / 'store'}", timeout_s=100.0)
+    try:
+        assert dist.get_backend() == "nccl" and dev.type == "cuda"
+        mesh = make_mesh()
+        assert mesh.group is not None and mesh.device == dev
+        img, spp = render_sharded_ex(tables, cfg, mesh)
+    finally:
+        distributed.shutdown_distributed()
+    assert spp == 4 and img.max() > 0
+    np.testing.assert_array_equal(
+        img, render(tables, cfg, device=dev).cpu().numpy())

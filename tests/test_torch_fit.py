@@ -342,9 +342,22 @@ def test_cli_fit_exits_0_and_writes_its_files(cli_files, extra, capsys):
     assert os.path.getsize(os.path.join(out, "after.png")) > 0
 
 
-@pytest.mark.parametrize("flag,match", [("--sharded", "A-9")])
-def test_cli_fit_refuses_what_is_not_ported(cli_files, flag, match):
+@pytest.mark.parametrize("flag,item", [("--sharded", "A-9")])
+def test_cli_fit_refuses_what_is_not_ported(cli_files, flag, item, capsys):
+    """fit --sharded (ROADMAP item A-9, once refused) without torchrun:
+    a world of one on the CPU, its slab the frame padded to 128-pixel
+    lanes with the pad rows masked, so its recovered fields are the
+    unsharded fit's within rtol 1e-5 / atol 1e-7."""
     d, scene, target = cli_files
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["fit", "-f", scene, "--target", target, "--steps", "1",
-                  "--device", "cpu", "--out", str(d / "x"), flag])
+    base = ["fit", "-f", scene, "--target", target, "--fields", "tex_color",
+            "-spp", "2", "--steps", "2", "-d", "3", "--device", "cpu"]
+    outs = {}
+    for extra in ([flag], []):
+        out = str(d / ("sharded" if extra else "unsharded"))
+        assert cli.main(base + ["--out", out] + extra) == 0
+        outs[bool(extra)] = np.load(os.path.join(out, "recovered.npz"))
+    assert "loss: " in capsys.readouterr().out
+    assert outs[True].files == outs[False].files == ["tex_color"]
+    np.testing.assert_allclose(outs[True]["tex_color"],
+                               outs[False]["tex_color"], rtol=1e-5,
+                               atol=1e-7)

@@ -153,9 +153,23 @@ def test_demo_runs_tiny_and_its_loss_falls(name, tmp_path):
         assert code == 0  # finite gradients, a descent step
 
 
-def test_sharded_raises_naming_a9():
-    with pytest.raises(NotImplementedError, match="A-9"):
-        ex.main(["--sharded", "--steps", "1"])
+def test_sharded_raises_naming_a9(tmp_path, capsys):
+    """--sharded (ROADMAP item A-9, once refused): the joint demo's
+    fit_hybrid over the mesh, here a world of one on the CPU at 8x5,
+    prints the reference's line and follows the unsharded fit (its
+    slab padded to 128-pixel lanes, the pad rows masked)."""
+    runs = {}
+    for extra in (["--sharded"], []):
+        args = ex.make_parser().parse_args(
+            ["--steps", "2", "--outdir", str(tmp_path / str(len(extra)))]
+            + extra)
+        runs[bool(extra)] = ex.joint_1080p_demo(args, 8, 5, device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("sharded fit over 1 device(s)") == 1
+    (code_s, hist_s), (code_u, hist_u) = runs[True], runs[False]
+    assert code_s == code_u
+    np.testing.assert_allclose(hist_s, hist_u, rtol=1e-5, atol=1e-7)
+    assert hist_s[-1] < hist_s[0]
 
 
 def test_texture_skips_without_the_bricks_file(monkeypatch, tmp_path,

@@ -86,8 +86,9 @@ mesh and the textured mesh in the default build and scratch builds of
 other kDenseMax values (phase 2 builds them; --dense-grid adds two),
 against the plain versions, timed in turns, with the cover frame in each
 build and the issued instructions per row from cuobjdump. Phase 2 also
-holds the registers of B1-B3 and B5-B7 to the parent's and prints B4's
-(and its spills) beside the parent's; phase 3 holds B1 (one float4 row a
+holds the registers of B1-B7 to the parent's (and prints those of a
+kernel a change redesigns, with its spills, beside the parent's); phase
+3 holds B1 (one float4 row a
 sphere, several rays a thread, the root only where disc >= 0) to the
 parent's B1 lane for lane with --parent and counts its issued
 instructions per pair. The render drivers close the run, each through
@@ -132,12 +133,23 @@ bit-equal and (1, 2) within 1e-5 of render on queue and mega, fit with
 the replay on queue (B3 + B6) and on mega (B2 + B5) and the tape (B4)
 for 3 steps over the mesh, held to the same fits in one process within
 rtol 1e-5 / atol 1e-7 and equal bit for bit on the two ranks, and the
-example's joint demo with --sharded at 320x180, exit 0 on both ranks
-(58). The port's NumPy oracle (rt_tpu_torch/render/oracle.py) closes
-the run (59): against the queue (B3) and regen (B7) frames at 24x14,
-spp 4, depth 6 on three_sphere, cover with the gradient sky and
-cover_lights with NEE (queue), by images_close.
-Each phase prints its
+example's joint demo with --sharded at 320x180, exit 0 on both ranks,
+and each rank's `render --sharded --checkpoint --checkpoint-every 1`
+through the CLI's main, whose checkpoint rank 0 alone saves and whose
+PNG equals the one-process checkpointed render's (58). The port's NumPy
+oracle (rt_tpu_torch/render/oracle.py) follows (59): against the queue
+(B3) and regen (B7) frames at 24x14, spp 4, depth 6 on three_sphere,
+cover with the gradient sky and cover_lights with NEE (queue), by
+images_close. What rt_tpu offers beside its engines closes the run
+(61): on cover at 320x180, spp 2, depth 8 and (roulette 0.5) depth
+16, where every lane dies before the last bounce, loop "scan" against
+"while" on the hybrid (B1 once a bounce) and plain engines, bit for
+bit, the scan running more bounces in the second; engine "xla"
+(rt_tpu's default config carried over) against "plain", bit for bit;
+the replay's loss at 96x54, roulette depth 16, with bwd_engine None /
+plain / mega (B5) / queue (B6) and bwd_early_exit off and on, within
+the adjoint tolerance of bwd_engine None's; B7 given the frame size against cfg's, bit for
+bit. Each phase prints its
 seconds; any failure raises and the script exits non-zero without its
 result line. The last line of standard output is the JSON result
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -159,6 +171,7 @@ import dataclasses
 import glob
 import importlib.util
 import io
+import itertools
 import json
 import math
 import os
@@ -721,18 +734,19 @@ DENSE_GRID = (8, 24)
 # kernels of the warp-cooperative hit, B2-B7
 DENSE_LIBS = ("mega", "queue", "queue_adjoint", "mega_adjoint", "regen",
               "capture")
-# phase 2 holds the ptxas registers of HELD_LIBS (B1-B3 and B5-B7), per
+# phase 2 holds the ptxas registers of HELD_LIBS (B1-B7), per
 # instantiation, to the parent's build (--parent) or to PARENT_REGS, and
-# prints those of MOVED_LIBS (B4, redesigned) beside the parent's.
+# prints those of MOVED_LIBS (a kernel a change redesigns; none now)
+# beside the parent's.
 # PARENT_REGS: the parent's registers on the card's toolkit (CUDA 12.8,
 # from a --parent run's printout), per library its kernel and "bool
 # template arguments:registers" of each instantiation
 HELD_LIBS = ("queue", "queue_adjoint", "mega", "sphere_hit", "mega_adjoint",
-             "regen")
-MOVED_LIBS = ("capture",)
+             "regen", "capture")
+MOVED_LIBS = ()
 PARENT_REGS = {
     "capture": ("capture_kernel", """
-        000:40 001:40 010:46 011:48 100:40 101:40 110:46 111:48
+        000:48 001:48 010:63 011:61 100:40 101:40 110:63 111:61
         """),
     "mega": ("mega_kernel", """
         00000:48 00001:48 00010:48 00011:48 00100:64 00101:64 00110:64
@@ -2173,20 +2187,37 @@ def par_scene():
                                             np.float32)
 
 
+def par_checkpoint_args(outdir: str, sharded: bool):
+    """The CLI's checkpointed render of phase 58: cover at PAR_W x PAR_H,
+    spp PAR_SPP, depth PAR_DEPTH on queue, a checkpoint every sample,
+    with --sharded into outdir/sharded.*, else into outdir/single.*."""
+    name = os.path.join(outdir, "sharded" if sharded else "single")
+    return (["render", "--coded", "cover", "-w", str(PAR_W), "--height",
+             str(PAR_H), "-spp", str(PAR_SPP), "-d", str(PAR_DEPTH),
+             "--checkpoint-every", "1", "--checkpoint", name + ".npz", "-o",
+             name + ".png", "--log", name + ".log"]
+            + (["--sharded"] if sharded else []))
+
+
 def parallel_rank(rank: int, outdir: str) -> int:
     """Phase 58's rank `rank` of two, both on cuda:0 in one gloo group
     (init_distributed with explicit arguments, a file store in outdir):
     render_sharded_ex on meshes (2, 1) and (1, 2) on queue and mega, the
-    PAR_FITS fits over the (2, 1) mesh, and the example's joint demo with
-    --sharded. Writes outdir/rank{rank}.npz (images, histories,
-    parameters, the tape's gradients summed over the ranks) and .json
-    (seconds, launches, the demo's exit code and printout)."""
+    PAR_FITS fits over the (2, 1) mesh, the example's joint demo with
+    --sharded, and `render --sharded --checkpoint` through the CLI's
+    main. Writes outdir/rank{rank}.npz (images, histories, parameters,
+    the tape's gradients summed over the ranks) and .json (seconds,
+    launches, the demo's exit code and printout, the checkpointed
+    render's exit code and the samples_done of each checkpoint this rank
+    saved)."""
+    from rt_tpu_torch import cli
     from rt_tpu_torch.diff import inverse
     from rt_tpu_torch.diff.tape import make_tape_vg
     from rt_tpu_torch.examples import inverse_render as ex
     from rt_tpu_torch.parallel import distributed
     from rt_tpu_torch.parallel.mesh import make_mesh
     from rt_tpu_torch.parallel.sharded import render_sharded_ex
+    from rt_tpu_torch.render import progressive
 
     dev = distributed.init_distributed(
         device="cuda", backend="gloo", rank=rank, world_size=2,
@@ -2239,6 +2270,21 @@ def parallel_rank(rank: int, outdir: str) -> int:
                 lambda: ex.joint_1080p_demo(args, PAR_W, PAR_H))
         info["example"].update(code=code, printout=buf.getvalue())
         arrays["example_history"] = np.asarray(hist)
+        # render --sharded --checkpoint through the CLI in this group,
+        # each rank's checkpoint saves counted
+        saves, save = [], progressive.Checkpoint.save
+
+        def counted(ck, path):
+            saves.append(ck.samples_done)
+            save(ck, path)
+
+        progressive.Checkpoint.save = counted
+        try:
+            rc, info["checkpoint"] = timed(lambda: cli.main(
+                par_checkpoint_args(outdir, sharded=True)))
+        finally:
+            progressive.Checkpoint.save = save
+        info["checkpoint"].update(code=rc, saves=saves)
     finally:
         distributed.shutdown_distributed()
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **arrays)
@@ -2343,7 +2389,8 @@ def parallel_phases(dev, smi, c16, t16):
 
     with phase(f"58 two ranks on one card over gloo: meshes {PAR_MESHES} "
                f"at {PAR_W}x{PAR_H} spp {PAR_SPP} depth {PAR_DEPTH}, "
-               f"{PAR_STEPS}-step fits, the example's --sharded"):
+               f"{PAR_STEPS}-step fits, the example's --sharded, render "
+               "--sharded --checkpoint"):
         d58 = os.path.join(tmpd, "p58")
         os.makedirs(d58)
         t0 = time.time()
@@ -2468,6 +2515,29 @@ def parallel_phases(dev, smi, c16, t16):
             raise AssertionError("58: the example's --sharded failed")
         out["p58"]["example"] = dict(s=exs[0]["s"], code=exs[0]["code"],
                                      launches=[e["launches"] for e in exs])
+        cks = [i["checkpoint"] for i in infos]
+        reset_counts()
+        rc = cli.main(par_checkpoint_args(d58, sharded=False))
+        single = {k: v for k, v in read_counts().items() if v}
+        same = bool(np.array_equal(
+            read_png(os.path.join(d58, "sharded.png")),
+            read_png(os.path.join(d58, "single.png"))))
+        print(f"  render --sharded --checkpoint --checkpoint-every 1 at "
+              f"{PAR_W}x{PAR_H} spp {PAR_SPP}: exit "
+              f"{[c['code'] for c in cks]}, {cks[0]['s']:.2f} s, "
+              f"checkpoints saved per rank {[c['saves'] for c in cks]}, "
+              f"launches {[c['launches'] for c in cks]}; one process: exit "
+              f"{rc}, launches {single}; PNG equal {same}; {smi}",
+              flush=True)
+        if [c["code"] for c in cks] != [0, 0] or rc != 0 or not same or [
+                c["saves"] for c in cks] != [list(range(1, PAR_SPP + 1)),
+                                             []]:
+            raise AssertionError("58: render --sharded --checkpoint had "
+                                 "another writer than rank 0, or its PNG "
+                                 "differs from one process's")
+        out["p58"]["checkpoint"] = dict(
+            s=cks[0]["s"], saves=[c["saves"] for c in cks], png_equal=same,
+            launches=[c["launches"] for c in cks])
     tmp_dir.cleanup()
     return out
 
@@ -2513,6 +2583,185 @@ def oracle_phase(smi):
                     raise AssertionError(f"59 {name} {label}: no {own}")
                 out[f"{name} {label}"] = dict(launches=counts,
                                               outlier_frac=frac, max_diff=mx)
+    return out
+
+
+# phase 61: cover at 320x180, spp 2, depth 8 (the replay at 96x54)
+SCAN_W, SCAN_H, SCAN_SPP, SCAN_DEPTH = 320, 180, 2, 8
+# roulette at which every lane of cover dies before the last bounce
+SCAN_RR, SCAN_RR_DEPTH = 0.5, 16
+REPLAY_W, REPLAY_H = 96, 54
+# rt_tpu.config.RenderConfig's defaults (rt_tpu/config.py), field by
+# field: a configuration a user of the reference carries over
+RT_TPU_DEFAULTS = {
+    "width": 400, "height": 225, "samples_per_pixel": 16, "max_depth": 8,
+    "background_mode": "constant", "exhaust_mode": "black",
+    "enable_defocus": False, "p_rr": 0.0, "seed": 0, "sampler": "rng",
+    "nee": False, "mis": False, "nee_glossy": False, "engine": "xla",
+    "loop": "while", "traversal": "linear", "rays_per_batch": 131072,
+    "compact_every": 0, "compact_group": 128, "compact_schedule": (),
+    "cull_chunks": True, "mxu_intersect": False, "compact_shrink": True,
+    "compact_sort": "dead", "regen": False, "regen_compact": 0,
+    "regen_shrink": True, "queue_steps": 0}
+
+
+def interface_phase(dev, smi):
+    """Phase 61, what rt_tpu offers beside its engines: loop "scan"
+    against "while" on the hybrid (B1 once a bounce) and plain engines,
+    bit for bit, at depth 8 and under roulette at depth 16, where the
+    "while" loop ends first and the fixed trip runs on; the engine name
+    "xla" (rt_tpu's default configuration carried over) against
+    "plain", bit for bit; the path replay's loss on queue (B3), roulette
+    depth 16, with bwd_engine None / "plain" / "mega" (B5) / "queue"
+    (B6) and bwd_early_exit off and on, each gradient within 1e-5 +
+    1e-3 max|g| of bwd_engine=None's; and B7 with the frame size given
+    (mega_trace_regen(width=, height=), under a config of another size)
+    against the default, bit for bit. Returns the numbers for the
+    kernels line."""
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.diff.replay import make_replay_loss_fn
+    from rt_tpu_torch.ops import cuda_mega
+    from rt_tpu_torch.render.renderer import render
+    from rt_tpu_torch.scene.builders import cover_scene
+    from rt_tpu_torch.scene.types import build_tables
+
+    out = {"loops": {}, "replay": {}}
+    t_phase = time.time()
+    with phase(f"61 loop scan, engine xla, the replay's bwd_engine and "
+               f"bwd_early_exit, B7's frame size: cover {SCAN_W}x{SCAN_H} "
+               f"spp {SCAN_SPP} depth {SCAN_DEPTH}"):
+        sdef, cfg = cover_scene(width=SCAN_W, height=SCAN_H, spp=SCAN_SPP,
+                                max_depth=SCAN_DEPTH)
+        tables = build_tables(sdef, device=dev)
+
+        def run(fn):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, time.time() - t0, {k: v for k, v in
+                                           read_counts().items() if v}
+
+        # depth 8: some lane lives to the last bounce; roulette at depth
+        # 16: every lane dies before it, and only "scan" runs the
+        # bounces after
+        cases = {"": cfg, " roulette": cfg.replace(
+            p_rr=SCAN_RR, max_depth=SCAN_RR_DEPTH)}
+        for (label, c_loop), engine in itertools.product(
+                cases.items(), ("pallas", "plain")):
+            render(tables, c_loop.replace(engine=engine),
+                   device="cuda")  # warm
+            imgs = {}
+            for loop in ("while", "scan"):
+                stats = {}
+                imgs[loop], sec, counts = run(lambda: render(
+                    tables, c_loop.replace(engine=engine, loop=loop),
+                    device="cuda", stats=stats))
+                out["loops"][f"{engine}{label} {loop}"] = dict(
+                    s=sec, bounces=stats["bounces"], launches=counts)
+            equal = bool(torch.equal(imgs["while"], imgs["scan"]))
+            rec = {k: out["loops"][f"{engine}{label} {k}"] for k in imgs}
+            b1 = {k: v["launches"].get("sphere_closest_hit", 0)
+                  for k, v in rec.items()}
+            print(f"  {engine}{label} depth {c_loop.max_depth} p_rr "
+                  f"{c_loop.p_rr}: loop while {rec['while']['s']:.4f} s "
+                  f"({rec['while']['bounces']} bounces, B1 launches "
+                  f"{b1['while']}), scan {rec['scan']['s']:.4f} s "
+                  f"({rec['scan']['bounces']} bounces, B1 launches "
+                  f"{b1['scan']}), bit-equal {equal}; {smi}", flush=True)
+            trip = SCAN_SPP * c_loop.max_depth
+            want_b1 = trip if engine == "pallas" else 0
+            if not equal or b1["scan"] != want_b1 or (
+                    engine == "pallas") != (b1["while"] > 0):
+                raise AssertionError(f"61 {engine}{label}: scan != while, "
+                                     "or B1 launched otherwise than once a "
+                                     "bounce")
+            fewer = rec["while"]["bounces"] < trip and (
+                engine == "plain" or b1["while"] < b1["scan"])
+            if rec["scan"]["bounces"] != trip or (label and not fewer):
+                raise AssertionError(f"61 {engine}{label}: the fixed trip "
+                                     "ran no bounce after the while loop's "
+                                     "end")
+
+        carried = RenderConfig(**RT_TPU_DEFAULTS).replace(
+            width=SCAN_W, height=SCAN_H, samples_per_pixel=SCAN_SPP,
+            max_depth=SCAN_DEPTH)
+        xla, sec_x, _ = run(lambda: render(tables, carried, device="cuda"))
+        plain, sec_p, _ = run(lambda: render(
+            tables, carried.replace(engine="plain"), device="cuda"))
+        equal = bool(torch.equal(xla, plain))
+        print(f"  rt_tpu's default config carried over (engine "
+              f"{carried.engine!r}): {sec_x:.4f} s, engine 'plain' "
+              f"{sec_p:.4f} s, bit-equal {equal}", flush=True)
+        if not equal:
+            raise AssertionError("61: engine xla != plain")
+        out["xla"] = dict(s=sec_x, plain_s=sec_p, bit_equal=equal)
+
+        sdef_r, cfg_r = cover_scene(width=REPLAY_W, height=REPLAY_H, spp=1,
+                                    max_depth=SCAN_DEPTH)
+        t_r = build_tables(sdef_r, device=dev)
+        # roulette at depth 16: the early exit skips the bounces after
+        # the last lane's death
+        cfg_r = cfg_r.replace(engine="queue", p_rr=SCAN_RR,
+                              max_depth=SCAN_RR_DEPTH)
+        pix = torch.arange(REPLAY_W * REPLAY_H, device=dev)
+        tgt = torch.full((pix.shape[0], 3), 0.3, device=dev)
+        grads, own = {}, {None: "queue_adjoint_launch", "plain": None,
+                          "mega": "mega_adjoint_segment",
+                          "queue": "queue_adjoint_launch"}
+
+        def step(bwd_engine, early):
+            p = {k: getattr(t_r, k).clone().requires_grad_(True)
+                 for k in GRAD_FIELDS}
+            make_replay_loss_fn(t_r, cfg_r, 1, pix % REPLAY_W,
+                                pix // REPLAY_W, tgt, bwd_engine,
+                                bwd_early_exit=early)(p).backward()
+            return p
+
+        for bwd_engine in own:
+            step(bwd_engine, False)  # warm-up
+            for early in (False, True):
+                p, sec, counts = run(lambda: step(bwd_engine, early))
+                key = f"{bwd_engine} early_exit {early}"
+                grads[key] = {k: v.grad for k, v in p.items()}
+                adj = {k: counts.get(k, 0) for k in (
+                    "queue_adjoint_launch", "mega_adjoint_segment")}
+                print(f"  replay bwd_engine {bwd_engine!r}, bwd_early_exit "
+                      f"{early}: {sec:.4f} s, launches {counts}", flush=True)
+                if (own[bwd_engine] is None and any(adj.values())) or (
+                        own[bwd_engine] is not None and (
+                            adj[own[bwd_engine]] <= 0 or sum(
+                                adj.values()) != adj[own[bwd_engine]])):
+                    raise AssertionError(f"61 replay {key}: adjoint "
+                                         f"launches {adj}")
+                err = 0.0 if key == "None early_exit False" else grads_close(
+                    grads["None early_exit False"], grads[key],
+                    f"61 {key} against bwd_engine None")
+                out["replay"][key] = dict(s=sec, launches=counts,
+                                          max_abs_err=err)
+
+        c_mega = cfg.replace(engine="mega")
+        px = torch.arange(SCAN_W * SCAN_H, device=dev)
+        cuda_mega.mega_trace_regen(tables, c_mega, px, px // SCAN_W, 0,
+                                   SCAN_SPP)  # warm-up
+        want, sec_d, cnt_d = run(lambda: cuda_mega.mega_trace_regen(
+            tables, c_mega, px, px // SCAN_W, 0, SCAN_SPP))
+        got, sec_g, cnt_g = run(lambda: cuda_mega.mega_trace_regen(
+            tables, c_mega.replace(width=2 * SCAN_W, height=2 * SCAN_H), px,
+            px // SCAN_W, 0, SCAN_SPP, 0, SCAN_W, SCAN_H))
+        equal = bool(torch.equal(want, got))
+        print(f"  B7 with width={SCAN_W}, height={SCAN_H} under a "
+              f"{2 * SCAN_W}x{2 * SCAN_H} config: {sec_g:.4f} s, launches "
+              f"{cnt_g}; cfg's size {sec_d:.4f} s, launches {cnt_d}; "
+              f"bit-equal {equal}; {smi}", flush=True)
+        if not equal or cnt_g.get("mega_regen", 0) <= 0:
+            raise AssertionError("61: B7 with the frame size given != cfg's")
+        out["regen_size"] = dict(s=sec_g, default_s=sec_d, bit_equal=equal,
+                                 launches=cnt_g["mega_regen"])
+        sec = time.time() - t_phase
+        if sec > 60.0:
+            raise AssertionError(f"61 took {sec:.2f} s (at most 60)")
     return out
 
 
@@ -2567,8 +2816,7 @@ def main() -> int:
     dense_max = default_dense_max()
     dense_builds = DENSE_BUILDS + (list(DENSE_GRID) if DENSE_GRID_ON else [])
     with phase(f"2 build (and B2-B7 with kDenseMax {dense_builds}; the "
-               "registers of B1-B3 and B5-B7 held to the parent's, B4's "
-               "beside it)"):
+               "registers of B1-B7 held to the parent's)"):
         # one nvcc per library, all started together
         scratch = [(k, dense_defines(d)) for d in dense_builds
                    for k in DENSE_LIBS]
@@ -2610,12 +2858,11 @@ def main() -> int:
         held = [k for k in regs if k.split(":")[0] in HELD_LIBS]
         moved = {k: (old.get(k), regs[k]) for k in held
                  if old.get(k) != regs[k]}
-        print(f"  registers of B1-B3 and B5-B7 against the parent's ({src}): "
-              f"{len(held)} instantiations, {len(moved)} moved {moved}",
-              flush=True)
+        print(f"  registers of {', '.join(HELD_LIBS)} against the parent's "
+              f"({src}): {len(held)} instantiations, {len(moved)} moved "
+              f"{moved}", flush=True)
         if moved:
-            raise AssertionError("a kernel of B1-B3 or B5-B7 changed its "
-                                 "registers")
+            raise AssertionError("a held kernel changed its registers")
         for lib in MOVED_LIBS:
             pairs = {k.split(":")[1]: (old.get(k), v) for k, v in
                      sorted(regs.items()) if k.split(":")[0] == lib}
@@ -5369,6 +5616,12 @@ def main() -> int:
     example = example_phase(dev, smi)
     par = parallel_phases(dev, smi, c16, t16)
     oracle = oracle_phase(smi)
+    iface = interface_phase(dev, smi)
+
+    def iface_entry(name):
+        """A kernel's launches in phase 61's runs that launched it."""
+        return {k: v["launches"][name] for part in ("loops", "replay")
+                for k, v in iface[part].items() if name in v["launches"]}
 
     def par_entry(name):
         """A kernel's launches in phases 57-58 (each rank's in 58) and in
@@ -5461,7 +5714,7 @@ def main() -> int:
             out["ab_ms"] = ab[name]
         return out
 
-    print(f"[60 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
+    print(f"[62 summary] total {time.time() - t_all:.2f} s; {smi}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "sphere_closest_hit",
         "route": "cuda",
@@ -5483,6 +5736,7 @@ def main() -> int:
         "parallel": par_entry("sphere_closest_hit"),
         # the hybrid cover frame walks its BVH in place of this kernel
         "bvh_hybrid_cover_frame": bvh_rec["frames"]["cover pallas bvh"],
+        "loop_scan": iface_entry("sphere_closest_hit"),
     }, {
         "name": "mega_segment",
         "route": "cuda",
@@ -5567,6 +5821,7 @@ def main() -> int:
         "warp_hit": warp_entry("mega_adjoint_segment"),
         "example": example_entry("mega_adjoint_segment"),
         "parallel": par_entry("mega_adjoint_segment"),
+        "bwd_engine": iface_entry("mega_adjoint_segment"),
     }, {
         "name": "queue_adjoint_launch",
         "route": "cuda",
@@ -5594,6 +5849,7 @@ def main() -> int:
         "warp_hit": warp_entry("queue_adjoint_launch"),
         "example": example_entry("queue_adjoint_launch"),
         "parallel": par_entry("queue_adjoint_launch"),
+        "bwd_engine": iface_entry("queue_adjoint_launch"),
     }, {
         "name": "mega_capture",
         "route": "cuda",
@@ -5629,6 +5885,7 @@ def main() -> int:
         "warp_hit": warp_entry("mega_regen"),
         "example": example_entry("mega_regen"),
         "parallel": par_entry("mega_regen"),
+        "frame_size": iface["regen_size"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,9 @@
       --sharded renders over the ranks of the process group that
       torchrun's environment describes (parallel/: one rank per card,
       NCCL), each its slab of pixels; rank 0 writes the image and the
-      log line. Without torchrun it is a world of one.
+      log line. With --checkpoint rank 0 alone renders and writes, as
+      the reference renders it in one process. Without torchrun it is a
+      world of one.
   python -m rt_tpu_torch parse    parse a scene JSON and print its
       summary (rt_tpu/cli.py `cmd_parse` :413-426).
   python -m rt_tpu_torch fit      inverse rendering (rt_tpu/cli.py
@@ -111,15 +113,26 @@ def _write_outputs(img, spp, out_path, both=False, view_gamma=False):
 
 
 def cmd_render(args) -> int:
+    import torch.distributed as dist
+
     from rt_tpu_torch.config import resolve_device
     from rt_tpu_torch.parallel.distributed import shutdown_distributed
 
+    joined = dist.is_initialized()  # a caller's group outlives this call
     mesh = _mesh(args) if args.sharded else None
     try:
+        if mesh is not None and args.checkpoint:
+            # --checkpoint renders in one process, as the reference's
+            # (rt_tpu/cli.py:211-216): rank 0 alone renders and writes
+            # the checkpoint and the image, the other ranks wait for it
+            # with no collective timeout (a checkpointed render may
+            # outlast the group's)
+            return mesh.run_on_root(lambda: _render(args, mesh.device,
+                                                    None))
         return _render(args, mesh.device if mesh is not None
                        else resolve_device(args.device), mesh)
     finally:
-        if mesh is not None:
+        if mesh is not None and not joined:
             shutdown_distributed()
 
 
@@ -431,11 +444,12 @@ def main(argv=None) -> int:
                          "output_file, or main.png")
     rp.add_argument("--seed", type=int, default=0)
     rp.add_argument("--engine", default="queue",
-                    choices=["queue", "mega", "pallas", "plain"],
+                    choices=["queue", "mega", "pallas", "plain", "xla"],
                     help="queue (default): persistent ray-queue CUDA "
                          "kernel; mega: segmented CUDA megakernel; "
                          "pallas: hybrid wavefront with the CUDA sphere "
-                         "closest-hit kernel; plain: pure PyTorch")
+                         "closest-hit kernel; plain (xla, rt_tpu's name): "
+                         "pure PyTorch")
     rp.add_argument("--compact-every", type=int, default=None,
                     help="mega: live-lane grouping every N bounces (-1 "
                          "auto, 0 off; default: the schedule 2,3,5,10 in "
@@ -551,7 +565,7 @@ def main(argv=None) -> int:
     fp.add_argument("--gradient-sky", action="store_true",
                     help="render with the gradient-sky background")
     fp.add_argument("--engine", default=None,
-                    choices=["queue", "mega", "pallas", "plain"],
+                    choices=["queue", "mega", "pallas", "plain", "xla"],
                     help="forward engine of the loss render; the replay's "
                          "backward runs on its adjoint kernel (queue: B6, "
                          "mega: B5). Default: queue on the card, whose "
@@ -581,7 +595,7 @@ def main(argv=None) -> int:
     anp.add_argument("--retries", type=int, default=1,
                      help="per-frame retry count (frames are idempotent)")
     anp.add_argument("--engine", default="queue",
-                     choices=["queue", "mega", "pallas", "plain"])
+                     choices=["queue", "mega", "pallas", "plain", "xla"])
     anp.add_argument("--deg-per-frame", type=float, default=1.0)
     anp.add_argument("--outdir", default="frames")
     anp.add_argument("-w", "--width", type=int, default=400)

@@ -5,7 +5,8 @@ names and defaults, so a configuration carries across field by field
 (`RenderConfig(**dataclasses.asdict(jax_cfg))`). The engines have the
 reference's names:
 
-  "plain"  — pure PyTorch wavefront (the twin of rt_tpu's "xla")
+  "plain"  — pure PyTorch wavefront (the twin of rt_tpu's "xla"; "xla"
+             names it too, and `engine_name` resolves the alias)
   "pallas" — the hybrid wavefront: the sphere pass of every bounce runs
              the hand-written CUDA closest-hit kernel
              (ops/cuda_intersect.py, the twin of rt_tpu's "pallas")
@@ -33,8 +34,15 @@ tile's part on a grazing hit. sampler "qmc" draws every path dimension
 from the Owen-scrambled Sobol' sequence (ops/qmc.py) on every engine;
 compact_sort "spatial" orders the groups of the segmented traces by
 direction octant and Morton cell (ops/cuda_mega._segmented).
-mxu_intersect is a TPU mechanism and is read as off. What the port lacks
-raises NotImplementedError (check_supported).
+mxu_intersect is a TPU mechanism and is read as off. check_supported
+raises ValueError for a name no option has.
+
+loop "while" (the default) ends the wavefront engines' bounce loop when
+no lane is alive, one host read a bounce; "scan" runs a fixed trip of
+max_depth bounces with no such read, dead lanes passing through
+unchanged, so both render the same bits (rt_tpu's lax.scan,
+render/integrator.py:444-452). The kernel engines trace whole paths and
+ignore it, as the reference's do.
 
 traversal "bvh" walks the threaded BVHs of the tables' families
 (build_tables(..., bvh_types=...), accel/bvh.py) in the intersector of
@@ -55,7 +63,8 @@ from typing import Optional, Tuple
 
 import torch
 
-ENGINES = ("plain", "pallas", "mega", "queue")
+ENGINES = ("plain", "xla", "pallas", "mega", "queue")
+LOOPS = ("while", "scan")
 SAMPLERS = ("rng", "qmc")
 TRAVERSALS = ("linear", "bvh")
 COMPACT_SORTS = ("dead", "spatial")
@@ -80,8 +89,9 @@ class RenderConfig:
     mis: bool = False
     nee_glossy: bool = False
 
-    engine: str = "plain"               # "plain" | "pallas" | "mega" | "queue"
-    loop: str = "while"
+    engine: str = "plain"               # "plain" ("xla") | "pallas" | "mega"
+                                        # | "queue"
+    loop: str = "while"                 # "while" | "scan"
     traversal: str = "linear"
     rays_per_batch: int = 1 << 17
     compact_every: int = 0
@@ -107,9 +117,19 @@ class RenderConfig:
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
+    def background_tuple(self, scene_background: Tuple[float, float, float]):
+        return tuple(float(c) for c in scene_background)
+
+
+def engine_name(engine: str) -> str:
+    """The port's name of an engine: "plain" for rt_tpu's "xla" (the same
+    pure wavefront engine), any other name as it is. Every switch on an
+    engine reads its name through this."""
+    return "plain" if engine == "xla" else engine
+
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise for a configuration the port cannot render yet."""
+    """Raise ValueError for a name that no option of cfg has."""
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r} (want {ENGINES})")
     if cfg.sampler not in SAMPLERS:
@@ -121,12 +141,8 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.compact_sort not in COMPACT_SORTS:
         raise ValueError(f"unknown compact_sort {cfg.compact_sort!r} (want "
                          f"{COMPACT_SORTS})")
-    if cfg.loop != "while":
-        raise NotImplementedError(
-            f"loop={cfg.loop!r}: the port runs the 'while' loop only; its "
-            "gradients need no fixed-trip loop (autograd records the "
-            "'while' loop, diff/inverse.py method='ad'; the path replay "
-            "runs any engine, diff/replay.py)")
+    if cfg.loop not in LOOPS:
+        raise ValueError(f"unknown loop {cfg.loop!r} (want {LOOPS})")
 
 
 def nee_on(cfg: RenderConfig, tables) -> bool:

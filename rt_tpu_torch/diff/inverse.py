@@ -110,9 +110,11 @@ def apply_params(tables: SceneTables,
 
 
 def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
-    """method="ad" differentiates the plain wavefront engine, whose loop
-    autograd records (the reference needs its fixed-trip scan loop)."""
-    return cfg.replace(engine="plain", loop="while")
+    """method="ad" differentiates the plain wavefront engine under the
+    caller's loop: autograd records either, and a dead lane adds nothing
+    to the gradient (the reference forces its fixed-trip scan loop, as
+    lax.while_loop has no transpose)."""
+    return cfg.replace(engine="plain")
 
 
 def masked_mse(se: torch.Tensor, n_valid: Optional[int] = None,
@@ -261,9 +263,11 @@ def fit(tables: SceneTables, cfg: RenderConfig, target_image,
         else:
             from rt_tpu_torch.diff.replay import make_replay_loss_fn
 
+            # the early exit: the same gradients, no bounce over no lane
             loss_of = make_replay_loss_fn(
                 tables, cfg, spp, px, py, tgt, geom_spec=geom_spec,
-                bwd_depth=bwd_depth, n_valid=n_valid, row_offset=row0)
+                bwd_depth=bwd_depth, n_valid=n_valid, bwd_early_exit=True,
+                row_offset=row0)
 
         def step(s0):
             optimizer.zero_grad()
@@ -569,7 +573,7 @@ def fit_hybrid(tables: SceneTables, cfg: RenderConfig, target_image,
     replay_loss = make_replay_loss_fn(
         tables, cfg, spp, px, py, tgt,
         geom_spec={f: [] for f in fd_params}, bwd_depth=bwd_depth,
-        n_valid=n_valid, row_offset=row0)
+        n_valid=n_valid, bwd_early_exit=True, row_offset=row0)
     flat_idx = _flatten_fd_components(fd_params)
 
     history = []

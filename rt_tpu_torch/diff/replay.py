@@ -11,13 +11,17 @@ and the colour C_b accumulated through bounce b,
     dL/datt_b = (L - C_b) / att_b      (per channel, where att_b != 0)
     dL/demission_b = dL/dbackground_b = P_{b-1}.
 
-The replay runs on the adjoint kernel of the forward's engine:
-`engine="queue"` on B6 (ops/cuda_queue.queue_trace_adjoint), "mega" on
-B5 (ops/cuda_mega.mega_trace_adjoint), as the reference chooses
-(:563-564); "plain" and "pallas", a CPU tensor, or bwd_kernel=False on
-the plain adjoint (ops/adjoint_plain.py). All of them replay with the
-megakernels' bounce (ops/mega_plain.py), whose bits are the queue and
-mega forwards' own.
+The replay runs on the adjoint kernel of `bwd_engine`, by default the
+forward's engine: "queue" on B6 (ops/cuda_queue.queue_trace_adjoint),
+"mega" on B5 (ops/cuda_mega.mega_trace_adjoint), as the reference
+chooses (:563-564); "plain" ("xla") and "pallas", a CPU tensor, or
+bwd_kernel=False on the plain adjoint (ops/adjoint_plain.py), where the
+reference replays on its per-bounce intersector. All of them replay
+with the megakernels' bounce (ops/mega_plain.py), whose bits are the
+queue and mega forwards' own. bwd_early_exit stops the plain adjoint's
+and the tangent replay's loops once no lane is alive; without it (the
+reference's default) they run depth_bwd bounces, the dead lanes adding
+nothing, so the gradients are the same bits.
 
 Parameters that act through the hit geometry or the scattered direction
 (GEOM_FIELDS: sphere centres and radii, metal fuzz, dielectric IOR) have
@@ -57,11 +61,18 @@ keeps per-tile planes and sends large atlases off the kernel,
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence
 
 import torch
 
-from rt_tpu_torch.config import RenderConfig, check_supported, nee_on
+from rt_tpu_torch.config import (
+    ENGINES,
+    RenderConfig,
+    check_supported,
+    engine_name,
+    nee_on,
+)
 from rt_tpu_torch.diff.inverse import apply_params, masked_mse
 from rt_tpu_torch.diff.tape import _attributes_for_tape, capture_tape
 from rt_tpu_torch.ops import adjoint_plain, cuda_mega, cuda_queue
@@ -88,18 +99,26 @@ PORTED_FIELDS = REPLAY_FIELDS
 STORE_L_MAX = 1 << 28
 
 
-def _adjoint(cfg: RenderConfig, bwd_kernel: Optional[bool]):
-    """The replay of one sample for cfg's engine (see the module doc)."""
+def _adjoint(cfg: RenderConfig, bwd_engine: Optional[str],
+             bwd_kernel: Optional[bool], early_exit: bool):
+    """The replay of one sample on bwd_engine's adjoint (None: cfg's
+    engine; see the module doc)."""
+    if bwd_engine is not None and bwd_engine not in ENGINES:
+        raise ValueError(f"unknown bwd_engine {bwd_engine!r} (want "
+                         f"{ENGINES})")
+    engine = engine_name(cfg.engine if bwd_engine is None else bwd_engine)
+    plain = functools.partial(adjoint_plain.trace_adjoint_plain,
+                              early_exit=early_exit)
     if bwd_kernel is False:
-        return adjoint_plain.trace_adjoint_plain
-    if cfg.engine == "queue":
+        return plain
+    if engine == "queue":
         return cuda_queue.queue_trace_adjoint
-    if cfg.engine == "mega":
+    if engine == "mega":
         return cuda_mega.mega_trace_adjoint
     if bwd_kernel:
-        raise ValueError(f"bwd_kernel=True: engine {cfg.engine!r} has no "
+        raise ValueError(f"bwd_kernel=True: engine {engine!r} has no "
                          "adjoint kernel (want 'queue' or 'mega')")
-    return adjoint_plain.trace_adjoint_plain
+    return plain
 
 
 class ReplayRender:
@@ -108,8 +127,10 @@ class ReplayRender:
     replay. See make_replay_render."""
 
     def __init__(self, tables: SceneTables, cfg: RenderConfig, spp: int,
-                 px, py, bwd_depth: Optional[int] = None,
-                 bwd_kernel: Optional[bool] = None, geom_spec=None,
+                 px, py, bwd_engine: Optional[str] = None, geom_spec=None,
+                 bwd_depth: Optional[int] = None,
+                 bwd_early_exit: bool = False,
+                 bwd_kernel: Optional[bool] = None,
                  geom_tape: Optional[bool] = None):
         check_supported(cfg)
         self.nee = nee_on(cfg, tables)
@@ -133,7 +154,9 @@ class ReplayRender:
         # forward's depth
         self.exhaust_bwd = (cfg.exhaust_mode == "background"
                             and self.depth_bwd == cfg.max_depth)
-        self.adjoint = _adjoint(cfg, bwd_kernel)
+        self.early_exit = bool(bwd_early_exit)
+        self.adjoint = _adjoint(cfg, bwd_engine, bwd_kernel,
+                                self.early_exit)
         self.store_L = self.spp * self.px.shape[0] * 3 <= STORE_L_MAX
         self.geom_spec = dict(geom_spec or {})
         self.geom_flat = _geom_components(tables, self.geom_spec)
@@ -190,8 +213,9 @@ class ReplayRender:
         """The radiance tangents [K, B, 3] of one sample's lanes along the
         K geom_spec directions, at the parameters `params` (a dict that
         holds every geom_spec field): the tangent replay of the module
-        doc. Its loop stops when no lane is alive; the bounces after
-        that would change nothing."""
+        doc. It runs depth_bwd bounces, or with bwd_early_exit stops
+        when no lane is alive, the bounces after that changing
+        nothing."""
         cfg, base = self.cfg, self.base
         params = {k: v.detach() for k, v in params.items()}
         tbl = apply_params(base, params)
@@ -218,7 +242,7 @@ class ReplayRender:
         to, td, tP, tC = (torch.zeros((k, b, 3), dtype=torch.float32,
                                       device=ro.device) for _ in range(4))
         for i in range(self.depth_bwd):
-            if not bool(alive.any()):
+            if self.early_exit and not bool(alive.any()):
                 break
             survive = torch.ones_like(alive)
             if cfg.p_rr > 0.0:
@@ -357,18 +381,26 @@ def _check_field(name: str, geom_spec: Dict) -> None:
 
 
 def make_replay_render(tables: SceneTables, cfg: RenderConfig, spp: int,
-                       px, py,
+                       px, py, bwd_engine: Optional[str] = None,
                        geom_spec: Optional[Dict[str, Sequence[tuple]]]
                        = None,
                        bwd_depth: Optional[int] = None,
+                       bwd_early_exit: bool = False,
                        bwd_kernel: Optional[bool] = None,
                        geom_tape: Optional[bool] = None) -> ReplayRender:
     """Build img_fn(params, sample_base=0) -> mean radiance [B,3] with a
     path-replay backward (see the module doc). params: a dict of
     PORTED_FIELDS tensors, and of the geom_spec fields, of the tables'
-    shapes. px, py: the fixed pixel batch. bwd_depth truncates the
-    replays (not the forward) at that bounce; the exhaust credit then is
-    skipped. bwd_kernel: None runs the adjoint kernel of cfg.engine
+    shapes. px, py: the fixed pixel batch. The parameters come in the
+    reference's order (rt_tpu/diff/replay.py:94-105).
+
+    bwd_engine names the adjoint of the radiometric backward: None that
+    of cfg.engine, "queue" B6, "mega" B5, "plain" / "xla" / "pallas" the
+    plain adjoint; another name raises ValueError. bwd_depth truncates
+    the replays (not the forward) at that bounce; the exhaust credit
+    then is skipped. bwd_early_exit stops the plain adjoint's and the
+    tangent replay's loops once no lane is alive (the gradients do not
+    change). bwd_kernel: None runs the adjoint kernel of bwd_engine
     ("queue", "mega"), False the plain adjoint.
 
     geom_spec {field: [component index tuple, ...]} selects GEOM_FIELDS
@@ -380,28 +412,31 @@ def make_replay_render(tables: SceneTables, cfg: RenderConfig, spp: int,
     False elsewhere, as the reference's backend rule. With cfg.nee on a
     scene with lights, mis or nee_glossy raise ValueError (the module
     doc)."""
-    return ReplayRender(tables, cfg, spp, px, py, bwd_depth=bwd_depth,
-                        bwd_kernel=bwd_kernel, geom_spec=geom_spec,
-                        geom_tape=geom_tape)
+    return ReplayRender(tables, cfg, spp, px, py, bwd_engine=bwd_engine,
+                        geom_spec=geom_spec, bwd_depth=bwd_depth,
+                        bwd_early_exit=bwd_early_exit,
+                        bwd_kernel=bwd_kernel, geom_tape=geom_tape)
 
 
 def make_replay_loss_fn(tables: SceneTables, cfg: RenderConfig, spp: int,
-                        px, py, target,
+                        px, py, target, bwd_engine: Optional[str] = None,
                         geom_spec: Optional[Dict[str, Sequence[tuple]]]
                         = None,
                         bwd_depth: Optional[int] = None,
                         n_valid: Optional[int] = None,
+                        bwd_early_exit: bool = False,
                         bwd_kernel: Optional[bool] = None,
-                        geom_tape: Optional[bool] = None,
+                        geom_tape: Optional[bool] = None, *,
                         row_offset: int = 0):
     """(params, sample_base=0) -> scalar MSE against target rows [B,3],
-    with the replay backward underneath (see make_replay_render).
-    n_valid masks rows whose global index (row_offset + the row) is >=
-    n_valid out of the mean and divides by 3 * n_valid
-    (inverse.masked_mse: a rank's slab of a padded frame)."""
-    img_fn = make_replay_render(tables, cfg, spp, px, py,
-                                geom_spec=geom_spec, bwd_depth=bwd_depth,
-                                bwd_kernel=bwd_kernel, geom_tape=geom_tape)
+    with the replay backward underneath (see make_replay_render; the
+    parameters in the reference's order, rt_tpu/diff/replay.py:619-628,
+    then the port's own). n_valid masks rows whose global index
+    (row_offset + the row) is >= n_valid out of the mean and divides by
+    3 * n_valid (inverse.masked_mse: a rank's slab of a padded frame)."""
+    img_fn = make_replay_render(tables, cfg, spp, px, py, bwd_engine,
+                                geom_spec, bwd_depth, bwd_early_exit,
+                                bwd_kernel, geom_tape)
     dev = tables.sph_center.device
     target = torch.as_tensor(target).to(device=dev, dtype=torch.float32)
 

@@ -68,7 +68,12 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from rt_tpu_torch.config import RenderConfig, check_supported, nee_on
+from rt_tpu_torch.config import (
+    RenderConfig,
+    check_supported,
+    engine_name,
+    nee_on,
+)
 from rt_tpu_torch.diff.inverse import apply_params, masked_mse
 from rt_tpu_torch.ops import cuda_mega, materials, rng
 from rt_tpu_torch.ops.camera import generate_rays
@@ -130,7 +135,7 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
 
     engine: "mega" runs kernel B4 (ops/cuda_mega.mega_capture; its plain
     version on CPU tensors), whose lanes record -1 after their death;
-    "plain" or "pallas" the wavefront loop over the port's intersect
+    "plain" ("xla") or "pallas" the wavefront loop over the port's intersect
     (the latter on kernel B1), whose dead lanes record what their stale
     ray hits until every lane is dead. The replay masks both alike.
     None: "mega" on CUDA tensors of a megakernel scene, else "plain",
@@ -148,6 +153,7 @@ def capture_tape(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel,
             codes, _ = cuda_mega.mega_capture(tables, cfg.replace(nee=False),
                                               ro, rd, pixel, sample, seed)
             return codes
+        engine = engine_name(engine)
         if engine not in ("plain", "pallas"):
             raise ValueError(f"capture engine must be 'mega', 'plain' or "
                              f"'pallas'; got {engine!r}")

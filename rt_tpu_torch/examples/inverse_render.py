@@ -13,9 +13,8 @@ Run:  python -m rt_tpu_torch.examples.inverse_render [--steps 80] [--spp 4]
 The demos run on CUDA (RT_TPU_FORCE_CPU=1 runs them on the CPU, as the
 reference's variable of that name does). Where the reference picks the
 megakernel on the TPU and "xla" elsewhere, the port picks "mega" on CUDA
-and "plain" on the CPU. The reference's albedo demo reverse-differentiates
-its fixed-trip "scan" loop; the port's autograd records the "while" loop
-(method "ad"). Each demo function takes its frame size as keywords whose
+and "plain" on the CPU. The albedo demo reverse-differentiates the
+fixed-trip "scan" loop (method "ad"), as the reference's does. Each demo function takes its frame size as keywords whose
 defaults are the reference's, and a device (None: as above), and returns
 (exit code, loss history); main returns the exit code. With --sharded
 the joint demo's fit_hybrid trains over the mesh of the process group
@@ -92,7 +91,7 @@ def make_scene(albedo, center_x, width=64, height=36):
     s.set_camera(lookfrom=(0, 0, 1), lookat=(0, 0, -1), vup=(0, 1, 0),
                  vfov_deg=45.0, aperture=0.0)
     cfg = RenderConfig(width=width, height=height, samples_per_pixel=4,
-                       max_depth=4, loop="while", background_mode="gradient")
+                       max_depth=4, loop="scan", background_mode="gradient")
     return s, cfg
 
 
@@ -257,7 +256,10 @@ def grad_1080p_demo(args, width=1920, height=1080, device=None):
     pix = torch.arange(n_pix, device=dev)
     px, py = pix % width, pix // width
     target = torch.zeros((n_pix, 3), device=dev)
-    loss_fn = make_replay_loss_fn(tables, cfg, 1, px, py, target)
+    # the early exit: the same gradients, no bounce of the depth-50
+    # replays over no lane
+    loss_fn = make_replay_loss_fn(tables, cfg, 1, px, py, target,
+                                  bwd_early_exit=True)
     params = {"tex_color": tables.tex_color.clone().requires_grad_(True)}
     t0 = time.time()
     loss = loss_fn(params)
@@ -281,7 +283,8 @@ def grad_1080p_demo(args, width=1920, height=1080, device=None):
     sub = torch.from_numpy(sub).to(dev)
     loss_geom = make_replay_loss_fn(
         tables, cfg, 1, px[sub], py[sub], target[sub],
-        geom_spec={"sph_center": [(0, 0), (0, 1)], "sph_radius": [(0,)]})
+        geom_spec={"sph_center": [(0, 0), (0, 1)], "sph_radius": [(0,)]},
+        bwd_early_exit=True)
     gparams = {"sph_center": tables.sph_center.clone().requires_grad_(True),
                "sph_radius": tables.sph_radius.clone().requires_grad_(True)}
     t0 = time.time()

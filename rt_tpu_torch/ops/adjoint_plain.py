@@ -137,11 +137,15 @@ def accumulate(acc, bn: mp.Bounce, L, g, grad_bg: bool,
 
 def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
                         gcot, depth_bwd: int, exhaust: bool, *,
+                        early_exit: bool = False,
                         stats: Optional[dict] = None) -> dict:
     """Replay the primary rays ro, rd [B,3] for `depth_bwd` bounces from
     the counter RNG and return the gradient dict of sum(gcot * L) (see
     the module doc). L: the sample's radiance [B,3] from the forward;
-    gcot: its cotangent [B,3]. stats, when given, gains "ray_bounces".
+    gcot: its cotangent [B,3]. Each bounce replays the lanes alive
+    before it; early_exit ends the loop once none is (the later bounces,
+    over no lane, credit nothing), as the kernels B5 and B6 end. stats, when given, gains "bounces"
+    (the loop's bounces) and "ray_bounces".
 
     Pre-condition: mega_tables.mega_supported(tables)."""
     ms = scene_for(tables, cfg)
@@ -157,11 +161,12 @@ def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     acc = torch.zeros((ACC_ROWS, ms.n_slots), dtype=torch.float32,
                       device=dev)
     gimg = atlas_grad(ms, dev)
-    bounces = 0
+    bounces = loops = 0
     for b in range(int(depth_bwd)):
         idx = torch.nonzero(state[mp.ALIVE] > 0.0)[:, 0]
-        if idx.numel() == 0:
+        if early_exit and idx.numel() == 0:
             break
+        loops += 1
         bn = mp.bounce_plain(ms.table, state[:, idx], pix[idx],
                              smp[idx] if per_lane else smp, b, seed,
                              nee=nee, **kw)
@@ -173,5 +178,6 @@ def trace_adjoint_plain(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
         tp = state[mp.TP:mp.TP + 3]
         acc[BG_ROW, 0:3] += torch.where(live, gt * tp, 0.0).sum(1)
     if stats is not None:
+        stats["bounces"] = stats.get("bounces", 0) + loops
         stats["ray_bounces"] = stats.get("ray_bounces", 0) + bounces
     return split_grads(acc, ms, kw["grad_bg"], gimg)

@@ -8,7 +8,7 @@ ops/intersect._sphere_t + _last_argmin. `sphere_closest_hit.launches`
 counts kernel launches, and nothing else.
 
 Contract (both versions, and the TPU kernel they replace):
-centers [N,3] f32, radii [N] f32, live [N] bool (False for pad rows),
+centers [N,3] f32, radii [N] f32, live_mask [N] bool (False for pad rows),
 ro / rd [B,3] f32 -> (t [B] f32, inf on a miss; pid [B] i32). Equal t
 goes to the larger index; a ray that hits nothing reports pid N-1.
 """
@@ -28,10 +28,12 @@ from rt_tpu_torch.ops.intersect import _last_argmin, _sphere_t
 PLAIN_RAY_CHUNK = 1 << 16
 
 
-def sphere_closest_hit_plain(centers, radii, live, ro, rd, t_min=1e-3):
+def sphere_closest_hit_plain(centers, radii, live_mask, ro, rd,
+                             t_min=1e-3):
     t_parts, pid_parts = [], []
     for s in range(0, ro.shape[0], PLAIN_RAY_CHUNK):
-        cand = _sphere_t(centers, radii, live, ro[s:s + PLAIN_RAY_CHUNK],
+        cand = _sphere_t(centers, radii, live_mask,
+                         ro[s:s + PLAIN_RAY_CHUNK],
                          rd[s:s + PLAIN_RAY_CHUNK], t_min)
         pid = _last_argmin(cand)
         t_parts.append(torch.gather(cand, 1, pid[:, None])[:, 0])
@@ -64,26 +66,27 @@ def _library():
     return lib
 
 
-def sphere_closest_hit(centers, radii, live, ro, rd, t_min=1e-3):
+def sphere_closest_hit(centers, radii, live_mask, ro, rd, t_min=1e-3):
     """Closest sphere hit per ray (see the module docstring)."""
-    tensors = (centers, radii, live, ro, rd)
+    tensors = (centers, radii, live_mask, ro, rd)
     devices = {x.device for x in tensors}
     if len(devices) != 1:
         raise ValueError(f"sphere_closest_hit: tensors on {sorted(map(str, devices))}")
     dev = ro.device
     if dev.type == "cpu":
-        return sphere_closest_hit_plain(centers, radii, live, ro, rd, t_min)
+        return sphere_closest_hit_plain(centers, radii, live_mask, ro, rd,
+                                        t_min)
     if dev.type != "cuda":
         raise ValueError(f"sphere_closest_hit: unsupported device {dev}")
     n, b = centers.shape[0], ro.shape[0]
     check = cuda_build.check_tensor
     check("centers", centers, torch.float32, (n, 3), dev)
     check("radii", radii, torch.float32, (n,), dev)
-    check("live", live, torch.bool, (n,), dev)
+    check("live_mask", live_mask, torch.bool, (n,), dev)
     check("ro", ro, torch.float32, (b, 3), dev)
     check("rd", rd, torch.float32, (b, 3), dev)
 
-    table = pack_table(centers, radii, live)
+    table = pack_table(centers, radii, live_mask)
     t = torch.empty(b, dtype=torch.float32, device=dev)
     pid = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:

@@ -660,7 +660,7 @@ def mega_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     if plain or ro.device.type == "cpu":
         return adjoint_plain.trace_adjoint_plain(
             tables, cfg, ro, rd, pixel, sample_idx, seed, L, gcot,
-            depth_bwd, exhaust, stats=stats)
+            depth_bwd, exhaust, early_exit=True, stats=stats)
     dev = ro.device
     ms = scene_for(tables, cfg)
     kw = mp.trace_options(tables, cfg)
@@ -898,14 +898,14 @@ def regen_schedule(spp: int, max_depth: int, every: int,
     return sched
 
 
-def mega_trace_regen(tables, cfg, pixel, py, seed, spp, sample_base=0, *,
-                     plain: bool = False, stats: Optional[dict] = None
-                     ) -> torch.Tensor:
+def mega_trace_regen(tables, cfg, pixel, py, seed, spp, sample_base=0,
+                     width=None, height=None, *, plain: bool = False,
+                     stats: Optional[dict] = None) -> torch.Tensor:
     """The radiance sum [B, 3] over the samples [sample_base, sample_base
-    + spp) of the pixels `pixel` (ids py * cfg.width + px) in rows `py`
-    ([B] integer tensors) of cfg's frame, traced on the regeneration
-    kernel B7 (see
-    the module doc). Per pixel it equals the sum of spp per-sample
+    + spp) of the pixels `pixel` (ids py * width + px) in rows `py` ([B]
+    integer tensors) of a width x height frame (None: cfg's), traced on
+    the regeneration kernel B7 (see the module doc); the camera rays are
+    the frame's, as generate_rays makes them at that size. Per pixel it equals the sum of spp per-sample
     mega_trace calls on generate_rays's camera rays, added in sample
     order. plain=True runs the plain version on any device. stats, when
     given, gains "launches" (segments run) and "ray_bounces".
@@ -937,7 +937,8 @@ def mega_trace_regen(tables, cfg, pixel, py, seed, spp, sample_base=0, *,
     seg_fn = mp.regen_plain if plain else mega_regen
     kw = mp.trace_options(tables, cfg)
     opts = dict(max_depth=int(cfg.max_depth), spp=int(spp),
-                width=int(cfg.width), height=int(cfg.height),
+                width=int(cfg.width if width is None else width),
+                height=int(cfg.height if height is None else height),
                 defocus=bool(cfg.enable_defocus),
                 exhaust_bg=cfg.exhaust_mode == "background", **kw)
 

@@ -445,7 +445,7 @@ def queue_trace_adjoint(tables, cfg, ro, rd, pixel, sample_idx, seed, L,
     if plain or ro.device.type == "cpu":
         return adjoint_plain.trace_adjoint_plain(
             tables, cfg, ro, rd, pixel, sample_idx, seed, L, gcot,
-            depth_bwd, exhaust, stats=stats)
+            depth_bwd, exhaust, early_exit=True, stats=stats)
     dev = ro.device
     ms = scene_for(tables, cfg)
     tab, pix, sample, kw = _operands(tables, cfg, ro, pixel, sample_idx,

@@ -127,6 +127,13 @@ def rotate(axis, theta):
     return m, m.T.copy()
 
 
+def scale(sx, sy, sz):
+    m = np.diag(np.array([sx, sy, sz, 1.0], dtype=np.float32))
+    minv = np.diag(np.array([1.0 / sx, 1.0 / sy, 1.0 / sz, 1.0],
+                            dtype=np.float32))
+    return m, minv
+
+
 def compose(t2, t1):
     """t2 @ t1 as a (m, m_inv) pair: apply t1 first, then t2
     (transform::operator*, vec3.cuh:345-347)."""
@@ -156,3 +163,8 @@ def apply_normal(minv, n):
     """Normals by the inverse-transpose (vec3.cuh:376-381), not
     renormalised, as the reference."""
     return _rows3(minv.transpose(-1, -2), n)
+
+
+def apply_ray(m, ro, rd):
+    """Transform a ray: origin as point, direction as vector (ray.cuh:25)."""
+    return apply_point(m, ro), apply_vec(m, rd)

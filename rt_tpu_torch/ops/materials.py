@@ -80,6 +80,10 @@ def _texture_eval(tables: SceneTables, tex_id, u, v, p):
     return out
 
 
+def texture_value(tables: SceneTables, tex_id, u, v, p):
+    return _texture_eval(tables, tex_id, u, v, p)
+
+
 def _albedo_of(tables: SceneTables, row, u, v, p):
     """Texture value if the material references one, else its inline
     colour (lambertian(texture*) vs metal(color), material.cuh)."""
@@ -158,3 +162,11 @@ def shade(tables: SceneTables, mat_id, rd, normal, front_face, u, v, p,
     ok = torch.where(is_met, met_ok, ~is_light)
     em = torch.where(is_light[:, None], albedo, torch.zeros_like(albedo))
     return Scatter(ok=ok, direction=direction, attenuation=attenuation), em
+
+
+def scatter(tables, mat_id, rd, normal, front_face, u, v, p, ball_sample,
+            refl_u) -> Scatter:
+    """Back-compat wrapper around shade()."""
+    sc, _ = shade(tables, mat_id, rd, normal, front_face, u, v, p,
+                  ball_sample, refl_u)
+    return sc

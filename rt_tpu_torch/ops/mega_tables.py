@@ -475,14 +475,14 @@ def _chunk_bounds(bmin, bmax, valid, chunk: int) -> torch.Tensor:
     return torch.cat([lo, hi, lo.new_zeros((k, 2))], dim=1)
 
 
-def sort_spheres_morton(tab: torch.Tensor, chunk: int = SPH_CHUNK):
+def sort_spheres_morton(sph_tab: torch.Tensor, chunk: int = SPH_CHUNK):
     """(sorted table, bounds [K, 8], order) of a sphere table [N, S_COLS]
     (N a multiple of chunk, or at most one chunk): the rows along the
     Morton curve of their centres, and each chunk's box of its spheres
     (centre -+ |radius|)."""
-    c = tab[:, X_V:X_V + 3]
-    order = _morton_order(c, tab[:, S_VALID] > 0.0)
-    tab = tab[order]
+    c = sph_tab[:, X_V:X_V + 3]
+    order = _morton_order(c, sph_tab[:, S_VALID] > 0.0)
+    tab = sph_tab[order]
     c, r = tab[:, X_V:X_V + 3], torch.abs(tab[:, X_RAD])[:, None]
     bounds = _chunk_bounds(c - r, c + r, tab[:, S_VALID] > 0.0,
                            min(max(tab.shape[0], 1), chunk))
@@ -495,14 +495,16 @@ def _tri_vertices(tab):
     return v1, v2, v2 + tab[:, T_E2:T_E2 + 3]
 
 
-def sort_triangles_morton(tab: torch.Tensor, chunk: int = SPH_CHUNK):
+def sort_triangles_morton(tri_tab: torch.Tensor, chunk: int = SPH_CHUNK):
     """(sorted table, bounds [K, 8], order) of a triangle table [N,
     F_COLS]: sort_spheres_morton by centroid, each chunk's box that of
     its triangles' vertices."""
-    v1, v2, v3 = _tri_vertices(tab)
-    third = torch.full((), 1.0 / 3.0, dtype=torch.float32, device=tab.device)
-    order = _morton_order((v1 + v2 + v3) * third, tab[:, T_VALID] > 0.0)
-    tab = tab[order]
+    v1, v2, v3 = _tri_vertices(tri_tab)
+    third = torch.full((), 1.0 / 3.0, dtype=torch.float32,
+                       device=tri_tab.device)
+    order = _morton_order((v1 + v2 + v3) * third,
+                          tri_tab[:, T_VALID] > 0.0)
+    tab = tri_tab[order]
     v1, v2, v3 = _tri_vertices(tab)
     bounds = _chunk_bounds(torch.minimum(torch.minimum(v1, v2), v3),
                            torch.maximum(torch.maximum(v1, v2), v3),

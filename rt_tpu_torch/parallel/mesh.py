@@ -15,14 +15,18 @@ mesh is a grid over the ranks of the process group: rank r sits at
 (tile, sample) = (r // n_sample, r % n_sample). Scene tables are small
 and every rank holds them whole; the one collective is the sum of the
 ranks' partial frames, or of their gradients in training
-(`Mesh.all_reduce_sum`). A process that joined no group is a world of
+(`Mesh.all_reduce_sum`). What the reference does in its one process
+while the others have nothing to do, rank 0 does alone
+(`Mesh.run_on_root`). A process that joined no group is a world of
 one: a (1, 1) mesh on its device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import itertools
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -74,6 +78,42 @@ class Mesh:
                 device=t.device, dtype=t.dtype))
             i += n
         return out
+
+    def run_on_root(self, fn: Callable[[], int]) -> int:
+        """fn() -> exit code on rank 0 alone, the other ranks waiting
+        for it to end; every rank returns rank 0's code. Without a group
+        it is fn().
+
+        The wait is no collective, whose timeout (the group's) a long
+        fn would outlast: rank 0 posts its code to the group's store in
+        a finally, and the others poll the store for it. If fn raises on
+        rank 0, the others raise RuntimeError."""
+        if self.group is None:
+            return fn()
+        store = dist.distributed_c10d._get_default_store()
+        key = f"rt_tpu_torch/run_on_root/{next(_ROOT_CALLS)}"
+        if self.rank == 0:
+            code = None
+            try:
+                code = int(fn())
+                return code
+            finally:
+                store.set(key, "raised" if code is None else str(code))
+        delay = 0.01
+        while not store.check([key]):
+            time.sleep(delay)
+            delay = min(2 * delay, 0.5)
+        code = store.get(key).decode()
+        if code == "raised":
+            raise RuntimeError("rank 0 raised in run_on_root; see its "
+                               "traceback")
+        return int(code)
+
+
+# run_on_root's calls in this process: every rank of a group makes the
+# same calls in the same order, so the n-th call's store key is the same
+# on each
+_ROOT_CALLS = itertools.count()
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,

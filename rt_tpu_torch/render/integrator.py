@@ -11,10 +11,12 @@ Radiometric semantics are the CUDA reference's iterative ray_color
   depth exhausted -> contributes what it accumulated (no background)
 
 with the gradient sky, background credit on depth exhaustion and
-Russian roulette as RenderConfig options. engine="plain" / "pallas":
-the whole batch advances one bounce per iteration with masked (dead)
-lanes; the loop ends at max_depth or when no lane is alive, which costs
-one host sync per bounce. engine="queue" / "mega": the persistent ray
+Russian roulette as RenderConfig options. engine="plain" ("xla") /
+"pallas": the whole batch advances one bounce per iteration with masked
+(dead) lanes; under loop "while" the loop ends at max_depth or when no
+lane is alive, which costs one host sync per bounce, under "scan" it
+runs max_depth bounces with no sync (rt_tpu's lax.scan), dead lanes
+passing through unchanged. engine="queue" / "mega": the persistent ray
 queue (ops/cuda_queue.py) or the segmented megakernel
 (ops/cuda_mega.py) trace whole paths per launch; as in the reference,
 only an empty scene falls back to "pallas".
@@ -37,7 +39,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from rt_tpu_torch.config import RenderConfig, check_supported, nee_on
+from rt_tpu_torch.config import (
+    RenderConfig,
+    check_supported,
+    engine_name,
+    nee_on,
+)
 from rt_tpu_torch.ops import geometry as geom
 from rt_tpu_torch.ops import materials, rng
 from rt_tpu_torch.ops.intersect import intersect, occluded
@@ -386,11 +393,13 @@ def trace(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel, sample_idx,
     """Trace a batch of primary rays to radiance [B,3].
 
     stats, when given: with engine="plain" / "pallas", stats["bounces"]
-    gains the number of wavefront bounces this call ran (with "pallas",
-    one kernel launch each); with "queue" / "mega", stats["launches"]
+    gains the number of wavefront bounces this call ran (max_depth under
+    loop "scan"; with "pallas", one kernel launch each); with "queue" /
+    "mega", stats["launches"]
     gains the kernel launches (on the CPU: the plain versions' calls)
     and stats["ray_bounces"] the bounces of all lanes."""
     check_supported(cfg)
+    cfg = cfg.replace(engine=engine_name(cfg.engine))
     if cfg.engine in ("queue", "mega"):
         from rt_tpu_torch.ops import cuda_mega, cuda_queue
         from rt_tpu_torch.ops.mega_tables import mega_supported
@@ -410,8 +419,9 @@ def trace(tables: SceneTables, cfg: RenderConfig, ro, rd, pixel, sample_idx,
     )
     nee = nee_on(cfg, tables)
     pd = initial_prev_diff(cfg, b, ro.device) if nee else None
+    scan = cfg.loop == "scan"  # a fixed trip: no host read a bounce
     i = 0
-    while i < cfg.max_depth and bool(state.alive.any()):
+    while i < cfg.max_depth and (scan or bool(state.alive.any())):
         if nee:
             state, pd = _bounce(tables, cfg, state, pixel, sample_idx, seed,
                                 i, prev_diff=pd)

@@ -57,10 +57,10 @@ class Checkpoint:
     fingerprint: str
 
     def save(self, path: str) -> None:
-        # write to a fixed temp name (an open file handle stops numpy from
-        # appending ".npz"), then replace atomically; a stale temp file
-        # from a crashed writer is overwritten, never promoted
-        tmp = path + ".tmp.npz"
+        # write to a temp name of this writer's own (an open file handle
+        # stops numpy from appending ".npz"), then replace atomically; a
+        # stale or another process's temp file is never promoted
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
         with open(tmp, "wb") as f:
             np.savez_compressed(f,
                                 pixel_sum=self.pixel_sum,

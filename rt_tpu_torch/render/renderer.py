@@ -161,7 +161,8 @@ def render(tables: SceneTables, cfg: RenderConfig, sample_offset: int = 0,
             if use_regen:
                 acc[sl] += mega_trace_regen(
                     tables, cfg, pix_dev[sl], py, seed, k,
-                    sample_base=sample_offset + s, stats=stats)
+                    sample_base=sample_offset + s, width=w, height=h,
+                    stats=stats)
             else:
                 acc[sl] = render_block(tables, cfg, px, py,
                                        sample_offset + s, k, seed, w, h,

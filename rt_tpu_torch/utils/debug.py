@@ -60,8 +60,10 @@ def assert_finite(tree, name: str = "value") -> None:
                 f"{path}: {int(bad.sum())} non-finite elements")
 
 
-def checked_intersect(tables, ro, rd, t_min=1e-3, engine: str = "plain"):
-    """intersect() with its inputs and results checked; returns the Hit.
+def checked_intersect(tables, ro, rd, t_min=1e-3, traversal="linear",
+                      engine: str = "plain"):
+    """intersect() on `traversal` ("linear", or "bvh" over the tables'
+    BVHs) with its inputs and results checked; returns the Hit.
     Raises FloatingPointError on a non-finite ray or a NaN / non-finite
     hit distance or point where a lane hits, and IndexError on a row,
     object or material id outside its table. Debug only: each check
@@ -69,7 +71,8 @@ def checked_intersect(tables, ro, rd, t_min=1e-3, engine: str = "plain"):
     from rt_tpu_torch.ops import intersect as isect
 
     assert_finite({"ro": ro, "rd": rd}, "rays")
-    hit = isect.intersect(tables, ro, rd, t_min=t_min, engine=engine)
+    hit = isect.intersect(tables, ro, rd, t_min=t_min, engine=engine,
+                          traversal=traversal)
     if bool(torch.isnan(hit.t).any()):
         raise FloatingPointError("intersect: NaN hit distance")
     h = hit.hit

@@ -186,11 +186,14 @@ def test_params_from_numpy_carries_rt_tpu_params():
 
 
 def test_scan_loop_message_names_the_route():
+    """loop "scan" is taken (the fixed-trip loop of rt_tpu's scan AD); a
+    loop the port has not is a ValueError that names the ones it has."""
     from rt_tpu_torch.config import check_supported
 
     _, _, _, cfg = make_scene(8, 6, 2)
-    with pytest.raises(NotImplementedError, match="autograd"):
-        check_supported(dataclasses.replace(cfg, loop="scan"))
+    check_supported(dataclasses.replace(cfg, loop="scan"))
+    with pytest.raises(ValueError, match="'while', 'scan'"):
+        check_supported(dataclasses.replace(cfg, loop="fori"))
 
 
 def test_port_and_scripts_import_no_jax():

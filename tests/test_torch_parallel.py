@@ -9,8 +9,11 @@ plain versions of B2 and B3 on the CPU), with compaction, with spp 3
 over a sample axis of 2, and in one-sample launches. A mesh with one
 sample a pixel gives render's frame bit for bit (the counter RNG keys on
 the absolute pixel and sample); a sample axis above 1 sums in another
-order (rtol / atol 1e-5, as tests/test_parallel.py). The CLI's render
---sharded, fit --sharded and animate run under torchrun with 2 ranks.
+order (rtol / atol 1e-5, as tests/test_parallel.py). In the same group
+the CLI's render --sharded --checkpoint runs in-process on every rank:
+rank 0 alone writes the checkpoint, the other ranks waiting with no
+collective timeout. The CLI's render --sharded, fit
+--sharded and animate run under torchrun with 2 ranks.
 """
 
 import json
@@ -36,6 +39,7 @@ from rt_tpu_torch.io.image import read_png
 from rt_tpu_torch.parallel import distributed, make_mesh
 from rt_tpu_torch.parallel.mesh import SAMPLE_AXIS, TILE_AXIS
 from rt_tpu_torch.parallel.sharded import _padded_pixel_list
+from rt_tpu_torch.render.progressive import Checkpoint
 from rt_tpu_torch.render.renderer import render
 
 # One intra-op thread: the suite runs in several worker processes at
@@ -106,6 +110,42 @@ def test_samples_per_launch_keeps_the_bits(ranks, frames):
     """One-sample launches add to the running sum in sample order."""
     np.testing.assert_array_equal(
         _same_on_every_rank(ranks, "per_launch"), frames["queue"])
+
+
+def test_cli_render_sharded_checkpoint_has_one_writer(ranks, tmp_path,
+                                                     capsys):
+    """render --sharded --checkpoint over the 4 ranks of the group (the
+    CLI's main in-process): rank 0 alone saves, a checkpoint a sample,
+    and the other ranks none; the second run resumes rank 0's file from
+    sample 2 to 4. Its sums and PNG equal the one-process checkpointed
+    render's bit for bit."""
+    for r, out in enumerate(ranks):
+        assert int(out["ckpt2_rc"]) == 0 and int(out["ckpt4_rc"]) == 0
+        want = ([1, 2], [3, 4]) if r == 0 else ([], [])
+        assert out["ckpt2_saves"].tolist() == want[0], r
+        assert out["ckpt4_saves"].tolist() == want[1], r
+    args = [a for a in worker.CKPT_ARGS if a != "--sharded"]
+    ck = str(tmp_path / "ck.npz")
+    assert tcli.main(args + ["-spp", "4", "--checkpoint", ck, "-o",
+                             str(tmp_path / "u.png"), "--log",
+                             str(tmp_path / "u.log")]) == 0
+    capsys.readouterr()
+    np.testing.assert_array_equal(ranks[0]["ckpt_sum"],
+                                  Checkpoint.load(ck).pixel_sum)
+    np.testing.assert_array_equal(ranks[0]["ckpt_png"],
+                                  read_png(str(tmp_path / "u.png")))
+
+
+def test_run_on_root_outlives_the_group_timeout(ranks):
+    """Mesh.run_on_root (render --sharded --checkpoint's wait) on a
+    group whose collectives time out after 2 s: rank 0 works 5 s, every
+    rank gets its code 7, and the group still sums afterwards; when
+    rank 0 raises, every rank raises."""
+    assert worker.ROOT_WORK_S > 2 * worker.ROOT_GROUP_TIMEOUT_S
+    for r, out in enumerate(ranks):
+        assert int(out["root_code"]) == 7, r
+        assert out["root_sum"].tolist() == [7.0 * len(ranks)], r
+        assert int(out["root_raised"]) == 1, r
 
 
 def test_sharded_matches_rt_tpu_sharded(ranks, images_close):

@@ -5,6 +5,8 @@ one-sample passes adds the samples in render's order and is bit-equal to
 the one-shot render; longer passes are held at the reference's
 tolerance (tests/test_progressive.py: rtol 1e-6, atol 1e-6)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -121,6 +123,20 @@ def test_checkpoint_save_ignores_stale_tmp(tmp_path):
     ref = jprogressive.Checkpoint.load(path)
     assert ref.samples_done == 5
     np.testing.assert_array_equal(ref.pixel_sum, fresh)
+
+
+def test_checkpoint_temp_name_is_the_writers(tmp_path):
+    """The temp file carries the writer's pid: another process's temp
+    file at the same path is neither promoted nor removed, and the save
+    leaves no temp file of its own."""
+    path = str(tmp_path / "ck.npz")
+    foreign = f"{path}.{os.getpid() + 1}.tmp.npz"
+    with open(foreign, "w") as f:
+        f.write("another writer's half-written file")
+    Checkpoint(np.ones((2, 2, 3), np.float32), 3, "fp").save(path)
+    assert Checkpoint.load(path).samples_done == 3
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        ["ck.npz", os.path.basename(foreign)])
 
 
 @pytest.mark.parametrize("k", [1, 3, 8])

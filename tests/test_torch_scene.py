@@ -176,22 +176,26 @@ def test_config_fields_and_defaults_match_jax():
     # the spatial sort, QMC and the BVH run (tests/test_torch_cull.py,
     # test_torch_qmc.py, test_torch_bvh.py); they hide no refusal
     (dict(engine="mega", compact_sort="spatial", traversal="bvh"), None),
+    # the fixed-trip loop and rt_tpu's engine name "xla" run
+    # (tests/test_torch_scan.py)
     (dict(engine="mega", regen=True, compact_sort="spatial", loop="scan"),
-     NotImplementedError),
-    (dict(engine="xla"), ValueError),
+     None),
+    (dict(engine="xla"), None),
     # light sampling runs (tests/test_torch_nee.py); it hides no refusal
     (dict(nee=True, sampler="qmc", traversal="bvh"), None),
     (dict(nee=True, mis=True, traversal="bvh"), None),
-    (dict(sampler="qmc", loop="scan"), NotImplementedError),
+    (dict(sampler="qmc", loop="scan"), None),
     (dict(traversal="bvh"), None),
-    (dict(loop="scan"), NotImplementedError),
+    (dict(loop="scan"), None),
     (dict(traversal="kdtree"), ValueError),
+    (dict(loop="fori"), ValueError),
+    (dict(engine="cuda"), ValueError),
 ])
 def test_config_unported_options_raise(bad, exc):
     """What the port refuses (exc), and the configurations it takes
-    (None): traversal "bvh" with any engine and option, as rt_tpu's
-    config takes it; an unknown traversal is a ValueError, like an
-    unknown engine."""
+    (None): traversal "bvh" and loop "scan" with any engine and option,
+    and rt_tpu's engine name "xla", as rt_tpu's config takes them; an
+    unknown traversal, loop or engine is a ValueError."""
     cfg = tconfig.RenderConfig(**bad)
     if exc is None:
         tconfig.check_supported(cfg)

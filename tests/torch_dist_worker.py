@@ -9,7 +9,10 @@ JOB's cases and writes its arrays to OUT/rank{RANK}.npz. Jobs:
   render  render_sharded_ex of three_sphere_scene at 64x36, spp 4,
           depth 4 on meshes (4,1), (2,2), (1,4) x engines plain, mega
           and queue; mega with compaction; spp 3 over a sample axis of
-          2; samples_per_launch 1
+          2; samples_per_launch 1; then the CLI's render --sharded
+          --checkpoint in-process, spp 2 and resumed to spp 4 on one
+          checkpoint file, counting each rank's checkpoint saves;
+          then Mesh.run_on_root on a group with a short timeout
   grad    gradients summed over the ranks (replay on the plain adjoint
           and on mega and queue, the tape's vg, finite-difference probe
           losses) and 2-step fits (ad, replay, tape, fit_hybrid with FD
@@ -100,6 +103,93 @@ def render_job(mesh_of):
         tables, cfg.replace(engine="queue"), mesh_of((4, 1)),
         samples_per_launch=1)
     return out
+
+
+# render --sharded --checkpoint: three_sphere at 32x18, depth 4, on the
+# plain engine, a checkpoint every sample; -spp, --checkpoint, -o and
+# --log come with the call
+CKPT_ARGS = ["render", "--sharded", "--coded", "three_sphere", "-w", "32",
+             "--height", "18", "-d", "4", "--engine", "plain", "--device",
+             "cpu", "--checkpoint-every", "1"]
+
+
+def checkpoint_job(outdir):
+    """The CLI's render --sharded --checkpoint run twice through main on
+    this rank, spp 2 and then spp 4 on the same checkpoint (the second
+    resumes from the first's file). Returns each run's exit code and the
+    samples_done of every checkpoint this rank saved, and on rank 0 the
+    final checkpoint's sums and the PNG."""
+    from rt_tpu_torch import cli
+    from rt_tpu_torch.io.image import read_png
+    from rt_tpu_torch.parallel.distributed import world
+    from rt_tpu_torch.render import progressive
+
+    saves = []
+    save = progressive.Checkpoint.save
+
+    def counted(ck, path):
+        saves.append(ck.samples_done)
+        save(ck, path)
+
+    ck = os.path.join(outdir, "ck.npz")
+    png = os.path.join(outdir, "ck.png")
+    out = {}
+    progressive.Checkpoint.save = counted
+    try:
+        for spp in (2, 4):
+            n = len(saves)
+            out[f"ckpt{spp}_rc"] = cli.main(CKPT_ARGS + [
+                "-spp", str(spp), "--checkpoint", ck, "-o", png, "--log",
+                os.path.join(outdir, "ck.log")])
+            out[f"ckpt{spp}_saves"] = np.asarray(saves[n:], np.int64)
+    finally:
+        progressive.Checkpoint.save = save
+    if world()[0] == 0:
+        out["ckpt_sum"] = progressive.Checkpoint.load(ck).pixel_sum
+        out["ckpt_png"] = read_png(png)
+    return out
+
+
+# run_on_root's wait: rank 0 works ROOT_WORK_S seconds, past the
+# ROOT_GROUP_TIMEOUT_S of the group its mesh holds
+ROOT_GROUP_TIMEOUT_S, ROOT_WORK_S = 2.0, 5.0
+
+
+def root_wait_job():
+    """Mesh.run_on_root over a gloo group whose collectives time out
+    after ROOT_GROUP_TIMEOUT_S: rank 0 works ROOT_WORK_S seconds and
+    returns 7, then the group sums each rank's code (it must still
+    work); then rank 0 raises. Returns each rank's code, the sum, and
+    whether this rank raised in the second call."""
+    import dataclasses
+    import datetime
+    import time
+
+    import torch.distributed as dist
+
+    from rt_tpu_torch.parallel.mesh import make_mesh
+
+    dist.barrier()  # the ranks make the short group together
+    short = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+        seconds=ROOT_GROUP_TIMEOUT_S))
+    mesh = dataclasses.replace(make_mesh(), group=short)
+
+    def work():
+        time.sleep(ROOT_WORK_S)
+        return 7
+
+    def fail():
+        raise ValueError("rank 0 fails")
+
+    code = mesh.run_on_root(work)
+    total = mesh.all_reduce_sum([torch.tensor([float(code)])])[0]
+    try:
+        mesh.run_on_root(fail)
+        raised = 0
+    except (ValueError, RuntimeError):
+        raised = 1
+    return {"root_code": code, "root_sum": total.numpy(),
+            "root_raised": raised}
 
 
 def grad_job(mesh_of):
@@ -213,6 +303,9 @@ def main(argv):
     try:
         out = {"render": render_job, "grad": grad_job}[job](
             lambda shape: make_mesh(shape))
+        if job == "render":
+            out.update(checkpoint_job(outdir))
+            out.update(root_wait_job())
     finally:
         shutdown_distributed()
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
